@@ -1,0 +1,441 @@
+"""Gather-free (c,k)-direct physics ops (port of orc_tpu/ops/ck_ops.py,
+uniform-box branch).
+
+Every face quantity is evaluated per (cell, ELL slot) [C,K]: interior
+faces twice, once from each side. Neighbor values come from shifts of
+the cell fields (mesh.neighbor_offsets), BC data from a Z-way select over
+the zone tables. The arithmetic follows orc_tpu term by term, so both
+packages agree to roundoff.
+
+Ported: `UniformCKGeometry` (uniform structured boxes), the shift branch
+of `nbr_values`, `zone_sel`, `CKBC`/`ck_bc`, `ck_face_pressure`
+(Linear, LinearWeighted, SecondOrder), `ck_flux` (Linear,
+LinearWeighted, Rhie-Chow), `ck_pressure_gradient` (Green-Gauss cell),
+`ck_diffusion`, `ck_momentum` (UD, CD1), `ck_pressure_correction`,
+`ck_apply_correction`. Other schemes, irregular meshes and the expanded
+`CKGeometry` raise NotImplementedError (ROADMAP Queue 1, item 5).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple
+
+import torch
+
+from orc_tpu_torch.ops.fields import (
+    PRESSURE_INLET,
+    PRESSURE_OUTLET,
+    SYMMETRY,
+    VELOCITY_INLET,
+    WALL,
+)
+from orc_tpu_torch.ops.spmv import EllMatrix
+from orc_tpu_torch.utils.settings import (
+    MomentumScheme,
+    NumericalSettings,
+    PressureCorrectionForm,
+    PressureInterpolation,
+    RelaxationMode,
+    VelocityInterpolation,
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class UniformCKGeometry:
+    """(c,k) geometry of a uniform structured box: every float quantity
+    is constant per ELL column (mesh.ck_constants), so the [C,K(,3)]
+    tables are two boolean masks plus [K]-sized constants. The per-(c,k)
+    tensors are properties that broadcast the constants."""
+
+    interior: torch.Tensor  # [C,K] bool
+    mask: torch.Tensor  # [C,K] bool
+    c_area: torch.Tensor  # [K]
+    c_n_out: torch.Tensor  # [K,3] outward from c (column-constant)
+    c_dist_fo: torch.Tensor  # [K] |x_face - x_c|
+    c_dist_on: torch.Tensor  # [K] interior |x_nbr - x_c|
+    c_zone: torch.Tensor  # [K] i32 boundary zone slot of the column
+    int_slot: int
+    n_zones: int
+
+    def _zero(self):
+        return torch.zeros((), dtype=self.c_area.dtype, device=self.c_area.device)
+
+    @property
+    def area(self):
+        return torch.where(self.mask, self.c_area, self._zero())
+
+    @property
+    def n_out(self):
+        return torch.where(self.mask[..., None], self.c_n_out, self._zero())
+
+    @property
+    def w(self):
+        half = torch.full((), 0.5, dtype=self.c_area.dtype, device=self.c_area.device)
+        return torch.where(self.interior, half, self._zero())
+
+    @property
+    def r_cf(self):
+        return torch.where(
+            self.mask[..., None],
+            self.c_dist_fo[:, None] * self.c_n_out,
+            self._zero(),
+        )
+
+    @property
+    def r_on(self):
+        return torch.where(
+            self.interior[..., None],
+            self.c_dist_on[:, None] * self.c_n_out,
+            self.r_cf,
+        )
+
+    @property
+    def dist_on(self):
+        one = torch.ones((), dtype=self.c_area.dtype, device=self.c_area.device)
+        return torch.where(
+            self.interior,
+            self.c_dist_on,
+            torch.where(self.mask, self.c_dist_fo, one),
+        )
+
+    @property
+    def dist_fo(self):
+        one = torch.ones((), dtype=self.c_area.dtype, device=self.c_area.device)
+        return torch.where(self.mask, self.c_dist_fo, one)
+
+    @property
+    def zone_slot(self):
+        int_slot = torch.full(
+            (), self.int_slot, dtype=torch.int32, device=self.c_zone.device
+        )
+        return torch.where(self.interior | ~self.mask, int_slot, self.c_zone)
+
+
+def build_ck_geometry(mesh, n_zones: int) -> UniformCKGeometry:
+    """(c,k) geometry of a uniform structured box (mesh.ck_constants
+    set by structured_box_mesh). Only the interior/mask booleans are
+    materialized."""
+    if mesh.ck_constants is None:
+        raise NotImplementedError(
+            "the expanded CKGeometry of non-uniform meshes is not ported "
+            "yet (ROADMAP Queue 1, item 5)"
+        )
+    int_slot, cols = mesh.ck_constants
+    dt, dev = mesh.dtype, mesh.device
+    m = mesh.cell_face_mask
+    interior = mesh.face_interior[mesh.cell_faces.long()] & m
+    return UniformCKGeometry(
+        interior=interior,
+        mask=m,
+        c_area=torch.tensor([c[0] for c in cols], dtype=dt, device=dev),
+        c_n_out=torch.tensor([c[1] for c in cols], dtype=dt, device=dev),
+        c_dist_fo=torch.tensor([c[2] for c in cols], dtype=dt, device=dev),
+        c_dist_on=torch.tensor([c[3] for c in cols], dtype=dt, device=dev),
+        c_zone=torch.tensor([c[4] for c in cols], dtype=torch.int32, device=dev),
+        int_slot=int_slot,
+        n_zones=n_zones,
+    )
+
+
+def nbr_values(mesh, x, interior):
+    """Neighbor-cell values [C,K(,d)] by shifts along the cell axis;
+    slots that are not interior faces return the cell's own value."""
+    if mesh.neighbor_offsets is None:
+        raise NotImplementedError(
+            "neighbor values of irregular meshes are not ported yet "
+            "(ROADMAP Queue 1, item 11)"
+        )
+    cols = [
+        torch.roll(x, -int(d), dims=0) if d != 0 else x
+        for d in mesh.neighbor_offsets
+    ]
+    out = torch.stack(cols, dim=1)  # [C,K,...]
+    own = x.unsqueeze(1)
+    cond = interior.reshape(interior.shape + (1,) * (x.ndim - 1))
+    return torch.where(cond, out, own)
+
+
+def zone_sel(zone_vals, zone_slot, n_zones: int):
+    """Static Z-way select of per-zone values onto [C,K].
+
+    zone_vals: [Z] or [Z,3]; returns [C,K] or [C,K,3]."""
+    if zone_vals.ndim == 1:
+        out = zone_vals[0].expand(zone_slot.shape)
+        for z in range(1, n_zones):
+            out = torch.where(zone_slot == z, zone_vals[z], out)
+        return out
+    out = zone_vals[0].expand(zone_slot.shape + (zone_vals.shape[-1],))
+    for z in range(1, n_zones):
+        out = torch.where((zone_slot == z)[..., None], zone_vals[z], out)
+    return out
+
+
+class CKBC(NamedTuple):
+    """Per-(c,k) BC data + frequently used masks."""
+
+    code: torch.Tensor  # [C,K] i32
+    scalar: torch.Tensor  # [C,K]
+    vector: torch.Tensor  # [C,K,3]
+    is_wall_like: torch.Tensor  # wall | symmetry
+    is_dirichlet_vel: torch.Tensor  # wall | velocity inlet
+    is_pressure: torch.Tensor  # pressure inlet | outlet
+    is_vel_inlet: torch.Tensor
+
+
+def ck_bc(ck: UniformCKGeometry, zone_codes, zone_scalar, zone_vector) -> CKBC:
+    slot = ck.zone_slot
+    code = zone_sel(zone_codes, slot, ck.n_zones)
+    scalar = zone_sel(zone_scalar, slot, ck.n_zones)
+    vector = zone_sel(zone_vector, slot, ck.n_zones)
+    m = ck.mask
+    return CKBC(
+        code=code,
+        scalar=scalar,
+        vector=vector,
+        is_wall_like=((code == WALL) | (code == SYMMETRY)) & m,
+        is_dirichlet_vel=((code == WALL) | (code == VELOCITY_INLET)) & m,
+        is_pressure=((code == PRESSURE_INLET) | (code == PRESSURE_OUTLET)) & m,
+        is_vel_inlet=(code == VELOCITY_INLET) & m,
+    )
+
+
+def _zero_like(x):
+    return torch.zeros((), dtype=x.dtype, device=x.device)
+
+
+def ck_face_pressure(
+    mesh, ck, bc: CKBC, p, scheme: PressureInterpolation,
+    grad_p=None, grad_p_nbr=None,
+):
+    """Face pressure per (c,k) [C,K]."""
+    p_c = p[:, None]
+    p_n = nbr_values(mesh, p, ck.interior)
+    if scheme == PressureInterpolation.LINEAR:
+        interior = 0.5 * (p_c + p_n)
+    elif scheme == PressureInterpolation.LINEAR_WEIGHTED:
+        interior = p_c + (p_n - p_c) * ck.w
+    elif scheme == PressureInterpolation.SECOND_ORDER:
+        r_cf = ck.r_cf
+        r_nf = r_cf - ck.r_on  # x_face - x_nbr
+        g_c = torch.sum(grad_p[:, None, :] * r_cf, dim=-1)
+        g_n = torch.sum(grad_p_nbr * r_nf, dim=-1)
+        interior = 0.5 * ((p_c + p_n) + (g_c + g_n))
+    else:
+        raise NotImplementedError(f"pressure interpolation {scheme}")
+    return torch.where(
+        bc.is_pressure,
+        bc.scalar,
+        torch.where(ck.interior, interior, p_c),
+    )
+
+
+def ck_flux(
+    mesh, ck, bc: CKBC, vel, scheme: VelocityInterpolation,
+    p=None, grad_p=None, grad_p_nbr=None, mom_diag=None, mom_diag_nbr=None,
+    vel_nbr=None,
+):
+    """Outward normal velocity per (c,k) [C,K]; Rhie-Chow with
+    orc_tpu's +term3 sign (see orc_tpu interpolation.face_flux)."""
+    v_c = vel[:, None, :]
+    v_n = vel_nbr if vel_nbr is not None else nbr_values(mesh, vel, ck.interior)
+    n_out = ck.n_out
+    if scheme in (
+        VelocityInterpolation.LINEAR,
+        VelocityInterpolation.LINEAR_WEIGHTED,
+    ):
+        if scheme == VelocityInterpolation.LINEAR:
+            vf = 0.5 * (v_c + v_n)
+        else:
+            vf = v_c + (v_n - v_c) * ck.w[..., None]
+        interior = torch.sum(vf * n_out, dim=-1)
+    elif scheme == VelocityInterpolation.RHIE_CHOW:
+        md_n = (
+            mom_diag_nbr if mom_diag_nbr is not None
+            else nbr_values(mesh, mom_diag, ck.interior)
+        )
+        a_c = torch.sqrt(torch.sum((mom_diag[:, None, :] * n_out) ** 2, dim=-1))
+        a_n = torch.sqrt(torch.sum((md_n * n_out) ** 2, dim=-1))
+        vol = mesh.cell_volume
+        voa_c = vol[:, None] / a_c
+        voa_n = nbr_values(mesh, vol, ck.interior) / a_n
+        p_n = nbr_values(mesh, p, ck.interior)
+        gp_n = (
+            grad_p_nbr if grad_p_nbr is not None
+            else nbr_values(mesh, grad_p, ck.interior)
+        )
+        dist_on = ck.dist_on
+        term1 = torch.sum((v_c + v_n) * n_out, dim=-1)
+        term2 = (voa_c + voa_n) * (p[:, None] - p_n) / dist_on
+        gsum = voa_c[..., None] * grad_p[:, None, :] + voa_n[..., None] * gp_n
+        term3 = torch.sum(gsum * ck.r_on, dim=-1) / dist_on
+        interior = 0.5 * (term1 + term2 + term3)
+    else:
+        raise NotImplementedError(f"velocity interpolation {scheme}")
+
+    bnd = torch.where(
+        bc.is_vel_inlet,
+        torch.sum(bc.vector * n_out, dim=-1),
+        torch.sum(v_c * n_out, dim=-1),  # pressure BCs
+    )
+    zero = _zero_like(vel)
+    return torch.where(
+        bc.is_wall_like,
+        zero,
+        torch.where(ck.interior, interior, torch.where(ck.mask, bnd, zero)),
+    )
+
+
+def ck_pressure_gradient(mesh, ck, bc: CKBC, p):
+    """Green-Gauss cell gradient with Linear face pressures [C,3]."""
+    pf = ck_face_pressure(mesh, ck, bc, p, PressureInterpolation.LINEAR)
+    wgt = ck.area / mesh.cell_volume[:, None]
+    return torch.sum((wgt * pf)[..., None] * ck.n_out, dim=1)
+
+
+def ck_diffusion(mesh, ck, bc: CKBC, mu):
+    """Diffusion contributions (diag [C], off [C,K], b [C,3])."""
+    area = ck.area
+    d_bnd = mu * area / ck.dist_fo
+    d_int = mu * area / ck.dist_on
+    zero = _zero_like(area)
+    dirichlet = bc.is_dirichlet_vel & ~ck.interior
+    d = torch.where(ck.interior, d_int, torch.where(dirichlet, d_bnd, zero))
+    diag = torch.sum(d, dim=1)
+    off = torch.where(ck.interior, -d, zero)
+    b = torch.sum(
+        torch.where(dirichlet[..., None], d[..., None] * bc.vector, zero),
+        dim=1,
+    )
+    return diag, off, b
+
+
+def ck_momentum(
+    mesh, ck, bc: CKBC, settings: NumericalSettings, rho,
+    vel, F, p_f, diff_diag, diff_off, diff_b,
+):
+    """Shared-matrix momentum system (diag [C], off [C,K]) and RHS
+    [3,C] from per-(c,k) mass flows F = flux * area * rho, plus the
+    per-cell Peclet estimate [C,3]. UD and CD1 only; the other schemes
+    (CD2, TVD, TVD_DC), momentum sources and the transient inertia term
+    are not ported yet."""
+    scheme = settings.momentum
+    if scheme == MomentumScheme.UD:
+        a_nb = torch.clamp(F, max=0.0)
+    elif scheme == MomentumScheme.CD1:
+        a_nb = F / 2.0
+    else:
+        raise NotImplementedError(
+            f"momentum scheme {scheme} is not ported yet (ROADMAP Queue 1, "
+            "item 5)"
+        )
+    if settings.momentum_source is not None:
+        raise NotImplementedError(
+            "momentum sources are not ported yet (ROADMAP Queue 1, item 5)"
+        )
+    zero = _zero_like(F)
+    mask = ck.mask
+    area = ck.area
+    n_out = ck.n_out
+    a_nb = torch.where(mask, a_nb, zero)
+    a_p = torch.sum(torch.where(mask, -a_nb + F, zero), dim=1)  # [C]
+    s_u = -torch.sum(
+        torch.where(mask[..., None], n_out * (p_f * area)[..., None], zero),
+        dim=1,
+    )
+    dirichlet = bc.is_dirichlet_vel & ~ck.interior
+    s_u = s_u + torch.sum(
+        torch.where(
+            dirichlet[..., None], (a_nb - F)[..., None] * bc.vector, zero
+        ),
+        dim=1,
+    )
+    active = mask.any(dim=1)
+    off = torch.where(ck.interior, a_nb + diff_off, zero)  # [C,K]
+    diag = a_p + diff_diag  # [C]
+    b = s_u + diff_b  # [C,3]
+    if settings.relaxation_mode == RelaxationMode.IMPLICIT:
+        alpha = settings.momentum_relaxation
+        b = b + (1.0 - alpha) / alpha * diag[:, None] * vel
+        diag = diag / alpha
+    one = torch.ones((), dtype=diag.dtype, device=diag.device)
+    diag = torch.where(active, diag, one)
+    b = torch.where(active[:, None], b, zero)
+    pe = torch.where(
+        active[:, None],
+        (a_p / torch.where(active, diff_diag, one))[:, None]
+        * torch.ones((1, 3), dtype=a_p.dtype, device=a_p.device),
+        zero,
+    )
+    A = EllMatrix(
+        diag=diag, off=off, neighbors=None, offsets=mesh.neighbor_offsets
+    )
+    return A, b.T, pe
+
+
+def ck_pressure_correction(mesh, ck, bc: CKBC, rho, F2, mom_diag, mom_diag_nbr=None):
+    """SIMPLE continuity system from per-(c,k) mass flows, with the
+    reference's rho A^2/a/2 term on every boundary face."""
+    zero = _zero_like(F2)
+    mask = ck.mask
+    n_out = ck.n_out
+    area = ck.area
+    b = torch.sum(torch.where(mask, -F2, zero), dim=1)
+    md_n = (
+        mom_diag_nbr if mom_diag_nbr is not None
+        else nbr_values(mesh, mom_diag, ck.interior)
+    )
+    a_c = torch.sqrt(torch.sum((mom_diag[:, None, :] * n_out) ** 2, dim=-1))
+    a_face = 0.5 * torch.sqrt(
+        torch.sum(((mom_diag[:, None, :] + md_n) * n_out) ** 2, dim=-1)
+    )
+    a_nb = rho * area**2 / a_face
+    a_bnd = rho * area**2 / a_c / 2.0
+    active = mask.any(dim=1)
+    diag = torch.sum(
+        torch.where(ck.interior, a_nb, torch.where(mask, a_bnd, zero)), dim=1
+    )
+    one = torch.ones((), dtype=diag.dtype, device=diag.device)
+    diag = torch.where(active, diag, one)
+    b = torch.where(active, b, zero)
+    off = torch.where(ck.interior, -a_nb, zero)
+    return (
+        EllMatrix(
+            diag=diag, off=off, neighbors=None, offsets=mesh.neighbor_offsets
+        ),
+        b,
+    )
+
+
+def ck_apply_correction(
+    mesh, ck, bc: CKBC, settings, p_prime, mom_diag, vel, p
+):
+    """SIMPLE update of (vel, p) from p'; returns (vel, p, (sum p'^2,
+    sum |u'|^2)) over active cells. mom_diag is cell-major [C,3]."""
+    pp_nb = nbr_values(mesh, p_prime, ck.interior)
+    if settings.pressure_correction_form == PressureCorrectionForm.FACE_VALUE:
+        pp_int = 0.5 * (p_prime[:, None] + pp_nb)
+    else:  # CELL_DIFFERENCE (reference parity, the default)
+        pp_int = pp_nb
+    zero = _zero_like(p_prime)
+    pp_f = torch.where(
+        ck.interior,
+        pp_int,
+        torch.where(bc.is_pressure, zero, p_prime[:, None]),
+    )
+    scaled_n = ck.n_out / mom_diag[:, None, :]
+    dpp = (p_prime[:, None] - pp_f) * ck.area
+    corr = torch.sum(
+        torch.where(ck.mask[..., None], scaled_n * dpp[..., None], zero), dim=1
+    )
+    corr_factor = (
+        1.0
+        if settings.relaxation_mode == RelaxationMode.IMPLICIT
+        else settings.momentum_relaxation
+    )
+    new_vel = vel + corr_factor * corr
+    new_p = p + settings.pressure_relaxation * p_prime
+    active = ck.mask.any(dim=1)
+    p_sq = torch.sum(torch.where(active, p_prime * p_prime, zero))
+    v_sq = torch.sum(torch.where(active[:, None], corr * corr, zero))
+    return new_vel, new_p, (p_sq, v_sq)

@@ -1,0 +1,337 @@
+"""Kernels 2 and 3: fused momentum and pressure-correction assembly.
+
+Replaces orc_tpu/ops/pallas_assembly.py `_momentum_kernel` (via
+`momentum_assembly` -> `_momentum_asm`) and `_pc_kernel` (via
+`pc_assembly`). One pass over the cell fields of a uniform structured
+box writes the shared momentum matrix (diag [C], off [C,K]) with its
+three right-hand sides, or the pressure-correction system, keeping
+every per-face intermediate in registers. On the card the wrappers
+launch the CUDA kernels of ``csrc/assembly.cu``; on CPU tensors they run
+the plain versions, which compose the ported ck ops
+(`ck_flux`, `ck_face_pressure`, `ck_diffusion`, `ck_momentum`,
+`ck_pressure_correction`) — the oracle orc_tpu pins its kernels
+against — and return the kernels' output format.
+
+Covered here: UD / CD1 advection, Linear[Weighted] face velocities and
+pressures, implicit relaxation. The Rhie-Chow, SecondOrder, in-kernel
+Green-Gauss, TVD_DC, transient and SIMPLE_FC branches of the TPU
+kernels are ROADMAP Queue 2 work; the wrappers refuse the specs that
+name them.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple
+
+import torch
+
+from orc_tpu_torch.ops import _cuda
+from orc_tpu_torch.ops.ck_ops import (
+    UniformCKGeometry,
+    ck_bc,
+    ck_diffusion,
+    ck_face_pressure,
+    ck_flux,
+    ck_momentum,
+    ck_pressure_correction,
+)
+from orc_tpu_torch.ops.fields import (
+    INTERIOR,
+    PRESSURE_OUTLET,
+    SYMMETRY,
+    VELOCITY_INLET,
+    WALL,
+)
+from orc_tpu_torch.utils.settings import (
+    MomentumScheme,
+    NumericalSettings,
+    PressureInterpolation,
+    RelaxationMode,
+    VelocityInterpolation,
+)
+
+
+class ColumnSpec(NamedTuple):
+    """Static per-ELL-column description of a uniform box mesh."""
+
+    offset: int  # flat neighbor index delta (0 for z columns of a 2D box)
+    area: float
+    n_out: tuple  # (nx, ny, nz) outward unit normal, column-constant
+    dist_fo: float  # |x_face - x_c|
+    dist_on: float  # interior |x_nbr - x_c|
+    kind: str  # "wall" | "symmetry" | "pressure" | "vinlet"
+    zone: int  # zone slot (row of the bc-values table)
+
+
+class AsmSpec(NamedTuple):
+    """Static scheme selection, as orc_tpu's AsmSpec; the kernels take
+    scheme "ud" / "cd1" with Linear[Weighted] faces (rc, p_so False)."""
+
+    scheme: str = "ud"  # "ud" | "cd1"
+    rc: bool = False  # Rhie-Chow face fluxes (else Linear[Weighted])
+    p_so: bool = False  # SecondOrder face pressures (else Linear[W])
+
+
+ACTIVE_BIT = 6  # flag bit marking real (non-padded) cells
+_KINDS = ("wall", "symmetry", "pressure", "vinlet")  # csrc/assembly.cu Kind
+_SCHEMES = {"ud": 0, "cd1": 1}
+
+
+def pack_flags(interior, mask):
+    """[C] int32 per-cell flags: bit k = column k interior, bit 6 =
+    active row."""
+    C, K = interior.shape
+    if K > ACTIVE_BIT:
+        raise ValueError(f"pack_flags holds at most {ACTIVE_BIT} columns")
+    f = torch.zeros((C,), dtype=torch.int32, device=interior.device)
+    for k in range(K):
+        f = f | (interior[:, k].to(torch.int32) << k)
+    return f | (mask.any(dim=1).to(torch.int32) << ACTIVE_BIT)
+
+
+def column_specs(mesh, table) -> "tuple | None":
+    """The static ColumnSpec tuple of a uniform mesh (ck_constants +
+    zone table), or None when ineligible (non-uniform mesh, unsupported
+    BC kinds, or periodic wrap columns)."""
+    from orc_tpu_torch.mesh.zones import FaceCondition
+    from orc_tpu_torch.solver.gmg import infer_box_dims
+
+    if mesh.ck_constants is None or mesh.neighbor_offsets is None:
+        return None
+    _int_slot, colc = mesh.ck_constants
+    offsets = mesh.neighbor_offsets
+    if len(colc) != len(offsets):
+        return None
+    dims = infer_box_dims(offsets, mesh.n_cells)
+    if dims is None:
+        return None
+    nx, ny, _nz = dims
+    strides = {1, nx, nx * ny}
+    slot_types = {
+        table.slot_of_zone[zid]: fz.zone_type for zid, fz in table.zones.items()
+    }
+    kinds = {
+        FaceCondition.WALL: "wall",
+        FaceCondition.SYMMETRY: "symmetry",
+        FaceCondition.PRESSURE_INLET: "pressure",
+        FaceCondition.PRESSURE_OUTLET: "pressure",
+        FaceCondition.VELOCITY_INLET: "vinlet",
+    }
+    cols = []
+    for off, (area, n_out, dist_fo, dist_on, zslot) in zip(offsets, colc):
+        if abs(off) not in strides and off != 0:
+            return None  # periodic wrap column
+        kind = kinds.get(slot_types.get(int(zslot)))
+        if kind is None:
+            return None
+        cols.append(
+            ColumnSpec(
+                offset=int(off),
+                area=float(area),
+                n_out=tuple(float(c) for c in n_out),
+                dist_fo=float(dist_fo),
+                dist_on=float(dist_on),
+                kind=kind,
+                zone=int(zslot),
+            )
+        )
+    return tuple(cols)
+
+
+def bc_value_table(zone_scalar, zone_vector):
+    """[Z,4] (vx, vy, vz, pressure) rows of the device zone tables."""
+    return torch.cat([zone_vector, zone_scalar[:, None]], dim=1)
+
+
+# --- plain versions (compositions of the ck ops) ----------------------
+
+
+class _Box(NamedTuple):
+    """The one mesh attribute the ck ops read on this path."""
+
+    neighbor_offsets: tuple
+
+
+def _ck_from_columns(flags, cols, bc_values):
+    """(mesh view, UniformCKGeometry, CKBC) rebuilt from the kernels'
+    inputs. Interior faces select an extra zone slot Z coded INTERIOR,
+    so the geometry needs nothing beyond the column specs."""
+    K = len(cols)
+    dt, dev = bc_values.dtype, bc_values.device
+    bits = torch.arange(K, dtype=torch.int32, device=dev)
+    interior = ((flags[:, None] >> bits) & 1) == 1
+    active = ((flags >> ACTIVE_BIT) & 1) == 1
+    mask = active[:, None].expand(-1, K)
+    Z = bc_values.shape[0]
+    ck = UniformCKGeometry(
+        interior=interior,
+        mask=mask,
+        c_area=torch.tensor([c.area for c in cols], dtype=dt, device=dev),
+        c_n_out=torch.tensor([c.n_out for c in cols], dtype=dt, device=dev),
+        c_dist_fo=torch.tensor([c.dist_fo for c in cols], dtype=dt, device=dev),
+        c_dist_on=torch.tensor([c.dist_on for c in cols], dtype=dt, device=dev),
+        c_zone=torch.tensor([c.zone for c in cols], dtype=torch.int32, device=dev),
+        int_slot=Z,
+        n_zones=Z + 1,
+    )
+    code_of = {
+        "wall": WALL,
+        "symmetry": SYMMETRY,
+        "pressure": PRESSURE_OUTLET,
+        "vinlet": VELOCITY_INLET,
+    }
+    codes = [INTERIOR] * (Z + 1)
+    for c in cols:
+        codes[c.zone] = code_of[c.kind]
+    zc = torch.tensor(codes, dtype=torch.int32, device=dev)
+    zero = torch.zeros((1,), dtype=dt, device=dev)
+    zs = torch.cat([bc_values[:, 3], zero])
+    zv = torch.cat([bc_values[:, :3], zero.expand(1, 3)])
+    box = _Box(neighbor_offsets=tuple(c.offset for c in cols))
+    return box, ck, ck_bc(ck, zc, zs, zv)
+
+
+def _check_spec(spec: AsmSpec):
+    if spec.scheme not in _SCHEMES or spec.rc or spec.p_so:
+        raise NotImplementedError(
+            f"assembly branch {spec} is not ported yet (ROADMAP Queue 2, "
+            "items 2-3): only UD/CD1 with Linear[Weighted] faces"
+        )
+
+
+def momentum_assembly_plain(
+    vel, p, bc_values, flags, cols, rho, mu, alpha, mom_diag=None,
+    spec: AsmSpec = AsmSpec(),
+):
+    """Plain torch momentum assembly: (diag [C], off [C,K], b [3,C])."""
+    _check_spec(spec)
+    box, ck, bc = _ck_from_columns(flags, cols, bc_values)
+    flux = ck_flux(box, ck, bc, vel, VelocityInterpolation.LINEAR)
+    F = flux * ck.area * rho
+    p_f = ck_face_pressure(box, ck, bc, p, PressureInterpolation.LINEAR)
+    diff = ck_diffusion(box, ck, bc, mu)
+    settings = NumericalSettings(
+        momentum=MomentumScheme.UD if spec.scheme == "ud" else MomentumScheme.CD1,
+        relaxation_mode=RelaxationMode.IMPLICIT,
+        momentum_relaxation=float(alpha),
+    )
+    A, b, _pe = ck_momentum(box, ck, bc, settings, rho, vel, F, p_f, *diff)
+    return A.diag, A.off, b
+
+
+def pc_assembly_plain(
+    vel, mom_diag, bc_values, flags, cols, rho, spec: AsmSpec = AsmSpec()
+):
+    """Plain torch pressure-correction assembly: (diag, off [C,K], b)."""
+    _check_spec(spec)
+    box, ck, bc = _ck_from_columns(flags, cols, bc_values)
+    flux2 = ck_flux(box, ck, bc, vel, VelocityInterpolation.LINEAR)
+    F2 = flux2 * ck.area * rho
+    md3 = mom_diag[:, None].expand(-1, 3)
+    P, b = ck_pressure_correction(box, ck, bc, rho, F2, md3)
+    return P.diag, P.off, b
+
+
+# --- kernel wrappers --------------------------------------------------
+
+
+def _col_args(cols):
+    K = len(cols)
+    offs = (ctypes.c_longlong * K)(*(c.offset for c in cols))
+    geom = (ctypes.c_double * (6 * K))(
+        *(v for c in cols for v in (c.area, *c.n_out, c.dist_fo, c.dist_on))
+    )
+    kind = (ctypes.c_int * K)(*(_KINDS.index(c.kind) for c in cols))
+    zone = (ctypes.c_int * K)(*(c.zone for c in cols))
+    return offs, geom, kind, zone
+
+
+def _check_inputs(vel, bc_values, flags, cols, **fields):
+    C = vel.shape[0]
+    if vel.shape != (C, 3):
+        raise ValueError(f"vel must be [C,3], got {tuple(vel.shape)}")
+    if not 1 <= len(cols) <= _cuda.MAX_K:
+        raise ValueError(f"1..{_cuda.MAX_K} columns, got {len(cols)}")
+    if flags.shape != (C,) or flags.dtype != torch.int32:
+        raise ValueError("flags must be a [C] int32 tensor (pack_flags)")
+    if bc_values.ndim != 2 or bc_values.shape[1] != 4:
+        raise ValueError("bc_values must be [Z,4] (bc_value_table)")
+    if any(c.zone >= bc_values.shape[0] for c in cols):
+        raise ValueError("a column's zone slot lies outside bc_values")
+    for name, t in dict(bc_values=bc_values, **fields).items():
+        if t.dtype != vel.dtype:
+            raise TypeError(f"{name} is {t.dtype}, vel is {vel.dtype}")
+        if t.shape[0] != C and name != "bc_values":
+            raise ValueError(f"{name} has {t.shape[0]} rows, vel has {C}")
+    _cuda.check_cuda(vel.device, bc_values=bc_values, flags=flags, **fields)
+
+
+def momentum_assembly(
+    vel, p, bc_values, flags, cols: tuple, rho, mu, alpha, mom_diag=None,
+    spec: AsmSpec = AsmSpec(),
+):
+    """Fused momentum assembly on a uniform box.
+
+    vel [C,3], p [C] -> (diag [C], off [C,K], b [3,C]) in the shared-
+    matrix form; `cols` from column_specs, `flags` from pack_flags,
+    `bc_values` [Z,4] from bc_value_table; rho / mu / alpha are Python
+    numbers. `off` is a [C,K] view of K contiguous [C] planes. CPU
+    tensors take the plain version; CUDA tensors launch the kernel or
+    raise."""
+    if not vel.is_cuda:
+        return momentum_assembly_plain(
+            vel, p, bc_values, flags, cols, rho, mu, alpha, mom_diag, spec
+        )
+    _check_spec(spec)
+    _check_inputs(vel, bc_values, flags, cols, p=p)
+    C, K = vel.shape[0], len(cols)
+    vel, p, bc_values = vel.contiguous(), p.contiguous(), bc_values.contiguous()
+    flags = flags.contiguous()
+    diag = torch.empty((C,), dtype=vel.dtype, device=vel.device)
+    off = torch.empty((K, C), dtype=vel.dtype, device=vel.device)
+    b = torch.empty((3, C), dtype=vel.dtype, device=vel.device)
+    _cuda.call(
+        "orc_momentum_assembly", vel.device, _cuda.dtype_code(vel),
+        _SCHEMES[spec.scheme], *_col_args(cols), K, vel.data_ptr(),
+        p.data_ptr(), bc_values.data_ptr(), flags.data_ptr(), float(rho),
+        float(mu), float(alpha), diag.data_ptr(), off.data_ptr(),
+        b.data_ptr(), C,
+    )
+    momentum_assembly.launches += 1
+    return diag, off.T, b
+
+
+def pc_assembly(
+    vel, mom_diag, bc_values, flags, cols: tuple, rho,
+    spec: AsmSpec = AsmSpec(),
+):
+    """Fused pressure-correction assembly on a uniform box.
+
+    vel [C,3] (post-momentum), mom_diag [C] (shared momentum diagonal)
+    -> (diag [C], off [C,K], b [C]) matching ck_pressure_correction with
+    Linear[Weighted] face fluxes. CPU tensors take the plain version;
+    CUDA tensors launch the kernel or raise."""
+    if not vel.is_cuda:
+        return pc_assembly_plain(vel, mom_diag, bc_values, flags, cols, rho, spec)
+    _check_spec(spec)
+    _check_inputs(vel, bc_values, flags, cols, mom_diag=mom_diag)
+    C, K = vel.shape[0], len(cols)
+    vel, mom_diag = vel.contiguous(), mom_diag.contiguous()
+    bc_values, flags = bc_values.contiguous(), flags.contiguous()
+    diag = torch.empty((C,), dtype=vel.dtype, device=vel.device)
+    off = torch.empty((K, C), dtype=vel.dtype, device=vel.device)
+    b = torch.empty((C,), dtype=vel.dtype, device=vel.device)
+    _cuda.call(
+        "orc_pc_assembly", vel.device, _cuda.dtype_code(vel),
+        *_col_args(cols), K, vel.data_ptr(), mom_diag.data_ptr(),
+        bc_values.data_ptr(), flags.data_ptr(), float(rho), diag.data_ptr(),
+        off.data_ptr(), b.data_ptr(), C,
+    )
+    pc_assembly.launches += 1
+    return diag, off.T, b
+
+
+#: Kernel launches since the last reset.
+momentum_assembly.launches = 0
+pc_assembly.launches = 0

@@ -1,0 +1,472 @@
+"""SIMPLE pressure-velocity coupling, the outer loop (port of the
+single-device (c,k) path of orc_tpu/solver/simple.py).
+
+One SIMPLE iteration is `ck_simple_step`: face fluxes -> momentum
+assembly -> one batched [3,C] momentum solve -> pressure-correction
+assembly and solve -> correction -> metrics. `solve_steady` drives it in
+a Python loop, `reporting_interval` iterations per chunk, and reads the
+small metrics back to the host once per chunk.
+
+On a CUDA mesh the step runs the four hand-written kernels where
+orc_tpu runs its Pallas kernels: the fused assembly kernels behind the
+gate `_kernel_asm_spec` (mirroring orc_tpu's `_pallas_asm_spec`), the
+Jacobi-sweep kernel in the momentum smoother and the shift SpMV in every
+Krylov iteration. On CPU it takes the plain (c,k) ops, as orc_tpu does.
+
+Not ported yet (each raises NotImplementedError naming its ROADMAP
+item): SIMPLE_FC, the face-major step (`use_ck=False`), least-squares
+and node-based gradients, Gauss-Seidel and multigrid solves, momentum
+sources, transient runs and the sharded runtime.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Optional
+
+import torch
+
+from orc_tpu_torch.mesh.compile import CompiledMesh, trim_for_ck
+from orc_tpu_torch.mesh.zones import BoundaryTable, FaceCondition
+from orc_tpu_torch.ops.ck_ops import (
+    build_ck_geometry,
+    ck_apply_correction,
+    ck_bc,
+    ck_diffusion,
+    ck_face_pressure,
+    ck_flux,
+    ck_momentum,
+    ck_pressure_correction,
+    ck_pressure_gradient,
+    nbr_values,
+)
+from orc_tpu_torch.ops.fields import device_bc
+from orc_tpu_torch.ops.spmv import EllMatrix
+from orc_tpu_torch.solver.krylov import (
+    _no_project,
+    constant_deflation,
+    iterative_solve,
+)
+from orc_tpu_torch.utils.settings import (
+    GradientReconstruction,
+    MomentumScheme,
+    NumericalSettings,
+    PressureInterpolation,
+    PressureVelocityCoupling,
+    RelaxationMode,
+    SolutionMethod,
+    VelocityInterpolation,
+)
+
+#: Cell-count ceiling under which use_ck="auto" picks the (c,k) step.
+CK_AUTO_MAX_CELLS = 10_000_000
+
+
+class SolverDivergedError(RuntimeError):
+    def __init__(self, iteration: int):
+        super().__init__(f"solution diverged at iteration {iteration}")
+        self.iteration = iteration
+
+
+@dataclasses.dataclass(frozen=True)
+class FlowState:
+    vel: torch.Tensor  # [C,3]
+    p: torch.Tensor  # [C]
+    # Momentum-matrix diagonals of the previous iteration, component-
+    # major [3,C] as in orc_tpu (1.0 before the first iteration).
+    mom_diag: torch.Tensor  # [3,C]
+    # Stored face fluxes of SIMPLE_FC (not ported); None on this loop.
+    flux: "torch.Tensor | None" = None
+
+
+@dataclasses.dataclass(frozen=True)
+class StepMetrics:
+    """Per-iteration metrics (tensors; [n]-leading once stacked)."""
+
+    vel_avg: torch.Tensor  # [3]
+    peclet_avg: torch.Tensor
+    peclet_min: torch.Tensor
+    peclet_max: torch.Tensor
+    p_corr_norm: torch.Tensor
+    vel_corr_norm: torch.Tensor
+    mom_residual: torch.Tensor  # [3] final momentum solve residuals
+    pc_residual: torch.Tensor  # pressure-correction solve residual
+    diverged: torch.Tensor  # bool
+    mom_iters: torch.Tensor  # [3] inner iterations per momentum solve
+    pc_iters: torch.Tensor  # inner iterations of the p' solve
+
+
+def _metric_names():
+    return [f.name for f in dataclasses.fields(StepMetrics)]
+
+
+def stack_history(history):
+    """Concatenate per-chunk StepMetrics into one StepMetrics of
+    [n_iterations]-leading numpy arrays."""
+    import numpy as np
+
+    return StepMetrics(
+        **{
+            f: np.concatenate([_np(getattr(h, f)) for h in history])
+            for f in _metric_names()
+        }
+    )
+
+
+def _np(t):
+    return t.detach().cpu().numpy()
+
+
+def initial_state(mesh: CompiledMesh, vel=None, p=None) -> FlowState:
+    C, dt, dev = mesh.n_cells, mesh.dtype, mesh.device
+    return FlowState(
+        vel=(
+            torch.zeros((C, 3), dtype=dt, device=dev)
+            if vel is None
+            else torch.as_tensor(vel, dtype=dt, device=dev)
+        ),
+        p=(
+            torch.zeros((C,), dtype=dt, device=dev)
+            if p is None
+            else torch.as_tensor(p, dtype=dt, device=dev)
+        ),
+        mom_diag=torch.ones((3, C), dtype=dt, device=dev),
+    )
+
+
+def _needs_grad_p(settings: NumericalSettings) -> bool:
+    return (
+        settings.velocity_interpolation == VelocityInterpolation.RHIE_CHOW
+        or settings.pressure_interpolation == PressureInterpolation.SECOND_ORDER
+    )
+
+
+def table_maybe_singular(table) -> bool:
+    """True when no zone can anchor the p' system (every zone interior
+    or periodic): the pressure-correction matrix is then singular."""
+    exempt = (
+        FaceCondition.INTERIOR,
+        FaceCondition.PERIODIC,
+        FaceCondition.PERIODIC_SHADOW,
+    )
+    return all(fz.zone_type in exempt for fz in table.zones.values())
+
+
+def table_has_pressure_bc(table) -> bool:
+    """True when any zone is a pressure inlet/outlet."""
+    return any(
+        fz.zone_type
+        in (FaceCondition.PRESSURE_INLET, FaceCondition.PRESSURE_OUTLET)
+        for fz in table.zones.values()
+    )
+
+
+def _solve_p_prime(Pmat, b_p, p, settings, active, maybe_singular: bool):
+    """Solve the pressure-correction system from a zero start, with the
+    constant null mode deflated when the system is singular."""
+    if maybe_singular:
+        null_scale = torch.ones((), dtype=p.dtype, device=p.device)
+        project = constant_deflation(null_scale, active=active)
+    else:
+        project = _no_project
+    p_prime, p_info = iterative_solve(
+        Pmat, b_p, torch.zeros_like(p), settings.matrix_solver, project=project
+    )
+    return project(p_prime), p_info
+
+
+def ck_simple_step(
+    mesh: CompiledMesh,
+    ck,
+    zone_codes,
+    zone_scalar,
+    zone_vector,
+    settings: NumericalSettings,
+    rho,
+    mu,
+    ck_diff,
+    state: FlowState,
+    kernel_asm=None,  # (cols, AsmSpec) -> fused assembly kernels
+    maybe_singular: bool = True,
+):
+    """One SIMPLE iteration in the gather-free (c,k) formulation."""
+    bc = ck_bc(ck, zone_codes, zone_scalar, zone_vector)
+    diff_diag, diff_off, diff_b = ck_diff
+    vel, p = state.vel, state.p
+    active = ck.mask.any(dim=1)
+    zero = torch.zeros((), dtype=vel.dtype, device=vel.device)
+    one = torch.ones((), dtype=vel.dtype, device=vel.device)
+
+    if kernel_asm is not None:
+        # Fused assembly kernels (ops/fused_assembly.py): one pass over
+        # the cell fields yields the shared momentum matrix and RHS.
+        from orc_tpu_torch.ops.fused_assembly import (
+            bc_value_table,
+            momentum_assembly,
+            pack_flags,
+        )
+
+        cols, aspec = kernel_asm
+        flags = pack_flags(ck.interior, ck.mask)
+        bcv = bc_value_table(zone_scalar, zone_vector)
+        mdiag, moff, b3 = momentum_assembly(
+            vel, p, bcv, flags, cols, rho, mu, settings.momentum_relaxation,
+            mom_diag=state.mom_diag[0], spec=aspec,
+        )
+        A3 = EllMatrix(
+            diag=mdiag, off=moff, neighbors=None, offsets=mesh.neighbor_offsets
+        )
+        safe_dd = torch.where(active, diff_diag, one)
+        pe = torch.where(
+            active[:, None],
+            ((settings.momentum_relaxation * mdiag - diff_diag) / safe_dd)[:, None]
+            * torch.ones((1, 3), dtype=mdiag.dtype, device=mdiag.device),
+            zero,
+        )
+    else:
+        md_c = state.mom_diag.T  # cell-major [C,3] view
+        vel_nbr = nbr_values(mesh, vel, ck.interior)
+        grad_p = grad_p_nbr = None
+        if _needs_grad_p(settings):
+            grad_p = ck_pressure_gradient(mesh, ck, bc, p)
+            grad_p_nbr = nbr_values(mesh, grad_p, ck.interior)
+        mom_diag_nbr = nbr_values(mesh, md_c, ck.interior)
+        flux = ck_flux(
+            mesh, ck, bc, vel, settings.velocity_interpolation,
+            p=p, grad_p=grad_p, grad_p_nbr=grad_p_nbr,
+            mom_diag=md_c, mom_diag_nbr=mom_diag_nbr, vel_nbr=vel_nbr,
+        )
+        F = flux * ck.area * rho
+        p_f = ck_face_pressure(
+            mesh, ck, bc, p, settings.pressure_interpolation,
+            grad_p=grad_p, grad_p_nbr=grad_p_nbr,
+        )
+        A3, b3, pe = ck_momentum(
+            mesh, ck, bc, settings, rho, vel, F, p_f,
+            diff_diag, diff_off, diff_b,
+        )
+
+    # One batched solve of the u/v/w systems over the shared matrix.
+    x0 = torch.where(active[None, :], vel.T, zero)  # [3,C]
+    sol, info = iterative_solve(A3, b3, x0, settings.momentum_matrix_solver())
+    new_mom_diag = A3.diag[None, :].expand(3, -1)
+    new_vel = sol.T  # [C,3] view
+
+    if kernel_asm is not None:
+        from orc_tpu_torch.ops.fused_assembly import pc_assembly
+
+        pdiag, poff, b_p = pc_assembly(
+            new_vel, A3.diag, bcv, flags, cols, rho, spec=aspec
+        )
+        Pmat = EllMatrix(
+            diag=pdiag, off=poff, neighbors=None, offsets=mesh.neighbor_offsets
+        )
+    else:
+        new_md_c = new_mom_diag.T
+        new_md_nbr = nbr_values(mesh, new_md_c, ck.interior)
+        new_vel_nbr = nbr_values(mesh, new_vel, ck.interior)
+        flux2 = ck_flux(
+            mesh, ck, bc, new_vel, settings.velocity_interpolation,
+            p=p, grad_p=grad_p, grad_p_nbr=grad_p_nbr,
+            mom_diag=new_md_c, mom_diag_nbr=new_md_nbr, vel_nbr=new_vel_nbr,
+        )
+        F2 = flux2 * ck.area * rho
+        Pmat, b_p = ck_pressure_correction(
+            mesh, ck, bc, rho, F2, new_md_c, mom_diag_nbr=new_md_nbr
+        )
+    p_prime, p_info = _solve_p_prime(
+        Pmat, b_p, p, settings, active, maybe_singular
+    )
+    vel3, p_new, (p_corr_sq, vel_corr_sq) = ck_apply_correction(
+        mesh, ck, bc, settings, p_prime, new_mom_diag.T, new_vel, p
+    )
+
+    n_active = torch.sum(active).to(vel.dtype)
+    vel_avg = torch.sum(torch.where(active[:, None], vel3, zero), dim=0) / n_active
+    inf = torch.full((), float("inf"), dtype=pe.dtype, device=pe.device)
+    metrics = StepMetrics(
+        vel_avg=vel_avg,
+        peclet_avg=torch.sum(pe) / (3.0 * n_active),
+        peclet_min=torch.amin(torch.where(active[:, None], pe, inf)),
+        peclet_max=torch.amax(torch.where(active[:, None], pe, -inf)),
+        p_corr_norm=torch.sqrt(p_corr_sq),
+        vel_corr_norm=torch.sqrt(vel_corr_sq),
+        mom_residual=info.residual,
+        pc_residual=p_info.residual,
+        diverged=(
+            torch.any(torch.isnan(vel_avg))
+            | torch.any(info.diverged)
+            | p_info.diverged
+        ),
+        mom_iters=info.iterations,
+        pc_iters=p_info.iterations,
+    )
+    return FlowState(vel=vel3, p=p_new, mom_diag=new_mom_diag), metrics
+
+
+def _run_chunk(
+    mesh, ck, ck_diff, state, zc, zs, zv, rho, mu, *, settings, n_steps,
+    kernel_asm=None, maybe_singular=True,
+):
+    """n_steps SIMPLE iterations; returns (state, StepMetrics of
+    [n_steps]-leading tensors). Float32 runs accumulate (vel, p) with
+    Kahan compensation when settings.compensated_state is set: without
+    it, increments below f32 epsilon of the fields round away and the
+    run freezes short of steady state."""
+
+    def step(s):
+        return ck_simple_step(
+            mesh, ck, zc, zs, zv, settings, rho, mu, ck_diff, s,
+            kernel_asm=kernel_asm, maybe_singular=maybe_singular,
+        )
+
+    use_comp = settings.compensated_state and state.vel.dtype == torch.float32
+    cv = torch.zeros_like(state.vel) if use_comp else None
+    cp = torch.zeros_like(state.p) if use_comp else None
+    history = []
+    for _ in range(n_steps):
+        s2, metrics = step(state)
+        if use_comp:
+            dv = (s2.vel - state.vel) + cv
+            vel = state.vel + dv
+            cv = dv - (vel - state.vel)
+            dp = (s2.p - state.p) + cp
+            p = state.p + dp
+            cp = dp - (p - state.p)
+            s2 = dataclasses.replace(s2, vel=vel, p=p)
+        state = s2
+        history.append(metrics)
+    stacked = StepMetrics(
+        **{f: torch.stack([getattr(m, f) for m in history]) for f in _metric_names()}
+    )
+    return state, stacked
+
+
+def _kernel_asm_spec(mesh, table, settings, ck, fc=False, transient=False):
+    """Static (cols, AsmSpec) for the fused assembly kernels when the
+    configuration is eligible, else None (orc_tpu's `_pallas_asm_spec`
+    with "on CPU" read as "mesh not on CUDA", the float32 condition
+    dropped — Hopper has float64 — and, in this port so far, only the
+    UD / CD1 + Linear[Weighted] branch: other specs return None, as
+    orc_tpu's gate does for schemes its kernels do not cover)."""
+    if (
+        ck is None
+        or mesh.ck_constants is None
+        or not mesh.cell_volume.is_cuda
+        or settings.relaxation_mode != RelaxationMode.IMPLICIT
+        or fc
+        or transient
+    ):
+        return None
+    scheme = {MomentumScheme.UD: "ud", MomentumScheme.CD1: "cd1"}.get(
+        settings.momentum
+    )
+    linear_v = (VelocityInterpolation.LINEAR, VelocityInterpolation.LINEAR_WEIGHTED)
+    linear_p = (PressureInterpolation.LINEAR, PressureInterpolation.LINEAR_WEIGHTED)
+    if (
+        scheme is None
+        or settings.velocity_interpolation not in linear_v
+        or settings.pressure_interpolation not in linear_p
+    ):
+        return None
+    from orc_tpu_torch.ops.fused_assembly import AsmSpec, column_specs
+
+    cols = column_specs(mesh, table)
+    if cols is None:
+        return None
+    return cols, AsmSpec(scheme=scheme)
+
+
+def _check_ported(settings: NumericalSettings, use_ck):
+    coupling = settings.resolved_coupling()
+    if coupling == PressureVelocityCoupling.SIMPLE_FC:
+        raise NotImplementedError(
+            "SIMPLE_FC (AUTO under Rhie-Chow + implicit relaxation) is not "
+            "ported yet (ROADMAP Queue 1, item 7); set "
+            "pressure_velocity_coupling=SIMPLE"
+        )
+    if use_ck is False:
+        raise NotImplementedError(
+            "the face-major SIMPLE step is not ported yet (ROADMAP Queue 1, "
+            "item 3); use use_ck=True or 'auto'"
+        )
+    if settings.gradient_reconstruction != GradientReconstruction.GREEN_GAUSS_CELL:
+        raise NotImplementedError(
+            f"{settings.gradient_reconstruction} gradients are not ported "
+            "yet (ROADMAP Queue 1, item 3)"
+        )
+    for ms in (settings.matrix_solver, settings.momentum_matrix_solver()):
+        if ms.solver_type in (SolutionMethod.GAUSS_SEIDEL, SolutionMethod.MULTIGRID):
+            raise NotImplementedError(
+                f"solver {ms.solver_type} is not ported yet (ROADMAP Queue 1, "
+                "items 4 and 8)"
+            )
+
+
+def solve_steady(
+    mesh: CompiledMesh,
+    table: BoundaryTable,
+    settings: NumericalSettings,
+    rho: float,
+    mu: float,
+    state: Optional[FlowState] = None,
+    iterations: int = 10,
+    reporting_interval: int = 1,
+    verbose: bool = True,
+    check_divergence: bool = True,
+    use_ck: str | bool = "auto",
+):
+    """Host loop of the steady SIMPLE solve on the mesh's device.
+
+    `use_ck`: "auto" or True select the gather-free (c,k) step, the
+    only step ported so far. Returns (FlowState, list of per-chunk
+    StepMetrics with [n]-leading tensors)."""
+    table.validate_supported()
+    _check_ported(settings, use_ck)
+    if use_ck == "auto" and mesh.n_cells > CK_AUTO_MAX_CELLS:
+        raise NotImplementedError(
+            f"{mesh.n_cells} cells exceed CK_AUTO_MAX_CELLS: the face-major "
+            "step is not ported yet (ROADMAP Queue 1, item 3)"
+        )
+    reporting_interval = max(1, min(reporting_interval, iterations))
+    zc, zs, zv = device_bc(table, dtype=mesh.dtype, device=mesh.device)
+    if state is None:
+        state = initial_state(mesh)
+
+    ck = build_ck_geometry(mesh, len(table.zone_ids))
+    mu_t = torch.tensor(mu, dtype=mesh.dtype, device=mesh.device)
+    ck_diff = ck_diffusion(mesh, ck, ck_bc(ck, zc, zs, zv), mu_t)
+    kernel_asm = _kernel_asm_spec(mesh, table, settings, ck)
+    maybe_singular = table_maybe_singular(table)
+    mesh = trim_for_ck(mesh)
+
+    history = []
+    done = 0
+    t0 = time.perf_counter()
+    while done < iterations:
+        n = min(reporting_interval, iterations - done)
+        state, metrics = _run_chunk(
+            mesh, ck, ck_diff, state, zc, zs, zv, rho, mu,
+            settings=settings, n_steps=n, kernel_asm=kernel_asm,
+            maybe_singular=maybe_singular,
+        )
+        done += n
+        history.append(metrics)
+        if verbose:
+            if state.vel.is_cuda:
+                torch.cuda.synchronize(state.vel.device)
+            dt_ms = (time.perf_counter() - t0) * 1e3 / n
+            t0 = time.perf_counter()
+            va = _np(metrics.vel_avg[-1])
+            print(
+                f"Iteration {done}: avg velocity = "
+                f"({va[0]:.2e}, {va[1]:.2e}, {va[2]:.2e})\t"
+                f"avg peclet = {float(metrics.peclet_avg[-1]):.1e}\t"
+                f"vel corr = {float(metrics.vel_corr_norm[-1]):.2e}\t"
+                f"p corr = {float(metrics.p_corr_norm[-1]):.2e}\t"
+                f"ms/iter = {dt_ms:.3g}"
+            )
+        if check_divergence and bool(torch.any(metrics.diverged)):
+            raise SolverDivergedError(done)
+    return state, history

@@ -1,0 +1,210 @@
+"""Port (c,k) ops (orc_tpu_torch/ops/ck_ops.py) entry for entry against
+orc_tpu's, in float64, on the 20x20 cavity, the 16x8 pressure-BC
+couette and the velocity-inlet channel of tests/test_pallas_assembly.py.
+
+Tolerance: rtol 1e-10 (the same formulas in the same order; only sum
+order may differ), plus atol 1e-13 x the largest reference magnitude
+for entries that cancel to roundoff."""
+
+import numpy as np
+import pytest
+import torch
+
+from torch_parity import CASES, both, cell_fields, np_, to_jax_settings
+
+import jax.numpy as jnp
+from orc_tpu.ops import ck_ops as jck
+from orc_tpu.ops.fields import device_bc as jdevice_bc
+
+from orc_tpu_torch.ops import ck_ops as tck
+from orc_tpu_torch.ops.fields import device_bc as tdevice_bc
+from orc_tpu_torch.utils import settings as tset
+
+RTOL = 1e-10
+
+
+def _close(actual, desired, name=""):
+    d = np_(desired)
+    scale = float(np.max(np.abs(d))) if d.size else 0.0
+    np.testing.assert_allclose(
+        np_(actual), d, rtol=RTOL, atol=1e-13 * scale, err_msg=name
+    )
+
+
+class Side:
+    """One package's mesh, geometry, BCs and seeded fields of a case."""
+
+    def __init__(self, ops, device_bc, mesh, table, arr, conv, fields):
+        self.ops, self.mesh, self.arr = ops, mesh, arr
+        self.conv = conv  # port settings -> this package's settings
+        zc, zs, zv = device_bc(table)
+        self.ck = ops.build_ck_geometry(mesh, len(table.zone_ids))
+        self.bc = ops.ck_bc(self.ck, zc, zs, zv)
+        vel, p, md = fields
+        self.vel, self.p = arr(vel), arr(p)
+        self.md3 = arr(np.repeat(md[:, None], 3, axis=1))  # cell-major [C,3]
+        self.grad_p = ops.ck_pressure_gradient(mesh, self.ck, self.bc, self.p)
+        self.gp_nbr = ops.nbr_values(mesh, self.grad_p, self.ck.interior)
+
+
+def _f64(x):
+    return torch.tensor(x, dtype=torch.float64)
+
+
+def _sides(case):
+    (mj, tj), (mt, tt) = both(case)
+    fields = cell_fields(mj.n_cells)
+    J = Side(jck, jdevice_bc, mj, tj, jnp.asarray, to_jax_settings, fields)
+    T = Side(tck, tdevice_bc, mt, tt, _f64, lambda s: s, fields)
+    return J, T
+
+
+def op_geometry(J, T):
+    for name in ("area", "n_out", "w", "r_cf", "r_on", "dist_on", "dist_fo",
+                 "zone_slot", "interior", "mask"):
+        _close(getattr(T.ck, name), getattr(J.ck, name), name)
+
+
+def op_bc(J, T):
+    for name in type(T.bc)._fields:
+        _close(getattr(T.bc, name), getattr(J.bc, name), name)
+
+
+def op_nbr_values(J, T):
+    for f in ("p", "vel", "grad_p"):
+        _close(
+            T.ops.nbr_values(T.mesh, getattr(T, f), T.ck.interior),
+            J.ops.nbr_values(J.mesh, getattr(J, f), J.ck.interior),
+            f,
+        )
+
+
+def op_face_pressure(J, T):
+    for scheme in ("LINEAR", "LINEAR_WEIGHTED", "SECOND_ORDER"):
+        outs = [
+            S.ops.ck_face_pressure(
+                S.mesh, S.ck, S.bc, S.p,
+                S.conv(tset.PressureInterpolation[scheme]),
+                grad_p=S.grad_p, grad_p_nbr=S.gp_nbr,
+            )
+            for S in (J, T)
+        ]
+        _close(outs[1], outs[0], scheme)
+
+
+def op_flux(J, T):
+    for scheme in ("LINEAR", "LINEAR_WEIGHTED", "RHIE_CHOW"):
+        outs = [
+            S.ops.ck_flux(
+                S.mesh, S.ck, S.bc, S.vel,
+                S.conv(tset.VelocityInterpolation[scheme]), p=S.p,
+                grad_p=S.grad_p, grad_p_nbr=S.gp_nbr, mom_diag=S.md3,
+            )
+            for S in (J, T)
+        ]
+        _close(outs[1], outs[0], scheme)
+
+
+def op_pressure_gradient(J, T):
+    _close(T.grad_p, J.grad_p)
+
+
+def op_diffusion(J, T):
+    a = J.ops.ck_diffusion(J.mesh, J.ck, J.bc, J.arr(1e-3))
+    b = T.ops.ck_diffusion(T.mesh, T.ck, T.bc, T.arr(1e-3))
+    for name, x, y in zip(("diag", "off", "b"), b, a):
+        _close(x, y, name)
+
+
+def _momentum(S, settings, rho=1.0, mu=1e-3):
+    vi = settings.velocity_interpolation
+    flux = S.ops.ck_flux(S.mesh, S.ck, S.bc, S.vel, vi)
+    F = flux * S.ck.area * rho
+    p_f = S.ops.ck_face_pressure(
+        S.mesh, S.ck, S.bc, S.p, settings.pressure_interpolation
+    )
+    diff = S.ops.ck_diffusion(S.mesh, S.ck, S.bc, S.arr(mu))
+    return S.ops.ck_momentum(
+        S.mesh, S.ck, S.bc, settings, rho, S.vel, F, p_f, *diff
+    )
+
+
+def op_momentum(J, T):
+    for scheme in (tset.MomentumScheme.UD, tset.MomentumScheme.CD1):
+        for mode in tset.RelaxationMode:
+            ts = tset.NumericalSettings(
+                momentum=scheme,
+                velocity_interpolation=tset.VelocityInterpolation.LINEAR_WEIGHTED,
+                pressure_interpolation=tset.PressureInterpolation.LINEAR_WEIGHTED,
+                relaxation_mode=mode,
+                momentum_relaxation=0.7,
+            )
+            Aj, bj, pej = _momentum(J, J.conv(ts))
+            At, bt, pet = _momentum(T, T.conv(ts))
+            tag = f"{scheme}/{mode}"
+            assert At.offsets == Aj.offsets
+            _close(At.diag, Aj.diag, tag + " diag")
+            _close(At.off, Aj.off, tag + " off")
+            _close(bt, bj, tag + " b")
+            _close(pet, pej, tag + " pe")
+
+
+def op_pressure_correction(J, T):
+    outs = []
+    for S in (J, T):
+        flux = S.ops.ck_flux(
+            S.mesh, S.ck, S.bc, S.vel,
+            S.conv(tset.VelocityInterpolation.LINEAR_WEIGHTED),
+        )
+        F2 = flux * S.ck.area * 1.0
+        outs.append(S.ops.ck_pressure_correction(S.mesh, S.ck, S.bc, 1.0, F2, S.md3))
+    (Pj, bj), (Pt, bt) = outs
+    _close(Pt.diag, Pj.diag, "diag")
+    _close(Pt.off, Pj.off, "off")
+    _close(bt, bj, "b")
+
+
+def op_apply_correction(J, T):
+    pp = cell_fields(J.mesh.n_cells, seed=11)[1]
+    for form in tset.PressureCorrectionForm:
+        for mode in tset.RelaxationMode:
+            ts = tset.NumericalSettings(
+                pressure_correction_form=form, relaxation_mode=mode,
+                momentum_relaxation=0.7, pressure_relaxation=0.1,
+            )
+            outs = [
+                S.ops.ck_apply_correction(
+                    S.mesh, S.ck, S.bc, s, S.arr(pp), S.md3, S.vel, S.p
+                )
+                for S, s in ((J, J.conv(ts)), (T, T.conv(ts)))
+            ]
+            (vj, pj, (a, b)), (vt, pt, (c, d)) = outs
+            tag = f"{form}/{mode}"
+            _close(vt, vj, tag + " vel")
+            _close(pt, pj, tag + " p")
+            _close(c, a, tag + " p_sq")
+            _close(d, b, tag + " v_sq")
+
+
+OPS = {
+    name[3:]: fn for name, fn in sorted(globals().items()) if name.startswith("op_")
+}
+
+
+@pytest.mark.parametrize("op", sorted(OPS))
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_ck_op_matches_orc_tpu(case, op):
+    J, T = _sides(case)
+    OPS[op](J, T)
+
+
+@pytest.mark.parametrize("scheme", ["CD2", "TVD", "TVD_DC"])
+def test_unported_momentum_schemes_raise(scheme):
+    _, T = _sides("cavity")
+    ts = tset.NumericalSettings(
+        momentum=tset.MomentumScheme[scheme], tvd_psi=tset.tvd_umist,
+        velocity_interpolation=tset.VelocityInterpolation.LINEAR_WEIGHTED,
+        pressure_interpolation=tset.PressureInterpolation.LINEAR_WEIGHTED,
+    )
+    with pytest.raises(NotImplementedError):
+        _momentum(T, ts)

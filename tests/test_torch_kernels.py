@@ -1,0 +1,315 @@
+"""The port's four kernel modules against orc_tpu's Pallas kernels.
+
+On CPU each wrapper runs its plain torch version; those are held
+against the JAX kernels run as orc_tpu's own tests run them (Pallas
+interpret mode) and against the XLA formulations they replace:
+- shift_spmv vs pallas_spmv.shift_spmv(interpret=True) and the shift
+  branch of spmv.ell_spmv;
+- fused_jacobi_sweeps vs pallas_smooth._fused_batched(interpret=True)
+  (float32) and sweeps_xla (float64), on the offset patterns of
+  tests/test_pallas_smooth.py;
+- momentum_assembly / pc_assembly vs pallas_assembly's kernels
+  (interpret=True) and the ck oracle, UD and CD1, on the cases of
+  tests/test_pallas_assembly.py.
+Tolerances: float64 rtol 1e-12 (same arithmetic, only sum order and
+FMA contraction may differ); float32 rtol 2e-6 as orc_tpu's smoother
+and SpMV tests use. Absolute floors scale with the reference magnitude,
+for entries that cancel to roundoff.
+
+The CUDA kernels themselves are checked against these plain versions
+on the card by tests/test_torch_gpu.py.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from torch_parity import (
+    CASES,
+    DTYPES,
+    both,
+    cell_fields,
+    np_,
+    structured_system,
+)
+
+import jax.numpy as jnp
+from orc_tpu.mesh.generate import structured_box_mesh as jbox
+from orc_tpu.ops import ck_ops as jck
+from orc_tpu.ops import pallas_assembly as jasm
+from orc_tpu.ops.fields import device_bc as jdevice_bc
+from orc_tpu.ops.pallas_smooth import _fused_batched, sweeps_xla
+from orc_tpu.ops.pallas_spmv import shift_spmv as j_shift_spmv
+from orc_tpu.ops.spmv import ell_spmv as j_ell_spmv
+
+from orc_tpu_torch.ops import _cuda
+from orc_tpu_torch.ops import fused_assembly as tasm
+from orc_tpu_torch.ops import ck_ops as tck
+from orc_tpu_torch.ops.fields import device_bc as tdevice_bc
+from orc_tpu_torch.ops.fused_smooth import fused_jacobi_sweeps
+from orc_tpu_torch.ops.shift_spmv import shift_spmv, shift_spmv_plain
+
+TOL = {"f64": 1e-12, "f32": 2e-6}
+
+
+def _close(actual, desired, rtol, name=""):
+    d = np_(desired)
+    np.testing.assert_allclose(
+        np_(actual), d, rtol=rtol, atol=rtol * float(np.max(np.abs(d))),
+        err_msg=name,
+    )
+
+
+# --- kernel 1: shift_spmv ---------------------------------------------
+
+
+def _box_system(dims, dtype, seed=0):
+    """Seeded structured system on an orc_tpu box: off is zero wherever
+    a column is not an interior face (the EllMatrix offsets contract)."""
+    mesh, _ = jbox(*dims)
+    interior = np.asarray(
+        mesh.face_interior[mesh.cell_faces] & mesh.cell_face_mask
+    )
+    C, K = interior.shape
+    rng = np.random.default_rng(seed)
+    off = rng.standard_normal((C, K)) * interior
+    diag = rng.standard_normal(C)
+    x = rng.standard_normal((3, C))
+    return mesh.neighbor_offsets, diag, off, x
+
+
+@pytest.mark.parametrize("dtype", ["f64", "f32"])
+@pytest.mark.parametrize("dims", [(17, 9, 3), (5, 4, 1), (40, 11, 2)])
+def test_shift_spmv_matches_pallas_kernel(dims, dtype):
+    offsets, diag, off, x = _box_system(dims, dtype)
+    jd, td = DTYPES[dtype]
+    y_pal = j_shift_spmv(
+        jnp.asarray(diag, jd), jnp.asarray(off, jd), offsets,
+        jnp.asarray(x[0], jd), interpret=True,
+    )
+    y = shift_spmv(
+        torch.tensor(diag, dtype=td), torch.tensor(off, dtype=td), offsets,
+        torch.tensor(x[0], dtype=td),
+    )
+    _close(y, y_pal, TOL[dtype])
+
+
+def test_shift_spmv_multiblock_offsets():
+    """Offsets crossing the TPU kernel's lane and block boundaries."""
+    C = 128 * 300
+    offsets = (-130, -1, 1, 130, 0, 0)
+    diag, off, _b, x = structured_system(C, offsets, seed=1)
+    y_pal = j_shift_spmv(
+        jnp.asarray(diag), jnp.asarray(off), offsets, jnp.asarray(x),
+        interpret=True,
+    )
+    y = shift_spmv(
+        torch.tensor(diag), torch.tensor(off), offsets, torch.tensor(x)
+    )
+    _close(y, y_pal, TOL["f64"])
+
+
+@pytest.mark.parametrize("form", ["ck", "split"])
+def test_shift_spmv_batched_matches_ell_spmv(form):
+    """[3,C] right-hand sides over one shared matrix, in the [C,K] and
+    the split-column forms, against orc_tpu's XLA shift SpMV."""
+    offsets, diag, off, x = _box_system((12, 7, 2), "f64", seed=2)
+    y_ref = j_ell_spmv(
+        jnp.asarray(diag), jnp.asarray(off), None, jnp.asarray(x), offsets
+    )
+    toff = torch.tensor(off)
+    if form == "split":
+        toff = tuple(toff[:, k] for k in range(toff.shape[1]))
+    y = shift_spmv(torch.tensor(diag), toff, offsets, torch.tensor(x))
+    assert y.shape == (3, diag.shape[0])
+    _close(y, y_ref, TOL["f64"])
+
+
+def test_cpu_tensors_take_the_plain_version():
+    offsets, diag, off, x = _box_system((6, 5, 1), "f64")
+    before = shift_spmv.launches
+    args = (torch.tensor(diag), torch.tensor(off), offsets, torch.tensor(x))
+    assert torch.equal(shift_spmv(*args), shift_spmv_plain(*args))
+    assert shift_spmv.launches == before
+
+
+# --- kernel 4: fused_jacobi_sweeps --------------------------------------
+
+SMOOTH_CASES = [
+    ((-40, -1, 1, 40), 1),
+    ((-40, -1, 1, 40), 6),
+    ((-40, -1, 1, 40, 0, 0), 4),  # 2D mesh with padded K=6 slots
+    ((-1600, -40, -1, 1, 40, 1600), 3),  # 3D-like pattern
+    ((-130, -1, 1, 130), 5),  # |d| > 128: multi-row halo on the TPU
+]
+
+
+@pytest.mark.parametrize("dtype", ["f64", "f32"])
+@pytest.mark.parametrize("offsets,sweeps", SMOOTH_CASES)
+def test_sweeps_match_pallas_kernel(offsets, sweeps, dtype):
+    """float32 against the interpret-mode kernel (the dtype orc_tpu's
+    own test uses), float64 against sweeps_xla (the formulation the
+    kernel reproduces; interpret-mode compiles cost ~3 s per case)."""
+    C = 2100
+    jd, td = DTYPES[dtype]
+    diag, off, b, x0 = structured_system(C, offsets, B=3, seed=1)
+    jdiag, jb, jx0 = (jnp.asarray(a, jd) for a in (diag, b, x0))
+    if dtype == "f32":
+        cols = tuple(jnp.asarray(off[:, k], jd) for k in range(off.shape[1]))
+        y_ref = _fused_batched(
+            jdiag, cols, jb, jx0, offsets=offsets, sweeps=sweeps,
+            relaxation=0.8, interpret=True,
+        )
+    else:
+        y_ref = sweeps_xla(
+            jdiag, jnp.asarray(off, jd), offsets, jb, jx0, sweeps, 0.8
+        )
+    y = fused_jacobi_sweeps(
+        torch.tensor(diag, dtype=td), torch.tensor(off, dtype=td), offsets,
+        torch.tensor(b, dtype=td), torch.tensor(x0, dtype=td), sweeps, 0.8,
+    )
+    _close(y, y_ref, TOL[dtype])
+
+
+@pytest.mark.parametrize("split", [False, True], ids=["ck", "split"])
+def test_sweeps_match_xla_loop(split):
+    offsets = (-64, -1, 1, 64)
+    diag, off, b, x0 = structured_system(4096, offsets, seed=2)
+    y_ref = sweeps_xla(
+        jnp.asarray(diag), jnp.asarray(off), offsets, jnp.asarray(b),
+        jnp.asarray(x0), 4, 0.7,
+    )
+    toff = torch.tensor(off)
+    if split:
+        toff = tuple(toff[:, k] for k in range(toff.shape[1]))
+    before = fused_jacobi_sweeps.launches
+    y = fused_jacobi_sweeps(
+        torch.tensor(diag), toff, offsets, torch.tensor(b), torch.tensor(x0),
+        4, 0.7,
+    )
+    _close(y, y_ref, TOL["f64"])
+    assert fused_jacobi_sweeps.launches == before
+
+
+# --- kernels 2 and 3: momentum_assembly / pc_assembly -------------------
+
+
+def _asm_inputs(case, dtype):
+    """Both packages' kernel inputs for one case: (cols, flags, bc
+    values) and seeded fields."""
+    jd, td = DTYPES[dtype]
+    (mj, tj), (mt, tt) = both(case, dtype)
+    vel, p, md = cell_fields(mj.n_cells)
+    out = {}
+    for tag, mesh, table, ops, dbc, asm, arr in (
+        ("jax", mj, tj, jck, jdevice_bc, jasm, lambda a: jnp.asarray(a, jd)),
+        ("torch", mt, tt, tck, tdevice_bc, tasm,
+         lambda a: torch.tensor(a, dtype=td)),
+    ):
+        zc, zs, zv = dbc(table, dtype=jd if tag == "jax" else td)
+        ck = ops.build_ck_geometry(mesh, len(table.zone_ids))
+        out[tag] = dict(
+            cols=asm.column_specs(mesh, table),
+            flags=asm.pack_flags(ck.interior, ck.mask),
+            bcv=asm.bc_value_table(zs, zv),
+            vel=arr(vel), p=arr(p), md=arr(md),
+            vol=float(mesh.cell_volume[0]),
+        )
+    return out["jax"], out["torch"]
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_assembly_inputs_match(case):
+    J, T = _asm_inputs(case, "f64")
+    assert tuple(T["cols"]) == tuple(tuple(c) for c in J["cols"])
+    np.testing.assert_array_equal(np_(T["flags"]), np_(J["flags"]))
+    np.testing.assert_array_equal(np_(T["bcv"]), np_(J["bcv"]))
+
+
+@pytest.mark.parametrize("scheme", ["ud", "cd1"])
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_momentum_assembly_matches_pallas_kernel(case, scheme):
+    J, T = _asm_inputs(case, "f64")
+    ref = jasm.momentum_assembly(
+        J["vel"], J["p"], J["bcv"], J["flags"], J["cols"], 1.0, 1e-3, 0.7,
+        mom_diag=J["md"], spec=jasm.AsmSpec(scheme=scheme, vol=J["vol"]),
+        interpret=True,
+    )
+    got = tasm.momentum_assembly(
+        T["vel"], T["p"], T["bcv"], T["flags"], T["cols"], 1.0, 1e-3, 0.7,
+        mom_diag=T["md"], spec=tasm.AsmSpec(scheme=scheme),
+    )
+    for name, a, b in zip(("diag", "off", "b"), got, ref):
+        assert tuple(a.shape) == b.shape, name
+        _close(a, b, TOL["f64"], name)
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_pc_assembly_matches_pallas_kernel(case):
+    J, T = _asm_inputs(case, "f64")
+    ref = jasm.pc_assembly(
+        J["vel"], J["md"], J["bcv"], J["flags"], J["cols"], 1.0,
+        spec=jasm.AsmSpec(vol=J["vol"]), interpret=True,
+    )
+    got = tasm.pc_assembly(
+        T["vel"], T["md"], T["bcv"], T["flags"], T["cols"], 1.0,
+        spec=tasm.AsmSpec(),
+    )
+    for name, a, b in zip(("diag", "off", "b"), got, ref):
+        assert tuple(a.shape) == b.shape, name
+        _close(a, b, TOL["f64"], name)
+
+
+@pytest.mark.parametrize("scheme", ["ud", "cd1"])
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_momentum_assembly_matches_ck_oracle(case, scheme):
+    """The plain version against orc_tpu's ck path under the settings
+    the kernel gate admits (LinearWeighted faces, implicit relaxation)."""
+    J, T = _asm_inputs(case, "f64")
+    (mj, tj), _ = both(case)
+    zc, zs, zv = jdevice_bc(tj)
+    ck = jck.build_ck_geometry(mj, len(tj.zone_ids))
+    bc = jck.ck_bc(ck, zc, zs, zv)
+    from orc_tpu.utils import settings as js
+
+    settings = js.NumericalSettings(
+        momentum=js.MomentumScheme(scheme),
+        velocity_interpolation=js.VelocityInterpolation.LINEAR_WEIGHTED,
+        pressure_interpolation=js.PressureInterpolation.LINEAR_WEIGHTED,
+        relaxation_mode=js.RelaxationMode.IMPLICIT,
+        momentum_relaxation=0.7,
+    )
+    flux = jck.ck_flux(mj, ck, bc, J["vel"], settings.velocity_interpolation)
+    p_f = jck.ck_face_pressure(mj, ck, bc, J["p"], settings.pressure_interpolation)
+    diff = jck.ck_diffusion(mj, ck, bc, jnp.asarray(1e-3))
+    A, b, _ = jck.ck_momentum(
+        mj, ck, bc, settings, 1.0, J["vel"], flux * ck.area, p_f, *diff
+    )
+    got = tasm.momentum_assembly(
+        T["vel"], T["p"], T["bcv"], T["flags"], T["cols"], 1.0, 1e-3, 0.7,
+        spec=tasm.AsmSpec(scheme=scheme),
+    )
+    for name, a, r in zip(("diag", "off", "b"), got, (A.diag, A.off, b)):
+        _close(a, r, TOL["f64"], name)
+
+
+@pytest.mark.parametrize(
+    "spec",
+    [dict(scheme="tvd_dc"), dict(rc=True), dict(p_so=True)],
+    ids=["tvd_dc", "rc", "p_so"],
+)
+def test_unported_assembly_branches_raise(spec):
+    _, T = _asm_inputs("cavity", "f64")
+    with pytest.raises(NotImplementedError):
+        tasm.momentum_assembly(
+            T["vel"], T["p"], T["bcv"], T["flags"], T["cols"], 1.0, 1e-3, 0.7,
+            spec=tasm.AsmSpec(**spec),
+        )
+
+
+def test_failed_build_raises(monkeypatch):
+    """No nvcc: the loader raises instead of falling back."""
+    monkeypatch.setattr(_cuda.shutil, "which", lambda name: None)
+    monkeypatch.setattr(_cuda.os.path, "exists", lambda path: False)
+    with pytest.raises(RuntimeError, match="nvcc"):
+        _cuda.build()
