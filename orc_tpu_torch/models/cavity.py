@@ -61,6 +61,40 @@ def default_settings():
     )
 
 
+def flagship_settings():
+    """The numerics of orc_tpu's Ghia Re=1000 flagship
+    (tests/test_cavity.py): TVD_DC momentum with the UMIST limiter,
+    Rhie-Chow face fluxes, LinearWeighted face pressures, implicit
+    relaxation (alpha_u 0.6, alpha_p 0.03), Jacobi-preconditioned
+    BiCGSTAB(50). AUTO resolves them to SIMPLE_FC."""
+    from orc_tpu_torch.utils.settings import (
+        MatrixSolverSettings,
+        MomentumScheme,
+        NumericalSettings,
+        PreconditionMethod,
+        PressureInterpolation,
+        RelaxationMode,
+        SolutionMethod,
+        VelocityInterpolation,
+        tvd_umist,
+    )
+
+    return NumericalSettings(
+        momentum=MomentumScheme.TVD_DC,
+        tvd_psi=tvd_umist,
+        pressure_interpolation=PressureInterpolation.LINEAR_WEIGHTED,
+        velocity_interpolation=VelocityInterpolation.RHIE_CHOW,
+        pressure_relaxation=0.03,
+        momentum_relaxation=0.6,
+        relaxation_mode=RelaxationMode.IMPLICIT,
+        matrix_solver=MatrixSolverSettings(
+            solver_type=SolutionMethod.BICGSTAB,
+            iterations=50,
+            preconditioner=PreconditionMethod.JACOBI,
+        ),
+    )
+
+
 def solve_cavity(
     n: int = 32,
     reynolds: float = 100.0,

@@ -1,12 +1,14 @@
 """Build, load and call the port's CUDA kernels.
 
-Every source under ``orc_tpu_torch/csrc/`` compiles with one ``nvcc``
-call for Hopper (``sm_90a``) into a shared library with a plain C
-interface, ``build/orc_tpu_torch/liborc_tpu_torch.so`` beside the
-package, at first use; a source newer than the library triggers a
-rebuild. The library is loaded with ctypes. A failed build raises with
-nvcc's stderr and a failed load raises the loader's error: there is no
-fallback to another implementation.
+Every source under ``orc_tpu_torch/csrc/`` compiles for Hopper
+(``sm_90a``), one ``nvcc`` process per source, all started together,
+and the objects link into a shared library with a plain C interface,
+``build/orc_tpu_torch/liborc_tpu_torch.so`` beside the package, at first
+use; a source newer than the library triggers a rebuild. ptxas reports
+each kernel's registers and spills into ``build/orc_tpu_torch/ptxas.log``.
+The library is loaded with ctypes. A failed build raises with nvcc's
+stderr and a failed load raises the loader's error: there is no fallback
+to another implementation.
 
 Each C entry point takes the dtype code, device pointers and the CUDA
 stream as ``void*``, launches on that stream without synchronising, and
@@ -29,9 +31,10 @@ PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR.parent / "build" / "orc_tpu_torch"
 LIB_PATH = BUILD_DIR / "liborc_tpu_torch.so"
+PTXAS_LOG = BUILD_DIR / "ptxas.log"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 #: Kernel-argument capacity for ELL columns (csrc/common.cuh MAX_K).
 MAX_K = 8
@@ -68,6 +71,20 @@ SIGNATURES = {
         _i, _pll, _pd, _pi, _pi, _i, _p, _p, _p, _p, _d, _p, _p, _p, _ll,
         _p,
     ),
+    # dtype, scheme, limiter, p_so, col_offsets, col_geom[K*6], col_kind,
+    # col_zone, K, vel, p, flux planes, grad_p, grad_vel, bc, flags, rho,
+    # mu, alpha, diag, off, b, C, stream
+    "orc_fc_momentum_assembly": (
+        _i, _i, _i, _i, _pll, _pd, _pi, _pi, _i, _p, _p, _p, _p, _p, _p, _p,
+        _d, _d, _d, _p, _p, _p, _ll, _p,
+    ),
+    # dtype, rc, col_offsets, col_geom[K*6], col_kind, col_zone, K, vel,
+    # mom_diag, grad_p, bc, flags, rho, vol, diag, off, b, flux_h, C,
+    # stream
+    "orc_fc_pc_assembly": (
+        _i, _i, _pll, _pd, _pi, _pi, _i, _p, _p, _p, _p, _p, _d, _d, _p, _p,
+        _p, _p, _ll, _p,
+    ),
 }
 
 
@@ -83,9 +100,30 @@ def is_stale() -> bool:
     return any(s.stat().st_mtime > built for s in _sources())
 
 
+def _run(cmds):
+    """Run the commands concurrently and wait for all of them; raise
+    RuntimeError with the output of the first that failed. Returns
+    their stderr."""
+    procs = [
+        subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True
+        )
+        for cmd in cmds
+    ]
+    outs = [proc.communicate() for proc in procs]
+    for cmd, proc, (out, err) in zip(cmds, procs, outs):
+        if proc.returncode != 0:
+            raise RuntimeError(
+                f"nvcc failed with exit code {proc.returncode}:\n"
+                f"{' '.join(cmd)}\n{err}{out}"
+            )
+    return [err for _out, err in outs]
+
+
 def build() -> float:
-    """Compile every csrc/*.cu into the library; returns the seconds
-    nvcc took. Raises RuntimeError with nvcc's stderr on failure."""
+    """Compile every csrc/*.cu (in parallel) and link the library;
+    returns the seconds nvcc took. Raises RuntimeError with nvcc's
+    stderr on failure."""
     nvcc = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     if not os.path.exists(nvcc):
         raise RuntimeError(
@@ -93,18 +131,23 @@ def build() -> float:
             "port's CUDA kernels cannot be built"
         )
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = BUILD_DIR / f"liborc_tpu_torch.{os.getpid()}.tmp.so"
-    cmd = [
-        nvcc, *NVCC_FLAGS, f"-I{CSRC_DIR}", "-o", str(tmp),
-        *(str(s) for s in sorted(CSRC_DIR.glob("*.cu"))),
-    ]
+    tag = os.getpid()
+    sources = sorted(CSRC_DIR.glob("*.cu"))
+    objects = [BUILD_DIR / f"{s.stem}.{tag}.o" for s in sources]
+    tmp = BUILD_DIR / f"liborc_tpu_torch.{tag}.tmp.so"
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed with exit code {proc.returncode}:\n"
-            f"{' '.join(cmd)}\n{proc.stderr}{proc.stdout}"
-        )
+    try:
+        logs = _run([
+            [nvcc, *NVCC_FLAGS, "-Xptxas=-v", f"-I{CSRC_DIR}", "-c",
+             "-o", str(o), str(s)]
+            for s, o in zip(sources, objects)
+        ])
+        PTXAS_LOG.write_text("".join(logs))
+        _run([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+               *(str(o) for o in objects)]])
+    finally:
+        for o in objects:
+            o.unlink(missing_ok=True)
     os.replace(tmp, LIB_PATH)
     return time.perf_counter() - t0
 

@@ -10,10 +10,11 @@ packages agree to roundoff.
 Ported: `UniformCKGeometry` (uniform structured boxes), the shift branch
 of `nbr_values`, `zone_sel`, `CKBC`/`ck_bc`, `ck_face_pressure`
 (Linear, LinearWeighted, SecondOrder), `ck_flux` (Linear,
-LinearWeighted, Rhie-Chow), `ck_pressure_gradient` (Green-Gauss cell),
-`ck_diffusion`, `ck_momentum` (UD, CD1), `ck_pressure_correction`,
-`ck_apply_correction`. Other schemes, irregular meshes and the expanded
-`CKGeometry` raise NotImplementedError (ROADMAP Queue 1, item 5).
+LinearWeighted, Rhie-Chow), `ck_pressure_gradient` and
+`ck_velocity_gradient` (Green-Gauss cell), `ck_diffusion`, `ck_momentum`
+(UD, CD1, TVD_DC), `ck_pressure_correction`, `ck_apply_correction`.
+Other schemes, irregular meshes and the expanded `CKGeometry` raise
+NotImplementedError (ROADMAP Queue 1, item 5).
 """
 
 from __future__ import annotations
@@ -293,6 +294,21 @@ def ck_pressure_gradient(mesh, ck, bc: CKBC, p):
     return torch.sum((wgt * pf)[..., None] * ck.n_out, dim=1)
 
 
+def ck_velocity_gradient(mesh, ck, bc: CKBC, vel, vel_nbr=None):
+    """Green-Gauss velocity gradient [C,3,3] (row i = grad of component
+    i): Dirichlet-velocity faces take the BC vector, interior faces the
+    mean of the two cells, other boundary faces the cell's own value."""
+    v_c = vel[:, None, :]
+    v_n = vel_nbr if vel_nbr is not None else nbr_values(mesh, vel, ck.interior)
+    vf = torch.where(
+        bc.is_dirichlet_vel[..., None],
+        bc.vector,
+        torch.where(ck.interior[..., None], 0.5 * (v_c + v_n), v_c),
+    )
+    wgt = (ck.area / mesh.cell_volume[:, None])[..., None, None]
+    return torch.sum(wgt * vf[..., :, None] * ck.n_out[..., None, :], dim=1)
+
+
 def ck_diffusion(mesh, ck, bc: CKBC, mu):
     """Diffusion contributions (diag [C], off [C,K], b [C,3])."""
     area = ck.area
@@ -312,18 +328,27 @@ def ck_diffusion(mesh, ck, bc: CKBC, mu):
 
 def ck_momentum(
     mesh, ck, bc: CKBC, settings: NumericalSettings, rho,
-    vel, F, p_f, diff_diag, diff_off, diff_b,
+    vel, F, p_f, diff_diag, diff_off, diff_b, grad_vel=None, vel_nbr=None,
 ):
     """Shared-matrix momentum system (diag [C], off [C,K]) and RHS
     [3,C] from per-(c,k) mass flows F = flux * area * rho, plus the
-    per-cell Peclet estimate [C,3]. UD and CD1 only; the other schemes
-    (CD2, TVD, TVD_DC), momentum sources and the transient inertia term
-    are not ported yet."""
+    per-cell Peclet estimate [C,3]. UD, CD1 and TVD_DC (the implicit UD
+    matrix plus an explicit limited correction from the upwind side,
+    which needs `grad_vel` [C,3,3] and settings.tvd_psi). CD2, TVD,
+    momentum sources and the transient inertia term are not ported yet."""
     scheme = settings.momentum
+    s_dc = None
     if scheme == MomentumScheme.UD:
         a_nb = torch.clamp(F, max=0.0)
     elif scheme == MomentumScheme.CD1:
         a_nb = F / 2.0
+    elif scheme == MomentumScheme.TVD_DC:
+        if settings.tvd_psi is None or grad_vel is None:
+            raise ValueError("TVD_DC momentum requires tvd_psi and grad_vel")
+        a_nb = torch.clamp(F, max=0.0)  # the UD matrix, shared
+        s_dc = _tvd_dc_source(
+            mesh, ck, settings.tvd_psi, vel, F, grad_vel, vel_nbr
+        )
     else:
         raise NotImplementedError(
             f"momentum scheme {scheme} is not ported yet (ROADMAP Queue 1, "
@@ -350,6 +375,8 @@ def ck_momentum(
         ),
         dim=1,
     )
+    if s_dc is not None:
+        s_u = s_u + s_dc
     active = mask.any(dim=1)
     off = torch.where(ck.interior, a_nb + diff_off, zero)  # [C,K]
     diag = a_p + diff_diag  # [C]
@@ -371,6 +398,30 @@ def ck_momentum(
         diag=diag, off=off, neighbors=None, offsets=mesh.neighbor_offsets
     )
     return A, b.T, pe
+
+
+def _tvd_dc_source(mesh, ck, psi, vel, F, grad_vel, vel_nbr):
+    """Deferred-correction source [C,3] of TVD_DC: on each interior face
+    the limited increment psi(r)/2 (phi_D - phi_U) from the upwind side,
+    r = 2 grad_U . r_UD / (phi_D - phi_U) - 1; faces where
+    phi_D == phi_U take no correction."""
+    Fv = F[..., None]
+    v_c = vel[:, None, :]
+    v_n = vel_nbr if vel_nbr is not None else nbr_values(mesh, vel, ck.interior)
+    g_n = nbr_values(mesh, grad_vel, ck.interior)
+    zero = _zero_like(F)
+    one = torch.ones((), dtype=F.dtype, device=F.device)
+    d_cd = v_n - v_c
+    up_is_c = Fv > 0
+    delta = torch.where(up_is_c, d_cd, -d_cd)  # phi_D - phi_U
+    r_on = ck.r_on
+    g_c = torch.einsum("cij,ckj->cki", grad_vel, r_on)
+    g_nb = -torch.sum(g_n * r_on[..., None, :], dim=-1)
+    gdotr = torch.where(up_is_c, g_c, g_nb)  # grad_U . r_UD
+    safe = torch.where(delta == 0.0, one, delta)
+    r = 2.0 * gdotr / safe - 1.0
+    corr = torch.where(delta == 0.0, zero, psi(r) / 2.0 * delta)
+    return -torch.sum(torch.where(ck.interior[..., None], Fv * corr, zero), dim=1)
 
 
 def ck_pressure_correction(mesh, ck, bc: CKBC, rho, F2, mom_diag, mom_diag_nbr=None):

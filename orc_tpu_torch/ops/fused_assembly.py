@@ -1,22 +1,34 @@
-"""Kernels 2 and 3: fused momentum and pressure-correction assembly.
+"""Fused momentum and pressure assembly kernels, parity SIMPLE and
+SIMPLE_FC.
 
-Replaces orc_tpu/ops/pallas_assembly.py `_momentum_kernel` (via
-`momentum_assembly` -> `_momentum_asm`) and `_pc_kernel` (via
-`pc_assembly`). One pass over the cell fields of a uniform structured
-box writes the shared momentum matrix (diag [C], off [C,K]) with its
-three right-hand sides, or the pressure-correction system, keeping
-every per-face intermediate in registers. On the card the wrappers
-launch the CUDA kernels of ``csrc/assembly.cu``; on CPU tensors they run
-the plain versions, which compose the ported ck ops
-(`ck_flux`, `ck_face_pressure`, `ck_diffusion`, `ck_momentum`,
-`ck_pressure_correction`) — the oracle orc_tpu pins its kernels
-against — and return the kernels' output format.
+Replaces orc_tpu/ops/pallas_assembly.py:
+- `_momentum_kernel`, parity branch (via `momentum_assembly` ->
+  `_momentum_asm`) -> `momentum_assembly`;
+- `_pc_kernel` (via `pc_assembly`) -> `pc_assembly`;
+- `_momentum_kernel`, SIMPLE_FC branch (via `fc_momentum_assembly`) ->
+  `fc_momentum_assembly`;
+- `_fc_pc_kernel` (via `fc_pc_assembly`) -> `fc_pc_assembly`.
 
-Covered here: UD / CD1 advection, Linear[Weighted] face velocities and
-pressures, implicit relaxation. The Rhie-Chow, SecondOrder, in-kernel
-Green-Gauss, TVD_DC, transient and SIMPLE_FC branches of the TPU
-kernels are ROADMAP Queue 2 work; the wrappers refuse the specs that
-name them.
+One pass over the cell fields of a uniform structured box writes the
+shared momentum matrix (diag [C], off [C,K]) with its three right-hand
+sides, or the pressure(-correction) system, keeping every per-face
+intermediate in registers. On the card the wrappers launch the CUDA
+kernels of ``csrc/assembly.cu``; on CPU tensors they run the plain
+versions, which compose the ported ck ops (the oracle orc_tpu pins its
+kernels against) and return the kernels' output format.
+
+Covered:
+- parity kernels: UD / CD1 advection, Linear[Weighted] face velocities
+  and pressures, implicit relaxation. Their Rhie-Chow, SecondOrder,
+  in-kernel Green-Gauss, TVD_DC and transient branches are ROADMAP
+  Queue 2 item 4a; the parity wrappers refuse the specs that name them.
+- SIMPLE_FC kernels: UD / CD1 / TVD_DC advection with the stored flux,
+  Linear[Weighted] or SecondOrder face pressures from a streamed grad p,
+  the Rhie-Chow term3 of the flux predictor, implicit relaxation. A CUDA
+  kernel takes no Python callable, so the TVD limiter `AsmSpec.psi`
+  travels as a code (`LIMITER_CODES`: tvd_lud, tvd_quick, tvd_umist);
+  the kernel gate returns None for any other limiter. The transient
+  inertia term (ROADMAP Queue 1, item 10) raises.
 """
 
 from __future__ import annotations
@@ -35,6 +47,7 @@ from orc_tpu_torch.ops.ck_ops import (
     ck_flux,
     ck_momentum,
     ck_pressure_correction,
+    nbr_values,
 )
 from orc_tpu_torch.ops.fields import (
     INTERIOR,
@@ -49,6 +62,9 @@ from orc_tpu_torch.utils.settings import (
     PressureInterpolation,
     RelaxationMode,
     VelocityInterpolation,
+    tvd_lud,
+    tvd_quick,
+    tvd_umist,
 )
 
 
@@ -65,17 +81,23 @@ class ColumnSpec(NamedTuple):
 
 
 class AsmSpec(NamedTuple):
-    """Static scheme selection, as orc_tpu's AsmSpec; the kernels take
-    scheme "ud" / "cd1" with Linear[Weighted] faces (rc, p_so False)."""
+    """Static scheme selection, as orc_tpu's AsmSpec. The parity kernels
+    take scheme "ud" / "cd1" with rc and p_so False; the SIMPLE_FC
+    kernels also take "tvd_dc", rc and p_so."""
 
-    scheme: str = "ud"  # "ud" | "cd1"
+    scheme: str = "ud"  # "ud" | "cd1" | "tvd_dc"
     rc: bool = False  # Rhie-Chow face fluxes (else Linear[Weighted])
     p_so: bool = False  # SecondOrder face pressures (else Linear[W])
+    psi: object = None  # TVD limiter (tvd_dc only), a key of LIMITER_CODES
+    vol: float = 0.0  # uniform cell volume (the FC d-coefficients)
 
 
 ACTIVE_BIT = 6  # flag bit marking real (non-padded) cells
 _KINDS = ("wall", "symmetry", "pressure", "vinlet")  # csrc/assembly.cu Kind
-_SCHEMES = {"ud": 0, "cd1": 1}
+_SCHEMES = {"ud": 0, "cd1": 1, "tvd_dc": 2}
+#: TVD limiters the SIMPLE_FC momentum kernel evaluates, by code
+#: (csrc/assembly.cu `tvd_psi`).
+LIMITER_CODES = {tvd_lud: 0, tvd_quick: 1, tvd_umist: 2}
 
 
 def pack_flags(interior, mask):
@@ -148,9 +170,10 @@ def bc_value_table(zone_scalar, zone_vector):
 
 
 class _Box(NamedTuple):
-    """The one mesh attribute the ck ops read on this path."""
+    """The mesh attributes the ck ops read on this path."""
 
     neighbor_offsets: tuple
+    cell_volume: "torch.Tensor | None" = None  # read by the FC flux model
 
 
 def _ck_from_columns(flags, cols, bc_values):
@@ -193,11 +216,36 @@ def _ck_from_columns(flags, cols, bc_values):
 
 
 def _check_spec(spec: AsmSpec):
-    if spec.scheme not in _SCHEMES or spec.rc or spec.p_so:
+    if spec.scheme not in ("ud", "cd1") or spec.rc or spec.p_so:
         raise NotImplementedError(
             f"assembly branch {spec} is not ported yet (ROADMAP Queue 2, "
-            "items 2-3): only UD/CD1 with Linear[Weighted] faces"
+            "item 4a): only UD/CD1 with Linear[Weighted] faces"
         )
+
+
+def _check_fc_spec(spec: AsmSpec, inertia=None):
+    if spec.scheme not in _SCHEMES:
+        raise ValueError(f"unknown momentum scheme {spec.scheme!r}")
+    if spec.scheme == "tvd_dc" and spec.psi is None:
+        raise ValueError("the tvd_dc scheme needs a limiter spec.psi")
+    if inertia is not None:
+        raise NotImplementedError(
+            "the transient SIMPLE_FC assembly is not ported yet (ROADMAP "
+            "Queue 1, item 10)"
+        )
+
+
+def _settings_of(spec: AsmSpec, alpha) -> NumericalSettings:
+    return NumericalSettings(
+        momentum={
+            "ud": MomentumScheme.UD,
+            "cd1": MomentumScheme.CD1,
+            "tvd_dc": MomentumScheme.TVD_DC,
+        }[spec.scheme],
+        tvd_psi=spec.psi,
+        relaxation_mode=RelaxationMode.IMPLICIT,
+        momentum_relaxation=float(alpha),
+    )
 
 
 def momentum_assembly_plain(
@@ -211,11 +259,7 @@ def momentum_assembly_plain(
     F = flux * ck.area * rho
     p_f = ck_face_pressure(box, ck, bc, p, PressureInterpolation.LINEAR)
     diff = ck_diffusion(box, ck, bc, mu)
-    settings = NumericalSettings(
-        momentum=MomentumScheme.UD if spec.scheme == "ud" else MomentumScheme.CD1,
-        relaxation_mode=RelaxationMode.IMPLICIT,
-        momentum_relaxation=float(alpha),
-    )
+    settings = _settings_of(spec, alpha)
     A, b, _pe = ck_momentum(box, ck, bc, settings, rho, vel, F, p_f, *diff)
     return A.diag, A.off, b
 
@@ -231,6 +275,56 @@ def pc_assembly_plain(
     md3 = mom_diag[:, None].expand(-1, 3)
     P, b = ck_pressure_correction(box, ck, bc, rho, F2, md3)
     return P.diag, P.off, b
+
+
+def fc_momentum_assembly_plain(
+    vel, p, flux, bc_values, flags, cols, rho, mu, alpha, grad_p=None,
+    grad_vel=None, inertia=None, spec: AsmSpec = AsmSpec(),
+):
+    """Plain torch SIMPLE_FC momentum assembly: ck_momentum fed with the
+    stored flux, F = flux * area * rho -> (diag [C], off [C,K], b [3,C])."""
+    _check_fc_spec(spec, inertia)
+    box, ck, bc = _ck_from_columns(flags, cols, bc_values)
+    F = flux * ck.area * rho
+    if spec.p_so:
+        p_f = ck_face_pressure(
+            box, ck, bc, p, PressureInterpolation.SECOND_ORDER,
+            grad_p=grad_p, grad_p_nbr=nbr_values(box, grad_p, ck.interior),
+        )
+    else:
+        p_f = ck_face_pressure(box, ck, bc, p, PressureInterpolation.LINEAR)
+    diff = ck_diffusion(box, ck, bc, mu)
+    A, b, _pe = ck_momentum(
+        box, ck, bc, _settings_of(spec, alpha), rho, vel, F, p_f, *diff,
+        grad_vel=grad_vel,
+    )
+    return A.diag, A.off, b
+
+
+def fc_pc_assembly_plain(
+    vel, mom_diag, bc_values, flags, cols, rho, grad_p=None,
+    spec: AsmSpec = AsmSpec(),
+):
+    """Plain torch SIMPLE_FC full-p assembly: ck_flux_h + ck_d_coeffs +
+    ck_fc_pressure_system -> (diag [C], off [C,K], b [C], flux_h [C,K])."""
+    from orc_tpu_torch.solver.fc import (
+        ck_d_coeffs,
+        ck_fc_pressure_system,
+        ck_flux_h,
+    )
+
+    _check_fc_spec(spec)
+    box, ck, bc = _ck_from_columns(flags, cols, bc_values)
+    box = box._replace(cell_volume=torch.full_like(mom_diag, spec.vol))
+    md3 = mom_diag[:, None].expand(-1, 3)
+    scheme = (
+        VelocityInterpolation.RHIE_CHOW if spec.rc
+        else VelocityInterpolation.LINEAR
+    )
+    flux_h = ck_flux_h(box, ck, bc, vel, scheme, grad_p=grad_p, mom_diag=md3)
+    d_ck = ck_d_coeffs(box, ck, bc, rho, md3)
+    P, b = ck_fc_pressure_system(box, ck, bc, rho, flux_h, d_ck)
+    return P.diag, P.off, b, flux_h
 
 
 # --- kernel wrappers --------------------------------------------------
@@ -302,6 +396,126 @@ def momentum_assembly(
     return diag, off.T, b
 
 
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def fc_momentum_assembly(
+    vel, p, flux, bc_values, flags, cols: tuple, rho, mu, alpha,
+    grad_p=None, grad_vel=None, inertia=None, spec: AsmSpec = AsmSpec(),
+):
+    """SIMPLE_FC fused momentum assembly on a uniform box: the parity
+    assembly, advected with the stored conservative flux [C,K] (best
+    passed as a view of K contiguous [C] planes, solver/fc.py `planes`,
+    which the kernel reads without a copy).
+
+    -> (diag [C], off [C,K], b [3,C]); `grad_p` [C,3] is read when
+    spec.p_so, `grad_vel` [C,3,3] when spec.scheme is "tvd_dc". CPU
+    tensors take the plain version; CUDA tensors launch the kernel or
+    raise."""
+    if not vel.is_cuda:
+        return fc_momentum_assembly_plain(
+            vel, p, flux, bc_values, flags, cols, rho, mu, alpha, grad_p,
+            grad_vel, inertia, spec,
+        )
+    return _launch_fc_momentum(
+        vel, p, flux, bc_values, flags, cols, rho, mu, alpha, grad_p,
+        grad_vel, inertia, spec,
+    )
+
+
+def _launch_fc_momentum(
+    vel, p, flux, bc_values, flags, cols, rho, mu, alpha, grad_p, grad_vel,
+    inertia, spec,
+):
+    _check_fc_spec(spec, inertia)
+    C, K = vel.shape[0], len(cols)
+    if flux.shape != (C, K):
+        raise ValueError(f"flux must be [C,K] = {(C, K)}, got {tuple(flux.shape)}")
+    tvd = spec.scheme == "tvd_dc"
+    if tvd and spec.psi not in LIMITER_CODES:
+        raise ValueError(
+            f"limiter {spec.psi!r} has no kernel code (LIMITER_CODES)"
+        )
+    extra = dict(p=p, flux=flux)
+    if spec.p_so:
+        if grad_p is None or grad_p.shape != (C, 3):
+            raise ValueError("spec.p_so needs grad_p [C,3]")
+        extra["grad_p"] = grad_p = grad_p.contiguous()
+    else:
+        grad_p = None
+    if tvd:
+        if grad_vel is None or grad_vel.shape != (C, 3, 3):
+            raise ValueError("the tvd_dc scheme needs grad_vel [C,3,3]")
+        extra["grad_vel"] = grad_vel = grad_vel.contiguous()
+    else:
+        grad_vel = None
+    _check_inputs(vel, bc_values, flags, cols, **extra)
+    vel, p, bc_values = vel.contiguous(), p.contiguous(), bc_values.contiguous()
+    flags = flags.contiguous()
+    flux_planes = flux.T.contiguous()  # [K,C]; a view when already planes
+    diag = torch.empty((C,), dtype=vel.dtype, device=vel.device)
+    off = torch.empty((K, C), dtype=vel.dtype, device=vel.device)
+    b = torch.empty((3, C), dtype=vel.dtype, device=vel.device)
+    _cuda.call(
+        "orc_fc_momentum_assembly", vel.device, _cuda.dtype_code(vel),
+        _SCHEMES[spec.scheme], LIMITER_CODES[spec.psi] if tvd else 0,
+        int(spec.p_so), *_col_args(cols), K, vel.data_ptr(), p.data_ptr(),
+        flux_planes.data_ptr(), _ptr(grad_p), _ptr(grad_vel),
+        bc_values.data_ptr(), flags.data_ptr(), float(rho), float(mu),
+        float(alpha), diag.data_ptr(), off.data_ptr(), b.data_ptr(), C,
+    )
+    fc_momentum_assembly.launches += 1
+    return diag, off.T, b
+
+
+def fc_pc_assembly(
+    vel, mom_diag, bc_values, flags, cols: tuple, rho, grad_p=None,
+    spec: AsmSpec = AsmSpec(),
+):
+    """SIMPLE_FC fused full-p continuity assembly on a uniform box.
+
+    vel [C,3] (post-momentum), mom_diag [C] (shared momentum diagonal)
+    -> (diag [C], off [C,K], b [C], flux_h [C,K]); with spec.rc,
+    `grad_p` [C,3] is the iteration-start pressure gradient (the
+    predictor's Rhie-Chow term3); the cell volume is spec.vol. `off`
+    and `flux_h` are [C,K] views of K contiguous [C] planes. CPU tensors
+    take the plain version; CUDA tensors launch the kernel or raise."""
+    if not vel.is_cuda:
+        return fc_pc_assembly_plain(
+            vel, mom_diag, bc_values, flags, cols, rho, grad_p, spec
+        )
+    return _launch_fc_pc(vel, mom_diag, bc_values, flags, cols, rho, grad_p, spec)
+
+
+def _launch_fc_pc(vel, mom_diag, bc_values, flags, cols, rho, grad_p, spec):
+    _check_fc_spec(spec)
+    C, K = vel.shape[0], len(cols)
+    extra = dict(mom_diag=mom_diag)
+    if spec.rc:
+        if grad_p is None or grad_p.shape != (C, 3):
+            raise ValueError("spec.rc needs grad_p [C,3]")
+        extra["grad_p"] = grad_p = grad_p.contiguous()
+    else:
+        grad_p = None
+    _check_inputs(vel, bc_values, flags, cols, **extra)
+    vel, mom_diag = vel.contiguous(), mom_diag.contiguous()
+    bc_values, flags = bc_values.contiguous(), flags.contiguous()
+    diag = torch.empty((C,), dtype=vel.dtype, device=vel.device)
+    off = torch.empty((K, C), dtype=vel.dtype, device=vel.device)
+    b = torch.empty((C,), dtype=vel.dtype, device=vel.device)
+    flux_h = torch.empty((K, C), dtype=vel.dtype, device=vel.device)
+    _cuda.call(
+        "orc_fc_pc_assembly", vel.device, _cuda.dtype_code(vel), int(spec.rc),
+        *_col_args(cols), K, vel.data_ptr(), mom_diag.data_ptr(),
+        _ptr(grad_p), bc_values.data_ptr(), flags.data_ptr(), float(rho),
+        float(spec.vol), diag.data_ptr(), off.data_ptr(), b.data_ptr(),
+        flux_h.data_ptr(), C,
+    )
+    fc_pc_assembly.launches += 1
+    return diag, off.T, b, flux_h.T
+
+
 def pc_assembly(
     vel, mom_diag, bc_values, flags, cols: tuple, rho,
     spec: AsmSpec = AsmSpec(),
@@ -335,3 +549,5 @@ def pc_assembly(
 #: Kernel launches since the last reset.
 momentum_assembly.launches = 0
 pc_assembly.launches = 0
+fc_momentum_assembly.launches = 0
+fc_pc_assembly.launches = 0

@@ -7,15 +7,19 @@ assembly and solve -> correction -> metrics. `solve_steady` drives it in
 a Python loop, `reporting_interval` iterations per chunk, and reads the
 small metrics back to the host once per chunk.
 
-On a CUDA mesh the step runs the four hand-written kernels where
-orc_tpu runs its Pallas kernels: the fused assembly kernels behind the
-gate `_kernel_asm_spec` (mirroring orc_tpu's `_pallas_asm_spec`), the
+SIMPLE_FC (AUTO under Rhie-Chow + implicit relaxation) runs
+`solver/fc.py`'s `ck_simple_step_fc` in the same loop, with the stored
+face flux carried in `FlowState.flux`.
+
+On a CUDA mesh the steps run the hand-written kernels where orc_tpu runs
+its Pallas kernels: the fused assembly kernels behind the gate
+`_kernel_asm_spec` (mirroring orc_tpu's `_pallas_asm_spec`), the
 Jacobi-sweep kernel in the momentum smoother and the shift SpMV in every
-Krylov iteration. On CPU it takes the plain (c,k) ops, as orc_tpu does.
+Krylov iteration. On CPU they take the plain (c,k) ops, as orc_tpu does.
 
 Not ported yet (each raises NotImplementedError naming its ROADMAP
-item): SIMPLE_FC, the face-major step (`use_ck=False`), least-squares
-and node-based gradients, Gauss-Seidel and multigrid solves, momentum
+item): the face-major step (`use_ck=False`), least-squares and
+node-based gradients, Gauss-Seidel and multigrid solves, momentum
 sources, transient runs and the sharded runtime.
 """
 
@@ -76,7 +80,9 @@ class FlowState:
     # Momentum-matrix diagonals of the previous iteration, component-
     # major [3,C] as in orc_tpu (1.0 before the first iteration).
     mom_diag: torch.Tensor  # [3,C]
-    # Stored face fluxes of SIMPLE_FC (not ported); None on this loop.
+    # Stored face fluxes of SIMPLE_FC: the outward normal velocity per
+    # (cell, ELL slot) [C,K], a view of K contiguous [C] planes; None on
+    # the parity loop.
     flux: "torch.Tensor | None" = None
 
 
@@ -162,18 +168,74 @@ def table_has_pressure_bc(table) -> bool:
     )
 
 
-def _solve_p_prime(Pmat, b_p, p, settings, active, maybe_singular: bool):
-    """Solve the pressure-correction system from a zero start, with the
-    constant null mode deflated when the system is singular."""
+def _solve_p_prime(
+    Pmat, b_p, p, settings, active, maybe_singular: bool, x0=None
+):
+    """Solve the pressure(-correction) system, with the constant null
+    mode deflated when the system is singular. The parity loop starts
+    from zero; SIMPLE_FC solves the full p warm-started from `x0` = p,
+    zeroed outside the active rows."""
     if maybe_singular:
         null_scale = torch.ones((), dtype=p.dtype, device=p.device)
         project = constant_deflation(null_scale, active=active)
     else:
         project = _no_project
+    if x0 is None:
+        x0 = torch.zeros_like(p)
+    else:
+        x0 = torch.where(active, x0, torch.zeros((), dtype=p.dtype, device=p.device))
     p_prime, p_info = iterative_solve(
-        Pmat, b_p, torch.zeros_like(p), settings.matrix_solver, project=project
+        Pmat, b_p, x0, settings.matrix_solver, project=project
     )
     return project(p_prime), p_info
+
+
+def _solve_momentum(A3, b3, vel, active, settings):
+    """One batched solve of the u/v/w systems over the shared matrix,
+    warm-started from vel: (new vel [C,3], new mom_diag [3,C], info)."""
+    zero = torch.zeros((), dtype=vel.dtype, device=vel.device)
+    x0 = torch.where(active[None, :], vel.T, zero)  # [3,C]
+    sol, info = iterative_solve(A3, b3, x0, settings.momentum_matrix_solver())
+    return sol.T, A3.diag[None, :].expand(3, -1), info
+
+
+def _kernel_peclet(settings, mdiag, diff_diag, active):
+    """Per-cell Peclet estimate [C,3] from the kernels' relaxed momentum
+    diagonal (the kernels do not return the advection diagonal)."""
+    zero = torch.zeros((), dtype=mdiag.dtype, device=mdiag.device)
+    one = torch.ones((), dtype=mdiag.dtype, device=mdiag.device)
+    safe_dd = torch.where(active, diff_diag, one)
+    return torch.where(
+        active[:, None],
+        ((settings.momentum_relaxation * mdiag - diff_diag) / safe_dd)[:, None]
+        * torch.ones((1, 3), dtype=mdiag.dtype, device=mdiag.device),
+        zero,
+    )
+
+
+def _step_metrics(active, vel3, pe, p_corr_sq, vel_corr_sq, info, p_info):
+    """StepMetrics of one iteration over the active cells."""
+    zero = torch.zeros((), dtype=vel3.dtype, device=vel3.device)
+    n_active = torch.sum(active).to(vel3.dtype)
+    vel_avg = torch.sum(torch.where(active[:, None], vel3, zero), dim=0) / n_active
+    inf = torch.full((), float("inf"), dtype=pe.dtype, device=pe.device)
+    return StepMetrics(
+        vel_avg=vel_avg,
+        peclet_avg=torch.sum(pe) / (3.0 * n_active),
+        peclet_min=torch.amin(torch.where(active[:, None], pe, inf)),
+        peclet_max=torch.amax(torch.where(active[:, None], pe, -inf)),
+        p_corr_norm=torch.sqrt(p_corr_sq),
+        vel_corr_norm=torch.sqrt(vel_corr_sq),
+        mom_residual=info.residual,
+        pc_residual=p_info.residual,
+        diverged=(
+            torch.any(torch.isnan(vel_avg))
+            | torch.any(info.diverged)
+            | p_info.diverged
+        ),
+        mom_iters=info.iterations,
+        pc_iters=p_info.iterations,
+    )
 
 
 def ck_simple_step(
@@ -195,8 +257,6 @@ def ck_simple_step(
     diff_diag, diff_off, diff_b = ck_diff
     vel, p = state.vel, state.p
     active = ck.mask.any(dim=1)
-    zero = torch.zeros((), dtype=vel.dtype, device=vel.device)
-    one = torch.ones((), dtype=vel.dtype, device=vel.device)
 
     if kernel_asm is not None:
         # Fused assembly kernels (ops/fused_assembly.py): one pass over
@@ -217,13 +277,7 @@ def ck_simple_step(
         A3 = EllMatrix(
             diag=mdiag, off=moff, neighbors=None, offsets=mesh.neighbor_offsets
         )
-        safe_dd = torch.where(active, diff_diag, one)
-        pe = torch.where(
-            active[:, None],
-            ((settings.momentum_relaxation * mdiag - diff_diag) / safe_dd)[:, None]
-            * torch.ones((1, 3), dtype=mdiag.dtype, device=mdiag.device),
-            zero,
-        )
+        pe = _kernel_peclet(settings, mdiag, diff_diag, active)
     else:
         md_c = state.mom_diag.T  # cell-major [C,3] view
         vel_nbr = nbr_values(mesh, vel, ck.interior)
@@ -247,11 +301,7 @@ def ck_simple_step(
             diff_diag, diff_off, diff_b,
         )
 
-    # One batched solve of the u/v/w systems over the shared matrix.
-    x0 = torch.where(active[None, :], vel.T, zero)  # [3,C]
-    sol, info = iterative_solve(A3, b3, x0, settings.momentum_matrix_solver())
-    new_mom_diag = A3.diag[None, :].expand(3, -1)
-    new_vel = sol.T  # [C,3] view
+    new_vel, new_mom_diag, info = _solve_momentum(A3, b3, vel, active, settings)
 
     if kernel_asm is not None:
         from orc_tpu_torch.ops.fused_assembly import pc_assembly
@@ -282,41 +332,27 @@ def ck_simple_step(
         mesh, ck, bc, settings, p_prime, new_mom_diag.T, new_vel, p
     )
 
-    n_active = torch.sum(active).to(vel.dtype)
-    vel_avg = torch.sum(torch.where(active[:, None], vel3, zero), dim=0) / n_active
-    inf = torch.full((), float("inf"), dtype=pe.dtype, device=pe.device)
-    metrics = StepMetrics(
-        vel_avg=vel_avg,
-        peclet_avg=torch.sum(pe) / (3.0 * n_active),
-        peclet_min=torch.amin(torch.where(active[:, None], pe, inf)),
-        peclet_max=torch.amax(torch.where(active[:, None], pe, -inf)),
-        p_corr_norm=torch.sqrt(p_corr_sq),
-        vel_corr_norm=torch.sqrt(vel_corr_sq),
-        mom_residual=info.residual,
-        pc_residual=p_info.residual,
-        diverged=(
-            torch.any(torch.isnan(vel_avg))
-            | torch.any(info.diverged)
-            | p_info.diverged
-        ),
-        mom_iters=info.iterations,
-        pc_iters=p_info.iterations,
-    )
+    metrics = _step_metrics(active, vel3, pe, p_corr_sq, vel_corr_sq, info, p_info)
     return FlowState(vel=vel3, p=p_new, mom_diag=new_mom_diag), metrics
 
 
 def _run_chunk(
     mesh, ck, ck_diff, state, zc, zs, zv, rho, mu, *, settings, n_steps,
-    kernel_asm=None, maybe_singular=True,
+    kernel_asm=None, maybe_singular=True, use_fc=False,
 ):
-    """n_steps SIMPLE iterations; returns (state, StepMetrics of
-    [n_steps]-leading tensors). Float32 runs accumulate (vel, p) with
-    Kahan compensation when settings.compensated_state is set: without
-    it, increments below f32 epsilon of the fields round away and the
-    run freezes short of steady state."""
+    """n_steps SIMPLE (or SIMPLE_FC) iterations; returns (state,
+    StepMetrics of [n_steps]-leading tensors). Float32 runs accumulate
+    (vel, p) with Kahan compensation when settings.compensated_state is
+    set: without it, increments below f32 epsilon of the fields round
+    away and the run freezes short of steady state. The SIMPLE_FC flux
+    is not compensated: it rides in the step's new state."""
+    if use_fc:
+        from orc_tpu_torch.solver.fc import ck_simple_step_fc as step_fn
+    else:
+        step_fn = ck_simple_step
 
     def step(s):
-        return ck_simple_step(
+        return step_fn(
             mesh, ck, zc, zs, zv, settings, rho, mu, ck_diff, s,
             kernel_asm=kernel_asm, maybe_singular=maybe_singular,
         )
@@ -343,53 +379,77 @@ def _run_chunk(
     return state, stacked
 
 
+def _on_cuda(mesh) -> bool:
+    return mesh.cell_volume.is_cuda
+
+
 def _kernel_asm_spec(mesh, table, settings, ck, fc=False, transient=False):
     """Static (cols, AsmSpec) for the fused assembly kernels when the
-    configuration is eligible, else None (orc_tpu's `_pallas_asm_spec`
-    with "on CPU" read as "mesh not on CUDA", the float32 condition
-    dropped — Hopper has float64 — and, in this port so far, only the
-    UD / CD1 + Linear[Weighted] branch: other specs return None, as
-    orc_tpu's gate does for schemes its kernels do not cover)."""
+    configuration is eligible, else None: orc_tpu's `_pallas_asm_spec`
+    with "on CPU" read as "mesh not on CUDA" and the float32 condition
+    dropped (Hopper has float64).
+
+    - fc=True (the SIMPLE_FC kernels): UD / CD1 / TVD_DC momentum,
+      Linear[Weighted] or Rhie-Chow face fluxes, Linear[Weighted] or
+      SecondOrder face pressures, and `vol` for the flux model's
+      d-coefficients. Grad p is streamed, never computed in the kernel
+      (orc_tpu's `gg` is False under FC). A CUDA kernel takes no
+      Python callable, so the TVD limiter travels as a code: only
+      tvd_lud, tvd_quick and tvd_umist are eligible; any other callable
+      gives None, as orc_tpu's gate does when tvd_psi is None.
+    - fc=False (the parity kernels): the UD / CD1 + Linear[Weighted]
+      branch only, so far; other specs return None.
+    """
     if (
         ck is None
         or mesh.ck_constants is None
-        or not mesh.cell_volume.is_cuda
+        or not _on_cuda(mesh)
         or settings.relaxation_mode != RelaxationMode.IMPLICIT
-        or fc
         or transient
     ):
         return None
-    scheme = {MomentumScheme.UD: "ud", MomentumScheme.CD1: "cd1"}.get(
-        settings.momentum
+    from orc_tpu_torch.ops.fused_assembly import (
+        LIMITER_CODES,
+        AsmSpec,
+        column_specs,
     )
+
+    schemes = {MomentumScheme.UD: "ud", MomentumScheme.CD1: "cd1"}
+    if fc:
+        schemes[MomentumScheme.TVD_DC] = "tvd_dc"
+    scheme = schemes.get(settings.momentum)
+    if scheme is None:
+        return None
+    if scheme == "tvd_dc" and settings.tvd_psi not in LIMITER_CODES:
+        return None
     linear_v = (VelocityInterpolation.LINEAR, VelocityInterpolation.LINEAR_WEIGHTED)
     linear_p = (PressureInterpolation.LINEAR, PressureInterpolation.LINEAR_WEIGHTED)
-    if (
-        scheme is None
-        or settings.velocity_interpolation not in linear_v
-        or settings.pressure_interpolation not in linear_p
-    ):
+    vi, pi = settings.velocity_interpolation, settings.pressure_interpolation
+    rc = vi == VelocityInterpolation.RHIE_CHOW
+    p_so = pi == PressureInterpolation.SECOND_ORDER
+    if not (rc or vi in linear_v) or not (p_so or pi in linear_p):
         return None
-    from orc_tpu_torch.ops.fused_assembly import AsmSpec, column_specs
-
+    if not fc and (rc or p_so):
+        return None
     cols = column_specs(mesh, table)
     if cols is None:
         return None
-    return cols, AsmSpec(scheme=scheme)
+    if not fc:
+        return cols, AsmSpec(scheme=scheme)
+    return cols, AsmSpec(
+        scheme=scheme,
+        rc=rc,
+        p_so=p_so,
+        psi=settings.tvd_psi if scheme == "tvd_dc" else None,
+        vol=float(mesh.cell_volume[0]),
+    )
 
 
 def _check_ported(settings: NumericalSettings, use_ck):
-    coupling = settings.resolved_coupling()
-    if coupling == PressureVelocityCoupling.SIMPLE_FC:
-        raise NotImplementedError(
-            "SIMPLE_FC (AUTO under Rhie-Chow + implicit relaxation) is not "
-            "ported yet (ROADMAP Queue 1, item 7); set "
-            "pressure_velocity_coupling=SIMPLE"
-        )
     if use_ck is False:
         raise NotImplementedError(
-            "the face-major SIMPLE step is not ported yet (ROADMAP Queue 1, "
-            "item 3); use use_ck=True or 'auto'"
+            "the face-major SIMPLE and SIMPLE_FC steps are not ported yet "
+            "(ROADMAP Queue 1, item 3); use use_ck=True or 'auto'"
         )
     if settings.gradient_reconstruction != GradientReconstruction.GREEN_GAUSS_CELL:
         raise NotImplementedError(
@@ -417,7 +477,8 @@ def solve_steady(
     check_divergence: bool = True,
     use_ck: str | bool = "auto",
 ):
-    """Host loop of the steady SIMPLE solve on the mesh's device.
+    """Host loop of the steady SIMPLE solve on the mesh's device: the
+    parity loop, or SIMPLE_FC when settings.resolved_coupling() says so.
 
     `use_ck`: "auto" or True select the gather-free (c,k) step, the
     only step ported so far. Returns (FlowState, list of per-chunk
@@ -434,11 +495,22 @@ def solve_steady(
     if state is None:
         state = initial_state(mesh)
 
+    use_fc = settings.resolved_coupling() == PressureVelocityCoupling.SIMPLE_FC
     ck = build_ck_geometry(mesh, len(table.zone_ids))
+    bc0 = ck_bc(ck, zc, zs, zv)
     mu_t = torch.tensor(mu, dtype=mesh.dtype, device=mesh.device)
-    ck_diff = ck_diffusion(mesh, ck, ck_bc(ck, zc, zs, zv), mu_t)
-    kernel_asm = _kernel_asm_spec(mesh, table, settings, ck)
-    maybe_singular = table_maybe_singular(table)
+    ck_diff = ck_diffusion(mesh, ck, bc0, mu_t)
+    if use_fc and state.flux is None:
+        from orc_tpu_torch.solver.fc import ck_initial_flux
+
+        state = dataclasses.replace(
+            state, flux=ck_initial_flux(mesh, ck, bc0, settings, state)
+        )
+    kernel_asm = _kernel_asm_spec(mesh, table, settings, ck, fc=use_fc)
+    # Under SIMPLE_FC walls anchor nothing: only pressure zones do.
+    maybe_singular = (
+        not table_has_pressure_bc(table) if use_fc else table_maybe_singular(table)
+    )
     mesh = trim_for_ck(mesh)
 
     history = []
@@ -449,7 +521,7 @@ def solve_steady(
         state, metrics = _run_chunk(
             mesh, ck, ck_diff, state, zc, zs, zv, rho, mu,
             settings=settings, n_steps=n, kernel_asm=kernel_asm,
-            maybe_singular=maybe_singular,
+            maybe_singular=maybe_singular, use_fc=use_fc,
         )
         done += n
         history.append(metrics)

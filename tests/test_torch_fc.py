@@ -1,0 +1,485 @@
+"""SIMPLE_FC and mesh sequencing: orc_tpu_torch/solver/fc.py and
+solver/sequencing.py against orc_tpu's, on CPU.
+
+- The (c,k) flux-model ops (ck_flux_h, ck_d_coeffs,
+  ck_fc_pressure_system, ck_correct_flux, ck_initial_flux) entry for
+  entry, float64, rtol 1e-10, on the 20^2 cavity, the 8^3 cavity, the
+  16x8 pressure-BC couette and the velocity-inlet channel.
+- The slice: per-iteration trajectories (every StepMetrics field at rtol
+  1e-6 with test_torch_simple.py's absolute floor of 1e-12 x the field's largest
+  magnitude, equal mom_iters / pc_iters, final vel / p / flux to 1e-8 of
+  scale) for the FC couette 32x16 (the FC residual fixture's settings,
+  200 iterations), the 16^2 cavity with the Ghia flagship numerics (20
+  iterations) and SIMPLE_FC forced under explicit relaxation (the flux
+  blend with beta = alpha_u, 200 iterations).
+  These runs solve the pressure with Jacobi(50) in place of the
+  fixture's BiCGSTAB(50). On the full-p system BiCGSTAB is chaotic in
+  roundoff: XLA's CPU backend contracts multiply-adds into FMAs and sums
+  in another order than torch, and a one-ulp difference in one dot
+  product grows to 2e-1 of the iterate within 40 iterations (the
+  32x16 couette's first pressure solve; ROADMAP Queue 3). No
+  per-iteration comparison of two implementations can hold there, so
+  the fixture's BiCGSTAB run is held on its end state instead (final
+  fields to 1e-6 of scale after 200 iterations), where the solve has
+  damped the roundoff out. The flagship cavity with its own BiCGSTAB is
+  held to tolerances taken from its measured gaps: equal inner
+  iteration counts, StepMetrics through iteration 10 and the end state.
+- The u_mean constant chip_smoke.py holds the card's FC couette to,
+  recomputed from orc_tpu.
+- Mesh sequencing 8^2 -> 16^2 in both packages, fields to 1e-8.
+- Conservation every iteration (the twin of orc_tpu's
+  test_fc_flux_conservation_every_iteration).
+- The kernel gate `_kernel_asm_spec(..., fc=True)` against orc_tpu's
+  `_pallas_asm_spec` under ORC_TPU_PALLAS_ASM=force.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from torch_parity import CASES, DTYPES, both, cell_fields, np_, to_jax_settings
+
+import jax.numpy as jnp
+from orc_tpu.models.cavity import cavity_case as j_cavity
+from orc_tpu.models.channel_flow import (
+    ChannelFlowParameters as JParams,
+    couette_case as j_couette,
+)
+from orc_tpu.ops import ck_ops as jck
+from orc_tpu.ops.fields import device_bc as jdevice_bc
+from orc_tpu.solver import fc as jfc
+from orc_tpu.solver import sequencing as jseq
+from orc_tpu.solver import simple as js
+
+from orc_tpu_torch.models.cavity import cavity_case as t_cavity, flagship_settings
+from orc_tpu_torch.models.channel_flow import (
+    ChannelFlowParameters as TParams,
+    couette_case as t_couette,
+)
+from orc_tpu_torch.ops import ck_ops as tck
+from orc_tpu_torch.ops.fields import device_bc as tdevice_bc
+from orc_tpu_torch.solver import fc as tfc
+from orc_tpu_torch.solver import sequencing as tseq
+from orc_tpu_torch.solver import simple as ts
+from orc_tpu_torch.utils import settings as tset
+
+RTOL = 1e-10
+
+BICGSTAB_50 = tset.MatrixSolverSettings(
+    solver_type=tset.SolutionMethod.BICGSTAB,
+    iterations=50,
+    preconditioner=tset.PreconditionMethod.JACOBI,
+)
+JACOBI_50 = tset.MatrixSolverSettings(
+    solver_type=tset.SolutionMethod.JACOBI,
+    iterations=50,
+    preconditioner=tset.PreconditionMethod.JACOBI,
+)
+#: scripts/gen_residual_fixture.py build(fc_envelope=True): AUTO
+#: coupling (-> SIMPLE_FC), CD1 + SecondOrder + Rhie-Chow, implicit
+#: relaxation 0.7 / 0.3, BiCGSTAB(50) Jacobi.
+FIXTURE_FC = tset.NumericalSettings(
+    matrix_solver=BICGSTAB_50,
+    relaxation_mode=tset.RelaxationMode.IMPLICIT,
+    momentum_relaxation=0.7,
+    pressure_relaxation=0.3,
+)
+#: SIMPLE_FC forced under explicit relaxation, inside orc_tpu's measured
+#: envelope (tests/test_fc.py test_fc_explicit_relaxation_envelope).
+EXPLICIT_FC = tset.NumericalSettings(
+    pressure_velocity_coupling=tset.PressureVelocityCoupling.SIMPLE_FC,
+    momentum=tset.MomentumScheme.UD,
+    pressure_interpolation=tset.PressureInterpolation.LINEAR_WEIGHTED,
+    relaxation_mode=tset.RelaxationMode.EXPLICIT,
+    momentum_relaxation=0.5,
+    pressure_relaxation=0.05,
+    matrix_solver=BICGSTAB_50,
+)
+
+
+def _close(actual, desired, name="", rtol=RTOL):
+    d = np_(desired)
+    scale = float(np.max(np.abs(d))) if d.size else 0.0
+    np.testing.assert_allclose(
+        np_(actual), d, rtol=rtol, atol=1e-13 * scale, err_msg=name
+    )
+
+
+# --- the (c,k) flux-model ops -----------------------------------------
+
+
+class Side:
+    """One package's mesh, geometry, BCs and seeded fields of a case."""
+
+    def __init__(self, ck_ops, fc, device_bc, mesh, table, arr, fields):
+        self.ops, self.fc, self.mesh, self.arr = ck_ops, fc, mesh, arr
+        zc, zs, zv = device_bc(table)
+        self.ck = ck_ops.build_ck_geometry(mesh, len(table.zone_ids))
+        self.bc = ck_ops.ck_bc(self.ck, zc, zs, zv)
+        vel, p, md = fields
+        self.vel, self.p = arr(vel), arr(p)
+        self.md3 = arr(np.repeat(md[:, None], 3, axis=1))
+        self.grad_p = ck_ops.ck_pressure_gradient(mesh, self.ck, self.bc, self.p)
+
+
+def _sides(case):
+    (mj, tj), (mt, tt) = both(case)
+    fields = cell_fields(mj.n_cells)
+    J = Side(jck, jfc, jdevice_bc, mj, tj, jnp.asarray, fields)
+    T = Side(tck, tfc, tdevice_bc, mt, tt, lambda a: torch.tensor(a), fields)
+    return J, T
+
+
+def _vi(S, name):
+    cls = tset.VelocityInterpolation
+    return to_jax_settings(cls[name]) if S.arr is jnp.asarray else cls[name]
+
+
+def op_flux_h(J, T):
+    for scheme in ("LINEAR", "LINEAR_WEIGHTED", "RHIE_CHOW"):
+        outs = [
+            S.fc.ck_flux_h(
+                S.mesh, S.ck, S.bc, S.vel, _vi(S, scheme), p=S.p,
+                grad_p=S.grad_p, mom_diag=S.md3,
+            )
+            for S in (J, T)
+        ]
+        _close(outs[1], outs[0], scheme)
+
+
+def op_d_coeffs(J, T):
+    for rho in (1.0, 1000.0):
+        outs = [S.fc.ck_d_coeffs(S.mesh, S.ck, S.bc, rho, S.md3) for S in (J, T)]
+        _close(outs[1], outs[0], f"rho {rho}")
+
+
+def _system(S, rho=1000.0):
+    fh = S.fc.ck_flux_h(
+        S.mesh, S.ck, S.bc, S.vel, _vi(S, "RHIE_CHOW"), p=S.p,
+        grad_p=S.grad_p, mom_diag=S.md3,
+    )
+    d = S.fc.ck_d_coeffs(S.mesh, S.ck, S.bc, rho, S.md3)
+    return fh, d, S.fc.ck_fc_pressure_system(S.mesh, S.ck, S.bc, rho, fh, d)
+
+
+def op_fc_pressure_system(J, T):
+    (_, _, (Pj, bj)), (_, _, (Pt, bt)) = _system(J), _system(T)
+    assert Pt.offsets == Pj.offsets
+    _close(Pt.diag, Pj.diag, "diag")
+    _close(Pt.off, Pj.off, "off")
+    _close(bt, bj, "b")
+
+
+def op_correct_flux(J, T):
+    p_new = cell_fields(J.mesh.n_cells, seed=11)[1]
+    outs = []
+    for S in (J, T):
+        fh, d, _ = _system(S)
+        pn = S.arr(p_new)
+        pn_nbr = S.ops.nbr_values(S.mesh, pn, S.ck.interior)
+        outs.append(
+            S.fc.ck_correct_flux(S.mesh, S.ck, S.bc, fh, d, 1000.0, pn, pn_nbr)
+        )
+    _close(outs[1], outs[0])
+    C, K = outs[1].shape
+    assert outs[1].stride() == (1, C)  # the planes layout
+
+
+def op_initial_flux(J, T):
+    for settings in (FIXTURE_FC, flagship_settings(), EXPLICIT_FC):
+        outs = []
+        for S, s in ((J, to_jax_settings(settings)), (T, settings)):
+            state = (js if S is J else ts).initial_state(S.mesh, vel=S.vel, p=S.p)
+            outs.append(S.fc.ck_initial_flux(S.mesh, S.ck, S.bc, s, state))
+        _close(outs[1], outs[0], str(settings.velocity_interpolation))
+        assert outs[1].stride() == (1, outs[1].shape[0])
+
+
+OPS = {
+    name[3:]: fn for name, fn in sorted(globals().items()) if name.startswith("op_")
+}
+
+
+@pytest.mark.parametrize("op", sorted(OPS))
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_fc_op_matches_orc_tpu(case, op):
+    J, T = _sides(case)
+    OPS[op](J, T)
+
+
+def test_face_major_fc_raises():
+    with pytest.raises(NotImplementedError, match="Queue 1, item 3"):
+        tfc.simple_step_fc()
+    with pytest.raises(NotImplementedError, match="Queue 1, item 3"):
+        tfc.face_flux_h(None, None, None, None)
+
+
+# --- the slice ----------------------------------------------------------
+
+
+def _case(name):
+    """(jax mesh, table), (torch mesh, table), settings, rho, mu, iters."""
+    if name == "cavity":
+        jd, td = DTYPES["f64"]
+        return (
+            j_cavity(n=16, dtype=jd), t_cavity(n=16, dtype=td),
+            flagship_settings(), 1.0, 1e-3, 20,
+        )
+    kw = dict(top_wall_velocity=5e-4, dp_dx=10.0)
+    settings = FIXTURE_FC if name == "couette" else EXPLICIT_FC
+    return (
+        j_couette(32, 16, params=JParams(**kw)),
+        t_couette(32, 16, params=TParams(**kw)),
+        settings, 1000.0, 0.001, 200,
+    )
+
+
+def _run(name, matrix_solver=None):
+    (mj, tj), (mt, tt), settings, rho, mu, iterations = _case(name)
+    if matrix_solver is not None:
+        settings = settings.replace(matrix_solver=matrix_solver)
+    kw = dict(iterations=iterations, reporting_interval=iterations, verbose=False)
+    sj, hj = js.solve_steady(mj, tj, to_jax_settings(settings), rho, mu, **kw)
+    st, ht = ts.solve_steady(mt, tt, settings, rho, mu, **kw)
+    return (sj, js.stack_history(hj)), (st, ts.stack_history(ht))
+
+
+def _scale_close(actual, desired, rel, name):
+    d = np.asarray(desired, dtype=np.float64)
+    np.testing.assert_allclose(
+        np.asarray(actual, dtype=np.float64), d, rtol=rel,
+        atol=rel * float(np.max(np.abs(d))), err_msg=name,
+    )
+
+
+@pytest.mark.parametrize("name", ["couette", "cavity", "explicit"])
+def test_fc_slice_tracks_orc_tpu(name):
+    """Every iteration of SIMPLE_FC, pressure solved by Jacobi(50)."""
+    (sj, hj), (st, ht) = _run(name, JACOBI_50)
+    for f in hj._fields:
+        a, b = np.asarray(getattr(hj, f)), getattr(ht, f)
+        assert a.shape == b.shape, f
+        if f in ("mom_iters", "pc_iters", "diverged"):
+            np.testing.assert_array_equal(b, a, err_msg=f)
+        else:
+            d = a.astype(np.float64)
+            np.testing.assert_allclose(
+                b, d, rtol=1e-6, atol=1e-12 * float(np.max(np.abs(d))),
+                err_msg=f,
+            )
+    for f in ("vel", "p", "flux"):
+        _scale_close(np_(getattr(st, f)), np.asarray(getattr(sj, f)), 1e-8, f)
+    assert not ht.diverged.any()
+
+
+def test_fc_fixture_settings_reach_orc_tpu_state():
+    """The FC residual fixture's own settings (BiCGSTAB(50) pressure):
+    after 200 iterations both packages hold the same fields."""
+    (sj, hj), (st, ht) = _run("couette")
+    assert not ht.diverged.any() and not np.asarray(hj.diverged).any()
+    for f in ("vel", "p", "flux"):
+        _scale_close(np_(getattr(st, f)), np.asarray(getattr(sj, f)), 1e-6, f)
+
+
+def test_fc_flagship_bicgstab_tracks_orc_tpu():
+    """The 16^2 cavity with the flagship numerics and its own
+    BiCGSTAB(50) pressure solve, 20 iterations. Measured gaps: every
+    StepMetrics field within 5.7e-6 of its scale through iteration 10
+    (pc_residual; the others 9.3e-7); at iteration 16 (pc_iters 36) the
+    roundoff amplification of the module docstring lifts the gaps from
+    ~1e-8 to ~3e-4. Held: equal mom_iters / pc_iters in all 20
+    iterations, every field within 1e-4 of its scale through iteration
+    10, final vel / p / flux within 1e-3 of scale (measured 2.8e-5)."""
+    (sj, hj), (st, ht) = _run("cavity")
+    for f in ("mom_iters", "pc_iters", "diverged"):
+        np.testing.assert_array_equal(getattr(ht, f), np.asarray(getattr(hj, f)), f)
+    for f in hj._fields:
+        if f in ("mom_iters", "pc_iters", "diverged"):
+            continue
+        a = np.asarray(getattr(hj, f), dtype=np.float64)
+        b = np.asarray(getattr(ht, f), dtype=np.float64)
+        scale = np.max(np.abs(a), axis=0)
+        gap = np.abs(b - a)[:10] / np.where(scale > 0, scale, 1.0)
+        assert gap.max() <= 1e-4, (f, gap.max())
+    for f in ("vel", "p", "flux"):
+        _scale_close(np_(getattr(st, f)), np.asarray(getattr(sj, f)), 1e-3, f)
+
+
+def test_fc_couette_reference_u_mean():
+    """chip_smoke.py holds the card's SIMPLE_FC couette 128x64 f64 to
+    orc_tpu's u_mean after 600 iterations; recompute that constant from
+    orc_tpu with the same mesh and the fixture's settings."""
+    import importlib.util
+    from pathlib import Path
+
+    from orc_tpu.mesh.generate import structured_box_mesh
+    from orc_tpu.mesh.zones import FaceCondition
+
+    path = Path(__file__).resolve().parent.parent / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    mesh, table = structured_box_mesh(128, 64, 1, lengths=(0.002, 0.001, 0.0001))
+    table.set("TOP_WALL", FaceCondition.WALL, vector_value=(5e-4, 0.0, 0.0))
+    table.set("BOTTOM_WALL", FaceCondition.WALL)
+    table.set("INLET", FaceCondition.PRESSURE_INLET, scalar_value=0.02)
+    table.set("OUTLET", FaceCondition.PRESSURE_OUTLET, scalar_value=0.0)
+    table.set("PERIODIC_-Z", FaceCondition.SYMMETRY)
+    table.set("PERIODIC_+Z", FaceCondition.SYMMETRY)
+    state, _ = js.solve_steady(
+        mesh, table, to_jax_settings(FIXTURE_FC), 1000.0, 0.001,
+        iterations=600, reporting_interval=100, verbose=False,
+    )
+    u_mean = float(np.asarray(state.vel)[:, 0].mean())
+    np.testing.assert_allclose(u_mean, smoke.ORC_TPU_FC_COUETTE_U_MEAN_600, rtol=1e-9)
+
+
+def test_fc_is_what_auto_runs():
+    """AUTO resolves the fixture's and the flagship's settings to
+    SIMPLE_FC, and solve_steady seeds and carries the [C,K] flux."""
+    for s in (FIXTURE_FC, flagship_settings()):
+        assert s.resolved_coupling() == tset.PressureVelocityCoupling.SIMPLE_FC
+    mesh, table = t_cavity(n=8)
+    state, _ = ts.solve_steady(
+        mesh, table, flagship_settings(), 1.0, 1e-3, iterations=2,
+        reporting_interval=1, verbose=False,
+    )
+    assert state.flux.shape == (mesh.n_cells, mesh.cell_faces.shape[1])
+
+
+def test_fc_flux_conservation_every_iteration():
+    """div(stored flux) equals the pressure solve's residual every
+    iteration: three iterations in, far from convergence, the 12^2
+    cavity's flux is conservative to the inner solve's tolerance."""
+    mesh, table = t_cavity(n=12, lid_velocity=1.0)
+    settings = tset.NumericalSettings(
+        momentum=tset.MomentumScheme.UD,
+        pressure_velocity_coupling=tset.PressureVelocityCoupling.SIMPLE_FC,
+        pressure_interpolation=tset.PressureInterpolation.LINEAR_WEIGHTED,
+        velocity_interpolation=tset.VelocityInterpolation.RHIE_CHOW,
+        relaxation_mode=tset.RelaxationMode.IMPLICIT,
+        momentum_relaxation=0.7,
+        pressure_relaxation=0.3,
+        matrix_solver=BICGSTAB_50,
+    )
+    st, _ = ts.solve_steady(
+        mesh, table, settings, 1.0, 0.01, iterations=3, reporting_interval=3,
+        verbose=False,
+    )
+    area = mesh.face_area[mesh.cell_faces.long()]
+    fa = torch.where(mesh.cell_face_mask, st.flux * area, torch.zeros((), dtype=area.dtype))
+    div, scale = fa.sum(dim=1), fa.abs().max()
+    assert float(div.abs().max()) < 1e-3 * float(scale)
+
+
+# --- sequencing -----------------------------------------------------------
+
+
+@pytest.mark.parametrize("feat", [(), (3,)])
+def test_upsample_field_matches_orc_tpu(feat):
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal((4 * 3 * 2,) + feat)
+    a = jseq.upsample_field(x, (4, 3, 2), (8, 9, 2))
+    b = tseq.upsample_field(torch.tensor(x), (4, 3, 2), (8, 9, 2))
+    np.testing.assert_array_equal(np_(b), np.asarray(a))
+    with pytest.raises(ValueError):
+        tseq.upsample_field(torch.tensor(x), (4, 3, 2), (6, 9, 2))
+
+
+def test_prolong_state_drops_the_flux():
+    mesh, _ = t_cavity(n=4)
+    state = dataclasses.replace(
+        ts.initial_state(mesh),
+        flux=torch.zeros((16, 6), dtype=torch.float64),
+    )
+    fine = tseq.prolong_state(state, (4, 4, 1), (8, 8, 1))
+    assert fine.flux is None and fine.vel.shape == (64, 3)
+    assert fine.mom_diag.shape == (3, 64)
+
+
+def test_sequenced_cascade_matches_orc_tpu():
+    """8^2 -> 16^2 with the flagship numerics (Jacobi(50) pressure, see
+    the module docstring), 20 iterations per level."""
+    settings = flagship_settings().replace(matrix_solver=JACOBI_50)
+    kw = dict(iterations_per_level=20, reporting_interval=20, verbose=False)
+    sched = [(8, 8, 1), (16, 16, 1)]
+    sj, hj = jseq.solve_steady_sequenced(
+        lambda nx, ny, nz: j_cavity(n=nx), sched, to_jax_settings(settings),
+        1.0, 1e-3, **kw,
+    )
+    st, ht = tseq.solve_steady_sequenced(
+        lambda nx, ny, nz: t_cavity(n=nx), sched, settings, 1.0, 1e-3, **kw,
+    )
+    assert len(ht) == len(hj) == 2
+    for f in ("vel", "p", "flux"):
+        _scale_close(np_(getattr(st, f)), np.asarray(getattr(sj, f)), 1e-8, f)
+
+
+# --- the kernel gate ------------------------------------------------------
+
+
+def _gate_grid():
+    limiters = (tset.tvd_lud, tset.tvd_quick, tset.tvd_umist)
+    moms = [(m, None) for m in tset.MomentumScheme if m != tset.MomentumScheme.TVD_DC]
+    moms += [(tset.MomentumScheme.TVD_DC, psi) for psi in limiters]
+    for mom, psi in moms:
+        for vi in (
+            tset.VelocityInterpolation.LINEAR,
+            tset.VelocityInterpolation.LINEAR_WEIGHTED,
+            tset.VelocityInterpolation.RHIE_CHOW,
+        ):
+            for pi in (
+                tset.PressureInterpolation.LINEAR,
+                tset.PressureInterpolation.LINEAR_WEIGHTED,
+                tset.PressureInterpolation.SECOND_ORDER,
+                tset.PressureInterpolation.STANDARD,
+            ):
+                for mode in tset.RelaxationMode:
+                    yield tset.NumericalSettings(
+                        momentum=mom, tvd_psi=psi, velocity_interpolation=vi,
+                        pressure_interpolation=pi, relaxation_mode=mode,
+                    )
+
+
+@pytest.mark.parametrize("case", ["cavity", "couette", "vinlet"])
+def test_fc_gate_matches_orc_tpu(case, monkeypatch):
+    """`_kernel_asm_spec(..., fc=True)` with the CUDA condition patched
+    yields the (cols, spec) of orc_tpu's `_pallas_asm_spec(fc=True)`
+    under ORC_TPU_PALLAS_ASM=force (float32 mesh on the JAX side: its
+    gate admits float32 only)."""
+    monkeypatch.setenv("ORC_TPU_PALLAS_ASM", "force")
+    monkeypatch.setattr(ts, "_on_cuda", lambda mesh: True)
+    (mj, tj), (mt, tt) = both(case, "f32")
+    ckj = jck.build_ck_geometry(mj, len(tj.zone_ids))
+    ckt = tck.build_ck_geometry(mt, len(tt.zone_ids))
+    n_eligible = 0
+    for s in _gate_grid():
+        ref = js._pallas_asm_spec(mj, tj, to_jax_settings(s), ckj, fc=True)
+        got = ts._kernel_asm_spec(mt, tt, s, ckt, fc=True)
+        assert (got is None) == (ref is None), s
+        if ref is None:
+            continue
+        n_eligible += 1
+        (cols, spec), (rcols, rspec, _interp) = got, ref
+        assert tuple(cols) == tuple(tuple(c) for c in rcols)
+        for f in ("scheme", "rc", "p_so", "vol"):
+            assert getattr(spec, f) == getattr(rspec, f), (f, s)
+        assert rspec.gg is False  # grad p is streamed under FC
+        assert getattr(spec.psi, "__name__", None) == getattr(
+            rspec.psi, "__name__", None
+        )
+    assert n_eligible == 5 * 3 * 3  # ud, cd1, 3 limiters x vi x pi
+
+
+def test_fc_gate_refuses_a_limiter_without_a_kernel_code(monkeypatch):
+    monkeypatch.setattr(ts, "_on_cuda", lambda mesh: True)
+    _, (mt, tt) = both("cavity")
+    ck = tck.build_ck_geometry(mt, len(tt.zone_ids))
+    s = flagship_settings()
+    assert ts._kernel_asm_spec(mt, tt, s, ck, fc=True) is not None
+    own = s.replace(tvd_psi=lambda r: torch.clamp(r, 0.0, 1.0))
+    assert ts._kernel_asm_spec(mt, tt, own, ck, fc=True) is None
+    # The parity gate stays as it was: no Rhie-Chow, no TVD_DC.
+    assert ts._kernel_asm_spec(mt, tt, s, ck) is None

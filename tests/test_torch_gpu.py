@@ -1,5 +1,6 @@
 """The port's CUDA kernels on the card, each against its plain torch
-version, and the SIMPLE slice on CUDA against the same slice on CPU.
+version, and the SIMPLE and SIMPLE_FC slices on CUDA against the same
+slices on CPU.
 
 Every test here is marked `gpu` and skips where torch.cuda.is_available()
 is false. The file imports neither JAX nor orc_tpu, so it runs on a GPU
@@ -17,10 +18,20 @@ import numpy as np
 import pytest
 import torch
 
-from orc_tpu_torch.models.cavity import cavity_case, default_settings
+from orc_tpu_torch.models.cavity import (
+    cavity_case,
+    default_settings,
+    flagship_settings,
+)
 from orc_tpu_torch.models.channel_flow import ChannelFlowParameters, couette_case
 from orc_tpu_torch.ops import fused_assembly as asm
-from orc_tpu_torch.ops.ck_ops import build_ck_geometry
+from orc_tpu_torch.ops.ck_ops import (
+    build_ck_geometry,
+    ck_bc,
+    ck_flux,
+    ck_pressure_gradient,
+    ck_velocity_gradient,
+)
 from orc_tpu_torch.ops.fields import device_bc
 from orc_tpu_torch.ops.fused_smooth import fused_jacobi_sweeps, sweeps_plain
 from orc_tpu_torch.ops.shift_spmv import shift_spmv, shift_spmv_plain
@@ -32,6 +43,9 @@ pytestmark = pytest.mark.gpu
 DTYPES = {"f64": torch.float64, "f32": torch.float32}
 TOL = {"f64": 1e-12, "f32": 1e-5}
 KERNELS = (shift_spmv, fused_jacobi_sweeps, asm.momentum_assembly, asm.pc_assembly)
+FC_KERNELS = (
+    shift_spmv, fused_jacobi_sweeps, asm.fc_momentum_assembly, asm.fc_pc_assembly
+)
 
 
 @pytest.fixture
@@ -101,15 +115,20 @@ def test_jacobi_sweeps_kernel_matches_plain(dev, dtype, batch, sweeps):
     _close(y, sweeps_plain(diag, off, offsets, b, x0, sweeps, 0.8), TOL[dtype])
 
 
-def _asm_case(name, dtype, dev):
+def _asm_mesh(name, dtype, dev):
     if name == "cavity":
-        mesh, table = cavity_case(n=20, dtype=dtype, device=dev)
-    else:
-        vinlet = 1e-3 if name == "vinlet" else None
-        mesh, table = couette_case(
-            16, 8, params=ChannelFlowParameters(top_wall_velocity=5e-4, dp_dx=5.0),
-            velocity_inlet=vinlet, dtype=dtype, device=dev,
-        )
+        return cavity_case(n=20, dtype=dtype, device=dev)
+    if name == "cavity3d":
+        return cavity_case(n=8, nz=8, dtype=dtype, device=dev)
+    vinlet = 1e-3 if name == "vinlet" else None
+    return couette_case(
+        16, 8, params=ChannelFlowParameters(top_wall_velocity=5e-4, dp_dx=5.0),
+        velocity_inlet=vinlet, dtype=dtype, device=dev,
+    )
+
+
+def _asm_case(name, dtype, dev):
+    mesh, table = _asm_mesh(name, dtype, dev)
     _zc, zs, zv = device_bc(table, dtype=dtype, device=dev)
     ck = build_ck_geometry(mesh, len(table.zone_ids))
     rng = np.random.default_rng(3)
@@ -143,10 +162,115 @@ def test_assembly_kernels_match_plain(dev, dtype, case, scheme):
         _close(a, r, TOL[dtype], "pc " + name)
 
 
+#: (momentum scheme, limiter, Rhie-Chow, SecondOrder pressure) of the
+#: SIMPLE_FC kernel tests: the windows of tests/test_pallas_assembly.py
+#: plus the other limiters and face pressures.
+FC_SPECS = {
+    "ud-linear": ("ud", None, False, False),
+    "default": ("cd1", None, True, True),
+    "tvd_dc-rc": ("tvd_dc", tset.tvd_umist, True, False),
+    "tvd_dc-lud-so": ("tvd_dc", tset.tvd_lud, False, True),
+    "tvd_dc-quick": ("tvd_dc", tset.tvd_quick, True, True),
+}
+
+
+@pytest.mark.parametrize("spec_name", sorted(FC_SPECS))
+@pytest.mark.parametrize("case", ["cavity", "cavity3d", "couette", "vinlet"])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_fc_assembly_kernels_match_plain(dev, dtype, case, spec_name):
+    """Guards orc_tpu/ops/pallas_assembly.py `_momentum_kernel`, SIMPLE_FC
+    branch (via fc_momentum_assembly), and `_fc_pc_kernel` (via
+    fc_pc_assembly): a stored flux from another velocity field, the
+    Green-Gauss gradients of the fields, both kernels against their
+    plain versions."""
+    dt = DTYPES[dtype]
+    vel, p, md, bcv, flags, cols = _asm_case(case, dt, dev)
+    mesh, table = _asm_mesh(case, dt, dev)
+    zc, zs, zv = device_bc(table, dtype=dt, device=dev)
+    ck = build_ck_geometry(mesh, len(table.zone_ids))
+    bc = ck_bc(ck, zc, zs, zv)
+    rng = np.random.default_rng(12)
+    vel2 = torch.tensor(rng.standard_normal(vel.shape) * 0.1, dtype=dt, device=dev)
+    flux = ck_flux(mesh, ck, bc, vel2, tset.VelocityInterpolation.LINEAR_WEIGHTED)
+    flux = flux.T.contiguous().T  # the planes layout of FlowState.flux
+    grad_p = ck_pressure_gradient(mesh, ck, bc, p)
+    grad_v = ck_velocity_gradient(mesh, ck, bc, vel)
+    scheme, psi, rc, p_so = FC_SPECS[spec_name]
+    spec = asm.AsmSpec(
+        scheme=scheme, rc=rc, p_so=p_so, psi=psi,
+        vol=float(mesh.cell_volume[0]),
+    )
+    before = (asm.fc_momentum_assembly.launches, asm.fc_pc_assembly.launches)
+    margs = (vel, p, flux, bcv, flags, cols, 1.0, 1e-3, 0.7)
+    mkw = dict(grad_p=grad_p, grad_vel=grad_v, spec=spec)
+    got = asm.fc_momentum_assembly(*margs, **mkw)
+    ref = asm.fc_momentum_assembly_plain(*margs, **mkw)
+    for name, a, r in zip(("diag", "off", "b"), got, ref):
+        _close(a, r, TOL[dtype], "fc momentum " + name)
+    pargs = (vel, md, bcv, flags, cols, 1.0)
+    got = asm.fc_pc_assembly(*pargs, grad_p=grad_p, spec=spec)
+    ref = asm.fc_pc_assembly_plain(*pargs, grad_p=grad_p, spec=spec)
+    torch.cuda.synchronize()
+    for name, a, r in zip(("diag", "off", "b", "flux_h"), got, ref):
+        _close(a, r, TOL[dtype], "fc pc " + name)
+    assert (asm.fc_momentum_assembly.launches, asm.fc_pc_assembly.launches) == (
+        before[0] + 1, before[1] + 1
+    )
+
+
+def test_fc_kernels_refuse_what_they_cannot_run(dev):
+    """A CUDA call the SIMPLE_FC kernels cannot serve raises: a limiter
+    without a kernel code, a missing gradient, the transient term."""
+    vel, p, _md, bcv, flags, cols = _asm_case("cavity", torch.float64, dev)
+    C, K = vel.shape[0], len(cols)
+    flux = torch.zeros((C, K), dtype=vel.dtype, device=dev)
+    grad_v = torch.zeros((C, 3, 3), dtype=vel.dtype, device=dev)
+    args = (vel, p, flux, bcv, flags, cols, 1.0, 1e-3, 0.7)
+    with pytest.raises(ValueError):
+        asm.fc_momentum_assembly(
+            *args, grad_vel=grad_v,
+            spec=asm.AsmSpec(scheme="tvd_dc", psi=lambda r: r),
+        )
+    with pytest.raises(ValueError):
+        asm.fc_momentum_assembly(
+            *args, spec=asm.AsmSpec(scheme="tvd_dc", psi=tset.tvd_umist)
+        )
+    with pytest.raises(ValueError):
+        asm.fc_momentum_assembly(*args, spec=asm.AsmSpec(p_so=True))
+    with pytest.raises(NotImplementedError):
+        asm.fc_momentum_assembly(*args, inertia=(vel[:, 0], vel))
+
+
+#: The pressure solve of the SIMPLE_FC slice comparisons: Jacobi. The
+#: full-p BiCGSTAB amplifies one-ulp differences chaotically (ROADMAP
+#: Queue 3), so only a stationary solver lets a device comparison hold
+#: whole trajectories to 1e-9.
+JACOBI_50 = tset.MatrixSolverSettings(
+    solver_type=tset.SolutionMethod.JACOBI, iterations=50
+)
+
+
 def _solve(dev, name, iterations):
     if name == "cavity":
         mesh, table = cavity_case(n=16, device=dev)
         settings, rho, mu = default_settings(), 1.0, 0.01
+    elif name == "fc_cavity":
+        mesh, table = cavity_case(n=16, device=dev)
+        settings = flagship_settings().replace(matrix_solver=JACOBI_50)
+        rho, mu = 1.0, 1e-3
+    elif name == "fc_couette":
+        mesh, table = couette_case(
+            32, 16,
+            params=ChannelFlowParameters(top_wall_velocity=5e-4, dp_dx=10.0),
+            device=dev,
+        )
+        settings = tset.NumericalSettings(
+            matrix_solver=JACOBI_50,
+            relaxation_mode=tset.RelaxationMode.IMPLICIT,
+            momentum_relaxation=0.7,
+            pressure_relaxation=0.3,
+        )
+        rho, mu = 1000.0, 0.001
     else:
         mesh, table = couette_case(
             32, 16,
@@ -168,22 +292,34 @@ def _solve(dev, name, iterations):
 
 @pytest.mark.parametrize(
     "name,iterations,kernels",
-    [("cavity", 10, KERNELS), ("couette", 50, (shift_spmv,))],
+    [
+        ("cavity", 10, KERNELS),
+        ("couette", 50, (shift_spmv,)),
+        ("fc_cavity", 10, FC_KERNELS),
+        ("fc_couette", 50, FC_KERNELS),
+    ],
 )
 def test_slice_on_cuda_matches_cpu(dev, name, iterations, kernels):
-    """Guards all four replacements together (pallas_spmv.py `_kernel`,
-    pallas_smooth.py `_kernel`, pallas_assembly.py `_momentum_kernel` and
-    `_pc_kernel`): float64 SIMPLE on the card against the same run on
-    CPU (plain versions), with equal inner iteration counts, fields to
-    1e-9 of their scale, and every kernel of the path launched."""
-    for k in KERNELS:
+    """Guards the replacements together (pallas_spmv.py `_kernel`,
+    pallas_smooth.py `_kernel`, pallas_assembly.py `_momentum_kernel`
+    (both branches), `_pc_kernel` and `_fc_pc_kernel`): float64 SIMPLE or
+    SIMPLE_FC on the card against the same run on CPU (plain versions),
+    with equal inner iteration counts, fields to 1e-9 of their scale,
+    every kernel of the path launched and no kernel of the other
+    coupling."""
+    every = set(KERNELS) | set(FC_KERNELS)
+    for k in every:
         k.launches = 0
     sg, hg = _solve(dev, name, iterations)
-    counts = {k.__name__: k.launches for k in KERNELS}
+    counts = {k.__name__: k.launches for k in every}
     sc, hc = _solve("cpu", name, iterations)
     for k in kernels:
         assert counts[k.__name__] > 0, counts
+    for k in every - set(KERNELS if name in ("cavity", "couette") else FC_KERNELS):
+        assert counts[k.__name__] == 0, counts
     np.testing.assert_array_equal(hg.mom_iters, hc.mom_iters)
     np.testing.assert_array_equal(hg.pc_iters, hc.pc_iters)
     _close(sg.vel, sc.vel, 1e-9, "vel")
     _close(sg.p, sc.p, 1e-9, "p")
+    if sg.flux is not None:
+        _close(sg.flux, sc.flux, 1e-9, "flux")

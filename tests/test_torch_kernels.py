@@ -10,7 +10,12 @@ interpret mode) and against the XLA formulations they replace:
   tests/test_pallas_smooth.py;
 - momentum_assembly / pc_assembly vs pallas_assembly's kernels
   (interpret=True) and the ck oracle, UD and CD1, on the cases of
-  tests/test_pallas_assembly.py.
+  tests/test_pallas_assembly.py;
+- fc_momentum_assembly / fc_pc_assembly (SIMPLE_FC) vs pallas_assembly's
+  FC kernels (interpret=True, float32, the windows and tolerances of
+  orc_tpu's tests/test_pallas_assembly.py: rtol 2e-5) and, in float64 at
+  rtol 1e-10, vs orc_tpu's ck oracles (ck_momentum fed with the stored
+  flux; fc.ck_flux_h + ck_d_coeffs + ck_fc_pressure_system).
 Tolerances: float64 rtol 1e-12 (same arithmetic, only sum order and
 FMA contraction may differ); float32 rtol 2e-6 as orc_tpu's smoother
 and SpMV tests use. Absolute floors scale with the reference magnitude,
@@ -304,6 +309,181 @@ def test_unported_assembly_branches_raise(spec):
         tasm.momentum_assembly(
             T["vel"], T["p"], T["bcv"], T["flags"], T["cols"], 1.0, 1e-3, 0.7,
             spec=tasm.AsmSpec(**spec),
+        )
+
+
+# --- SIMPLE_FC: fc_momentum_assembly / fc_pc_assembly --------------------
+
+#: (momentum scheme, velocity interpolation, pressure interpolation):
+#: the windows of orc_tpu's tests/test_pallas_assembly.py.
+FC_SCHEMES = {
+    "ud-linear": ("UD", "LINEAR_WEIGHTED", "LINEAR_WEIGHTED"),
+    "default": ("CD1", "RHIE_CHOW", "SECOND_ORDER"),
+    "tvd_dc-rc": ("TVD_DC", "RHIE_CHOW", "LINEAR_WEIGHTED"),
+}
+
+
+def _fc_inputs(case, scheme, dtype):
+    """Both packages' FC kernel inputs from the same numpy arrays: the
+    stored flux is the LinearWeighted flux of another velocity field
+    (so a test cannot pass by re-deriving it from vel), the gradients
+    are orc_tpu's Green-Gauss gradients of the fields."""
+    from orc_tpu.utils import settings as js
+
+    J, T = _asm_inputs(case, dtype)
+    jd, td = DTYPES[dtype]
+    (mj, tj), _ = both(case, dtype)
+    zc, zs, zv = jdevice_bc(tj, dtype=jd)
+    ck = jck.build_ck_geometry(mj, len(tj.zone_ids))
+    bc = jck.ck_bc(ck, zc, zs, zv)
+    rng = np.random.default_rng(12)
+    vel2 = jnp.asarray(rng.standard_normal((mj.n_cells, 3)) * 0.1, jd)
+    extra = dict(
+        flux=jck.ck_flux(mj, ck, bc, vel2, js.VelocityInterpolation.LINEAR_WEIGHTED),
+        grad_p=jck.ck_pressure_gradient(mj, ck, bc, J["p"]),
+        grad_vel=jck.ck_velocity_gradient(mj, ck, bc, J["vel"]),
+    )
+    mom, vi, pi = FC_SCHEMES[scheme]
+    settings = js.NumericalSettings(
+        momentum=js.MomentumScheme[mom],
+        tvd_psi=js.tvd_umist if mom == "TVD_DC" else None,
+        velocity_interpolation=js.VelocityInterpolation[vi],
+        pressure_interpolation=js.PressureInterpolation[pi],
+        relaxation_mode=js.RelaxationMode.IMPLICIT,
+        momentum_relaxation=0.7,
+    )
+    kw = dict(
+        scheme={"UD": "ud", "CD1": "cd1", "TVD_DC": "tvd_dc"}[mom],
+        rc=vi == "RHIE_CHOW", p_so=pi == "SECOND_ORDER", vol=J["vol"],
+    )
+    J.update(extra, spec=jasm.AsmSpec(psi=settings.tvd_psi, **kw), settings=settings,
+             mesh=mj, ck=ck, bc=bc)
+    from orc_tpu_torch.utils.settings import tvd_umist
+
+    T.update(
+        {k: torch.tensor(np.asarray(v), dtype=td) for k, v in extra.items()},
+        spec=tasm.AsmSpec(psi=tvd_umist if mom == "TVD_DC" else None, **kw),
+    )
+    return J, T
+
+
+def _fc_mom_args(S):
+    return (S["vel"], S["p"], S["flux"], S["bcv"], S["flags"], S["cols"],
+            1.0, 1e-3, 0.7)
+
+
+@pytest.mark.parametrize("scheme", sorted(FC_SCHEMES))
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_fc_momentum_assembly_matches_pallas_kernel(case, scheme):
+    """float32, against the interpret-mode SIMPLE_FC branch of
+    _momentum_kernel (the dtype and tolerances of orc_tpu's own test)."""
+    J, T = _fc_inputs(case, scheme, "f32")
+    ref = jasm.fc_momentum_assembly(
+        *_fc_mom_args(J), grad_p=J["grad_p"], grad_vel=J["grad_vel"],
+        spec=J["spec"], interpret=True,
+    )
+    got = tasm.fc_momentum_assembly(
+        *_fc_mom_args(T), grad_p=T["grad_p"], grad_vel=T["grad_vel"],
+        spec=T["spec"],
+    )
+    for name, a, r, atol in zip(("diag", "off", "b"), got, ref, (1e-7, 1e-7, 1e-6)):
+        assert tuple(a.shape) == r.shape, name
+        np.testing.assert_allclose(np_(a), np_(r), rtol=2e-5, atol=atol, err_msg=name)
+
+
+@pytest.mark.parametrize("scheme", ["default", "ud-linear"])
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_fc_pc_assembly_matches_pallas_kernel(case, scheme):
+    """float32, against the interpret-mode _fc_pc_kernel; flux_h is
+    compared under the face mask, as orc_tpu's test does."""
+    J, T = _fc_inputs(case, scheme, "f32")
+    ref = jasm.fc_pc_assembly(
+        J["vel"], J["md"], J["bcv"], J["flags"], J["cols"], 1.0,
+        grad_p=J["grad_p"], spec=J["spec"], interpret=True,
+    )
+    got = tasm.fc_pc_assembly(
+        T["vel"], T["md"], T["bcv"], T["flags"], T["cols"], 1.0,
+        grad_p=T["grad_p"], spec=T["spec"],
+    )
+    mask = np.asarray(J["ck"].mask)
+    for name, a, r in zip(("diag", "off", "b"), got, ref):
+        assert tuple(a.shape) == r.shape, name
+        np.testing.assert_allclose(np_(a), np_(r), rtol=2e-5, atol=1e-6, err_msg=name)
+    np.testing.assert_allclose(
+        np_(got[3]) * mask, np_(ref[3]) * mask, rtol=2e-5, atol=1e-7
+    )
+
+
+@pytest.mark.parametrize("scheme", sorted(FC_SCHEMES))
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_fc_momentum_assembly_matches_ck_oracle(case, scheme):
+    """float64 at 1e-10: orc_tpu's ck_momentum fed with F = flux A rho,
+    the SecondOrder face pressure from the streamed grad p."""
+    J, T = _fc_inputs(case, scheme, "f64")
+    mj, ck, bc, st = J["mesh"], J["ck"], J["bc"], J["settings"]
+    gp_nbr = jck.nbr_values(mj, J["grad_p"], ck.interior)
+    p_f = jck.ck_face_pressure(
+        mj, ck, bc, J["p"], st.pressure_interpolation,
+        grad_p=J["grad_p"], grad_p_nbr=gp_nbr,
+    )
+    diff = jck.ck_diffusion(mj, ck, bc, jnp.asarray(1e-3))
+    A, b, _ = jck.ck_momentum(
+        mj, ck, bc, st, 1.0, J["vel"], J["flux"] * ck.area, p_f, *diff,
+        grad_vel=J["grad_vel"],
+    )
+    got = tasm.fc_momentum_assembly(
+        *_fc_mom_args(T), grad_p=T["grad_p"], grad_vel=T["grad_vel"],
+        spec=T["spec"],
+    )
+    for name, a, r in zip(("diag", "off", "b"), got, (A.diag, A.off, b)):
+        _close(a, r, 1e-10, name)
+
+
+@pytest.mark.parametrize("scheme", ["default", "ud-linear"])
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_fc_pc_assembly_matches_ck_oracle(case, scheme):
+    """float64 at 1e-10: orc_tpu's fc.ck_flux_h + ck_d_coeffs +
+    ck_fc_pressure_system."""
+    from orc_tpu.solver import fc as jfc
+
+    J, T = _fc_inputs(case, scheme, "f64")
+    mj, ck, bc, st = J["mesh"], J["ck"], J["bc"], J["settings"]
+    md3 = J["md"][:, None] * jnp.ones((1, 3))
+    fh = jfc.ck_flux_h(
+        mj, ck, bc, J["vel"], st.velocity_interpolation, p=J["p"],
+        grad_p=J["grad_p"], mom_diag=md3,
+    )
+    d = jfc.ck_d_coeffs(mj, ck, bc, 1.0, md3)
+    P, b = jfc.ck_fc_pressure_system(mj, ck, bc, 1.0, fh, d)
+    got = tasm.fc_pc_assembly(
+        T["vel"], T["md"], T["bcv"], T["flags"], T["cols"], 1.0,
+        grad_p=T["grad_p"], spec=T["spec"],
+    )
+    for name, a, r in zip(("diag", "off", "b", "flux_h"), got, (P.diag, P.off, b, fh)):
+        _close(a, r, 1e-10, name)
+
+
+def test_fc_cpu_tensors_take_the_plain_version():
+    _, T = _fc_inputs("couette", "default", "f64")
+    before = (tasm.fc_momentum_assembly.launches, tasm.fc_pc_assembly.launches)
+    kw = dict(grad_p=T["grad_p"], grad_vel=T["grad_vel"], spec=T["spec"])
+    for a, b in zip(
+        tasm.fc_momentum_assembly(*_fc_mom_args(T), **kw),
+        tasm.fc_momentum_assembly_plain(*_fc_mom_args(T), **kw),
+    ):
+        assert torch.equal(a, b)
+    tasm.fc_pc_assembly(
+        T["vel"], T["md"], T["bcv"], T["flags"], T["cols"], 1.0,
+        grad_p=T["grad_p"], spec=T["spec"],
+    )
+    assert (tasm.fc_momentum_assembly.launches, tasm.fc_pc_assembly.launches) == before
+
+
+def test_fc_transient_assembly_raises():
+    _, T = _fc_inputs("cavity", "ud-linear", "f64")
+    with pytest.raises(NotImplementedError):
+        tasm.fc_momentum_assembly(
+            *_fc_mom_args(T), inertia=(T["md"], T["vel"]), spec=T["spec"]
         )
 
 

@@ -138,9 +138,6 @@ def test_continue_from_orc_tpu_state():
 
 def test_unported_paths_raise():
     (_, _), (mt, tt), settings, rho, mu = _case("cavity", "f64")
-    fc = settings.replace(
-        velocity_interpolation=tset.VelocityInterpolation.RHIE_CHOW
-    )
     mg = settings.replace(
         matrix_solver=tset.MatrixSolverSettings(
             solver_type=tset.SolutionMethod.MULTIGRID
@@ -149,7 +146,7 @@ def test_unported_paths_raise():
     lsq = settings.replace(
         gradient_reconstruction=tset.GradientReconstruction.LEAST_SQUARES
     )
-    for s, kw in ((fc, {}), (mg, {}), (lsq, {}), (settings, dict(use_ck=False))):
+    for s, kw in ((mg, {}), (lsq, {}), (settings, dict(use_ck=False))):
         with pytest.raises(NotImplementedError):
             ts.solve_steady(mt, tt, s, rho, mu, iterations=1, verbose=False, **kw)
 

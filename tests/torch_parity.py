@@ -54,14 +54,14 @@ def to_jax_settings(obj):
 # --- cases (the boxes of tests/test_pallas_assembly.py) ---------------
 
 
-def _cavity(pkg, n, dtype):
+def _cavity(pkg, n, dtype, nz=1):
     if pkg == "jax":
         from orc_tpu.models.cavity import cavity_case
 
-        return cavity_case(n=n, dtype=dtype)
+        return cavity_case(n=n, nz=nz, dtype=dtype)
     from orc_tpu_torch.models.cavity import cavity_case
 
-    return cavity_case(n=n, dtype=dtype)
+    return cavity_case(n=n, nz=nz, dtype=dtype)
 
 
 def _channel(pkg, dtype, vinlet: bool):
@@ -90,6 +90,7 @@ def _channel(pkg, dtype, vinlet: bool):
 #: name -> make(pkg, jax-or-torch dtype) -> (mesh, table).
 CASES = {
     "cavity": lambda pkg, dt: _cavity(pkg, 20, dt),
+    "cavity3d": lambda pkg, dt: _cavity(pkg, 8, dt, nz=8),
     "couette": lambda pkg, dt: _channel(pkg, dt, vinlet=False),
     "vinlet": lambda pkg, dt: _channel(pkg, dt, vinlet=True),
 }
