@@ -8,37 +8,55 @@ Phases (any failure raises and the script exits non-zero):
 1. device: the card's name and power limit, TF32 off;
 2. build: compile csrc/*.cu into build/orc_tpu_torch/ (one nvcc per
    source, in parallel) and print each kernel's registers and spills;
-3. each of the six CUDA kernels against its plain torch version at the
-   shapes of the main paths, with times (CUDA events): the parity
-   kernels on the 1024^2 f32 cavity, the SIMPLE_FC assembly kernels on
-   the 1024^2 f32 flagship-numerics cavity and the 128x64 f64 FC
-   couette;
+3. each of the eight CUDA kernels against its plain torch version at the
+   shapes of the main paths, with times per call (CUDA events, host
+   dispatch included; and the card's own time, the calls queued behind
+   a sleeping kernel, which the summary reports), the bound (bytes
+   over 3.35 TB/s, or operations over the peak rate) and, for the SpMVs
+   and the gather, the one PyTorch call computing the same function
+   (torch.sparse CSR times x; x[cell_neighbors]): the parity kernels on
+   the 1024^2 f32 cavity, the SIMPLE_FC assembly kernels on the 1024^2
+   f32 flagship-numerics cavity and the 128x64 f64 FC couette, the
+   slice-plan SpMV and neighbour gather on the permuted 448^2 and 1024^2
+   f32 cavities and the permuted 128x64 f64 couette;
 3b. the SIMPLE and SIMPLE_FC slices on the card against the same slices
    on the CPU on a 16^2 float64 cavity, and the FC flux's conservation;
+   the same on a permuted 16^2 cavity (the irregular path);
 4. couette 128x64x1 float64 with bench.py's configuration (parity
-   SIMPLE) through solve_steady: 100 warm-up + 300 timed iterations,
+   SIMPLE) through solve_steady: 100 warm-up + 200 timed iterations,
    u_mean within 25% of the analytical 1.0833e-3;
 5. lid-driven cavity 1024^2 float32 with solve_cavity's configuration
    (parity SIMPLE) at Re = 1000: 10 warm-up + 50 timed iterations,
    finite |u| < 2;
 6. SIMPLE_FC couette 128x64x1 float64 with the FC residual fixture's
    settings: 100 warm-up + 500 timed iterations, u_mean within 1e-6 of
-   orc_tpu's after those 600 iterations, then 900 more and u_mean within
-   25% of the analytical value (the implicitly relaxed FC loop develops
-   the flow slowly: orc_tpu is 48% short at 600 iterations);
+   orc_tpu's after those 600 iterations (the implicitly relaxed FC loop
+   develops the flow slowly: orc_tpu is 48% short of the analytical
+   value at 600 iterations);
 7. SIMPLE_FC cavity 1024^2 float32 with the Ghia flagship numerics at
    Re = 1000: 10 warm-up + 50 timed iterations from cold, finite
    |u| < 2;
-8. solve_steady_sequenced 64^2 -> 128^2 float32, flagship numerics, 200
+8. solve_steady_sequenced 64^2 -> 128^2 float32, flagship numerics, 100
    iterations per level, finite fields;
-phases 4-7 end with a short window under torch.profiler (device time by
-kernel, device busy share);
-then one JSON line with every kernel's launches, error and times, and
-as the last line {"ok": true, "device": {...}}.
+9. scripts/bench_irregular_simple.py's configuration: the 448^2 cavity
+   with randomly permuted cells (RCM order, slice plan), f32, forced
+   SIMPLE, 5 warm-up + 25 timed iterations; 9b its structured twin the
+   same way, the ms/iter ratio, and the fields mapped back to box order
+   against the twin's;
+10. the permuted couette 128x64x1 float64 with bench.py's configuration:
+   100 warm-up + 200 timed iterations, u_mean within 25% of the
+   analytical value and against phase 4's u_mean;
+phases 4-7, 9 and 10 end with a short window under torch.profiler
+(device time by kernel, device busy share);
+then one JSON line with every kernel's launches, error, card times and
+bound, the card's name and power limit, and as the last line
+{"ok": true, "device": {...}}.
 
-Kernel launch counters are set to 0 just before each of phases 4-8 and
+Kernel launch counters are set to 0 just before each of phases 4-10 and
 read just after it: each phase must launch every kernel of its path,
-and the SIMPLE_FC phases none of the parity assembly kernels.
+the SIMPLE_FC phases none of the parity assembly kernels, the
+structured phases no slice-plan kernel, and the irregular phases none of
+the structured kernels.
 """
 
 from __future__ import annotations
@@ -62,6 +80,9 @@ ANALYTICAL_U_MEAN = 5e-4 / 2 + 1e-3**2 / (12 * 0.001) * 10.0  # 1.0833e-3
 #: 1200 and 17% at 1500.
 ORC_TPU_FC_COUETTE_U_MEAN_600 = 5.663693306183816e-4
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+#: Peak rates outside the tensor cores (H100 SXM data sheet): float32
+#: 67 TFLOP/s, float64 34 TFLOP/s.
+PEAK_FLOPS = {torch.float32: 67e12, torch.float64: 34e12}
 TOL = {torch.float32: 1e-5, torch.float64: 1e-12}
 ASM_OUT = ("diag", "off", "b")  # the assembly kernels' outputs
 
@@ -88,6 +109,60 @@ def time_ms(fn, reps=5, inner=10):
     return float(np.median(times))
 
 
+_SLEEP_CYCLES_PER_MS = []
+
+
+def _sleep_cycles_per_ms():
+    """Clock cycles of torch.cuda._sleep per millisecond, measured once
+    with CUDA events (it only sizes the sleep of card_ms)."""
+    if not _SLEEP_CYCLES_PER_MS:
+        cycles = 20_000_000
+        torch.cuda._sleep(1000)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        torch.cuda._sleep(cycles)
+        end.record()
+        torch.cuda.synchronize()
+        _SLEEP_CYCLES_PER_MS.append(cycles / start.elapsed_time(end))
+    return _SLEEP_CYCLES_PER_MS[0]
+
+
+def card_ms(fn, event_ms, tries=3):
+    """Card time per call: calls of fn queued behind a sleeping kernel,
+    so that the card runs them back to back whatever the host's dispatch
+    time, and CUDA events around them. Unlike time_ms it leaves out the
+    host's time between launches, which sets the event time of small
+    calls. `event_ms` (time_ms of fn) sizes the batch (about 2 ms of
+    host time) and the sleep. If the host has not queued every call
+    within half the sleep (fn synchronizes, or fills the launch queue),
+    the sleep grows fourfold and the window is taken again; after
+    `tries` windows the time stands, marked host-limited in the log."""
+    calls = max(2, min(20, round(2.0 / event_ms)))
+    sleep_ms = 1.0 + 2.0 * event_ms * calls
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        torch.cuda._sleep(int(sleep_ms * _sleep_cycles_per_ms()))
+        start.record()
+        for _ in range(calls):
+            fn()
+        end.record()
+        queued_ms = 1e3 * (time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        if queued_ms < 0.5 * sleep_ms:
+            return start.elapsed_time(end) / calls
+        sleep_ms *= 4
+    log(
+        f"    host-limited: {calls} calls took {queued_ms:.1f} ms to queue "
+        f"behind a {sleep_ms / 4:.1f} ms sleep"
+    )
+    return start.elapsed_time(end) / calls
+
+
 def max_err(got, ref):
     """(max abs error, [max error / max |ref| of each output]). Each
     output is held to its own scale, so a small output (pressure
@@ -108,12 +183,19 @@ class Kernel:
     def __init__(self, name, fn, source, replaces):
         self.name, self.fn, self.source, self.replaces = name, fn, source, replaces
         self.max_abs_err = 0.0
-        self.ms = self.plain_ms = None
+        self.ms = self.plain_ms = self.bound_ms = self.library_ms = None
+        self.bound_by = "bytes"
 
     def compare(self, label, kernel_call, plain_call, dtype, nbytes, timed,
-                outputs=("y",)):
+                outputs=("y",), nops=0, library_call=None, exact=False):
         """Hold the kernel against its plain version, each of `outputs`
-        at TOL[dtype] of its own largest |ref|, then time both."""
+        at TOL[dtype] of its own largest |ref| (bitwise when `exact`),
+        then time both and, when given, the one PyTorch call computing
+        the same function: per call with CUDA events (host dispatch
+        included) and on the card alone (card_ms). The summary keeps
+        the card times of the `timed` comparison. The bound is the
+        larger of `nbytes` over the HBM rate and `nops` over the peak
+        rate of the dtype."""
         got, ref = kernel_call(), plain_call()
         torch.cuda.synchronize()
         abs_e, rels = max_err(got, ref)
@@ -121,21 +203,71 @@ class Kernel:
             raise AssertionError(f"{self.name}: {len(rels)} outputs, expected {outputs}")
         self.max_abs_err = max(self.max_abs_err, abs_e)
         ms, plain_ms = time_ms(kernel_call), time_ms(plain_call)
+        lib_ms = None if library_call is None else time_ms(library_call)
+        t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+        t_ops = 1e3 * nops / PEAK_FLOPS[dtype]
+        bound_ms = max(t_bytes, t_ops)
+        lib = "" if lib_ms is None else f"  library {lib_ms:.4f} ms"
+        c_ms, c_plain = card_ms(kernel_call, ms), card_ms(plain_call, plain_ms)
+        c_lib = None if library_call is None else card_ms(library_call, lib_ms)
         if timed:
-            self.ms, self.plain_ms = ms, plain_ms
+            self.ms, self.plain_ms, self.library_ms = c_ms, c_plain, c_lib
+            self.bound_ms = bound_ms
+            self.bound_by = "bytes" if t_bytes >= t_ops else "operations"
+        card = (
+            f"\n{'':57s}card: kernel {c_ms:.4f} ms  plain {c_plain:.4f} ms"
+            + ("" if c_lib is None else f"  library {c_lib:.4f} ms")
+            + f"  ({100 * nbytes / c_ms / 1e-3 / HBM_BYTES_PER_S:.1f}% of 3.35 TB/s)"
+        )
         per_output = " ".join(f"{o}={r:.2e}" for o, r in zip(outputs, rels))
         log(
             f"  {self.name:20s} {label:34s} max_abs_err={abs_e:.3e} "
-            f"err/scale {per_output} (tol {TOL[dtype]:.0e})  kernel "
-            f"{ms:.4f} ms  plain {plain_ms:.4f} ms  "
-            f"{nbytes / ms / 1e6:.0f} GB/s "
-            f"({100 * nbytes / ms / 1e-3 / HBM_BYTES_PER_S:.1f}% of 3.35 TB/s)"
+            f"err/scale {per_output} (tol {'exact' if exact else f'{TOL[dtype]:.0e}'})  events: kernel "
+            f"{ms:.4f} ms  plain {plain_ms:.4f} ms{lib}  bound {bound_ms:.4f} ms "
+            f"({nbytes / 1e6:.1f} MB)  {nbytes / ms / 1e6:.0f} GB/s "
+            f"({100 * nbytes / ms / 1e-3 / HBM_BYTES_PER_S:.1f}% of 3.35 TB/s){card}"
         )
-        if not all(r <= TOL[dtype] for r in rels):  # NaN fails too
+        tol = 0.0 if exact else TOL[dtype]
+        if not all(r <= tol for r in rels):  # NaN fails too
             raise AssertionError(
                 f"{self.name} {label}: kernel disagrees with its plain "
-                f"version ({per_output}; tol {TOL[dtype]:.0e})"
+                f"version ({per_output}; tol {tol:.0e})"
             )
+
+    def summary(self, launches):
+        return dict(
+            name=self.name, route="cuda", source=self.source,
+            replaces=self.replaces, launches=launches,
+            max_abs_err=self.max_abs_err, ms=self.ms, plain_ms=self.plain_ms,
+            bound_ms=self.bound_ms, bound_by=self.bound_by,
+            library_ms=self.library_ms,
+        )
+
+
+def csr_call(diag, rows, cols, vals, x):
+    """The library yardstick of an SpMV: one torch.sparse CSR matrix
+    (diagonal + the given entries) times x, built once on the card."""
+    C = diag.shape[0]
+    idx = torch.arange(C, device=diag.device)
+    A = torch.sparse_coo_tensor(
+        torch.stack([torch.cat([idx, rows]), torch.cat([idx, cols])]),
+        torch.cat([diag, vals]), (C, C),
+    ).coalesce().to_sparse_csr()
+    xt = x if x.ndim == 1 else x.T.contiguous()
+    return lambda: A @ xt
+
+
+def shift_csr_call(diag, cols, offsets, x):
+    """csr_call of a structured matrix in split-column form."""
+    C = diag.shape[0]
+    i = torch.arange(C, device=diag.device)
+    rows, nbrs, vals = [], [], []
+    for col, d in zip(cols, offsets):
+        ok = ((i + d) >= 0) & ((i + d) < C)
+        rows.append(i[ok])
+        nbrs.append(i[ok] + d)
+        vals.append(col[ok])
+    return csr_call(diag, torch.cat(rows), torch.cat(nbrs), torch.cat(vals), x)
 
 
 def structured_system(C, offsets, B, dtype, dev, seed=0):
@@ -275,7 +407,8 @@ def phase_kernels(dev, kernels):
             lambda: shift_spmv(P.diag, P.off, P.offsets, x),
             lambda: shift_spmv_plain(P.diag, P.off, P.offsets, x),
             torch.float32, C * ((1 + len(P.off)) * f32 + 2 * B * f32),
-            timed=B == 1,
+            timed=B == 1, nops=2 * B * C * (1 + len(P.off)),
+            library_call=shift_csr_call(P.diag, P.off, P.offsets, x),
         )
     couette_offsets = (-128, -1, 1, 128)
     for B in (1, 3):
@@ -362,7 +495,7 @@ def phase_fc_kernels(dev, fc_mom, fc_pc):
 
 
 def couette_mesh(dev):
-    """bench.py's couette channel, 128x64x1 float64."""
+    """bench.py's couette channel, 128x64x1 float64, on `dev`."""
     from orc_tpu_torch.mesh.generate import structured_box_mesh
     from orc_tpu_torch.mesh.zones import FaceCondition
 
@@ -529,13 +662,22 @@ def _timed_solve(mesh, table, settings, rho, mu, state, iterations, chunk):
     return state, hist, time.perf_counter() - t0
 
 
+def check_couette_u_mean(u, done):
+    err = abs(u.mean() - ANALYTICAL_U_MEAN) / ANALYTICAL_U_MEAN
+    log(
+        f"  u_mean after {done} iterations {u.mean():.6e} (analytical "
+        f"{ANALYTICAL_U_MEAN:.4e}, rel err {err:.3f}, limit 0.25)"
+    )
+    if not err < 0.25:
+        raise AssertionError("couette u_mean drifted from the analytical value")
+
+
 def phase_couette(dev, fc=False):
     """100 warm-up + `timed` timed iterations (iters/s), then the
-    u_mean check against the analytical profile. The parity run is cut
-    to 300 timed iterations to keep the script's run time down. The
-    SIMPLE_FC run is first held against orc_tpu's u_mean after 600
-    iterations, then continued to 1500 iterations before the analytical
-    check (see ORC_TPU_FC_COUETTE_U_MEAN_600)."""
+    u_mean check: against the analytical profile for the parity run (cut
+    to 200 timed iterations to keep the script's run time down), against
+    orc_tpu's u_mean after 600 iterations for the SIMPLE_FC run (see
+    ORC_TPU_FC_COUETTE_U_MEAN_600)."""
     from orc_tpu_torch.utils.settings import NumericalSettings
 
     if fc:
@@ -543,7 +685,7 @@ def phase_couette(dev, fc=False):
         settings, timed = fc_couette_settings(), 500
     else:
         log("== phase 4: couette 128x64x1 f64, bench.py configuration")
-        settings, timed = NumericalSettings(matrix_solver=_bicgstab_50()), 300
+        settings, timed = NumericalSettings(matrix_solver=_bicgstab_50()), 200
     mesh, table = couette_mesh(dev)
     state, _, warm_s = _timed_solve(mesh, table, settings, 1000.0, 0.001, None, 100, 100)
     state, hist, dt = _timed_solve(mesh, table, settings, 1000.0, 0.001, state, timed, 100)
@@ -556,26 +698,20 @@ def phase_couette(dev, fc=False):
         f"{mom_it.mean(axis=0).round(2).tolist()}, pressure {pc_it.mean():.2f}"
     )
     done = 100 + timed
-    if fc:
-        u_ref = ORC_TPU_FC_COUETTE_U_MEAN_600
-        u_600 = float(state.vel[:, 0].mean())
-        rel = abs(u_600 - u_ref) / u_ref
-        log(f"  u_mean after 600 iterations {u_600:.6e}, orc_tpu {u_ref:.6e} (rel diff {rel:.2e}, limit 1e-6)")
-        if not rel < 1e-6:
-            raise AssertionError("SIMPLE_FC couette left orc_tpu's trajectory")
-        state, _, more_s = _timed_solve(mesh, table, settings, 1000.0, 0.001, state, 900, 300)
-        done += 900
-        log(f"  900 more iterations {more_s:.2f} s")
     u = state.vel[:, 0].cpu().numpy()
     if not np.isfinite(u).all():
         raise AssertionError("couette produced non-finite fields")
-    err = abs(u.mean() - ANALYTICAL_U_MEAN) / ANALYTICAL_U_MEAN
-    log(
-        f"  u_mean after {done} iterations {u.mean():.4e} (analytical "
-        f"{ANALYTICAL_U_MEAN:.4e}, rel err {err:.3f}, limit 0.25)"
-    )
-    if not err < 0.25:
-        raise AssertionError("couette u_mean drifted from the analytical value")
+    if fc:
+        # The implicitly relaxed FC loop develops the flow slowly
+        # (orc_tpu itself is 48% short of the analytical u_mean here):
+        # hold the run to orc_tpu's own u_mean after 600 iterations.
+        u_ref = ORC_TPU_FC_COUETTE_U_MEAN_600
+        rel = abs(u.mean() - u_ref) / u_ref
+        log(f"  u_mean after {done} iterations {u.mean():.6e}, orc_tpu {u_ref:.6e} (rel diff {rel:.2e}, limit 1e-6)")
+        if not rel < 1e-6:
+            raise AssertionError("SIMPLE_FC couette left orc_tpu's trajectory")
+    else:
+        check_couette_u_mean(u, done)
     profile(mesh, table, settings, 1000.0, 0.001, state, iterations=20)
     return dict(iters_per_s=timed / dt, u_mean=float(u.mean()))
 
@@ -614,7 +750,7 @@ def phase_cavity(dev, fc=False):
 
 
 def phase_sequenced(dev):
-    log("== phase 8: solve_steady_sequenced 64^2 -> 128^2 f32, flagship numerics")
+    log("== phase 8: solve_steady_sequenced 64^2 -> 128^2 f32, flagship numerics, 100 iterations per level")
     from orc_tpu_torch.models.cavity import cavity_case, flagship_settings
     from orc_tpu_torch.solver.sequencing import solve_steady_sequenced
 
@@ -623,7 +759,7 @@ def phase_sequenced(dev):
     state, hists = solve_steady_sequenced(
         lambda nx, ny, nz: cavity_case(n=nx, dtype=torch.float32, device=dev),
         [(64, 64, 1), (128, 128, 1)], flagship_settings(), 1.0, 1e-3,
-        iterations_per_level=200, reporting_interval=200, verbose=False,
+        iterations_per_level=100, reporting_interval=100, verbose=False,
     )
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
@@ -631,10 +767,306 @@ def phase_sequenced(dev):
     if not (np.isfinite(u).all() and np.isfinite(state.p.cpu().numpy()).all()):
         raise AssertionError("sequenced cascade produced non-finite fields")
     log(
-        f"  2 levels x 200 iterations {dt:.2f} s; 128^2 |u| max "
+        f"  2 levels x 100 iterations {dt:.2f} s; 128^2 |u| max "
         f"{np.abs(u).max():.3f}; final pressure iterations "
         f"{hists[-1][-1].pc_iters[-1].item()}"
     )
+
+
+def permuted_mesh(box, dtype, dev, seed=0):
+    """`box` (a structured mesh on the CPU, float64) with randomly
+    permuted cell ids, compiled with compile_from_arrays on `dev`: no
+    structured offsets survive, so the mesh is RCM-reordered and gets a
+    slice plan (orc_tpu's scripts/bench_irregular.py build_irregular).
+    Returns (mesh, perm); cell i of the permuted input is box cell
+    perm[i]."""
+    from orc_tpu_torch.mesh.compile import compile_from_arrays
+
+    a = lambda t: t.cpu().numpy()  # noqa: E731
+    C = box.n_cells
+    perm = np.random.default_rng(seed).permutation(C)
+    inv = np.empty(C, np.int64)
+    inv[perm] = np.arange(C)
+    interior = a(box.face_interior)
+    mesh = compile_from_arrays(
+        dim=box.dim,
+        face_owner=inv[a(box.face_owner)],
+        face_neighbor=np.where(interior, inv[a(box.face_neighbor)], -1),
+        face_area=a(box.face_area),
+        face_normal=a(box.face_normal),
+        face_centroid=a(box.face_centroid),
+        face_zone_slot=a(box.face_zone_slot),
+        cell_centroid=a(box.cell_centroid)[perm],
+        cell_volume=a(box.cell_volume)[perm],
+        dtype=dtype,
+        device=dev,
+    )
+    return mesh, perm
+
+
+def to_box_order(mesh, perm, field):
+    """A compiled-order cell field (numpy) of a permuted mesh in the
+    structured box's cell order."""
+    raw = np.empty_like(field)
+    raw[mesh.cell_order.cpu().numpy()] = field
+    out = np.empty_like(raw)
+    out[perm] = raw
+    return out
+
+
+def permuted_cavity(n, dtype, dev, seed=0):
+    from orc_tpu_torch.models.cavity import cavity_case
+
+    box, table = cavity_case(n=n, device="cpu")
+    mesh, perm = permuted_mesh(box, dtype, dev, seed)
+    return mesh, table, perm
+
+
+def plan_line(mesh):
+    p = mesh.slice_plan
+    nj = p.tile_nj.double()
+    return (
+        f"plan: tile {p.tile}, ntiles {p.ntiles}, n_max {p.n_max}, mean "
+        f"tile_nj {float(nj.mean()):.2f} (max {int(nj.max())}), pad_lo "
+        f"{p.pad_lo}, j0 {p.j0}"
+    )
+
+
+def _interior(mesh):
+    return mesh.face_interior[mesh.cell_faces.long()] & mesh.cell_face_mask
+
+
+def phase_slice_kernels(dev, sspmv, snbr):
+    """Kernels 7-11 against their plain versions on the permuted 448^2
+    and 1024^2 cavities (f32: SpMV B = 1 and 3, gather of 1, 3 and 9
+    fields) and the permuted couette 128x64 (f64 SpMV), on a seeded
+    diagonally dominant system over each mesh's own sparsity, Jacobi
+    preconditioned and prepared as the solvers run it."""
+    log("== phase 3: slice-plan kernels against their plain versions")
+    from orc_tpu_torch.ops.slice_spmv import (
+        slice_nbr_values,
+        slice_nbr_values_plain,
+        slice_spmv,
+        slice_spmv_plain,
+    )
+    from orc_tpu_torch.ops.spmv import EllMatrix
+
+    cases = [
+        ("permuted cavity 448^2 f32", torch.float32, True,
+         lambda: permuted_cavity(448, torch.float32, dev)[0]),
+        ("permuted cavity 1024^2 f32", torch.float32, False,
+         lambda: permuted_cavity(1024, torch.float32, dev)[0]),
+        ("permuted couette 128x64 f64", torch.float64, False,
+         lambda: permuted_mesh(couette_mesh("cpu")[0], torch.float64, dev)[0]),
+    ]
+    for label, dtype, timed, make in cases:
+        t0 = time.perf_counter()
+        mesh = make()
+        plan = mesh.slice_plan
+        log(f"  {label}: {mesh.n_cells} cells, built in {time.perf_counter() - t0:.1f} s; {plan_line(mesh)}")
+        C, sz = mesh.n_cells, dtype.itemsize
+        interior = _interior(mesh)
+        K = interior.shape[1]
+        rng = np.random.default_rng(0)
+        off = -torch.tensor(rng.uniform(0.0, 1.0, (C, K)), dtype=dtype, device=dev) * interior
+        diag = 1.0 + off.abs().sum(dim=1) + torch.tensor(rng.random(C), dtype=dtype, device=dev)
+        A = EllMatrix(diag, off, mesh.cell_neighbors, plan=plan).prepare()
+        A, _ = A.jacobi_preconditioned()
+        nbr = mesh.cell_neighbors.long()
+        rows = torch.arange(C, device=dev)[:, None].expand(C, K)[interior]
+        lib_vals = (off / diag[:, None])[interior]
+        nj = plan.tile_nj.long()
+        t_rows = torch.clamp(C - torch.arange(plan.ntiles, device=dev) * plan.tile, max=plan.tile)
+        used = int((nj * t_rows).sum())  # coefficients the kernel reads
+        for B in (1, 3):
+            x = torch.tensor(rng.standard_normal((B, C) if B > 1 else C), dtype=dtype, device=dev)
+            sspmv.compare(
+                f"{label} B={B}",
+                lambda: slice_spmv(A.diag, A.off, plan, x),
+                lambda: slice_spmv_plain(A.diag, A.off, plan, x),
+                dtype, used * sz + C * sz + 2 * B * C * sz + plan.ntiles * 4 * (1 + plan.n_max),
+                timed=timed and B == 1, nops=2 * B * (used + C),
+                library_call=csr_call(A.diag, rows, nbr[interior], lib_vals, x),
+            )
+        if dtype == torch.float64:
+            continue
+        n_int = int(interior.sum())
+        for F in (1, 3, 9):
+            shape = (C,) if F == 1 else (C, 3) if F == 3 else (C, 3, 3)
+            xf = torch.tensor(rng.standard_normal(shape), dtype=dtype, device=dev)
+            snbr.compare(
+                f"{label} {F} field{'s' * (F > 1)}",
+                lambda: slice_nbr_values(plan, xf, interior),
+                lambda: slice_nbr_values_plain(plan, xf, interior),
+                dtype, C * K + 4 * n_int + C * F * sz + C * K * F * sz,
+                timed=timed and F == 3, exact=True, outputs=("nbr",),
+                library_call=lambda: xf[nbr],
+            )
+        del A, off, diag, mesh
+
+
+def _irregular_twins(dev, settings, iterations, chunk=None):
+    """The same SIMPLE run on a permuted 16^2 f64 cavity on the card and
+    on the CPU (one array set compiled twice)."""
+    from orc_tpu_torch.models.cavity import cavity_case
+    from orc_tpu_torch.solver.simple import solve_steady, stack_history
+
+    box, table = cavity_case(n=16, device="cpu")
+    out = []
+    for d in (dev, torch.device("cpu")):
+        mesh, _ = permuted_mesh(box, torch.float64, d, seed=3)
+        state, hist = solve_steady(
+            mesh, table, settings, 1.0, 1e-3 if settings.tvd_psi else 0.01,
+            iterations=iterations, reporting_interval=chunk or iterations,
+            verbose=False,
+        )
+        out.append((state, stack_history(hist)))
+    return out
+
+
+def phase_small_reference_irregular(dev):
+    """Phase 3b on the irregular path: parity SIMPLE (solve_cavity's
+    numerics) and SIMPLE_FC (flagship numerics, with Jacobi(50) and with
+    its own BiCGSTAB(50) pressure solve) on a permuted 16^2 f64 cavity,
+    card against CPU, 10 iterations: equal inner iteration counts, fields
+    to 1e-9 of scale (1e-6 for the FC BiCGSTAB pair, whose solve
+    amplifies roundoff; ROADMAP Queue 3)."""
+    log("== phase 3b: irregular slice on the card vs on the CPU, permuted cavity 16^2 f64, 10 iterations")
+    from orc_tpu_torch.models.cavity import default_settings, flagship_settings
+    from orc_tpu_torch.utils.settings import MatrixSolverSettings, SolutionMethod
+
+    jacobi = MatrixSolverSettings(solver_type=SolutionMethod.JACOBI, iterations=50)
+    runs = (
+        ("parity", default_settings(), 1e-9),
+        ("fc jacobi", flagship_settings().replace(matrix_solver=jacobi), 1e-9),
+        ("fc bicgstab", flagship_settings(), 1e-6),
+    )
+    for name, settings, tol in runs:
+        (sg, hg), (sc, hc) = _irregular_twins(dev, settings, 10)
+        fields = ("vel", "p") + (("flux",) if sg.flux is not None else ())
+        errs = {n: max_err(getattr(sg, n).cpu(), getattr(sc, n))[1][0] for n in fields}
+        same = bool(
+            np.array_equal(hg.mom_iters, hc.mom_iters)
+            and np.array_equal(hg.pc_iters, hc.pc_iters)
+        )
+        log(
+            f"  {name}: error / scale "
+            + " ".join(f"{n} {e:.3e}" for n, e in errs.items())
+            + f" (tol {tol:.0e}); pc_iters card {hg.pc_iters.tolist()} cpu {hc.pc_iters.tolist()}"
+        )
+        if not same:
+            raise AssertionError(f"irregular {name} cuda vs cpu: inner iteration counts differ")
+        for n, e in errs.items():
+            if not e <= tol:
+                raise AssertionError(f"irregular {name} cuda vs cpu {n} differ by {e:.3e} (tol {tol:.0e})")
+
+
+def bench_irregular_settings():
+    """scripts/bench_irregular_simple.py's numerics: forced SIMPLE, UD +
+    LinearWeighted, implicit relaxation 0.7 / 0.1, Jacobi-preconditioned
+    BiCGSTAB(50)."""
+    from orc_tpu_torch.models.cavity import default_settings
+    from orc_tpu_torch.utils.settings import PressureVelocityCoupling
+
+    return default_settings().replace(
+        pressure_velocity_coupling=PressureVelocityCoupling.SIMPLE
+    )
+
+
+#: Largest difference, relative to the field's scale, allowed between the
+#: permuted 448^2 f32 cavity (mapped back to box order) and its
+#: structured twin after 30 iterations (measured on the H100: vel
+#: 5.3e-6, p 1.7e-5; float32 sums in another order).
+IRREGULAR_CAVITY_TOL = 1e-4
+#: Relative u_mean difference allowed between the permuted and the
+#: structured couette after 300 f64 iterations: the two sum in other
+#: orders and the explicitly relaxed BiCGSTAB loop amplifies that
+#: (measured after 400 iterations: 1.3e-5 with the plain versions on the
+#: CPU, 8.5e-6 on the H100).
+IRREGULAR_COUETTE_TOL = 1e-4
+
+
+def phase_irregular_cavity(dev):
+    """scripts/bench_irregular_simple.py on the card: the 448^2 lid
+    cavity (200,704 cells) with randomly permuted cells, f32, 5 warm-up +
+    25 timed iterations; returns ms/iter and the fields in box order."""
+    log("== phase 9: irregular cavity 448^2 f32 (permuted cells), bench_irregular_simple configuration")
+    settings = bench_irregular_settings()
+    t0 = time.perf_counter()
+    mesh, table, perm = permuted_cavity(448, torch.float32, dev)
+    log(f"  built in {time.perf_counter() - t0:.1f} s; {plan_line(mesh)}")
+    state, _, warm_s = _timed_solve(mesh, table, settings, 1.0, 1e-3, None, 5, 5)
+    state, hist, dt = _timed_solve(mesh, table, settings, 1.0, 1e-3, state, 25, 25)
+    irr_ms = 1e3 * dt / 25
+    log(
+        f"  irregular: warm-up 5 iterations {warm_s:.2f} s; 25 timed "
+        f"iterations {dt:.3f} s -> {irr_ms:.2f} ms/iter; pressure iterations "
+        f"{hist[-1].pc_iters.cpu().numpy().mean():.2f}"
+    )
+    profile(mesh, table, settings, 1.0, 1e-3, state, iterations=3)
+    return dict(
+        ms_per_iter=irr_ms,
+        vel=to_box_order(mesh, perm, state.vel.cpu().numpy()),
+        p=to_box_order(mesh, perm, state.p.cpu().numpy()),
+    )
+
+
+def phase_irregular_twin(dev, irregular):
+    """The structured twin of phase 9, run the same way; the permuted
+    run's fields, mapped back to box order, are held against it."""
+    log("== phase 9b: structured twin of the irregular cavity, 448^2 f32")
+    from orc_tpu_torch.models.cavity import cavity_case
+
+    settings = bench_irregular_settings()
+    twin, table = cavity_case(n=448, dtype=torch.float32, device=dev)
+    state, _, _ = _timed_solve(twin, table, settings, 1.0, 1e-3, None, 5, 5)
+    state, _, dt = _timed_solve(twin, table, settings, 1.0, 1e-3, state, 25, 25)
+    st_ms = 1e3 * dt / 25
+    log(
+        f"  structured twin: {st_ms:.2f} ms/iter; irregular/structured "
+        f"ratio {irregular['ms_per_iter'] / st_ms:.2f}x"
+    )
+    errs = {}
+    for name in ("vel", "p"):
+        ref = getattr(state, name).cpu().numpy()
+        errs[name] = float(np.abs(irregular[name] - ref).max() / np.abs(ref).max())
+    log(
+        f"  irregular vs structured after 30 iterations: vel {errs['vel']:.3e}, "
+        f"p {errs['p']:.3e} of scale (tol {IRREGULAR_CAVITY_TOL:.0e})"
+    )
+    if not all(np.isfinite(irregular[n]).all() and e <= IRREGULAR_CAVITY_TOL for n, e in errs.items()):
+        raise AssertionError("irregular cavity left its structured twin")
+    return dict(ms_per_iter=st_ms, ratio=irregular["ms_per_iter"] / st_ms)
+
+
+def phase_irregular_couette(dev, u_structured):
+    """The permuted couette 128x64x1 f64 with bench.py's configuration
+    (parity SIMPLE, explicit relaxation): 100 warm-up + 200 timed
+    iterations, u_mean within 25% of the analytical value and against
+    the structured couette's u_mean (phase 4, as many iterations)."""
+    log("== phase 10: irregular couette 128x64x1 f64 (permuted cells), bench.py configuration")
+    from orc_tpu_torch.utils.settings import NumericalSettings
+
+    settings = NumericalSettings(matrix_solver=_bicgstab_50())
+    box, table = couette_mesh("cpu")
+    mesh, _ = permuted_mesh(box, torch.float64, dev, seed=1)
+    log(f"  {plan_line(mesh)}")
+    state, _, warm_s = _timed_solve(mesh, table, settings, 1000.0, 0.001, None, 100, 100)
+    state, hist, dt = _timed_solve(mesh, table, settings, 1000.0, 0.001, state, 200, 100)
+    log(
+        f"  warm-up 100 iterations {warm_s:.2f} s; 200 timed iterations "
+        f"{dt:.3f} s -> {200 / dt:.1f} iters/s ({1e3 * dt / 200:.3f} ms/iter)"
+    )
+    u = state.vel[:, 0].cpu().numpy()
+    if not np.isfinite(u).all():
+        raise AssertionError("irregular couette produced non-finite fields")
+    check_couette_u_mean(u, 300)
+    rel = abs(u.mean() - u_structured) / abs(u_structured)
+    log(f"  u_mean against the structured couette {u_structured:.10e}: rel diff {rel:.3e} (tol {IRREGULAR_COUETTE_TOL:.0e})")
+    if not rel <= IRREGULAR_COUETTE_TOL:
+        raise AssertionError("irregular couette left the structured couette's u_mean")
+    profile(mesh, table, settings, 1000.0, 0.001, state, iterations=10)
+    return dict(iters_per_s=200 / dt, u_mean=float(u.mean()))
 
 
 def profile(mesh, table, settings, rho, mu, state, iterations):
@@ -667,10 +1099,12 @@ def main():
     from orc_tpu_torch.ops import fused_assembly as asm
     from orc_tpu_torch.ops.fused_smooth import fused_jacobi_sweeps
     from orc_tpu_torch.ops.shift_spmv import shift_spmv
+    from orc_tpu_torch.ops.slice_spmv import slice_nbr_values, slice_spmv
 
     dev = phase_device()
     phase_build()
     asm_src = "orc_tpu_torch/csrc/assembly.cu"
+    slice_src = "orc_tpu_torch/csrc/slice_spmv.cu"
     kernels = (
         Kernel("shift_spmv", shift_spmv, "orc_tpu_torch/csrc/shift_spmv.cu",
                "orc_tpu/ops/pallas_spmv.py:39"),
@@ -685,23 +1119,37 @@ def main():
                "orc_tpu/ops/pallas_assembly.py:189"),
         Kernel("fc_pc_assembly", asm.fc_pc_assembly, asm_src,
                "orc_tpu/ops/pallas_assembly.py:856"),
+        Kernel("slice_spmv", slice_spmv, slice_src,
+               "orc_tpu/ops/pallas_slice.py:47"),
+        Kernel("slice_nbr_values", slice_nbr_values, slice_src,
+               "orc_tpu/ops/pallas_slice.py:574"),
     )
-    spmv, sweeps, mom, pc, fc_mom, fc_pc = kernels
+    spmv, sweeps, mom, pc, fc_mom, fc_pc, sspmv, snbr = kernels
     phase_kernels(dev, (spmv, sweeps, mom, pc))
     phase_fc_kernels(dev, fc_mom, fc_pc)
+    phase_slice_kernels(dev, sspmv, snbr)
     phase_small_reference(dev)
+    phase_small_reference_irregular(dev)
 
     # The main paths, each driven with the launch counts set to 0 just
     # before it and read just after it.
     parity, fc = (spmv, sweeps, mom, pc), (spmv, sweeps, fc_mom, fc_pc)
+    structured = (spmv, sweeps, mom, pc, fc_mom, fc_pc)
+    results = {}
     paths = (
-        ("parity couette", lambda: phase_couette(dev), (spmv,), ()),
-        ("parity cavity", lambda: phase_cavity(dev), parity, (fc_mom, fc_pc)),
-        ("fc couette", lambda: phase_couette(dev, fc=True), fc, (mom, pc)),
-        ("fc cavity", lambda: phase_cavity(dev, fc=True), fc, (mom, pc)),
-        ("fc sequenced", lambda: phase_sequenced(dev), fc, (mom, pc)),
+        ("parity couette", lambda: phase_couette(dev), (spmv,), (sspmv, snbr)),
+        ("parity cavity", lambda: phase_cavity(dev), parity, (fc_mom, fc_pc, sspmv, snbr)),
+        ("fc couette", lambda: phase_couette(dev, fc=True), fc, (mom, pc, sspmv, snbr)),
+        ("fc cavity", lambda: phase_cavity(dev, fc=True), fc, (mom, pc, sspmv, snbr)),
+        ("fc sequenced", lambda: phase_sequenced(dev), fc, (mom, pc, sspmv, snbr)),
+        ("irregular cavity", lambda: phase_irregular_cavity(dev), (sspmv, snbr), structured),
+        ("structured twin", lambda: phase_irregular_twin(dev, results["irregular cavity"]),
+         parity, (sspmv, snbr)),
+        ("irregular couette",
+         lambda: phase_irregular_couette(dev, results["parity couette"]["u_mean"]),
+         (sspmv, snbr), structured),
     )
-    results, launches = {}, {k.name: 0 for k in kernels}
+    launches = {k.name: 0 for k in kernels}
     for label, run, must, must_not in paths:
         for k in kernels:
             k.fn.launches = 0
@@ -721,14 +1169,17 @@ def main():
         f"iters/s; cavity 1024^2 f32 {results['parity cavity']['ms_per_iter']:.2f} "
         f"ms/iter; SIMPLE_FC couette f64 {results['fc couette']['iters_per_s']:.1f} "
         f"iters/s; SIMPLE_FC cavity 1024^2 f32 "
-        f"{results['fc cavity']['ms_per_iter']:.2f} ms/iter"
+        f"{results['fc cavity']['ms_per_iter']:.2f} ms/iter; irregular cavity "
+        f"448^2 f32 {results['irregular cavity']['ms_per_iter']:.2f} ms/iter "
+        f"({results['structured twin']['ratio']:.2f}x its structured twin); "
+        f"irregular couette f64 {results['irregular couette']['iters_per_s']:.1f} iters/s"
     )
-    log(json.dumps({"kernels": [
-        dict(name=k.name, route="cuda", source=k.source, replaces=k.replaces,
-             launches=launches[k.name], max_abs_err=k.max_abs_err, ms=k.ms,
-             plain_ms=k.plain_ms)
-        for k in kernels
-    ]}))
+    log(json.dumps({"kernels": [k.summary(launches[k.name]) for k in kernels]}))
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip()
+    log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(),

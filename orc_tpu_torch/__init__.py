@@ -9,12 +9,15 @@ version serves CPU tensors.
 
 Idiom:
 - Plain functions on tensors and frozen dataclasses (CompiledMesh,
-  UniformCKGeometry, FlowState, EllMatrix, StepMetrics). The solver has
+  SlicePlan, CKGeometry, UniformCKGeometry, FlowState, EllMatrix,
+  StepMetrics). The solver has
   no learned weights and takes no gradients, so there is no nn.Module
   and no autograd.Function.
-- The device is explicit: mesh constructors take `device=`, every tensor
-  follows the mesh's device, and a wrapper launches its CUDA kernel
-  exactly when its input lies on a CUDA device.
+- The device is explicit: mesh constructors and cases take `device=`
+  and default to the CUDA device (raising without a GPU; pass
+  device="cpu" to run on the CPU), every tensor follows the mesh's
+  device, and a wrapper launches its CUDA kernel exactly when its input
+  lies on a CUDA device.
 - The dtype is explicit: mesh constructors default to float64, as in orc_tpu,
   and every constructor names its dtype and device; the default dtype
   is never changed.
@@ -28,6 +31,8 @@ from orc_tpu_torch.mesh import (
     BoundaryTable,
     CompiledMesh,
     FaceCondition,
+    compile_mesh,
+    read_mesh,
     structured_box_mesh,
 )
 from orc_tpu_torch.utils.settings import (
@@ -61,6 +66,8 @@ __all__ = [
     "RelaxationMode",
     "SolutionMethod",
     "VelocityInterpolation",
+    "compile_mesh",
+    "read_mesh",
     "structured_box_mesh",
     "__version__",
 ]

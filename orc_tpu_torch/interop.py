@@ -1,9 +1,10 @@
-"""Carry meshes and flow states across from numpy arrays.
+"""Carry meshes, slice plans and flow states across from numpy arrays.
 
-Tests use these to feed a state produced by the JAX package into the
-port mid-trajectory: convert the JAX arrays with ``numpy.asarray`` and
-pass them here. Integer, boolean and float arrays keep their numpy
-dtypes (orc_tpu's int32 indices and bool masks map onto the port's).
+Tests use these to feed a mesh or a state produced by the JAX package
+into the port: convert the JAX arrays with ``numpy.asarray`` and pass
+them here, with the device named. Integer, boolean and float arrays keep
+their numpy dtypes (orc_tpu's int32 indices and bool masks map onto the
+port's).
 """
 
 from __future__ import annotations
@@ -14,14 +15,19 @@ import numpy as np
 import torch
 
 from orc_tpu_torch.mesh.compile import CompiledMesh
+from orc_tpu_torch.mesh.reorder import SlicePlan
 from orc_tpu_torch.solver.simple import FlowState
 
-#: The tensor fields of CompiledMesh.
+#: The tensor fields every CompiledMesh has.
 MESH_FIELDS = tuple(
     f.name
     for f in dataclasses.fields(CompiledMesh)
-    if f.name not in ("dim", "neighbor_offsets", "ck_constants")
+    if f.name
+    not in ("dim", "neighbor_offsets", "ck_constants", "cell_order", "slice_plan")
 )
+#: The index tables of a SlicePlan and its sizes.
+PLAN_TABLES = ("starts", "col_of", "tile_nj", "col_tile")
+PLAN_SIZES = ("tile", "n_max", "pad_lo", "pad_hi", "n_cells", "j0", "n_heavy")
 
 
 def _tensor(a, device):
@@ -30,15 +36,34 @@ def _tensor(a, device):
     return torch.tensor(np.asarray(a), device=device)
 
 
+def slice_plan_from_numpy(fields: dict, *, device) -> SlicePlan:
+    """SlicePlan on `device` from a dict holding its index tables as
+    numpy arrays (PLAN_TABLES, all required; orc_tpu builds col_tile
+    with `build_col_tile=True`) and its sizes (PLAN_SIZES; j0 and
+    n_heavy default to 0)."""
+    missing = [name for name in PLAN_TABLES if fields.get(name) is None]
+    if missing:
+        raise KeyError(f"slice plan tables missing: {missing}")
+    return SlicePlan(
+        **{name: _tensor(fields[name], device) for name in PLAN_TABLES},
+        **{name: int(fields.get(name, 0)) for name in PLAN_SIZES},
+    )
+
+
 def compiled_mesh_from_numpy(
     fields: dict,
     neighbor_offsets: tuple | None,
     ck_constants: tuple | None,
     dim: int = 3,
-    device: torch.device | str = "cpu",
+    *,
+    device,
+    cell_order=None,
+    slice_plan: SlicePlan | None = None,
 ) -> CompiledMesh:
-    """CompiledMesh from a dict holding every tensor field as a numpy
-    array, plus the static `neighbor_offsets` and `ck_constants`."""
+    """CompiledMesh on `device` from a dict holding every tensor field
+    as a numpy array, plus the static `neighbor_offsets` and
+    `ck_constants` and, for irregular meshes, the numpy `cell_order`
+    and a `slice_plan` (see slice_plan_from_numpy)."""
     missing = set(MESH_FIELDS) - set(fields)
     if missing:
         raise KeyError(f"mesh fields missing: {sorted(missing)}")
@@ -49,14 +74,14 @@ def compiled_mesh_from_numpy(
             int(d) for d in neighbor_offsets
         ),
         ck_constants=ck_constants,
+        cell_order=None if cell_order is None else _tensor(cell_order, device),
+        slice_plan=None if slice_plan is None else slice_plan.to(device),
     )
 
 
-def flow_state_from_numpy(
-    vel, p, mom_diag, flux=None, device: torch.device | str = "cpu"
-) -> FlowState:
-    """FlowState from numpy vel [C,3], p [C], mom_diag [3,C] (and the
-    SIMPLE_FC flux, when given)."""
+def flow_state_from_numpy(vel, p, mom_diag, flux=None, *, device) -> FlowState:
+    """FlowState on `device` from numpy vel [C,3], p [C], mom_diag [3,C]
+    (and the SIMPLE_FC flux, when given)."""
     return FlowState(
         vel=_tensor(vel, device),
         p=_tensor(p, device),

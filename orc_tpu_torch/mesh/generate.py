@@ -1,14 +1,16 @@
-"""Structured hex-mesh generation (port of the analytic path of
-orc_tpu/mesh/generate.py).
+"""Structured hex-mesh generation (port of orc_tpu/mesh/generate.py).
 
-`structured_box_mesh` builds the CompiledMesh arrays in closed form with
-numpy, then moves them to the requested device in one transfer per
-field. Zone naming follows the reference's couette fixtures: INLET
-(x-), OUTLET (x+), BOTTOM_WALL (y-), TOP_WALL (y+), PERIODIC_-Z (z-),
-PERIODIC_+Z (z+), FLUID interior.
+- `structured_box_mesh` builds the CompiledMesh arrays of a uniform box
+  in closed form with numpy, then moves them to the device in one
+  transfer per field. A periodic axis of exactly 2 cells has no
+  structured column assignment and takes the generic construction
+  through `compile_from_arrays` instead.
+- `write_tgrid` writes a structured box as a TGRID .msh text file (the
+  grammar of the reference's reader, io.rs:78-284).
 
-Not ported yet: the generic construction through the TGRID compiler
-(needed only for a periodic axis of exactly 2 cells) and `write_tgrid`.
+Zone naming follows the reference's couette fixtures: INLET (x-), OUTLET
+(x+), BOTTOM_WALL (y-), TOP_WALL (y+), PERIODIC_-Z (z-), PERIODIC_+Z
+(z+), FLUID interior.
 """
 
 from __future__ import annotations
@@ -18,8 +20,9 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
-from orc_tpu_torch.mesh.compile import CompiledMesh
+from orc_tpu_torch.mesh.compile import CompiledMesh, compile_from_arrays
 from orc_tpu_torch.mesh.zones import BoundaryTable, FaceCondition, FaceZone
+from orc_tpu_torch.utils.device import resolve_device
 
 DEFAULT_ZONE_NAMES = {
     "interior": "FLUID",
@@ -41,16 +44,17 @@ def structured_box_mesh(
     zone_names: Dict[str, str] | None = None,
     dtype: torch.dtype = torch.float64,
     periodic: Tuple[str, ...] = (),
-    device: torch.device | str = "cpu",
+    device: torch.device | str = "cuda",
 ):
-    """Uniform structured hex mesh of nx*ny*nz cells on `device`.
+    """Uniform structured hex mesh of nx*ny*nz cells on `device` (the
+    CUDA device unless the caller names another).
 
     Cell (i,j,k) has id ``i + nx*(j + ny*k)`` (x fastest). Returns
     (CompiledMesh, BoundaryTable); boundary zones default to WALL
     (SYMMETRY on the planes of a 1-cell axis) — set the actual BCs on
     the table afterwards. `periodic` lists axes ("x", "y", "z") to close
-    translationally with wrap faces (each such axis needs >= 3 cells
-    here)."""
+    translationally with wrap faces."""
+    device = resolve_device(device)
     per_axes = frozenset({"x": 0, "y": 1, "z": 2}[a] for a in periodic)
     for axis, n in zip((0, 1, 2), (nx, ny, nz)):
         if axis in per_axes and n < 2:
@@ -59,15 +63,115 @@ def structured_box_mesh(
                 f"(got {n}): a 1-cell wrap face would connect a cell to "
                 "itself"
             )
-        if axis in per_axes and n == 2:
-            raise NotImplementedError(
-                f"periodic axis {'xyz'[axis]} with {n} cells needs the "
-                "generic TGRID-compile construction, which is not ported "
-                "yet (ROADMAP Queue 1, item 2)"
-            )
+    # A 2-cell periodic axis gives two same-offset neighbours per row
+    # (step and wrap both at +/-1): the generic construction.
+    if any(axis in per_axes and n == 2 for axis, n in zip((0, 1, 2), (nx, ny, nz))):
+        return _structured_box_mesh_generic(
+            nx, ny, nz, lengths, origin, zone_names, dtype, per_axes, device
+        )
     return _structured_compile(
         nx, ny, nz, lengths, origin, zone_names, dtype, per_axes, device
     )
+
+
+def _structured_box_mesh_generic(
+    nx, ny, nz, lengths, origin, zone_names, dtype, per_axes, device
+):
+    """Face lists -> compile_from_arrays (orc_tpu's generic box, the
+    equivalence reference of `_structured_compile`)."""
+    names = dict(DEFAULT_ZONE_NAMES)
+    if zone_names:
+        names.update(zone_names)
+    dims = (nx, ny, nz)
+    h = [lengths[a] / dims[a] for a in range(3)]
+    o = list(origin)
+    C = nx * ny * nz
+
+    def cid(i, j, k):
+        return i + nx * (j + ny * k)
+
+    i, j, k = np.meshgrid(
+        np.arange(nx), np.arange(ny), np.arange(nz), indexing="ij"
+    )
+    flat = cid(i, j, k).ravel()
+    cc = np.zeros((C, 3))
+    for a, q in enumerate((i, j, k)):
+        cc[flat, a] = o[a] + (q.ravel() + 0.5) * h[a]
+    vol = np.full(C, h[0] * h[1] * h[2])
+    table = _box_zone_table(names, per_axes, dims)
+
+    parts = {key: [] for key in ("own", "nbr", "area", "nrm", "cen", "zs", "shf")}
+    for axis in range(3):
+        is_per = axis in per_axes
+        n_axis = dims[axis]
+        lo_zone, hi_zone = 2 + 2 * axis, 3 + 2 * axis
+        ax_counts = list(dims)
+        ax_counts[axis] = n_axis + 1
+        pi, pj, pk = np.meshgrid(
+            *(np.arange(c) for c in ax_counts), indexing="ij"
+        )
+        plane = (pi, pj, pk)[axis].ravel()
+        others = [q.ravel() for q in (pi, pj, pk)]
+        if is_per:
+            sel = plane > 0  # the low plane merges into the wrap
+            plane = plane[sel]
+            others = [q[sel] for q in others]
+        lo_idx = list(others)
+        lo_idx[axis] = plane - 1
+        hi_idx = list(others)
+        hi_idx[axis] = np.where(plane < n_axis, plane, 0)  # wrap at top
+        has_lo = plane > 0
+        has_hi = (plane < n_axis) | is_per
+        lo_cell = cid(*[np.clip(x, 0, None) for x in lo_idx])
+        hi_cell = cid(*hi_idx)
+        own = np.where(has_lo, lo_cell, hi_cell)
+        nrm = np.zeros((own.shape[0], 3))
+        nrm[:, axis] = np.where(has_lo, 1.0, -1.0)
+        cen = np.zeros((own.shape[0], 3))
+        for a in range(3):
+            if a == axis:
+                cen[:, a] = o[a] + plane * h[a]
+            else:
+                cen[:, a] = o[a] + (others[a] + 0.5) * h[a]
+        # Wrap faces: the neighbour's image sits one domain length up.
+        shf = np.zeros((own.shape[0], 3))
+        if is_per:
+            shf[plane == n_axis, axis] = lengths[axis]
+        parts["own"].append(own)
+        parts["nbr"].append(np.where(has_lo & has_hi, hi_cell, -1))
+        parts["area"].append(
+            np.full(own.shape[0], np.prod([h[b] for b in range(3) if b != axis]))
+        )
+        parts["nrm"].append(nrm)
+        parts["cen"].append(cen)
+        parts["zs"].append(
+            np.where(
+                has_lo & has_hi,
+                table.slot_of_zone[1],
+                np.where(
+                    has_lo,
+                    table.slot_of_zone[hi_zone],
+                    table.slot_of_zone[lo_zone],
+                ),
+            )
+        )
+        parts["shf"].append(shf)
+    cat = {key: np.concatenate(v) for key, v in parts.items()}
+    mesh = compile_from_arrays(
+        dim=3,
+        face_owner=cat["own"],
+        face_neighbor=cat["nbr"],
+        face_area=cat["area"],
+        face_normal=cat["nrm"],
+        face_centroid=cat["cen"],
+        face_zone_slot=cat["zs"],
+        cell_centroid=cc,
+        cell_volume=vol,
+        dtype=dtype,
+        face_shift=cat["shf"] if per_axes else None,
+        device=device,
+    )
+    return mesh, table
 
 
 def _box_zone_table(names, per_axes, dims):
@@ -350,3 +454,165 @@ def _structured_compile(
         ck_constants=ck_constants,
     )
     return mesh, table
+
+
+def write_tgrid(
+    path: str,
+    nx: int,
+    ny: int,
+    nz: int = 1,
+    lengths: Tuple[float, float, float] = (1.0, 1.0, 1.0),
+    origin: Tuple[float, float, float] = (0.0, 0.0, 0.0),
+    zone_names: Dict[str, str] | None = None,
+    periodic: Tuple[str, ...] = (),
+):
+    """Write a structured box as a TGRID .msh text file.
+
+    Periodic axes emit their high-plane faces as a PERIODIC zone (BC
+    code 12), the low plane as PERIODIC_SHADOW (code 8), and an
+    ``(18 ...)`` section pairing each periodic face with its shadow,
+    which mesh/tgrid.py keeps."""
+    names = dict(DEFAULT_ZONE_NAMES)
+    if zone_names:
+        names.update(zone_names)
+    per_axes = frozenset({"x": 0, "y": 1, "z": 2}[a] for a in periodic)
+    lx, ly, lz = lengths
+    ox, oy, oz = origin
+    hx, hy, hz = lx / nx, ly / ny, lz / nz
+    npx, npy, npz = nx + 1, ny + 1, nz + 1
+    n_nodes = npx * npy * npz
+    n_cells = nx * ny * nz
+
+    def nid(i, j, k):  # 1-based node id
+        return 1 + i + npx * (j + npy * k)
+
+    def cid(i, j, k):  # 1-based cell id
+        return 1 + i + nx * (j + ny * k)
+
+    zone_faces = {
+        "interior": [],
+        "x-": [],
+        "x+": [],
+        "y-": [],
+        "y+": [],
+        "z-": [],
+        "z+": [],
+    }
+
+    # Quad faces with nodes ordered counterclockwise seen from +axis.
+    for i in range(npx):
+        for j in range(ny):
+            for k in range(nz):
+                nodes = (
+                    nid(i, j, k),
+                    nid(i, j + 1, k),
+                    nid(i, j + 1, k + 1),
+                    nid(i, j, k + 1),
+                )
+                c_lo = cid(i - 1, j, k) if i > 0 else 0
+                c_hi = cid(i, j, k) if i < nx else 0
+                key = "interior" if (c_lo and c_hi) else ("x-" if i == 0 else "x+")
+                zone_faces[key].append((nodes, c_hi, c_lo))
+    for j in range(npy):
+        for i in range(nx):
+            for k in range(nz):
+                nodes = (
+                    nid(i, j, k),
+                    nid(i + 1, j, k),
+                    nid(i + 1, j, k + 1),
+                    nid(i, j, k + 1),
+                )
+                c_lo = cid(i, j - 1, k) if j > 0 else 0
+                c_hi = cid(i, j, k) if j < ny else 0
+                key = "interior" if (c_lo and c_hi) else ("y-" if j == 0 else "y+")
+                zone_faces[key].append((nodes, c_hi, c_lo))
+    for k in range(npz):
+        for i in range(nx):
+            for j in range(ny):
+                nodes = (
+                    nid(i, j, k),
+                    nid(i + 1, j, k),
+                    nid(i + 1, j + 1, k),
+                    nid(i, j + 1, k),
+                )
+                c_lo = cid(i, j, k - 1) if k > 0 else 0
+                c_hi = cid(i, j, k) if k < nz else 0
+                key = "interior" if (c_lo and c_hi) else ("z-" if k == 0 else "z+")
+                zone_faces[key].append((nodes, c_hi, c_lo))
+
+    n_faces = sum(len(v) for v in zone_faces.values())
+    # As _box_zone_table: walls (code 3), SYMMETRY (code 7) on the
+    # planes of a 1-cell non-periodic axis, the periodic pair codes on
+    # periodic axes, so a re-read box gets the analytic BoundaryTable.
+    bc_code = {"interior": 2}
+    for axis, (lo_key, hi_key) in enumerate(
+        (("x-", "x+"), ("y-", "y+"), ("z-", "z+"))
+    ):
+        code = 7 if (nx, ny, nz)[axis] == 1 else 3
+        bc_code[lo_key] = bc_code[hi_key] = code
+    for axis in per_axes:
+        lo_key, hi_key = (("x-", "x+"), ("y-", "y+"), ("z-", "z+"))[axis]
+        bc_code[hi_key] = 12  # PERIODIC
+        bc_code[lo_key] = 8  # PERIODIC_SHADOW
+
+    with open(path, "w") as f:
+        f.write('(0 "Generated by orc_tpu structured_box_mesh")\n')
+        f.write('(0 "Units: Meters")\n')
+        f.write("(2 3)\n")
+        f.write(f"(10 (0 1 {n_nodes:x} 0 3))\n")
+        f.write(f"(10 (1 1 {n_nodes:x} 1 3)\n(\n")
+        # Emit nodes in id order (i fastest).
+        for idx in range(n_nodes):
+            i = idx % npx
+            j = (idx // npx) % npy
+            k = idx // (npx * npy)
+            f.write(f"{ox + i * hx:.17g} {oy + j * hy:.17g} {oz + k * hz:.17g}\n")
+        f.write("))\n")
+        f.write(f"(12 (0 1 {n_cells:x} 0 0))\n")
+        f.write(f"(12 (2 1 {n_cells:x} 1 4))\n")
+        f.write(f"(13 (0 1 {n_faces:x} 0 0))\n")
+
+        zone_id = 10
+        first = 1
+        zone_start: Dict[str, int] = {}
+        zone_num: Dict[str, int] = {}
+        for key in ("interior", "x-", "x+", "y-", "y+", "z-", "z+"):
+            faces = zone_faces[key]
+            if not faces:
+                continue
+            last = first + len(faces) - 1
+            zone_start[key] = first
+            zone_num[key] = zone_id
+            f.write(f'(0 "Faces of zone {names[key]}")\n')
+            f.write(
+                f"(13 ({zone_id:x} {first:x} {last:x} {bc_code[key]:x} 4)(\n"
+            )
+            for nodes, c0, c1 in faces:
+                f.write(
+                    " ".join(f"{x:x}" for x in nodes)
+                    + f" {c0:x} {c1:x}\n"
+                )
+            f.write(")\n)\n")
+            first = last + 1
+            zone_id += 1
+
+        # One (18 section per periodic axis: high-plane (PERIODIC)
+        # faces paired with low-plane (PERIODIC_SHADOW) faces in the
+        # same transverse order.
+        for axis in sorted(per_axes):
+            lo_key, hi_key = (("x-", "x+"), ("y-", "y+"), ("z-", "z+"))[
+                axis
+            ]
+            n_pairs = len(zone_faces[hi_key])
+            assert n_pairs == len(zone_faces[lo_key])
+            f.write(f'(0 "Periodic pairs for axis {"xyz"[axis]}")\n')
+            f.write(
+                f"(18 (1 {n_pairs:x} {zone_num[hi_key]:x} "
+                f"{zone_num[lo_key]:x})(\n"
+            )
+            for idx in range(n_pairs):
+                f.write(
+                    f"{zone_start[hi_key] + idx:x} "
+                    f"{zone_start[lo_key] + idx:x}\n"
+                )
+            f.write("))\n")

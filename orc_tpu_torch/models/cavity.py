@@ -15,9 +15,10 @@ def cavity_case(
     lid_velocity: float = 1.0,
     size: float = 1.0,
     dtype: torch.dtype = torch.float64,
-    device: torch.device | str = "cpu",
+    device: torch.device | str = "cuda",
 ):
-    """n x n x nz unit cavity on `device`; +y wall is the moving lid."""
+    """n x n x nz unit cavity on `device` (the CUDA device unless the
+    caller names another); +y wall is the moving lid."""
     mesh, table = structured_box_mesh(
         n, n, nz, lengths=(size, size, size * nz / n), dtype=dtype,
         device=device,
@@ -105,10 +106,11 @@ def solve_cavity(
     n_devices: int = 1,
     verbose: bool = True,
     dtype: torch.dtype = torch.float64,
-    device: torch.device | str = "cpu",
+    device: torch.device | str = "cuda",
 ):
     """Solve the cavity at a given Reynolds number (rho = 1,
-    mu = U L / Re) on `device`. Returns the result state + diagnostics."""
+    mu = U L / Re) on `device` (the CUDA device unless the caller names
+    another). Returns the result state + diagnostics."""
     from orc_tpu_torch.solver.simple import initial_state, solve_steady
 
     if n_devices != 1:

@@ -85,6 +85,14 @@ SIGNATURES = {
         _i, _i, _pll, _pd, _pi, _pi, _i, _p, _p, _p, _p, _p, _d, _d, _p, _p,
         _p, _p, _ll, _p,
     ),
+    # dtype, diag, diag batch stride, coef, coef batch stride, starts,
+    # tile_nj, x, y, C, tile, ntiles, n_max, pad_lo, B, stream
+    "orc_slice_spmv": (
+        _i, _p, _ll, _p, _ll, _p, _p, _p, _p, _ll, _i, _ll, _i, _ll, _i, _p,
+    ),
+    # dtype, x, interior, starts, col_tile, out, C, K, F, tile, n_max,
+    # pad_lo, stream
+    "orc_slice_nbr": (_i, _p, _p, _p, _p, _p, _ll, _i, _i, _i, _i, _ll, _p),
 }
 
 

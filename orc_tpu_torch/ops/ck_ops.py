@@ -1,19 +1,21 @@
-"""Gather-free (c,k)-direct physics ops (port of orc_tpu/ops/ck_ops.py,
-uniform-box branch).
+"""Gather-free (c,k)-direct physics ops (port of orc_tpu/ops/ck_ops.py).
 
 Every face quantity is evaluated per (cell, ELL slot) [C,K]: interior
-faces twice, once from each side. Neighbor values come from shifts of
-the cell fields (mesh.neighbor_offsets), BC data from a Z-way select over
-the zone tables. The arithmetic follows orc_tpu term by term, so both
-packages agree to roundoff.
+faces twice, once from each side. Static face geometry is expanded once
+into [C,K] tensors (`CKGeometry`), or kept as per-column constants on
+uniform boxes (`UniformCKGeometry`). Neighbor values come from shifts
+of the cell fields on structured meshes, from the slice-plan gather
+(kernels 10-11 on the card) on irregular ones, or from one gather over
+`cell_neighbors`; BC data from a Z-way select over the zone tables. The
+arithmetic follows orc_tpu term by term, so both packages agree to
+roundoff.
 
-Ported: `UniformCKGeometry` (uniform structured boxes), the shift branch
-of `nbr_values`, `zone_sel`, `CKBC`/`ck_bc`, `ck_face_pressure`
-(Linear, LinearWeighted, SecondOrder), `ck_flux` (Linear,
-LinearWeighted, Rhie-Chow), `ck_pressure_gradient` and
-`ck_velocity_gradient` (Green-Gauss cell), `ck_diffusion`, `ck_momentum`
-(UD, CD1, TVD_DC), `ck_pressure_correction`, `ck_apply_correction`.
-Other schemes, irregular meshes and the expanded `CKGeometry` raise
+Ported: both geometries, every branch of `nbr_values`, `zone_sel`,
+`CKBC`/`ck_bc`, `ck_face_pressure` (Linear, LinearWeighted,
+SecondOrder), `ck_flux` (Linear, LinearWeighted, Rhie-Chow),
+`ck_pressure_gradient` and `ck_velocity_gradient` (Green-Gauss cell),
+`ck_diffusion`, `ck_momentum` (UD, CD1, TVD_DC),
+`ck_pressure_correction`, `ck_apply_correction`. Other schemes raise
 NotImplementedError (ROADMAP Queue 1, item 5).
 """
 
@@ -31,6 +33,7 @@ from orc_tpu_torch.ops.fields import (
     VELOCITY_INLET,
     WALL,
 )
+from orc_tpu_torch.ops.slice_spmv import slice_nbr_values
 from orc_tpu_torch.ops.spmv import EllMatrix
 from orc_tpu_torch.utils.settings import (
     MomentumScheme,
@@ -40,6 +43,23 @@ from orc_tpu_torch.utils.settings import (
     RelaxationMode,
     VelocityInterpolation,
 )
+
+
+@dataclasses.dataclass(frozen=True)
+class CKGeometry:
+    """Static per-(cell, slot) geometry, orientation folded in."""
+
+    area: torch.Tensor  # [C,K] (0 at padded slots)
+    n_out: torch.Tensor  # [C,K,3] outward from c
+    w: torch.Tensor  # [C,K] phi_f = phi_c + (phi_n - phi_c) w
+    r_cf: torch.Tensor  # [C,K,3] x_face - x_c
+    r_on: torch.Tensor  # [C,K,3] x_nbr - x_c (boundary: x_face - x_c)
+    dist_on: torch.Tensor  # [C,K] |r_on| (1 at padded slots)
+    dist_fo: torch.Tensor  # [C,K] |x_face - x_c| (1 at padded slots)
+    interior: torch.Tensor  # [C,K] bool
+    mask: torch.Tensor  # [C,K] bool
+    zone_slot: torch.Tensor  # [C,K] i32
+    n_zones: int
 
 
 @dataclasses.dataclass(frozen=True)
@@ -113,15 +133,57 @@ class UniformCKGeometry:
         return torch.where(self.interior | ~self.mask, int_slot, self.c_zone)
 
 
-def build_ck_geometry(mesh, n_zones: int) -> UniformCKGeometry:
-    """(c,k) geometry of a uniform structured box (mesh.ck_constants
-    set by structured_box_mesh). Only the interior/mask booleans are
-    materialized."""
+def _expand_geometry(mesh, n_zones: int) -> CKGeometry:
+    """orc_tpu's `_expand_geometry` with plain indexing: the face
+    geometry of each (c,k) slot in the cell's own frame, derived from
+    the stored face vectors so periodic wraps see translated images
+    (owner rows: x_f - x_c = x_f - x_own, c -> nbr = +r_on; neighbour
+    rows: x_f - x_c = (x_f - x_own) - r_on, c -> nbr = -r_on)."""
+    cf = mesh.cell_faces.long()
+    m = mesh.cell_face_mask
+    sgn = mesh.cell_face_sign
+    area = mesh.face_area[cf] * m
+    n_out = sgn[..., None] * mesh.face_normal[cf]
+    interior = mesh.face_interior[cf] & m
+    r_on_face = mesh.face_r_on[cf]
+    r_f_own = (
+        mesh.face_centroid - mesh.cell_centroid[mesh.face_owner.long()]
+    )[cf]
+    r_cf = torch.where(
+        (sgn > 0)[..., None], r_f_own, r_f_own - r_on_face
+    ) * m[..., None]
+    r_on = torch.where(interior[..., None], sgn[..., None] * r_on_face, r_cf)
+    dist_on = torch.sqrt(torch.sum(r_on * r_on, dim=-1))
+    dist_fo = torch.sqrt(torch.sum(r_cf * r_cf, dim=-1))
+    d_nf = r_cf - r_on
+    dist_nf = torch.sqrt(torch.sum(d_nf * d_nf, dim=-1))
+    zero = _zero_like(area)
+    one = torch.ones((), dtype=area.dtype, device=area.device)
+    w = torch.where(
+        interior, dist_fo / torch.clamp(dist_fo + dist_nf, min=1e-300), zero
+    )
+    return CKGeometry(
+        area=area,
+        n_out=n_out,
+        w=w,
+        r_cf=r_cf,
+        r_on=r_on,
+        dist_on=torch.where(m, dist_on, one),
+        dist_fo=torch.where(m, dist_fo, one),
+        interior=interior,
+        mask=m,
+        zone_slot=mesh.face_zone_slot[cf].to(torch.int32),
+        n_zones=n_zones,
+    )
+
+
+def build_ck_geometry(mesh, n_zones: int):
+    """One-time expansion of the face geometry to [C,K]. Uniform boxes
+    (mesh.ck_constants set by structured_box_mesh) materialize only the
+    interior/mask booleans and keep per-column constants
+    (UniformCKGeometry); every other mesh gets the expanded CKGeometry."""
     if mesh.ck_constants is None:
-        raise NotImplementedError(
-            "the expanded CKGeometry of non-uniform meshes is not ported "
-            "yet (ROADMAP Queue 1, item 5)"
-        )
+        return _expand_geometry(mesh, n_zones)
     int_slot, cols = mesh.ck_constants
     dt, dev = mesh.dtype, mesh.device
     m = mesh.cell_face_mask
@@ -140,13 +202,16 @@ def build_ck_geometry(mesh, n_zones: int) -> UniformCKGeometry:
 
 
 def nbr_values(mesh, x, interior):
-    """Neighbor-cell values [C,K(,d)] by shifts along the cell axis;
-    slots that are not interior faces return the cell's own value."""
+    """Neighbor-cell values [C,K(,d)]; slots that are not interior faces
+    return the cell's own value. Structured meshes: shifts along the
+    cell axis. Irregular meshes with a slice plan: the slice gather
+    (kernels 10-11 on the card). Meshes without one (two cells or fewer,
+    no interior face, or a degenerate plan): one gather over
+    `cell_neighbors` (self-index at non-interior slots)."""
     if mesh.neighbor_offsets is None:
-        raise NotImplementedError(
-            "neighbor values of irregular meshes are not ported yet "
-            "(ROADMAP Queue 1, item 11)"
-        )
+        if mesh.slice_plan is not None:
+            return slice_nbr_values(mesh.slice_plan, x, interior)
+        return x[mesh.cell_neighbors.long()]
     cols = [
         torch.roll(x, -int(d), dims=0) if d != 0 else x
         for d in mesh.neighbor_offsets
@@ -155,6 +220,18 @@ def nbr_values(mesh, x, interior):
     own = x.unsqueeze(1)
     cond = interior.reshape(interior.shape + (1,) * (x.ndim - 1))
     return torch.where(cond, out, own)
+
+
+def mesh_matrix(mesh, diag, off) -> EllMatrix:
+    """An EllMatrix over the mesh's adjacency: the shift form on
+    structured meshes, the neighbor table and slice plan otherwise."""
+    if mesh.neighbor_offsets is not None:
+        return EllMatrix(
+            diag=diag, off=off, neighbors=None, offsets=mesh.neighbor_offsets
+        )
+    return EllMatrix(
+        diag=diag, off=off, neighbors=mesh.cell_neighbors, plan=mesh.slice_plan
+    )
 
 
 def zone_sel(zone_vals, zone_slot, n_zones: int):
@@ -184,7 +261,7 @@ class CKBC(NamedTuple):
     is_vel_inlet: torch.Tensor
 
 
-def ck_bc(ck: UniformCKGeometry, zone_codes, zone_scalar, zone_vector) -> CKBC:
+def ck_bc(ck, zone_codes, zone_scalar, zone_vector) -> CKBC:
     slot = ck.zone_slot
     code = zone_sel(zone_codes, slot, ck.n_zones)
     scalar = zone_sel(zone_scalar, slot, ck.n_zones)
@@ -394,10 +471,7 @@ def ck_momentum(
         * torch.ones((1, 3), dtype=a_p.dtype, device=a_p.device),
         zero,
     )
-    A = EllMatrix(
-        diag=diag, off=off, neighbors=None, offsets=mesh.neighbor_offsets
-    )
-    return A, b.T, pe
+    return mesh_matrix(mesh, diag, off), b.T, pe
 
 
 def _tvd_dc_source(mesh, ck, psi, vel, F, grad_vel, vel_nbr):
@@ -450,12 +524,7 @@ def ck_pressure_correction(mesh, ck, bc: CKBC, rho, F2, mom_diag, mom_diag_nbr=N
     diag = torch.where(active, diag, one)
     b = torch.where(active, b, zero)
     off = torch.where(ck.interior, -a_nb, zero)
-    return (
-        EllMatrix(
-            diag=diag, off=off, neighbors=None, offsets=mesh.neighbor_offsets
-        ),
-        b,
-    )
+    return mesh_matrix(mesh, diag, off), b
 
 
 def ck_apply_correction(

@@ -24,9 +24,11 @@ VELOCITY_INLET = int(FaceCondition.VELOCITY_INLET)
 def device_bc(
     table: BoundaryTable,
     dtype: torch.dtype = torch.float64,
-    device: torch.device | str = "cpu",
+    *,
+    device: torch.device | str,
 ):
-    """Zone-level tensors: (codes [Z] i32, scalar [Z], vector [Z,3])."""
+    """Zone-level tensors on `device`: (codes [Z] i32, scalar [Z],
+    vector [Z,3])."""
     return (
         torch.tensor(table.codes, dtype=torch.int32, device=device),
         torch.tensor(table.scalar, dtype=dtype, device=device),

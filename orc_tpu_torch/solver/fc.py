@@ -40,9 +40,9 @@ from orc_tpu_torch.ops.ck_ops import (
     ck_momentum,
     ck_pressure_gradient,
     ck_velocity_gradient,
+    mesh_matrix,
     nbr_values,
 )
-from orc_tpu_torch.ops.spmv import EllMatrix
 from orc_tpu_torch.solver import simple
 from orc_tpu_torch.utils.settings import (
     MomentumScheme,
@@ -159,10 +159,7 @@ def ck_fc_pressure_system(mesh, ck, bc, rho, flux_h, d_ck):
     diag = torch.where(active, diag, one)
     b = torch.where(active, b, zero)
     off = torch.where(ck.interior, -d_ck, zero)
-    return (
-        EllMatrix(diag=diag, off=off, neighbors=None, offsets=mesh.neighbor_offsets),
-        b,
-    )
+    return mesh_matrix(mesh, diag, off), b
 
 
 def ck_correct_flux(mesh, ck, bc, flux_h, d_ck, rho, p_new, p_new_nbr):
@@ -245,9 +242,7 @@ def ck_simple_step_fc(
             settings.momentum_relaxation,
             grad_p=grad_p, grad_vel=grad_v, spec=aspec,
         )
-        A3 = EllMatrix(
-            diag=mdiag, off=moff, neighbors=None, offsets=mesh.neighbor_offsets
-        )
+        A3 = mesh_matrix(mesh, mdiag, moff)
         pe = simple._kernel_peclet(settings, mdiag, diff_diag, active)
     else:
         F = flux * ck.area * rho
@@ -269,9 +264,7 @@ def ck_simple_step_fc(
         pdiag, poff, b_p, flux_h = fc_pc_assembly(
             new_vel, A3.diag, bcv, flags, cols, rho, grad_p=grad_p, spec=aspec
         )
-        Pmat = EllMatrix(
-            diag=pdiag, off=poff, neighbors=None, offsets=mesh.neighbor_offsets
-        )
+        Pmat = mesh_matrix(mesh, pdiag, poff)
         # d for the conservative correction, recomputed from the shared
         # momentum diagonal as orc_tpu does: it may differ from the
         # kernel's matrix coefficients by an ulp, which perturbs

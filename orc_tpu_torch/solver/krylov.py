@@ -12,7 +12,8 @@ without a device-to-host sync per iteration.
 
 Ported: `SolveInfo`, `constant_deflation`, `jacobi_solve`,
 `jacobi_smooth_solve`, `bicgstab_solve`, and `iterative_solve` for
-JACOBI / JACOBI_SMOOTH / BICGSTAB. Gauss-Seidel, multigrid and DF32
+JACOBI / JACOBI_SMOOTH / BICGSTAB, on structured, slice-plan and gather
+matrices. Gauss-Seidel, multigrid and DF32
 iterative refinement raise NotImplementedError (ROADMAP Queue 1).
 """
 
@@ -149,18 +150,23 @@ def jacobi_smooth_solve(
     """Fixed-count damped Jacobi, the warm-started momentum smoother: no
     residual norm inside, no adaptive exit. On structured matrices the
     sweeps run as kernel 4 on the card (one launch per sweep, all batch
-    components per launch)."""
+    components per launch); on others, as orc_tpu's sweep loop over the
+    matrix's own SpMV (the slice SpMV on irregular meshes)."""
     _, norm = _reducers(compensated)
-    if A.offsets is None:
-        raise NotImplementedError(
-            "jacobi_smooth_solve on unstructured matrices is not ported "
-            "yet (ROADMAP Queue 1, item 11)"
-        )
-    x = project(
-        fused_jacobi_sweeps(
+    if A.offsets is not None:
+        x = fused_jacobi_sweeps(
             A.diag, A.off, A.offsets, b, x0, iterations, relaxation
         )
-    )
+    else:
+        inv_diag = 1.0 / A.diag
+        b_prime = b * inv_diag
+        x = x0
+        for _ in range(iterations):
+            ax_off = A.matvec(x) - A.diag * x
+            x = relaxation * (b_prime - ax_off * inv_diag) + (
+                1.0 - relaxation
+            ) * x
+    x = project(x)
     rn = norm(project(b - A.matvec(x)))
     diverged = torch.isnan(rn) | (_max_abs(x) > 1e10)
     it = torch.full(rn.shape, iterations, dtype=torch.int32, device=rn.device)
@@ -239,7 +245,8 @@ def iterative_solve(
     A: EllMatrix, b, x0, settings: MatrixSolverSettings, project=_no_project
 ):
     """Solver dispatch (orc_tpu's `iterative_solve`, single device).
-    Structured matrices are split into their K columns once, before the
+    Matrices with a slice plan take the slice-column layout, and
+    structured ones are split into their K columns, once, before the
     loop; Jacobi preconditioning scales the rows by 1/diag."""
     method = settings.solver_type
     if (
@@ -250,6 +257,8 @@ def iterative_solve(
             "DF32 iterative refinement is not ported yet (ROADMAP Queue 1, "
             "item 12)"
         )
+    if A.plan is not None and method != SolutionMethod.MULTIGRID:
+        A = A.prepare()
     if A.offsets is not None:
         A = A.split_columns()
     if settings.preconditioner == PreconditionMethod.JACOBI:

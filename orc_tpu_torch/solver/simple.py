@@ -13,9 +13,12 @@ face flux carried in `FlowState.flux`.
 
 On a CUDA mesh the steps run the hand-written kernels where orc_tpu runs
 its Pallas kernels: the fused assembly kernels behind the gate
-`_kernel_asm_spec` (mirroring orc_tpu's `_pallas_asm_spec`), the
-Jacobi-sweep kernel in the momentum smoother and the shift SpMV in every
-Krylov iteration. On CPU they take the plain (c,k) ops, as orc_tpu does.
+`_kernel_asm_spec` (mirroring orc_tpu's `_pallas_asm_spec`, uniform
+boxes only), the Jacobi-sweep kernel in the momentum smoother and the
+shift SpMV in every Krylov iteration on structured meshes; the slice
+SpMV and the slice neighbour gather on irregular meshes (RCM-reordered,
+with a slice plan), whose assembly is plain (c,k) ops, as in orc_tpu. On
+CPU they take the plain versions.
 
 Not ported yet (each raises NotImplementedError naming its ROADMAP
 item): the face-major step (`use_ck=False`), least-squares and
@@ -43,10 +46,10 @@ from orc_tpu_torch.ops.ck_ops import (
     ck_momentum,
     ck_pressure_correction,
     ck_pressure_gradient,
+    mesh_matrix,
     nbr_values,
 )
 from orc_tpu_torch.ops.fields import device_bc
-from orc_tpu_torch.ops.spmv import EllMatrix
 from orc_tpu_torch.solver.krylov import (
     _no_project,
     constant_deflation,
@@ -274,9 +277,7 @@ def ck_simple_step(
             vel, p, bcv, flags, cols, rho, mu, settings.momentum_relaxation,
             mom_diag=state.mom_diag[0], spec=aspec,
         )
-        A3 = EllMatrix(
-            diag=mdiag, off=moff, neighbors=None, offsets=mesh.neighbor_offsets
-        )
+        A3 = mesh_matrix(mesh, mdiag, moff)
         pe = _kernel_peclet(settings, mdiag, diff_diag, active)
     else:
         md_c = state.mom_diag.T  # cell-major [C,3] view
@@ -309,9 +310,7 @@ def ck_simple_step(
         pdiag, poff, b_p = pc_assembly(
             new_vel, A3.diag, bcv, flags, cols, rho, spec=aspec
         )
-        Pmat = EllMatrix(
-            diag=pdiag, off=poff, neighbors=None, offsets=mesh.neighbor_offsets
-        )
+        Pmat = mesh_matrix(mesh, pdiag, poff)
     else:
         new_md_c = new_mom_diag.T
         new_md_nbr = nbr_values(mesh, new_md_c, ck.interior)
@@ -511,7 +510,9 @@ def solve_steady(
     maybe_singular = (
         not table_has_pressure_bc(table) if use_fc else table_maybe_singular(table)
     )
-    mesh = trim_for_ck(mesh)
+    if mesh.neighbor_offsets is not None:
+        # The irregular step still reads cell_neighbors and the plan.
+        mesh = trim_for_ck(mesh)
 
     history = []
     done = 0

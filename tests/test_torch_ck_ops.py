@@ -1,7 +1,9 @@
 """Port (c,k) ops (orc_tpu_torch/ops/ck_ops.py) entry for entry against
 orc_tpu's, in float64, on the 20x20 cavity, the 8^3 cavity, the 16x8
 pressure-BC couette and the velocity-inlet channel of
-tests/test_pallas_assembly.py.
+tests/test_pallas_assembly.py, and off the uniform-box path on a
+permuted 13^2 cavity (the expanded CKGeometry, the slice-plan neighbour
+gather) and a graded 10^2 box (the expanded CKGeometry with shifts).
 
 Tolerance: rtol 1e-10 (the same formulas in the same order; only sum
 order may differ), plus atol 1e-13 x the largest reference magnitude
@@ -11,7 +13,7 @@ import numpy as np
 import pytest
 import torch
 
-from torch_parity import CASES, both, cell_fields, np_, to_jax_settings
+from torch_parity import CASES, IRREGULAR_CASES, both, cell_fields, np_, to_jax_settings
 
 import jax.numpy as jnp
 from orc_tpu.ops import ck_ops as jck
@@ -56,7 +58,10 @@ def _sides(case):
     (mj, tj), (mt, tt) = both(case)
     fields = cell_fields(mj.n_cells)
     J = Side(jck, jdevice_bc, mj, tj, jnp.asarray, to_jax_settings, fields)
-    T = Side(tck, tdevice_bc, mt, tt, _f64, lambda s: s, fields)
+    T = Side(
+        tck, lambda t: tdevice_bc(t, device="cpu"), mt, tt, _f64,
+        lambda s: s, fields,
+    )
     return J, T
 
 
@@ -239,7 +244,7 @@ OPS = {
 
 
 @pytest.mark.parametrize("op", sorted(OPS))
-@pytest.mark.parametrize("case", sorted(CASES))
+@pytest.mark.parametrize("case", sorted(CASES) + sorted(IRREGULAR_CASES))
 def test_ck_op_matches_orc_tpu(case, op):
     J, T = _sides(case)
     OPS[op](J, T)
@@ -267,3 +272,24 @@ def test_tvd_dc_needs_its_gradient():
     )
     with pytest.raises(ValueError):
         _momentum(T, ts)
+
+
+def test_nbr_values_routes_irregular_meshes_through_the_plan(monkeypatch):
+    """Every irregular mesh with a slice plan reads neighbour values
+    through slice_nbr_values (the kernel on the card), never through a
+    plain gather beside it."""
+    _, (mesh, _) = both("permuted")
+    assert mesh.slice_plan is not None
+    calls = []
+    real = tck.slice_nbr_values
+
+    def spy(plan, x, interior):
+        calls.append(plan)
+        return real(plan, x, interior)
+
+    monkeypatch.setattr(tck, "slice_nbr_values", spy)
+    interior = mesh.face_interior[mesh.cell_faces.long()] & mesh.cell_face_mask
+    x = torch.from_numpy(np.random.default_rng(4).standard_normal((mesh.n_cells, 3)))
+    got = tck.nbr_values(mesh, x, interior)
+    assert calls == [mesh.slice_plan]
+    assert torch.equal(got, x[mesh.cell_neighbors.long()])

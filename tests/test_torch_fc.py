@@ -128,7 +128,10 @@ def _sides(case):
     (mj, tj), (mt, tt) = both(case)
     fields = cell_fields(mj.n_cells)
     J = Side(jck, jfc, jdevice_bc, mj, tj, jnp.asarray, fields)
-    T = Side(tck, tfc, tdevice_bc, mt, tt, lambda a: torch.tensor(a), fields)
+    T = Side(
+        tck, tfc, lambda t: tdevice_bc(t, device="cpu"), mt, tt,
+        lambda a: torch.tensor(a), fields,
+    )
     return J, T
 
 
@@ -224,14 +227,14 @@ def _case(name):
     if name == "cavity":
         jd, td = DTYPES["f64"]
         return (
-            j_cavity(n=16, dtype=jd), t_cavity(n=16, dtype=td),
+            j_cavity(n=16, dtype=jd), t_cavity(n=16, dtype=td, device="cpu"),
             flagship_settings(), 1.0, 1e-3, 20,
         )
     kw = dict(top_wall_velocity=5e-4, dp_dx=10.0)
     settings = FIXTURE_FC if name == "couette" else EXPLICIT_FC
     return (
         j_couette(32, 16, params=JParams(**kw)),
-        t_couette(32, 16, params=TParams(**kw)),
+        t_couette(32, 16, params=TParams(**kw), device="cpu"),
         settings, 1000.0, 0.001, 200,
     )
 
@@ -341,7 +344,7 @@ def test_fc_is_what_auto_runs():
     SIMPLE_FC, and solve_steady seeds and carries the [C,K] flux."""
     for s in (FIXTURE_FC, flagship_settings()):
         assert s.resolved_coupling() == tset.PressureVelocityCoupling.SIMPLE_FC
-    mesh, table = t_cavity(n=8)
+    mesh, table = t_cavity(n=8, device="cpu")
     state, _ = ts.solve_steady(
         mesh, table, flagship_settings(), 1.0, 1e-3, iterations=2,
         reporting_interval=1, verbose=False,
@@ -353,7 +356,7 @@ def test_fc_flux_conservation_every_iteration():
     """div(stored flux) equals the pressure solve's residual every
     iteration: three iterations in, far from convergence, the 12^2
     cavity's flux is conservative to the inner solve's tolerance."""
-    mesh, table = t_cavity(n=12, lid_velocity=1.0)
+    mesh, table = t_cavity(n=12, lid_velocity=1.0, device="cpu")
     settings = tset.NumericalSettings(
         momentum=tset.MomentumScheme.UD,
         pressure_velocity_coupling=tset.PressureVelocityCoupling.SIMPLE_FC,
@@ -389,7 +392,7 @@ def test_upsample_field_matches_orc_tpu(feat):
 
 
 def test_prolong_state_drops_the_flux():
-    mesh, _ = t_cavity(n=4)
+    mesh, _ = t_cavity(n=4, device="cpu")
     state = dataclasses.replace(
         ts.initial_state(mesh),
         flux=torch.zeros((16, 6), dtype=torch.float64),
@@ -410,7 +413,7 @@ def test_sequenced_cascade_matches_orc_tpu():
         1.0, 1e-3, **kw,
     )
     st, ht = tseq.solve_steady_sequenced(
-        lambda nx, ny, nz: t_cavity(n=nx), sched, settings, 1.0, 1e-3, **kw,
+        lambda nx, ny, nz: t_cavity(n=nx, device="cpu"), sched, settings, 1.0, 1e-3, **kw,
     )
     assert len(ht) == len(hj) == 2
     for f in ("vel", "p", "flux"):

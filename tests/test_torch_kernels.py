@@ -211,7 +211,8 @@ def _asm_inputs(case, dtype):
         ("torch", mt, tt, tck, tdevice_bc, tasm,
          lambda a: torch.tensor(a, dtype=td)),
     ):
-        zc, zs, zv = dbc(table, dtype=jd if tag == "jax" else td)
+        dkw = dict(dtype=jd) if tag == "jax" else dict(dtype=td, device="cpu")
+        zc, zs, zv = dbc(table, **dkw)
         ck = ops.build_ck_geometry(mesh, len(table.zone_ids))
         out[tag] = dict(
             cols=asm.column_specs(mesh, table),

@@ -61,11 +61,11 @@ def _case(name, dtype):
         kw = dict(top_wall_velocity=5e-4, dp_dx=10.0)
         return (
             j_couette(32, 16, params=JParams(**kw), dtype=jd),
-            t_couette(32, 16, params=TParams(**kw), dtype=td),
+            t_couette(32, 16, params=TParams(**kw), dtype=td, device="cpu"),
             BENCH_SETTINGS, 1000.0, 0.001,
         )
     return (
-        j_cavity(n=16, dtype=jd), t_cavity(n=16, dtype=td),
+        j_cavity(n=16, dtype=jd), t_cavity(n=16, dtype=td, device="cpu"),
         default_settings(), 1.0, 1.0 / 100.0,
     )
 
@@ -130,7 +130,8 @@ def test_continue_from_orc_tpu_state():
     in the port along orc_tpu's own trajectory."""
     (sj, _), _ = _run("cavity", "f64", 5)
     carried = flow_state_from_numpy(
-        np.asarray(sj.vel), np.asarray(sj.p), np.asarray(sj.mom_diag)
+        np.asarray(sj.vel), np.asarray(sj.p), np.asarray(sj.mom_diag),
+        device="cpu",
     )
     jres, tres = _run("cavity", "f64", 5, state=(sj, carried))
     _assert_tracks(jres, tres)
@@ -165,7 +166,7 @@ def test_port_runs_without_jax():
         "import sys\n"
         "import orc_tpu_torch\n"
         "from orc_tpu_torch.models.cavity import solve_cavity\n"
-        "solve_cavity(n=8, iterations=2, verbose=False)\n"
+        "solve_cavity(n=8, iterations=2, verbose=False, device='cpu')\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'orc_tpu.')))\n"
         "assert not bad, bad\n"
         "print('ok')\n"

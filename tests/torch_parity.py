@@ -61,7 +61,7 @@ def _cavity(pkg, n, dtype, nz=1):
         return cavity_case(n=n, nz=nz, dtype=dtype)
     from orc_tpu_torch.models.cavity import cavity_case
 
-    return cavity_case(n=n, nz=nz, dtype=dtype)
+    return cavity_case(n=n, nz=nz, dtype=dtype, device="cpu")
 
 
 def _channel(pkg, dtype, vinlet: bool):
@@ -73,8 +73,9 @@ def _channel(pkg, dtype, vinlet: bool):
         from orc_tpu_torch.mesh.generate import structured_box_mesh
 
         fc = FaceCondition
+    kw = {} if pkg == "jax" else dict(device="cpu")
     mesh, table = structured_box_mesh(
-        16, 8, 1, lengths=(0.002, 0.001, 0.0001), dtype=dtype
+        16, 8, 1, lengths=(0.002, 0.001, 0.0001), dtype=dtype, **kw
     )
     if vinlet:
         table.set("INLET", fc.VELOCITY_INLET, vector_value=(1e-3, 0, 0))
@@ -87,6 +88,109 @@ def _channel(pkg, dtype, vinlet: bool):
     return mesh, table
 
 
+def _jax_box(n, nz=1):
+    from orc_tpu.models.cavity import cavity_case
+
+    return cavity_case(n=n, nz=nz, dtype=jnp.float64)
+
+
+def permuted_arrays(n, seed=0, nz=1):
+    """compile_from_arrays keyword arguments of the n x n (x nz) cavity
+    with randomly permuted cell ids (no structured offsets survive), and
+    the permutation; numpy, from orc_tpu's box. Cell i of the permuted
+    mesh is cell perm[i] of the box. seed=None keeps the box's order."""
+    mesh, _ = _jax_box(n, nz)
+    C = mesh.n_cells
+    perm = (
+        np.arange(C) if seed is None
+        else np.random.default_rng(seed).permutation(C)
+    )
+    inv = np.empty(C, np.int64)
+    inv[perm] = np.arange(C)
+    interior = np.asarray(mesh.face_interior)
+    kw = dict(
+        dim=2 if nz == 1 else 3,
+        face_owner=inv[np.asarray(mesh.face_owner)],
+        face_neighbor=np.where(interior, inv[np.asarray(mesh.face_neighbor)], -1),
+        face_area=np.asarray(mesh.face_area),
+        face_normal=np.asarray(mesh.face_normal),
+        face_centroid=np.asarray(mesh.face_centroid),
+        face_zone_slot=np.asarray(mesh.face_zone_slot),
+        cell_centroid=np.asarray(mesh.cell_centroid)[perm],
+        cell_volume=np.asarray(mesh.cell_volume)[perm],
+    )
+    return kw, perm
+
+
+def graded_arrays(n, ratio=1.15):
+    """compile_from_arrays keyword arguments of an n x n x 1 unit box
+    whose x and y spacings grow geometrically by `ratio` per cell (the
+    uniform box's topology and normals, graded geometry); numpy."""
+    mesh, _ = _jax_box(n)
+    w = ratio ** np.arange(n)
+    edges = np.concatenate([[0.0], np.cumsum(w / w.sum())])
+    mid = 0.5 * (edges[:-1] + edges[1:])
+    width = np.diff(edges)
+    fc = np.asarray(mesh.face_centroid)
+    axis = np.argmax(np.abs(np.asarray(mesh.face_normal)), axis=1)
+    h = 1.0 / n
+    plane = np.rint(fc / h).astype(np.int64)  # plane index along a face's axis
+    cell = np.clip(np.floor(fc / h).astype(np.int64), 0, n - 1)
+    cen = fc.copy()
+    depth = 1.0 / n  # the box's z extent (one cell)
+    for a in (0, 1):
+        on = axis == a
+        cen[on, a] = edges[plane[on, a]]
+        cen[~on, a] = mid[cell[~on, a]]
+    area = np.where(
+        axis == 0, width[cell[:, 1]] * depth,
+        np.where(axis == 1, width[cell[:, 0]] * depth,
+                 width[cell[:, 0]] * width[cell[:, 1]]),
+    )
+    cc = np.asarray(mesh.cell_centroid)
+    ci = np.clip(np.floor(cc / h).astype(np.int64), 0, n - 1)
+    ccell = cc.copy()
+    ccell[:, 0], ccell[:, 1] = mid[ci[:, 0]], mid[ci[:, 1]]
+    return dict(
+        dim=2,
+        face_owner=np.asarray(mesh.face_owner),
+        face_neighbor=np.where(
+            np.asarray(mesh.face_interior), np.asarray(mesh.face_neighbor), -1
+        ),
+        face_area=area,
+        face_normal=np.asarray(mesh.face_normal),
+        face_centroid=cen,
+        face_zone_slot=np.asarray(mesh.face_zone_slot),
+        cell_centroid=ccell,
+        cell_volume=width[ci[:, 0]] * width[ci[:, 1]] * depth,
+    )
+
+
+def compiled_both(kw, dtype="f64"):
+    """(orc_tpu mesh, port mesh on the CPU) of one set of
+    compile_from_arrays arguments."""
+    from orc_tpu.mesh.compile import compile_from_arrays as jcompile
+
+    from orc_tpu_torch.mesh.compile import compile_from_arrays as tcompile
+
+    jd, td = DTYPES[dtype]
+    return jcompile(**kw, dtype=jd), tcompile(**kw, dtype=td, device="cpu")
+
+
+def _cavity_table(pkg):
+    return _cavity(pkg, 4, DTYPES["f64"][0 if pkg == "jax" else 1])[1]
+
+
+def _from_arrays(pkg, dtype, kw):
+    if pkg == "jax":
+        from orc_tpu.mesh.compile import compile_from_arrays
+
+        return compile_from_arrays(**kw, dtype=dtype), _cavity_table(pkg)
+    from orc_tpu_torch.mesh.compile import compile_from_arrays
+
+    return compile_from_arrays(**kw, dtype=dtype, device="cpu"), _cavity_table(pkg)
+
+
 #: name -> make(pkg, jax-or-torch dtype) -> (mesh, table).
 CASES = {
     "cavity": lambda pkg, dt: _cavity(pkg, 20, dt),
@@ -94,12 +198,20 @@ CASES = {
     "couette": lambda pkg, dt: _channel(pkg, dt, vinlet=False),
     "vinlet": lambda pkg, dt: _channel(pkg, dt, vinlet=True),
 }
+#: The meshes off the uniform-box path: a permuted 13^2 cavity (RCM +
+#: slice plan) and a graded 10^2 box (structured offsets, the expanded
+#: CKGeometry), both with the cavity's zone table.
+IRREGULAR_CASES = {
+    "permuted": lambda pkg, dt: _from_arrays(pkg, dt, permuted_arrays(13, seed=1)[0]),
+    "graded": lambda pkg, dt: _from_arrays(pkg, dt, graded_arrays(10)),
+}
 
 
 def both(case: str, dtype: str = "f64"):
     """(jax mesh, jax table), (torch mesh, torch table) of one case."""
     jd, td = DTYPES[dtype]
-    return CASES[case]("jax", jd), CASES[case]("torch", td)
+    make = {**CASES, **IRREGULAR_CASES}[case]
+    return make("jax", jd), make("torch", td)
 
 
 def cell_fields(C: int, seed: int = 3):
