@@ -8,20 +8,28 @@ Phases (any failure raises and the script exits non-zero):
 1. device: the card's name and power limit, TF32 off;
 2. build: compile csrc/*.cu into build/orc_tpu_torch/ (one nvcc per
    source, in parallel) and print each kernel's registers and spills;
-3. each of the eight CUDA kernels against its plain torch version at the
+3. each of the nine CUDA kernels against its plain torch version at the
    shapes of the main paths, with times per call (CUDA events, host
    dispatch included; and the card's own time, the calls queued behind
    a sleeping kernel, which the summary reports), the bound (bytes
    over 3.35 TB/s, or operations over the peak rate) and, for the SpMVs
    and the gather, the one PyTorch call computing the same function
    (torch.sparse CSR times x; x[cell_neighbors]): the parity kernels on
-   the 1024^2 f32 cavity, the SIMPLE_FC assembly kernels on the 1024^2
-   f32 flagship-numerics cavity and the 128x64 f64 FC couette, the
+   the 1024^2 f32 cavity, their Rhie-Chow / SecondOrder / TVD_DC /
+   in-kernel-gradient branches on the reference-default 1024^2 f32
+   cavity, the SIMPLE_FC assembly kernels on the 1024^2 f32
+   flagship-numerics cavity and the 128x64 f64 FC couette, the
    slice-plan SpMV and neighbour gather on the permuted 448^2 and 1024^2
-   f32 cavities and the permuted 128x64 f64 couette;
+   f32 cavities, the permuted 448^2 f64 cavity and the permuted 128x64
+   f64 couette, the exact slice product of the df32 residual on the
+   permuted 448^2 cavity (bitwise, beside the f64 slice SpMV it stands
+   in for) and, with the slice SpMV in each form the DF32_IR phase runs
+   it, on scripts/bench_df32_ir.py's system (1024-row tiles);
 3b. the SIMPLE and SIMPLE_FC slices on the card against the same slices
-   on the CPU on a 16^2 float64 cavity, and the FC flux's conservation;
-   the same on a permuted 16^2 cavity (the irregular path);
+   on the CPU on a 16^2 float64 cavity (the parity one with
+   solve_cavity's and with the reference's default numerics), and the FC
+   flux's conservation; the same on a permuted 16^2 cavity (the
+   irregular path), the parity one also with DF32_IR solves;
 4. couette 128x64x1 float64 with bench.py's configuration (parity
    SIMPLE) through solve_steady: 100 warm-up + 200 timed iterations,
    u_mean within 25% of the analytical 1.0833e-3;
@@ -46,21 +54,33 @@ Phases (any failure raises and the script exits non-zero):
 10. the permuted couette 128x64x1 float64 with bench.py's configuration:
    100 warm-up + 200 timed iterations, u_mean within 25% of the
    analytical value and against phase 4's u_mean;
-phases 4-7, 9 and 10 end with a short window under torch.profiler
+11. the reference-default cavity (scripts/bench_cavity.py with
+   ORC_TPU_BENCH_SCHEME=default): 1024^2 f32, CD1 + SecondOrder +
+   Rhie-Chow, forced SIMPLE, 10 warm-up + 50 timed iterations, finite
+   |u| < 2, each parity assembly kernel launched once per iteration and
+   no plain grad-p pass;
+12. DF32_IR: scripts/bench_df32_ir.py's system (f32, DF32_IR and native
+   f64 solves; DF32_IR below 1e-11 of x_true), then the permuted 448^2
+   f64 cavity with DF32_IR against native f64 solves, and against native
+   f64 solves as deep as DF32_IR's, which it must track;
+phases 4-7 and 9-12 end with a short window under torch.profiler
 (device time by kernel, device busy share);
 then one JSON line with every kernel's launches, error, card times and
 bound, the card's name and power limit, and as the last line
 {"ok": true, "device": {...}}.
 
-Kernel launch counters are set to 0 just before each of phases 4-10 and
+Kernel launch counters are set to 0 just before each of phases 4-12 and
 read just after it: each phase must launch every kernel of its path,
 the SIMPLE_FC phases none of the parity assembly kernels, the
-structured phases no slice-plan kernel, and the irregular phases none of
-the structured kernels.
+structured phases no slice-plan kernel, the irregular phases none of
+the structured kernels, and only the DF32_IR phase the exact slice
+product.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import functools
 import json
 import re
 import shutil
@@ -87,7 +107,14 @@ TOL = {torch.float32: 1e-5, torch.float64: 1e-12}
 ASM_OUT = ("diag", "off", "b")  # the assembly kernels' outputs
 
 
+_T0 = time.perf_counter()
+
+
 def log(*args):
+    """print, flushed; a phase's header line ("== ...") ends with the
+    seconds since the script started."""
+    if args and str(args[0]).startswith("== "):
+        args = (*args, f"[{time.perf_counter() - _T0:.1f} s]")
     print(*args, flush=True)
 
 
@@ -423,6 +450,207 @@ def phase_kernels(dev, kernels):
     del state, A, P, b3, x3
 
 
+def ref_default_settings():
+    """scripts/bench_cavity.py with ORC_TPU_BENCH_SCHEME=default: the
+    reference's default numerics (CD1 + SecondOrder + Rhie-Chow) under
+    forced SIMPLE, implicit relaxation 0.7 / 0.1, Jacobi-preconditioned
+    BiCGSTAB(50), the 6-sweep momentum smoother."""
+    from orc_tpu_torch.models.cavity import default_settings
+    from orc_tpu_torch.utils.settings import (
+        MomentumScheme,
+        PressureInterpolation,
+        PressureVelocityCoupling,
+        VelocityInterpolation,
+    )
+
+    return default_settings().replace(
+        momentum=MomentumScheme.CD1,
+        pressure_velocity_coupling=PressureVelocityCoupling.SIMPLE,
+        velocity_interpolation=VelocityInterpolation.RHIE_CHOW,
+        pressure_interpolation=PressureInterpolation.SECOND_ORDER,
+    )
+
+
+def phase_parity_branches(dev, mom, pc):
+    """The parity kernels' Rhie-Chow / SecondOrder / TVD_DC branches and
+    their in-kernel Green-Gauss gradient against their plain versions on
+    the reference-default 1024^2 f32 cavity after 5 iterations."""
+    log("== phase 3: parity assembly branches (RC, SO, TVD_DC, in-kernel GG), cavity 1024^2 f32")
+    from orc_tpu_torch.models.cavity import cavity_case
+    from orc_tpu_torch.ops import fused_assembly as asm
+    from orc_tpu_torch.ops.ck_ops import (
+        build_ck_geometry,
+        ck_bc,
+        ck_pressure_gradient,
+        ck_velocity_gradient,
+    )
+    from orc_tpu_torch.ops.fields import device_bc
+    from orc_tpu_torch.solver.simple import _kernel_asm_spec, solve_steady
+    from orc_tpu_torch.utils.settings import tvd_umist
+
+    settings = ref_default_settings()
+    mesh, table = cavity_case(n=1024, dtype=torch.float32, device=dev)
+    state, _ = solve_steady(
+        mesh, table, settings, 1.0, 1e-3, iterations=5, reporting_interval=5,
+        verbose=False,
+    )
+    zc, zs, zv = device_bc(table, dtype=mesh.dtype, device=dev)
+    ck = build_ck_geometry(mesh, len(table.zone_ids))
+    bc = ck_bc(ck, zc, zs, zv)
+    cols, spec = _kernel_asm_spec(mesh, table, settings, ck)
+    if not (spec.rc and spec.p_so and spec.gg):
+        raise AssertionError(f"the gate gave {spec} for the reference-default numerics")
+    flags, bcv = asm.pack_flags(ck.interior, ck.mask), asm.bc_value_table(zs, zv)
+    vel, p, md = state.vel.contiguous(), state.p, state.mom_diag[0].contiguous()
+    grad_p = ck_pressure_gradient(mesh, ck, bc, p)
+    grad_v = ck_velocity_gradient(mesh, ck, bc, vel)
+    C, K, f32 = mesh.n_cells, len(cols), 4
+    m_args = (vel, p, bcv, flags, cols, 1.0, 1e-3, settings.momentum_relaxation)
+    for label, sp in (
+        ("cd1+so+rc gg", spec),
+        ("tvd_dc+umist+rc gg", spec._replace(scheme="tvd_dc", psi=tvd_umist, p_so=False)),
+        ("cd1+so+rc streamed grad p", spec._replace(gg=False)),
+    ):
+        tvd = sp.scheme == "tvd_dc"
+        kw = dict(grad_p=None if sp.gg else grad_p, mom_diag=md,
+                  grad_vel=grad_v if tvd else None, spec=sp)
+        # vel, p, md (+ grad p streamed, grad vel); diag, K off, 3 b; flags.
+        reads = 3 + 1 + 1 + 3 * (not sp.gg) + 9 * tvd
+        mom.compare(
+            f"cavity 1024^2 f32 {label}",
+            lambda: asm.momentum_assembly(*m_args, **kw),
+            lambda: asm.momentum_assembly_plain(*m_args, **kw), torch.float32,
+            C * (4 + (reads + 1 + K + 3) * f32), timed=False, outputs=ASM_OUT,
+        )
+    p_args = (vel, md, bcv, flags, cols, 1.0)
+    for gg in (True, False):
+        kw = dict(p=p, grad_p=None if gg else grad_p, spec=spec._replace(gg=gg))
+        pc.compare(
+            f"cavity 1024^2 f32 rc {'gg' if gg else 'streamed grad p'}",
+            lambda: asm.pc_assembly(*p_args, **kw),
+            lambda: asm.pc_assembly_plain(*p_args, **kw), torch.float32,
+            C * (4 + (3 + 1 + 1 + 3 * (not gg) + 1 + K + 1) * f32), timed=False,
+            outputs=ASM_OUT,
+        )
+    del state, grad_p, grad_v
+
+
+def _used_coefs(plan):
+    """Coefficients a slice kernel reads: each tile's used columns times
+    its rows."""
+    dev = plan.tile_nj.device
+    t_rows = torch.clamp(
+        plan.n_cells - torch.arange(plan.ntiles, device=dev) * plan.tile, max=plan.tile
+    )
+    return int((plan.tile_nj.long() * t_rows).sum())
+
+
+def _check_exact(sexact, label, coef, plan, x, timed):
+    """Kernel 12 on (coef, x) against its plain version, bitwise, and
+    y + err against the f64 product of the hi planes, to 1e-13 of each
+    row's sum |coef x|."""
+    from orc_tpu_torch.ops.slice_spmv import (
+        slice_spmv,
+        slice_spmv_exact,
+        slice_spmv_exact_plain,
+    )
+
+    C, B, used = plan.n_cells, 1 if x.ndim == 1 else x.shape[0], _used_coefs(plan)
+    sexact.compare(
+        label,
+        lambda: slice_spmv_exact(coef, plan, x),
+        lambda: slice_spmv_exact_plain(coef, plan, x), torch.float32,
+        used * 4 + 3 * B * C * 4 + plan.ntiles * 4 * (1 + plan.n_max),
+        timed=timed, nops=11 * B * used, exact=True, outputs=("y", "err"),
+    )
+    (y, e), (yr, er) = slice_spmv_exact(coef, plan, x), slice_spmv_exact_plain(coef, plan, x)
+    if not (torch.equal(y, yr) and torch.equal(e, er)):
+        raise AssertionError(f"kernel 12 {label}: (y, err) not bitwise equal to the plain version")
+    zero = torch.zeros(C, dtype=torch.float64, device=x.device)
+    hi = coef.double()
+    ref = slice_spmv(zero, hi, plan, x.double())
+    absrow = slice_spmv(zero, hi.abs(), plan, x.double().abs())
+    gap = float(((y.double() + e.double() - ref).abs() / absrow.clamp(min=1e-300)).max())
+    log(f"  {label}: (y, err) bitwise equal to the plain version; |y + err - f64| / sum|coef x| max {gap:.3e} (limit 1e-13)")
+    if not gap <= 1e-13:
+        raise AssertionError(f"kernel 12 {label}: y + err off the f64 product by {gap:.3e}")
+
+
+def phase_exact_kernel(dev, sexact, sspmv):
+    """Kernel 12 against its plain version at both plans the DF32_IR
+    phase runs it on: the prepared f64 system of the permuted 448^2
+    cavity split into f32 planes (what the df32 residual feeds it), B = 1
+    and 3, with the native-f64 alternative, the f64 slice SpMV (kernel
+    7), timed beside it; and scripts/bench_df32_ir.py's system, whose
+    1024-row tiles take more rows than a CTA has threads. On that plan
+    kernel 7 is held against its plain version too, at each form phase
+    12 (a) runs it in: the f32 inner solves' matrix, the two f32
+    cross-term products of the residual (zero diagonal) and the native
+    f64 solve's matrix, all Jacobi-preconditioned as the solvers run
+    them."""
+    log("== phase 3: exact slice product (kernel 12), permuted cavity 448^2 and the bench_df32_ir system")
+    from orc_tpu_torch.ops.df32 import df_from_f64
+    from orc_tpu_torch.ops.slice_spmv import slice_spmv, slice_spmv_plain
+    from orc_tpu_torch.ops.spmv import EllMatrix
+
+    mesh = permuted_cavity(448, torch.float64, dev)[0]
+    plan = mesh.slice_plan
+    log(f"  {mesh.n_cells} cells; {plan_line(mesh)}")
+    C = mesh.n_cells
+    interior = _interior(mesh)
+    K = interior.shape[1]
+    rng = np.random.default_rng(0)
+    off = -torch.tensor(rng.uniform(0.0, 1.0, (C, K)), device=dev) * interior
+    diag = 1.0 + off.abs().sum(dim=1) + torch.tensor(rng.random(C), device=dev)
+    A = EllMatrix(diag, off, mesh.cell_neighbors, plan=plan).prepare()
+    coef, _ = df_from_f64(A.off)
+    used = _used_coefs(plan)
+    out = {}
+    for B in (1, 3):
+        x64 = torch.tensor(rng.standard_normal((B, C) if B > 1 else C), device=dev)
+        _check_exact(sexact, f"permuted cavity 448^2 B={B}", coef, plan, df_from_f64(x64)[0], B == 1)
+        if B == 1:
+            f64_call = lambda: slice_spmv(A.diag, A.off, plan, x64)  # noqa: E731
+            ev = time_ms(f64_call)
+            out["f64_spmv_ms"] = card_ms(f64_call, ev)
+            log(
+                f"  native f64 residual (kernel 7 in f64, same plan): events {ev:.4f} ms, "
+                f"card {out['f64_spmv_ms']:.4f} ms; bound "
+                f"{1e3 * (used * 8 + 3 * C * 8) / HBM_BYTES_PER_S:.4f} ms"
+            )
+    del A, coef, mesh
+
+    (m64, _), x_true = _bench_df32_system(dev)
+    A = m64[0].prepare()
+    plan, C = A.plan, A.plan.n_cells
+    used = _used_coefs(plan)
+    log(f"  bench_df32_ir system: {C} cells; plan: tile {plan.tile}, ntiles {plan.ntiles}, n_max {plan.n_max}, mean tile_nj {float(plan.tile_nj.double().mean()):.2f}")
+    P64, _ = A.jacobi_preconditioned()
+    hi, lo = df_from_f64(A.off)
+    x64 = torch.tensor(x_true, device=dev)
+    xh, xl = df_from_f64(x64)
+    _check_exact(sexact, "bench_df32_ir system B=1", hi, plan, xh, False)
+    P32, _ = EllMatrix(
+        df_from_f64(A.diag)[0], hi, A.neighbors, plan=plan, slice_layout=True
+    ).jacobi_preconditioned()
+    zero = torch.zeros(C, dtype=torch.float32, device=dev)
+    for label, d, c, x in (
+        ("f32 inner solve", P32.diag, P32.off, xh),
+        ("f32 hi*lo cross term", zero, hi, xl),
+        ("f32 lo*hi cross term", zero, lo, xh),
+        ("f64 native solve", P64.diag, P64.off, x64),
+    ):
+        sz = x.dtype.itemsize
+        sspmv.compare(
+            f"bench_df32_ir {label}",
+            lambda: slice_spmv(d, c, plan, x), lambda: slice_spmv_plain(d, c, plan, x),
+            x.dtype, used * sz + 3 * C * sz + plan.ntiles * 4 * (1 + plan.n_max),
+            timed=False, nops=2 * (used + C),
+        )
+    del A, P64, P32, hi, lo
+    return out
+
+
 def _fc_kernel_inputs(mesh, table, settings, state):
     """The SIMPLE_FC kernels' operands on the main path: the gate's
     (cols, spec), the state's fields and stored flux, flags, BC values
@@ -541,29 +769,34 @@ def fc_couette_settings():
 
 def phase_small_reference(dev):
     """The slice on the card against the same slice on the CPU (plain
-    versions) on a 16^2 float64 cavity: equal inner iteration counts and
-    fields to 1e-9 of their scale."""
-    log("== phase 3b: slice on the card vs on the CPU, cavity 16^2 f64, 10 iterations")
+    versions) on a 16^2 float64 cavity, with solve_cavity's numerics and
+    with the reference's default numerics under forced SIMPLE (the
+    parity kernels' Rhie-Chow + SecondOrder branch, in-kernel GG): equal
+    inner iteration counts and fields to 1e-9 of their scale."""
     from orc_tpu_torch.models.cavity import cavity_case, default_settings
     from orc_tpu_torch.solver.simple import solve_steady, stack_history
 
-    out = []
-    for d in (dev, torch.device("cpu")):
-        mesh, table = cavity_case(n=16, device=d)
-        state, hist = solve_steady(
-            mesh, table, default_settings(), 1.0, 0.01, iterations=10,
-            reporting_interval=10, verbose=False,
-        )
-        out.append((state, stack_history(hist)))
-    (sg, hg), (sc, hc) = out
-    np.testing.assert_array_equal(hg.mom_iters, hc.mom_iters)
-    np.testing.assert_array_equal(hg.pc_iters, hc.pc_iters)
-    for name in ("vel", "p"):
-        rel = max_err(getattr(sg, name).cpu(), getattr(sc, name))[1][0]
-        log(f"  {name}: max error / scale = {rel:.3e} (tol 1e-9)")
-        if not rel <= 1e-9:
-            raise AssertionError(f"cuda vs cpu {name} differ by {rel:.3e}")
-    log(f"  pc_iters equal: {hg.pc_iters.tolist()}")
+    for name, settings in (
+        ("solve_cavity", default_settings()), ("reference default", ref_default_settings())
+    ):
+        log(f"== phase 3b: slice on the card vs on the CPU, cavity 16^2 f64, {name} numerics, 10 iterations")
+        out = []
+        for d in (dev, torch.device("cpu")):
+            mesh, table = cavity_case(n=16, device=d)
+            state, hist = solve_steady(
+                mesh, table, settings, 1.0, 0.01, iterations=10,
+                reporting_interval=10, verbose=False,
+            )
+            out.append((state, stack_history(hist)))
+        (sg, hg), (sc, hc) = out
+        np.testing.assert_array_equal(hg.mom_iters, hc.mom_iters)
+        np.testing.assert_array_equal(hg.pc_iters, hc.pc_iters)
+        for field in ("vel", "p"):
+            rel = max_err(getattr(sg, field).cpu(), getattr(sc, field))[1][0]
+            log(f"  {field}: max error / scale = {rel:.3e} (tol 1e-9)")
+            if not rel <= 1e-9:
+                raise AssertionError(f"{name} cuda vs cpu {field} differ by {rel:.3e}")
+        log(f"  pc_iters equal: {hg.pc_iters.tolist()}")
     phase_small_reference_fc(dev)
 
 
@@ -712,7 +945,7 @@ def phase_couette(dev, fc=False):
             raise AssertionError("SIMPLE_FC couette left orc_tpu's trajectory")
     else:
         check_couette_u_mean(u, done)
-    profile(mesh, table, settings, 1000.0, 0.001, state, iterations=20)
+    profile(mesh, table, settings, 1000.0, 0.001, state, iterations=5)
     return dict(iters_per_s=timed / dt, u_mean=float(u.mean()))
 
 
@@ -814,7 +1047,11 @@ def to_box_order(mesh, perm, field):
     return out
 
 
+@functools.cache
 def permuted_cavity(n, dtype, dev, seed=0):
+    """(mesh, table, perm) of the permuted n^2 cavity, built once per run:
+    phases 3, 9 and 12 share the 448^2 meshes (each build takes seconds
+    of host time)."""
     from orc_tpu_torch.models.cavity import cavity_case
 
     box, table = cavity_case(n=n, device="cpu")
@@ -838,8 +1075,9 @@ def _interior(mesh):
 
 def phase_slice_kernels(dev, sspmv, snbr):
     """Kernels 7-11 against their plain versions on the permuted 448^2
-    and 1024^2 cavities (f32: SpMV B = 1 and 3, gather of 1, 3 and 9
-    fields) and the permuted couette 128x64 (f64 SpMV), on a seeded
+    cavity (f32, and f64 as the DF32_IR phase's native run takes it),
+    the permuted 1024^2 cavity (f32) and the permuted couette 128x64
+    (f64): SpMV B = 1 and 3, gather of 1, 3 and 9 fields, on a seeded
     diagonally dominant system over each mesh's own sparsity, Jacobi
     preconditioned and prepared as the solvers run it."""
     log("== phase 3: slice-plan kernels against their plain versions")
@@ -854,6 +1092,8 @@ def phase_slice_kernels(dev, sspmv, snbr):
     cases = [
         ("permuted cavity 448^2 f32", torch.float32, True,
          lambda: permuted_cavity(448, torch.float32, dev)[0]),
+        ("permuted cavity 448^2 f64", torch.float64, False,
+         lambda: permuted_cavity(448, torch.float64, dev)[0]),
         ("permuted cavity 1024^2 f32", torch.float32, False,
          lambda: permuted_cavity(1024, torch.float32, dev)[0]),
         ("permuted couette 128x64 f64", torch.float64, False,
@@ -888,8 +1128,6 @@ def phase_slice_kernels(dev, sspmv, snbr):
                 timed=timed and B == 1, nops=2 * B * (used + C),
                 library_call=csr_call(A.diag, rows, nbr[interior], lib_vals, x),
             )
-        if dtype == torch.float64:
-            continue
         n_int = int(interior.sum())
         for F in (1, 3, 9):
             shape = (C,) if F == 1 else (C, 3) if F == 3 else (C, 3, 3)
@@ -924,10 +1162,21 @@ def _irregular_twins(dev, settings, iterations, chunk=None):
     return out
 
 
+def df32_settings(settings):
+    """`settings` with its matrix solves at SolverPrecision.DF32_IR."""
+    from orc_tpu_torch.utils.settings import SolverPrecision
+
+    return settings.replace(
+        matrix_solver=settings.matrix_solver.replace_precision(SolverPrecision.DF32_IR)
+    )
+
+
 def phase_small_reference_irregular(dev):
     """Phase 3b on the irregular path: parity SIMPLE (solve_cavity's
-    numerics) and SIMPLE_FC (flagship numerics, with Jacobi(50) and with
-    its own BiCGSTAB(50) pressure solve) on a permuted 16^2 f64 cavity,
+    numerics, with native and with DF32_IR solves: BiCGSTAB(50),
+    Jacobi-preconditioned) and SIMPLE_FC (flagship numerics, with
+    Jacobi(50) and with its own BiCGSTAB(50) pressure solve) on a
+    permuted 16^2 f64 cavity,
     card against CPU, 10 iterations: equal inner iteration counts, fields
     to 1e-9 of scale (1e-6 for the FC BiCGSTAB pair, whose solve
     amplifies roundoff; ROADMAP Queue 3)."""
@@ -938,6 +1187,7 @@ def phase_small_reference_irregular(dev):
     jacobi = MatrixSolverSettings(solver_type=SolutionMethod.JACOBI, iterations=50)
     runs = (
         ("parity", default_settings(), 1e-9),
+        ("parity df32_ir", df32_settings(default_settings()), 1e-9),
         ("fc jacobi", flagship_settings().replace(matrix_solver=jacobi), 1e-9),
         ("fc bicgstab", flagship_settings(), 1e-6),
     )
@@ -992,9 +1242,8 @@ def phase_irregular_cavity(dev):
     25 timed iterations; returns ms/iter and the fields in box order."""
     log("== phase 9: irregular cavity 448^2 f32 (permuted cells), bench_irregular_simple configuration")
     settings = bench_irregular_settings()
-    t0 = time.perf_counter()
     mesh, table, perm = permuted_cavity(448, torch.float32, dev)
-    log(f"  built in {time.perf_counter() - t0:.1f} s; {plan_line(mesh)}")
+    log(f"  {plan_line(mesh)}")
     state, _, warm_s = _timed_solve(mesh, table, settings, 1.0, 1e-3, None, 5, 5)
     state, hist, dt = _timed_solve(mesh, table, settings, 1.0, 1e-3, state, 25, 25)
     irr_ms = 1e3 * dt / 25
@@ -1065,8 +1314,192 @@ def phase_irregular_couette(dev, u_structured):
     log(f"  u_mean against the structured couette {u_structured:.10e}: rel diff {rel:.3e} (tol {IRREGULAR_COUETTE_TOL:.0e})")
     if not rel <= IRREGULAR_COUETTE_TOL:
         raise AssertionError("irregular couette left the structured couette's u_mean")
-    profile(mesh, table, settings, 1000.0, 0.001, state, iterations=10)
+    profile(mesh, table, settings, 1000.0, 0.001, state, iterations=5)
     return dict(iters_per_s=200 / dt, u_mean=float(u.mean()))
+
+
+def phase_ref_default_cavity(dev):
+    """scripts/bench_cavity.py with ORC_TPU_BENCH_SCHEME=default on the
+    card: the 1024^2 f32 cavity at Re = 1000 with the reference's default
+    numerics under forced SIMPLE (parity kernels, Rhie-Chow +
+    SecondOrder, in-kernel GG), 10 warm-up + 50 timed iterations, finite
+    |u| < 2. No plain grad-p pass may run (AsmSpec.gg): the step's
+    Green-Gauss pressure gradient is counted. Returns ms/iter and the
+    iterations run, which the launch counters must equal."""
+    log("== phase 11: reference-default cavity 1024^2 f32 (CD1 + SO + RC, forced SIMPLE), Re=1000")
+    from orc_tpu_torch.models.cavity import cavity_case
+    from orc_tpu_torch.solver import simple
+
+    settings = ref_default_settings()
+    mesh, table = cavity_case(n=1024, dtype=torch.float32, device=dev)
+    warm, timed, prof = 10, 50, 5
+    passes = []
+    real = simple.ck_pressure_gradient
+
+    def counted(*args, **kw):
+        passes.append(1)
+        return real(*args, **kw)
+
+    simple.ck_pressure_gradient = counted
+    try:
+        state, _, warm_s = _timed_solve(mesh, table, settings, 1.0, 1e-3, None, warm, warm)
+        state, hist, dt = _timed_solve(mesh, table, settings, 1.0, 1e-3, state, timed, timed)
+        profile(mesh, table, settings, 1.0, 1e-3, state, iterations=prof)
+    finally:
+        simple.ck_pressure_gradient = real
+    u = state.vel.cpu().numpy()
+    if not (np.isfinite(u).all() and np.abs(u).max() < 2.0):
+        raise AssertionError("reference-default cavity fields not finite or |u| >= 2")
+    log(
+        f"  warm-up {warm} iterations {warm_s:.2f} s; {timed} timed iterations {dt:.3f} s -> "
+        f"{1e3 * dt / timed:.2f} ms/iter; |u| max {np.abs(u).max():.3f}; pressure "
+        f"iterations {hist[-1].pc_iters.cpu().numpy().mean():.2f}; plain grad-p passes {len(passes)}"
+    )
+    if passes:
+        raise AssertionError("the in-kernel GG step ran a plain grad-p pass")
+    return dict(ms_per_iter=1e3 * dt / timed, iterations=warm + timed + prof)
+
+
+#: Largest difference, relative to the field's scale, allowed between the
+#: permuted 448^2 f64 cavity solved with DF32_IR and with native f64
+#: solves after 30 iterations. The two are different runs: DF32_IR
+#: refines every solve three times, which takes the momentum smoother 18
+#: sweeps deep instead of 6 and the pressure BiCGSTAB to ~1e-9 instead of
+#: 1e-3, so the trajectories part. Ten times the larger gap measured on an
+#: NVIDIA H100 80GB HBM3 at 700 W (vel 5.03e-2, p 3.10e-2 of scale).
+DF32_CAVITY_TOL = 0.51
+#: The same against native f64 solves as deep as DF32_IR's
+#: (same_depth_settings), which DF32_IR must track: ten times the larger
+#: gap measured on an NVIDIA H100 80GB HBM3 at 700 W (vel 1.00e-9, p
+#: 5.3e-10 of scale; the permuted 32^2 cavity on the CPU: 5.7e-10 and
+#: 3.0e-10).
+DF32_DEPTH_TOL = 1e-8
+
+
+def same_depth_settings(settings):
+    """`settings` at native precision, solved as deep as DF32_IR solves
+    them: `refine_steps` restarts of a BiCGSTAB stopped at a relative
+    threshold t reach about t ** refine_steps, and `refine_steps`
+    refinements of the fixed-count smoother are `refine_steps` times its
+    sweeps (a stationary iteration restarted on its residual from zero
+    continues unchanged)."""
+    ms = settings.matrix_solver
+    n = ms.refine_steps
+    return settings.replace(matrix_solver=dataclasses.replace(
+        ms,
+        relative_convergence_threshold=ms.relative_convergence_threshold ** n,
+        iterations=n * ms.iterations,
+        momentum_iterations=n * ms.momentum_iterations,
+    ))
+
+
+@functools.cache
+def _bench_df32_system(dev, C=200_704, K=4, band=450):
+    """scripts/bench_df32_ir.py's system: C = 200,704, K = 4, band 450,
+    seed 0, orc_tpu's plan choice; ((A64, b64), (A32, b32)), x_true.
+    Built once per run: phases 3 and 12 share it."""
+    from orc_tpu_torch.mesh.reorder import build_best_slice_plan
+    from orc_tpu_torch.ops.spmv import EllMatrix
+
+    rng = np.random.default_rng(0)
+    nbrs = np.clip(np.arange(C)[:, None] + rng.integers(-band, band, (C, K)), 0, C - 1)
+    valid = nbrs != np.arange(C)[:, None]
+    plan = build_best_slice_plan(nbrs, valid, device=dev)
+    off = rng.standard_normal((C, K)) * valid * 0.2
+    diag = np.abs(off).sum(1) + rng.uniform(1.0, 2.0, C)
+    x_true = rng.standard_normal(C)
+    nb = torch.tensor(nbrs, dtype=torch.int32, device=dev)
+    mats = []
+    for dt in (torch.float64, torch.float32):
+        A = EllMatrix(torch.tensor(diag, dtype=dt, device=dev),
+                      torch.tensor(off, dtype=dt, device=dev), nb, plan=plan)
+        mats.append((A, A.matvec(torch.tensor(x_true, dtype=dt, device=dev))))
+    log(f"  system C={C} K={K} band={band}: plan tile {plan.tile}, n_max {plan.n_max}")
+    return mats, x_true
+
+
+def phase_df32(dev):
+    """DF32_IR on the card. (a) scripts/bench_df32_ir.py's system: the
+    plain f32 slice-kernel solve, DF32_IR and the native f64 solve (the
+    f64 slice SpMV), BiCGSTAB(100) to 1e-8, Jacobi-preconditioned; ms
+    per solve (median of 3 after one warm-up) and the error against
+    x_true, DF32_IR below 1e-11. (b) The permuted 448^2 cavity in f64
+    with bench_irregular_settings() at DF32_IR, at NATIVE and at NATIVE
+    as deep as DF32_IR (same_depth_settings), 5 + 25 iterations each:
+    ms/iter and the fields' gaps, DF32_IR against the same-depth run
+    held at DF32_DEPTH_TOL."""
+    log("== phase 12: DF32_IR (df32 iterative refinement) on the card")
+    from orc_tpu_torch.solver.krylov import iterative_solve
+    from orc_tpu_torch.utils.settings import (
+        MatrixSolverSettings,
+        PreconditionMethod,
+        SolutionMethod,
+        SolverPrecision,
+    )
+
+    (m64, m32), x_true = _bench_df32_system(dev)
+    ms = MatrixSolverSettings(
+        solver_type=SolutionMethod.BICGSTAB, iterations=100,
+        relative_convergence_threshold=1e-8,
+        preconditioner=PreconditionMethod.JACOBI,
+    )
+    out = {}
+    for label, (A, b), settings in (
+        ("f32 slice", m32, ms),
+        ("DF32_IR", m64, ms.replace_precision(SolverPrecision.DF32_IR)),
+        ("native f64", m64, ms),
+    ):
+        iterative_solve(A, b, torch.zeros_like(b), settings)
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            x, info = iterative_solve(A, b, torch.zeros_like(b), settings)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        err = float(np.abs(x.double().cpu().numpy() - x_true).max() / np.abs(x_true).max())
+        out[label] = dict(ms=1e3 * float(np.median(times)), err=err)
+        log(
+            f"  {label}: {out[label]['ms']:.2f} ms/solve, max error / max |x_true| "
+            f"{err:.2e}, inner iterations {int(info.iterations)}"
+        )
+    if not out["DF32_IR"]["err"] < 1e-11:
+        raise AssertionError(f"DF32_IR solve error {out['DF32_IR']['err']:.2e} >= 1e-11")
+    log(
+        f"  DF32_IR / f32: {out['DF32_IR']['ms'] / out['f32 slice']['ms']:.2f}x; "
+        f"native f64 / DF32_IR: {out['native f64']['ms'] / out['DF32_IR']['ms']:.2f}x"
+    )
+    del m64, m32
+    fields = {}
+    for name, settings in (
+        ("DF32_IR", df32_settings(bench_irregular_settings())),
+        ("native", bench_irregular_settings()),
+        ("native, DF32_IR's depth", same_depth_settings(bench_irregular_settings())),
+    ):
+        mesh, table, perm = permuted_cavity(448, torch.float64, dev)
+        state, _, _ = _timed_solve(mesh, table, settings, 1.0, 1e-3, None, 5, 5)
+        state, hist, dt = _timed_solve(mesh, table, settings, 1.0, 1e-3, state, 25, 25)
+        out[f"cavity {name}"] = 1e3 * dt / 25
+        log(
+            f"  permuted cavity 448^2 f64 {name}: {1e3 * dt / 25:.2f} ms/iter; "
+            f"pressure iterations {hist[-1].pc_iters.cpu().numpy().mean():.2f}"
+        )
+        if name == "DF32_IR":
+            profile(mesh, table, settings, 1.0, 1e-3, state, iterations=3)
+        fields[name] = state
+        del mesh
+    for ref, tol in (("native", DF32_CAVITY_TOL), ("native, DF32_IR's depth", DF32_DEPTH_TOL)):
+        gaps = {
+            f: max_err(getattr(fields["DF32_IR"], f), getattr(fields[ref], f))[1][0]
+            for f in ("vel", "p")
+        }
+        log(
+            f"  DF32_IR vs {ref} f64 after 30 iterations: vel {gaps['vel']:.3e}, p "
+            f"{gaps['p']:.3e} of scale (tol {tol:.1e})"
+        )
+        if not all(g <= tol for g in gaps.values()):
+            raise AssertionError(f"the DF32_IR cavity left the {ref} f64 run")
+    return out
 
 
 def profile(mesh, table, settings, rho, mu, state, iterations):
@@ -1099,10 +1532,15 @@ def main():
     from orc_tpu_torch.ops import fused_assembly as asm
     from orc_tpu_torch.ops.fused_smooth import fused_jacobi_sweeps
     from orc_tpu_torch.ops.shift_spmv import shift_spmv
-    from orc_tpu_torch.ops.slice_spmv import slice_nbr_values, slice_spmv
+    from orc_tpu_torch.ops.slice_spmv import (
+        slice_nbr_values,
+        slice_spmv,
+        slice_spmv_exact,
+    )
 
     dev = phase_device()
     phase_build()
+    parity_src = "orc_tpu_torch/csrc/parity_assembly.cuh"
     asm_src = "orc_tpu_torch/csrc/assembly.cu"
     slice_src = "orc_tpu_torch/csrc/slice_spmv.cu"
     kernels = (
@@ -1111,9 +1549,9 @@ def main():
         Kernel("fused_jacobi_sweeps", fused_jacobi_sweeps,
                "orc_tpu_torch/csrc/jacobi_sweeps.cu",
                "orc_tpu/ops/pallas_smooth.py:98"),
-        Kernel("momentum_assembly", asm.momentum_assembly, asm_src,
+        Kernel("momentum_assembly", asm.momentum_assembly, parity_src,
                "orc_tpu/ops/pallas_assembly.py:189"),
-        Kernel("pc_assembly", asm.pc_assembly, asm_src,
+        Kernel("pc_assembly", asm.pc_assembly, parity_src,
                "orc_tpu/ops/pallas_assembly.py:632"),
         Kernel("fc_momentum_assembly", asm.fc_momentum_assembly, asm_src,
                "orc_tpu/ops/pallas_assembly.py:189"),
@@ -1123,11 +1561,15 @@ def main():
                "orc_tpu/ops/pallas_slice.py:47"),
         Kernel("slice_nbr_values", slice_nbr_values, slice_src,
                "orc_tpu/ops/pallas_slice.py:574"),
+        Kernel("slice_spmv_exact", slice_spmv_exact, slice_src,
+               "orc_tpu/ops/pallas_slice.py:798"),
     )
-    spmv, sweeps, mom, pc, fc_mom, fc_pc, sspmv, snbr = kernels
+    spmv, sweeps, mom, pc, fc_mom, fc_pc, sspmv, snbr, sexact = kernels
     phase_kernels(dev, (spmv, sweeps, mom, pc))
+    phase_parity_branches(dev, mom, pc)
     phase_fc_kernels(dev, fc_mom, fc_pc)
     phase_slice_kernels(dev, sspmv, snbr)
+    exact = phase_exact_kernel(dev, sexact, sspmv)
     phase_small_reference(dev)
     phase_small_reference_irregular(dev)
 
@@ -1135,19 +1577,24 @@ def main():
     # before it and read just after it.
     parity, fc = (spmv, sweeps, mom, pc), (spmv, sweeps, fc_mom, fc_pc)
     structured = (spmv, sweeps, mom, pc, fc_mom, fc_pc)
+    irregular = (sspmv, snbr, sexact)
     results = {}
     paths = (
-        ("parity couette", lambda: phase_couette(dev), (spmv,), (sspmv, snbr)),
-        ("parity cavity", lambda: phase_cavity(dev), parity, (fc_mom, fc_pc, sspmv, snbr)),
-        ("fc couette", lambda: phase_couette(dev, fc=True), fc, (mom, pc, sspmv, snbr)),
-        ("fc cavity", lambda: phase_cavity(dev, fc=True), fc, (mom, pc, sspmv, snbr)),
-        ("fc sequenced", lambda: phase_sequenced(dev), fc, (mom, pc, sspmv, snbr)),
-        ("irregular cavity", lambda: phase_irregular_cavity(dev), (sspmv, snbr), structured),
+        ("parity couette", lambda: phase_couette(dev), (spmv,), irregular),
+        ("parity cavity", lambda: phase_cavity(dev), parity, (fc_mom, fc_pc) + irregular),
+        ("fc couette", lambda: phase_couette(dev, fc=True), fc, (mom, pc) + irregular),
+        ("fc cavity", lambda: phase_cavity(dev, fc=True), fc, (mom, pc) + irregular),
+        ("fc sequenced", lambda: phase_sequenced(dev), fc, (mom, pc) + irregular),
+        ("irregular cavity", lambda: phase_irregular_cavity(dev), (sspmv, snbr),
+         structured + (sexact,)),
         ("structured twin", lambda: phase_irregular_twin(dev, results["irregular cavity"]),
-         parity, (sspmv, snbr)),
+         parity, irregular),
         ("irregular couette",
          lambda: phase_irregular_couette(dev, results["parity couette"]["u_mean"]),
-         (sspmv, snbr), structured),
+         (sspmv, snbr), structured + (sexact,)),
+        ("reference-default cavity", lambda: phase_ref_default_cavity(dev), parity,
+         (fc_mom, fc_pc) + irregular),
+        ("df32_ir", lambda: phase_df32(dev), irregular, structured),
     )
     launches = {k.name: 0 for k in kernels}
     for label, run, must, must_not in paths:
@@ -1162,17 +1609,32 @@ def main():
         for k in must_not:
             if counts[k.name] != 0:
                 raise AssertionError(f"the {label} run launched {k.name}")
+        n_it = (results[label] or {}).get("iterations")
+        if n_it is not None and not counts["momentum_assembly"] == counts["pc_assembly"] == n_it:
+            raise AssertionError(
+                f"the {label} run launched the assembly kernels other than once per iteration"
+            )
         for name, n in counts.items():
             launches[name] += n
+    df = results["df32_ir"]
     log(
         f"summary: couette f64 {results['parity couette']['iters_per_s']:.1f} "
         f"iters/s; cavity 1024^2 f32 {results['parity cavity']['ms_per_iter']:.2f} "
-        f"ms/iter; SIMPLE_FC couette f64 {results['fc couette']['iters_per_s']:.1f} "
+        f"ms/iter; reference-default cavity 1024^2 f32 "
+        f"{results['reference-default cavity']['ms_per_iter']:.2f} ms/iter; "
+        f"SIMPLE_FC couette f64 {results['fc couette']['iters_per_s']:.1f} "
         f"iters/s; SIMPLE_FC cavity 1024^2 f32 "
         f"{results['fc cavity']['ms_per_iter']:.2f} ms/iter; irregular cavity "
         f"448^2 f32 {results['irregular cavity']['ms_per_iter']:.2f} ms/iter "
         f"({results['structured twin']['ratio']:.2f}x its structured twin); "
-        f"irregular couette f64 {results['irregular couette']['iters_per_s']:.1f} iters/s"
+        f"irregular couette f64 {results['irregular couette']['iters_per_s']:.1f} "
+        f"iters/s; DF32_IR solve {df['DF32_IR']['ms']:.2f} ms (f32 "
+        f"{df['f32 slice']['ms']:.2f}, native f64 {df['native f64']['ms']:.2f}); "
+        f"permuted cavity 448^2 f64 DF32_IR {df['cavity DF32_IR']:.2f} ms/iter "
+        f"(native {df['cavity native']:.2f}, native at DF32_IR's depth "
+        f"{df["cavity native, DF32_IR's depth"]:.2f}); exact residual product card "
+        f"{sexact.ms:.4f} ms vs f64 slice SpMV {exact['f64_spmv_ms']:.4f} ms; "
+        f"{time.perf_counter() - _T0:.1f} s since the start"
     )
     log(json.dumps({"kernels": [k.summary(launches[k.name]) for k in kernels]}))
     smi = subprocess.run(

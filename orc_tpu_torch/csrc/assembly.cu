@@ -1,263 +1,21 @@
-// Fused momentum and pressure assembly on Hopper (sm_90a), for the
-// parity SIMPLE loop and for SIMPLE_FC.
+// Fused SIMPLE_FC momentum and pressure assembly on Hopper (sm_90a).
 //
 // Replaces, in orc_tpu/ops/pallas_assembly.py:
-// - `_momentum_kernel`, parity branch (from `momentum_assembly` via
-//   `_momentum_asm`) -> momentum_kernel;
-// - `_pc_kernel` (from `pc_assembly`) -> pc_kernel;
 // - `_momentum_kernel`, SIMPLE_FC branch (from `fc_momentum_assembly`)
 //   -> fc_momentum_kernel;
 // - `_fc_pc_kernel` (from `fc_pc_assembly`) -> fc_pc_kernel.
-// The parity kernels cover the branches the port's kernel gate admits:
-// UD / CD1 advection with Linear[Weighted] face velocities and face
-// pressures (LinearWeighted == Linear on a uniform box), implicit
-// (Patankar) relaxation; their Rhie-Chow, SecondOrder, in-kernel
-// Green-Gauss, TVD_DC and transient branches are later work. The
-// SIMPLE_FC kernels are described above each of them below.
-//
-// Momentum, per cell c over its K static columns (uniform box):
-//   F_k   = rho A_k * (interior ? 0.5 (v_c + v_n).n_k : boundary flux)
-//   a_nb  = CD1 ? F/2 : min(F, 0);  d = mu A / dist
-//   off_k = a_nb - d_int (interior), diag += -a_nb + F + d,
-//   b     = Dirichlet sources - sum_k n_k p_f A_k, then Patankar
-//           relaxation b += (1-alpha)/alpha diag v_c, diag /= alpha.
-// Pressure correction:
-//   b -= F_k,  off_k = -rho A^2 / (0.5 (md_c + md_n)) (interior),
-//   diag += rho A^2 / a_face (interior) or rho A^2 / md_c / 2 (every
-//   boundary face: the reference's boundary term, kept on purpose).
-// The arithmetic follows the TPU kernels term by term.
-//
-// Bound on the H100: device memory. Momentum reads vel (3), p and one
-// int32 flag word per cell and writes diag, K off planes and 3 b rows:
-// about (4 + 1 + K + 3) * sizeof(T) + 4 bytes per cell at B = 1; the
-// pressure correction reads vel (3), md and flags and writes diag, K
-// off planes and b: (4 + 2 + K) * sizeof(T) + 4. Neighbour reads come
-// from L1/L2 lines of adjacent rows. Design: one thread per cell, the
-// column constants (offset, area, n_out, distances, BC kind, zone) in a
-// kernel-argument struct, the [Z,4] BC table read from device memory,
-// off written as K contiguous [C] planes so the solver's column split
-// is free. Every per-face intermediate stays in registers.
-#include "common.cuh"
+// The parity kernels live in parity_assembly.cuh, the shared column
+// constants and face helpers in assembly.cuh. The arithmetic follows
+// the TPU kernels term by term.
+#include "assembly.cuh"
 
 namespace orc {
 
-constexpr int ACTIVE_BIT = 6;
-enum Kind { kWall = 0, kSymmetry = 1, kPressure = 2, kVinlet = 3 };
-
-template <typename T>
-struct AsmCols {
-  long long offset[MAX_K];
-  T area[MAX_K];
-  T n[MAX_K][3];
-  T dist_fo[MAX_K];
-  T dist_on[MAX_K];
-  int kind[MAX_K];
-  int zone[MAX_K];
-  // Gradient terms of the SIMPLE_FC kernels, per column with a
-  // neighbour offset (axis -1 otherwise): the axis of the unit normal,
-  // its component na, and the products the TPU kernel forms from
-  // Python floats (in double, then rounded to T): na * dist_on
-  // (grad . r_on), na * dist_fo (grad . r_cf) and na * (dist_fo -
-  // dist_on) (grad . r_nf).
-  int axis[MAX_K];
-  T na[MAX_K];
-  T e_on[MAX_K];
-  T e_c[MAX_K];
-  T e_n[MAX_K];
-  int K;
-};
-
-template <typename T>
-AsmCols<T> make_asm_cols(const long long* offsets, const double* geom,
-                         const int* kind, const int* zone, int K) {
-  AsmCols<T> c{};
-  c.K = K;
-  for (int k = 0; k < K; ++k) {
-    const double* g = geom + 6 * k;
-    c.offset[k] = offsets[k];
-    c.area[k] = static_cast<T>(g[0]);
-    c.n[k][0] = static_cast<T>(g[1]);
-    c.n[k][1] = static_cast<T>(g[2]);
-    c.n[k][2] = static_cast<T>(g[3]);
-    c.dist_fo[k] = static_cast<T>(g[4]);
-    c.dist_on[k] = static_cast<T>(g[5]);
-    c.kind[k] = kind[k];
-    c.zone[k] = zone[k];
-    int ax = -1;
-    double na = 0.0;
-    if (offsets[k] != 0) {  // the first axis of largest |n|, as _axis
-      ax = 0;
-      for (int a = 1; a < 3; ++a) {
-        const double m = g[1 + a] < 0 ? -g[1 + a] : g[1 + a];
-        const double best = g[1 + ax] < 0 ? -g[1 + ax] : g[1 + ax];
-        if (m > best) ax = a;
-      }
-      na = g[1 + ax];
-    }
-    c.axis[k] = ax;
-    c.na[k] = static_cast<T>(na);
-    c.e_on[k] = static_cast<T>(na * g[5]);
-    c.e_c[k] = static_cast<T>(na * g[4]);
-    c.e_n[k] = static_cast<T>(na * (g[4] - g[5]));
-  }
-  return c;
-}
-
-// u*nx + v*ny + w*nz skipping zero components and unit factors, as the
-// TPU kernels' _dot_n does (axis-aligned normals: one term survives).
-template <typename T>
-__device__ __forceinline__ T dot_n(T u, T v, T w, const T* n) {
-  T acc = T(0);
-  bool have = false;
-  const T vals[3] = {u, v, w};
-#pragma unroll
-  for (int a = 0; a < 3; ++a) {
-    if (n[a] != T(0)) {
-      const T t = (n[a] == T(1)) ? vals[a] : vals[a] * n[a];
-      acc = have ? acc + t : t;
-      have = true;
-    }
-  }
-  return acc;
-}
-
-template <typename T>
-__device__ __forceinline__ T boundary_flux(const AsmCols<T>& cols, int k,
-                                           const T* __restrict__ bc, T u_c,
-                                           T v_c, T w_c) {
-  const int kind = cols.kind[k];
-  if (kind == kPressure) return dot_n(u_c, v_c, w_c, cols.n[k]);
-  if (kind == kVinlet) {
-    const T* row = bc + 4 * cols.zone[k];
-    return dot_n(row[0], row[1], row[2], cols.n[k]);
-  }
-  return T(0);  // wall / symmetry: no flux through the face
-}
-
-template <typename T, bool kCD1>
-__global__ void momentum_kernel(AsmCols<T> cols, const T* __restrict__ vel,
-                                const T* __restrict__ p,
-                                const T* __restrict__ bc,
-                                const int* __restrict__ flags, T rho, T mu,
-                                T alpha, T* __restrict__ diag_out,
-                                T* __restrict__ off_out,
-                                T* __restrict__ b_out, long long C) {
-  const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
-                     threadIdx.x;
-       i < C; i += step) {
-    const int fl = flags[i];
-    const bool active = (fl >> ACTIVE_BIT) & 1;
-    const T u_c = vel[3 * i], v_c = vel[3 * i + 1], w_c = vel[3 * i + 2];
-    const T p_c = p[i];
-    T diag = T(0), bu = T(0), bv = T(0), bw = T(0);
-#pragma unroll
-    for (int k = 0; k < MAX_K; ++k) {
-      if (k >= cols.K) continue;
-      const bool interior = (fl >> k) & 1;
-      T u_n = u_c, v_n = v_c, w_n = w_c, p_n = p_c;
-      if (interior) {
-        const long long j = i + cols.offset[k];
-        u_n = vel[3 * j];
-        v_n = vel[3 * j + 1];
-        w_n = vel[3 * j + 2];
-        p_n = p[j];
-      }
-      const T* n = cols.n[k];
-      const T area = cols.area[k];
-      // --- face mass flow F ---
-      const T vn_int = T(0.5) * dot_n(u_c + u_n, v_c + v_n, w_c + w_n, n);
-      const T vn_bnd = boundary_flux(cols, k, bc, u_c, v_c, w_c);
-      const T F = (interior ? vn_int : vn_bnd) * (area * rho);
-      // --- advection + diffusion coefficients ---
-      const T a_nb = kCD1 ? F * T(0.5) : (F < T(0) ? F : T(0));
-      const T d_int = mu * area / cols.dist_on[k];
-      const T d_bnd = mu * area / cols.dist_fo[k];
-      off_out[k * C + i] = (active && interior) ? a_nb - d_int : T(0);
-      const int kind = cols.kind[k];
-      const bool dirichlet = kind == kWall || kind == kVinlet;
-      const T d_b = dirichlet ? d_bnd : T(0);
-      diag = diag + (interior ? -a_nb + F + d_int : -a_nb + F + d_b);
-      if (dirichlet) {
-        // (a_nb - F) v_bc + d_bnd v_bc from the traced BC table.
-        const T s_w = interior ? T(0) : (a_nb - F) + d_bnd;
-        const T* row = bc + 4 * cols.zone[k];
-        bu = bu + s_w * row[0];
-        bv = bv + s_w * row[1];
-        bw = bw + s_w * row[2];
-      }
-      // --- pressure force: -n_out p_f A ---
-      const T p_bnd = (kind == kPressure) ? bc[4 * cols.zone[k] + 3] : p_c;
-      const T p_f = interior ? T(0.5) * (p_c + p_n) : p_bnd;
-      const T pfA = p_f * area;
-      if (n[0] != T(0)) bu = bu - n[0] * pfA;
-      if (n[1] != T(0)) bv = bv - n[1] * pfA;
-      if (n[2] != T(0)) bw = bw - n[2] * pfA;
-    }
-    // Implicit (Patankar) relaxation + inactive padding rows.
-    bu = bu + (T(1) - alpha) / alpha * diag * u_c;
-    bv = bv + (T(1) - alpha) / alpha * diag * v_c;
-    bw = bw + (T(1) - alpha) / alpha * diag * w_c;
-    diag = diag / alpha;
-    diag_out[i] = active ? diag : T(1);
-    b_out[i] = active ? bu : T(0);
-    b_out[C + i] = active ? bv : T(0);
-    b_out[2 * C + i] = active ? bw : T(0);
-  }
-}
-
-template <typename T>
-__global__ void pc_kernel(AsmCols<T> cols, const T* __restrict__ vel,
-                          const T* __restrict__ md,
-                          const T* __restrict__ bc,
-                          const int* __restrict__ flags, T rho,
-                          T* __restrict__ diag_out, T* __restrict__ off_out,
-                          T* __restrict__ b_out, long long C) {
-  const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
-                     threadIdx.x;
-       i < C; i += step) {
-    const int fl = flags[i];
-    const bool active = (fl >> ACTIVE_BIT) & 1;
-    const T u_c = vel[3 * i], v_c = vel[3 * i + 1], w_c = vel[3 * i + 2];
-    const T md_c = md[i];
-    T diag = T(0), b = T(0);
-#pragma unroll
-    for (int k = 0; k < MAX_K; ++k) {
-      if (k >= cols.K) continue;
-      const bool interior = (fl >> k) & 1;
-      T u_n = u_c, v_n = v_c, w_n = w_c, md_n = md_c;
-      if (interior) {
-        const long long j = i + cols.offset[k];
-        u_n = vel[3 * j];
-        v_n = vel[3 * j + 1];
-        w_n = vel[3 * j + 2];
-        md_n = md[j];
-      }
-      const T area = cols.area[k];
-      const T vn_int =
-          T(0.5) * dot_n(u_c + u_n, v_c + v_n, w_c + w_n, cols.n[k]);
-      const T vn_bnd = boundary_flux(cols, k, bc, u_c, v_c, w_c);
-      const T F2 = (interior ? vn_int : vn_bnd) * (area * rho);
-      b = b - F2;
-      // Shared momentum diagonal: |md n| == md for unit normals.
-      const T a_face = T(0.5) * (md_c + md_n);
-      const T a_nb = (rho * area * area) / a_face;
-      const T a_bnd = (rho * area * area) / md_c * T(0.5);
-      off_out[k * C + i] = (active && interior) ? -a_nb : T(0);
-      diag = diag + (interior ? a_nb : a_bnd);
-    }
-    diag_out[i] = active ? diag : T(1);
-    b_out[i] = active ? b : T(0);
-  }
-}
-
-// --- SIMPLE_FC ------------------------------------------------------
-//
-// fc_momentum_kernel: the momentum system of momentum_kernel, advected
-// with the stored conservative flux (F = flux_k * area * rho, the
-// flux a [K,C] planes array written by the previous correction) instead
-// of interpolated face velocities. Scheme UD / CD1, or TVD_DC: the UD
+// fc_momentum_kernel: the momentum system of the parity momentum_kernel
+// (parity_assembly.cuh), advected with the stored conservative flux
+// (F = flux_k * area * rho, the flux a [K,C] planes array written by
+// the previous correction) instead of interpolated face velocities.
+// Scheme UD / CD1, or TVD_DC: the UD
 // matrix plus, on each interior face, the deferred correction
 // -F psi(r)/2 (phi_D - phi_U) per velocity component, with
 // r = 2 grad_U . r_UD / (phi_D - phi_U) - 1 from the streamed [C,3,3]
@@ -265,14 +23,14 @@ __global__ void pc_kernel(AsmCols<T> cols, const T* __restrict__ vel,
 // psi is a template code (tvd_lud 0, tvd_quick 1, tvd_umist 2): a
 // kernel takes no Python callable. Face pressures are Linear, or
 // SecondOrder (kPSo) from the streamed [C,3] grad p. Patankar
-// relaxation, inactive rows as momentum_kernel.
+// relaxation, inactive rows as the parity momentum_kernel.
 //
 // fc_pc_kernel: the SIMPLE_FC full-p continuity system and the flux
 // predictor in one pass (orc_tpu/solver/fc.py ck_flux_h + ck_d_coeffs
 // + ck_fc_pressure_system):
 //   flux_h = 0.5 (v_c + v_n).n  (+ 0.5 (V/md_c gp_c + V/md_n gp_n) na,
 //            the Rhie-Chow term3, under kRC), the boundary rules of
-//            momentum_kernel on boundary faces, written as K planes;
+//            the parity kernels on boundary faces, written as K planes;
 //   d_int  = 0.5 rho A / d_on (V/md_c + V/md_n), off = -d_int;
 //   pressure columns close with d_bnd = rho A / d_fo V/md_c and add
 //   d_bnd p_BC to b; prescribed-flux boundaries add nothing;
@@ -284,22 +42,6 @@ __global__ void pc_kernel(AsmCols<T> cols, const T* __restrict__ vel,
 // mostly L1/L2 hits of neighbouring rows). Each scheme, limiter and
 // face-pressure choice is its own template instance, so the branches a
 // configuration does not take cost neither registers nor loads.
-
-enum Scheme { kUD = 0, kCD1 = 1, kTvdDc = 2 };
-
-template <typename T, int kPsi>
-__device__ __forceinline__ T tvd_psi(T r) {
-  if (kPsi == 0) return r;                  // tvd_lud
-  if (kPsi == 1) return (T(3) + r) / T(4);  // tvd_quick
-  // tvd_umist: max(0, min(min(2r, (1 + 3r)/4), min((3 + r)/4, 2)))
-  const T a = T(2) * r;
-  const T b = (T(1) + T(3) * r) / T(4);
-  const T c = (T(3) + r) / T(4);
-  const T m1 = b < a ? b : a;
-  const T m2 = T(2) < c ? T(2) : c;
-  const T m = m2 < m1 ? m2 : m1;
-  return m > T(0) ? m : T(0);
-}
 
 template <typename T, int kScheme, int kPsi, bool kPSo>
 __global__ void fc_momentum_kernel(
@@ -319,7 +61,7 @@ __global__ void fc_momentum_kernel(
     const T p_c = p[i];
     T diag = T(0), bu = T(0), bv = T(0), bw = T(0);
 #pragma unroll
-    for (int k = 0; k < MAX_K; ++k) {
+    for (int k = 0; k < kAsmK; ++k) {
       if (k >= cols.K) continue;
       const bool interior = (fl >> k) & 1;
       const long long j = interior ? i + cols.offset[k] : i;
@@ -416,7 +158,7 @@ __global__ void fc_pc_kernel(AsmCols<T> cols, const T* __restrict__ vel,
     const T md_c = md[i];
     T diag = T(0), b = T(0);
 #pragma unroll
-    for (int k = 0; k < MAX_K; ++k) {
+    for (int k = 0; k < kAsmK; ++k) {
       if (k >= cols.K) continue;
       const bool interior = (fl >> k) & 1;
       const long long j = interior ? i + cols.offset[k] : i;
@@ -520,95 +262,7 @@ int launch_fc_pc(bool rc, const AsmCols<T>& c, const void* vel,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int launch_momentum(int scheme, const AsmCols<T>& c, const void* vel,
-                    const void* p, const void* bc, const int* flags,
-                    double rho, double mu, double alpha, void* diag,
-                    void* off, void* b, long long C, cudaStream_t stream) {
-  void (*kernel)(AsmCols<T>, const T*, const T*, const T*, const int*, T, T,
-                 T, T*, T*, T*, long long) =
-      scheme == 1 ? momentum_kernel<T, true> : momentum_kernel<T, false>;
-  kernel<<<grid_blocks(C), kThreads, 0, stream>>>(
-      c, static_cast<const T*>(vel), static_cast<const T*>(p),
-      static_cast<const T*>(bc), flags, static_cast<T>(rho),
-      static_cast<T>(mu), static_cast<T>(alpha), static_cast<T*>(diag),
-      static_cast<T*>(off), static_cast<T*>(b), C);
-  return static_cast<int>(cudaGetLastError());
-}
-
-bool valid_cols(const int* kind, int K) {
-  if (K < 1 || K > MAX_K) return false;
-  for (int k = 0; k < K; ++k) {
-    if (kind[k] < kWall || kind[k] > kVinlet) return false;
-  }
-  return true;
-}
-
 }  // namespace orc
-
-extern "C" int orc_momentum_assembly(
-    int dtype, int scheme, const long long* col_offsets,
-    const double* col_geom, const int* col_kind, const int* col_zone, int K,
-    const void* vel, const void* p, const void* bc, const void* flags,
-    double rho, double mu, double alpha, void* diag, void* off, void* b,
-    long long C, void* stream) {
-  if (!orc::valid_cols(col_kind, K) || (scheme != 0 && scheme != 1) ||
-      C < 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  if (C == 0) return 0;
-  auto s = static_cast<cudaStream_t>(stream);
-  const int* fl = static_cast<const int*>(flags);
-  if (dtype == orc::kF32) {
-    const auto c =
-        orc::make_asm_cols<float>(col_offsets, col_geom, col_kind, col_zone, K);
-    return orc::launch_momentum<float>(scheme, c, vel, p, bc, fl, rho, mu,
-                                       alpha, diag, off, b, C, s);
-  }
-  if (dtype == orc::kF64) {
-    const auto c = orc::make_asm_cols<double>(col_offsets, col_geom,
-                                              col_kind, col_zone, K);
-    return orc::launch_momentum<double>(scheme, c, vel, p, bc, fl, rho, mu,
-                                        alpha, diag, off, b, C, s);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
-}
-
-extern "C" int orc_pc_assembly(int dtype, const long long* col_offsets,
-                               const double* col_geom, const int* col_kind,
-                               const int* col_zone, int K, const void* vel,
-                               const void* md, const void* bc,
-                               const void* flags, double rho, void* diag,
-                               void* off, void* b, long long C,
-                               void* stream) {
-  if (!orc::valid_cols(col_kind, K) || C < 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  if (C == 0) return 0;
-  auto s = static_cast<cudaStream_t>(stream);
-  const int* fl = static_cast<const int*>(flags);
-  const unsigned blocks = orc::grid_blocks(C);
-  if (dtype == orc::kF32) {
-    const auto c =
-        orc::make_asm_cols<float>(col_offsets, col_geom, col_kind, col_zone, K);
-    orc::pc_kernel<float><<<blocks, orc::kThreads, 0, s>>>(
-        c, static_cast<const float*>(vel), static_cast<const float*>(md),
-        static_cast<const float*>(bc), fl, static_cast<float>(rho),
-        static_cast<float*>(diag), static_cast<float*>(off),
-        static_cast<float*>(b), C);
-    return static_cast<int>(cudaGetLastError());
-  }
-  if (dtype == orc::kF64) {
-    const auto c = orc::make_asm_cols<double>(col_offsets, col_geom,
-                                              col_kind, col_zone, K);
-    orc::pc_kernel<double><<<blocks, orc::kThreads, 0, s>>>(
-        c, static_cast<const double*>(vel), static_cast<const double*>(md),
-        static_cast<const double*>(bc), fl, rho, static_cast<double*>(diag),
-        static_cast<double*>(off), static_cast<double*>(b), C);
-    return static_cast<int>(cudaGetLastError());
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
-}
 
 extern "C" int orc_fc_momentum_assembly(
     int dtype, int scheme, int psi, int p_so, const long long* col_offsets,

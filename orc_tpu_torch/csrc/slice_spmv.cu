@@ -3,7 +3,8 @@
 //
 // Replaces: orc_tpu/ops/pallas_slice.py `_kernel` and `_kernel_heavy`
 // (reached from `_slice_spmv_pallas`), `_kernel_wide` (from
-// `_slice_spmv_pallas_wide`), `_nbr_kernel` (from `_slice_nbr_pallas`)
+// `_slice_spmv_pallas_wide`), `_kernel_exact` and `_kernel_wide_exact`
+// (from `_slice_spmv_exact`), `_nbr_kernel` (from `_slice_nbr_pallas`)
 // and `_nbr_kernel_wide` (from `_slice_nbr_pallas_wide`).
 //
 // The plan (orc_tpu_torch/mesh/reorder.py) groups the RCM-ordered cells
@@ -14,14 +15,19 @@
 //     y[b,c] = diag[b?,c] x[b,c]
 //            + sum_{j < tile_nj[t]} coef[b?,t,j,l] x[b, starts[t,j] - pad_lo + l]
 //     with c = t*T + l < C and reads outside [0, C) taken as 0.
+//   slice_spmv_exact_kernel (float32, the df32 residual of
+//   solver/refine.py): the off-diagonal sum above with every product
+//   an exact two-product and every accumulation a two-sum, as (y, err).
 //   slice_nbr_kernel:
 //     out[c,k,f] = x[c',f], c' = starts[t, col_tile[t,k,l]] - pad_lo + l,
 //     at interior slots; x[c,f] elsewhere.
 //
 // Bound on the H100: device memory. The SpMV reads the used
 // coefficients (sum_t tile_nj[t] * T values), x, diag and writes y; the
-// gather reads the interior mask, col_tile and x and writes C*K*F
-// values. Neither does arithmetic worth counting.
+// exact product reads the same but diag and writes y and err (its ten
+// float32 operations per coefficient stay far below the 67 TFLOP/s
+// peak); the gather reads the interior mask, col_tile and x and writes
+// C*K*F values.
 //
 // Design. The TPU kernels DMA one x window per group of tiles into VMEM
 // and rotate 128-lane rows, statically unrolled over n_max (a dynamic
@@ -72,6 +78,53 @@ __global__ void slice_spmv_kernel(const T* __restrict__ diag,
   }
 }
 
+// Exact-accumulation product of the df32 residual (float32 only):
+//   p = coef * x exactly as p + pe (pe by one FMA), acc = two_sum(acc, p)
+//   with its error te, err += te + pe, over the tile's used columns in
+//   order. Every operation is an explicitly rounded intrinsic: nvcc
+//   contracts a * b + c into an FMA by default, which would make the
+//   two-sum's error terms vanish, and the shared NVCC_FLAGS stay as they
+//   are for every other kernel. Columns past tile_nj carry zero
+//   coefficients and leave (acc, err) unchanged, so (y, err) equal the
+//   plain version's n_max-column loop bit for bit.
+__global__ void slice_spmv_exact_kernel(const float* __restrict__ coef,
+                                        long long coef_bs,
+                                        const int* __restrict__ starts,
+                                        const int* __restrict__ tile_nj,
+                                        const float* __restrict__ x,
+                                        float* __restrict__ y,
+                                        float* __restrict__ err_out,
+                                        long long C, int tile, int n_max,
+                                        long long pad_lo) {
+  const long long t = blockIdx.x;
+  const long long b = blockIdx.y;
+  const float* xb = x + b * C;
+  const float* cb =
+      coef + b * coef_bs + t * n_max * static_cast<long long>(tile);
+  const int* st = starts + t * n_max;
+  const int nj = tile_nj[t];
+  for (int l = threadIdx.x; l < tile; l += blockDim.x) {
+    const long long c = t * tile + l;
+    if (c >= C) break;
+    float acc = 0.0f, err = 0.0f;
+    for (int j = 0; j < nj; ++j) {
+      const long long src = static_cast<long long>(st[j]) - pad_lo + l;
+      const float xv = (src >= 0 && src < C) ? xb[src] : 0.0f;
+      const float a = cb[static_cast<long long>(j) * tile + l];
+      const float p = __fmul_rn(a, xv);
+      const float pe = __fmaf_rn(a, xv, -p);
+      const float s = __fadd_rn(acc, p);
+      const float bb = __fsub_rn(s, acc);
+      const float te =
+          __fadd_rn(__fsub_rn(acc, __fsub_rn(s, bb)), __fsub_rn(p, bb));
+      acc = s;
+      err = __fadd_rn(err, __fadd_rn(te, pe));
+    }
+    y[b * C + c] = acc;
+    err_out[b * C + c] = err;
+  }
+}
+
 template <typename T>
 __global__ void slice_nbr_kernel(const T* __restrict__ x,
                                  const unsigned char* __restrict__ interior,
@@ -117,6 +170,22 @@ int launch_slice_spmv(const void* diag, long long diag_bs, const void* coef,
   return static_cast<int>(cudaGetLastError());
 }
 
+int launch_slice_spmv_exact(const void* coef, long long coef_bs,
+                            const void* starts, const void* tile_nj,
+                            const void* x, void* y, void* err, long long C,
+                            int tile, long long ntiles, int n_max,
+                            long long pad_lo, int B, cudaStream_t stream) {
+  const unsigned threads = tile < kThreads ? static_cast<unsigned>(tile)
+                                           : static_cast<unsigned>(kThreads);
+  const dim3 grid(static_cast<unsigned>(ntiles), static_cast<unsigned>(B));
+  slice_spmv_exact_kernel<<<grid, threads, 0, stream>>>(
+      static_cast<const float*>(coef), coef_bs,
+      static_cast<const int*>(starts), static_cast<const int*>(tile_nj),
+      static_cast<const float*>(x), static_cast<float*>(y),
+      static_cast<float*>(err), C, tile, n_max, pad_lo);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T>
 int launch_slice_nbr(const void* x, const void* interior, const void* starts,
                      const void* col_tile, void* out, long long C, int K,
@@ -158,6 +227,22 @@ extern "C" int orc_slice_spmv(int dtype, const void* diag, long long diag_bs,
                                           ntiles, n_max, pad_lo, B, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+extern "C" int orc_slice_spmv_exact(const void* coef, long long coef_bs,
+                                    const void* starts, const void* tile_nj,
+                                    const void* x, void* y, void* err,
+                                    long long C, int tile, long long ntiles,
+                                    int n_max, long long pad_lo, int B,
+                                    void* stream) {
+  if (C < 0 || tile < 1 || n_max < 0 || ntiles < 0 || ntiles > 2147483647LL ||
+      B < 1 || B > 65535 || ntiles * tile < C) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (C == 0) return 0;
+  return orc::launch_slice_spmv_exact(coef, coef_bs, starts, tile_nj, x, y,
+                                      err, C, tile, ntiles, n_max, pad_lo, B,
+                                      static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int orc_slice_nbr(int dtype, const void* x, const void* interior,

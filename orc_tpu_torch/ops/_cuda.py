@@ -59,17 +59,19 @@ SIGNATURES = {
     "orc_jacobi_sweeps": (
         _i, _p, _pp, _pll, _pll, _i, _p, _p, _p, _p, _ll, _i, _i, _d, _p,
     ),
-    # dtype, scheme, col_offsets, col_geom[K*6], col_kind, col_zone, K,
-    # vel, p, bc, flags, rho, mu, alpha, diag, off, b, C, stream
+    # dtype, scheme, limiter, rc, p_so, gg, col_offsets, col_geom[K*6],
+    # col_kind, col_zone, K, vel, p, grad_p, mom_diag, grad_vel, bc, flags,
+    # rho, mu, alpha, vol, diag, off, b, C, stream
     "orc_momentum_assembly": (
-        _i, _i, _pll, _pd, _pi, _pi, _i, _p, _p, _p, _p, _d, _d, _d,
-        _p, _p, _p, _ll, _p,
+        _i, _i, _i, _i, _i, _i, _pll, _pd, _pi, _pi, _i, _p, _p, _p, _p, _p,
+        _p, _p, _d, _d, _d, _d, _p, _p, _p, _ll, _p,
     ),
-    # dtype, col_offsets, col_geom[K*6], col_kind, col_zone, K, vel,
-    # mom_diag, bc, flags, rho, diag, off, b, C, stream
+    # dtype, rc, gg, col_offsets, col_geom[K*6], col_kind, col_zone, K,
+    # vel, mom_diag, p, grad_p, bc, flags, rho, vol, diag, off, b, C,
+    # stream
     "orc_pc_assembly": (
-        _i, _pll, _pd, _pi, _pi, _i, _p, _p, _p, _p, _d, _p, _p, _p, _ll,
-        _p,
+        _i, _i, _i, _pll, _pd, _pi, _pi, _i, _p, _p, _p, _p, _p, _p, _d, _d,
+        _p, _p, _p, _ll, _p,
     ),
     # dtype, scheme, limiter, p_so, col_offsets, col_geom[K*6], col_kind,
     # col_zone, K, vel, p, flux planes, grad_p, grad_vel, bc, flags, rho,
@@ -89,6 +91,11 @@ SIGNATURES = {
     # tile_nj, x, y, C, tile, ntiles, n_max, pad_lo, B, stream
     "orc_slice_spmv": (
         _i, _p, _ll, _p, _ll, _p, _p, _p, _p, _ll, _i, _ll, _i, _ll, _i, _p,
+    ),
+    # coef, coef batch stride, starts, tile_nj, x, y, err, C, tile,
+    # ntiles, n_max, pad_lo, B, stream (float32 only)
+    "orc_slice_spmv_exact": (
+        _p, _ll, _p, _p, _p, _p, _p, _ll, _i, _ll, _i, _ll, _i, _p,
     ),
     # dtype, x, interior, starts, col_tile, out, C, K, F, tile, n_max,
     # pad_lo, stream

@@ -3,32 +3,33 @@ SIMPLE_FC.
 
 Replaces orc_tpu/ops/pallas_assembly.py:
 - `_momentum_kernel`, parity branch (via `momentum_assembly` ->
-  `_momentum_asm`) -> `momentum_assembly`;
-- `_pc_kernel` (via `pc_assembly`) -> `pc_assembly`;
+  `_momentum_asm`) -> `momentum_assembly` (csrc/parity_assembly.cuh);
+- `_pc_kernel` (via `pc_assembly`) -> `pc_assembly`
+  (csrc/parity_assembly.cuh);
 - `_momentum_kernel`, SIMPLE_FC branch (via `fc_momentum_assembly`) ->
-  `fc_momentum_assembly`;
-- `_fc_pc_kernel` (via `fc_pc_assembly`) -> `fc_pc_assembly`.
+  `fc_momentum_assembly` (csrc/assembly.cu);
+- `_fc_pc_kernel` (via `fc_pc_assembly`) -> `fc_pc_assembly`
+  (csrc/assembly.cu).
 
 One pass over the cell fields of a uniform structured box writes the
 shared momentum matrix (diag [C], off [C,K]) with its three right-hand
 sides, or the pressure(-correction) system, keeping every per-face
 intermediate in registers. On the card the wrappers launch the CUDA
-kernels of ``csrc/assembly.cu``; on CPU tensors they run the plain
-versions, which compose the ported ck ops (the oracle orc_tpu pins its
-kernels against) and return the kernels' output format.
+kernels; on CPU tensors they run the plain versions, which compose the
+ported ck ops (the oracle orc_tpu pins its kernels against) and return
+the kernels' output format.
 
-Covered:
-- parity kernels: UD / CD1 advection, Linear[Weighted] face velocities
-  and pressures, implicit relaxation. Their Rhie-Chow, SecondOrder,
-  in-kernel Green-Gauss, TVD_DC and transient branches are ROADMAP
-  Queue 2 item 4a; the parity wrappers refuse the specs that name them.
-- SIMPLE_FC kernels: UD / CD1 / TVD_DC advection with the stored flux,
-  Linear[Weighted] or SecondOrder face pressures from a streamed grad p,
-  the Rhie-Chow term3 of the flux predictor, implicit relaxation. A CUDA
-  kernel takes no Python callable, so the TVD limiter `AsmSpec.psi`
-  travels as a code (`LIMITER_CODES`: tvd_lud, tvd_quick, tvd_umist);
-  the kernel gate returns None for any other limiter. The transient
-  inertia term (ROADMAP Queue 1, item 10) raises.
+Covered, steady and under implicit relaxation, every branch of orc_tpu's
+kernels: UD / CD1 / TVD_DC advection (parity: with the face flux
+computed from the velocity; SIMPLE_FC: with the stored flux),
+Linear[Weighted] or Rhie-Chow face fluxes, Linear[Weighted] or
+SecondOrder face pressures, and for the parity kernels the Green-Gauss
+pressure gradient computed in the kernel (`AsmSpec.gg`) or streamed as
+[C,3]. A CUDA kernel takes no Python callable, so the TVD limiter
+`AsmSpec.psi` travels as a code (`LIMITER_CODES`: tvd_lud, tvd_quick,
+tvd_umist); the kernel gate returns None for any other limiter. The
+transient inertia term (ROADMAP Queue 2, item 4c, with Queue 1 item 10)
+raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -47,6 +48,7 @@ from orc_tpu_torch.ops.ck_ops import (
     ck_flux,
     ck_momentum,
     ck_pressure_correction,
+    ck_pressure_gradient,
     nbr_values,
 )
 from orc_tpu_torch.ops.fields import (
@@ -81,15 +83,18 @@ class ColumnSpec(NamedTuple):
 
 
 class AsmSpec(NamedTuple):
-    """Static scheme selection, as orc_tpu's AsmSpec. The parity kernels
-    take scheme "ud" / "cd1" with rc and p_so False; the SIMPLE_FC
-    kernels also take "tvd_dc", rc and p_so."""
+    """Static scheme selection, as orc_tpu's AsmSpec."""
 
     scheme: str = "ud"  # "ud" | "cd1" | "tvd_dc"
     rc: bool = False  # Rhie-Chow face fluxes (else Linear[Weighted])
     p_so: bool = False  # SecondOrder face pressures (else Linear[W])
     psi: object = None  # TVD limiter (tvd_dc only), a key of LIMITER_CODES
-    vol: float = 0.0  # uniform cell volume (the FC d-coefficients)
+    vol: float = 0.0  # uniform cell volume (Rhie-Chow, GG, FC d-coefficients)
+    # Parity kernels: compute the Green-Gauss cell pressure gradient in
+    # the kernel from p (two hops: a neighbour's gradient reads its
+    # neighbours' p) instead of reading a streamed [C,3] grad p. The
+    # SIMPLE_FC kernels always read it streamed (orc_tpu forces gg off).
+    gg: bool = False
 
 
 ACTIVE_BIT = 6  # flag bit marking real (non-padded) cells
@@ -215,23 +220,17 @@ def _ck_from_columns(flags, cols, bc_values):
     return box, ck, ck_bc(ck, zc, zs, zv)
 
 
-def _check_spec(spec: AsmSpec):
-    if spec.scheme not in ("ud", "cd1") or spec.rc or spec.p_so:
-        raise NotImplementedError(
-            f"assembly branch {spec} is not ported yet (ROADMAP Queue 2, "
-            "item 4a): only UD/CD1 with Linear[Weighted] faces"
-        )
-
-
-def _check_fc_spec(spec: AsmSpec, inertia=None):
+def _check_spec(spec: AsmSpec, inertia=None):
+    """Raise on what no kernel computes: an unknown scheme, TVD_DC
+    without a limiter, the transient inertia term."""
     if spec.scheme not in _SCHEMES:
         raise ValueError(f"unknown momentum scheme {spec.scheme!r}")
     if spec.scheme == "tvd_dc" and spec.psi is None:
         raise ValueError("the tvd_dc scheme needs a limiter spec.psi")
     if inertia is not None:
         raise NotImplementedError(
-            "the transient SIMPLE_FC assembly is not ported yet (ROADMAP "
-            "Queue 1, item 10)"
+            "the transient assembly is not ported yet (ROADMAP Queue 2, item "
+            "4c, with Queue 1 item 10)"
         )
 
 
@@ -248,31 +247,72 @@ def _settings_of(spec: AsmSpec, alpha) -> NumericalSettings:
     )
 
 
+def _face_gradient(box, ck, bc, p, grad_p, spec: AsmSpec):
+    """(grad p [C,3], its neighbour values [C,K,3]) of the parity
+    kernels' Rhie-Chow and SecondOrder terms: the Green-Gauss gradient
+    of p under spec.gg, else the streamed `grad_p`."""
+    if spec.gg:
+        grad_p = ck_pressure_gradient(box, ck, bc, p)
+    return grad_p, nbr_values(box, grad_p, ck.interior)
+
+
 def momentum_assembly_plain(
-    vel, p, bc_values, flags, cols, rho, mu, alpha, mom_diag=None,
-    spec: AsmSpec = AsmSpec(),
+    vel, p, bc_values, flags, cols, rho, mu, alpha, grad_p=None,
+    mom_diag=None, grad_vel=None, inertia=None, spec: AsmSpec = AsmSpec(),
 ):
-    """Plain torch momentum assembly: (diag [C], off [C,K], b [3,C])."""
-    _check_spec(spec)
+    """Plain torch momentum assembly: (diag [C], off [C,K], b [3,C]),
+    orc_tpu's ck path (ck_flux, ck_face_pressure, ck_momentum) with the
+    spec's face models."""
+    _check_spec(spec, inertia)
     box, ck, bc = _ck_from_columns(flags, cols, bc_values)
-    flux = ck_flux(box, ck, bc, vel, VelocityInterpolation.LINEAR)
+    box = box._replace(cell_volume=torch.full_like(p, spec.vol))
+    gp = gp_nbr = md3 = None
+    if spec.rc or spec.p_so:
+        gp, gp_nbr = _face_gradient(box, ck, bc, p, grad_p, spec)
+    if spec.rc:
+        md3 = mom_diag[:, None].expand(-1, 3)
+    vi = (
+        VelocityInterpolation.RHIE_CHOW if spec.rc
+        else VelocityInterpolation.LINEAR
+    )
+    flux = ck_flux(
+        box, ck, bc, vel, vi, p=p, grad_p=gp, grad_p_nbr=gp_nbr, mom_diag=md3
+    )
     F = flux * ck.area * rho
-    p_f = ck_face_pressure(box, ck, bc, p, PressureInterpolation.LINEAR)
+    pi = (
+        PressureInterpolation.SECOND_ORDER if spec.p_so
+        else PressureInterpolation.LINEAR
+    )
+    p_f = ck_face_pressure(box, ck, bc, p, pi, grad_p=gp, grad_p_nbr=gp_nbr)
     diff = ck_diffusion(box, ck, bc, mu)
-    settings = _settings_of(spec, alpha)
-    A, b, _pe = ck_momentum(box, ck, bc, settings, rho, vel, F, p_f, *diff)
+    A, b, _pe = ck_momentum(
+        box, ck, bc, _settings_of(spec, alpha), rho, vel, F, p_f, *diff,
+        grad_vel=grad_vel,
+    )
     return A.diag, A.off, b
 
 
 def pc_assembly_plain(
-    vel, mom_diag, bc_values, flags, cols, rho, spec: AsmSpec = AsmSpec()
+    vel, mom_diag, bc_values, flags, cols, rho, p=None, grad_p=None,
+    spec: AsmSpec = AsmSpec(),
 ):
-    """Plain torch pressure-correction assembly: (diag, off [C,K], b)."""
+    """Plain torch pressure-correction assembly: (diag, off [C,K], b),
+    the face flux Linear or, under spec.rc, Rhie-Chow from the
+    iteration-start p and its gradient (in-kernel GG or streamed)."""
+    spec = spec._replace(gg=spec.gg and spec.rc)
     _check_spec(spec)
     box, ck, bc = _ck_from_columns(flags, cols, bc_values)
-    flux2 = ck_flux(box, ck, bc, vel, VelocityInterpolation.LINEAR)
-    F2 = flux2 * ck.area * rho
     md3 = mom_diag[:, None].expand(-1, 3)
+    if spec.rc:
+        box = box._replace(cell_volume=torch.full_like(mom_diag, spec.vol))
+        gp, gp_nbr = _face_gradient(box, ck, bc, p, grad_p, spec)
+        flux2 = ck_flux(
+            box, ck, bc, vel, VelocityInterpolation.RHIE_CHOW, p=p, grad_p=gp,
+            grad_p_nbr=gp_nbr, mom_diag=md3,
+        )
+    else:
+        flux2 = ck_flux(box, ck, bc, vel, VelocityInterpolation.LINEAR)
+    F2 = flux2 * ck.area * rho
     P, b = ck_pressure_correction(box, ck, bc, rho, F2, md3)
     return P.diag, P.off, b
 
@@ -283,7 +323,7 @@ def fc_momentum_assembly_plain(
 ):
     """Plain torch SIMPLE_FC momentum assembly: ck_momentum fed with the
     stored flux, F = flux * area * rho -> (diag [C], off [C,K], b [3,C])."""
-    _check_fc_spec(spec, inertia)
+    _check_spec(spec, inertia)
     box, ck, bc = _ck_from_columns(flags, cols, bc_values)
     F = flux * ck.area * rho
     if spec.p_so:
@@ -313,7 +353,7 @@ def fc_pc_assembly_plain(
         ck_flux_h,
     )
 
-    _check_fc_spec(spec)
+    _check_spec(spec)
     box, ck, bc = _ck_from_columns(flags, cols, bc_values)
     box = box._replace(cell_volume=torch.full_like(mom_diag, spec.vol))
     md3 = mom_diag[:, None].expand(-1, 3)
@@ -362,24 +402,72 @@ def _check_inputs(vel, bc_values, flags, cols, **fields):
 
 
 def momentum_assembly(
-    vel, p, bc_values, flags, cols: tuple, rho, mu, alpha, mom_diag=None,
-    spec: AsmSpec = AsmSpec(),
+    vel, p, bc_values, flags, cols: tuple, rho, mu, alpha, grad_p=None,
+    mom_diag=None, grad_vel=None, inertia=None, spec: AsmSpec = AsmSpec(),
 ):
     """Fused momentum assembly on a uniform box.
 
     vel [C,3], p [C] -> (diag [C], off [C,K], b [3,C]) in the shared-
     matrix form; `cols` from column_specs, `flags` from pack_flags,
     `bc_values` [Z,4] from bc_value_table; rho / mu / alpha are Python
-    numbers. `off` is a [C,K] view of K contiguous [C] planes. CPU
-    tensors take the plain version; CUDA tensors launch the kernel or
-    raise."""
+    numbers. Scheme-dependent extras, as orc_tpu's: `grad_p` [C,3] under
+    spec.rc or spec.p_so unless spec.gg, `mom_diag` [C] (the shared
+    diagonal of the previous iteration) under spec.rc, `grad_vel`
+    [C,3,3] under "tvd_dc"; spec.vol is the cell volume. `off` is a
+    [C,K] view of K contiguous [C] planes. CPU tensors take the plain
+    version; CUDA tensors launch the kernel or raise."""
     if not vel.is_cuda:
         return momentum_assembly_plain(
-            vel, p, bc_values, flags, cols, rho, mu, alpha, mom_diag, spec
+            vel, p, bc_values, flags, cols, rho, mu, alpha, grad_p, mom_diag,
+            grad_vel, inertia, spec,
         )
-    _check_spec(spec)
-    _check_inputs(vel, bc_values, flags, cols, p=p)
+    return _launch_momentum(
+        vel, p, bc_values, flags, cols, rho, mu, alpha, grad_p, mom_diag,
+        grad_vel, inertia, spec,
+    )
+
+
+def _limiter_code(spec: AsmSpec) -> int:
+    if spec.scheme != "tvd_dc":
+        return 0
+    if spec.psi not in LIMITER_CODES:
+        raise ValueError(f"limiter {spec.psi!r} has no kernel code (LIMITER_CODES)")
+    return LIMITER_CODES[spec.psi]
+
+
+def _need(t, shape, what):
+    """`t` made contiguous, or ValueError naming `what` when it is
+    missing or misshapen."""
+    if t is None or tuple(t.shape) != shape:
+        raise ValueError(f"{what} needs a {list(shape)} tensor")
+    return t.contiguous()
+
+
+def _launch_momentum(
+    vel, p, bc_values, flags, cols, rho, mu, alpha, grad_p, mom_diag,
+    grad_vel, inertia, spec,
+):
+    """The kernel launch of `momentum_assembly` (checks included)."""
+    _check_spec(spec, inertia)
     C, K = vel.shape[0], len(cols)
+    psi = _limiter_code(spec)
+    gg = spec.gg and (spec.rc or spec.p_so)
+    extra = dict(p=p)
+    if (spec.rc or spec.p_so) and not gg:
+        extra["grad_p"] = grad_p = _need(grad_p, (C, 3), "a streamed gradient")
+    else:
+        grad_p = None
+    if spec.rc:
+        extra["mom_diag"] = mom_diag = _need(mom_diag, (C,), "spec.rc")
+    else:
+        mom_diag = None
+    if spec.scheme == "tvd_dc":
+        extra["grad_vel"] = grad_vel = _need(grad_vel, (C, 3, 3), "the tvd_dc scheme")
+    else:
+        grad_vel = None
+    if (spec.rc or gg) and not spec.vol > 0:
+        raise ValueError("spec.rc / spec.gg need the cell volume spec.vol > 0")
+    _check_inputs(vel, bc_values, flags, cols, **extra)
     vel, p, bc_values = vel.contiguous(), p.contiguous(), bc_values.contiguous()
     flags = flags.contiguous()
     diag = torch.empty((C,), dtype=vel.dtype, device=vel.device)
@@ -387,10 +475,11 @@ def momentum_assembly(
     b = torch.empty((3, C), dtype=vel.dtype, device=vel.device)
     _cuda.call(
         "orc_momentum_assembly", vel.device, _cuda.dtype_code(vel),
-        _SCHEMES[spec.scheme], *_col_args(cols), K, vel.data_ptr(),
-        p.data_ptr(), bc_values.data_ptr(), flags.data_ptr(), float(rho),
-        float(mu), float(alpha), diag.data_ptr(), off.data_ptr(),
-        b.data_ptr(), C,
+        _SCHEMES[spec.scheme], psi, int(spec.rc), int(spec.p_so), int(gg),
+        *_col_args(cols), K, vel.data_ptr(), p.data_ptr(), _ptr(grad_p),
+        _ptr(mom_diag), _ptr(grad_vel), bc_values.data_ptr(),
+        flags.data_ptr(), float(rho), float(mu), float(alpha),
+        float(spec.vol), diag.data_ptr(), off.data_ptr(), b.data_ptr(), C,
     )
     momentum_assembly.launches += 1
     return diag, off.T, b
@@ -428,26 +517,18 @@ def _launch_fc_momentum(
     vel, p, flux, bc_values, flags, cols, rho, mu, alpha, grad_p, grad_vel,
     inertia, spec,
 ):
-    _check_fc_spec(spec, inertia)
+    _check_spec(spec, inertia)
     C, K = vel.shape[0], len(cols)
     if flux.shape != (C, K):
         raise ValueError(f"flux must be [C,K] = {(C, K)}, got {tuple(flux.shape)}")
-    tvd = spec.scheme == "tvd_dc"
-    if tvd and spec.psi not in LIMITER_CODES:
-        raise ValueError(
-            f"limiter {spec.psi!r} has no kernel code (LIMITER_CODES)"
-        )
+    psi = _limiter_code(spec)
     extra = dict(p=p, flux=flux)
     if spec.p_so:
-        if grad_p is None or grad_p.shape != (C, 3):
-            raise ValueError("spec.p_so needs grad_p [C,3]")
-        extra["grad_p"] = grad_p = grad_p.contiguous()
+        extra["grad_p"] = grad_p = _need(grad_p, (C, 3), "spec.p_so")
     else:
         grad_p = None
-    if tvd:
-        if grad_vel is None or grad_vel.shape != (C, 3, 3):
-            raise ValueError("the tvd_dc scheme needs grad_vel [C,3,3]")
-        extra["grad_vel"] = grad_vel = grad_vel.contiguous()
+    if spec.scheme == "tvd_dc":
+        extra["grad_vel"] = grad_vel = _need(grad_vel, (C, 3, 3), "the tvd_dc scheme")
     else:
         grad_vel = None
     _check_inputs(vel, bc_values, flags, cols, **extra)
@@ -459,10 +540,9 @@ def _launch_fc_momentum(
     b = torch.empty((3, C), dtype=vel.dtype, device=vel.device)
     _cuda.call(
         "orc_fc_momentum_assembly", vel.device, _cuda.dtype_code(vel),
-        _SCHEMES[spec.scheme], LIMITER_CODES[spec.psi] if tvd else 0,
-        int(spec.p_so), *_col_args(cols), K, vel.data_ptr(), p.data_ptr(),
-        flux_planes.data_ptr(), _ptr(grad_p), _ptr(grad_vel),
-        bc_values.data_ptr(), flags.data_ptr(), float(rho), float(mu),
+        _SCHEMES[spec.scheme], psi, int(spec.p_so), *_col_args(cols), K,
+        vel.data_ptr(), p.data_ptr(), flux_planes.data_ptr(), _ptr(grad_p),
+        _ptr(grad_vel), bc_values.data_ptr(), flags.data_ptr(), float(rho), float(mu),
         float(alpha), diag.data_ptr(), off.data_ptr(), b.data_ptr(), C,
     )
     fc_momentum_assembly.launches += 1
@@ -489,13 +569,11 @@ def fc_pc_assembly(
 
 
 def _launch_fc_pc(vel, mom_diag, bc_values, flags, cols, rho, grad_p, spec):
-    _check_fc_spec(spec)
+    _check_spec(spec)
     C, K = vel.shape[0], len(cols)
     extra = dict(mom_diag=mom_diag)
     if spec.rc:
-        if grad_p is None or grad_p.shape != (C, 3):
-            raise ValueError("spec.rc needs grad_p [C,3]")
-        extra["grad_p"] = grad_p = grad_p.contiguous()
+        extra["grad_p"] = grad_p = _need(grad_p, (C, 3), "spec.rc")
     else:
         grad_p = None
     _check_inputs(vel, bc_values, flags, cols, **extra)
@@ -517,30 +595,53 @@ def _launch_fc_pc(vel, mom_diag, bc_values, flags, cols, rho, grad_p, spec):
 
 
 def pc_assembly(
-    vel, mom_diag, bc_values, flags, cols: tuple, rho,
+    vel, mom_diag, bc_values, flags, cols: tuple, rho, p=None, grad_p=None,
     spec: AsmSpec = AsmSpec(),
 ):
     """Fused pressure-correction assembly on a uniform box.
 
     vel [C,3] (post-momentum), mom_diag [C] (shared momentum diagonal)
     -> (diag [C], off [C,K], b [C]) matching ck_pressure_correction with
-    Linear[Weighted] face fluxes. CPU tensors take the plain version;
-    CUDA tensors launch the kernel or raise."""
+    Linear[Weighted] face fluxes or, under spec.rc, Rhie-Chow ones from
+    the iteration-start `p` [C] and its gradient (in the kernel under
+    spec.gg, else the streamed `grad_p` [C,3]). gg applies under
+    Rhie-Chow only, as orc_tpu forces. CPU tensors take the plain
+    version; CUDA tensors launch the kernel or raise."""
     if not vel.is_cuda:
-        return pc_assembly_plain(vel, mom_diag, bc_values, flags, cols, rho, spec)
+        return pc_assembly_plain(
+            vel, mom_diag, bc_values, flags, cols, rho, p, grad_p, spec
+        )
+    return _launch_pc(vel, mom_diag, bc_values, flags, cols, rho, p, grad_p, spec)
+
+
+def _launch_pc(vel, mom_diag, bc_values, flags, cols, rho, p, grad_p, spec):
+    """The kernel launch of `pc_assembly` (checks included)."""
+    spec = spec._replace(gg=spec.gg and spec.rc)
     _check_spec(spec)
-    _check_inputs(vel, bc_values, flags, cols, mom_diag=mom_diag)
     C, K = vel.shape[0], len(cols)
+    extra = dict(mom_diag=mom_diag)
+    if spec.rc:
+        extra["p"] = p = _need(p, (C,), "spec.rc")
+        if not spec.vol > 0:
+            raise ValueError("spec.rc needs the cell volume spec.vol > 0")
+    else:
+        p = None
+    if spec.rc and not spec.gg:
+        extra["grad_p"] = grad_p = _need(grad_p, (C, 3), "spec.rc without gg")
+    else:
+        grad_p = None
+    _check_inputs(vel, bc_values, flags, cols, **extra)
     vel, mom_diag = vel.contiguous(), mom_diag.contiguous()
     bc_values, flags = bc_values.contiguous(), flags.contiguous()
     diag = torch.empty((C,), dtype=vel.dtype, device=vel.device)
     off = torch.empty((K, C), dtype=vel.dtype, device=vel.device)
     b = torch.empty((C,), dtype=vel.dtype, device=vel.device)
     _cuda.call(
-        "orc_pc_assembly", vel.device, _cuda.dtype_code(vel),
-        *_col_args(cols), K, vel.data_ptr(), mom_diag.data_ptr(),
-        bc_values.data_ptr(), flags.data_ptr(), float(rho), diag.data_ptr(),
-        off.data_ptr(), b.data_ptr(), C,
+        "orc_pc_assembly", vel.device, _cuda.dtype_code(vel), int(spec.rc),
+        int(spec.gg), *_col_args(cols), K, vel.data_ptr(), mom_diag.data_ptr(),
+        _ptr(p), _ptr(grad_p), bc_values.data_ptr(), flags.data_ptr(),
+        float(rho), float(spec.vol), diag.data_ptr(), off.data_ptr(),
+        b.data_ptr(), C,
     )
     pc_assembly.launches += 1
     return diag, off.T, b

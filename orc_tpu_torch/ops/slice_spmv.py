@@ -1,10 +1,13 @@
-"""Kernels 7-11: the slice-plan SpMV and neighbour-value gather of
+"""Kernels 7-12: the slice-plan SpMVs and neighbour-value gather of
 irregular meshes (the counterpart of orc_tpu/ops/pallas_slice.py).
 
 - `slice_spmv` replaces `_kernel`, `_kernel_heavy` (via
   `_slice_spmv_pallas`) and `_kernel_wide` (via
   `_slice_spmv_pallas_wide`): y = diag * x + the slice-plan product of
   the [.., ntiles, n_max, T] coefficients of `EllMatrix.prepare()`.
+- `slice_spmv_exact` replaces `_kernel_exact` and `_kernel_wide_exact`
+  (via `_slice_spmv_exact`): the error-tracked off-diagonal product of
+  the df32 residual (solver/refine.py), (y, err) in float32.
 - `slice_nbr_values` replaces `_nbr_kernel` (via `_slice_nbr_pallas`)
   and `_nbr_kernel_wide` (via `_slice_nbr_pallas_wide`): the neighbour
   values x[nbr[c, k]] routed through the plan, the own value at slots
@@ -24,6 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from orc_tpu_torch.ops import _cuda
+from orc_tpu_torch.ops.df32 import two_prod, two_sum
 
 
 def slice_spmv_plain(diag, coef, plan, x):
@@ -102,6 +106,82 @@ def _launch_slice_spmv(diag, d_bs, coef, c_bs, plan, x, B):
     return y
 
 
+def slice_spmv_exact_plain(coef, plan, x):
+    """orc_tpu's `_kernel_exact` / `_kernel_wide_exact` in eager torch:
+    over the n_max slice columns in order, the two-product of
+    coef[.., t, j, l] and x[starts[t, j] - pad_lo + l] (zero outside
+    [0, C)) is two-summed into y and its two error terms added into err.
+    x: [C] or [B, C] float32; coef: [ntiles, n_max, T] or [B, ntiles,
+    n_max, T]. Returns (y, err), each shaped like x."""
+    T, C = plan.tile, plan.n_cells
+    batch = x.shape[:-1]
+    xp = F.pad(x, (plan.pad_lo, plan.pad_hi))
+    lanes = torch.arange(T, device=x.device)
+    g = xp[..., plan.starts.long()[..., None] + lanes]  # [..., ntiles, n_max, T]
+    coef = coef.expand(g.shape)
+    acc = torch.zeros(g.shape[:-2] + (T,), dtype=x.dtype, device=x.device)
+    err = torch.zeros_like(acc)
+    for j in range(plan.n_max):
+        ph, pe = two_prod(coef[..., j, :], g[..., j, :])
+        acc, te = two_sum(acc, ph)
+        err = err + (te + pe)
+    n = plan.ntiles * T
+    return (
+        acc.reshape(*batch, n)[..., :C],
+        err.reshape(*batch, n)[..., :C],
+    )
+
+
+def slice_spmv_exact(coef, plan, x):
+    """Error-tracked off-diagonal slice product of the df32 residual:
+    (y, err) with y + err the row sums of coef * x over the plan, every
+    product an exact two-product and every accumulation an error-free
+    two-sum, in slice-column order (no diagonal term).
+
+    x: [C] or [B, C] float32; coef: [ntiles, n_max, T] (shared by the
+    batch) or [B, ntiles, n_max, T]. CPU tensors take the plain version;
+    CUDA tensors launch the kernel or raise. The kernel's (y, err) are
+    bitwise equal to the plain version's."""
+    if not x.is_cuda:
+        return slice_spmv_exact_plain(coef, plan, x)
+    dev = x.device
+    C, T = plan.n_cells, plan.tile
+    if x.ndim not in (1, 2) or x.shape[-1] != C:
+        raise ValueError(f"x must be [C] or [B,C] with C={C}, got {tuple(x.shape)}")
+    if x.dtype != torch.float32 or coef.dtype != torch.float32:
+        raise TypeError(
+            f"the exact slice product takes float32 planes, got x {x.dtype}, "
+            f"coef {coef.dtype}"
+        )
+    B = 0 if x.ndim == 1 else x.shape[0]
+    shape = (plan.ntiles, plan.n_max, T)
+    if tuple(coef.shape[-3:]) != shape:
+        raise ValueError(
+            f"coef {tuple(coef.shape)} does not match the plan (coef [..., {shape}])"
+        )
+    c_bs = _batch_stride(coef, 3, B, "coef")
+    _cuda.check_cuda(dev, coef=coef, starts=plan.starts, tile_nj=plan.tile_nj)
+    out = _launch_slice_spmv_exact(
+        coef.contiguous(), c_bs, plan, x.contiguous(), max(B, 1)
+    )
+    slice_spmv_exact.launches += 1
+    return out
+
+
+def _launch_slice_spmv_exact(coef, c_bs, plan, x, B):
+    """The kernel launch of `slice_spmv_exact` on checked, contiguous
+    tensors."""
+    y = torch.empty_like(x)
+    err = torch.empty_like(x)
+    _cuda.call(
+        "orc_slice_spmv_exact", x.device, coef.data_ptr(), c_bs,
+        plan.starts.data_ptr(), plan.tile_nj.data_ptr(), x.data_ptr(),
+        y.data_ptr(), err.data_ptr(), plan.n_cells, plan.tile, plan.ntiles,
+        plan.n_max, plan.pad_lo, B,
+    )
+    return y, err
+
+
 def slice_nbr_values_plain(plan, x, interior):
     """x[c'] at interior slots, c' = starts[t, col_tile[t, k, l]] -
     pad_lo + l with c = t*T + l; x[c] elsewhere. x: [C, *rest];
@@ -159,4 +239,5 @@ def _launch_slice_nbr(plan, flat, interior):
 
 #: Kernel launches since the last reset (set to 0 to reset).
 slice_spmv.launches = 0
+slice_spmv_exact.launches = 0
 slice_nbr_values.launches = 0

@@ -13,8 +13,9 @@ without a device-to-host sync per iteration.
 Ported: `SolveInfo`, `constant_deflation`, `jacobi_solve`,
 `jacobi_smooth_solve`, `bicgstab_solve`, and `iterative_solve` for
 JACOBI / JACOBI_SMOOTH / BICGSTAB, on structured, slice-plan and gather
-matrices. Gauss-Seidel, multigrid and DF32
-iterative refinement raise NotImplementedError (ROADMAP Queue 1).
+matrices, with DF32 iterative refinement (`solver/refine.py`) for
+float64 systems under `SolverPrecision.DF32_IR`. Gauss-Seidel and
+multigrid raise NotImplementedError (ROADMAP Queue 1, items 4 and 8).
 """
 
 from __future__ import annotations
@@ -252,10 +253,19 @@ def iterative_solve(
     if (
         settings.precision == SolverPrecision.DF32_IR
         and A.diag.dtype == torch.float64
+        and method
+        in (
+            SolutionMethod.BICGSTAB,
+            SolutionMethod.JACOBI,
+            SolutionMethod.JACOBI_SMOOTH,
+        )
     ):
-        raise NotImplementedError(
-            "DF32 iterative refinement is not ported yet (ROADMAP Queue 1, "
-            "item 12)"
+        # f64 accuracy by df32 iterative refinement: float32 inner solves
+        # on the SpMV kernels plus one df32 residual per refinement.
+        from orc_tpu_torch.solver.refine import df32_ir_solve
+
+        return df32_ir_solve(
+            A, b, x0, settings, project, refine_steps=settings.refine_steps
         )
     if A.plan is not None and method != SolutionMethod.MULTIGRID:
         A = A.prepare()

@@ -14,11 +14,14 @@ face flux carried in `FlowState.flux`.
 On a CUDA mesh the steps run the hand-written kernels where orc_tpu runs
 its Pallas kernels: the fused assembly kernels behind the gate
 `_kernel_asm_spec` (mirroring orc_tpu's `_pallas_asm_spec`, uniform
-boxes only), the Jacobi-sweep kernel in the momentum smoother and the
+boxes only; every steady scheme and face model of orc_tpu's kernels,
+the parity kernels with the Green-Gauss pressure gradient computed in
+the kernel), the Jacobi-sweep kernel in the momentum smoother and the
 shift SpMV in every Krylov iteration on structured meshes; the slice
 SpMV and the slice neighbour gather on irregular meshes (RCM-reordered,
-with a slice plan), whose assembly is plain (c,k) ops, as in orc_tpu. On
-CPU they take the plain versions.
+with a slice plan), whose assembly is plain (c,k) ops, as in orc_tpu;
+the exact slice product in the residuals of DF32_IR solves. On CPU they
+take the plain versions.
 
 Not ported yet (each raises NotImplementedError naming its ROADMAP
 item): the face-major step (`use_ck=False`), least-squares and
@@ -46,6 +49,7 @@ from orc_tpu_torch.ops.ck_ops import (
     ck_momentum,
     ck_pressure_correction,
     ck_pressure_gradient,
+    ck_velocity_gradient,
     mesh_matrix,
     nbr_values,
 )
@@ -261,9 +265,12 @@ def ck_simple_step(
     vel, p = state.vel, state.p
     active = ck.mask.any(dim=1)
 
+    grad_p = grad_p_nbr = None
+    tvd = settings.momentum == MomentumScheme.TVD_DC
     if kernel_asm is not None:
         # Fused assembly kernels (ops/fused_assembly.py): one pass over
-        # the cell fields yields the shared momentum matrix and RHS.
+        # the cell fields yields the shared momentum matrix and RHS. With
+        # AsmSpec.gg they compute grad p themselves: no gradient pass.
         from orc_tpu_torch.ops.fused_assembly import (
             bc_value_table,
             momentum_assembly,
@@ -273,19 +280,26 @@ def ck_simple_step(
         cols, aspec = kernel_asm
         flags = pack_flags(ck.interior, ck.mask)
         bcv = bc_value_table(zone_scalar, zone_vector)
+        if _needs_grad_p(settings) and not aspec.gg:
+            grad_p = ck_pressure_gradient(mesh, ck, bc, p)
+        grad_v = ck_velocity_gradient(mesh, ck, bc, vel) if tvd else None
         mdiag, moff, b3 = momentum_assembly(
             vel, p, bcv, flags, cols, rho, mu, settings.momentum_relaxation,
-            mom_diag=state.mom_diag[0], spec=aspec,
+            grad_p=grad_p, mom_diag=state.mom_diag[0], grad_vel=grad_v,
+            spec=aspec,
         )
         A3 = mesh_matrix(mesh, mdiag, moff)
         pe = _kernel_peclet(settings, mdiag, diff_diag, active)
     else:
         md_c = state.mom_diag.T  # cell-major [C,3] view
         vel_nbr = nbr_values(mesh, vel, ck.interior)
-        grad_p = grad_p_nbr = None
         if _needs_grad_p(settings):
             grad_p = ck_pressure_gradient(mesh, ck, bc, p)
             grad_p_nbr = nbr_values(mesh, grad_p, ck.interior)
+        grad_v = (
+            ck_velocity_gradient(mesh, ck, bc, vel, vel_nbr=vel_nbr) if tvd
+            else None
+        )
         mom_diag_nbr = nbr_values(mesh, md_c, ck.interior)
         flux = ck_flux(
             mesh, ck, bc, vel, settings.velocity_interpolation,
@@ -299,7 +313,7 @@ def ck_simple_step(
         )
         A3, b3, pe = ck_momentum(
             mesh, ck, bc, settings, rho, vel, F, p_f,
-            diff_diag, diff_off, diff_b,
+            diff_diag, diff_off, diff_b, grad_vel=grad_v, vel_nbr=vel_nbr,
         )
 
     new_vel, new_mom_diag, info = _solve_momentum(A3, b3, vel, active, settings)
@@ -308,7 +322,8 @@ def ck_simple_step(
         from orc_tpu_torch.ops.fused_assembly import pc_assembly
 
         pdiag, poff, b_p = pc_assembly(
-            new_vel, A3.diag, bcv, flags, cols, rho, spec=aspec
+            new_vel, A3.diag, bcv, flags, cols, rho, p=p, grad_p=grad_p,
+            spec=aspec,
         )
         Pmat = mesh_matrix(mesh, pdiag, poff)
     else:
@@ -386,18 +401,18 @@ def _kernel_asm_spec(mesh, table, settings, ck, fc=False, transient=False):
     """Static (cols, AsmSpec) for the fused assembly kernels when the
     configuration is eligible, else None: orc_tpu's `_pallas_asm_spec`
     with "on CPU" read as "mesh not on CUDA" and the float32 condition
-    dropped (Hopper has float64).
+    dropped (Hopper has float64). Both couplings take UD / CD1 / TVD_DC
+    momentum, Linear[Weighted] or Rhie-Chow face fluxes and
+    Linear[Weighted] or SecondOrder face pressures, under implicit
+    relaxation, on uniform boxes (`column_specs`), steady.
 
-    - fc=True (the SIMPLE_FC kernels): UD / CD1 / TVD_DC momentum,
-      Linear[Weighted] or Rhie-Chow face fluxes, Linear[Weighted] or
-      SecondOrder face pressures, and `vol` for the flux model's
-      d-coefficients. Grad p is streamed, never computed in the kernel
-      (orc_tpu's `gg` is False under FC). A CUDA kernel takes no
-      Python callable, so the TVD limiter travels as a code: only
-      tvd_lud, tvd_quick and tvd_umist are eligible; any other callable
-      gives None, as orc_tpu's gate does when tvd_psi is None.
-    - fc=False (the parity kernels): the UD / CD1 + Linear[Weighted]
-      branch only, so far; other specs return None.
+    - A CUDA kernel takes no Python callable, so the TVD limiter travels
+      as a code: only tvd_lud, tvd_quick and tvd_umist are eligible; any
+      other callable gives None, as orc_tpu's gate does when tvd_psi is
+      None.
+    - `gg` (the parity kernels compute the Green-Gauss pressure gradient
+      themselves) is set under Rhie-Chow or SecondOrder with Green-Gauss
+      cell gradients; the SIMPLE_FC kernels read grad p streamed.
     """
     if (
         ck is None
@@ -413,10 +428,11 @@ def _kernel_asm_spec(mesh, table, settings, ck, fc=False, transient=False):
         column_specs,
     )
 
-    schemes = {MomentumScheme.UD: "ud", MomentumScheme.CD1: "cd1"}
-    if fc:
-        schemes[MomentumScheme.TVD_DC] = "tvd_dc"
-    scheme = schemes.get(settings.momentum)
+    scheme = {
+        MomentumScheme.UD: "ud",
+        MomentumScheme.CD1: "cd1",
+        MomentumScheme.TVD_DC: "tvd_dc",
+    }.get(settings.momentum)
     if scheme is None:
         return None
     if scheme == "tvd_dc" and settings.tvd_psi not in LIMITER_CODES:
@@ -428,19 +444,22 @@ def _kernel_asm_spec(mesh, table, settings, ck, fc=False, transient=False):
     p_so = pi == PressureInterpolation.SECOND_ORDER
     if not (rc or vi in linear_v) or not (p_so or pi in linear_p):
         return None
-    if not fc and (rc or p_so):
-        return None
     cols = column_specs(mesh, table)
     if cols is None:
         return None
-    if not fc:
-        return cols, AsmSpec(scheme=scheme)
+    gg = (
+        (rc or p_so)
+        and not fc
+        and settings.gradient_reconstruction
+        == GradientReconstruction.GREEN_GAUSS_CELL
+    )
     return cols, AsmSpec(
         scheme=scheme,
         rc=rc,
         p_so=p_so,
         psi=settings.tvd_psi if scheme == "tvd_dc" else None,
         vol=float(mesh.cell_volume[0]),
+        gg=gg,
     )
 
 

@@ -18,7 +18,7 @@ import torch
 
 class PressureVelocityCoupling(enum.Enum):
     """SIMPLE: the reference-parity stateless p'-increment loop.
-    SIMPLE_FC: flux-corrected SIMPLE (not ported yet).
+    SIMPLE_FC: flux-corrected SIMPLE (solver/fc.py).
     AUTO: SIMPLE_FC under Rhie-Chow + implicit relaxation, SIMPLE
     otherwise (NumericalSettings.resolved_coupling)."""
 
@@ -97,6 +97,10 @@ class PreconditionMethod(enum.Enum):
 
 
 class SolverPrecision(enum.Enum):
+    """NATIVE: solve in the system's dtype. DF32_IR: float64 systems by
+    df32 iterative refinement over float32 inner solves
+    (solver/refine.py)."""
+
     NATIVE = "native"
     DF32_IR = "df32_ir"
 

@@ -484,5 +484,8 @@ def test_fc_gate_refuses_a_limiter_without_a_kernel_code(monkeypatch):
     assert ts._kernel_asm_spec(mt, tt, s, ck, fc=True) is not None
     own = s.replace(tvd_psi=lambda r: torch.clamp(r, 0.0, 1.0))
     assert ts._kernel_asm_spec(mt, tt, own, ck, fc=True) is None
-    # The parity gate stays as it was: no Rhie-Chow, no TVD_DC.
-    assert ts._kernel_asm_spec(mt, tt, s, ck) is None
+    # The parity gate admits the same configuration (in-kernel grad p)
+    # and refuses the same limiter.
+    _cols, spec = ts._kernel_asm_spec(mt, tt, s, ck)
+    assert spec.scheme == "tvd_dc" and spec.rc and spec.gg
+    assert ts._kernel_asm_spec(mt, tt, own, ck) is None

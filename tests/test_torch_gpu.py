@@ -1,6 +1,7 @@
 """The port's CUDA kernels on the card, each against its plain torch
-version, and the SIMPLE and SIMPLE_FC slices on CUDA against the same
-slices on CPU, on structured boxes and on permuted (irregular) cavities.
+version (the exact slice product bitwise), the SIMPLE and SIMPLE_FC
+slices on CUDA against the same slices on CPU, on structured boxes and
+on permuted (irregular) cavities, and a DF32_IR solve.
 
 Every test here is marked `gpu` and skips where torch.cuda.is_available()
 is false. The file imports neither JAX nor orc_tpu, so it runs on a GPU
@@ -162,6 +163,85 @@ def test_assembly_kernels_match_plain(dev, dtype, case, scheme):
         _close(a, r, TOL[dtype], "pc " + name)
 
 
+#: (scheme, limiter) of the parity branch tests: every momentum kernel
+#: instance family; each test runs the seven face-model instances of its
+#: family (Linear, and Rhie-Chow / SecondOrder / both with a streamed or
+#: in-kernel gradient).
+PARITY_FAMILIES = {
+    "ud": ("ud", None),
+    "cd1": ("cd1", None),
+    "tvd_dc-lud": ("tvd_dc", tset.tvd_lud),
+    "tvd_dc-quick": ("tvd_dc", tset.tvd_quick),
+    "tvd_dc-umist": ("tvd_dc", tset.tvd_umist),
+}
+FACE_MODELS = [
+    (False, False, False), (True, False, False), (True, False, True),
+    (False, True, False), (False, True, True), (True, True, False),
+    (True, True, True),
+]
+
+
+@pytest.mark.parametrize("family", sorted(PARITY_FAMILIES))
+@pytest.mark.parametrize("case", ["cavity", "cavity3d", "couette", "vinlet"])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_parity_branch_kernels_match_plain(dev, dtype, case, family):
+    """Guards orc_tpu/ops/pallas_assembly.py `_momentum_kernel`, parity
+    branch, in every steady instance (scheme x limiter x Rhie-Chow x
+    SecondOrder x in-kernel GG) and `_pc_kernel` under Rhie-Chow (GG and
+    streamed), against the plain versions."""
+    dt = DTYPES[dtype]
+    vel, p, md, bcv, flags, cols = _asm_case(case, dt, dev)
+    mesh, table = _asm_mesh(case, dt, dev)
+    zc, zs, zv = device_bc(table, dtype=dt, device=dev)
+    ck = build_ck_geometry(mesh, len(table.zone_ids))
+    bc = ck_bc(ck, zc, zs, zv)
+    grad_p = ck_pressure_gradient(mesh, ck, bc, p)
+    grad_v = ck_velocity_gradient(mesh, ck, bc, vel)
+    scheme, psi = PARITY_FAMILIES[family]
+    vol = float(mesh.cell_volume[0])
+    for rc, p_so, gg in FACE_MODELS:
+        spec = asm.AsmSpec(scheme=scheme, rc=rc, p_so=p_so, psi=psi, vol=vol, gg=gg)
+        margs = (vel, p, bcv, flags, cols, 1.0, 1e-3, 0.7)
+        mkw = dict(grad_p=None if gg else grad_p, mom_diag=md, grad_vel=grad_v, spec=spec)
+        before = asm.momentum_assembly.launches
+        got = asm.momentum_assembly(*margs, **mkw)
+        ref = asm.momentum_assembly_plain(*margs, **mkw)
+        torch.cuda.synchronize()
+        assert asm.momentum_assembly.launches == before + 1
+        for name, a, r in zip(("diag", "off", "b"), got, ref):
+            _close(a, r, TOL[dtype], f"momentum {spec} {name}")
+        if scheme == "ud" and rc and not p_so:
+            pkw = dict(p=p, grad_p=None if gg else grad_p, spec=spec)
+            got = asm.pc_assembly(vel, md, bcv, flags, cols, 1.0, **pkw)
+            ref = asm.pc_assembly_plain(vel, md, bcv, flags, cols, 1.0, **pkw)
+            torch.cuda.synchronize()
+            for name, a, r in zip(("diag", "off", "b"), got, ref):
+                _close(a, r, TOL[dtype], f"pc {spec} {name}")
+
+
+def test_parity_kernels_refuse_what_they_cannot_run(dev):
+    """A CUDA call the parity kernels cannot serve raises: a missing
+    streamed gradient, diagonal or velocity gradient, a limiter without
+    a kernel code, no cell volume, the transient term."""
+    vel, p, md, bcv, flags, cols = _asm_case("cavity", torch.float64, dev)
+    C = vel.shape[0]
+    gv = torch.zeros((C, 3, 3), dtype=vel.dtype, device=dev)
+    args = (vel, p, bcv, flags, cols, 1.0, 1e-3, 0.7)
+    for spec, kw in (
+        (asm.AsmSpec(rc=True, vol=1.0), dict(mom_diag=md)),
+        (asm.AsmSpec(rc=True, gg=True, vol=1.0), {}),
+        (asm.AsmSpec(p_so=True, gg=True), {}),
+        (asm.AsmSpec(scheme="tvd_dc", psi=tset.tvd_umist), {}),
+        (asm.AsmSpec(scheme="tvd_dc", psi=lambda r: r), dict(grad_vel=gv)),
+    ):
+        with pytest.raises(ValueError):
+            asm.momentum_assembly(*args, spec=spec, **kw)
+    with pytest.raises(ValueError):
+        asm.pc_assembly(vel, md, bcv, flags, cols, 1.0, spec=asm.AsmSpec(rc=True, gg=True, vol=1.0))
+    with pytest.raises(NotImplementedError):
+        asm.momentum_assembly(*args, inertia=(vel[:, 0], vel))
+
+
 #: (momentum scheme, limiter, Rhie-Chow, SecondOrder pressure) of the
 #: SIMPLE_FC kernel tests: the windows of tests/test_pallas_assembly.py
 #: plus the other limiters and face pressures.
@@ -241,6 +321,17 @@ def test_fc_kernels_refuse_what_they_cannot_run(dev):
         asm.fc_momentum_assembly(*args, inertia=(vel[:, 0], vel))
 
 
+#: The reference's default numerics under forced SIMPLE with implicit
+#: relaxation (scripts/bench_cavity.py, ORC_TPU_BENCH_SCHEME=default):
+#: the parity kernels' Rhie-Chow + SecondOrder branch with the in-kernel
+#: Green-Gauss gradient.
+REF_DEFAULT = default_settings().replace(
+    momentum=tset.MomentumScheme.CD1,
+    pressure_velocity_coupling=tset.PressureVelocityCoupling.SIMPLE,
+    velocity_interpolation=tset.VelocityInterpolation.RHIE_CHOW,
+    pressure_interpolation=tset.PressureInterpolation.SECOND_ORDER,
+)
+
 #: The pressure solve of the SIMPLE_FC slice comparisons: Jacobi. The
 #: full-p BiCGSTAB amplifies one-ulp differences chaotically (ROADMAP
 #: Queue 3), so only a stationary solver lets a device comparison hold
@@ -258,6 +349,9 @@ def _solve(dev, name, iterations):
         mesh, table = cavity_case(n=16, device=dev)
         settings = flagship_settings().replace(matrix_solver=JACOBI_50)
         rho, mu = 1.0, 1e-3
+    elif name == "ref_default":
+        mesh, table = cavity_case(n=16, device=dev)
+        settings, rho, mu = REF_DEFAULT, 1.0, 0.01
     elif name == "fc_couette":
         mesh, table = couette_case(
             32, 16,
@@ -294,6 +388,7 @@ def _solve(dev, name, iterations):
     "name,iterations,kernels",
     [
         ("cavity", 10, KERNELS),
+        ("ref_default", 10, KERNELS),
         ("couette", 50, (shift_spmv,)),
         ("fc_cavity", 10, FC_KERNELS),
         ("fc_couette", 50, FC_KERNELS),
@@ -302,7 +397,8 @@ def _solve(dev, name, iterations):
 def test_slice_on_cuda_matches_cpu(dev, name, iterations, kernels):
     """Guards the replacements together (pallas_spmv.py `_kernel`,
     pallas_smooth.py `_kernel`, pallas_assembly.py `_momentum_kernel`
-    (both branches), `_pc_kernel` and `_fc_pc_kernel`): float64 SIMPLE or
+    (both branches; the parity one also under Rhie-Chow + SecondOrder with
+    the in-kernel gradient), `_pc_kernel` and `_fc_pc_kernel`): float64 SIMPLE or
     SIMPLE_FC on the card against the same run on CPU (plain versions),
     with equal inner iteration counts, fields to 1e-9 of their scale,
     every kernel of the path launched and no kernel of the other
@@ -315,7 +411,7 @@ def test_slice_on_cuda_matches_cpu(dev, name, iterations, kernels):
     sc, hc = _solve("cpu", name, iterations)
     for k in kernels:
         assert counts[k.__name__] > 0, counts
-    for k in every - set(KERNELS if name in ("cavity", "couette") else FC_KERNELS):
+    for k in every - set(FC_KERNELS if name.startswith("fc_") else KERNELS):
         assert counts[k.__name__] == 0, counts
     np.testing.assert_array_equal(hg.mom_iters, hc.mom_iters)
     np.testing.assert_array_equal(hg.pc_iters, hc.pc_iters)
@@ -465,3 +561,80 @@ def test_irregular_slice_on_cuda_matches_cpu(dev, name):
     np.testing.assert_array_equal(hg.pc_iters, hc.pc_iters)
     _close(sg.vel, sc.vel, 1e-9, "vel")
     _close(sg.p, sc.p, 1e-9, "p")
+
+
+@pytest.mark.parametrize("form", ["shared", "per_row"])
+@pytest.mark.parametrize("batch", [0, 3])
+@pytest.mark.parametrize("n", [40, 96])
+def test_slice_spmv_exact_kernel_matches_plain_bitwise(dev, n, batch, form):
+    """Guards orc_tpu/ops/pallas_slice.py `_kernel_exact` and
+    `_kernel_wide_exact` (via slice_spmv_exact): float32 hi planes of a
+    permuted cavity's prepared f64 system, (y, err) bitwise equal to the
+    plain version, y + err the f64 product to 1e-13 of sum |coef x|."""
+    from orc_tpu_torch.ops.df32 import df_from_f64
+    from orc_tpu_torch.ops.slice_spmv import slice_spmv_exact, slice_spmv_exact_plain
+    from orc_tpu_torch.ops.spmv import EllMatrix
+
+    if form == "per_row" and not batch:
+        pytest.skip("one coefficient set per row needs a batch")
+    mesh, _, _ = _permuted_cavity(n, torch.float64, dev)
+    plan = mesh.slice_plan
+    C, K = mesh.cell_neighbors.shape
+    interior = mesh.face_interior[mesh.cell_faces.long()] & mesh.cell_face_mask
+    rng = np.random.default_rng(5)
+    rows = (batch,) if form == "per_row" else ()
+    off = torch.tensor(rng.standard_normal(rows + (C, K)), device=dev) * interior
+    A = EllMatrix(torch.ones(C, dtype=torch.float64, device=dev), off,
+                  mesh.cell_neighbors, plan=plan).prepare()
+    coef, _ = df_from_f64(A.off)
+    x, _ = df_from_f64(torch.tensor(rng.standard_normal((batch, C) if batch else C), device=dev))
+    before = slice_spmv_exact.launches
+    y, e = slice_spmv_exact(coef, plan, x)
+    torch.cuda.synchronize()
+    assert slice_spmv_exact.launches == before + 1
+    yr, er = slice_spmv_exact_plain(coef, plan, x)
+    assert torch.equal(y, yr) and torch.equal(e, er)
+    zero = torch.zeros(C, dtype=torch.float64, device=dev)
+    ref = EllMatrix(zero, coef.double(), None, plan=plan, slice_layout=True).matvec(x.double())
+    absrow = EllMatrix(zero, coef.double().abs(), None, plan=plan, slice_layout=True).matvec(x.double().abs())
+    assert bool(((y.double() + e.double() - ref).abs() <= 1e-13 * absrow).all())
+
+
+def test_df32_ir_on_cuda_matches_cpu(dev):
+    """DF32_IR (solver/refine.py) on the card: the slice-plan system of
+    tests/test_df32.py solved to 1e-11 of x_true on CUDA and on CPU, the
+    exact slice kernel launched, the two solutions within 1e-12."""
+    from orc_tpu_torch.mesh.reorder import build_slice_plan
+    from orc_tpu_torch.ops.slice_spmv import slice_spmv_exact
+    from orc_tpu_torch.ops.spmv import EllMatrix
+    from orc_tpu_torch.solver.krylov import iterative_solve
+
+    C, K, band = 2000, 4, 40
+    rng = np.random.default_rng(0)
+    nbrs = np.clip(np.arange(C)[:, None] + rng.integers(-band, band, (C, K)), 0, C - 1)
+    valid = nbrs != np.arange(C)[:, None]
+    off = rng.standard_normal((C, K)) * valid * 0.2
+    diag = np.abs(off).sum(1) + rng.uniform(1.0, 2.0, C)
+    x_true = rng.standard_normal(C)
+    settings = tset.MatrixSolverSettings(
+        solver_type=tset.SolutionMethod.BICGSTAB, iterations=100,
+        relative_convergence_threshold=1e-8,
+        preconditioner=tset.PreconditionMethod.JACOBI,
+        precision=tset.SolverPrecision.DF32_IR,
+    )
+    out = []
+    for d in (dev, "cpu"):
+        A = EllMatrix(
+            torch.tensor(diag, device=d), torch.tensor(off, device=d),
+            torch.tensor(nbrs, dtype=torch.int32, device=d),
+            plan=build_slice_plan(nbrs, valid, tile=128, device=d),
+        )
+        b = A.matvec(torch.tensor(x_true, device=d))
+        slice_spmv_exact.launches = 0
+        x, info = iterative_solve(A, b, torch.zeros_like(b), settings)
+        if d == dev:
+            assert slice_spmv_exact.launches > 0
+        err = float((x.cpu() - torch.tensor(x_true)).abs().max()) / np.abs(x_true).max()
+        assert err < 1e-11, (d, err)
+        out.append(x.cpu())
+    assert float((out[0] - out[1]).abs().max()) < 1e-12

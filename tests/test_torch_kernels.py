@@ -10,7 +10,10 @@ interpret mode) and against the XLA formulations they replace:
   tests/test_pallas_smooth.py;
 - momentum_assembly / pc_assembly vs pallas_assembly's kernels
   (interpret=True) and the ck oracle, UD and CD1, on the cases of
-  tests/test_pallas_assembly.py;
+  tests/test_pallas_assembly.py; their Rhie-Chow, SecondOrder, TVD_DC
+  and in-kernel Green-Gauss branches vs the interpret-mode kernels
+  (float32, rtol 2e-5) and, in float64 at rtol 1e-10, vs orc_tpu's ck
+  oracles; the kernel gate vs orc_tpu's `_pallas_asm_spec`;
 - fc_momentum_assembly / fc_pc_assembly (SIMPLE_FC) vs pallas_assembly's
   FC kernels (interpret=True, float32, the windows and tolerances of
   orc_tpu's tests/test_pallas_assembly.py: rtol 2e-5) and, in float64 at
@@ -36,6 +39,7 @@ from torch_parity import (
     cell_fields,
     np_,
     structured_system,
+    to_jax_settings,
 )
 
 import jax.numpy as jnp
@@ -299,20 +303,6 @@ def test_momentum_assembly_matches_ck_oracle(case, scheme):
         _close(a, r, TOL["f64"], name)
 
 
-@pytest.mark.parametrize(
-    "spec",
-    [dict(scheme="tvd_dc"), dict(rc=True), dict(p_so=True)],
-    ids=["tvd_dc", "rc", "p_so"],
-)
-def test_unported_assembly_branches_raise(spec):
-    _, T = _asm_inputs("cavity", "f64")
-    with pytest.raises(NotImplementedError):
-        tasm.momentum_assembly(
-            T["vel"], T["p"], T["bcv"], T["flags"], T["cols"], 1.0, 1e-3, 0.7,
-            spec=tasm.AsmSpec(**spec),
-        )
-
-
 # --- SIMPLE_FC: fc_momentum_assembly / fc_pc_assembly --------------------
 
 #: (momentum scheme, velocity interpolation, pressure interpolation):
@@ -321,6 +311,15 @@ FC_SCHEMES = {
     "ud-linear": ("UD", "LINEAR_WEIGHTED", "LINEAR_WEIGHTED"),
     "default": ("CD1", "RHIE_CHOW", "SECOND_ORDER"),
     "tvd_dc-rc": ("TVD_DC", "RHIE_CHOW", "LINEAR_WEIGHTED"),
+}
+#: The parity kernels' branches beyond UD/CD1 + Linear[W]: Rhie-Chow,
+#: SecondOrder and TVD_DC (with the UMIST limiter), alone and together.
+PARITY_SCHEMES = {
+    "default": ("CD1", "RHIE_CHOW", "SECOND_ORDER"),
+    "rc": ("CD1", "RHIE_CHOW", "LINEAR_WEIGHTED"),
+    "p_so": ("UD", "LINEAR_WEIGHTED", "SECOND_ORDER"),
+    "tvd_dc-rc": ("TVD_DC", "RHIE_CHOW", "LINEAR_WEIGHTED"),
+    "tvd_dc-so": ("TVD_DC", "LINEAR_WEIGHTED", "SECOND_ORDER"),
 }
 
 
@@ -344,7 +343,7 @@ def _fc_inputs(case, scheme, dtype):
         grad_p=jck.ck_pressure_gradient(mj, ck, bc, J["p"]),
         grad_vel=jck.ck_velocity_gradient(mj, ck, bc, J["vel"]),
     )
-    mom, vi, pi = FC_SCHEMES[scheme]
+    mom, vi, pi = {**FC_SCHEMES, **PARITY_SCHEMES}[scheme]
     settings = js.NumericalSettings(
         momentum=js.MomentumScheme[mom],
         tvd_psi=js.tvd_umist if mom == "TVD_DC" else None,
@@ -486,6 +485,176 @@ def test_fc_transient_assembly_raises():
         tasm.fc_momentum_assembly(
             *_fc_mom_args(T), inertia=(T["md"], T["vel"]), spec=T["spec"]
         )
+
+
+# --- the parity kernels' Rhie-Chow / SecondOrder / TVD_DC / GG branches ----
+
+
+def _parity_inputs(case, scheme, dtype, gg):
+    """_fc_inputs for a parity branch: both specs with `gg` (in-kernel
+    Green-Gauss gradient) set; the streamed grad_p is orc_tpu's
+    Green-Gauss gradient of p, which gg must reproduce."""
+    J, T = _fc_inputs(case, scheme, dtype)
+    J["spec"] = J["spec"]._replace(gg=gg)
+    T["spec"] = T["spec"]._replace(gg=gg)
+    return J, T
+
+
+def _parity_mom_kw(S):
+    return dict(grad_p=None if S["spec"].gg else S["grad_p"], mom_diag=S["md"],
+                grad_vel=S["grad_vel"], spec=S["spec"])
+
+
+def _parity_pc_kw(S):
+    return dict(p=S["p"], grad_p=None if S["spec"].gg else S["grad_p"], spec=S["spec"])
+
+
+#: (case, branch, gg) of the interpret-mode comparisons: each costs an
+#: interpret-mode compile, so a few cover the branches and BC kinds
+#: (the couette's pressure columns reach the GG pressure-BC faces).
+PARITY_PALLAS = [
+    ("cavity", "default", True),
+    ("couette", "default", False),
+    ("vinlet", "tvd_dc-rc", True),
+    ("couette", "p_so", True),
+]
+
+
+@pytest.mark.parametrize("case,scheme,gg", PARITY_PALLAS)
+def test_parity_momentum_branches_match_pallas_kernel(case, scheme, gg):
+    """float32, against the interpret-mode parity _momentum_kernel with
+    the same spec (the window of tests/test_pallas_assembly.py: rtol
+    2e-5)."""
+    J, T = _parity_inputs(case, scheme, "f32", gg)
+    args = lambda S: (S["vel"], S["p"], S["bcv"], S["flags"], S["cols"], 1.0, 1e-3, 0.7)  # noqa: E731
+    ref = jasm.momentum_assembly(*args(J), **_parity_mom_kw(J), interpret=True)
+    got = tasm.momentum_assembly(*args(T), **_parity_mom_kw(T))
+    for name, a, r, atol in zip(("diag", "off", "b"), got, ref, (1e-7, 1e-7, 1e-6)):
+        assert tuple(a.shape) == r.shape, name
+        np.testing.assert_allclose(np_(a), np_(r), rtol=2e-5, atol=atol, err_msg=name)
+
+
+@pytest.mark.parametrize("case,gg", [("couette", True), ("cavity", False)])
+def test_parity_pc_rhie_chow_matches_pallas_kernel(case, gg):
+    J, T = _parity_inputs(case, "default", "f32", gg)
+    args = lambda S: (S["vel"], S["md"], S["bcv"], S["flags"], S["cols"], 1.0)  # noqa: E731
+    ref = jasm.pc_assembly(*args(J), **_parity_pc_kw(J), interpret=True)
+    got = tasm.pc_assembly(*args(T), **_parity_pc_kw(T))
+    for name, a, r in zip(("diag", "off", "b"), got, ref):
+        assert tuple(a.shape) == r.shape, name
+        np.testing.assert_allclose(np_(a), np_(r), rtol=2e-5, atol=1e-6, err_msg=name)
+
+
+def _ck_oracle_flux(J, face_model):
+    """orc_tpu's ck face flux and Green-Gauss gradient (the gradient both
+    gg settings must use), float64."""
+    mj, ck, bc, st = J["mesh"], J["ck"], J["bc"], J["settings"]
+    gp = jck.ck_pressure_gradient(mj, ck, bc, J["p"])
+    gp_nbr = jck.nbr_values(mj, gp, ck.interior)
+    md3 = J["md"][:, None] * jnp.ones((1, 3))
+    flux = jck.ck_flux(
+        mj, ck, bc, J["vel"], face_model, p=J["p"], grad_p=gp,
+        grad_p_nbr=gp_nbr, mom_diag=md3,
+    )
+    return flux, gp, gp_nbr, md3
+
+
+@pytest.mark.parametrize("gg", [True, False], ids=["gg", "streamed"])
+@pytest.mark.parametrize("scheme", sorted(PARITY_SCHEMES))
+@pytest.mark.parametrize("case", ["cavity3d", "couette"])
+def test_parity_momentum_branches_match_ck_oracle(case, scheme, gg):
+    """float64 at 1e-10: orc_tpu's ck path under the branch's settings
+    (ck_flux, ck_face_pressure, ck_momentum), its Green-Gauss grad p
+    streamed or recomputed in the kernel."""
+    J, T = _parity_inputs(case, scheme, "f64", gg)
+    mj, ck, bc, st = J["mesh"], J["ck"], J["bc"], J["settings"]
+    flux, gp, gp_nbr, _md3 = _ck_oracle_flux(J, st.velocity_interpolation)
+    p_f = jck.ck_face_pressure(
+        mj, ck, bc, J["p"], st.pressure_interpolation, grad_p=gp, grad_p_nbr=gp_nbr
+    )
+    diff = jck.ck_diffusion(mj, ck, bc, jnp.asarray(1e-3))
+    A, b, _ = jck.ck_momentum(
+        mj, ck, bc, st, 1.0, J["vel"], flux * ck.area, p_f, *diff,
+        grad_vel=J["grad_vel"],
+    )
+    got = tasm.momentum_assembly(
+        T["vel"], T["p"], T["bcv"], T["flags"], T["cols"], 1.0, 1e-3, 0.7,
+        **_parity_mom_kw(T),
+    )
+    for name, a, r in zip(("diag", "off", "b"), got, (A.diag, A.off, b)):
+        _close(a, r, 1e-10, name)
+
+
+@pytest.mark.parametrize("gg", [True, False], ids=["gg", "streamed"])
+@pytest.mark.parametrize("case", ["cavity3d", "couette"])
+def test_parity_pc_rhie_chow_matches_ck_oracle(case, gg):
+    """float64 at 1e-10: orc_tpu's Rhie-Chow ck_flux (iteration-start p
+    and grad p, the post-momentum diagonal) + ck_pressure_correction."""
+    J, T = _parity_inputs(case, "rc", "f64", gg)
+    mj, ck, bc = J["mesh"], J["ck"], J["bc"]
+    flux, _gp, _gpn, md3 = _ck_oracle_flux(J, J["settings"].velocity_interpolation)
+    P, b = jck.ck_pressure_correction(mj, ck, bc, 1.0, flux * ck.area, md3)
+    got = tasm.pc_assembly(
+        T["vel"], T["md"], T["bcv"], T["flags"], T["cols"], 1.0, **_parity_pc_kw(T)
+    )
+    for name, a, r in zip(("diag", "off", "b"), got, (P.diag, P.off, b)):
+        _close(a, r, 1e-10, name)
+
+
+def test_parity_assembly_refuses_only_the_transient_branch():
+    """Every steady spec has a kernel; the transient inertia term raises
+    (ROADMAP Queue 2, item 4c)."""
+    _, T = _parity_inputs("cavity", "tvd_dc-rc", "f64", True)
+    args = (T["vel"], T["p"], T["bcv"], T["flags"], T["cols"], 1.0, 1e-3, 0.7)
+    tasm.momentum_assembly(*args, **_parity_mom_kw(T))
+    with pytest.raises(NotImplementedError, match="4c"):
+        tasm.momentum_assembly(
+            *args, inertia=(T["md"], T["vel"]), **_parity_mom_kw(T)
+        )
+
+
+@pytest.mark.parametrize("scheme", ["UD", "CD1", "TVD_DC", "CD2", "TVD"])
+def test_kernel_gate_admits_what_orc_tpu_admits(monkeypatch, scheme):
+    """_kernel_asm_spec(fc=False) against orc_tpu's _pallas_asm_spec over
+    every face-velocity and face-pressure model: the same configurations
+    get a spec, with the same scheme, face models, volume and gg (the
+    port's gate with the mesh read as on the card, orc_tpu's forced on
+    its CPU)."""
+    from orc_tpu.solver import simple as jsimple
+    from orc_tpu.utils import settings as js
+
+    from orc_tpu_torch.ops.ck_ops import build_ck_geometry
+    from orc_tpu_torch.solver import simple as tsimple
+    from orc_tpu_torch.utils import settings as tset
+
+    monkeypatch.setenv("ORC_TPU_PALLAS_ASM", "force")
+    monkeypatch.setattr(tsimple, "_on_cuda", lambda mesh: True)
+    (mj, tj), (mt, tt) = both("couette", "f32")
+    ckj = jck.build_ck_geometry(mj, len(tj.zone_ids))
+    ckt = build_ck_geometry(mt, len(tt.zone_ids))
+    admitted = 0
+    for vi in tset.VelocityInterpolation:
+        for pi in tset.PressureInterpolation:
+            s = tset.NumericalSettings(
+                momentum=tset.MomentumScheme[scheme],
+                tvd_psi=tset.tvd_umist if scheme in ("TVD", "TVD_DC") else None,
+                velocity_interpolation=vi, pressure_interpolation=pi,
+                relaxation_mode=tset.RelaxationMode.IMPLICIT,
+            )
+            ref = jsimple._pallas_asm_spec(mj, tj, to_jax_settings(s), ckj, fc=False)
+            got = tsimple._kernel_asm_spec(mt, tt, s, ckt, fc=False)
+            assert (got is None) == (ref is None), (vi, pi)
+            if got is None:
+                continue
+            admitted += 1
+            (cols, spec), (jcols, jspec, _interp) = got, ref
+            assert tuple(cols) == tuple(tuple(c) for c in jcols)
+            for f in ("scheme", "rc", "p_so", "vol", "gg"):
+                assert getattr(spec, f) == getattr(jspec, f), (f, vi, pi)
+            assert (spec.psi is None) == (jspec.psi is None)
+    explicit = tset.NumericalSettings(momentum=tset.MomentumScheme[scheme])
+    assert tsimple._kernel_asm_spec(mt, tt, explicit, ckt) is None
+    assert admitted == (9 if scheme in ("UD", "CD1", "TVD_DC") else 0)
 
 
 def test_failed_build_raises(monkeypatch):

@@ -16,7 +16,17 @@ equal; the final fields agree to 1e-8 of their scale.
   state (float32 only): fields agree to 1e-4 of their scale and pc_iters
   differ by at most 1, because float32 sums in another order round
   differently.
+- cavity 16x16 float64 under forced SIMPLE with implicit relaxation and
+  the parity kernels' wider branches: the reference's default numerics
+  (CD1 + SecondOrder + Rhie-Chow, scripts/bench_cavity.py with
+  ORC_TPU_BENCH_SCHEME=default) and TVD_DC (UMIST, LinearWeighted), 20
+  iterations, tracking orc_tpu as above. Each runs twice: through the
+  plain (c,k) step, and through the fused-assembly branch of the step
+  (the kernel gate opened on the CPU, so the kernels' plain versions
+  run), where under `AsmSpec.gg` no plain grad-p pass may run.
 """
+
+import functools
 
 import subprocess
 import sys
@@ -150,6 +160,73 @@ def test_unported_paths_raise():
     for s, kw in ((mg, {}), (lsq, {}), (settings, dict(use_ck=False))):
         with pytest.raises(NotImplementedError):
             ts.solve_steady(mt, tt, s, rho, mu, iterations=1, verbose=False, **kw)
+
+
+def _forced_simple(momentum, vi, pi, **kw):
+    return tset.NumericalSettings(
+        momentum=momentum,
+        pressure_velocity_coupling=tset.PressureVelocityCoupling.SIMPLE,
+        velocity_interpolation=vi,
+        pressure_interpolation=pi,
+        matrix_solver=BENCH_SETTINGS.matrix_solver,
+        pressure_relaxation=0.1,
+        momentum_relaxation=0.7,
+        relaxation_mode=tset.RelaxationMode.IMPLICIT,
+        **kw,
+    )
+
+
+#: Forced-SIMPLE cavity numerics of the parity kernels' wider branches.
+PARITY_BRANCHES = {
+    "reference-default": _forced_simple(
+        tset.MomentumScheme.CD1, tset.VelocityInterpolation.RHIE_CHOW,
+        tset.PressureInterpolation.SECOND_ORDER,
+    ),
+    "tvd_dc": _forced_simple(
+        tset.MomentumScheme.TVD_DC, tset.VelocityInterpolation.LINEAR_WEIGHTED,
+        tset.PressureInterpolation.LINEAR_WEIGHTED, tvd_psi=tset.tvd_umist,
+    ),
+}
+
+
+@functools.cache
+def _orc_tpu_branch_run(name):
+    mj, tj = j_cavity(n=16)
+    sj, hj = js.solve_steady(
+        mj, tj, to_jax_settings(PARITY_BRANCHES[name]), 1.0, 0.01,
+        iterations=20, reporting_interval=20, verbose=False,
+    )
+    return sj, js.stack_history(hj)
+
+
+@pytest.mark.parametrize("branch", ["kernel", "plain"])
+@pytest.mark.parametrize("name", sorted(PARITY_BRANCHES))
+def test_parity_branches_track_orc_tpu(monkeypatch, name, branch):
+    settings = PARITY_BRANCHES[name]
+    mt, tt = t_cavity(n=16, device="cpu")
+    gradient_passes = []
+    real_gradient = ts.ck_pressure_gradient
+
+    def counted(*a, **k):
+        gradient_passes.append(1)
+        return real_gradient(*a, **k)
+
+    monkeypatch.setattr(ts, "ck_pressure_gradient", counted)
+    if branch == "kernel":
+        monkeypatch.setattr(ts, "_on_cuda", lambda mesh: True)
+        from orc_tpu_torch.ops.ck_ops import build_ck_geometry
+
+        ck = build_ck_geometry(mt, len(tt.zone_ids))
+        _cols, spec = ts._kernel_asm_spec(mt, tt, settings, ck)
+        assert spec.gg == (name == "reference-default")
+    st, ht = ts.solve_steady(
+        mt, tt, settings, 1.0, 0.01, iterations=20, reporting_interval=20,
+        verbose=False,
+    )
+    _assert_tracks(_orc_tpu_branch_run(name), (st, ts.stack_history(ht)))
+    assert not ts.stack_history(ht).diverged.any()
+    needs_gradient = name == "reference-default" and branch == "plain"
+    assert bool(gradient_passes) == needs_gradient
 
 
 def test_kernel_gate_is_off_on_cpu():
