@@ -9,16 +9,19 @@ Phases (any failure raises and the script exits non-zero):
 2. build: compile csrc/*.cu into build/orc_tpu_torch/ (one nvcc per
    source, in parallel) and print each kernel's registers and spills;
 3. each of the nine CUDA kernels against its plain torch version at the
-   shapes of the main paths, with times per call (CUDA events, host
+   shapes of the main paths (the two momentum kernels also in their
+   transient instances, with the inertia term), with times per call (CUDA events, host
    dispatch included; and the card's own time, the calls queued behind
    a sleeping kernel, which the summary reports), the bound (bytes
    over 3.35 TB/s, or operations over the peak rate) and, for the SpMVs
    and the gather, the one PyTorch call computing the same function
    (torch.sparse CSR times x; x[cell_neighbors]): the parity kernels on
-   the 1024^2 f32 cavity, their Rhie-Chow / SecondOrder / TVD_DC /
-   in-kernel-gradient branches on the reference-default 1024^2 f32
-   cavity, the SIMPLE_FC assembly kernels on the 1024^2 f32
-   flagship-numerics cavity and the 128x64 f64 FC couette, the
+   the 1024^2 f32 cavity (UD, steady and transient), their Rhie-Chow /
+   SecondOrder / TVD_DC / in-kernel-gradient branches on the
+   reference-default 1024^2 f32 cavity (CD1 + SO + RC + GG also
+   transient), the SIMPLE_FC assembly kernels on the 1024^2 f32
+   flagship-numerics cavity and the 128x64 f64 FC couette (the momentum
+   kernel also transient in both), the
    slice-plan SpMV and neighbour gather on the permuted 448^2 and 1024^2
    f32 cavities, the permuted 448^2 f64 cavity and the permuted 128x64
    f64 couette, the exact slice product of the df32 residual on the
@@ -29,7 +32,9 @@ Phases (any failure raises and the script exits non-zero):
    on the CPU on a 16^2 float64 cavity (the parity one with
    solve_cavity's and with the reference's default numerics), and the FC
    flux's conservation; the same on a permuted 16^2 cavity (the
-   irregular path), the parity one also with DF32_IR solves;
+   irregular path), the parity one also with DF32_IR solves; the
+   transient slice under both couplings (3 steps x 4 inner iterations)
+   and the parity slice under MULTIGRID, card against CPU;
 4. couette 128x64x1 float64 with bench.py's configuration (parity
    SIMPLE) through solve_steady: 100 warm-up + 200 timed iterations,
    u_mean within 25% of the analytical 1.0833e-3;
@@ -63,18 +68,31 @@ Phases (any failure raises and the script exits non-zero):
    f64 solves; DF32_IR below 1e-11 of x_true), then the permuted 448^2
    f64 cavity with DF32_IR against native f64 solves, and against native
    f64 solves as deep as DF32_IR's, which it must track;
-phases 4-7 and 9-12 end with a short window under torch.profiler
-(device time by kernel, device busy share);
+13. the transient lid-driven cavity 1024^2 f32 from rest at Re = 1000,
+   dt = 1/1024 (lid Courant number 1), solve_cavity's numerics: 10 steps
+   x 10 inner iterations, ms per inner iteration, finite |u| < 2, the
+   parity kernels (momentum in its transient instance) once per inner
+   iteration;
+14. the same with the Ghia flagship numerics (SIMPLE_FC, implicit 0.6 /
+   0.03), 5 x 10, the SIMPLE_FC kernels once per inner iteration;
+15. the 3-D cavity 128^3 f32 at Re = 100 (scripts/bench_cavity.py 128
+   f32 128 100), 20 iterations under 5-level geometric MULTIGRID with 4
+   smoother iterations, then its BiCGSTAB(50) twin: MULTIGRID's mean
+   pressure iterations below the twin's, finite fields;
+16. the Taylor-Green vortex 256^2 f64, 20 steps x 10 inner iterations,
+   within 5e-3 of the exact decay;
+phases 4-7 and 9-16 end with a short window under torch.profiler
+(device time by kernel, device busy share, launches per iteration);
 then one JSON line with every kernel's launches, error, card times and
 bound, the card's name and power limit, and as the last line
 {"ok": true, "device": {...}}.
 
-Kernel launch counters are set to 0 just before each of phases 4-12 and
+Kernel launch counters are set to 0 just before each of phases 4-16 and
 read just after it: each phase must launch every kernel of its path,
 the SIMPLE_FC phases none of the parity assembly kernels, the
 structured phases no slice-plan kernel, the irregular phases none of
-the structured kernels, and only the DF32_IR phase the exact slice
-product.
+the structured kernels, only the DF32_IR phase the exact slice product
+and only phases 13-14 the transient instances of the momentum kernels.
 """
 
 from __future__ import annotations
@@ -205,10 +223,13 @@ def max_err(got, ref):
 
 
 class Kernel:
-    """Results of one kernel's comparisons for the JSON summary."""
+    """Results of one kernel's comparisons for the JSON summary. `counter`
+    names the wrapper's launch count of this kernel (the momentum
+    kernels' transient instances count apart, in `transient_launches`)."""
 
-    def __init__(self, name, fn, source, replaces):
+    def __init__(self, name, fn, source, replaces, counter="launches"):
         self.name, self.fn, self.source, self.replaces = name, fn, source, replaces
+        self.counter = counter
         self.max_abs_err = 0.0
         self.ms = self.plain_ms = self.bound_ms = self.library_ms = None
         self.bound_by = "bytes"
@@ -371,7 +392,18 @@ def ptxas_report(text):
     return out
 
 
-def phase_kernels(dev, kernels):
+def step_inertia(mesh, vel, rho, dt):
+    """An implicit-Euler inertia pair at the main path's shapes: rho V/dt
+    and, for vel^n, the velocity field shifted by one cell (a field
+    apart from vel, of its magnitudes)."""
+    return rho * mesh.cell_volume / dt, torch.roll(vel, 1, 0).contiguous()
+
+
+#: The inertia term reads rho V/dt and vel^n: 16 bytes per cell in f32.
+INERTIA_READS = 4
+
+
+def phase_kernels(dev, kernels, mom_t):
     log("== phase 3: kernels against their plain versions, main-path shapes")
     from orc_tpu_torch.models.cavity import cavity_case, default_settings
     from orc_tpu_torch.ops import fused_assembly as asm
@@ -404,6 +436,14 @@ def phase_kernels(dev, kernels):
         "cavity 1024^2 f32", lambda: asm.momentum_assembly(*m_args),
         lambda: asm.momentum_assembly_plain(*m_args), torch.float32,
         C * (4 * f32 + 4 + (1 + K + 3) * f32), timed=True, outputs=ASM_OUT,
+    )
+    # The transient cavity (phase 13): dt = 1/1024, lid Courant number 1.
+    t_kw = dict(inertia=step_inertia(mesh, vel, 1.0, 1.0 / 1024))
+    mom_t.compare(
+        "cavity 1024^2 f32 transient", lambda: asm.momentum_assembly(*m_args, **t_kw),
+        lambda: asm.momentum_assembly_plain(*m_args, **t_kw), torch.float32,
+        C * ((4 + INERTIA_READS) * f32 + 4 + (1 + K + 3) * f32), timed=True,
+        outputs=ASM_OUT,
     )
     p_args = (vel, md, bcv, flags, cols, 1.0)
     pc.compare(
@@ -471,7 +511,7 @@ def ref_default_settings():
     )
 
 
-def phase_parity_branches(dev, mom, pc):
+def phase_parity_branches(dev, mom, pc, mom_t):
     """The parity kernels' Rhie-Chow / SecondOrder / TVD_DC branches and
     their in-kernel Green-Gauss gradient against their plain versions on
     the reference-default 1024^2 f32 cavity after 5 iterations."""
@@ -522,6 +562,15 @@ def phase_parity_branches(dev, mom, pc):
             lambda: asm.momentum_assembly_plain(*m_args, **kw), torch.float32,
             C * (4 + (reads + 1 + K + 3) * f32), timed=False, outputs=ASM_OUT,
         )
+        if sp.gg and not tvd:
+            t_kw = dict(kw, inertia=step_inertia(mesh, vel, 1.0, 1.0 / 1024))
+            mom_t.compare(
+                f"cavity 1024^2 f32 {label} transient",
+                lambda: asm.momentum_assembly(*m_args, **t_kw),
+                lambda: asm.momentum_assembly_plain(*m_args, **t_kw), torch.float32,
+                C * (4 + (reads + INERTIA_READS + 1 + K + 3) * f32), timed=False,
+                outputs=ASM_OUT,
+            )
     p_args = (vel, md, bcv, flags, cols, 1.0)
     for gg in (True, False):
         kw = dict(p=p, grad_p=None if gg else grad_p, spec=spec._replace(gg=gg))
@@ -678,7 +727,7 @@ def _fc_kernel_inputs(mesh, table, settings, state):
     )
 
 
-def phase_fc_kernels(dev, fc_mom, fc_pc):
+def phase_fc_kernels(dev, fc_mom, fc_pc, fc_mom_t):
     log("== phase 3: SIMPLE_FC assembly kernels against their plain versions")
     from orc_tpu_torch.models.cavity import cavity_case, flagship_settings
     from orc_tpu_torch.ops import fused_assembly as asm
@@ -709,6 +758,17 @@ def phase_fc_kernels(dev, fc_mom, fc_pc):
             label, lambda: asm.fc_momentum_assembly(*m_args, **m_kw),
             lambda: asm.fc_momentum_assembly_plain(*m_args, **m_kw), dtype,
             C * (4 + (reads + 1 + K + 3) * sz), timed=timed, outputs=ASM_OUT,
+        )
+        # The transient FC cavity (phase 14): dt = 1/1024; the couette at
+        # the Stokes startup's dt.
+        t_kw = dict(m_kw, inertia=step_inertia(
+            mesh, x["vel"], rho, 1.0 / 1024 if timed else 0.005
+        ))
+        fc_mom_t.compare(
+            label + " transient", lambda: asm.fc_momentum_assembly(*m_args, **t_kw),
+            lambda: asm.fc_momentum_assembly_plain(*m_args, **t_kw), dtype,
+            C * (4 + (reads + INERTIA_READS + 1 + K + 3) * sz), timed=timed,
+            outputs=ASM_OUT,
         )
         p_args = (x["vel"], x["md"], x["bcv"], x["flags"], x["cols"], rho)
         p_kw = dict(grad_p=x["grad_p"], spec=spec)
@@ -880,6 +940,254 @@ def phase_small_reference_fc(dev):
     log(f"  conservation, cavity 12^2, 3 iterations: max |div flux| / max |flux A| = {div / scale:.3e} (limit 1e-3)")
     if not div < 1e-3 * scale:
         raise AssertionError("SIMPLE_FC flux not conservative on the card")
+
+
+def _card_cpu_gap(name, out, tol, fields=("vel", "p")):
+    """Hold a card run against its CPU twin: equal inner iteration
+    counts, each field to `tol` of its scale."""
+    (sg, hg), (sc, hc) = out
+    errs = {n: max_err(getattr(sg, n).cpu(), getattr(sc, n))[1][0] for n in fields}
+    counts = [
+        np.asarray(torch.as_tensor(getattr(h, f)).cpu())
+        for f in ("mom_iters", "pc_iters") for h in (hg, hc)
+    ]
+    same = all(np.array_equal(a, b) for a, b in zip(counts[::2], counts[1::2]))
+    log(
+        f"  {name}: error / scale "
+        + " ".join(f"{n} {e:.3e}" for n, e in errs.items())
+        + f" (tol {tol:.0e}); inner counts equal: {same}"
+    )
+    if not same:
+        raise AssertionError(f"{name} cuda vs cpu: inner iteration counts differ")
+    for n, e in errs.items():
+        if not e <= tol:
+            raise AssertionError(f"{name} cuda vs cpu {n} differ by {e:.3e} (tol {tol:.0e})")
+
+
+def mg_settings(levels=3, smoother=5):
+    """Jacobi-preconditioned geometric MULTIGRID, BiCGSTAB smoothing."""
+    from orc_tpu_torch.utils.settings import (
+        MatrixSolverSettings,
+        PreconditionMethod,
+        SolutionMethod,
+    )
+
+    return MatrixSolverSettings(
+        solver_type=SolutionMethod.MULTIGRID, iterations=40 if levels == 3 else 50,
+        multigrid_levels=levels, multigrid_smoother_iterations=smoother,
+        preconditioner=PreconditionMethod.JACOBI,
+    )
+
+
+def phase_small_reference_transient(dev):
+    """The transient slice and MULTIGRID on the card against the CPU, 16^2
+    float64 cavity: solve_transient (3 steps x 4 inner iterations, dt
+    0.05) with solve_cavity's numerics under SIMPLE (BiCGSTAB(50)
+    pressure) and under SIMPLE_FC (Jacobi(50) pressure, as the steady FC
+    check), and solve_steady under MULTIGRID (tests/test_gmg.py's cavity
+    settings, 10 iterations): equal inner counts, fields to 1e-9 of
+    scale."""
+    log("== phase 3b: transient and MULTIGRID slices on the card vs on the CPU, cavity 16^2 f64")
+    from orc_tpu_torch.models.cavity import cavity_case, default_settings
+    from orc_tpu_torch.solver.simple import solve_steady, stack_history
+    from orc_tpu_torch.solver.transient import solve_transient
+    from orc_tpu_torch.utils.settings import (
+        MatrixSolverSettings,
+        PressureVelocityCoupling,
+        SolutionMethod,
+    )
+
+    jacobi = MatrixSolverSettings(solver_type=SolutionMethod.JACOBI, iterations=50)
+    for name, settings in (
+        ("transient SIMPLE", default_settings().replace(
+            pressure_velocity_coupling=PressureVelocityCoupling.SIMPLE)),
+        ("transient SIMPLE_FC", default_settings().replace(
+            pressure_velocity_coupling=PressureVelocityCoupling.SIMPLE_FC,
+            matrix_solver=jacobi)),
+    ):
+        out = []
+        for d in (dev, torch.device("cpu")):
+            mesh, table = cavity_case(n=16, device=d)
+            out.append(solve_transient(
+                mesh, table, settings, 1.0, 0.01, dt=0.05, n_steps=3,
+                inner_iterations=4, verbose=False,
+            ))
+        _card_cpu_gap(name, out, 1e-9, ("vel", "p", "flux") if "FC" in name else ("vel", "p"))
+    out = []
+    for d in (dev, torch.device("cpu")):
+        mesh, table = cavity_case(n=16, device=d)
+        state, hist = solve_steady(
+            mesh, table, default_settings().replace(matrix_solver=mg_settings()),
+            1.0, 0.01, iterations=10, reporting_interval=10, verbose=False,
+        )
+        out.append((state, stack_history(hist)))
+    _card_cpu_gap("steady MULTIGRID", out, 1e-9)
+
+
+def _timed_transient(mesh, table, settings, rho, mu, dt, steps, inner, state=None):
+    from orc_tpu_torch.solver.transient import solve_transient
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, metrics = solve_transient(
+        mesh, table, settings, rho, mu, dt=dt, n_steps=steps,
+        inner_iterations=inner, state=state, verbose=False,
+    )
+    torch.cuda.synchronize()
+    return state, metrics, time.perf_counter() - t0
+
+
+def phase_transient_cavity(dev, fc=False):
+    """The lid-driven cavity 1024^2 f32 at Re = 1000 marched from rest with
+    dt = 1/1024 (lid Courant number 1): solve_cavity's numerics (parity
+    SIMPLE, 10 steps x 10 inner iterations) or the Ghia flagship's
+    (SIMPLE_FC, implicit 0.6 / 0.03, 5 x 10). Reports ms per inner
+    iteration, the cell Courant numbers, then a profile window of one
+    step of 3 inner iterations; finite |u| < 2."""
+    from orc_tpu_torch.models.cavity import (
+        cavity_case,
+        default_settings,
+        flagship_settings,
+    )
+    from orc_tpu_torch.solver.transient import courant_numbers
+
+    if fc:
+        log("== phase 14: transient SIMPLE_FC cavity 1024^2 f32, Ghia flagship numerics, Re=1000, dt=1/1024")
+        settings, steps = flagship_settings(), 5
+    else:
+        log("== phase 13: transient cavity 1024^2 f32, solve_cavity configuration, Re=1000, dt=1/1024")
+        settings, steps = default_settings(), 10
+    inner, dt = 10, 1.0 / 1024
+    mesh, table = cavity_case(n=1024, dtype=torch.float32, device=dev)
+    state, metrics, wall = _timed_transient(mesh, table, settings, 1.0, 1e-3, dt, steps, inner)
+    n = steps * inner
+    u = state.vel.cpu().numpy()
+    if not (np.isfinite(u).all() and np.abs(u).max() < 2.0):
+        raise AssertionError("transient cavity fields not finite or |u| >= 2")
+    co = [float(c) for c in courant_numbers(mesh, table, state.vel, dt)]
+    log(
+        f"  {steps} steps x {inner} inner iterations {wall:.3f} s -> "
+        f"{1e3 * wall / n:.2f} ms per inner iteration; |u| max {np.abs(u).max():.3f}; "
+        f"Courant avg/min/max {co[0]:.3f}/{co[1]:.3f}/{co[2]:.3f}; pressure "
+        f"iterations {metrics.pc_iters.float().mean().item():.2f} (last of each step)"
+    )
+    prof = profile_window(
+        lambda: _timed_transient(mesh, table, settings, 1.0, 1e-3, dt, 1, 3, state)[2], 3
+    )
+    return dict(ms_per_iter=1e3 * wall / n, iterations=n + 3, **prof)
+
+
+#: bench_cavity.py 128 f32 128 100: the 3-D cavity's pressure relaxation.
+CAVITY_3D_PRESSURE_RELAXATION = 0.02
+
+
+def phase_cavity_3d(dev):
+    """The 3-D 128^3 cavity f32 at Re = 100 (scripts/bench_cavity.py 128
+    f32 128 100: UD + LinearWeighted, forced SIMPLE, implicit 0.7 /
+    0.02), 20 iterations from rest under 5-level geometric MULTIGRID
+    with 4 smoother iterations (BASELINE.md:79-91), then its
+    BiCGSTAB(50) twin: ms/iter, mean pressure iterations (MULTIGRID's
+    below the twin's), finite fields; a profile window of 3 MULTIGRID
+    iterations."""
+    log("== phase 15: 3-D cavity 128^3 f32, Re=100, MULTIGRID (5 levels, 4 smoother iterations) and its BiCGSTAB(50) twin")
+    from orc_tpu_torch.models.cavity import cavity_case
+    from orc_tpu_torch.solver.gmg import build_mg_hierarchy
+
+    base = bench_irregular_settings().replace(
+        pressure_relaxation=CAVITY_3D_PRESSURE_RELAXATION
+    )
+    t0 = time.perf_counter()
+    mesh, table = cavity_case(n=128, nz=128, dtype=torch.float32, device=dev)
+    log(f"  {mesh.n_cells} cells, K = {len(mesh.neighbor_offsets)}, built in {time.perf_counter() - t0:.1f} s")
+    out = {}
+    for name, ms in (("MULTIGRID", mg_settings(levels=5, smoother=4)), ("BiCGSTAB(50)", _bicgstab_50())):
+        settings = base.replace(matrix_solver=ms)
+        if name == "MULTIGRID":
+            levels = build_mg_hierarchy(mesh, settings)
+            log(f"  levels: {[lv.cdims for lv in levels]}")
+        state, hist, wall = _timed_solve(mesh, table, settings, 1.0, 1e-2, None, 20, 20)
+        h = hist[-1]
+        pc = h.pc_iters.float().mean().item()
+        u = state.vel.cpu().numpy()
+        finite = bool(np.isfinite(u).all() and np.isfinite(state.p.cpu().numpy()).all())
+        out[name] = dict(ms_per_iter=1e3 * wall / 20, pc_iters=pc)
+        log(
+            f"  {name}: 20 iterations {wall:.3f} s -> {1e3 * wall / 20:.2f} ms/iter; mean "
+            f"pressure iterations {pc:.2f}; p_corr_norm last {h.p_corr_norm[-1].item():.3e}; "
+            f"|u| max {np.abs(u).max():.3f}; finite {finite}"
+        )
+        if not finite:
+            raise AssertionError(f"3-D cavity {name} fields not finite")
+        if name == "MULTIGRID":
+            out["profile"] = profile(mesh, table, settings, 1.0, 1e-2, state, iterations=3)
+        del state
+    if not out["MULTIGRID"]["pc_iters"] < out["BiCGSTAB(50)"]["pc_iters"]:
+        raise AssertionError("MULTIGRID did not take fewer pressure iterations than BiCGSTAB(50)")
+    return out
+
+
+#: tests/test_transient.py's Taylor-Green run: 32^2 cells, dt 0.05.
+TG_TEST_N, TG_TEST_DT = 32, 0.05
+
+
+def phase_taylor_green(dev):
+    """The Taylor-Green vortex on a 256^2 x-y periodic box, f64 (the
+    settings of tests/test_transient.py: AUTO -> SIMPLE_FC, CD1 +
+    Rhie-Chow, implicit 0.7 / 0.3, BiCGSTAB(50)), 20 steps x 10 inner
+    iterations: every velocity component decays as e^(-2 nu t); the
+    pointwise error and the kinetic-energy ratio within 5e-3.
+
+    dt keeps the Courant number of the test's 32^2 run (dt 0.05 there).
+    At 256^2 with dt 0.05 (Courant ~2) ten inner iterations do not
+    converge a step, in orc_tpu as in the port: both end 7.7e-3 above
+    the exact kinetic energy (tests/torch_taylor_green_scan.py)."""
+    log("== phase 16: Taylor-Green vortex 256^2 f64, 20 steps x 10 inner iterations")
+    from orc_tpu_torch.mesh.generate import structured_box_mesh
+    from orc_tpu_torch.solver.simple import initial_state
+    from orc_tpu_torch.utils.settings import (
+        MomentumScheme,
+        NumericalSettings,
+        PressureInterpolation,
+        RelaxationMode,
+        VelocityInterpolation,
+    )
+
+    N, rho, mu, steps = 256, 1.0, 0.02, 20
+    dt = TG_TEST_DT * TG_TEST_N / N
+    mesh, table = structured_box_mesh(
+        N, N, 1, lengths=(2 * np.pi, 2 * np.pi, 1.0), periodic=("x", "y"),
+        dtype=torch.float64, device=dev,
+    )
+    cc = mesh.cell_centroid.cpu().numpy()
+    x, y = cc[:, 0], cc[:, 1]
+    u0, v0 = np.sin(x) * np.cos(y), -np.cos(x) * np.sin(y)
+    p0 = rho / 4.0 * (np.cos(2 * x) + np.cos(2 * y))
+    state = initial_state(mesh, vel=np.stack([u0, v0, 0 * u0], -1), p=p0)
+    settings = NumericalSettings(
+        momentum=MomentumScheme.CD1,
+        pressure_interpolation=PressureInterpolation.LINEAR_WEIGHTED,
+        velocity_interpolation=VelocityInterpolation.RHIE_CHOW,
+        pressure_relaxation=0.3,
+        momentum_relaxation=0.7,
+        relaxation_mode=RelaxationMode.IMPLICIT,
+        matrix_solver=_bicgstab_50(),
+    )
+    state, metrics, wall = _timed_transient(mesh, table, settings, rho, mu, dt, steps, 10, state)
+    decay = np.exp(-2 * (mu / rho) * dt * steps)
+    u, v = state.vel[:, 0].cpu().numpy(), state.vel[:, 1].cpu().numpy()
+    err = max(np.abs(u - u0 * decay).max(), np.abs(v - v0 * decay).max())
+    e_ratio = np.sum(u * u + v * v) / (decay**2 * np.sum(u0**2 + v0**2))
+    log(
+        f"  {steps} steps of dt {dt} x 10 inner iterations {wall:.3f} s -> {1e3 * wall / (10 * steps):.2f} "
+        f"ms per inner iteration; max pointwise error {err:.3e}, kinetic-energy ratio "
+        f"{e_ratio:.6f} (limits 5e-3); pressure iterations {metrics.pc_iters.float().mean().item():.2f}"
+    )
+    if not (err < 5e-3 and abs(e_ratio - 1.0) < 5e-3):
+        raise AssertionError("the Taylor-Green vortex left the exact decay")
+    prof = profile_window(
+        lambda: _timed_transient(mesh, table, settings, rho, mu, dt, 1, 3, state)[2], 3
+    )
+    return dict(ms_per_iter=1e3 * wall / (10 * steps), err=err, e_ratio=e_ratio, **prof)
 
 
 def _timed_solve(mesh, table, settings, rho, mu, state, iterations, chunk):
@@ -1503,29 +1811,41 @@ def phase_df32(dev):
 
 
 def profile(mesh, table, settings, rho, mu, state, iterations):
-    """torch.profiler over a few iterations: device time by kernel and
-    the device's busy share of the window."""
+    """torch.profiler over a few steady iterations (profile_window)."""
+    return profile_window(
+        lambda: _timed_solve(
+            mesh, table, settings, rho, mu, state, iterations, iterations
+        )[2],
+        iterations,
+    )
+
+
+def profile_window(run, iterations):
+    """torch.profiler around `run` (which synchronizes and returns its
+    wall seconds) over `iterations` outer or inner iterations: device
+    time by kernel, the device's busy share of the window and the
+    launches per iteration, which it returns."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as tprofile
 
     with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        _s, _h, dt = _timed_solve(
-            mesh, table, settings, rho, mu, state, iterations, iterations
-        )
+        dt = run()
     rows = [  # device-side kernel events only (op rows would double-count)
         (ev.self_device_time_total, ev.key, ev.count)
         for ev in prof.key_averages()
         if ev.device_type == DeviceType.CUDA and ev.self_device_time_total > 0
     ]
     busy_us = sum(t for t, _, _ in rows)
+    n_launch = sum(c for _, _, c in rows)
     log(
         f"  profile, {iterations} iterations: wall {1e3 * dt:.1f} ms, kernel "
         f"time {busy_us / 1e3:.1f} ms (device busy {100 * busy_us / 1e6 / dt:.1f}%), "
-        f"{sum(c for _, _, c in rows)} kernel launches"
+        f"{n_launch} kernel launches ({n_launch / iterations:.0f} per iteration)"
     )
     for t, key, count in sorted(rows, reverse=True)[:12]:
         log(f"    {t / 1e3:9.2f} ms  {count:6d}x  {key[:90]}")
+    return dict(busy=busy_us / 1e6 / dt, launches_per_iter=n_launch / iterations)
 
 
 def main():
@@ -1557,6 +1877,10 @@ def main():
                "orc_tpu/ops/pallas_assembly.py:189"),
         Kernel("fc_pc_assembly", asm.fc_pc_assembly, asm_src,
                "orc_tpu/ops/pallas_assembly.py:856"),
+        Kernel("momentum_assembly[transient]", asm.momentum_assembly, parity_src,
+               "orc_tpu/ops/pallas_assembly.py:410", counter="transient_launches"),
+        Kernel("fc_momentum_assembly[transient]", asm.fc_momentum_assembly, asm_src,
+               "orc_tpu/ops/pallas_assembly.py:410", counter="transient_launches"),
         Kernel("slice_spmv", slice_spmv, slice_src,
                "orc_tpu/ops/pallas_slice.py:47"),
         Kernel("slice_nbr_values", slice_nbr_values, slice_src,
@@ -1564,44 +1888,59 @@ def main():
         Kernel("slice_spmv_exact", slice_spmv_exact, slice_src,
                "orc_tpu/ops/pallas_slice.py:798"),
     )
-    spmv, sweeps, mom, pc, fc_mom, fc_pc, sspmv, snbr, sexact = kernels
-    phase_kernels(dev, (spmv, sweeps, mom, pc))
-    phase_parity_branches(dev, mom, pc)
-    phase_fc_kernels(dev, fc_mom, fc_pc)
+    spmv, sweeps, mom, pc, fc_mom, fc_pc, mom_t, fc_mom_t, sspmv, snbr, sexact = kernels
+    phase_kernels(dev, (spmv, sweeps, mom, pc), mom_t)
+    phase_parity_branches(dev, mom, pc, mom_t)
+    phase_fc_kernels(dev, fc_mom, fc_pc, fc_mom_t)
     phase_slice_kernels(dev, sspmv, snbr)
     exact = phase_exact_kernel(dev, sexact, sspmv)
     phase_small_reference(dev)
     phase_small_reference_irregular(dev)
+    phase_small_reference_transient(dev)
 
     # The main paths, each driven with the launch counts set to 0 just
     # before it and read just after it.
     parity, fc = (spmv, sweeps, mom, pc), (spmv, sweeps, fc_mom, fc_pc)
-    structured = (spmv, sweeps, mom, pc, fc_mom, fc_pc)
+    transient = (mom_t, fc_mom_t)
+    structured = (spmv, sweeps, mom, pc, fc_mom, fc_pc) + transient
     irregular = (sspmv, snbr, sexact)
     results = {}
-    paths = (
-        ("parity couette", lambda: phase_couette(dev), (spmv,), irregular),
-        ("parity cavity", lambda: phase_cavity(dev), parity, (fc_mom, fc_pc) + irregular),
-        ("fc couette", lambda: phase_couette(dev, fc=True), fc, (mom, pc) + irregular),
-        ("fc cavity", lambda: phase_cavity(dev, fc=True), fc, (mom, pc) + irregular),
-        ("fc sequenced", lambda: phase_sequenced(dev), fc, (mom, pc) + irregular),
+    paths = (  # label, run, kernels it must launch, kernels it must not,
+        # kernels it must launch exactly once per (inner) iteration
+        ("parity couette", lambda: phase_couette(dev), (spmv,), irregular + transient, ()),
+        ("parity cavity", lambda: phase_cavity(dev), parity,
+         (fc_mom, fc_pc) + transient + irregular, ()),
+        ("fc couette", lambda: phase_couette(dev, fc=True), fc,
+         (mom, pc) + transient + irregular, ()),
+        ("fc cavity", lambda: phase_cavity(dev, fc=True), fc,
+         (mom, pc) + transient + irregular, ()),
+        ("fc sequenced", lambda: phase_sequenced(dev), fc,
+         (mom, pc) + transient + irregular, ()),
         ("irregular cavity", lambda: phase_irregular_cavity(dev), (sspmv, snbr),
-         structured + (sexact,)),
+         structured + (sexact,), ()),
         ("structured twin", lambda: phase_irregular_twin(dev, results["irregular cavity"]),
-         parity, irregular),
+         parity, transient + irregular, ()),
         ("irregular couette",
          lambda: phase_irregular_couette(dev, results["parity couette"]["u_mean"]),
-         (sspmv, snbr), structured + (sexact,)),
+         (sspmv, snbr), structured + (sexact,), ()),
         ("reference-default cavity", lambda: phase_ref_default_cavity(dev), parity,
-         (fc_mom, fc_pc) + irregular),
-        ("df32_ir", lambda: phase_df32(dev), irregular, structured),
+         (fc_mom, fc_pc) + transient + irregular, (mom, pc)),
+        ("df32_ir", lambda: phase_df32(dev), irregular, structured, ()),
+        ("transient cavity", lambda: phase_transient_cavity(dev), parity + (mom_t,),
+         (fc_mom, fc_pc, fc_mom_t) + irregular, (mom, pc, mom_t)),
+        ("transient fc cavity", lambda: phase_transient_cavity(dev, fc=True),
+         fc + (fc_mom_t,), (mom, pc, mom_t) + irregular, (fc_mom, fc_pc, fc_mom_t)),
+        ("3-D cavity multigrid", lambda: phase_cavity_3d(dev), parity,
+         (fc_mom, fc_pc) + transient + irregular, ()),
+        ("taylor-green", lambda: phase_taylor_green(dev), (spmv, sweeps),
+         (mom, pc, fc_mom, fc_pc) + transient + irregular, ()),
     )
     launches = {k.name: 0 for k in kernels}
-    for label, run, must, must_not in paths:
+    for label, run, must, must_not, per_iteration in paths:
         for k in kernels:
-            k.fn.launches = 0
+            setattr(k.fn, k.counter, 0)
         results[label] = run()
-        counts = {k.name: k.fn.launches for k in kernels}
+        counts = {k.name: getattr(k.fn, k.counter) for k in kernels}
         log(f"launches, {label}: {counts}")
         for k in must:
             if counts[k.name] <= 0:
@@ -1610,9 +1949,10 @@ def main():
             if counts[k.name] != 0:
                 raise AssertionError(f"the {label} run launched {k.name}")
         n_it = (results[label] or {}).get("iterations")
-        if n_it is not None and not counts["momentum_assembly"] == counts["pc_assembly"] == n_it:
+        if per_iteration and not all(counts[k.name] == n_it for k in per_iteration):
             raise AssertionError(
-                f"the {label} run launched the assembly kernels other than once per iteration"
+                f"the {label} run launched its assembly kernels other than once "
+                f"per iteration ({n_it} iterations)"
             )
         for name, n in counts.items():
             launches[name] += n
@@ -1634,7 +1974,14 @@ def main():
         f"(native {df['cavity native']:.2f}, native at DF32_IR's depth "
         f"{df["cavity native, DF32_IR's depth"]:.2f}); exact residual product card "
         f"{sexact.ms:.4f} ms vs f64 slice SpMV {exact['f64_spmv_ms']:.4f} ms; "
-        f"{time.perf_counter() - _T0:.1f} s since the start"
+        f"transient cavity 1024^2 f32 {results['transient cavity']['ms_per_iter']:.2f} "
+        f"ms per inner iteration (SIMPLE_FC flagship "
+        f"{results['transient fc cavity']['ms_per_iter']:.2f}); 3-D cavity 128^3 f32 "
+        f"MULTIGRID {results['3-D cavity multigrid']['MULTIGRID']['ms_per_iter']:.2f} "
+        f"ms/iter, BiCGSTAB(50) "
+        f"{results['3-D cavity multigrid']['BiCGSTAB(50)']['ms_per_iter']:.2f}; "
+        f"Taylor-Green 256^2 f64 {results['taylor-green']['ms_per_iter']:.2f} ms per "
+        f"inner iteration; {time.perf_counter() - _T0:.1f} s since the start"
     )
     log(json.dumps({"kernels": [k.summary(launches[k.name]) for k in kernels]}))
     smi = subprocess.run(

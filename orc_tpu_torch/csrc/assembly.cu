@@ -22,8 +22,9 @@ namespace orc {
 // velocity gradient; a face with phi_D == phi_U takes none. The limiter
 // psi is a template code (tvd_lud 0, tvd_quick 1, tvd_umist 2): a
 // kernel takes no Python callable. Face pressures are Linear, or
-// SecondOrder (kPSo) from the streamed [C,3] grad p. Patankar
-// relaxation, inactive rows as the parity momentum_kernel.
+// SecondOrder (kPSo) from the streamed [C,3] grad p. The inertia term of
+// transient runs (nullable rv_dt, vel_n), Patankar relaxation and
+// inactive rows as the parity momentum_kernel.
 //
 // fc_pc_kernel: the SIMPLE_FC full-p continuity system and the flux
 // predictor in one pass (orc_tpu/solver/fc.py ck_flux_h + ck_d_coeffs
@@ -47,7 +48,8 @@ template <typename T, int kScheme, int kPsi, bool kPSo>
 __global__ void fc_momentum_kernel(
     AsmCols<T> cols, const T* __restrict__ vel, const T* __restrict__ p,
     const T* __restrict__ flux, const T* __restrict__ grad_p,
-    const T* __restrict__ grad_vel, const T* __restrict__ bc,
+    const T* __restrict__ grad_vel, const T* __restrict__ rv_dt,
+    const T* __restrict__ vel_n, const T* __restrict__ bc,
     const int* __restrict__ flags, T rho, T mu, T alpha,
     T* __restrict__ diag_out, T* __restrict__ off_out,
     T* __restrict__ b_out, long long C) {
@@ -126,6 +128,16 @@ __global__ void fc_momentum_kernel(
       if (n[0] != T(0)) bu = bu - n[0] * pfA;
       if (n[1] != T(0)) bv = bv - n[1] * pfA;
       if (n[2] != T(0)) bw = bw - n[2] * pfA;
+    }
+    // Implicit-Euler inertia of transient runs (rv_dt and vel_n are null
+    // in steady ones, the same for every thread): rho V/dt on the
+    // diagonal, rho V/dt vel^n on the RHS, before the relaxation.
+    if (rv_dt != nullptr) {
+      const T rvdt = rv_dt[i];
+      diag = diag + rvdt;
+      bu = bu + rvdt * vel_n[3 * i];
+      bv = bv + rvdt * vel_n[3 * i + 1];
+      bw = bw + rvdt * vel_n[3 * i + 2];
     }
     // Implicit (Patankar) relaxation + inactive padding rows.
     bu = bu + (T(1) - alpha) / alpha * diag * u_c;
@@ -208,8 +220,9 @@ __global__ void fc_pc_kernel(AsmCols<T> cols, const T* __restrict__ vel,
 
 template <typename T>
 using FcMomentumKernel = void (*)(AsmCols<T>, const T*, const T*, const T*,
-                                  const T*, const T*, const T*, const int*,
-                                  T, T, T, T*, T*, T*, long long);
+                                  const T*, const T*, const T*, const T*,
+                                  const T*, const int*, T, T, T, T*, T*, T*,
+                                  long long);
 
 template <typename T, int kScheme, int kPsi>
 FcMomentumKernel<T> fc_momentum_pick(bool p_so) {
@@ -232,14 +245,16 @@ template <typename T>
 int launch_fc_momentum(int scheme, int psi, bool p_so, const AsmCols<T>& c,
                        const void* vel, const void* p, const void* flux,
                        const void* grad_p, const void* grad_vel,
-                       const void* bc, const int* flags, double rho,
-                       double mu, double alpha, void* diag, void* off,
-                       void* b, long long C, cudaStream_t stream) {
+                       const void* rv_dt, const void* vel_n, const void* bc,
+                       const int* flags, double rho, double mu, double alpha,
+                       void* diag, void* off, void* b, long long C,
+                       cudaStream_t stream) {
   const FcMomentumKernel<T> kernel = fc_momentum_select<T>(scheme, psi, p_so);
   kernel<<<grid_blocks(C), kThreads, 0, stream>>>(
       c, static_cast<const T*>(vel), static_cast<const T*>(p),
       static_cast<const T*>(flux), static_cast<const T*>(grad_p),
-      static_cast<const T*>(grad_vel), static_cast<const T*>(bc), flags,
+      static_cast<const T*>(grad_vel), static_cast<const T*>(rv_dt),
+      static_cast<const T*>(vel_n), static_cast<const T*>(bc), flags,
       static_cast<T>(rho), static_cast<T>(mu), static_cast<T>(alpha),
       static_cast<T*>(diag), static_cast<T*>(off), static_cast<T*>(b), C);
   return static_cast<int>(cudaGetLastError());
@@ -268,13 +283,14 @@ extern "C" int orc_fc_momentum_assembly(
     int dtype, int scheme, int psi, int p_so, const long long* col_offsets,
     const double* col_geom, const int* col_kind, const int* col_zone, int K,
     const void* vel, const void* p, const void* flux, const void* grad_p,
-    const void* grad_vel, const void* bc, const void* flags, double rho,
-    double mu, double alpha, void* diag, void* off, void* b, long long C,
-    void* stream) {
+    const void* grad_vel, const void* rv_dt, const void* vel_n,
+    const void* bc, const void* flags, double rho, double mu, double alpha,
+    void* diag, void* off, void* b, long long C, void* stream) {
   if (!orc::valid_cols(col_kind, K) || scheme < orc::kUD ||
       scheme > orc::kTvdDc || psi < 0 || psi > 2 || C < 0 ||
       (p_so && grad_p == nullptr) ||
-      (scheme == orc::kTvdDc && grad_vel == nullptr)) {
+      (scheme == orc::kTvdDc && grad_vel == nullptr) ||
+      ((rv_dt == nullptr) != (vel_n == nullptr))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (C == 0) return 0;
@@ -284,15 +300,17 @@ extern "C" int orc_fc_momentum_assembly(
     const auto c =
         orc::make_asm_cols<float>(col_offsets, col_geom, col_kind, col_zone, K);
     return orc::launch_fc_momentum<float>(scheme, psi, p_so != 0, c, vel, p,
-                                          flux, grad_p, grad_vel, bc, fl, rho,
-                                          mu, alpha, diag, off, b, C, s);
+                                          flux, grad_p, grad_vel, rv_dt, vel_n,
+                                          bc, fl, rho, mu, alpha, diag, off, b,
+                                          C, s);
   }
   if (dtype == orc::kF64) {
     const auto c = orc::make_asm_cols<double>(col_offsets, col_geom,
                                               col_kind, col_zone, K);
     return orc::launch_fc_momentum<double>(scheme, psi, p_so != 0, c, vel, p,
-                                           flux, grad_p, grad_vel, bc, fl,
-                                           rho, mu, alpha, diag, off, b, C, s);
+                                           flux, grad_p, grad_vel, rv_dt,
+                                           vel_n, bc, fl, rho, mu, alpha, diag,
+                                           off, b, C, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -8,16 +8,18 @@ extern "C" int orc_momentum_assembly(
     int dtype, int scheme, int psi, int rc, int p_so, int gg,
     const long long* col_offsets, const double* col_geom, const int* col_kind,
     const int* col_zone, int K, const void* vel, const void* p,
-    const void* grad_p, const void* md, const void* grad_vel, const void* bc,
-    const void* flags, double rho, double mu, double alpha, double vol,
-    void* diag, void* off, void* b, long long C, void* stream) {
+    const void* grad_p, const void* md, const void* grad_vel,
+    const void* rv_dt, const void* vel_n, const void* bc, const void* flags,
+    double rho, double mu, double alpha, double vol, void* diag, void* off,
+    void* b, long long C, void* stream) {
   const bool grad = rc || p_so;
   const bool in_kernel = grad && gg;
   if (!orc::valid_cols(col_kind, K) || scheme < orc::kUD ||
       scheme > orc::kTvdDc || psi < 0 || psi > 2 || C < 0 ||
       (grad && !in_kernel && grad_p == nullptr) || (rc && md == nullptr) ||
       (scheme == orc::kTvdDc && grad_vel == nullptr) ||
-      ((rc || in_kernel) && !(vol > 0.0))) {
+      ((rc || in_kernel) && !(vol > 0.0)) ||
+      ((rv_dt == nullptr) != (vel_n == nullptr))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (C == 0) return 0;
@@ -28,16 +30,16 @@ extern "C" int orc_momentum_assembly(
                                              col_zone, K, vol);
     return orc::launch_momentum<float>(scheme, psi, rc != 0, p_so != 0,
                                        in_kernel, c, vel, p, grad_p, md,
-                                       grad_vel, bc, fl, rho, mu, alpha, vol,
-                                       diag, off, b, C, s);
+                                       grad_vel, rv_dt, vel_n, bc, fl, rho,
+                                       mu, alpha, vol, diag, off, b, C, s);
   }
   if (dtype == orc::kF64) {
     const auto c = orc::make_asm_cols<double>(col_offsets, col_geom, col_kind,
                                               col_zone, K, vol);
     return orc::launch_momentum<double>(scheme, psi, rc != 0, p_so != 0,
                                         in_kernel, c, vel, p, grad_p, md,
-                                        grad_vel, bc, fl, rho, mu, alpha, vol,
-                                        diag, off, b, C, s);
+                                        grad_vel, rv_dt, vel_n, bc, fl, rho,
+                                        mu, alpha, vol, diag, off, b, C, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -11,8 +11,9 @@
 // advection, Linear[Weighted] or Rhie-Chow face fluxes (kRC),
 // Linear[Weighted] or SecondOrder face pressures (kPSo), and the
 // Green-Gauss pressure gradient either streamed as [C,3] or computed in
-// the kernel from p (kGG, orc_tpu's `_gg_eval`). LinearWeighted ==
-// Linear on a uniform box. The transient inertia term is later work.
+// the kernel from p (kGG, orc_tpu's `_gg_eval`), and the implicit-Euler
+// inertia term of transient runs. LinearWeighted == Linear on a uniform
+// box.
 //
 // Momentum, per cell c over its K static columns (uniform box):
 //   F_k   = rho A_k * (interior ? v_f.n_k : boundary flux), with
@@ -26,7 +27,8 @@
 //           SecondOrder 0.5 [(p_c + p_n) + gp_c . r_cf + gp_n . r_nf]),
 //           under TVD_DC minus the deferred correction F psi(r)/2
 //           (phi_D - phi_U) of each interior face (as fc_momentum_kernel,
-//           assembly.cu), then Patankar relaxation
+//           assembly.cu); in transient runs diag += rho V/dt and
+//           b += rho V/dt v^n; then Patankar relaxation
 //           b += (1-alpha)/alpha diag v_c, diag /= alpha.
 // Pressure correction, from the post-momentum velocity and diagonal md
 // (and, under Rhie-Chow, the iteration-start p and grad p):
@@ -37,8 +39,8 @@
 //
 // Bound on the H100: device memory. Momentum reads vel (3), p and one
 // int32 flag word per cell (plus md under Rhie-Chow, grad p (3) when
-// streamed, grad vel (9) under TVD_DC) and writes diag, K off planes and
-// 3 b rows; the pressure correction reads vel (3), md and flags (plus p
+// streamed, grad vel (9) under TVD_DC, rho V/dt and v^n (4) in transient
+// runs) and writes diag, K off planes and 3 b rows; the pressure correction reads vel (3), md and flags (plus p
 // and grad p under Rhie-Chow) and writes diag, K off planes and b.
 // Neighbour reads come from L1/L2 lines of adjacent rows. With kGG the
 // gradient of a neighbour reads p two hops away: a plain read per
@@ -49,7 +51,9 @@
 // split is free, every per-face intermediate in registers. Each scheme,
 // limiter, face model and gradient source is its own template instance,
 // so the branches a configuration does not take cost neither registers
-// nor loads.
+// nor loads. The inertia term is not a template parameter: its two
+// pointers are null in steady runs, a branch the same for every thread,
+// which keeps the instance count (and nvcc's time) where it was.
 #pragma once
 
 #include "assembly.cuh"
@@ -99,7 +103,8 @@ template <typename T, int kScheme, int kPsi, bool kRC, bool kPSo, bool kGG>
 __global__ void momentum_kernel(
     AsmCols<T> cols, const T* __restrict__ vel, const T* __restrict__ p,
     const T* __restrict__ grad_p, const T* __restrict__ md,
-    const T* __restrict__ grad_vel, const T* __restrict__ bc,
+    const T* __restrict__ grad_vel, const T* __restrict__ rv_dt,
+    const T* __restrict__ vel_n, const T* __restrict__ bc,
     const int* __restrict__ flags, T rho, T mu, T alpha, T vol,
     T* __restrict__ diag_out, T* __restrict__ off_out,
     T* __restrict__ b_out, long long C) {
@@ -203,6 +208,16 @@ __global__ void momentum_kernel(
       if (n[1] != T(0)) bv = bv - n[1] * pfA;
       if (n[2] != T(0)) bw = bw - n[2] * pfA;
     }
+    // Implicit-Euler inertia of transient runs (rv_dt and vel_n are null
+    // in steady ones, the same for every thread): rho V/dt on the
+    // diagonal, rho V/dt vel^n on the RHS, before the relaxation.
+    if (rv_dt != nullptr) {
+      const T rvdt = rv_dt[i];
+      diag = diag + rvdt;
+      bu = bu + rvdt * vel_n[3 * i];
+      bv = bv + rvdt * vel_n[3 * i + 1];
+      bw = bw + rvdt * vel_n[3 * i + 2];
+    }
     // Implicit (Patankar) relaxation + inactive padding rows.
     bu = bu + (T(1) - alpha) / alpha * diag * u_c;
     bv = bv + (T(1) - alpha) / alpha * diag * v_c;
@@ -281,8 +296,9 @@ __global__ void pc_kernel(AsmCols<T> cols, const T* __restrict__ vel,
 
 template <typename T>
 using MomentumKernel = void (*)(AsmCols<T>, const T*, const T*, const T*,
-                                const T*, const T*, const T*, const int*, T,
-                                T, T, T, T*, T*, T*, long long);
+                                const T*, const T*, const T*, const T*,
+                                const T*, const int*, T, T, T, T, T*, T*, T*,
+                                long long);
 
 // The instance of a face-flux, face-pressure and gradient choice; the
 // gradient source matters only under Rhie-Chow or SecondOrder.
@@ -319,15 +335,17 @@ template <typename T>
 int launch_momentum(int scheme, int psi, bool rc, bool p_so, bool gg,
                     const AsmCols<T>& c, const void* vel, const void* p,
                     const void* grad_p, const void* md, const void* grad_vel,
-                    const void* bc, const int* flags, double rho, double mu,
-                    double alpha, double vol, void* diag, void* off, void* b,
-                    long long C, cudaStream_t stream) {
+                    const void* rv_dt, const void* vel_n, const void* bc,
+                    const int* flags, double rho, double mu, double alpha,
+                    double vol, void* diag, void* off, void* b, long long C,
+                    cudaStream_t stream) {
   const MomentumKernel<T> kernel =
       momentum_select<T>(scheme, psi, rc, p_so, gg);
   kernel<<<grid_blocks(C), kThreads, 0, stream>>>(
       c, static_cast<const T*>(vel), static_cast<const T*>(p),
       static_cast<const T*>(grad_p), static_cast<const T*>(md),
-      static_cast<const T*>(grad_vel), static_cast<const T*>(bc), flags,
+      static_cast<const T*>(grad_vel), static_cast<const T*>(rv_dt),
+      static_cast<const T*>(vel_n), static_cast<const T*>(bc), flags,
       static_cast<T>(rho), static_cast<T>(mu), static_cast<T>(alpha),
       static_cast<T>(vol), static_cast<T*>(diag), static_cast<T*>(off),
       static_cast<T*>(b), C);
@@ -359,8 +377,8 @@ int launch_pc(bool rc, bool gg, const AsmCols<T>& c, const void* vel,
 extern template int launch_momentum<double>(
     int, int, bool, bool, bool, const AsmCols<double>&, const void*,
     const void*, const void*, const void*, const void*, const void*,
-    const int*, double, double, double, double, void*, void*, void*,
-    long long, cudaStream_t);
+    const void*, const void*, const int*, double, double, double, double,
+    void*, void*, void*, long long, cudaStream_t);
 extern template int launch_pc<double>(bool, bool, const AsmCols<double>&,
                                       const void*, const void*, const void*,
                                       const void*, const void*, const int*,

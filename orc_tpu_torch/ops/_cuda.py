@@ -60,11 +60,11 @@ SIGNATURES = {
         _i, _p, _pp, _pll, _pll, _i, _p, _p, _p, _p, _ll, _i, _i, _d, _p,
     ),
     # dtype, scheme, limiter, rc, p_so, gg, col_offsets, col_geom[K*6],
-    # col_kind, col_zone, K, vel, p, grad_p, mom_diag, grad_vel, bc, flags,
-    # rho, mu, alpha, vol, diag, off, b, C, stream
+    # col_kind, col_zone, K, vel, p, grad_p, mom_diag, grad_vel, rv_dt,
+    # vel_n, bc, flags, rho, mu, alpha, vol, diag, off, b, C, stream
     "orc_momentum_assembly": (
         _i, _i, _i, _i, _i, _i, _pll, _pd, _pi, _pi, _i, _p, _p, _p, _p, _p,
-        _p, _p, _d, _d, _d, _d, _p, _p, _p, _ll, _p,
+        _p, _p, _p, _p, _d, _d, _d, _d, _p, _p, _p, _ll, _p,
     ),
     # dtype, rc, gg, col_offsets, col_geom[K*6], col_kind, col_zone, K,
     # vel, mom_diag, p, grad_p, bc, flags, rho, vol, diag, off, b, C,
@@ -74,11 +74,11 @@ SIGNATURES = {
         _p, _p, _p, _ll, _p,
     ),
     # dtype, scheme, limiter, p_so, col_offsets, col_geom[K*6], col_kind,
-    # col_zone, K, vel, p, flux planes, grad_p, grad_vel, bc, flags, rho,
-    # mu, alpha, diag, off, b, C, stream
+    # col_zone, K, vel, p, flux planes, grad_p, grad_vel, rv_dt, vel_n, bc,
+    # flags, rho, mu, alpha, diag, off, b, C, stream
     "orc_fc_momentum_assembly": (
         _i, _i, _i, _i, _pll, _pd, _pi, _pi, _i, _p, _p, _p, _p, _p, _p, _p,
-        _d, _d, _d, _p, _p, _p, _ll, _p,
+        _p, _p, _d, _d, _d, _p, _p, _p, _ll, _p,
     ),
     # dtype, rc, col_offsets, col_geom[K*6], col_kind, col_zone, K, vel,
     # mom_diag, grad_p, bc, flags, rho, vol, diag, off, b, flux_h, C,

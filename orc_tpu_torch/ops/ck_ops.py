@@ -14,9 +14,10 @@ Ported: both geometries, every branch of `nbr_values`, `zone_sel`,
 `CKBC`/`ck_bc`, `ck_face_pressure` (Linear, LinearWeighted,
 SecondOrder), `ck_flux` (Linear, LinearWeighted, Rhie-Chow),
 `ck_pressure_gradient` and `ck_velocity_gradient` (Green-Gauss cell),
-`ck_diffusion`, `ck_momentum` (UD, CD1, TVD_DC),
-`ck_pressure_correction`, `ck_apply_correction`. Other schemes raise
-NotImplementedError (ROADMAP Queue 1, item 5).
+`ck_diffusion`, `ck_momentum` (UD, CD1, TVD_DC, with momentum sources
+and the transient inertia term), `ck_pressure_correction`,
+`ck_apply_correction`. Other schemes raise NotImplementedError (ROADMAP
+Queue 1, item 5).
 """
 
 from __future__ import annotations
@@ -32,6 +33,7 @@ from orc_tpu_torch.ops.fields import (
     SYMMETRY,
     VELOCITY_INLET,
     WALL,
+    momentum_source_term,
 )
 from orc_tpu_torch.ops.slice_spmv import slice_nbr_values
 from orc_tpu_torch.ops.spmv import EllMatrix
@@ -406,13 +408,17 @@ def ck_diffusion(mesh, ck, bc: CKBC, mu):
 def ck_momentum(
     mesh, ck, bc: CKBC, settings: NumericalSettings, rho,
     vel, F, p_f, diff_diag, diff_off, diff_b, grad_vel=None, vel_nbr=None,
+    inertia=None,
 ):
     """Shared-matrix momentum system (diag [C], off [C,K]) and RHS
     [3,C] from per-(c,k) mass flows F = flux * area * rho, plus the
     per-cell Peclet estimate [C,3]. UD, CD1 and TVD_DC (the implicit UD
     matrix plus an explicit limited correction from the upwind side,
-    which needs `grad_vel` [C,3,3] and settings.tvd_psi). CD2, TVD,
-    momentum sources and the transient inertia term are not ported yet."""
+    which needs `grad_vel` [C,3,3] and settings.tvd_psi), with
+    settings.momentum_source (fields.momentum_source_term) added to the
+    RHS. `inertia` = (rv_dt [C], vel_n [C,3]) adds the implicit-Euler
+    term rho V/dt to the diagonal and rho V/dt vel^n to the RHS, before
+    the Patankar relaxation. CD2 and TVD are not ported yet."""
     scheme = settings.momentum
     s_dc = None
     if scheme == MomentumScheme.UD:
@@ -430,10 +436,6 @@ def ck_momentum(
         raise NotImplementedError(
             f"momentum scheme {scheme} is not ported yet (ROADMAP Queue 1, "
             "item 5)"
-        )
-    if settings.momentum_source is not None:
-        raise NotImplementedError(
-            "momentum sources are not ported yet (ROADMAP Queue 1, item 5)"
         )
     zero = _zero_like(F)
     mask = ck.mask
@@ -454,10 +456,18 @@ def ck_momentum(
     )
     if s_dc is not None:
         s_u = s_u + s_dc
+    if settings.momentum_source is not None:
+        s_u = s_u + momentum_source_term(
+            settings.momentum_source, mesh.cell_centroid, mesh.cell_volume
+        )
     active = mask.any(dim=1)
     off = torch.where(ck.interior, a_nb + diff_off, zero)  # [C,K]
     diag = a_p + diff_diag  # [C]
     b = s_u + diff_b  # [C,3]
+    if inertia is not None:
+        rv_dt, vel_n = inertia
+        diag = diag + rv_dt
+        b = b + rv_dt[:, None] * vel_n
     if settings.relaxation_mode == RelaxationMode.IMPLICIT:
         alpha = settings.momentum_relaxation
         b = b + (1.0 - alpha) / alpha * diag[:, None] * vel

@@ -19,17 +19,18 @@ kernels; on CPU tensors they run the plain versions, which compose the
 ported ck ops (the oracle orc_tpu pins its kernels against) and return
 the kernels' output format.
 
-Covered, steady and under implicit relaxation, every branch of orc_tpu's
-kernels: UD / CD1 / TVD_DC advection (parity: with the face flux
-computed from the velocity; SIMPLE_FC: with the stored flux),
-Linear[Weighted] or Rhie-Chow face fluxes, Linear[Weighted] or
-SecondOrder face pressures, and for the parity kernels the Green-Gauss
-pressure gradient computed in the kernel (`AsmSpec.gg`) or streamed as
-[C,3]. A CUDA kernel takes no Python callable, so the TVD limiter
-`AsmSpec.psi` travels as a code (`LIMITER_CODES`: tvd_lud, tvd_quick,
-tvd_umist); the kernel gate returns None for any other limiter. The
-transient inertia term (ROADMAP Queue 2, item 4c, with Queue 1 item 10)
-raises NotImplementedError.
+Covered, under implicit relaxation, every branch of orc_tpu's kernels:
+UD / CD1 / TVD_DC advection (parity: with the face flux computed from
+the velocity; SIMPLE_FC: with the stored flux), Linear[Weighted] or
+Rhie-Chow face fluxes, Linear[Weighted] or SecondOrder face pressures,
+for the parity kernels the Green-Gauss pressure gradient computed in the
+kernel (`AsmSpec.gg`) or streamed as [C,3], and for both momentum
+kernels the implicit-Euler inertia term of transient runs (`inertia` =
+(rv_dt [C], vel_n [C,3])). A CUDA kernel takes no Python callable, so
+the TVD limiter `AsmSpec.psi` travels as a code (`LIMITER_CODES`:
+tvd_lud, tvd_quick, tvd_umist); the kernel gate returns None for any
+other limiter. Momentum sources are added by the caller after the
+kernel, as orc_tpu does.
 """
 
 from __future__ import annotations
@@ -220,18 +221,25 @@ def _ck_from_columns(flags, cols, bc_values):
     return box, ck, ck_bc(ck, zc, zs, zv)
 
 
-def _check_spec(spec: AsmSpec, inertia=None):
+def _check_spec(spec: AsmSpec, inertia=None, C=None):
     """Raise on what no kernel computes: an unknown scheme, TVD_DC
-    without a limiter, the transient inertia term."""
+    without a limiter, an inertia pair that is not (rv_dt [C],
+    vel_n [C,3])."""
     if spec.scheme not in _SCHEMES:
         raise ValueError(f"unknown momentum scheme {spec.scheme!r}")
     if spec.scheme == "tvd_dc" and spec.psi is None:
         raise ValueError("the tvd_dc scheme needs a limiter spec.psi")
     if inertia is not None:
-        raise NotImplementedError(
-            "the transient assembly is not ported yet (ROADMAP Queue 2, item "
-            "4c, with Queue 1 item 10)"
-        )
+        if len(inertia) != 2:
+            raise ValueError("inertia must be the pair (rv_dt [C], vel_n [C,3])")
+        rv_dt, vel_n = inertia
+        if C is not None and (
+            tuple(rv_dt.shape) != (C,) or tuple(vel_n.shape) != (C, 3)
+        ):
+            raise ValueError(
+                f"inertia needs rv_dt [{C}] and vel_n [{C},3], got "
+                f"{tuple(rv_dt.shape)} and {tuple(vel_n.shape)}"
+            )
 
 
 def _settings_of(spec: AsmSpec, alpha) -> NumericalSettings:
@@ -262,8 +270,8 @@ def momentum_assembly_plain(
 ):
     """Plain torch momentum assembly: (diag [C], off [C,K], b [3,C]),
     orc_tpu's ck path (ck_flux, ck_face_pressure, ck_momentum) with the
-    spec's face models."""
-    _check_spec(spec, inertia)
+    spec's face models and, in transient runs, the inertia term."""
+    _check_spec(spec, inertia, p.shape[0])
     box, ck, bc = _ck_from_columns(flags, cols, bc_values)
     box = box._replace(cell_volume=torch.full_like(p, spec.vol))
     gp = gp_nbr = md3 = None
@@ -287,7 +295,7 @@ def momentum_assembly_plain(
     diff = ck_diffusion(box, ck, bc, mu)
     A, b, _pe = ck_momentum(
         box, ck, bc, _settings_of(spec, alpha), rho, vel, F, p_f, *diff,
-        grad_vel=grad_vel,
+        grad_vel=grad_vel, inertia=inertia,
     )
     return A.diag, A.off, b
 
@@ -322,8 +330,9 @@ def fc_momentum_assembly_plain(
     grad_vel=None, inertia=None, spec: AsmSpec = AsmSpec(),
 ):
     """Plain torch SIMPLE_FC momentum assembly: ck_momentum fed with the
-    stored flux, F = flux * area * rho -> (diag [C], off [C,K], b [3,C])."""
-    _check_spec(spec, inertia)
+    stored flux, F = flux * area * rho -> (diag [C], off [C,K], b [3,C]),
+    with the inertia term in transient runs."""
+    _check_spec(spec, inertia, p.shape[0])
     box, ck, bc = _ck_from_columns(flags, cols, bc_values)
     F = flux * ck.area * rho
     if spec.p_so:
@@ -336,7 +345,7 @@ def fc_momentum_assembly_plain(
     diff = ck_diffusion(box, ck, bc, mu)
     A, b, _pe = ck_momentum(
         box, ck, bc, _settings_of(spec, alpha), rho, vel, F, p_f, *diff,
-        grad_vel=grad_vel,
+        grad_vel=grad_vel, inertia=inertia,
     )
     return A.diag, A.off, b
 
@@ -413,9 +422,11 @@ def momentum_assembly(
     numbers. Scheme-dependent extras, as orc_tpu's: `grad_p` [C,3] under
     spec.rc or spec.p_so unless spec.gg, `mom_diag` [C] (the shared
     diagonal of the previous iteration) under spec.rc, `grad_vel`
-    [C,3,3] under "tvd_dc"; spec.vol is the cell volume. `off` is a
-    [C,K] view of K contiguous [C] planes. CPU tensors take the plain
-    version; CUDA tensors launch the kernel or raise."""
+    [C,3,3] under "tvd_dc"; spec.vol is the cell volume. In transient
+    runs `inertia` = (rv_dt [C], vel_n [C,3]) adds rho V/dt to the
+    diagonal and rho V/dt vel^n to the RHS before the relaxation. `off`
+    is a [C,K] view of K contiguous [C] planes. CPU tensors take the
+    plain version; CUDA tensors launch the kernel or raise."""
     if not vel.is_cuda:
         return momentum_assembly_plain(
             vel, p, bc_values, flags, cols, rho, mu, alpha, grad_p, mom_diag,
@@ -435,6 +446,17 @@ def _limiter_code(spec: AsmSpec) -> int:
     return LIMITER_CODES[spec.psi]
 
 
+def _inertia_ptrs(inertia, extra):
+    """(rv_dt, vel_n) made contiguous and added to `extra`, the inputs
+    _check_inputs holds to vel's rows, dtype and device; (None, None) in
+    steady runs: the C entry points take them as nullable pointers."""
+    if inertia is None:
+        return None, None
+    rv_dt, vel_n = (t.contiguous() for t in inertia)
+    extra.update(rv_dt=rv_dt, vel_n=vel_n)
+    return rv_dt, vel_n
+
+
 def _need(t, shape, what):
     """`t` made contiguous, or ValueError naming `what` when it is
     missing or misshapen."""
@@ -448,8 +470,8 @@ def _launch_momentum(
     grad_vel, inertia, spec,
 ):
     """The kernel launch of `momentum_assembly` (checks included)."""
-    _check_spec(spec, inertia)
     C, K = vel.shape[0], len(cols)
+    _check_spec(spec, inertia, C)
     psi = _limiter_code(spec)
     gg = spec.gg and (spec.rc or spec.p_so)
     extra = dict(p=p)
@@ -467,6 +489,7 @@ def _launch_momentum(
         grad_vel = None
     if (spec.rc or gg) and not spec.vol > 0:
         raise ValueError("spec.rc / spec.gg need the cell volume spec.vol > 0")
+    rv_dt, vel_n = _inertia_ptrs(inertia, extra)
     _check_inputs(vel, bc_values, flags, cols, **extra)
     vel, p, bc_values = vel.contiguous(), p.contiguous(), bc_values.contiguous()
     flags = flags.contiguous()
@@ -477,11 +500,14 @@ def _launch_momentum(
         "orc_momentum_assembly", vel.device, _cuda.dtype_code(vel),
         _SCHEMES[spec.scheme], psi, int(spec.rc), int(spec.p_so), int(gg),
         *_col_args(cols), K, vel.data_ptr(), p.data_ptr(), _ptr(grad_p),
-        _ptr(mom_diag), _ptr(grad_vel), bc_values.data_ptr(),
-        flags.data_ptr(), float(rho), float(mu), float(alpha),
-        float(spec.vol), diag.data_ptr(), off.data_ptr(), b.data_ptr(), C,
+        _ptr(mom_diag), _ptr(grad_vel), _ptr(rv_dt), _ptr(vel_n),
+        bc_values.data_ptr(), flags.data_ptr(), float(rho), float(mu),
+        float(alpha), float(spec.vol), diag.data_ptr(), off.data_ptr(),
+        b.data_ptr(), C,
     )
     momentum_assembly.launches += 1
+    if inertia is not None:
+        momentum_assembly.transient_launches += 1
     return diag, off.T, b
 
 
@@ -499,9 +525,9 @@ def fc_momentum_assembly(
     which the kernel reads without a copy).
 
     -> (diag [C], off [C,K], b [3,C]); `grad_p` [C,3] is read when
-    spec.p_so, `grad_vel` [C,3,3] when spec.scheme is "tvd_dc". CPU
-    tensors take the plain version; CUDA tensors launch the kernel or
-    raise."""
+    spec.p_so, `grad_vel` [C,3,3] when spec.scheme is "tvd_dc", and
+    `inertia` = (rv_dt [C], vel_n [C,3]) in transient runs. CPU tensors
+    take the plain version; CUDA tensors launch the kernel or raise."""
     if not vel.is_cuda:
         return fc_momentum_assembly_plain(
             vel, p, flux, bc_values, flags, cols, rho, mu, alpha, grad_p,
@@ -517,8 +543,8 @@ def _launch_fc_momentum(
     vel, p, flux, bc_values, flags, cols, rho, mu, alpha, grad_p, grad_vel,
     inertia, spec,
 ):
-    _check_spec(spec, inertia)
     C, K = vel.shape[0], len(cols)
+    _check_spec(spec, inertia, C)
     if flux.shape != (C, K):
         raise ValueError(f"flux must be [C,K] = {(C, K)}, got {tuple(flux.shape)}")
     psi = _limiter_code(spec)
@@ -531,6 +557,7 @@ def _launch_fc_momentum(
         extra["grad_vel"] = grad_vel = _need(grad_vel, (C, 3, 3), "the tvd_dc scheme")
     else:
         grad_vel = None
+    rv_dt, vel_n = _inertia_ptrs(inertia, extra)
     _check_inputs(vel, bc_values, flags, cols, **extra)
     vel, p, bc_values = vel.contiguous(), p.contiguous(), bc_values.contiguous()
     flags = flags.contiguous()
@@ -542,10 +569,13 @@ def _launch_fc_momentum(
         "orc_fc_momentum_assembly", vel.device, _cuda.dtype_code(vel),
         _SCHEMES[spec.scheme], psi, int(spec.p_so), *_col_args(cols), K,
         vel.data_ptr(), p.data_ptr(), flux_planes.data_ptr(), _ptr(grad_p),
-        _ptr(grad_vel), bc_values.data_ptr(), flags.data_ptr(), float(rho), float(mu),
-        float(alpha), diag.data_ptr(), off.data_ptr(), b.data_ptr(), C,
+        _ptr(grad_vel), _ptr(rv_dt), _ptr(vel_n), bc_values.data_ptr(),
+        flags.data_ptr(), float(rho), float(mu), float(alpha), diag.data_ptr(),
+        off.data_ptr(), b.data_ptr(), C,
     )
     fc_momentum_assembly.launches += 1
+    if inertia is not None:
+        fc_momentum_assembly.transient_launches += 1
     return diag, off.T, b
 
 
@@ -647,8 +677,11 @@ def _launch_pc(vel, mom_diag, bc_values, flags, cols, rho, p, grad_p, spec):
     return diag, off.T, b
 
 
-#: Kernel launches since the last reset.
+#: Kernel launches since the last reset; `transient_launches` counts the
+#: launches of the momentum kernels' inertia branch among them.
 momentum_assembly.launches = 0
+momentum_assembly.transient_launches = 0
 pc_assembly.launches = 0
 fc_momentum_assembly.launches = 0
+fc_momentum_assembly.transient_launches = 0
 fc_pc_assembly.launches = 0

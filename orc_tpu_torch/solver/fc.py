@@ -18,7 +18,8 @@ orc_tpu's module docstring gives the derivation and the stability
 findings. On a CUDA mesh the step runs the SIMPLE_FC assembly kernels
 (`fc_momentum_assembly`, `fc_pc_assembly`) where orc_tpu runs their
 Pallas counterparts, behind the same gate (solver/simple.py
-`_kernel_asm_spec(..., fc=True)`).
+`_kernel_asm_spec(..., fc=True)`). Like the parity step it takes the
+transient `inertia`, the momentum source and the multigrid hierarchy.
 
 Layout: the stored flux and the predictor are kept as [C,K] views of K
 contiguous [C] planes (`planes`), the layout the kernels read and
@@ -203,6 +204,8 @@ def ck_simple_step_fc(
     state,
     kernel_asm=None,  # (cols, AsmSpec) -> SIMPLE_FC assembly kernels
     maybe_singular: bool = True,
+    inertia=None,  # (rv_dt [C], vel_n [C,3]) of a transient step
+    mg_hierarchy=None,  # solver/gmg.py levels of MULTIGRID solves
 ):
     """One flux-corrected SIMPLE iteration in the (c,k) formulation.
     `state.flux` must be seeded (ck_initial_flux); `maybe_singular` is
@@ -240,10 +243,11 @@ def ck_simple_step_fc(
         mdiag, moff, b3 = fc_momentum_assembly(
             vel, p, flux, bcv, flags, cols, rho, mu,
             settings.momentum_relaxation,
-            grad_p=grad_p, grad_vel=grad_v, spec=aspec,
+            grad_p=grad_p, grad_vel=grad_v, inertia=inertia, spec=aspec,
         )
+        b3 = simple._add_momentum_source(mesh, settings, b3, active)
         A3 = mesh_matrix(mesh, mdiag, moff)
-        pe = simple._kernel_peclet(settings, mdiag, diff_diag, active)
+        pe = simple._kernel_peclet(settings, mdiag, diff_diag, active, inertia)
     else:
         F = flux * ck.area * rho
         p_f = ck_face_pressure(
@@ -253,10 +257,11 @@ def ck_simple_step_fc(
         A3, b3, pe = ck_momentum(
             mesh, ck, bc, settings, rho, vel, F, p_f,
             diff_diag, diff_off, diff_b, grad_vel=grad_v, vel_nbr=vel_nbr,
+            inertia=inertia,
         )
 
     new_vel, new_mom_diag, info = simple._solve_momentum(
-        A3, b3, vel, active, settings
+        A3, b3, vel, active, settings, mg_hierarchy
     )
     new_md_c = new_mom_diag.T  # cell-major [C,3] view
     new_md_nbr = nbr_values(mesh, new_md_c, ck.interior)
@@ -280,7 +285,8 @@ def ck_simple_step_fc(
         d_ck = ck_d_coeffs(mesh, ck, bc, rho, new_md_c, new_md_nbr)
         Pmat, b_p = ck_fc_pressure_system(mesh, ck, bc, rho, flux_h, d_ck)
     p_new, p_info = simple._solve_p_prime(
-        Pmat, b_p, p, settings, active, maybe_singular, x0=p
+        Pmat, b_p, p, settings, active, maybe_singular, x0=p,
+        mg_hierarchy=mg_hierarchy,
     )
     p_new_nbr = nbr_values(mesh, p_new, ck.interior)
     new_flux = ck_correct_flux(mesh, ck, bc, flux_h, d_ck, rho, p_new, p_new_nbr)

@@ -14,8 +14,10 @@ Ported: `SolveInfo`, `constant_deflation`, `jacobi_solve`,
 `jacobi_smooth_solve`, `bicgstab_solve`, and `iterative_solve` for
 JACOBI / JACOBI_SMOOTH / BICGSTAB, on structured, slice-plan and gather
 matrices, with DF32 iterative refinement (`solver/refine.py`) for
-float64 systems under `SolverPrecision.DF32_IR`. Gauss-Seidel and
-multigrid raise NotImplementedError (ROADMAP Queue 1, items 4 and 8).
+float64 systems under `SolverPrecision.DF32_IR`, and for MULTIGRID with
+a geometric hierarchy (`solver/gmg.py`, structured meshes). Gauss-Seidel
+and the algebraic hierarchy of irregular meshes raise
+NotImplementedError (ROADMAP Queue 1, items 4 and 8).
 """
 
 from __future__ import annotations
@@ -86,12 +88,15 @@ def _max_abs(x):
     return torch.amax(torch.abs(x), dim=-1)
 
 
-def constant_deflation(null_scale, active):
+def constant_deflation(null_scale, active=None):
     """Projection x -> x - null_scale * mean_active(x) removing the
     constant (gauge) mode of an unanchored pressure-correction system.
-    `active` [C] bool masks padded rows. 1-D vectors only."""
+    `active` [C] bool masks padded rows (None: every row, the plain mean
+    of the multigrid coarse levels). 1-D vectors only."""
 
     def project(x):
+        if active is None:
+            return x - null_scale * (torch.sum(x, dim=-1) / x.shape[-1])
         zero = torch.zeros((), dtype=x.dtype, device=x.device)
         n = torch.sum(active.to(x.dtype))
         mean = torch.sum(torch.where(active, x, zero)) / n
@@ -243,12 +248,17 @@ def bicgstab_solve(
 
 
 def iterative_solve(
-    A: EllMatrix, b, x0, settings: MatrixSolverSettings, project=_no_project
+    A: EllMatrix, b, x0, settings: MatrixSolverSettings, project=_no_project,
+    mg_hierarchy=None, null_scale=None,
 ):
     """Solver dispatch (orc_tpu's `iterative_solve`, single device).
     Matrices with a slice plan take the slice-column layout, and
     structured ones are split into their K columns, once, before the
-    loop; Jacobi preconditioning scales the rows by 1/diag."""
+    loop (not under MULTIGRID: its cycle keeps the array form for the
+    Galerkin products); Jacobi preconditioning scales the rows by
+    1/diag. `mg_hierarchy` (solver/gmg.build_mg_hierarchy) drives
+    MULTIGRID; `null_scale` lets its coarse levels deflate the constant
+    mode that `project` removes on the fine level."""
     method = settings.solver_type
     if (
         settings.precision == SolverPrecision.DF32_IR
@@ -269,7 +279,7 @@ def iterative_solve(
         )
     if A.plan is not None and method != SolutionMethod.MULTIGRID:
         A = A.prepare()
-    if A.offsets is not None:
+    if A.offsets is not None and method != SolutionMethod.MULTIGRID:
         A = A.split_columns()
     if settings.preconditioner == PreconditionMethod.JACOBI:
         A, inv_d = A.jacobi_preconditioned()
@@ -291,7 +301,25 @@ def iterative_solve(
             convergence_threshold=settings.relative_convergence_threshold,
             compensated=settings.compensated_f32, project=project,
         )
+    if method == SolutionMethod.MULTIGRID:
+        if mg_hierarchy is None:
+            if A.offsets is None:
+                raise NotImplementedError(
+                    "multigrid on a matrix without structured offsets needs "
+                    "the algebraic hierarchy, which is not ported yet "
+                    "(ROADMAP Queue 1, item 8)"
+                )
+            raise ValueError(
+                "Multigrid needs a host-built hierarchy; pass mg_hierarchy "
+                "(see orc_tpu_torch.solver.gmg.build_mg_hierarchy)"
+            )
+        from orc_tpu_torch.solver.gmg import gmg_solve
+
+        return gmg_solve(
+            A, b, x0, settings, mg_hierarchy, project=project,
+            null_scale=null_scale,
+        )
     raise NotImplementedError(
         f"solution method {method} is not ported yet (ROADMAP Queue 1, "
-        "items 4 and 8)"
+        "item 4)"
     )

@@ -9,15 +9,19 @@ small metrics back to the host once per chunk.
 
 SIMPLE_FC (AUTO under Rhie-Chow + implicit relaxation) runs
 `solver/fc.py`'s `ck_simple_step_fc` in the same loop, with the stored
-face flux carried in `FlowState.flux`.
+face flux carried in `FlowState.flux`. Both steps take the implicit-Euler
+`inertia` of transient runs (solver/transient.py) and the momentum
+source of settings.momentum_source; MULTIGRID solves run the geometric
+V-cycle of solver/gmg.py over a hierarchy built once per run.
 
 On a CUDA mesh the steps run the hand-written kernels where orc_tpu runs
 its Pallas kernels: the fused assembly kernels behind the gate
 `_kernel_asm_spec` (mirroring orc_tpu's `_pallas_asm_spec`, uniform
-boxes only; every steady scheme and face model of orc_tpu's kernels,
-the parity kernels with the Green-Gauss pressure gradient computed in
-the kernel), the Jacobi-sweep kernel in the momentum smoother and the
-shift SpMV in every Krylov iteration on structured meshes; the slice
+boxes only; every scheme and face model of orc_tpu's kernels, steady and
+transient, the parity kernels with the Green-Gauss pressure gradient
+computed in the kernel), the Jacobi-sweep kernel in the momentum
+smoother and the shift SpMV in every Krylov iteration, on every
+multigrid level, on structured meshes; the slice
 SpMV and the slice neighbour gather on irregular meshes (RCM-reordered,
 with a slice plan), whose assembly is plain (c,k) ops, as in orc_tpu;
 the exact slice product in the residuals of DF32_IR solves. On CPU they
@@ -25,8 +29,8 @@ take the plain versions.
 
 Not ported yet (each raises NotImplementedError naming its ROADMAP
 item): the face-major step (`use_ck=False`), least-squares and
-node-based gradients, Gauss-Seidel and multigrid solves, momentum
-sources, transient runs and the sharded runtime.
+node-based gradients, Gauss-Seidel solves, multigrid on meshes without
+a structured box (the algebraic hierarchy) and the sharded runtime.
 """
 
 from __future__ import annotations
@@ -53,7 +57,7 @@ from orc_tpu_torch.ops.ck_ops import (
     mesh_matrix,
     nbr_values,
 )
-from orc_tpu_torch.ops.fields import device_bc
+from orc_tpu_torch.ops.fields import device_bc, momentum_source_term
 from orc_tpu_torch.solver.krylov import (
     _no_project,
     constant_deflation,
@@ -176,48 +180,67 @@ def table_has_pressure_bc(table) -> bool:
 
 
 def _solve_p_prime(
-    Pmat, b_p, p, settings, active, maybe_singular: bool, x0=None
+    Pmat, b_p, p, settings, active, maybe_singular: bool, x0=None,
+    mg_hierarchy=None,
 ):
     """Solve the pressure(-correction) system, with the constant null
-    mode deflated when the system is singular. The parity loop starts
-    from zero; SIMPLE_FC solves the full p warm-started from `x0` = p,
-    zeroed outside the active rows."""
+    mode deflated when the system is singular (on every multigrid level:
+    `null_scale` reaches the coarse ones). The parity loop starts from
+    zero; SIMPLE_FC solves the full p warm-started from `x0` = p, zeroed
+    outside the active rows."""
     if maybe_singular:
         null_scale = torch.ones((), dtype=p.dtype, device=p.device)
         project = constant_deflation(null_scale, active=active)
     else:
-        project = _no_project
+        null_scale, project = None, _no_project
     if x0 is None:
         x0 = torch.zeros_like(p)
     else:
         x0 = torch.where(active, x0, torch.zeros((), dtype=p.dtype, device=p.device))
     p_prime, p_info = iterative_solve(
-        Pmat, b_p, x0, settings.matrix_solver, project=project
+        Pmat, b_p, x0, settings.matrix_solver, project=project,
+        mg_hierarchy=mg_hierarchy, null_scale=null_scale,
     )
     return project(p_prime), p_info
 
 
-def _solve_momentum(A3, b3, vel, active, settings):
+def _solve_momentum(A3, b3, vel, active, settings, mg_hierarchy=None):
     """One batched solve of the u/v/w systems over the shared matrix,
     warm-started from vel: (new vel [C,3], new mom_diag [3,C], info)."""
     zero = torch.zeros((), dtype=vel.dtype, device=vel.device)
     x0 = torch.where(active[None, :], vel.T, zero)  # [3,C]
-    sol, info = iterative_solve(A3, b3, x0, settings.momentum_matrix_solver())
+    sol, info = iterative_solve(
+        A3, b3, x0, settings.momentum_matrix_solver(), mg_hierarchy=mg_hierarchy
+    )
     return sol.T, A3.diag[None, :].expand(3, -1), info
 
 
-def _kernel_peclet(settings, mdiag, diff_diag, active):
+def _kernel_peclet(settings, mdiag, diff_diag, active, inertia=None):
     """Per-cell Peclet estimate [C,3] from the kernels' relaxed momentum
-    diagonal (the kernels do not return the advection diagonal)."""
+    diagonal (the kernels do not return the advection diagonal), less
+    the inertia term rho V/dt of transient runs."""
     zero = torch.zeros((), dtype=mdiag.dtype, device=mdiag.device)
     one = torch.ones((), dtype=mdiag.dtype, device=mdiag.device)
+    rvdt = inertia[0] if inertia is not None else 0.0
     safe_dd = torch.where(active, diff_diag, one)
     return torch.where(
         active[:, None],
-        ((settings.momentum_relaxation * mdiag - diff_diag) / safe_dd)[:, None]
+        ((settings.momentum_relaxation * mdiag - diff_diag - rvdt) / safe_dd)[:, None]
         * torch.ones((1, 3), dtype=mdiag.dtype, device=mdiag.device),
         zero,
     )
+
+
+def _add_momentum_source(mesh, settings, b3, active):
+    """b3 [3,C] plus settings.momentum_source on the active rows: the
+    kernel branch adds the source after the kernel, as orc_tpu does."""
+    if settings.momentum_source is None:
+        return b3
+    src = momentum_source_term(
+        settings.momentum_source, mesh.cell_centroid, mesh.cell_volume
+    )
+    zero = torch.zeros((), dtype=b3.dtype, device=b3.device)
+    return b3 + torch.where(active[None, :], src.T, zero)
 
 
 def _step_metrics(active, vel3, pe, p_corr_sq, vel_corr_sq, info, p_info):
@@ -258,6 +281,8 @@ def ck_simple_step(
     state: FlowState,
     kernel_asm=None,  # (cols, AsmSpec) -> fused assembly kernels
     maybe_singular: bool = True,
+    inertia=None,  # (rv_dt [C], vel_n [C,3]) of a transient step
+    mg_hierarchy=None,  # solver/gmg.py levels of MULTIGRID solves
 ):
     """One SIMPLE iteration in the gather-free (c,k) formulation."""
     bc = ck_bc(ck, zone_codes, zone_scalar, zone_vector)
@@ -286,10 +311,11 @@ def ck_simple_step(
         mdiag, moff, b3 = momentum_assembly(
             vel, p, bcv, flags, cols, rho, mu, settings.momentum_relaxation,
             grad_p=grad_p, mom_diag=state.mom_diag[0], grad_vel=grad_v,
-            spec=aspec,
+            inertia=inertia, spec=aspec,
         )
+        b3 = _add_momentum_source(mesh, settings, b3, active)
         A3 = mesh_matrix(mesh, mdiag, moff)
-        pe = _kernel_peclet(settings, mdiag, diff_diag, active)
+        pe = _kernel_peclet(settings, mdiag, diff_diag, active, inertia)
     else:
         md_c = state.mom_diag.T  # cell-major [C,3] view
         vel_nbr = nbr_values(mesh, vel, ck.interior)
@@ -314,9 +340,12 @@ def ck_simple_step(
         A3, b3, pe = ck_momentum(
             mesh, ck, bc, settings, rho, vel, F, p_f,
             diff_diag, diff_off, diff_b, grad_vel=grad_v, vel_nbr=vel_nbr,
+            inertia=inertia,
         )
 
-    new_vel, new_mom_diag, info = _solve_momentum(A3, b3, vel, active, settings)
+    new_vel, new_mom_diag, info = _solve_momentum(
+        A3, b3, vel, active, settings, mg_hierarchy
+    )
 
     if kernel_asm is not None:
         from orc_tpu_torch.ops.fused_assembly import pc_assembly
@@ -340,7 +369,8 @@ def ck_simple_step(
             mesh, ck, bc, rho, F2, new_md_c, mom_diag_nbr=new_md_nbr
         )
     p_prime, p_info = _solve_p_prime(
-        Pmat, b_p, p, settings, active, maybe_singular
+        Pmat, b_p, p, settings, active, maybe_singular,
+        mg_hierarchy=mg_hierarchy,
     )
     vel3, p_new, (p_corr_sq, vel_corr_sq) = ck_apply_correction(
         mesh, ck, bc, settings, p_prime, new_mom_diag.T, new_vel, p
@@ -352,7 +382,7 @@ def ck_simple_step(
 
 def _run_chunk(
     mesh, ck, ck_diff, state, zc, zs, zv, rho, mu, *, settings, n_steps,
-    kernel_asm=None, maybe_singular=True, use_fc=False,
+    kernel_asm=None, maybe_singular=True, use_fc=False, mg_hierarchy=None,
 ):
     """n_steps SIMPLE (or SIMPLE_FC) iterations; returns (state,
     StepMetrics of [n_steps]-leading tensors). Float32 runs accumulate
@@ -369,6 +399,7 @@ def _run_chunk(
         return step_fn(
             mesh, ck, zc, zs, zv, settings, rho, mu, ck_diff, s,
             kernel_asm=kernel_asm, maybe_singular=maybe_singular,
+            mg_hierarchy=mg_hierarchy,
         )
 
     use_comp = settings.compensated_state and state.vel.dtype == torch.float32
@@ -397,14 +428,16 @@ def _on_cuda(mesh) -> bool:
     return mesh.cell_volume.is_cuda
 
 
-def _kernel_asm_spec(mesh, table, settings, ck, fc=False, transient=False):
+def _kernel_asm_spec(mesh, table, settings, ck, fc=False):
     """Static (cols, AsmSpec) for the fused assembly kernels when the
     configuration is eligible, else None: orc_tpu's `_pallas_asm_spec`
     with "on CPU" read as "mesh not on CUDA" and the float32 condition
     dropped (Hopper has float64). Both couplings take UD / CD1 / TVD_DC
     momentum, Linear[Weighted] or Rhie-Chow face fluxes and
     Linear[Weighted] or SecondOrder face pressures, under implicit
-    relaxation, on uniform boxes (`column_specs`), steady.
+    relaxation, on uniform boxes (`column_specs`), steady or transient
+    (the kernels take the inertia term, so orc_tpu's `transient` flag
+    selects nothing here).
 
     - A CUDA kernel takes no Python callable, so the TVD limiter travels
       as a code: only tvd_lud, tvd_quick and tvd_umist are eligible; any
@@ -419,7 +452,6 @@ def _kernel_asm_spec(mesh, table, settings, ck, fc=False, transient=False):
         or mesh.ck_constants is None
         or not _on_cuda(mesh)
         or settings.relaxation_mode != RelaxationMode.IMPLICIT
-        or transient
     ):
         return None
     from orc_tpu_torch.ops.fused_assembly import (
@@ -463,7 +495,7 @@ def _kernel_asm_spec(mesh, table, settings, ck, fc=False, transient=False):
     )
 
 
-def _check_ported(settings: NumericalSettings, use_ck):
+def _check_ported(mesh, settings: NumericalSettings, use_ck):
     if use_ck is False:
         raise NotImplementedError(
             "the face-major SIMPLE and SIMPLE_FC steps are not ported yet "
@@ -475,11 +507,27 @@ def _check_ported(settings: NumericalSettings, use_ck):
             "yet (ROADMAP Queue 1, item 3)"
         )
     for ms in (settings.matrix_solver, settings.momentum_matrix_solver()):
-        if ms.solver_type in (SolutionMethod.GAUSS_SEIDEL, SolutionMethod.MULTIGRID):
+        if ms.solver_type == SolutionMethod.GAUSS_SEIDEL:
             raise NotImplementedError(
                 f"solver {ms.solver_type} is not ported yet (ROADMAP Queue 1, "
-                "items 4 and 8)"
+                "item 4)"
             )
+    if use_ck == "auto" and mesh.n_cells > CK_AUTO_MAX_CELLS:
+        raise NotImplementedError(
+            f"{mesh.n_cells} cells exceed CK_AUTO_MAX_CELLS: the face-major "
+            "step is not ported yet (ROADMAP Queue 1, item 3)"
+        )
+
+
+def _mg_hierarchy(mesh, settings):
+    """The geometric hierarchy of a MULTIGRID run (orc_tpu's
+    solver_extras), else None; raises on meshes that would need the
+    algebraic one."""
+    if settings.matrix_solver.solver_type != SolutionMethod.MULTIGRID:
+        return None
+    from orc_tpu_torch.solver.gmg import build_mg_hierarchy
+
+    return build_mg_hierarchy(mesh, settings)
 
 
 def solve_steady(
@@ -502,12 +550,8 @@ def solve_steady(
     only step ported so far. Returns (FlowState, list of per-chunk
     StepMetrics with [n]-leading tensors)."""
     table.validate_supported()
-    _check_ported(settings, use_ck)
-    if use_ck == "auto" and mesh.n_cells > CK_AUTO_MAX_CELLS:
-        raise NotImplementedError(
-            f"{mesh.n_cells} cells exceed CK_AUTO_MAX_CELLS: the face-major "
-            "step is not ported yet (ROADMAP Queue 1, item 3)"
-        )
+    _check_ported(mesh, settings, use_ck)
+    mg_hierarchy = _mg_hierarchy(mesh, settings)
     reporting_interval = max(1, min(reporting_interval, iterations))
     zc, zs, zv = device_bc(table, dtype=mesh.dtype, device=mesh.device)
     if state is None:
@@ -542,6 +586,7 @@ def solve_steady(
             mesh, ck, ck_diff, state, zc, zs, zv, rho, mu,
             settings=settings, n_steps=n, kernel_asm=kernel_asm,
             maybe_singular=maybe_singular, use_fc=use_fc,
+            mg_hierarchy=mg_hierarchy,
         )
         done += n
         history.append(metrics)

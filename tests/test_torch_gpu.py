@@ -1,7 +1,9 @@
 """The port's CUDA kernels on the card, each against its plain torch
-version (the exact slice product bitwise), the SIMPLE and SIMPLE_FC
-slices on CUDA against the same slices on CPU, on structured boxes and
-on permuted (irregular) cavities, and a DF32_IR solve.
+version (the exact slice product bitwise; the momentum kernels also in
+their transient instances), the SIMPLE and SIMPLE_FC slices on CUDA
+against the same slices on CPU, on structured boxes and on permuted
+(irregular) cavities, steady, transient and under MULTIGRID, and a
+DF32_IR solve.
 
 Every test here is marked `gpu` and skips where torch.cuda.is_available()
 is false. The file imports neither JAX nor orc_tpu, so it runs on a GPU
@@ -222,7 +224,7 @@ def test_parity_branch_kernels_match_plain(dev, dtype, case, family):
 def test_parity_kernels_refuse_what_they_cannot_run(dev):
     """A CUDA call the parity kernels cannot serve raises: a missing
     streamed gradient, diagonal or velocity gradient, a limiter without
-    a kernel code, no cell volume, the transient term."""
+    a kernel code, no cell volume, an inertia pair of the wrong shape."""
     vel, p, md, bcv, flags, cols = _asm_case("cavity", torch.float64, dev)
     C = vel.shape[0]
     gv = torch.zeros((C, 3, 3), dtype=vel.dtype, device=dev)
@@ -238,8 +240,8 @@ def test_parity_kernels_refuse_what_they_cannot_run(dev):
             asm.momentum_assembly(*args, spec=spec, **kw)
     with pytest.raises(ValueError):
         asm.pc_assembly(vel, md, bcv, flags, cols, 1.0, spec=asm.AsmSpec(rc=True, gg=True, vol=1.0))
-    with pytest.raises(NotImplementedError):
-        asm.momentum_assembly(*args, inertia=(vel[:, 0], vel))
+    with pytest.raises(ValueError):
+        asm.momentum_assembly(*args, inertia=(vel[:-1, 0], vel))
 
 
 #: (momentum scheme, limiter, Rhie-Chow, SecondOrder pressure) of the
@@ -300,7 +302,8 @@ def test_fc_assembly_kernels_match_plain(dev, dtype, case, spec_name):
 
 def test_fc_kernels_refuse_what_they_cannot_run(dev):
     """A CUDA call the SIMPLE_FC kernels cannot serve raises: a limiter
-    without a kernel code, a missing gradient, the transient term."""
+    without a kernel code, a missing gradient, an inertia pair of the
+    wrong shape."""
     vel, p, _md, bcv, flags, cols = _asm_case("cavity", torch.float64, dev)
     C, K = vel.shape[0], len(cols)
     flux = torch.zeros((C, K), dtype=vel.dtype, device=dev)
@@ -317,8 +320,85 @@ def test_fc_kernels_refuse_what_they_cannot_run(dev):
         )
     with pytest.raises(ValueError):
         asm.fc_momentum_assembly(*args, spec=asm.AsmSpec(p_so=True))
-    with pytest.raises(NotImplementedError):
-        asm.fc_momentum_assembly(*args, inertia=(vel[:, 0], vel))
+    with pytest.raises(ValueError):
+        asm.fc_momentum_assembly(*args, inertia=(vel[:, 0], vel[:, :2]))
+
+
+@pytest.mark.parametrize("case", ["cavity", "cavity3d", "couette", "vinlet"])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_inertia_kernels_match_plain(dev, dtype, case):
+    """Guards the transient branch of orc_tpu/ops/pallas_assembly.py
+    `_momentum_kernel` (:410-417), parity and SIMPLE_FC: with inertia =
+    (rho V/dt, vel^n) every parity face-model instance of the UD, CD1 and
+    TVD_DC + UMIST families and every SIMPLE_FC spec against the plain
+    versions, each launch counted as transient."""
+    dt = DTYPES[dtype]
+    vel, p, md, bcv, flags, cols = _asm_case(case, dt, dev)
+    mesh, table = _asm_mesh(case, dt, dev)
+    zc, zs, zv = device_bc(table, dtype=dt, device=dev)
+    ck = build_ck_geometry(mesh, len(table.zone_ids))
+    bc = ck_bc(ck, zc, zs, zv)
+    grad_p = ck_pressure_gradient(mesh, ck, bc, p)
+    grad_v = ck_velocity_gradient(mesh, ck, bc, vel)
+    rng = np.random.default_rng(21)
+    vel_n = torch.tensor(rng.standard_normal(vel.shape) * 0.1, dtype=dt, device=dev)
+    inertia = (1000.0 * mesh.cell_volume / 0.01, vel_n)
+    vol = float(mesh.cell_volume[0])
+    before = (asm.momentum_assembly.transient_launches,
+              asm.fc_momentum_assembly.transient_launches)
+    n_parity = 0
+    for scheme, psi in (("ud", None), ("cd1", None), ("tvd_dc", tset.tvd_umist)):
+        for rc, p_so, gg in FACE_MODELS:
+            spec = asm.AsmSpec(scheme=scheme, rc=rc, p_so=p_so, psi=psi, vol=vol, gg=gg)
+            margs = (vel, p, bcv, flags, cols, 1.0, 1e-3, 0.7)
+            mkw = dict(grad_p=None if gg else grad_p, mom_diag=md, grad_vel=grad_v,
+                       inertia=inertia, spec=spec)
+            got = asm.momentum_assembly(*margs, **mkw)
+            ref = asm.momentum_assembly_plain(*margs, **mkw)
+            torch.cuda.synchronize()
+            n_parity += 1
+            for name, a, r in zip(("diag", "off", "b"), got, ref):
+                _close(a, r, TOL[dtype], f"transient momentum {spec} {name}")
+    flux = ck_flux(mesh, ck, bc, vel_n, tset.VelocityInterpolation.LINEAR_WEIGHTED)
+    flux = flux.T.contiguous().T
+    for scheme, psi, rc, p_so in FC_SPECS.values():
+        spec = asm.AsmSpec(scheme=scheme, rc=rc, p_so=p_so, psi=psi, vol=vol)
+        margs = (vel, p, flux, bcv, flags, cols, 1.0, 1e-3, 0.7)
+        mkw = dict(grad_p=grad_p, grad_vel=grad_v, inertia=inertia, spec=spec)
+        got = asm.fc_momentum_assembly(*margs, **mkw)
+        ref = asm.fc_momentum_assembly_plain(*margs, **mkw)
+        torch.cuda.synchronize()
+        for name, a, r in zip(("diag", "off", "b"), got, ref):
+            _close(a, r, TOL[dtype], f"transient fc momentum {spec} {name}")
+    assert (asm.momentum_assembly.transient_launches,
+            asm.fc_momentum_assembly.transient_launches) == (
+        before[0] + n_parity, before[1] + len(FC_SPECS)
+    )
+
+
+@pytest.mark.parametrize("coupling", ["SIMPLE", "SIMPLE_FC"])
+def test_transient_slice_on_cuda_matches_cpu(dev, coupling):
+    """solve_transient on a 16^2 f64 cavity (solve_cavity's numerics with
+    a Jacobi(50) pressure solve, under each coupling; 3 steps x 4
+    iterations) on the card, through the inertia kernels, against the
+    same run on the CPU: equal inner counts, fields to 1e-9 of scale."""
+    from orc_tpu_torch.solver.transient import solve_transient
+
+    settings = default_settings().replace(
+        pressure_velocity_coupling=tset.PressureVelocityCoupling[coupling],
+        matrix_solver=JACOBI_50,
+    )
+    out = []
+    for d in (dev, torch.device("cpu")):
+        mesh, table = cavity_case(n=16, device=d)
+        out.append(solve_transient(
+            mesh, table, settings, 1.0, 0.01, dt=0.05, n_steps=3,
+            inner_iterations=4, verbose=False,
+        ))
+    (sg, hg), (sc, hc) = out
+    assert torch.equal(hg.pc_iters.cpu(), hc.pc_iters)
+    for name in ("vel", "p"):
+        _close(getattr(sg, name), getattr(sc, name), 1e-9, name)
 
 
 #: The reference's default numerics under forced SIMPLE with implicit
@@ -339,6 +419,13 @@ REF_DEFAULT = default_settings().replace(
 JACOBI_50 = tset.MatrixSolverSettings(
     solver_type=tset.SolutionMethod.JACOBI, iterations=50
 )
+#: The geometric multigrid pressure solve of tests/test_gmg.py's cavity
+#: (3 levels, 5 BiCGSTAB smoother iterations each, Jacobi-preconditioned).
+MG_3 = tset.MatrixSolverSettings(
+    solver_type=tset.SolutionMethod.MULTIGRID, iterations=40,
+    multigrid_levels=3, multigrid_smoother_iterations=5,
+    preconditioner=tset.PreconditionMethod.JACOBI,
+)
 
 
 def _solve(dev, name, iterations):
@@ -352,6 +439,9 @@ def _solve(dev, name, iterations):
     elif name == "ref_default":
         mesh, table = cavity_case(n=16, device=dev)
         settings, rho, mu = REF_DEFAULT, 1.0, 0.01
+    elif name == "multigrid":
+        mesh, table = cavity_case(n=16, device=dev)
+        settings, rho, mu = default_settings().replace(matrix_solver=MG_3), 1.0, 0.01
     elif name == "fc_couette":
         mesh, table = couette_case(
             32, 16,
@@ -389,6 +479,7 @@ def _solve(dev, name, iterations):
     [
         ("cavity", 10, KERNELS),
         ("ref_default", 10, KERNELS),
+        ("multigrid", 10, KERNELS),
         ("couette", 50, (shift_spmv,)),
         ("fc_cavity", 10, FC_KERNELS),
         ("fc_couette", 50, FC_KERNELS),

@@ -480,10 +480,17 @@ def test_fc_cpu_tensors_take_the_plain_version():
 
 
 def test_fc_transient_assembly_raises():
+    """The transient branch takes (rv_dt [C], vel_n [C,3]) and raises on
+    any other inertia; tests/test_torch_transient.py holds its values."""
     _, T = _fc_inputs("cavity", "ud-linear", "f64")
-    with pytest.raises(NotImplementedError):
+    steady = tasm.fc_momentum_assembly(*_fc_mom_args(T), spec=T["spec"])
+    diag, _off, _b = tasm.fc_momentum_assembly(
+        *_fc_mom_args(T), inertia=(T["md"], T["vel"]), spec=T["spec"]
+    )
+    assert torch.allclose(diag, steady[0] + T["md"] / 0.7)
+    with pytest.raises(ValueError):
         tasm.fc_momentum_assembly(
-            *_fc_mom_args(T), inertia=(T["md"], T["vel"]), spec=T["spec"]
+            *_fc_mom_args(T), inertia=(T["md"], T["vel"][:, :2]), spec=T["spec"]
         )
 
 
@@ -602,14 +609,18 @@ def test_parity_pc_rhie_chow_matches_ck_oracle(case, gg):
 
 
 def test_parity_assembly_refuses_only_the_transient_branch():
-    """Every steady spec has a kernel; the transient inertia term raises
-    (ROADMAP Queue 2, item 4c)."""
+    """Every spec has a kernel, steady and transient; only an inertia that
+    is not (rv_dt [C], vel_n [C,3]) is refused."""
     _, T = _parity_inputs("cavity", "tvd_dc-rc", "f64", True)
     args = (T["vel"], T["p"], T["bcv"], T["flags"], T["cols"], 1.0, 1e-3, 0.7)
-    tasm.momentum_assembly(*args, **_parity_mom_kw(T))
-    with pytest.raises(NotImplementedError, match="4c"):
+    steady = tasm.momentum_assembly(*args, **_parity_mom_kw(T))
+    diag, _off, _b = tasm.momentum_assembly(
+        *args, inertia=(T["md"], T["vel"]), **_parity_mom_kw(T)
+    )
+    assert torch.allclose(diag, steady[0] + T["md"] / 0.7)
+    with pytest.raises(ValueError, match="inertia"):
         tasm.momentum_assembly(
-            *args, inertia=(T["md"], T["vel"]), **_parity_mom_kw(T)
+            *args, inertia=(T["md"][:-1], T["vel"]), **_parity_mom_kw(T)
         )
 
 

@@ -161,8 +161,14 @@ def test_exit_check_interval_does_not_change_results(monkeypatch):
 
 @pytest.mark.parametrize("method", ["GAUSS_SEIDEL", "MULTIGRID"])
 def test_unported_methods_raise(method):
+    """Gauss-Seidel, and multigrid on a matrix without structured offsets
+    (the algebraic hierarchy; structured ones take solver/gmg.py)."""
+    import dataclasses
+
     diag, off, b, x0 = _system(False)
     _, At = _pair(diag, off)
+    if method == "MULTIGRID":
+        At = dataclasses.replace(At, offsets=None)
     ts = tset.MatrixSolverSettings(solver_type=tset.SolutionMethod[method])
     with pytest.raises(NotImplementedError):
         tk.iterative_solve(At, torch.tensor(b), torch.tensor(x0), ts)
