@@ -15,7 +15,10 @@ Phases (any failure raises and the script exits non-zero):
    a sleeping kernel, which the summary reports), the bound (bytes
    over 3.35 TB/s, or operations over the peak rate) and, for the SpMVs
    and the gather, the one PyTorch call computing the same function
-   (torch.sparse CSR times x; x[cell_neighbors]): the parity kernels on
+   (torch.sparse CSR times x; x[cell_neighbors]), each line with its
+   share of 3.35 TB/s: the shift SpMV on the 1024^2 f32 cavity's
+   pressure system (B = 1 and 3), the 128x64 f64 couette's (B = 1 and 3)
+   and a K = 6 system of the 128^3 cavity's shape, the parity kernels on
    the 1024^2 f32 cavity (UD, steady and transient), their Rhie-Chow /
    SecondOrder / TVD_DC / in-kernel-gradient branches on the
    reference-default 1024^2 f32 cavity (CD1 + SO + RC + GG also
@@ -488,6 +491,20 @@ def phase_kernels(dev, kernels, mom_t):
             torch.float64, 128 * 64 * (5 * 8 + 2 * B * 8), timed=False,
         )
     del state, A, P, b3, x3
+    # The pressure systems of the 128^3 cavity (phase 15): K = 6, split
+    # planes; +-16384 lies far beyond the kernel's shared-memory window.
+    n3 = 128**3
+    box_offsets = (-128 * 128, -128, -1, 1, 128, 128 * 128)
+    diag, off, x = structured_system(n3, box_offsets, 1, torch.float32, dev)
+    planes = tuple(off.T.contiguous())
+    spmv.compare(
+        "cavity3d 128^3 f32 K=6 split",
+        lambda: shift_spmv(diag, planes, box_offsets, x),
+        lambda: shift_spmv_plain(diag, planes, box_offsets, x),
+        torch.float32, n3 * (7 * f32 + 2 * f32), timed=False,
+        nops=2 * n3 * 7, library_call=shift_csr_call(diag, planes, box_offsets, x),
+    )
+    del diag, off, x, planes
 
 
 def ref_default_settings():

@@ -10,44 +10,220 @@
 // padding. B right-hand sides (the u/v/w momentum systems) share one
 // matrix. Both float32 and float64 (the couette case runs in f64).
 //
-// Bound on the H100: device memory. Each row moves (K + 3) * sizeof(T)
-// bytes at B = 1 (diag, K columns, x, y); the K neighbour reads of x
-// hit lines that adjacent rows already brought into L1/L2 (|d_k| * 8 B
-// is at most a few KB apart within a tile), so HBM sees x once.
-// Design: one thread per row in a grid-stride loop, coalesced column
-// reads (each column is a contiguous [C] plane or a strided view),
-// blockIdx.y over the batch. Simple and right first: with B = 3 each
-// batch row re-reads the shared matrix (from L2 for the 2nd and 3rd);
-// reading it once per row for all B is later work.
+// Bound on the H100: device memory. At B = 1 each row moves
+// (K + 3) * sizeof(T) bytes (diag, K columns, x, y), and each further
+// batch row 2 * sizeof(T): 29.4 MB, 8.8 us at 3.35 TB/s, for the
+// 1024^2 f32 pressure system (K = 4). The K neighbour reads of x hit
+// lines that nearby rows already brought into L1/L2, so HBM sees x once.
+//
+// Design. The first design (one row per thread, scalar loads, a 64-bit
+// index product per column and row, one CTA row per batch row that
+// re-read the shared matrix) moved 1.46 TB/s at 1024^2 f32 on an NVIDIA
+// H100 80GB HBM3 at 700 W: too few loads in flight. Now:
+//  - a thread owns V = 16 / sizeof(T) consecutive rows and reads diag,
+//    each contiguous column and x with one 16-byte load each; a plane
+//    that starts unaligned (an odd C, an offset view of x, a later batch
+//    row of a ragged C) or a strided [C, K] column takes scalar loads in
+//    the same kernel;
+//  - small shifts (|d_k| <= H, the +-1 of every box) read a shared-memory
+//    window of x that the CTA fills once per batch row (its own rows and
+//    H more on each side): two aligned 16-byte reads combined in
+//    registers instead of misaligned global loads;
+//  - large shifts (+-nx, +-nx*ny; a 128^3 box's +-16384 fits no window)
+//    read x from global memory (L2), 16 bytes at a time where aligned,
+//    issued before the window's barrier;
+//  - the matrix is read once into registers and applied to every batch
+//    row (the window is double-buffered: one barrier per batch row);
+//    a system too small to fill the card takes one CTA per batch row;
+//  - K = 4 and 6 are template instances (any K <= MAX_K runs the generic
+//    one); 64-bit index arithmetic once per thread, not per row.
+// The arithmetic is the first design's: diag * x rounded, then one fused
+// multiply-add per column in order (acc = acc + col * x as nvcc
+// contracted it), so the results are unchanged bit for bit.
+#include <cstdint>
+
 #include "common.cuh"
 
 namespace orc {
 
+constexpr int kSpmvThreads = 128;
+
+// V = 16 / sizeof(T) consecutive values, one 16-byte load or store.
 template <typename T>
-__global__ void shift_spmv_kernel(const T* __restrict__ diag,
-                                  Columns<T> cols,
-                                  const T* __restrict__ x,
-                                  T* __restrict__ y, long long C) {
-  const long long b = blockIdx.y;
-  const T* xb = x + b * C;
-  T* yb = y + b * C;
-  const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
-                     threadIdx.x;
-       i < C; i += step) {
-    // Same accumulation order as the plain version: diag first, then
-    // the columns in order.
-    T acc = diag[i] * xb[i];
+struct alignas(16) Vec {
+  static constexpr int V = 16 / sizeof(T);
+  T v[V];
+};
+
+// p[j * stride] for j < n (zero for j >= n): one 16-byte load when `vec`
+// (p contiguous and 16-byte aligned) and the whole vector is in range.
+template <typename T>
+__device__ __forceinline__ Vec<T> load_rows(const T* __restrict__ p,
+                                            long long stride, bool vec,
+                                            int n) {
+  constexpr int V = Vec<T>::V;
+  if (vec && n >= V) return *reinterpret_cast<const Vec<T>*>(p);
+  Vec<T> r;
 #pragma unroll
-    for (int k = 0; k < MAX_K; ++k) {
-      if (k < cols.K) {
-        const long long j = i + cols.offset[k];
-        const T xv = (j >= 0 && j < C) ? xb[j] : T(0);
-        acc = acc + cols.col[k][i * cols.stride[k]] * xv;
+  for (int j = 0; j < V; ++j) r.v[j] = j < n ? p[j * stride] : T(0);
+  return r;
+}
+
+// x[i + d + j], j < n, zero outside [0, C): from global memory.
+template <typename T>
+__device__ __forceinline__ Vec<T> load_shifted(const T* __restrict__ xb,
+                                               long long i, long long d,
+                                               long long C, int n) {
+  constexpr int V = Vec<T>::V;
+  const long long s = i + d;
+  const T* p = xb + s;
+  if (n >= V && s >= 0 && s + V <= C &&
+      (reinterpret_cast<uintptr_t>(p) & 15) == 0) {
+    return *reinterpret_cast<const Vec<T>*>(p);
+  }
+  Vec<T> r;
+#pragma unroll
+  for (int j = 0; j < V; ++j) {
+    r.v[j] = (j < n && s + j >= 0 && s + j < C) ? p[j] : T(0);
+  }
+  return r;
+}
+
+// Values R..R+V-1 of the 2V values lo, hi.
+template <typename T, int R>
+__device__ __forceinline__ Vec<T> take(const Vec<T>& lo, const Vec<T>& hi) {
+  constexpr int V = Vec<T>::V;
+  Vec<T> o;
+#pragma unroll
+  for (int j = 0; j < V; ++j) o.v[j] = (j + R < V ? lo : hi).v[(j + R) % V];
+  return o;
+}
+
+// The rounding of the first design, whose separate basic blocks kept
+// nvcc from fusing diag * x with the first column: a rounded product,
+// then one fused multiply-add per column. Spelled out, so that unrolled
+// straight-line code cannot be contracted another way.
+__device__ __forceinline__ float mul_rn(float a, float b) {
+  return __fmul_rn(a, b);
+}
+__device__ __forceinline__ double mul_rn(double a, double b) {
+  return __dmul_rn(a, b);
+}
+__device__ __forceinline__ float fma_rn(float a, float b, float c) {
+  return __fmaf_rn(a, b, c);
+}
+__device__ __forceinline__ double fma_rn(double a, double b, double c) {
+  return __fma_rn(a, b, c);
+}
+
+// w[pos + d + j], j < V, pos a multiple of V: two aligned reads.
+template <typename T>
+__device__ __forceinline__ Vec<T> window_read(const T* w, int pos, int d) {
+  constexpr int V = Vec<T>::V;
+  const int r = d & (V - 1);
+  const Vec<T>* p = reinterpret_cast<const Vec<T>*>(w + pos + d - r);
+  const Vec<T> lo = p[0];
+  if (r == 0) return lo;
+  const Vec<T> hi = p[1];
+  if constexpr (V == 4) {
+    if (r == 1) return take<T, 1>(lo, hi);
+    if (r == 2) return take<T, 2>(lo, hi);
+    return take<T, 3>(lo, hi);
+  } else {
+    return take<T, 1>(lo, hi);
+  }
+}
+
+template <typename T, int KT>
+__global__ void __launch_bounds__(kSpmvThreads)
+    shift_spmv_kernel(const T* __restrict__ diag, Columns<T> cols,
+                      unsigned col_vec, const T* __restrict__ x,
+                      T* __restrict__ y, long long C, int B) {
+  constexpr int V = Vec<T>::V;
+  constexpr int H = 4 * V;               // window halo on each side
+  constexpr int N = kSpmvThreads * V;    // rows of a CTA
+  constexpr int KM = KT > 0 ? KT : MAX_K;
+  const int K = KT > 0 ? KT : cols.K;
+  __shared__ Vec<T> win[2][(N + 2 * H) / V];
+  const long long i0 = static_cast<long long>(blockIdx.x) * N;
+  const int m = threadIdx.x * V;
+  const long long i = i0 + m;
+  // Rows of this thread: V, fewer at the end of C, <= 0 past it.
+  const int n = static_cast<int>(min(static_cast<long long>(V), C - i));
+  const Vec<T> dg = load_rows(
+      diag + i, 1, (reinterpret_cast<uintptr_t>(diag) & 15) == 0, n);
+  Vec<T> a[KM];
+#pragma unroll
+  for (int k = 0; k < KM; ++k) {
+    if (k < K) {
+      a[k] = load_rows(cols.col[k] + i * cols.stride[k], cols.stride[k],
+                       (col_vec >> k) & 1u, n);
+    }
+  }
+  // Batch rows blockIdx.y, + gridDim.y, ...: all of them in one CTA on
+  // large systems; one each where C alone gives too few CTAs.
+  int parity = 0;
+  for (int b = blockIdx.y; b < B; b += gridDim.y, parity ^= 1) {
+    const T* xb = x + b * C;
+    T* w = reinterpret_cast<T*>(win[parity]);
+    const Vec<T> xo = load_rows(
+        xb + i, 1, (reinterpret_cast<uintptr_t>(xb + i) & 15) == 0, n);
+    *reinterpret_cast<Vec<T>*>(w + H + m) = xo;  // zeros past C
+    if (threadIdx.x < 2 * H) {
+      const int h = threadIdx.x;
+      const long long j = h < H ? i0 - H + h : i0 + N + (h - H);
+      w[h < H ? h : N + h] = (j >= 0 && j < C) ? xb[j] : T(0);
+    }
+    Vec<T> xf[KM];
+#pragma unroll
+    for (int k = 0; k < KM; ++k) {
+      const long long d = cols.offset[k];
+      if (k < K && (d < -H || d > H)) xf[k] = load_shifted(xb, i, d, C, n);
+    }
+    __syncthreads();
+    Vec<T> acc;
+#pragma unroll
+    for (int j = 0; j < V; ++j) acc.v[j] = mul_rn(dg.v[j], xo.v[j]);
+#pragma unroll
+    for (int k = 0; k < KM; ++k) {
+      if (k < K) {
+        const long long d = cols.offset[k];
+        const Vec<T> xk = (d < -H || d > H)
+                              ? xf[k]
+                              : window_read(w, H + m, static_cast<int>(d));
+#pragma unroll
+        for (int j = 0; j < V; ++j) {
+          acc.v[j] = fma_rn(a[k].v[j], xk.v[j], acc.v[j]);
+        }
       }
     }
-    yb[i] = acc;
+    T* yb = y + b * C + i;
+    if (n >= V && (reinterpret_cast<uintptr_t>(yb) & 15) == 0) {
+      *reinterpret_cast<Vec<T>*>(yb) = acc;
+    } else {
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        if (j < n) yb[j] = acc.v[j];
+      }
+    }
   }
+}
+
+template <typename T, int KT>
+int launch_shift_spmv_k(const void* diag, const Columns<T>& c, unsigned col_vec,
+                        const void* x, void* y, long long C, int B,
+                        cudaStream_t stream) {
+  constexpr long long N = kSpmvThreads * Vec<T>::V;
+  const long long blocks = (C + N - 1) / N;
+  if (blocks > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
+  // Fewer CTAs than two per SM of an H100: one CTA per batch row, which
+  // re-reads the (small) matrix from L2 instead of looping over B.
+  const dim3 grid(static_cast<unsigned>(blocks),
+                  blocks < 264 ? static_cast<unsigned>(B) : 1u);
+  shift_spmv_kernel<T, KT><<<grid, kSpmvThreads, 0, stream>>>(
+          static_cast<const T*>(diag), c, col_vec, static_cast<const T*>(x),
+          static_cast<T*>(y), C, B);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
@@ -56,11 +232,20 @@ int launch_shift_spmv(const void* diag, const void* const* cols,
                       int K, const void* x, void* y, long long C, int B,
                       cudaStream_t stream) {
   const Columns<T> c = make_columns<T>(cols, strides, offsets, K);
-  const dim3 grid(grid_blocks(C), static_cast<unsigned>(B));
-  shift_spmv_kernel<T><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(diag), c, static_cast<const T*>(x),
-      static_cast<T*>(y), C);
-  return static_cast<int>(cudaGetLastError());
+  // Bit k: column k is contiguous and 16-byte aligned (16-byte loads).
+  unsigned col_vec = 0;
+  for (int k = 0; k < K; ++k) {
+    if (strides[k] == 1 && (reinterpret_cast<uintptr_t>(cols[k]) & 15) == 0) {
+      col_vec |= 1u << k;
+    }
+  }
+  if (K == 4) {
+    return launch_shift_spmv_k<T, 4>(diag, c, col_vec, x, y, C, B, stream);
+  }
+  if (K == 6) {
+    return launch_shift_spmv_k<T, 6>(diag, c, col_vec, x, y, C, B, stream);
+  }
+  return launch_shift_spmv_k<T, 0>(diag, c, col_vec, x, y, C, B, stream);
 }
 
 }  // namespace orc

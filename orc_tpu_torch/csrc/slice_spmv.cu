@@ -26,23 +26,42 @@
 // coefficients (sum_t tile_nj[t] * T values), x, diag and writes y; the
 // exact product reads the same but diag and writes y and err (its ten
 // float32 operations per coefficient stay far below the 67 TFLOP/s
-// peak); the gather reads the interior mask, col_tile and x and writes
-// C*K*F values.
+// peak); the gather reads the interior mask, the column index of each
+// interior slot and x, and writes C*K*F values, which dominate (at
+// 1024^2 cells, K = 6, 9 float32 fields: 226 of 287 MB).
 //
-// Design. The TPU kernels DMA one x window per group of tiles into VMEM
-// and rotate 128-lane rows, statically unrolled over n_max (a dynamic
-// trip count was 14x slower there), with the heavy tiles split off into
-// a second kernel. On the card a dynamic loop bound costs nothing: one
-// CTA per (tile, batch row), thread l walks the tile's used columns
-// only, reading coef[t, j, l] and the slice of x coalesced (consecutive
-// threads, consecutive addresses; the RCM band keeps x in L2). The
-// diagonal term is folded in and x is read unpadded with a bounds test,
-// so no padded copy of x is made per matvec. The gather runs one thread
-// per (c, k) slot with 32-bit index arithmetic (a 64-bit divide per
-// output element made it 2x slower than torch's own gather on the
-// H100) and copies the slot's F contiguous values, writing the [C,K,F]
-// output in the layout the (c,k) ops read, with no transpose. Simple
-// and right first: no shared-memory staging of x, no TMA.
+// Design of the SpMVs. The TPU kernels DMA one x window per group of
+// tiles into VMEM and rotate 128-lane rows, statically unrolled over
+// n_max (a dynamic trip count was 14x slower there), with the heavy
+// tiles split off into a second kernel. On the card a dynamic loop
+// bound costs nothing: one CTA per (tile, batch row), thread l walks
+// the tile's used columns only, reading coef[t, j, l] and the slice of
+// x coalesced (consecutive threads, consecutive addresses; the RCM band
+// keeps x in L2). The diagonal term is folded in and x is read unpadded
+// with a bounds test, so no padded copy of x is made per matvec.
+//
+// Design of the gather. Its first design (one thread per (c, k) slot, a
+// chain of four dependent loads, two divisions by runtime values, an
+// F-value scalar copy) lost to torch's own x[cell_neighbors] on the
+// H100: with F = 9 a warp's store touched nine times the sectors it
+// filled. Now one CTA copies a chunk of R rows of one tile, whose
+// output out[c0 : c0 + R] is one contiguous span of R*K*F values:
+//   1. the source row of each of its R*K slots is resolved once, from
+//      coalesced reads of col_tile (contiguous in l for each k) and the
+//      interior mask, into shared memory;
+//   2. the values are read with consecutive threads on consecutive
+//      (l, f) of one slot column k, which in RCM order are consecutive
+//      rows of x, and staged in shared memory in the [R, K, F] order of
+//      the output;
+//   3. the stage is written out with 16-byte stores.
+// R is a power of two (so the thread-to-slot maps divide by constants
+// only; F is a template parameter for 1, 3 and 9) chosen so the stage
+// takes at most kNbrStageBytes and several CTAs share an SM. A row
+// wider than the shared memory a CTA may use is copied straight to the
+// output instead (same order, no stage). It stays a copy: bitwise
+// equal to x[cell_neighbors].
+#include <cstdint>
+
 #include "common.cuh"
 
 namespace orc {
@@ -125,31 +144,100 @@ __global__ void slice_spmv_exact_kernel(const float* __restrict__ coef,
   }
 }
 
-template <typename T>
-__global__ void slice_nbr_kernel(const T* __restrict__ x,
-                                 const unsigned char* __restrict__ interior,
-                                 const int* __restrict__ starts,
-                                 const int* __restrict__ col_tile,
-                                 T* __restrict__ out, int C, int K, int F,
-                                 int tile, int n_max, int pad_lo) {
-  // One thread per (c, k) slot; its F values are contiguous in x and
-  // out. 32-bit index arithmetic (the launcher checks C * K fits).
-  const int slots = C * K;
-  const int step = gridDim.x * blockDim.x;
-  for (int ck = blockIdx.x * blockDim.x + threadIdx.x; ck < slots;
-       ck += step) {
-    const int c = ck / K;
-    int src = c;
-    if (interior[ck]) {
-      const int k = ck - c * K;
-      const int t = c / tile;
-      const int l = c - t * tile;
-      const int j = col_tile[(t * K + k) * tile + l];
-      src = starts[t * n_max + j] - pad_lo + l;
+// Shared memory a gather chunk's stage may take: 16 KB lets the 227 KB
+// of an SM hold eight 256-thread CTAs with their slot tables.
+constexpr int kNbrStageBytes = 16384;
+// A row (K*F values) wider than this is copied straight to the output.
+constexpr int kNbrMaxStageBytes = 40960;
+
+template <typename T, int FT>
+__global__ void __launch_bounds__(kThreads)
+    slice_nbr_kernel(const T* __restrict__ x,
+                     const unsigned char* __restrict__ interior,
+                     const int* __restrict__ starts,
+                     const int* __restrict__ col_tile, T* __restrict__ out,
+                     int C, int K, int f_rt, int tile, int n_max, int pad_lo,
+                     int lg_r, int chunks, int staged) {
+  const int F = FT > 0 ? FT : f_rt;
+  const int t = static_cast<int>(blockIdx.x) / chunks;
+  const int r0 = (static_cast<int>(blockIdx.x) - t * chunks) << lg_r;
+  const int c0 = t * tile + r0;  // the launcher checks (C + tile) * K fits
+  const int rows = min(1 << lg_r, min(tile - r0, C - c0));
+  if (rows <= 0) return;
+  const int* st = starts + static_cast<long long>(t) * n_max;
+  const int* ct = col_tile + static_cast<long long>(t) * K * tile + r0;
+  const unsigned char* in = interior + static_cast<long long>(c0) * K;
+  T* dst = out + static_cast<long long>(c0) * K * F;
+  if (!staged) {  // one row (lg_r = 0), slot by slot, F values each
+    for (int k = 0; k < K; ++k) {
+      const int s = in[k] ? __ldg(st + ct[k * tile]) - pad_lo + r0 : c0;
+      const T* xs = x + static_cast<long long>(s) * F;
+      T* o = dst + static_cast<long long>(k) * F;
+      for (int f = threadIdx.x; f < F; f += blockDim.x) o[f] = xs[f];
     }
-    const T* xs = x + static_cast<long long>(src) * F;
-    T* o = out + static_cast<long long>(ck) * F;
-    for (int f = 0; f < F; ++f) o[f] = xs[f];
+    return;
+  }
+  // The stage starts as far past a 16-byte boundary as dst does, so the
+  // two align together.
+  extern __shared__ __align__(16) unsigned char smem[];
+  int* src = reinterpret_cast<int*>(smem);  // [K][R]
+  const int n = rows * K * F;
+  constexpr int V = 16 / sizeof(T);
+  const int mis =
+      static_cast<int>((reinterpret_cast<uintptr_t>(dst) & 15) / sizeof(T));
+  const int src_bytes = ((K << lg_r) * 4 + 15) & ~15;
+  T* stage = reinterpret_cast<T*>(smem + src_bytes) + mis;
+  // 1. The source row of every (k, l) slot of the chunk, q = l + R*k;
+  // with one field its value is read at once (steps 1 and 2 in one).
+  const int mask = (1 << lg_r) - 1;
+#pragma unroll 4
+  for (int q = threadIdx.x; q < (K << lg_r); q += blockDim.x) {
+    const int l = q & mask;
+    if (l < rows) {
+      const int k = q >> lg_r;
+      const int s = in[l * K + k]
+                        ? __ldg(st + ct[k * tile + l]) - pad_lo + r0 + l
+                        : c0 + l;
+      if constexpr (FT == 1) {
+        stage[l * K + k] = x[s];
+      } else {
+        src[q] = s;
+      }
+    }
+  }
+  __syncthreads();
+  if constexpr (FT != 1) {
+    // 2. stage[(l*K + k)*F + f] = x[src[k*R + l]*F + f], consecutive
+    // threads on consecutive f, then l, then k: q = f + F*(l + R*k).
+    const int total = (K * F) << lg_r;
+#pragma unroll 4
+    for (int q = threadIdx.x; q < total; q += blockDim.x) {
+      int kl;
+      if constexpr (FT > 0) {
+        kl = q / FT;  // a multiply and a shift
+      } else {
+        kl = q / F;
+      }
+      const int l = kl & mask;
+      if (l < rows) {
+        const int f = q - kl * F;
+        const int k = kl >> lg_r;
+        stage[(l * K + k) * F + f] =
+            x[static_cast<long long>(src[kl]) * F + f];
+      }
+    }
+    __syncthreads();
+  }
+  // 3. Write the span out: a scalar head up to a 16-byte boundary, then
+  // 16-byte stores, then a scalar tail.
+  const int head = min(n, (V - mis) % V);
+  for (int i = threadIdx.x; i < head; i += blockDim.x) dst[i] = stage[i];
+  const int nvec = (n - head) / V;
+  const uint4* sv = reinterpret_cast<const uint4*>(stage + head);
+  uint4* dv = reinterpret_cast<uint4*>(dst + head);
+  for (int i = threadIdx.x; i < nvec; i += blockDim.x) dv[i] = sv[i];
+  for (int i = head + nvec * V + threadIdx.x; i < n; i += blockDim.x) {
+    dst[i] = stage[i];
   }
 }
 
@@ -186,20 +274,71 @@ int launch_slice_spmv_exact(const void* coef, long long coef_bs,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T, int FT>
+int launch_slice_nbr_f(const void* x, const void* interior,
+                       const void* starts, const void* col_tile, void* out,
+                       long long C, long long ntiles, int K, int F, int tile,
+                       int n_max, long long pad_lo, cudaStream_t stream) {
+  // Chunk rows R = 1 << lg_r: the largest power of two whose stage fits
+  // kNbrStageBytes, no more than the tile needs; 1 for wide rows. On a
+  // small mesh, halved down to 32 rows until there are two CTAs per SM
+  // of an H100: a CTA's few dependent loads are then spread out.
+  const long long row_bytes = static_cast<long long>(K) * F * sizeof(T);
+  int lg_r = 0;
+  while ((1LL << (lg_r + 1)) * row_bytes <= kNbrStageBytes &&
+         (1 << lg_r) < tile) {
+    ++lg_r;
+  }
+  while (lg_r > 5 && ntiles * ((tile + (1LL << lg_r) - 1) >> lg_r) < 264) {
+    --lg_r;
+  }
+  const int staged = row_bytes <= kNbrMaxStageBytes;
+  const long long src_bytes =
+      ((static_cast<long long>(K) << lg_r) * 4 + 15) & ~15LL;
+  const long long smem = staged ? src_bytes + 16 + (row_bytes << lg_r) : 0;
+  if (smem > 48 * 1024) {  // rows of thousands of slots: at most 80 KB
+    const cudaError_t e = cudaFuncSetAttribute(
+        slice_nbr_kernel<T, FT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  // One CTA per (tile, chunk); ntiles * chunks <= C + tile fits an int.
+  const int chunks = static_cast<int>((tile + (1LL << lg_r) - 1) >> lg_r);
+  slice_nbr_kernel<T, FT>
+      <<<static_cast<unsigned>(ntiles * chunks), kThreads,
+         static_cast<size_t>(smem), stream>>>(
+          static_cast<const T*>(x),
+          static_cast<const unsigned char*>(interior),
+          static_cast<const int*>(starts), static_cast<const int*>(col_tile),
+          static_cast<T*>(out), static_cast<int>(C), K, F, tile, n_max,
+          static_cast<int>(pad_lo), lg_r, chunks, staged);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T>
 int launch_slice_nbr(const void* x, const void* interior, const void* starts,
                      const void* col_tile, void* out, long long C, int K,
                      int F, int tile, int n_max, long long pad_lo,
                      cudaStream_t stream) {
-  const long long slots = C * K;
-  long long blocks = (slots + kThreads - 1) / kThreads;
-  if (blocks > 1048576) blocks = 1048576;  // grid-stride beyond this
-  slice_nbr_kernel<T><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const unsigned char*>(interior),
-      static_cast<const int*>(starts), static_cast<const int*>(col_tile),
-      static_cast<T*>(out), static_cast<int>(C), K, F, tile, n_max,
-      static_cast<int>(pad_lo));
-  return static_cast<int>(cudaGetLastError());
+  const long long ntiles = (C + tile - 1) / tile;
+  switch (F) {
+    case 1:
+      return launch_slice_nbr_f<T, 1>(x, interior, starts, col_tile, out, C,
+                                      ntiles, K, F, tile, n_max, pad_lo,
+                                      stream);
+    case 3:
+      return launch_slice_nbr_f<T, 3>(x, interior, starts, col_tile, out, C,
+                                      ntiles, K, F, tile, n_max, pad_lo,
+                                      stream);
+    case 9:
+      return launch_slice_nbr_f<T, 9>(x, interior, starts, col_tile, out, C,
+                                      ntiles, K, F, tile, n_max, pad_lo,
+                                      stream);
+    default:
+      return launch_slice_nbr_f<T, 0>(x, interior, starts, col_tile, out, C,
+                                      ntiles, K, F, tile, n_max, pad_lo,
+                                      stream);
+  }
 }
 
 }  // namespace orc

@@ -61,6 +61,7 @@ def solve_transient(
     n_steps: int,
     inner_iterations: int = 20,
     state: Optional[FlowState] = None,
+    report_interval: int = 0,
     verbose: bool = True,
     check_divergence: bool = True,
     use_ck: str | bool = "auto",
@@ -71,7 +72,10 @@ def solve_transient(
     Returns (FlowState at t = n_steps * dt, StepMetrics of
     [n_steps]-leading tensors, each from its step's last inner
     iteration). SIMPLE or SIMPLE_FC as settings.resolved_coupling()
-    says; `use_ck` as in solve_steady (only the (c,k) step is ported)."""
+    says; `use_ck` as in solve_steady (only the (c,k) step is ported).
+    `report_interval` keeps orc_tpu's signature: the single-device march
+    ignores it, as orc_tpu's does (its sharded driver, not ported, reads
+    it)."""
     table.validate_supported()
     _check_ported(mesh, settings, use_ck)
     use_fc = settings.resolved_coupling() == PressureVelocityCoupling.SIMPLE_FC

@@ -95,6 +95,39 @@ def test_shift_spmv_kernel_matches_plain(dev, dtype, batch, split):
     _close(y, shift_spmv_plain(diag, off, offsets, x), TOL[dtype])
 
 
+#: name -> (C, offsets, batch, x an offset view): the edges of the
+#: vectorised stencil kernel. An odd C starts every split plane after
+#: the first unaligned; an offset view of x starts unaligned; a 24^2 x 6
+#: box's +-576 lies beyond the shared-memory window; B = 3 with a ragged
+#: C starts batch rows 1 and 2 unaligned.
+SPMV_EDGES = {
+    "odd_c": (33 * 31, (-33, -1, 1, 33), 0, False),
+    "offset_x": (40 * 30, (-40, -1, 1, 40), 0, True),
+    "k6_3d": (24 * 24 * 6, (-576, -24, -1, 1, 24, 576), 0, False),
+    "b3_ragged": (1001, (-13, -1, 1, 13), 3, False),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SPMV_EDGES))
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_shift_spmv_kernel_edges(dev, dtype, case):
+    """Guards orc_tpu/ops/pallas_spmv.py `_kernel` (via shift_spmv) at
+    the edges of the kernel's 16-byte loads and shared-memory window,
+    split planes against the plain version."""
+    C, offsets, batch, view = SPMV_EDGES[case]
+    diag, off, _b, x = _system(C, offsets, batch, DTYPES[dtype], dev)
+    if view:
+        buf = torch.zeros(x.numel() + 1, dtype=x.dtype, device=dev)
+        buf[1:] = x.reshape(-1)
+        x = buf[1:].view(x.shape)
+    planes = off.T.contiguous()
+    before = shift_spmv.launches
+    y = shift_spmv(diag, tuple(planes), offsets, x)
+    torch.cuda.synchronize()
+    assert shift_spmv.launches == before + 1
+    _close(y, shift_spmv_plain(diag, off, offsets, x), TOL[dtype])
+
+
 def test_shift_spmv_kernel_refuses_a_batched_matrix(dev):
     """Guards orc_tpu/ops/pallas_spmv.py `_kernel`'s contract (one
     matrix shared by the batch): a CUDA call outside it raises."""
@@ -598,6 +631,49 @@ def test_slice_nbr_kernel_matches_plain_exactly(dev, dtype, n, fields):
     torch.cuda.synchronize()
     assert slice_nbr_values.launches == before + 1
     assert torch.equal(got, slice_nbr_values_plain(mesh.slice_plan, x, interior))
+    assert torch.equal(got, x[mesh.cell_neighbors.long()])
+
+
+#: name -> (n, dtype, trailing field shape, plan tile or None for the
+#: mesh's own plan): the edges of the staged gather. 1024-row tiles at
+#: 9 float64 fields take several row chunks per tile; F = 2 runs the
+#: generic instance; 23^2 = 529 cells end in a ragged tile; 2000 float64
+#: fields per cell outgrow the stage and are copied straight.
+NBR_EDGES = {
+    "tile1024_f9_f64": (96, torch.float64, (3, 3), 1024),
+    "f2": (40, torch.float32, (2,), None),
+    "ragged_c": (23, torch.float64, (3,), None),
+    "wide_rows": (12, torch.float64, (2000,), None),
+}
+
+
+@pytest.mark.parametrize("case", sorted(NBR_EDGES))
+def test_slice_nbr_kernel_edges(dev, case):
+    """Guards orc_tpu/ops/pallas_slice.py `_nbr_kernel` and
+    `_nbr_kernel_wide` (via slice_nbr_values) at the edges of the staged
+    gather: bitwise equal to the plain version and to x[cell_neighbors]."""
+    from orc_tpu_torch.mesh.reorder import build_slice_plan
+    from orc_tpu_torch.ops.slice_spmv import slice_nbr_values, slice_nbr_values_plain
+
+    n, dt, tail, tile = NBR_EDGES[case]
+    mesh, _, _ = _permuted_cavity(n, dt, dev)
+    C = mesh.n_cells
+    interior = mesh.face_interior[mesh.cell_faces.long()] & mesh.cell_face_mask
+    plan = mesh.slice_plan
+    if tile is not None:
+        plan = build_slice_plan(
+            mesh.cell_neighbors.cpu().numpy(), interior.cpu().numpy(), tile=tile,
+            device=dev,
+        )
+        assert plan.tile == tile
+    if case == "ragged_c":
+        assert C % plan.tile != 0
+    x = torch.tensor(np.random.default_rng(5).standard_normal((C,) + tail), dtype=dt, device=dev)
+    before = slice_nbr_values.launches
+    got = slice_nbr_values(plan, x, interior)
+    torch.cuda.synchronize()
+    assert slice_nbr_values.launches == before + 1
+    assert torch.equal(got, slice_nbr_values_plain(plan, x, interior))
     assert torch.equal(got, x[mesh.cell_neighbors.long()])
 
 

@@ -348,6 +348,33 @@ def test_couette_startup_tracks_orc_tpu():
     assert err < 0.06, err
 
 
+@pytest.mark.parametrize("form", ["keyword", "positional"])
+def test_report_interval_is_accepted_and_ignored(form):
+    """orc_tpu's `report_interval` sits between `state` and `verbose`;
+    the single-device march ignores it, so the couette startup with it,
+    by keyword or at its position, equals the run without it bitwise."""
+    mesh, table = _couette("torch")
+    dt, n_steps, inner = 0.1 / 20, 6, 5
+    s0, h0 = tt.solve_transient(
+        mesh, table, COUETTE_SETTINGS, RHO, MU, dt, n_steps, inner, verbose=False
+    )
+    if form == "keyword":
+        s1, h1 = tt.solve_transient(
+            mesh, table, COUETTE_SETTINGS, RHO, MU, dt, n_steps, inner,
+            report_interval=5, verbose=False,
+        )
+    else:
+        s1, h1 = tt.solve_transient(
+            mesh, table, COUETTE_SETTINGS, RHO, MU, dt, n_steps, inner, None, 5,
+            False, True, "auto",
+        )
+    for s in (s0, h0):
+        for f in dataclasses.fields(s):
+            a, b = getattr(s, f.name), getattr(s1 if s is s0 else h1, f.name)
+            assert (a is None) == (b is None), f.name
+            assert a is None or torch.equal(a, b), f.name
+
+
 def test_transient_metrics_shape():
     mesh, table = tbox(4, 4, 1, lengths=(1e-3, 1e-3, 1e-4), device="cpu")
     table.set("TOP_WALL", TFC.WALL, vector_value=(1e-3, 0, 0))
