@@ -321,6 +321,20 @@ def shift_csr_call(diag, cols, offsets, x):
     return csr_call(diag, torch.cat(rows), torch.cat(nbrs), torch.cat(vals), x)
 
 
+def plan_csr_call(diag, coef, plan, x):
+    """csr_call of a slice-plan matrix: the nonzero coefficients of each
+    tile's used columns [ntiles, n_max, T] (shared by the batch), each at
+    its row and the column its slice reads."""
+    t, j, lane = coef.nonzero().unbind(1)
+    rows = t * plan.tile + lane
+    cols = plan.starts.long()[t, j] - plan.pad_lo + lane
+    keep = (
+        (j < plan.tile_nj.long()[t]) & (rows < plan.n_cells)
+        & (cols >= 0) & (cols < plan.n_cells)
+    )
+    return csr_call(diag, rows[keep], cols[keep], coef[t, j, lane][keep], x)
+
+
 def structured_system(C, offsets, B, dtype, dev, seed=0):
     rng = np.random.default_rng(seed)
     off = rng.uniform(-1.0, 0.0, size=(C, len(offsets)))
@@ -370,19 +384,24 @@ def phase_build():
             log(f"  ptxas {name}: {regs} registers, spill stores/loads {spills}")
 
 
+def demangle(name):
+    """A kernel's C++ name without its parameters, where c++filt exists."""
+    cxxfilt = shutil.which("c++filt")
+    if not cxxfilt:
+        return name
+    return subprocess.run(
+        [cxxfilt, name], capture_output=True, text=True, timeout=60
+    ).stdout.strip().split("(")[0].replace("void ", "")
+
+
 def ptxas_report(text):
     """(kernel, registers, "stores/loads" spill bytes) per entry function
     of an nvcc -Xptxas=-v log, names demangled where c++filt exists."""
     out, name, spills = [], None, "?"
-    cxxfilt = shutil.which("c++filt")
     for line in text.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
-            name = m.group(1)
-            if cxxfilt:
-                name = subprocess.run(
-                    [cxxfilt, name], capture_output=True, text=True, timeout=60
-                ).stdout.strip().split("(")[0].replace("void ", "")
+            name = demangle(m.group(1))
             continue
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
         if m:
@@ -712,6 +731,7 @@ def phase_exact_kernel(dev, sexact, sspmv):
             lambda: slice_spmv(d, c, plan, x), lambda: slice_spmv_plain(d, c, plan, x),
             x.dtype, used * sz + 3 * C * sz + plan.ntiles * 4 * (1 + plan.n_max),
             timed=False, nops=2 * (used + C),
+            library_call=plan_csr_call(d, c, plan, x),
         )
     del A, P64, P32, hi, lo
     return out

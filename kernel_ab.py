@@ -1,20 +1,23 @@
-"""Time the structured stencil SpMV and the neighbour gather of two
-versions of their CUDA sources in one process on one GPU.
+"""Time the structured stencil SpMV, the slice-plan SpMV, the neighbour
+gather and the parity momentum assembly of two versions of their CUDA
+sources in one process on one GPU.
 
 Usage (from the repository root, on a machine with a CUDA GPU):
 
     git archive <commit> orc_tpu_torch/csrc | tar -x -C build/ab_base
     python3 kernel_ab.py build/ab_base/orc_tpu_torch/csrc [--reps 3]
 
-It builds ``shift_spmv.cu`` and ``slice_spmv.cu`` of the base directory
-and of ``orc_tpu_torch/csrc`` into two libraries (nvcc, sm_90a, in
-parallel) and, at the shapes chip_smoke.py times, checks that both agree
-with the plain torch versions (the gather bitwise) and with each other,
-then times each on the card alone (calls queued behind a sleeping
-kernel, chip_smoke.card_ms) in the order base, new, new, base, `--reps`
-times, with the one PyTorch call computing the same function beside
-them. Prints one line per shape and writes every time to
-chiprun_out/kernel_ab.json.
+It builds ``shift_spmv.cu``, ``slice_spmv.cu``, ``parity_assembly.cu``
+and ``parity_assembly_f64.cu`` of the base directory and of
+``orc_tpu_torch/csrc`` into two libraries (one nvcc per source, sm_90a,
+all in parallel) and, at the shapes chip_smoke.py times, checks that
+both agree with the plain torch versions (the gather bitwise) and
+reports whether they agree with each other bit for bit, then times each
+on the card alone (calls queued behind a sleeping kernel,
+chip_smoke.card_ms) in the order base, new, new, base, `--reps` times,
+with the one PyTorch call computing the same function beside them where
+there is one, warm and with L2 emptied first. Prints one line per shape
+and writes every time to chiprun_out/kernel_ab.json.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
+import re
 import subprocess
 import time
 from pathlib import Path
@@ -32,27 +36,46 @@ import torch
 import chip_smoke as cs
 
 ROOT = Path(__file__).resolve().parent
-SOURCES = ("shift_spmv.cu", "slice_spmv.cu")
+SOURCES = ("shift_spmv.cu", "slice_spmv.cu", "parity_assembly.cu",
+           "parity_assembly_f64.cu")
+#: The kernels whose ptxas registers and spills the log lists.
+REPORTED = ("slice_spmv_kernel", "momentum_kernel")
 
 
 def build(csrc: Path, out: Path):
-    """nvcc command building SOURCES of `csrc` into library `out`."""
+    """(nvcc commands compiling SOURCES of `csrc` into objects beside
+    library `out`, the command linking them)."""
     from orc_tpu_torch.ops import _cuda
 
     nvcc = "/usr/local/cuda/bin/nvcc"
-    return [nvcc, *_cuda.NVCC_FLAGS, "-Xptxas=-v", "-shared", f"-I{csrc}",
-            "-o", str(out), *(str(csrc / s) for s in SOURCES)]
+    objs = [out.with_name(f"{out.stem}.{Path(s).stem}.o") for s in SOURCES]
+    compiles = [[nvcc, *_cuda.NVCC_FLAGS, "-Xptxas=-v", f"-I{csrc}", "-c",
+                 "-o", str(o), str(csrc / s)] for s, o in zip(SOURCES, objs)]
+    link = [nvcc, *_cuda.NVCC_FLAGS, "-shared", "-o", str(out), *map(str, objs)]
+    return compiles, link
 
 
-def load(path: Path):
-    from orc_tpu_torch.ops import _cuda
+class Version:
+    """One build of the sources: its library and whether its momentum
+    entry point takes the box's (nx, ny, nz)."""
 
-    lib = ctypes.CDLL(str(path))
-    for name in ("orc_shift_spmv", "orc_slice_nbr"):
-        fn = getattr(lib, name)
-        fn.argtypes = _cuda.SIGNATURES[name]
-        fn.restype = ctypes.c_int
-    return lib
+    def __init__(self, path: Path, csrc: Path):
+        from orc_tpu_torch.ops import _cuda
+
+        self.lib = ctypes.CDLL(str(path))
+        self.boxed = "long long nx" in (csrc / "parity_assembly.cu").read_text()
+        for name in ("orc_shift_spmv", "orc_slice_nbr", "orc_slice_spmv",
+                     "orc_momentum_assembly", "orc_pc_assembly"):
+            fn = getattr(self.lib, name)
+            fn.argtypes = self.unboxed(name, _cuda.SIGNATURES[name])
+            fn.restype = ctypes.c_int
+
+    def unboxed(self, name, args):
+        """`args` of `name` without (nx, ny, nz) where this version's
+        momentum entry point takes none."""
+        if name == "orc_momentum_assembly" and not self.boxed:
+            return args[:11] + args[14:]
+        return args
 
 
 def stream():
@@ -100,6 +123,51 @@ def nbr_call(lib, plan, flat, interior):
     return run
 
 
+def slice_call(lib, diag, coef, plan, x):
+    """lib's slice_spmv (the wrapper's call): diag / coef shared by the
+    batch or one per batch row of x."""
+    from orc_tpu_torch.ops import _cuda
+    from orc_tpu_torch.ops.slice_spmv import _batch_stride
+
+    B = 0 if x.ndim == 1 else x.shape[0]
+    d_bs, c_bs = _batch_stride(diag, 1, B, "diag"), _batch_stride(coef, 3, B, "coef")
+    y = torch.empty_like(x)
+    code = _cuda.dtype_code(x)
+
+    def run():
+        err = lib.orc_slice_spmv(code, diag.data_ptr(), d_bs, coef.data_ptr(), c_bs,
+                                 plan.starts.data_ptr(), plan.tile_nj.data_ptr(),
+                                 x.data_ptr(), y.data_ptr(), plan.n_cells, plan.tile,
+                                 plan.ntiles, plan.n_max, plan.pad_lo, max(B, 1),
+                                 stream())
+        if err:
+            raise RuntimeError(f"orc_slice_spmv: CUDA error {err}")
+        return y
+
+    return run
+
+
+def routed(v, launch, *args):
+    """`launch(*args)`, a launch helper of fused_assembly, with its
+    kernel taken from v's library: both versions take the wrapper's own
+    arguments."""
+    from orc_tpu_torch.ops import _cuda
+
+    def call(name, device, *cargs):
+        err = getattr(v.lib, name)(*v.unboxed(name, cargs), stream())
+        if err:
+            raise RuntimeError(f"{name}: CUDA error {err}")
+
+    def run():
+        saved, _cuda.call = _cuda.call, call
+        try:
+            return launch(*args)
+        finally:
+            _cuda.call = saved
+
+    return run
+
+
 def card(fn):
     return cs.card_ms(fn, cs.time_ms(fn, reps=3, inner=5))
 
@@ -133,20 +201,23 @@ def ab(label, base, new, library, nbytes, reps, results):
     inputs stay in L2 where they fit) and with L2 emptied first (cold);
     medians of each."""
     t = {k: [] for k in ("base", "new", "library", "base_cold", "new_cold", "library_cold")}
+    turns = (("base", base), ("new", new), ("new", new), ("base", base))
+    if library is not None:
+        turns += (("library", library),)
     for _ in range(reps):
-        for v, fn in (("base", base), ("new", new), ("new", new), ("base", base),
-                      ("library", library)):
+        for v, fn in turns:
             t[v].append(card(fn))
             t[f"{v}_cold"].append(cold(fn))
-    med = {k: float(np.median(v)) for k, v in t.items()}
+    med = {k: float(np.median(v)) if v else None for k, v in t.items()}
+    lib = "none" if library is None else f"{med['library']:.4f} | {med['library_cold']:.4f}"
     bound = 1e3 * nbytes / cs.HBM_BYTES_PER_S
-    share = {k: bound / v for k, v in med.items()}
+    share = {k: bound / v for k, v in med.items() if v}
     cs.log(
         f"  {label:32s} bound {bound:.4f} ms ({nbytes / 1e6:.1f} MB); ms (share of "
         f"3.35 TB/s) warm | cold: base {med['base']:.4f} ({100 * share['base']:.1f}%) | "
         f"{med['base_cold']:.4f} ({100 * share['base_cold']:.1f}%); new {med['new']:.4f} "
         f"({100 * share['new']:.1f}%) | {med['new_cold']:.4f} ({100 * share['new_cold']:.1f}%); "
-        f"library {med['library']:.4f} | {med['library_cold']:.4f}"
+        f"library {lib}"
     )
     results.append(dict(label=label, **{f"{k}_ms": v for k, v in med.items()},
                         runs=t, bound_ms=bound, mbytes=nbytes / 1e6))
@@ -168,7 +239,7 @@ def spmv_shapes(dev, libs, reps, results):
         diag, off, x = cs.structured_system(C, offsets, B, dt, dev)
         planes = off.T.contiguous()
         cols = tuple(planes)
-        base, new = (spmv_call(lib, diag, cols, offsets, x) for lib in libs)
+        base, new = (spmv_call(v.lib, diag, cols, offsets, x) for v in libs)
         ref = shift_spmv_plain(diag, cols, offsets, x)
         yb, yn = base().clone(), new().clone()
         torch.cuda.synchronize()
@@ -205,7 +276,7 @@ def gather_shapes(dev, libs, reps, results):
         n_int = int(interior.sum())
         for F in (1, 3, 9):
             flat = torch.tensor(rng.standard_normal((C, F)), dtype=dt, device=dev)
-            base, new = (nbr_call(lib, plan, flat, interior) for lib in libs)
+            base, new = (nbr_call(v.lib, plan, flat, interior) for v in libs)
             ref = slice_nbr_values_plain(plan, flat, interior)
             ok = torch.equal(new(), ref) and torch.equal(new(), flat[nbr])
             if not (ok and torch.equal(base(), ref)):
@@ -216,11 +287,202 @@ def gather_shapes(dev, libs, reps, results):
         del mesh, interior, nbr
 
 
+def _bitwise(got, other):
+    got, other = (t if isinstance(t, tuple) else (t,) for t in (got, other))
+    return all(torch.equal(a, b) for a, b in zip(got, other))
+
+
+def _check(label, base, new, plain, dtype, outputs):
+    """New against the plain version at chip_smoke's tolerance (each
+    output at its own scale); returns whether new equals base bitwise."""
+    yb, yn, ref = base(), new(), plain()
+    torch.cuda.synchronize()
+    _, rels = cs.max_err(yn, ref)
+    per = " ".join(f"{o}={r:.2e}" for o, r in zip(outputs, rels))
+    if not all(r <= cs.TOL[dtype] for r in rels):
+        raise AssertionError(f"{label}: new kernel off its plain version ({per})")
+    same = _bitwise(yn, yb)
+    cs.log(f"  {label}: new vs plain {per} of scale; new == base bitwise: {same}")
+    return same
+
+
+def slice_shapes(dev, libs, reps, results):
+    """Row 7 on the four meshes of chip_smoke's phase_slice_kernels at
+    B = 1 and 3, and on scripts/bench_df32_ir.py's 1024-row plan in the
+    four forms phase 12 (a) runs it."""
+    from orc_tpu_torch.ops.df32 import df_from_f64
+    from orc_tpu_torch.ops.slice_spmv import slice_spmv_plain
+    from orc_tpu_torch.ops.spmv import EllMatrix
+
+    cases = (
+        ("448^2 f32", lambda: cs.permuted_cavity(448, torch.float32, dev)[0]),
+        ("448^2 f64", lambda: cs.permuted_cavity(448, torch.float64, dev)[0]),
+        ("1024^2 f32", lambda: cs.permuted_cavity(1024, torch.float32, dev)[0]),
+        ("couette 128x64 f64", lambda: cs.permuted_mesh(
+            cs.couette_mesh("cpu")[0], torch.float64, dev)[0]),
+    )
+    for label, make in cases:
+        mesh = make()
+        dt, plan, C = mesh.dtype, mesh.slice_plan, mesh.n_cells
+        interior = cs._interior(mesh)
+        K = interior.shape[1]
+        rng = np.random.default_rng(0)
+        off = -torch.tensor(rng.uniform(0.0, 1.0, (C, K)), dtype=dt, device=dev) * interior
+        diag = 1.0 + off.abs().sum(dim=1) + torch.tensor(rng.random(C), dtype=dt, device=dev)
+        A, _ = EllMatrix(diag, off, mesh.cell_neighbors, plan=plan).prepare().jacobi_preconditioned()
+        used, sz = cs._used_coefs(plan), dt.itemsize
+        for B in (1, 3):
+            x = torch.tensor(rng.standard_normal((B, C) if B > 1 else C), dtype=dt, device=dev)
+            base, new = (slice_call(v.lib, A.diag, A.off, plan, x) for v in libs)
+            name = f"slice {label} B={B}"
+            same = _check(name, base, new, lambda: slice_spmv_plain(A.diag, A.off, plan, x),
+                          dt, ("y",))
+            ab(name, base, new, cs.plan_csr_call(A.diag, A.off, plan, x),
+               used * sz + C * sz + 2 * B * C * sz + plan.ntiles * 4 * (1 + plan.n_max),
+               reps, results)
+            results[-1]["bitwise"] = same
+        del A, off, diag, mesh
+    (m64, _), x_true = cs._bench_df32_system(dev)
+    A = m64[0].prepare()
+    plan, C = A.plan, A.plan.n_cells
+    used = cs._used_coefs(plan)
+    P64, _ = A.jacobi_preconditioned()
+    hi, lo = df_from_f64(A.off)
+    x64 = torch.tensor(x_true, device=dev)
+    xh, xl = df_from_f64(x64)
+    P32, _ = EllMatrix(
+        df_from_f64(A.diag)[0], hi, A.neighbors, plan=plan, slice_layout=True
+    ).jacobi_preconditioned()
+    zero = torch.zeros(C, dtype=torch.float32, device=dev)
+    for form, d, c, x in (
+        ("f32 inner solve", P32.diag, P32.off, xh),
+        ("f32 hi*lo cross term", zero, hi, xl),
+        ("f32 lo*hi cross term", zero, lo, xh),
+        ("f64 native solve", P64.diag, P64.off, x64),
+    ):
+        sz = x.dtype.itemsize
+        base, new = (slice_call(v.lib, d, c, plan, x) for v in libs)
+        name = f"slice 1024-row plan {form}"
+        same = _check(name, base, new, lambda: slice_spmv_plain(d, c, plan, x), x.dtype, ("y",))
+        ab(name, base, new, cs.plan_csr_call(d, c, plan, x),
+           used * sz + 3 * C * sz + plan.ntiles * 4 * (1 + plan.n_max), reps, results)
+        results[-1]["bitwise"] = same
+    del A, P64, P32, hi, lo
+
+
+def momentum_shapes(dev, libs, reps, results):
+    """Row 3 at chip_smoke's instances on the 1024^2 f32 cavity (five
+    steady, two transient), on the 128x64 f64 couette and on the 128^3
+    f32 cavity (UD, K = 6), from seeded fields."""
+    from orc_tpu_torch.models.cavity import cavity_case
+    from orc_tpu_torch.ops import fused_assembly as asm
+    from orc_tpu_torch.ops.ck_ops import (
+        build_ck_geometry,
+        ck_bc,
+        ck_pressure_gradient,
+        ck_velocity_gradient,
+    )
+    from orc_tpu_torch.ops.fields import device_bc
+    from orc_tpu_torch.utils.settings import tvd_umist
+
+    cd1 = asm.AsmSpec(scheme="cd1", rc=True, p_so=True, gg=True)
+    steady = (
+        ("ud", asm.AsmSpec()),
+        ("cd1+so+rc gg", cd1),
+        ("tvd_dc+umist+rc gg", cd1._replace(scheme="tvd_dc", psi=tvd_umist, p_so=False)),
+        ("cd1+so+rc streamed grad p", cd1._replace(gg=False)),
+        ("cd1+so gg", cd1._replace(rc=False)),
+    )
+    cases = (
+        ("1024^2 f32", lambda: cavity_case(n=1024, dtype=torch.float32, device=dev),
+         steady, ("ud", "cd1+so+rc gg")),
+        ("couette 128x64 f64", lambda: cs.couette_mesh(dev), steady[:2], ()),
+        ("128^3 f32 K=6", lambda: cavity_case(n=128, nz=128, dtype=torch.float32, device=dev),
+         steady[:1], ()),
+    )
+    for label, make, specs, transient in cases:
+        mesh, table = make()
+        dt, C = mesh.dtype, mesh.n_cells
+        zc, zs, zv = device_bc(table, dtype=dt, device=dev)
+        ck = build_ck_geometry(mesh, len(table.zone_ids))
+        bc = ck_bc(ck, zc, zs, zv)
+        cols = asm.column_specs(mesh, table)
+        flags, bcv = asm.pack_flags(ck.interior, ck.mask), asm.bc_value_table(zs, zv)
+        rng = np.random.default_rng(3)
+        vel = torch.tensor(rng.standard_normal((C, 3)) * 0.1, dtype=dt, device=dev)
+        p = torch.tensor(rng.standard_normal(C) * 0.05, dtype=dt, device=dev)
+        md = torch.tensor(rng.uniform(0.5, 2.0, C), dtype=dt, device=dev)
+        grad_p = ck_pressure_gradient(mesh, ck, bc, p)
+        grad_v = ck_velocity_gradient(mesh, ck, bc, vel)
+        inertia = cs.step_inertia(mesh, vel, 1.0, 1.0 / 1024)
+        vol = float(mesh.cell_volume[0])
+        margs = (vel, p, bcv, flags, cols, 1.0, 1e-3, 0.7)
+        K, sz = len(cols), dt.itemsize
+        runs = [(n, sp, False) for n, sp in specs]
+        runs += [(n, sp, True) for n, sp in specs if n in transient]
+        for name, sp, tr in runs:
+            sp = sp._replace(vol=vol)
+            tvd, streamed = sp.scheme == "tvd_dc", (sp.rc or sp.p_so) and not sp.gg
+            kw = dict(grad_p=grad_p if streamed else None, mom_diag=md if sp.rc else None,
+                      grad_vel=grad_v if tvd else None,
+                      inertia=inertia if tr else None, spec=sp)
+            base, new = (routed(v, asm._launch_momentum, *margs, *kw.values())
+                         for v in libs)
+            tag = f"momentum {label} {name}{' transient' if tr else ''}"
+            same = _check(tag, base, new, lambda: asm.momentum_assembly_plain(*margs, **kw),
+                          dt, cs.ASM_OUT)
+            # vel, p (+ md, a streamed grad p, grad vel, rho V/dt and
+            # vel^n); diag, K off planes, 3 b rows; the flag word.
+            reads = 4 + sp.rc + 3 * streamed + 9 * tvd + cs.INERTIA_READS * tr
+            ab(tag, base, new, None, C * (4 + (reads + 1 + K + 3) * sz), reps, results)
+            results[-1]["bitwise"] = same
+        # pc_kernel shares the source and stays as it was: checked, not timed.
+        for name, sp in (("linear", asm.AsmSpec()), ("rc gg", cd1),
+                         ("rc streamed", cd1._replace(gg=False))):
+            sp = sp._replace(vol=vol)
+            pargs = (vel, md, bcv, flags, cols, 1.0, p if sp.rc else None,
+                     None if sp.gg else grad_p, sp)
+            base, new = (routed(v, asm._launch_pc, *pargs) for v in libs)
+            same = _check(f"pc {label} {name}", base, new,
+                          lambda: asm.pc_assembly_plain(*pargs[:-1], spec=sp), dt, cs.ASM_OUT)
+            results.append(dict(label=f"pc {label} {name}", bitwise=same))
+        del mesh, ck, vel, p, md, grad_p, grad_v, inertia
+
+
+GROUPS = dict(momentum=momentum_shapes, slice=slice_shapes, spmv=spmv_shapes,
+              gather=gather_shapes)
+
+
+def sass_counts(lib: Path):
+    """(kernel, SASS instruction count) of each kernel of REPORTED in
+    `lib`, from cuobjdump, names demangled where c++filt exists."""
+    text = subprocess.run(["/usr/local/cuda/bin/cuobjdump", "-sass", str(lib)],
+                          capture_output=True, text=True, check=True).stdout
+    out, name, n = [], None, 0
+    for line in text.splitlines() + ["Function : end"]:
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            if name and any(k in name for k in REPORTED):
+                out.append((name, n))
+            name, n = cs.demangle(m.group(1)), 0
+        elif re.search(r"/\*[0-9a-f]{4,}\*/", line):
+            n += 1
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("base", type=Path, help="csrc directory of the base version")
     ap.add_argument("--reps", type=int, default=3)
+    ap.add_argument("--only", default=",".join(GROUPS),
+                    help=f"comma-separated groups to run, of {', '.join(GROUPS)}")
+    ap.add_argument("--sass", action="store_true",
+                    help="also print the SASS instruction count of each kernel "
+                         "of REPORTED (cuobjdump)")
     args = ap.parse_args()
+    only = args.only.split(",")
+    if not set(only) <= set(GROUPS):
+        raise SystemExit(f"--only takes groups of {GROUPS}, got {only}")
     if not torch.cuda.is_available():
         raise SystemExit("kernel_ab.py needs an NVIDIA GPU")
     dev = torch.device("cuda", 0)
@@ -232,22 +494,33 @@ def main():
     out = ROOT / "build" / "kernel_ab"
     out.mkdir(parents=True, exist_ok=True)
     paths = (out / "libbase.so", out / "libnew.so")
-    cmds = (build(args.base.resolve(), paths[0]),
-            build(ROOT / "orc_tpu_torch" / "csrc", paths[1]))
+    dirs = (args.base.resolve(), ROOT / "orc_tpu_torch" / "csrc")
+    plans = [build(d, p) for d, p in zip(dirs, paths)]
     t0 = time.perf_counter()
-    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-             for c in cmds]
-    for tag, c, p in zip(("base", "new"), cmds, procs):
-        o, e = p.communicate()
-        if p.returncode:
-            raise SystemExit(f"nvcc failed:\n{' '.join(c)}\n{e}{o}")
-        for name, regs, spills in cs.ptxas_report(e):
-            cs.log(f"  ptxas {tag} {name}: {regs} registers, spills {spills}")
+    procs = [[subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+              for c in compiles] for compiles, _link in plans]
+    for tag, (compiles, link), ps in zip(("base", "new"), plans, procs):
+        for c, p in zip(compiles, ps):
+            o, e = p.communicate()
+            if p.returncode:
+                raise SystemExit(f"nvcc failed:\n{' '.join(c)}\n{e}{o}")
+            for name, regs, spills in cs.ptxas_report(e):
+                if any(k in name for k in REPORTED):
+                    cs.log(f"  ptxas {tag} {name}: {regs} registers, spills {spills}")
+        done = subprocess.run(link, capture_output=True, text=True)
+        if done.returncode:
+            raise SystemExit(f"nvcc failed:\n{' '.join(link)}\n{done.stderr}")
     cs.log(f"built in {time.perf_counter() - t0:.1f} s")
-    libs = tuple(load(p) for p in paths)
+    if args.sass:
+        for tag, path in zip(("base", "new"), paths):
+            for name, n in sass_counts(path):
+                cs.log(f"  sass {tag} {name}: {n} instructions")
+    libs = tuple(Version(p, d) for p, d in zip(paths, dirs))
     results = []
-    spmv_shapes(dev, libs, args.reps, results)
-    gather_shapes(dev, libs, args.reps, results)
+    for group in only:
+        GROUPS[group](dev, libs, args.reps, results)
+    bad = [r["label"] for r in results if r.get("bitwise") is False]
+    cs.log(f"new != base bitwise at: {bad or 'no shape'}")
     dest = ROOT / "chiprun_out" / "kernel_ab.json"
     dest.parent.mkdir(exist_ok=True)
     dest.write_text(json.dumps(dict(device=smi, results=results), indent=1))

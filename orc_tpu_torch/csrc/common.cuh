@@ -44,4 +44,21 @@ inline unsigned grid_blocks(long long n) {
   return static_cast<unsigned>(b);
 }
 
+// The rounding of the SpMVs' first designs, whose separate basic blocks
+// kept nvcc from fusing diag * x with the first column: a rounded
+// product, then one fused multiply-add per column. Spelled out, so that
+// unrolled straight-line code cannot be contracted another way.
+__device__ __forceinline__ float mul_rn(float a, float b) {
+  return __fmul_rn(a, b);
+}
+__device__ __forceinline__ double mul_rn(double a, double b) {
+  return __dmul_rn(a, b);
+}
+__device__ __forceinline__ float fma_rn(float a, float b, float c) {
+  return __fmaf_rn(a, b, c);
+}
+__device__ __forceinline__ double fma_rn(double a, double b, double c) {
+  return __fma_rn(a, b, c);
+}
+
 }  // namespace orc

@@ -7,14 +7,17 @@
 extern "C" int orc_momentum_assembly(
     int dtype, int scheme, int psi, int rc, int p_so, int gg,
     const long long* col_offsets, const double* col_geom, const int* col_kind,
-    const int* col_zone, int K, const void* vel, const void* p,
-    const void* grad_p, const void* md, const void* grad_vel,
-    const void* rv_dt, const void* vel_n, const void* bc, const void* flags,
-    double rho, double mu, double alpha, double vol, void* diag, void* off,
-    void* b, long long C, void* stream) {
+    const int* col_zone, int K, long long nx, long long ny, long long nz,
+    const void* vel, const void* p, const void* grad_p, const void* md,
+    const void* grad_vel, const void* rv_dt, const void* vel_n,
+    const void* bc, const void* flags, double rho, double mu, double alpha,
+    double vol, void* diag, void* off, void* b, long long C, void* stream) {
   const bool grad = rc || p_so;
   const bool in_kernel = grad && gg;
-  if (!orc::valid_cols(col_kind, K) || scheme < orc::kUD ||
+  // (nx, ny, nz): the box whose cell (x, y, z) is row x + nx (y + ny z).
+  if (nx < 1 || ny < 1 || nz < 1 || nx > 2147483647LL ||
+      ny > 2147483647LL || nz > 2147483647LL || nx * ny * nz != C ||
+      !orc::valid_cols(col_kind, K) || scheme < orc::kUD ||
       scheme > orc::kTvdDc || psi < 0 || psi > 2 || C < 0 ||
       (grad && !in_kernel && grad_p == nullptr) || (rc && md == nullptr) ||
       (scheme == orc::kTvdDc && grad_vel == nullptr) ||
@@ -28,18 +31,20 @@ extern "C" int orc_momentum_assembly(
   if (dtype == orc::kF32) {
     const auto c = orc::make_asm_cols<float>(col_offsets, col_geom, col_kind,
                                              col_zone, K, vol);
-    return orc::launch_momentum<float>(scheme, psi, rc != 0, p_so != 0,
-                                       in_kernel, c, vel, p, grad_p, md,
-                                       grad_vel, rv_dt, vel_n, bc, fl, rho,
-                                       mu, alpha, vol, diag, off, b, C, s);
+    return orc::launch_momentum<float>(
+        scheme, psi, rc != 0, p_so != 0, in_kernel, c, static_cast<int>(nx),
+        static_cast<int>(ny), static_cast<int>(nz), vel, p, grad_p, md,
+        grad_vel, rv_dt, vel_n, bc, fl, rho, mu, alpha, vol, diag, off, b, C,
+        s);
   }
   if (dtype == orc::kF64) {
     const auto c = orc::make_asm_cols<double>(col_offsets, col_geom, col_kind,
                                               col_zone, K, vol);
-    return orc::launch_momentum<double>(scheme, psi, rc != 0, p_so != 0,
-                                        in_kernel, c, vel, p, grad_p, md,
-                                        grad_vel, rv_dt, vel_n, bc, fl, rho,
-                                        mu, alpha, vol, diag, off, b, C, s);
+    return orc::launch_momentum<double>(
+        scheme, psi, rc != 0, p_so != 0, in_kernel, c, static_cast<int>(nx),
+        static_cast<int>(ny), static_cast<int>(nz), vel, p, grad_p, md,
+        grad_vel, rv_dt, vel_n, bc, fl, rho, mu, alpha, vol, diag, off, b, C,
+        s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

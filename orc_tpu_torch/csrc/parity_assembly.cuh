@@ -40,13 +40,11 @@
 // Bound on the H100: device memory. Momentum reads vel (3), p and one
 // int32 flag word per cell (plus md under Rhie-Chow, grad p (3) when
 // streamed, grad vel (9) under TVD_DC, rho V/dt and v^n (4) in transient
-// runs) and writes diag, K off planes and 3 b rows; the pressure correction reads vel (3), md and flags (plus p
-// and grad p under Rhie-Chow) and writes diag, K off planes and b.
-// Neighbour reads come from L1/L2 lines of adjacent rows. With kGG the
-// gradient of a neighbour reads p two hops away: a plain read per
-// thread from device memory, served by L1/L2 (no shared-memory tiling
-// yet), in exchange for the [C,3] gradient pass and its planes. Design:
-// one thread per cell, the column constants in a kernel-argument
+// runs) and writes diag, K off planes and 3 b rows; the pressure
+// correction reads vel (3), md and flags (plus p and grad p under
+// Rhie-Chow) and writes diag, K off planes and b.
+//
+// Design shared by both: the column constants in a kernel-argument
 // struct, off written as K contiguous [C] planes so the solver's column
 // split is free, every per-face intermediate in registers. Each scheme,
 // limiter, face model and gradient source is its own template instance,
@@ -54,6 +52,34 @@
 // nor loads. The inertia term is not a template parameter: its two
 // pointers are null in steady runs, a branch the same for every thread,
 // which keeps the instance count (and nvcc's time) where it was.
+//
+// pc_kernel: one thread per cell (grid-stride), neighbour values read
+// from L1/L2; with kGG each neighbour's gradient is recomputed from p
+// two hops away.
+//
+// momentum_kernel. Its first design was pc_kernel's: up to K + 1
+// threads recomputed each cell's Green-Gauss gradient, a neighbour's
+// gradient waited on flags[i], flags[j] and then p, and the velocity
+// was read as [C,3] with stride 3 (CD1+SO+RC+GG at 1024^2 f32: 0.1199
+// ms against a 0.0200 ms bound on an NVIDIA H100 80GB HBM3 at 700 W).
+// Now a CTA takes a tile of the box (32 x 8 cells in 2-D, 16 x 4 x 4
+// in 3-D, down to 64 cells where a small box would leave SMs idle; one
+// cell per thread; BoxTile) and:
+//  1. stages p over the tile and its face neighbours two cells out
+//     along each axis under kGG (one otherwise), and the flag words, the
+//     velocity (transposed into three planes), V / md (kRC, one division
+//     a cell) and a streamed gradient over the tile and one cell out, in
+//     shared memory with coalesced reads;
+//  2. under kGG computes the Green-Gauss gradient once per cell, of the
+//     tile's cells on the axes the columns use and of each face
+//     neighbour on its face's axis, into shared memory (gg_gradient's
+//     arithmetic and column order);
+//  3. assembles each cell from the stage and writes diag, the K off
+//     planes and the 3 b rows, coalesced.
+// grad vel (TVD_DC) and the inertia pair stay global reads: the first
+// is read at two cells per face on one axis, the second once per cell.
+// Every per-face expression is the first design's, so nvcc contracts
+// it the same way and the results are unchanged bit for bit.
 #pragma once
 
 #include "assembly.cuh"
@@ -99,135 +125,420 @@ __device__ __forceinline__ void face_gradients(
   }
 }
 
+// A block of the box staged in shared memory. Cell (x, y, z) of the box
+// is row x + nx (y + ny z); a CTA assembles the bx x by x bz cells of
+// its tile (one per thread) from a stage of the tile and a halo of hx,
+// hy, hz cells (0 on an axis of extent 1), slot (sx, sy, sz) holding
+// box cell (x0 - hx + sx, ...). Column k's neighbour of slot s is slot
+// s + ds[k], one step along the column's axis. A slot is loaded from row
+// x + nx (y + ny z) whenever that row lies in [0, C): the neighbour
+// i + offset[k] of a row i is then staged whichever face it crosses, so
+// the tile reads exactly what the row-by-row kernel read. Only slots
+// outside the tile along at most one axis are staged: a cell reads its
+// face neighbours, and a neighbour's gradient along that face's axis
+// reads one cell further along it.
+struct BoxTile {
+  int nx, ny, nz;
+  int bx, by, bz, lg_bx, lg_by;
+  int hx, hy, hz;
+  int sx, sy, sz;
+  // The halo slots: on each axis 2 h layers of the tile's cross-section
+  // (nh_x + nh_y + nh_z in all), enumerated with shifts only (lg_hx2 =
+  // log2(2 hx), and so on).
+  int nh_x, nh_y, nh_z, lg_hx2, lg_hy2;
+  int ds[kAsmK];
+};
+
+// The tile shape (32 x 8 in 2-D, 16 x 4 x 4 in 3-D, narrower on a thin
+// box, smaller on a small one) and the slot step of each column, or
+// false when a column with a neighbour offset is not one step along the
+// axis of its normal, an axis the halo covers, or its normal has a
+// second component (its Green-Gauss weights would reach slots that are
+// not staged).
+template <typename T>
+bool make_box_tile(const AsmCols<T>& c, int nx, int ny, int nz, int halo,
+                   BoxTile* bt) {
+  BoxTile t{};
+  t.nx = nx;
+  t.ny = ny;
+  t.nz = nz;
+  t.bz = nz > 1 ? 4 : 1;
+  t.bx = nz > 1 ? 16 : 32;
+  while (t.bx > 1 && t.bx / 2 >= nx) t.bx /= 2;
+  t.by = kThreads / (t.bx * t.bz);
+  while (t.by > 1 && t.by / 2 >= ny) t.by /= 2;
+  // A small box takes smaller tiles, down to 64 cells, until its CTAs
+  // reach every SM of an H100 (132): each thread's work is one cell.
+  auto ctas = [&] {
+    return static_cast<long long>((nx + t.bx - 1) / t.bx) *
+           ((ny + t.by - 1) / t.by) * ((nz + t.bz - 1) / t.bz);
+  };
+  while (t.bx * t.by * t.bz > 64 && ctas() < 132) {
+    if (t.bz > 2) {
+      t.bz /= 2;
+    } else if (t.by > 4) {
+      t.by /= 2;
+    } else if (t.bx > 16) {
+      t.bx /= 2;
+    } else if (t.bz > 1) {
+      t.bz /= 2;
+    } else if (t.by > 1) {
+      t.by /= 2;
+    } else {
+      t.bx /= 2;
+    }
+  }
+  t.lg_bx = 0;
+  while ((1 << t.lg_bx) < t.bx) ++t.lg_bx;
+  t.lg_by = 0;
+  while ((1 << t.lg_by) < t.by) ++t.lg_by;
+  t.hx = nx > 1 ? halo : 0;
+  t.hy = ny > 1 ? halo : 0;
+  t.hz = nz > 1 ? halo : 0;
+  t.sx = t.bx + 2 * t.hx;
+  t.sy = t.by + 2 * t.hy;
+  t.sz = t.bz + 2 * t.hz;
+  t.nh_x = 2 * t.hx * t.by * t.bz;
+  t.nh_y = 2 * t.hy * t.bx * t.bz;
+  t.nh_z = 2 * t.hz * t.bx * t.by;
+  t.lg_hx2 = t.hx == 2 ? 2 : 1;
+  t.lg_hy2 = t.hy == 2 ? 2 : 1;
+  const long long nxy = static_cast<long long>(nx) * ny;
+  const int step[3] = {1, t.sx, t.sx * t.sy};
+  const bool covered[3] = {t.hx > 0, t.hy > 0, t.hz > 0};
+  for (int k = 0; k < c.K; ++k) {
+    const long long o = c.offset[k];
+    const long long m = o < 0 ? -o : o;
+    t.ds[k] = 0;
+    if (o == 0) continue;
+    const int a = m == 1 ? 0 : (m == nx ? 1 : (m == nxy ? 2 : -1));
+    if (a < 0 || a != c.axis[k] || !covered[a]) return false;
+    for (int b = 0; b < 3; ++b) {
+      if (b != a && c.gw[b][k] != T(0)) return false;
+    }
+    t.ds[k] = (o < 0 ? -1 : 1) * step[a];
+  }
+  *bt = t;
+  return true;
+}
+
+// Halo slot q < nh_x + nh_y + nh_z of the stage: its coordinates in the
+// stage, its distance d (1 or 2) from the tile and the axis a it lies
+// out along. Consecutive q run along x where the face allows it.
+__device__ __forceinline__ void halo_slot(const BoxTile& t, int q, int& x,
+                                          int& y, int& z, int& d, int& a) {
+  int ls;  // side (bit 0) and layer (bit 1) of the face
+  if (q < t.nh_x) {
+    ls = q & ((2 * t.hx) - 1);
+    const int r = q >> t.lg_hx2;
+    y = t.hy + (r & (t.by - 1));
+    z = t.hz + (r >> t.lg_by);
+    d = (ls >> 1) + 1;
+    x = (ls & 1) ? t.hx + t.bx - 1 + d : t.hx - d;
+    a = 0;
+  } else if ((q -= t.nh_x) < t.nh_y) {
+    x = t.hx + (q & (t.bx - 1));
+    const int r = q >> t.lg_bx;
+    ls = r & ((2 * t.hy) - 1);
+    z = t.hz + (r >> t.lg_hy2);
+    d = (ls >> 1) + 1;
+    y = (ls & 1) ? t.hy + t.by - 1 + d : t.hy - d;
+    a = 1;
+  } else {
+    q -= t.nh_y;
+    x = t.hx + (q & (t.bx - 1));
+    const int r = q >> t.lg_bx;
+    y = t.hy + (r & (t.by - 1));
+    ls = r >> t.lg_by;
+    d = (ls >> 1) + 1;
+    z = (ls & 1) ? t.hz + t.bz - 1 + d : t.hz - d;
+    a = 2;
+  }
+}
+
+// orc_tpu's `_gg_eval` of the cell in slot s, gg_gradient's arithmetic
+// and column order with the neighbours' p read from the stage.
+template <typename T>
+__device__ __forceinline__ T gg_gradient_tile(const AsmCols<T>& cols,
+                                              const BoxTile& t, const T* ps,
+                                              const T* __restrict__ bc,
+                                              int s, int fl, T p_c,
+                                              const T* w) {
+  T acc = T(0);
+#pragma unroll
+  for (int k = 0; k < kAsmK; ++k) {
+    if (k >= cols.K || w[k] == T(0)) continue;
+    T p_f;
+    if ((fl >> k) & 1) {
+      p_f = T(0.5) * (p_c + ps[s + t.ds[k]]);
+    } else {
+      p_f = cols.kind[k] == kPressure ? bc[4 * cols.zone[k] + 3] : p_c;
+    }
+    acc = acc + w[k] * p_f;
+  }
+  return acc;
+}
+
+// The Green-Gauss gradient of each face neighbour of the tile (the halo
+// one cell out), on the axis of its face, into gs[a * S + s]; p is
+// staged two cells out, the flag words one. The tile's own cells are
+// their threads' (tile_gg_own).
+template <typename T>
+__device__ __forceinline__ void tile_gg_halo(const AsmCols<T>& cols,
+                                             const BoxTile& t, const T* ps,
+                                             const int* fs,
+                                             const T* __restrict__ bc, T* gs,
+                                             int S) {
+  const int nh = t.nh_x + t.nh_y + t.nh_z;
+  for (int q = threadIdx.x; q < nh; q += blockDim.x) {
+    int x, y, z, d, a;
+    halo_slot(t, q, x, y, z, d, a);
+    const int s = x + t.sx * (y + t.sy * z);
+    if (d == 1 && ((cols.axes >> a) & 1)) {
+      gs[a * S + s] =
+          gg_gradient_tile(cols, t, ps, bc, s, fs[s], ps[s], cols.gw[a]);
+    }
+  }
+}
+
+// The gradient of the tile cell in slot s on each axis a column uses,
+// into gs and g.
+template <typename T>
+__device__ __forceinline__ void tile_gg_own(const AsmCols<T>& cols,
+                                            const BoxTile& t, const T* ps,
+                                            const T* __restrict__ bc, T* gs,
+                                            int S, int s, int fl, T p_c,
+                                            T g[3]) {
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    g[a] = T(0);
+    if ((cols.axes >> a) & 1) {
+      g[a] = gg_gradient_tile(cols, t, ps, bc, s, fl, p_c, cols.gw[a]);
+      gs[a * S + s] = g[a];
+    }
+  }
+}
+
+// Shared memory of a momentum tile: p, u, v, w, V / md (kRC) and three
+// gradient planes (kRC or kPSo) of T, then the int32 flag words.
+template <typename T>
+inline long long momentum_smem_bytes(const BoxTile& t, bool rc, bool grad) {
+  const long long S = static_cast<long long>(t.sx) * t.sy * t.sz;
+  return S * (static_cast<long long>(sizeof(T)) * (4 + rc + 3 * grad) + 4);
+}
+
+// The per-column products of Python numbers the first design formed in
+// every thread, formed once by the launcher with the same rounded
+// operations: mu A / dist_on, mu A / dist_fo, A rho, and the relaxation
+// factor (1 - alpha) / alpha.
+template <typename T>
+struct MomentumConsts {
+  T d_int[kAsmK];
+  T d_bnd[kAsmK];
+  T arho[kAsmK];
+  T relax;
+};
+
+template <typename T>
+MomentumConsts<T> make_momentum_consts(const AsmCols<T>& c, T rho, T mu,
+                                       T alpha) {
+  MomentumConsts<T> m{};
+  for (int k = 0; k < c.K; ++k) {
+    m.d_int[k] = mu * c.area[k] / c.dist_on[k];
+    m.d_bnd[k] = mu * c.area[k] / c.dist_fo[k];
+    m.arho[k] = c.area[k] * rho;
+  }
+  m.relax = (T(1) - alpha) / alpha;
+  return m;
+}
+
 template <typename T, int kScheme, int kPsi, bool kRC, bool kPSo, bool kGG>
 __global__ void momentum_kernel(
-    AsmCols<T> cols, const T* __restrict__ vel, const T* __restrict__ p,
-    const T* __restrict__ grad_p, const T* __restrict__ md,
-    const T* __restrict__ grad_vel, const T* __restrict__ rv_dt,
-    const T* __restrict__ vel_n, const T* __restrict__ bc,
-    const int* __restrict__ flags, T rho, T mu, T alpha, T vol,
-    T* __restrict__ diag_out, T* __restrict__ off_out,
-    T* __restrict__ b_out, long long C) {
+    AsmCols<T> cols, BoxTile box, MomentumConsts<T> mc,
+    const T* __restrict__ vel,
+    const T* __restrict__ p, const T* __restrict__ grad_p,
+    const T* __restrict__ md, const T* __restrict__ grad_vel,
+    const T* __restrict__ rv_dt, const T* __restrict__ vel_n,
+    const T* __restrict__ bc, const int* __restrict__ flags, T alpha, T vol,
+    T* __restrict__ diag_out, T* __restrict__ off_out, T* __restrict__ b_out,
+    long long C) {
   constexpr bool kGrad = kRC || kPSo;
-  const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
-                     threadIdx.x;
-       i < C; i += step) {
-    const int fl = flags[i];
-    const bool active = (fl >> ACTIVE_BIT) & 1;
-    const T u_c = vel[3 * i], v_c = vel[3 * i + 1], w_c = vel[3 * i + 2];
-    const T p_c = p[i];
-    T g_own[3] = {T(0), T(0), T(0)};
-    if (kGG) gg_own(cols, p, bc, i, fl, p_c, g_own);
-    const T md_c = kRC ? md[i] : T(1);
-    const T voa_c = kRC ? vol / md_c : T(0);
-    T diag = T(0), bu = T(0), bv = T(0), bw = T(0);
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int S = box.sx * box.sy * box.sz;
+  T* ps = reinterpret_cast<T*>(smem);
+  T* us = ps + S;
+  T* vs = us + S;
+  T* ws = vs + S;
+  T* voas = ws + S;
+  T* gs = voas + (kRC ? S : 0);
+  int* fs = reinterpret_cast<int*>(gs + (kGrad ? 3 * S : 0));
+  // Rows in 32 bits: the launcher checks that every staged row fits.
+  const int nx = box.nx, nxy = box.nx * box.ny, rows = static_cast<int>(C);
+  const int x0 = static_cast<int>(blockIdx.x) * box.bx - box.hx;
+  const int y0 = static_cast<int>(blockIdx.y) * box.by - box.hy;
+  const int z0 = static_cast<int>(blockIdx.z) * box.bz - box.hz;
+  // Stages slot s from row r (zeros where r lies outside [0, C)): p,
+  // and with `all` the flag word, the velocity as three planes, V / md
+  // and a streamed gradient.
+  auto stage = [&](int s, int r, bool all) {
+    const bool in = r >= 0 && r < rows;
+    ps[s] = in ? p[r] : T(0);
+    if (!all) return;
+    const T* v = vel + 3 * static_cast<long long>(r);
+    fs[s] = in ? flags[r] : 0;
+    us[s] = in ? v[0] : T(0);
+    vs[s] = in ? v[1] : T(0);
+    ws[s] = in ? v[2] : T(0);
+    if (kRC) voas[s] = vol / (in ? md[r] : T(1));  // V / a, once a cell
+    if (kGrad && !kGG) {
+      const T* g = grad_p + 3 * static_cast<long long>(r);
 #pragma unroll
-    for (int k = 0; k < kAsmK; ++k) {
-      if (k >= cols.K) continue;
-      const bool interior = (fl >> k) & 1;
-      const long long j = interior ? i + cols.offset[k] : i;
-      T u_n = u_c, v_n = v_c, w_n = w_c, p_n = p_c;
-      if (interior) {
-        u_n = vel[3 * j];
-        v_n = vel[3 * j + 1];
-        w_n = vel[3 * j + 2];
-        p_n = p[j];
-      }
-      const T* n = cols.n[k];
-      const T area = cols.area[k];
-      const int ax = cols.axis[k];
-      T gp_c = T(0), gp_n = T(0);
-      if (kGrad && ax >= 0) {
-        face_gradients<T, kGG>(cols, k, ax, interior, i, j, p, grad_p, bc,
-                               flags, p_n, g_own, gp_c, gp_n);
-      }
-      // --- face mass flow F ---
-      T vn_int = T(0.5) * dot_n(u_c + u_n, v_c + v_n, w_c + w_n, n);
-      if (kRC && ax >= 0) {
-        const T term1 = dot_n(u_c + u_n, v_c + v_n, w_c + w_n, n);
-        const T voa_n = vol / (interior ? md[j] : md_c);
-        const T term2 = (voa_c + voa_n) * (p_c - p_n) * cols.inv_on[k];
-        const T term3 = (voa_c * gp_c + voa_n * gp_n) * cols.na[k];
-        vn_int = T(0.5) * (term1 + term2 + term3);
-      }
-      const T vn_bnd = boundary_flux(cols, k, bc, u_c, v_c, w_c);
-      const T F = (interior ? vn_int : vn_bnd) * (area * rho);
-      // --- advection + diffusion coefficients ---
-      const T a_nb = kScheme == kCD1 ? F * T(0.5) : (F < T(0) ? F : T(0));
-      const T d_int = mu * area / cols.dist_on[k];
-      const T d_bnd = mu * area / cols.dist_fo[k];
-      off_out[k * C + i] = (active && interior) ? a_nb - d_int : T(0);
-      const int kind = cols.kind[k];
-      const bool dirichlet = kind == kWall || kind == kVinlet;
-      const T d_b = dirichlet ? d_bnd : T(0);
-      diag = diag + (interior ? -a_nb + F + d_int : -a_nb + F + d_b);
-      if (dirichlet) {
-        // (a_nb - F) v_bc + d_bnd v_bc from the BC table.
-        const T s_w = interior ? T(0) : (a_nb - F) + d_bnd;
-        const T* row = bc + 4 * cols.zone[k];
-        bu = bu + s_w * row[0];
-        bv = bv + s_w * row[1];
-        bw = bw + s_w * row[2];
-      }
-      // --- TVD deferred correction (ck_momentum TVD_DC) ---
-      if (kScheme == kTvdDc && ax >= 0) {
-        const bool up_c = F > T(0);
-        const T e_on = cols.e_on[k];
-        const T x_c[3] = {u_c, v_c, w_c};
-        const T x_n[3] = {u_n, v_n, w_n};
-        T acc[3];
-#pragma unroll
-        for (int q = 0; q < 3; ++q) {
-          const T gv_c = grad_vel[9 * i + 3 * q + ax];
-          const T gv_n = interior ? grad_vel[9 * j + 3 * q + ax] : gv_c;
-          const T d_cd = x_n[q] - x_c[q];
-          const T delta = up_c ? d_cd : -d_cd;  // phi_D - phi_U
-          const T gdotr = up_c ? gv_c * e_on : gv_n * (-e_on);
-          const T safe = delta == T(0) ? T(1) : delta;
-          const T rr = T(2) * gdotr / safe - T(1);
-          const T corr =
-              delta == T(0) ? T(0) : tvd_psi<T, kPsi>(rr) * T(0.5) * delta;
-          acc[q] = interior ? F * corr : T(0);
-        }
-        bu = bu - acc[0];
-        bv = bv - acc[1];
-        bw = bw - acc[2];
-      }
-      // --- pressure force: -n_out p_f A ---
-      const T p_bnd = (kind == kPressure) ? bc[4 * cols.zone[k] + 3] : p_c;
-      T p_int = T(0.5) * (p_c + p_n);
-      if (kPSo && ax >= 0) {
-        // SecondOrder: 0.5 [(p_c + p_n) + gp_c . r_cf + gp_n . r_nf].
-        p_int = T(0.5) * ((p_c + p_n) + gp_c * cols.e_c[k] +
-                          gp_n * cols.e_n[k]);
-      }
-      const T p_f = interior ? p_int : p_bnd;
-      const T pfA = p_f * area;
-      if (n[0] != T(0)) bu = bu - n[0] * pfA;
-      if (n[1] != T(0)) bv = bv - n[1] * pfA;
-      if (n[2] != T(0)) bw = bw - n[2] * pfA;
+      for (int a = 0; a < 3; ++a) gs[a * S + s] = in ? g[a] : T(0);
     }
-    // Implicit-Euler inertia of transient runs (rv_dt and vel_n are null
-    // in steady ones, the same for every thread): rho V/dt on the
-    // diagonal, rho V/dt vel^n on the RHS, before the relaxation.
-    if (rv_dt != nullptr) {
-      const T rvdt = rv_dt[i];
-      diag = diag + rvdt;
-      bu = bu + rvdt * vel_n[3 * i];
-      bv = bv + rvdt * vel_n[3 * i + 1];
-      bw = bw + rvdt * vel_n[3 * i + 2];
-    }
-    // Implicit (Patankar) relaxation + inactive padding rows.
-    bu = bu + (T(1) - alpha) / alpha * diag * u_c;
-    bv = bv + (T(1) - alpha) / alpha * diag * v_c;
-    bw = bw + (T(1) - alpha) / alpha * diag * w_c;
-    diag = diag / alpha;
-    diag_out[i] = active ? diag : T(1);
-    b_out[i] = active ? bu : T(0);
-    b_out[C + i] = active ? bv : T(0);
-    b_out[2 * C + i] = active ? bw : T(0);
+  };
+  // 1. Each thread stages its own cell, then the halo's slots in turn.
+  const int tx = threadIdx.x & (box.bx - 1);
+  const int ty = (threadIdx.x >> box.lg_bx) & (box.by - 1);
+  const int tz = threadIdx.x >> (box.lg_bx + box.lg_by);
+  const int s =
+      (tx + box.hx) + box.sx * ((ty + box.hy) + box.sy * (tz + box.hz));
+  const int i32 = (x0 + box.hx + tx) + nx * (y0 + box.hy + ty) +
+                  nxy * (z0 + box.hz + tz);
+  stage(s, i32, true);
+  const int nh = box.nh_x + box.nh_y + box.nh_z;
+  for (int q = threadIdx.x; q < nh; q += blockDim.x) {
+    int x, y, z, d, a;
+    halo_slot(box, q, x, y, z, d, a);
+    stage(x + box.sx * (y + box.sy * z),
+          (x0 + x) + nx * (y0 + y) + nxy * (z0 + z), d == 1);
   }
+  __syncthreads();
+  const bool mine = x0 + box.hx + tx < box.nx && y0 + box.hy + ty < box.ny &&
+                    z0 + box.hz + tz < box.nz && i32 < rows;
+  const int fl = fs[s];
+  const T p_c = ps[s];
+  // 2. The in-kernel gradient, once per cell: the tile's cells (those
+  // past the box too, as a flag crossing the box's side would read
+  // them), then their face neighbours.
+  T g_own[3] = {T(0), T(0), T(0)};
+  if (kGG) {
+    tile_gg_own(cols, box, ps, bc, gs, S, s, fl, p_c, g_own);
+    tile_gg_halo(cols, box, ps, fs, bc, gs, S);
+    __syncthreads();
+  }
+  // 3. Each thread assembles its cell from the stage.
+  if (!mine) return;
+  const long long i = i32;
+  const bool active = (fl >> ACTIVE_BIT) & 1;
+  const T u_c = us[s], v_c = vs[s], w_c = ws[s];
+  const T voa_c = kRC ? voas[s] : T(0);
+  T diag = T(0), bu = T(0), bv = T(0), bw = T(0);
+#pragma unroll
+  for (int k = 0; k < kAsmK; ++k) {
+    if (k >= cols.K) continue;
+    const bool interior = (fl >> k) & 1;
+    const int sj = interior ? s + box.ds[k] : s;
+    const long long j = interior ? i + cols.offset[k] : i;
+    T u_n = u_c, v_n = v_c, w_n = w_c, p_n = p_c;
+    if (interior) {
+      u_n = us[sj];
+      v_n = vs[sj];
+      w_n = ws[sj];
+      p_n = ps[sj];
+    }
+    const T* n = cols.n[k];
+    const T area = cols.area[k];
+    const int ax = cols.axis[k];
+    T gp_c = T(0), gp_n = T(0);
+    if (kGrad && ax >= 0) {
+      gp_c = kGG ? pick3(ax, g_own[0], g_own[1], g_own[2]) : gs[ax * S + s];
+      gp_n = interior ? gs[ax * S + sj] : gp_c;
+    }
+    // --- face mass flow F ---
+    T vn_int = T(0.5) * dot_n(u_c + u_n, v_c + v_n, w_c + w_n, n);
+    if (kRC && ax >= 0) {
+      const T term1 = dot_n(u_c + u_n, v_c + v_n, w_c + w_n, n);
+      const T voa_n = interior ? voas[sj] : voa_c;
+      const T term2 = (voa_c + voa_n) * (p_c - p_n) * cols.inv_on[k];
+      const T term3 = (voa_c * gp_c + voa_n * gp_n) * cols.na[k];
+      vn_int = T(0.5) * (term1 + term2 + term3);
+    }
+    const T vn_bnd = boundary_flux(cols, k, bc, u_c, v_c, w_c);
+    const T F = (interior ? vn_int : vn_bnd) * mc.arho[k];
+    // --- advection + diffusion coefficients ---
+    const T a_nb = kScheme == kCD1 ? F * T(0.5) : (F < T(0) ? F : T(0));
+    const T d_int = mc.d_int[k];
+    const T d_bnd = mc.d_bnd[k];
+    off_out[k * C + i] = (active && interior) ? a_nb - d_int : T(0);
+    const int kind = cols.kind[k];
+    const bool dirichlet = kind == kWall || kind == kVinlet;
+    const T d_b = dirichlet ? d_bnd : T(0);
+    diag = diag + (interior ? -a_nb + F + d_int : -a_nb + F + d_b);
+    if (dirichlet) {
+      // (a_nb - F) v_bc + d_bnd v_bc from the BC table.
+      const T s_w = interior ? T(0) : (a_nb - F) + d_bnd;
+      const T* row = bc + 4 * cols.zone[k];
+      bu = bu + s_w * row[0];
+      bv = bv + s_w * row[1];
+      bw = bw + s_w * row[2];
+    }
+    // --- TVD deferred correction (ck_momentum TVD_DC) ---
+    if (kScheme == kTvdDc && ax >= 0) {
+      const bool up_c = F > T(0);
+      const T e_on = cols.e_on[k];
+      const T x_c[3] = {u_c, v_c, w_c};
+      const T x_n[3] = {u_n, v_n, w_n};
+      T acc[3];
+#pragma unroll
+      for (int q = 0; q < 3; ++q) {
+        const T gv_c = grad_vel[9 * i + 3 * q + ax];
+        const T gv_n = interior ? grad_vel[9 * j + 3 * q + ax] : gv_c;
+        const T d_cd = x_n[q] - x_c[q];
+        const T delta = up_c ? d_cd : -d_cd;  // phi_D - phi_U
+        const T gdotr = up_c ? gv_c * e_on : gv_n * (-e_on);
+        const T safe = delta == T(0) ? T(1) : delta;
+        const T rr = T(2) * gdotr / safe - T(1);
+        const T corr =
+            delta == T(0) ? T(0) : tvd_psi<T, kPsi>(rr) * T(0.5) * delta;
+        acc[q] = interior ? F * corr : T(0);
+      }
+      bu = bu - acc[0];
+      bv = bv - acc[1];
+      bw = bw - acc[2];
+    }
+    // --- pressure force: -n_out p_f A ---
+    const T p_bnd = (kind == kPressure) ? bc[4 * cols.zone[k] + 3] : p_c;
+    T p_int = T(0.5) * (p_c + p_n);
+    if (kPSo && ax >= 0) {
+      // SecondOrder: 0.5 [(p_c + p_n) + gp_c . r_cf + gp_n . r_nf].
+      p_int = T(0.5) * ((p_c + p_n) + gp_c * cols.e_c[k] +
+                        gp_n * cols.e_n[k]);
+    }
+    const T p_f = interior ? p_int : p_bnd;
+    const T pfA = p_f * area;
+    if (n[0] != T(0)) bu = bu - n[0] * pfA;
+    if (n[1] != T(0)) bv = bv - n[1] * pfA;
+    if (n[2] != T(0)) bw = bw - n[2] * pfA;
+  }
+  // Implicit-Euler inertia of transient runs (rv_dt and vel_n are null
+  // in steady ones, the same for every thread): rho V/dt on the
+  // diagonal, rho V/dt vel^n on the RHS, before the relaxation.
+  if (rv_dt != nullptr) {
+    const T rvdt = rv_dt[i];
+    diag = diag + rvdt;
+    bu = bu + rvdt * vel_n[3 * i];
+    bv = bv + rvdt * vel_n[3 * i + 1];
+    bw = bw + rvdt * vel_n[3 * i + 2];
+  }
+  // Implicit (Patankar) relaxation + inactive padding rows.
+  bu = bu + mc.relax * diag * u_c;
+  bv = bv + mc.relax * diag * v_c;
+  bw = bw + mc.relax * diag * w_c;
+  diag = diag / alpha;
+  diag_out[i] = active ? diag : T(1);
+  b_out[i] = active ? bu : T(0);
+  b_out[C + i] = active ? bv : T(0);
+  b_out[2 * C + i] = active ? bw : T(0);
 }
 
 template <typename T, bool kRC, bool kGG>
@@ -295,10 +606,10 @@ __global__ void pc_kernel(AsmCols<T> cols, const T* __restrict__ vel,
 }
 
 template <typename T>
-using MomentumKernel = void (*)(AsmCols<T>, const T*, const T*, const T*,
+using MomentumKernel = void (*)(AsmCols<T>, BoxTile, MomentumConsts<T>,
                                 const T*, const T*, const T*, const T*,
-                                const T*, const int*, T, T, T, T, T*, T*, T*,
-                                long long);
+                                const T*, const T*, const T*, const T*,
+                                const int*, T, T, T*, T*, T*, long long);
 
 // The instance of a face-flux, face-pressure and gradient choice; the
 // gradient source matters only under Rhie-Chow or SecondOrder.
@@ -333,22 +644,48 @@ MomentumKernel<T> momentum_select(int scheme, int psi, bool rc, bool p_so,
 
 template <typename T>
 int launch_momentum(int scheme, int psi, bool rc, bool p_so, bool gg,
-                    const AsmCols<T>& c, const void* vel, const void* p,
-                    const void* grad_p, const void* md, const void* grad_vel,
-                    const void* rv_dt, const void* vel_n, const void* bc,
-                    const int* flags, double rho, double mu, double alpha,
-                    double vol, void* diag, void* off, void* b, long long C,
+                    const AsmCols<T>& c, int nx, int ny, int nz,
+                    const void* vel, const void* p, const void* grad_p,
+                    const void* md, const void* grad_vel, const void* rv_dt,
+                    const void* vel_n, const void* bc, const int* flags,
+                    double rho, double mu, double alpha, double vol,
+                    void* diag, void* off, void* b, long long C,
                     cudaStream_t stream) {
   const MomentumKernel<T> kernel =
       momentum_select<T>(scheme, psi, rc, p_so, gg);
-  kernel<<<grid_blocks(C), kThreads, 0, stream>>>(
-      c, static_cast<const T*>(vel), static_cast<const T*>(p),
+  BoxTile t;
+  if (!make_box_tile(c, nx, ny, nz, gg ? 2 : 1, &t)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  // The kernel forms the row of every staged slot (up to a tile and a
+  // halo past each far side of the box) in 32 bits.
+  const long long nxy = static_cast<long long>(nx) * ny;
+  if (C + (t.bz + 3) * nxy + (t.by + 3) * static_cast<long long>(nx) + t.bx +
+          3 > 2147483647LL) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const long long smem = momentum_smem_bytes<T>(t, rc, rc || p_so);
+  if (smem > 48 * 1024) {  // 3-D float64 tiles with the in-kernel gradient
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  const long long gy = (ny + t.by - 1) / t.by, gz = (nz + t.bz - 1) / t.bz;
+  if (gy > 65535 || gz > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid(static_cast<unsigned>((nx + t.bx - 1) / t.bx),
+                  static_cast<unsigned>(gy), static_cast<unsigned>(gz));
+  kernel<<<grid, static_cast<unsigned>(t.bx * t.by * t.bz),
+           static_cast<size_t>(smem), stream>>>(
+      c, t,
+      make_momentum_consts<T>(c, static_cast<T>(rho), static_cast<T>(mu),
+                              static_cast<T>(alpha)),
+      static_cast<const T*>(vel), static_cast<const T*>(p),
       static_cast<const T*>(grad_p), static_cast<const T*>(md),
       static_cast<const T*>(grad_vel), static_cast<const T*>(rv_dt),
       static_cast<const T*>(vel_n), static_cast<const T*>(bc), flags,
-      static_cast<T>(rho), static_cast<T>(mu), static_cast<T>(alpha),
-      static_cast<T>(vol), static_cast<T*>(diag), static_cast<T*>(off),
-      static_cast<T*>(b), C);
+      static_cast<T>(alpha), static_cast<T>(vol), static_cast<T*>(diag),
+      static_cast<T*>(off), static_cast<T*>(b), C);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -375,10 +712,10 @@ int launch_pc(bool rc, bool gg, const AsmCols<T>& c, const void* vel,
 // The float64 instances compile in parity_assembly_f64.cu, beside this
 // translation unit, so nvcc builds the two halves in parallel.
 extern template int launch_momentum<double>(
-    int, int, bool, bool, bool, const AsmCols<double>&, const void*,
+    int, int, bool, bool, bool, const AsmCols<double>&, int, int, int,
     const void*, const void*, const void*, const void*, const void*,
-    const void*, const void*, const int*, double, double, double, double,
-    void*, void*, void*, long long, cudaStream_t);
+    const void*, const void*, const void*, const int*, double, double,
+    double, double, void*, void*, void*, long long, cudaStream_t);
 extern template int launch_pc<double>(bool, bool, const AsmCols<double>&,
                                       const void*, const void*, const void*,
                                       const void*, const void*, const int*,

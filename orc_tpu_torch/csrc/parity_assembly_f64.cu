@@ -6,10 +6,10 @@
 namespace orc {
 
 template int launch_momentum<double>(
-    int, int, bool, bool, bool, const AsmCols<double>&, const void*,
+    int, int, bool, bool, bool, const AsmCols<double>&, int, int, int,
     const void*, const void*, const void*, const void*, const void*,
-    const void*, const void*, const int*, double, double, double, double,
-    void*, void*, void*, long long, cudaStream_t);
+    const void*, const void*, const void*, const int*, double, double,
+    double, double, void*, void*, void*, long long, cudaStream_t);
 template int launch_pc<double>(bool, bool, const AsmCols<double>&,
                                const void*, const void*, const void*,
                                const void*, const void*, const int*, double,

@@ -99,23 +99,6 @@ __device__ __forceinline__ Vec<T> take(const Vec<T>& lo, const Vec<T>& hi) {
   return o;
 }
 
-// The rounding of the first design, whose separate basic blocks kept
-// nvcc from fusing diag * x with the first column: a rounded product,
-// then one fused multiply-add per column. Spelled out, so that unrolled
-// straight-line code cannot be contracted another way.
-__device__ __forceinline__ float mul_rn(float a, float b) {
-  return __fmul_rn(a, b);
-}
-__device__ __forceinline__ double mul_rn(double a, double b) {
-  return __dmul_rn(a, b);
-}
-__device__ __forceinline__ float fma_rn(float a, float b, float c) {
-  return __fmaf_rn(a, b, c);
-}
-__device__ __forceinline__ double fma_rn(double a, double b, double c) {
-  return __fma_rn(a, b, c);
-}
-
 // w[pos + d + j], j < V, pos a multiple of V: two aligned reads.
 template <typename T>
 __device__ __forceinline__ Vec<T> window_read(const T* w, int pos, int d) {

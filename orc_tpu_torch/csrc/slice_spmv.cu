@@ -34,11 +34,32 @@
 // tiles into VMEM and rotate 128-lane rows, statically unrolled over
 // n_max (a dynamic trip count was 14x slower there), with the heavy
 // tiles split off into a second kernel. On the card a dynamic loop
-// bound costs nothing: one CTA per (tile, batch row), thread l walks
-// the tile's used columns only, reading coef[t, j, l] and the slice of
-// x coalesced (consecutive threads, consecutive addresses; the RCM band
-// keeps x in L2). The diagonal term is folded in and x is read unpadded
-// with a bounds test, so no padded copy of x is made per matvec.
+// bound costs nothing: thread l of a tile walks the tile's used columns
+// only, reading coef[t, j, l] and the slice of x coalesced (consecutive
+// threads, consecutive addresses; the RCM band keeps x in L2). The
+// diagonal term is folded in and x is read unpadded with a bounds test,
+// so no padded copy of x is made per matvec. The exact product (kernel
+// 12) keeps the first design: one CTA per (tile, batch row), one column
+// at a time.
+//
+// slice_spmv_kernel's first design did the same with one CTA per (tile,
+// batch row): 0.0073 ms for the 8,192-row couette (64 CTAs on 132 SMs)
+// and 34% of HBM on a plan of 1024-row tiles (196 CTAs of 256 threads,
+// 1.48 waves, each thread four rows), on an NVIDIA H100 80GB HBM3 at
+// 700 W. Now:
+//  - one CTA per (chunk of R rows of a tile, group of batch rows), R a
+//    power of two, at most 128 and at least 32, halved until the grid
+//    has 264 CTAs (two per SM), one row per thread;
+//  - a matrix shared by the batch is read once for up to four batch
+//    rows (a thread keeps one sum per row); one matrix per row takes a
+//    CTA row per batch row;
+//  - 32 registers at one batch row, so 16 CTAs share an SM.
+// The starts are read from L1 (one address per warp) and one column at a
+// time: staging them in shared memory and issuing the loads of 2, 4 or 8
+// columns before their multiply-adds were each measured slower on the
+// card (kernel_ab.py, PERF.md). The arithmetic is the first design's as
+// nvcc contracted it: diag * x rounded, then one fused multiply-add per
+// column in order (mul_rn, fma_rn), so the sums are unchanged bit for bit.
 //
 // Design of the gather. Its first design (one thread per (c, k) slot, a
 // chain of four dependent loads, two divisions by runtime values, an
@@ -66,34 +87,57 @@
 
 namespace orc {
 
-template <typename T>
-__global__ void slice_spmv_kernel(const T* __restrict__ diag,
-                                  long long diag_bs,
-                                  const T* __restrict__ coef,
-                                  long long coef_bs,
-                                  const int* __restrict__ starts,
-                                  const int* __restrict__ tile_nj,
-                                  const T* __restrict__ x,
-                                  T* __restrict__ y, long long C, int tile,
-                                  int n_max, long long pad_lo) {
-  const long long t = blockIdx.x;
-  const long long b = blockIdx.y;
-  const T* xb = x + b * C;
-  T* yb = y + b * C;
-  const T* db = diag + b * diag_bs;
-  const T* cb = coef + b * coef_bs + t * n_max * static_cast<long long>(tile);
-  const int* st = starts + t * n_max;
+// Rows of a slice SpMV CTA at most (one row per thread).
+constexpr int kSpmvMaxRows = 128;
+
+// One CTA per (chunk of R = blockDim.x rows of tile t, group of up to
+// NB batch rows); thread l takes row c = t*tile + r0 + l. With one batch
+// row, 32 registers let 16 CTAs share an SM.
+template <typename T, int NB>
+__global__ void __launch_bounds__(kSpmvMaxRows, NB == 1 ? 16 : 8)
+    slice_spmv_kernel(const T* __restrict__ diag, long long diag_bs,
+                      const T* __restrict__ coef, long long coef_bs,
+                      const int* __restrict__ starts,
+                      const int* __restrict__ tile_nj,
+                      const T* __restrict__ x, T* __restrict__ y, int C,
+                      int tile, int n_max, int pad_lo, int chunks, int B) {
+  const int t = static_cast<int>(blockIdx.x) / chunks;
+  const int r0 = (static_cast<int>(blockIdx.x) - t * chunks) *
+                 static_cast<int>(blockDim.x);
+  const int l = r0 + static_cast<int>(threadIdx.x);
+  const int c = t * tile + l;
+  if (l >= tile || c >= C) return;
+  const int b0 = static_cast<int>(blockIdx.y) * NB;
+  const int nb = min(NB, B - b0);
+  // The tile's slice starts: one address for every thread of the tile,
+  // served by L1.
+  const int* st = starts + static_cast<long long>(t) * n_max;
   const int nj = tile_nj[t];
-  for (int l = threadIdx.x; l < tile; l += blockDim.x) {
-    const long long c = t * tile + l;
-    if (c >= C) break;
-    T acc = db[c] * xb[c];
-    for (int j = 0; j < nj; ++j) {
-      const long long src = static_cast<long long>(st[j]) - pad_lo + l;
-      const T xv = (src >= 0 && src < C) ? xb[src] : T(0);
-      acc = acc + cb[static_cast<long long>(j) * tile + l] * xv;
+  // With one matrix per batch row the launcher sets NB = 1.
+  const T* cb = coef + b0 * coef_bs +
+                static_cast<long long>(t) * n_max * tile + l;
+  const T* xb = x + static_cast<long long>(b0) * C;
+  T acc[NB];
+#pragma unroll
+  for (int q = 0; q < NB; ++q) {
+    acc[q] = q < nb ? mul_rn(diag[(b0 + q) * diag_bs + c],
+                             xb[static_cast<long long>(q) * C + c])
+                    : T(0);
+  }
+  for (int j = 0; j < nj; ++j) {
+    const int src = __ldg(st + j) - pad_lo + l;
+    const bool in = static_cast<unsigned>(src) < static_cast<unsigned>(C);
+    const T a = cb[static_cast<long long>(j) * tile];
+#pragma unroll
+    for (int q = 0; q < NB; ++q) {
+      const T xv = (in && q < nb) ? xb[static_cast<long long>(q) * C + src]
+                                  : T(0);
+      acc[q] = fma_rn(a, xv, acc[q]);
     }
-    yb[c] = acc;
+  }
+#pragma unroll
+  for (int q = 0; q < NB; ++q) {
+    if (q < nb) y[static_cast<long long>(b0 + q) * C + c] = acc[q];
   }
 }
 
@@ -241,21 +285,63 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+template <typename T, int NB>
+int launch_slice_spmv_nb(const void* diag, long long diag_bs,
+                         const void* coef, long long coef_bs,
+                         const void* starts, const void* tile_nj,
+                         const void* x, void* y, long long C, int tile,
+                         long long ntiles, int n_max, long long pad_lo,
+                         int B, cudaStream_t stream) {
+  // Chunk rows R: a power of two, at most kSpmvMaxRows and no more than
+  // the tile needs, halved down to 32 until there are two CTAs per SM
+  // of an H100 (the couette's 64 tiles of 128 rows give 256 CTAs).
+  int rows = kSpmvMaxRows;
+  while (rows > 32 && rows / 2 >= tile) rows /= 2;
+  const long long groups = (B + NB - 1) / NB;
+  while (rows > 32 &&
+         ntiles * ((tile + rows - 1) / rows) * groups < 264) {
+    rows /= 2;
+  }
+  const int chunks = (tile + rows - 1) / rows;
+  const dim3 grid(static_cast<unsigned>(ntiles * chunks),
+                  static_cast<unsigned>(groups));
+  slice_spmv_kernel<T, NB><<<grid, rows, 0, stream>>>(
+      static_cast<const T*>(diag), diag_bs, static_cast<const T*>(coef),
+      coef_bs, static_cast<const int*>(starts),
+      static_cast<const int*>(tile_nj), static_cast<const T*>(x),
+      static_cast<T*>(y), static_cast<int>(C), tile, n_max,
+      static_cast<int>(pad_lo), chunks, B);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The batch applied once: a shared matrix takes up to four batch rows
+// per CTA, each coefficient read once for all of them; one matrix per
+// batch row takes a CTA row per batch row.
 template <typename T>
 int launch_slice_spmv(const void* diag, long long diag_bs, const void* coef,
                       long long coef_bs, const void* starts,
                       const void* tile_nj, const void* x, void* y,
                       long long C, int tile, long long ntiles, int n_max,
                       long long pad_lo, int B, cudaStream_t stream) {
-  const unsigned threads = tile < kThreads ? static_cast<unsigned>(tile)
-                                           : static_cast<unsigned>(kThreads);
-  const dim3 grid(static_cast<unsigned>(ntiles), static_cast<unsigned>(B));
-  slice_spmv_kernel<T><<<grid, threads, 0, stream>>>(
-      static_cast<const T*>(diag), diag_bs, static_cast<const T*>(coef),
-      coef_bs, static_cast<const int*>(starts),
-      static_cast<const int*>(tile_nj), static_cast<const T*>(x),
-      static_cast<T*>(y), C, tile, n_max, pad_lo);
-  return static_cast<int>(cudaGetLastError());
+  const int nb = coef_bs != 0 ? 1 : (B < 4 ? B : 4);
+  switch (nb) {
+    case 1:
+      return launch_slice_spmv_nb<T, 1>(diag, diag_bs, coef, coef_bs, starts,
+                                        tile_nj, x, y, C, tile, ntiles, n_max,
+                                        pad_lo, B, stream);
+    case 2:
+      return launch_slice_spmv_nb<T, 2>(diag, diag_bs, coef, coef_bs, starts,
+                                        tile_nj, x, y, C, tile, ntiles, n_max,
+                                        pad_lo, B, stream);
+    case 3:
+      return launch_slice_spmv_nb<T, 3>(diag, diag_bs, coef, coef_bs, starts,
+                                        tile_nj, x, y, C, tile, ntiles, n_max,
+                                        pad_lo, B, stream);
+    default:
+      return launch_slice_spmv_nb<T, 4>(diag, diag_bs, coef, coef_bs, starts,
+                                        tile_nj, x, y, C, tile, ntiles, n_max,
+                                        pad_lo, B, stream);
+  }
 }
 
 int launch_slice_spmv_exact(const void* coef, long long coef_bs,
@@ -349,8 +435,10 @@ extern "C" int orc_slice_spmv(int dtype, const void* diag, long long diag_bs,
                               const void* x, void* y, long long C, int tile,
                               long long ntiles, int n_max, long long pad_lo,
                               int B, void* stream) {
-  if (C < 0 || tile < 1 || n_max < 0 || ntiles < 0 || ntiles > 2147483647LL ||
-      B < 1 || B > 65535 || ntiles * tile < C) {
+  // The kernel indexes rows, slices and CTAs in 32 bits.
+  if (C < 0 || tile < 1 || n_max < 0 || ntiles < 0 || B < 1 || B > 65535 ||
+      ntiles * tile < C || ntiles * tile + pad_lo > 2147483647LL ||
+      pad_lo < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (C == 0) return 0;

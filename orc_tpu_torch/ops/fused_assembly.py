@@ -36,6 +36,7 @@ kernel, as orc_tpu does.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple
 
 import torch
@@ -165,6 +166,24 @@ def column_specs(mesh, table) -> "tuple | None":
             )
         )
     return tuple(cols)
+
+
+@functools.lru_cache(maxsize=64)
+def box_dims(cols, n_cells):
+    """(nx, ny, nz) of the box whose cell (x, y, z) is row
+    x + nx (y + ny z), with every axis of extent 1 moved last (a 2-D
+    box is (nx, ny, 1)): the tiling of the parity momentum kernel. Raises
+    ValueError when the columns' offsets describe no box."""
+    from orc_tpu_torch.solver.gmg import infer_box_dims
+
+    dims = infer_box_dims(tuple(c.offset for c in cols), n_cells)
+    if dims is None:
+        raise ValueError(
+            f"the column offsets {[c.offset for c in cols]} describe no box of "
+            f"{n_cells} cells"
+        )
+    dims = [d for d in dims if d > 1]
+    return tuple(dims + [1] * (3 - len(dims)))
 
 
 def bc_value_table(zone_scalar, zone_vector):
@@ -499,8 +518,8 @@ def _launch_momentum(
     _cuda.call(
         "orc_momentum_assembly", vel.device, _cuda.dtype_code(vel),
         _SCHEMES[spec.scheme], psi, int(spec.rc), int(spec.p_so), int(gg),
-        *_col_args(cols), K, vel.data_ptr(), p.data_ptr(), _ptr(grad_p),
-        _ptr(mom_diag), _ptr(grad_vel), _ptr(rv_dt), _ptr(vel_n),
+        *_col_args(cols), K, *box_dims(cols, C), vel.data_ptr(), p.data_ptr(),
+        _ptr(grad_p), _ptr(mom_diag), _ptr(grad_vel), _ptr(rv_dt), _ptr(vel_n),
         bc_values.data_ptr(), flags.data_ptr(), float(rho), float(mu),
         float(alpha), float(spec.vol), diag.data_ptr(), off.data_ptr(),
         b.data_ptr(), C,

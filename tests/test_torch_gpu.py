@@ -254,6 +254,60 @@ def test_parity_branch_kernels_match_plain(dev, dtype, case, family):
                 _close(a, r, TOL[dtype], f"pc {spec} {name}")
 
 
+#: name -> (nx, ny, nz, velocity inlet or None for a pressure inlet):
+#: boxes whose sides are no multiple of the momentum kernel's tile
+#: (32 x 8 in 2-D, 16 x 4 x 4 in 3-D), each with a pressure outlet.
+TILE_BOXES = {
+    "37x23_vinlet": (37, 23, 1, 1e-3),
+    "19x11x7_pressure": (19, 11, 7, None),
+}
+
+
+@pytest.mark.parametrize("family", sorted(PARITY_FAMILIES))
+@pytest.mark.parametrize("box", sorted(TILE_BOXES))
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_momentum_kernel_tile_edges(dev, dtype, box, family):
+    """Guards orc_tpu/ops/pallas_assembly.py `_momentum_kernel`, parity
+    branch, at the edges of the kernel's box tiles (ragged on every side,
+    velocity-inlet and pressure zones): every face-model instance of the
+    family, steady and with the inertia term, against the plain version."""
+    nx, ny, nz, vinlet = TILE_BOXES[box]
+    dt = DTYPES[dtype]
+    mesh, table = couette_case(
+        nx, ny, nz, params=ChannelFlowParameters(top_wall_velocity=5e-4, dp_dx=5.0),
+        velocity_inlet=vinlet, dtype=dt, device=dev,
+    )
+    zc, zs, zv = device_bc(table, dtype=dt, device=dev)
+    ck = build_ck_geometry(mesh, len(table.zone_ids))
+    bc = ck_bc(ck, zc, zs, zv)
+    cols = asm.column_specs(mesh, table)
+    assert asm.box_dims(cols, mesh.n_cells) == (nx, ny, nz)
+    C = mesh.n_cells
+    rng = np.random.default_rng(3)
+    vel = torch.tensor(rng.standard_normal((C, 3)) * 0.1, dtype=dt, device=dev)
+    p = torch.tensor(rng.standard_normal(C) * 0.05, dtype=dt, device=dev)
+    md = torch.tensor(rng.uniform(0.5, 2.0, C), dtype=dt, device=dev)
+    grad_p = ck_pressure_gradient(mesh, ck, bc, p)
+    grad_v = ck_velocity_gradient(mesh, ck, bc, vel)
+    vel_n = torch.tensor(rng.standard_normal((C, 3)) * 0.1, dtype=dt, device=dev)
+    margs = (vel, p, asm.bc_value_table(zs, zv), asm.pack_flags(ck.interior, ck.mask),
+             cols, 1.0, 1e-3, 0.7)
+    scheme, psi = PARITY_FAMILIES[family]
+    vol = float(mesh.cell_volume[0])
+    for rc, p_so, gg in FACE_MODELS:
+        spec = asm.AsmSpec(scheme=scheme, rc=rc, p_so=p_so, psi=psi, vol=vol, gg=gg)
+        for inertia in (None, (1000.0 * mesh.cell_volume / 0.01, vel_n)):
+            kw = dict(grad_p=None if gg else grad_p, mom_diag=md, grad_vel=grad_v,
+                      inertia=inertia, spec=spec)
+            before = asm.momentum_assembly.launches
+            got = asm.momentum_assembly(*margs, **kw)
+            ref = asm.momentum_assembly_plain(*margs, **kw)
+            torch.cuda.synchronize()
+            assert asm.momentum_assembly.launches == before + 1
+            for name, a, r in zip(("diag", "off", "b"), got, ref):
+                _close(a, r, TOL[dtype], f"momentum {spec} inertia={inertia is not None} {name}")
+
+
 def test_parity_kernels_refuse_what_they_cannot_run(dev):
     """A CUDA call the parity kernels cannot serve raises: a missing
     streamed gradient, diagonal or velocity gradient, a limiter without
@@ -609,6 +663,63 @@ def test_slice_spmv_kernel_matches_plain(dev, dtype, n, batch, form):
     # The unscaled system through the gather form: D (D^-1 A) x = A x.
     ref = diag * x + torch.sum(off * x[..., mesh.cell_neighbors.long()], dim=-1)
     _close(y * diag, ref, 10 * TOL[dtype])
+
+
+#: name -> (n of the permuted n x n cavity, plan tile or None for the
+#: mesh's own, batch rows, one matrix per batch row): the edges of the
+#: chunked slice SpMV. The 12^2 cavity's two tiles leave 32-row chunks
+#: (the split for 264 CTAs); 23^2 = 529 cells end in a ragged tile;
+#: 1024-row tiles take eight 128-row chunks; B = 5 takes a group of
+#: four batch rows and a group of one.
+SLICE_EDGES = {
+    "chunk_split": (12, None, 0, False),
+    "ragged_c": (23, None, 0, False),
+    "tile1024": (96, 1024, 0, False),
+    "b3_shared": (40, None, 3, False),
+    "b3_per_row": (40, None, 3, True),
+    "b5_shared": (40, None, 5, False),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SLICE_EDGES))
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_slice_spmv_kernel_edges(dev, dtype, case):
+    """Guards orc_tpu/ops/pallas_slice.py `_kernel`, `_kernel_heavy` and
+    `_kernel_wide` (via slice_spmv) at the edges of the chunked kernel:
+    against the plain version and, in float32, bitwise against the
+    rounding the kernel spells out (tests/torch_kernel_refs.py)."""
+    from orc_tpu_torch.mesh.reorder import build_slice_plan
+    from orc_tpu_torch.ops.slice_spmv import slice_spmv, slice_spmv_plain
+    from orc_tpu_torch.ops.spmv import EllMatrix
+    from torch_kernel_refs import slice_spmv_fma_chain
+
+    n, tile, batch, per_row = SLICE_EDGES[case]
+    dt = DTYPES[dtype]
+    mesh, _, _ = _permuted_cavity(n, dt, dev)
+    C, K = mesh.cell_neighbors.shape
+    interior = mesh.face_interior[mesh.cell_faces.long()] & mesh.cell_face_mask
+    plan = mesh.slice_plan
+    if tile is not None:
+        plan = build_slice_plan(
+            mesh.cell_neighbors.cpu().numpy(), interior.cpu().numpy(), tile=tile,
+            device=dev,
+        )
+        assert plan.tile == tile
+    if case == "ragged_c":
+        assert C % plan.tile != 0
+    rng = np.random.default_rng(6)
+    rows = (batch,) if per_row else ()
+    off = torch.tensor(rng.uniform(-1, 0, rows + (C, K)), dtype=dt, device=dev) * interior
+    diag = 1.0 + off.abs().sum(-1) + torch.tensor(rng.random(rows + (C,)), dtype=dt, device=dev)
+    A, _ = EllMatrix(diag, off, mesh.cell_neighbors, plan=plan).prepare().jacobi_preconditioned()
+    x = torch.tensor(rng.standard_normal((batch, C) if batch else (C,)), dtype=dt, device=dev)
+    before = slice_spmv.launches
+    y = slice_spmv(A.diag, A.off, plan, x)
+    torch.cuda.synchronize()
+    assert slice_spmv.launches == before + 1
+    _close(y, slice_spmv_plain(A.diag, A.off, plan, x), TOL[dtype])
+    if dt == torch.float32:
+        assert torch.equal(y, slice_spmv_fma_chain(A.diag, A.off, plan, x))
 
 
 @pytest.mark.parametrize("fields", [1, 3, 9])

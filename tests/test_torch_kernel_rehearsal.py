@@ -1,0 +1,393 @@
+"""CPU rehearsal of two Hopper kernels of orc_tpu_torch: the slice-plan
+SpMV (csrc/slice_spmv.cu, kernel rows 7-9) and the parity momentum
+assembly (csrc/parity_assembly.cuh, row 3), compiled as C++ with g++
+against a mock cuda_runtime.h and run through the wrappers' launch
+helpers on CPU tensors.
+
+The mock runs a launch's blocks in turn and each block's threads as
+std::threads meeting at one std::barrier for __syncthreads() (a thread
+that returns leaves it), with `__shared__` as static storage and the
+dynamic shared memory as one static buffer; the explicitly rounded
+intrinsics are exact (`__fmaf_rn` is std::fmaf), and the sources compile
+with -ffp-contract=off, so no multiply-add is contracted that the
+source does not spell out. What that checks:
+
+- the slice SpMV, in float32, bitwise against the rounding its source
+  spells out (diag * x rounded, then one fused multiply-add per column
+  in order, emulated in float64), and in both types against the plain
+  version (1e-5 / 1e-12 of the largest value) and orc_tpu's XLA
+  `spmv.slice_spmv`: permuted cavities (RCM order, 128-row tiles, a
+  ragged last tile), a plan of 1024-row tiles (more rows than a CTA, the
+  chunk split), B = 3 and 5 sharing the matrix, B = 3 with one per row;
+- the momentum assembly, in every instance family (scheme x limiter x
+  Rhie-Chow x SecondOrder x streamed or in-kernel gradient), steady and
+  with the inertia term, against the plain version (1e-5 / 1e-12 of each
+  output's largest value), on 10 x 6 and 6 x 5 x 4 channel boxes with a
+  velocity inlet and 37 x 9 and 17 x 5 x 3 ones with a pressure inlet,
+  each with a pressure outlet: one tile or several, ragged on every
+  side.
+
+Skips where g++ is missing. The card's own checks are in
+tests/test_torch_gpu.py and chip_smoke.py.
+"""
+
+import ctypes
+import re
+import shutil
+import subprocess
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from torch_kernel_refs import slice_spmv_fma_chain
+
+import jax.numpy as jnp
+from orc_tpu.mesh.reorder import build_slice_plan as jslice_plan
+from orc_tpu.ops import spmv as jspmv
+
+from orc_tpu_torch.mesh.compile import compile_from_arrays
+from orc_tpu_torch.mesh.reorder import build_slice_plan
+from orc_tpu_torch.models.cavity import cavity_case
+from orc_tpu_torch.models.channel_flow import ChannelFlowParameters, couette_case
+from orc_tpu_torch.ops import _cuda
+from orc_tpu_torch.ops import fused_assembly as asm
+from orc_tpu_torch.ops import slice_spmv as ss
+from orc_tpu_torch.ops.ck_ops import (
+    build_ck_geometry,
+    ck_bc,
+    ck_pressure_gradient,
+    ck_velocity_gradient,
+)
+from orc_tpu_torch.ops.fields import device_bc
+from orc_tpu_torch.ops.spmv import EllMatrix
+from orc_tpu_torch.utils import settings as tset
+
+CSRC = Path(_cuda.__file__).resolve().parent.parent / "csrc"
+TOL = {torch.float32: 1e-5, torch.float64: 1e-12}
+
+MOCK_CUDA_RUNTIME = r"""#pragma once
+#include <algorithm>
+#include <barrier>
+#include <cmath>
+#include <cstddef>
+#include <cstdint>
+#include <thread>
+#include <vector>
+
+#define __global__
+#define __device__
+#define __host__
+#define __forceinline__ inline
+#define __launch_bounds__(...)
+#define __shared__ static
+#define __align__(n) alignas(n)
+
+struct dim3 {
+  unsigned x, y, z;
+  dim3(unsigned x_ = 1, unsigned y_ = 1, unsigned z_ = 1)
+      : x(x_), y(y_), z(z_) {}
+};
+struct uint4 {
+  unsigned x, y, z, w;
+};
+inline thread_local dim3 blockIdx, threadIdx;
+inline dim3 blockDim, gridDim;
+typedef void* cudaStream_t;
+enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+inline cudaError_t cudaGetLastError() { return cudaSuccess; }
+template <class F>
+inline cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int) {
+  return cudaSuccess;
+}
+inline const char* cudaGetErrorString(cudaError_t) { return "mock"; }
+template <class T>
+inline T __ldg(const T* p) { return *p; }
+inline float __fmul_rn(float a, float b) { volatile float r = a * b; return r; }
+inline float __fadd_rn(float a, float b) { volatile float r = a + b; return r; }
+inline float __fsub_rn(float a, float b) { volatile float r = a - b; return r; }
+inline double __dmul_rn(double a, double b) {
+  volatile double r = a * b;
+  return r;
+}
+inline float __fmaf_rn(float a, float b, float c) { return std::fmaf(a, b, c); }
+inline double __fma_rn(double a, double b, double c) { return std::fma(a, b, c); }
+using std::max;
+using std::min;
+
+inline std::barrier<>* mock_barrier = nullptr;
+inline void __syncthreads() { mock_barrier->arrive_and_wait(); }
+alignas(16) inline unsigned char mock_smem[1 << 20];
+
+template <class K, class... A>
+void mock_launch(dim3 grid, dim3 block, size_t smem, K kernel, A... args) {
+  if (smem > sizeof(mock_smem)) std::abort();
+  gridDim = grid;
+  blockDim = block;
+  const unsigned n = block.x * block.y * block.z;
+  for (unsigned bz = 0; bz < grid.z; ++bz)
+    for (unsigned by = 0; by < grid.y; ++by)
+      for (unsigned bx = 0; bx < grid.x; ++bx) {
+        std::barrier<> bar(n);
+        mock_barrier = &bar;
+        std::vector<std::thread> threads;
+        threads.reserve(n);
+        for (unsigned t = 0; t < n; ++t) {
+          threads.emplace_back([&, t] {
+            blockIdx = dim3(bx, by, bz);
+            threadIdx = dim3(t % block.x, (t / block.x) % block.y,
+                             t / (block.x * block.y));
+            kernel(args...);
+            bar.arrive_and_drop();
+          });
+        }
+        for (auto& th : threads) th.join();
+      }
+}
+"""
+
+#: The sources rehearsed, each compiled on its own in parallel.
+SOURCES = ("slice_spmv.cu", "parity_assembly.cu", "parity_assembly_f64.cu")
+
+
+def _split_top(text):
+    """`text` split at the commas outside parentheses."""
+    parts, depth, cur = [], 0, ""
+    for ch in text:
+        depth += (ch == "(") - (ch == ")")
+        if ch == "," and depth == 0:
+            parts.append(cur.strip())
+            cur = ""
+        else:
+            cur += ch
+    return parts + [cur.strip()]
+
+
+def translate(src):
+    """A CUDA source as C++ for the mock: `extern __shared__ T name[];`
+    points at the mock's buffer, and `kernel<<<grid, block[, smem,
+    stream]>>>(args)` becomes `mock_launch(dim3(grid), dim3(block),
+    smem, kernel, args)`."""
+    src = re.sub(
+        r"extern\s+__shared__\s+(?:__align__\(\d+\)\s+)?([\w ]+?)\s+(\w+)\[\];",
+        r"\1* \2 = reinterpret_cast<\1*>(mock_smem);",
+        src,
+    )
+    out, pos = [], 0
+    for m in re.finditer(r"([A-Za-z_]\w*(?:<[^<>;()]*>)?)\s*<<<(.*?)>>>\(", src, re.S):
+        cfg = _split_top(m.group(2))
+        smem = cfg[2] if len(cfg) > 2 else "0"
+        out += [
+            src[pos:m.start()],
+            f"mock_launch(dim3({cfg[0]}), dim3({cfg[1]}), "
+            f"static_cast<size_t>({smem}), {m.group(1)}, ",
+        ]
+        pos = m.end()
+    return "".join(out) + src[pos:]
+
+
+@pytest.fixture(scope="module")
+def mock_lib(tmp_path_factory):
+    """The rehearsed sources as one shared library (g++, C++20)."""
+    gxx = shutil.which("g++")
+    if gxx is None:
+        pytest.skip("needs g++ to compile the CUDA sources against the mock")
+    d = tmp_path_factory.mktemp("mock_cuda")
+    (d / "cuda_runtime.h").write_text(MOCK_CUDA_RUNTIME)
+    for f in (*CSRC.glob("*.cu"), *CSRC.glob("*.cuh")):
+        (d / f.name).write_text(translate(f.read_text()))
+    flags = ["-x", "c++", "-std=c++20", "-O1", "-ffp-contract=off", "-fPIC",
+             "-pthread", "-w", f"-I{d}"]
+    objs = [d / f"{Path(s).stem}.o" for s in SOURCES]
+    procs = [
+        subprocess.Popen([gxx, *flags, "-c", "-o", str(o), str(d / s)],
+                         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for s, o in zip(SOURCES, objs)
+    ]
+    for p in procs:
+        _out, err = p.communicate()
+        assert p.returncode == 0, err
+    lib_path = d / "libmock.so"
+    subprocess.run([gxx, "-shared", "-pthread", "-o", str(lib_path), *map(str, objs)],
+                   check=True)
+    lib = ctypes.CDLL(str(lib_path))
+    for name in ("orc_slice_spmv", "orc_momentum_assembly"):
+        fn = getattr(lib, name)
+        fn.argtypes = _cuda.SIGNATURES[name]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+@pytest.fixture
+def mock(mock_lib, monkeypatch):
+    """Route the wrappers' `_cuda.call` to the mock library."""
+
+    def call(name, device, *args):
+        err = getattr(mock_lib, name)(*args, None)
+        assert err == 0, f"{name} refused its arguments (error {err})"
+
+    monkeypatch.setattr(_cuda, "call", call)
+    return mock_lib
+
+
+# --- the slice-plan SpMV ------------------------------------------------
+
+
+def _permuted_cavity(n, dtype):
+    """The n x n cavity with seeded permuted cells, compiled on the CPU:
+    RCM order and a slice plan."""
+    box, _ = cavity_case(n=n, device="cpu")
+    a = lambda t: t.numpy()  # noqa: E731
+    perm = np.random.default_rng(0).permutation(box.n_cells)
+    inv = np.empty_like(perm)
+    inv[perm] = np.arange(box.n_cells)
+    interior = a(box.face_interior)
+    return compile_from_arrays(
+        dim=3, face_owner=inv[a(box.face_owner)],
+        face_neighbor=np.where(interior, inv[a(box.face_neighbor)], -1),
+        face_area=a(box.face_area), face_normal=a(box.face_normal),
+        face_centroid=a(box.face_centroid), face_zone_slot=a(box.face_zone_slot),
+        cell_centroid=a(box.cell_centroid)[perm],
+        cell_volume=a(box.cell_volume)[perm], dtype=dtype, device="cpu",
+    )
+
+
+#: name -> (n of the permuted n x n cavity, plan tile or None for the
+#: mesh's own, batch rows, one matrix per batch row).
+SLICE_CASES = {
+    "cavity12": (12, None, 0, False),
+    "cavity23_ragged_b3": (23, None, 3, False),
+    "cavity23_per_row_b3": (23, None, 3, True),
+    "cavity40_b5": (40, None, 5, False),
+    "tile1024": (40, 1024, 0, False),
+    "tile1024_b3": (40, 1024, 3, False),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SLICE_CASES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_rehearsed_slice_spmv_matches_plain(mock, dtype, case):
+    """Guards orc_tpu/ops/pallas_slice.py `_kernel`, `_kernel_heavy` and
+    `_kernel_wide` (via slice_spmv's kernel launch on the mock)."""
+    n, tile, B, per_row = SLICE_CASES[case]
+    mesh = _permuted_cavity(n, dtype)
+    C, K = mesh.cell_neighbors.shape
+    interior = mesh.face_interior[mesh.cell_faces.long()] & mesh.cell_face_mask
+    plan = mesh.slice_plan
+    if tile is not None:
+        plan = build_slice_plan(
+            mesh.cell_neighbors.numpy(), interior.numpy(), tile=tile, device="cpu"
+        )
+        assert plan.tile == tile and C % tile != 0
+    rng = np.random.default_rng(4)
+    rows = (B,) if per_row else ()
+    off = torch.tensor(rng.uniform(-1, 0, rows + (C, K)), dtype=dtype) * interior
+    diag = 1.0 + off.abs().sum(-1) + torch.tensor(rng.random(rows + (C,)), dtype=dtype)
+    A, _ = EllMatrix(diag, off, mesh.cell_neighbors, plan=plan).prepare().jacobi_preconditioned()
+    x = torch.tensor(rng.standard_normal((B, C) if B else (C,)), dtype=dtype)
+    y = ss._launch_slice_spmv(
+        A.diag.contiguous(), ss._batch_stride(A.diag, 1, B, "diag"),
+        A.off.contiguous(), ss._batch_stride(A.off, 3, B, "coef"), plan, x, max(B, 1),
+    )
+    ref = ss.slice_spmv_plain(A.diag, A.off, plan, x)
+    scale = float(ref.abs().max())
+    assert float((y - ref).abs().max()) <= TOL[dtype] * scale
+    if dtype == torch.float32:
+        assert torch.equal(y, slice_spmv_fma_chain(A.diag, A.off, plan, x))
+    # orc_tpu's XLA slice SpMV on its own plan of the same sparsity (equal
+    # to the port's) and the same coefficients.
+    jplan = jslice_plan(mesh.cell_neighbors.numpy(), interior.numpy(), tile=plan.tile)
+    assert np.array_equal(np.asarray(jplan.starts), plan.starts.numpy())
+    yj = np.asarray(jspmv.slice_spmv(
+        jnp.asarray(A.diag.numpy()), jnp.asarray(A.off.numpy()), jplan,
+        jnp.asarray(x.numpy()),
+    ))
+    np.testing.assert_allclose(y.numpy(), yj, rtol=0, atol=TOL[dtype] * scale)
+
+
+# --- the parity momentum assembly ---------------------------------------
+
+#: name -> (nx, ny, nz, velocity inlet or None for a pressure inlet).
+BOXES = {
+    "10x6_vinlet": (10, 6, 1, 1e-3),
+    "6x5x4_vinlet": (6, 5, 4, 1e-3),
+    "37x9_pressure": (37, 9, 1, None),
+    "17x5x3_pressure": (17, 5, 3, None),
+}
+FAMILIES = {
+    "ud": ("ud", None),
+    "cd1": ("cd1", None),
+    "tvd_dc-lud": ("tvd_dc", tset.tvd_lud),
+    "tvd_dc-quick": ("tvd_dc", tset.tvd_quick),
+    "tvd_dc-umist": ("tvd_dc", tset.tvd_umist),
+}
+#: (Rhie-Chow, SecondOrder, in-kernel gradient): every face model.
+FACE_MODELS = (
+    (False, False, False), (True, False, False), (True, False, True),
+    (False, True, False), (False, True, True), (True, True, False),
+    (True, True, True),
+)
+
+
+@pytest.mark.parametrize("family", sorted(FAMILIES))
+@pytest.mark.parametrize("box", sorted(BOXES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_rehearsed_momentum_matches_plain(mock, dtype, box, family):
+    """Guards orc_tpu/ops/pallas_assembly.py `_momentum_kernel`, parity
+    branch (via momentum_assembly's kernel launch on the mock), in every
+    face-model instance of the family, steady and transient."""
+    nx, ny, nz, vinlet = BOXES[box]
+    mesh, table = couette_case(
+        nx, ny, nz, params=ChannelFlowParameters(top_wall_velocity=5e-4, dp_dx=5.0),
+        velocity_inlet=vinlet, dtype=dtype, device="cpu",
+    )
+    zc, zs, zv = device_bc(table, dtype=dtype, device="cpu")
+    ck = build_ck_geometry(mesh, len(table.zone_ids))
+    bc = ck_bc(ck, zc, zs, zv)
+    cols = asm.column_specs(mesh, table)
+    assert asm.box_dims(cols, mesh.n_cells) == (nx, ny, nz)
+    C = mesh.n_cells
+    rng = np.random.default_rng(3)
+    vel = torch.tensor(rng.standard_normal((C, 3)) * 0.1, dtype=dtype)
+    p = torch.tensor(rng.standard_normal(C) * 0.05, dtype=dtype)
+    md = torch.tensor(rng.uniform(0.5, 2.0, C), dtype=dtype)
+    grad_p = ck_pressure_gradient(mesh, ck, bc, p)
+    grad_v = ck_velocity_gradient(mesh, ck, bc, vel)
+    vel_n = torch.tensor(rng.standard_normal((C, 3)) * 0.1, dtype=dtype)
+    margs = (vel, p, asm.bc_value_table(zs, zv), asm.pack_flags(ck.interior, ck.mask),
+             cols, 1.0, 1e-3, 0.7)
+    scheme, psi = FAMILIES[family]
+    vol = float(mesh.cell_volume[0])
+    for rc, p_so, gg in FACE_MODELS:
+        spec = asm.AsmSpec(scheme=scheme, rc=rc, p_so=p_so, psi=psi, vol=vol, gg=gg)
+        for inertia in (None, (1000.0 * mesh.cell_volume / 0.01, vel_n)):
+            kw = dict(grad_p=None if gg else grad_p, mom_diag=md, grad_vel=grad_v,
+                      inertia=inertia, spec=spec)
+            got = asm._launch_momentum(*margs, *kw.values())
+            ref = asm.momentum_assembly_plain(*margs, **kw)
+            for name, a, r in zip(("diag", "off", "b"), got, ref):
+                err = float((a - r).abs().max())
+                assert err <= TOL[dtype] * float(r.abs().max()), (
+                    f"{spec} inertia={inertia is not None} {name}: {err:.3e}"
+                )
+
+
+@pytest.mark.parametrize(
+    "shape", [(10, 6, 1), (6, 5, 4), (1, 7, 3), (12, 1, 1)], ids=lambda s: "x".join(map(str, s))
+)
+def test_box_dims_tiles_axes_of_extent_one_last(shape):
+    """The box the momentum kernel tiles: orc_tpu's `infer_box_dims` of
+    the columns' offsets, axes of extent 1 moved last (a row of cells
+    keeps its order); offsets that describe no box raise."""
+    from orc_tpu_torch.mesh.generate import structured_box_mesh
+
+    mesh, _ = structured_box_mesh(*shape, device="cpu")
+    offsets = tuple(int(o) for o in mesh.neighbor_offsets)
+    cols = tuple(asm.ColumnSpec(o, 1.0, (1.0, 0.0, 0.0), 0.5, 1.0, "wall", 0) for o in offsets)
+    want = tuple(d for d in shape if d > 1)
+    assert asm.box_dims(cols, mesh.n_cells) == want + (1,) * (3 - len(want))
+    bad = (asm.ColumnSpec(5, 1.0, (1.0, 0.0, 0.0), 0.5, 1.0, "wall", 0),) + cols[1:]
+    with pytest.raises(ValueError):
+        asm.box_dims(bad, mesh.n_cells + 1)
