@@ -1,14 +1,15 @@
 """Time the structured stencil SpMV, the slice-plan SpMV, the neighbour
-gather and the parity momentum assembly of two versions of their CUDA
-sources in one process on one GPU.
+gather and the assembly kernels (parity momentum and pressure
+correction, SIMPLE_FC momentum and pressure) of two versions of their
+CUDA sources in one process on one GPU.
 
 Usage (from the repository root, on a machine with a CUDA GPU):
 
     git archive <commit> orc_tpu_torch/csrc | tar -x -C build/ab_base
     python3 kernel_ab.py build/ab_base/orc_tpu_torch/csrc [--reps 3]
 
-It builds ``shift_spmv.cu``, ``slice_spmv.cu``, ``parity_assembly.cu``
-and ``parity_assembly_f64.cu`` of the base directory and of
+It builds ``shift_spmv.cu``, ``slice_spmv.cu``, ``parity_assembly.cu``,
+``parity_assembly_f64.cu`` and ``assembly.cu`` of the base directory and of
 ``orc_tpu_torch/csrc`` into two libraries (one nvcc per source, sm_90a,
 all in parallel) and, at the shapes chip_smoke.py times, checks that
 both agree with the plain torch versions (the gather bitwise) and
@@ -37,9 +38,16 @@ import chip_smoke as cs
 
 ROOT = Path(__file__).resolve().parent
 SOURCES = ("shift_spmv.cu", "slice_spmv.cu", "parity_assembly.cu",
-           "parity_assembly_f64.cu")
-#: The kernels whose ptxas registers and spills the log lists.
-REPORTED = ("slice_spmv_kernel", "momentum_kernel")
+           "parity_assembly_f64.cu", "assembly.cu")
+#: The kernels whose ptxas registers and spills the log lists
+#: ("momentum_kernel" names fc_momentum_kernel too).
+REPORTED = ("slice_spmv_kernel", "momentum_kernel", "pc_kernel", "pc_gg_kernel")
+#: The entry points that take the box's (nx, ny, nz), each with the
+#: position of nx among its arguments: a base version whose entry point
+#: takes none (the versions before the kernel's box tiles) is called
+#: without them.
+BOXED = {"orc_momentum_assembly": 11, "orc_pc_assembly": 8,
+         "orc_fc_momentum_assembly": 9}
 
 
 def build(csrc: Path, out: Path):
@@ -56,25 +64,30 @@ def build(csrc: Path, out: Path):
 
 
 class Version:
-    """One build of the sources: its library and whether its momentum
-    entry point takes the box's (nx, ny, nz)."""
+    """One build of the sources: its library and which of its entry
+    points take the box's (nx, ny, nz)."""
 
     def __init__(self, path: Path, csrc: Path):
         from orc_tpu_torch.ops import _cuda
 
         self.lib = ctypes.CDLL(str(path))
-        self.boxed = "long long nx" in (csrc / "parity_assembly.cu").read_text()
+        text = "".join((csrc / s).read_text() for s in ("parity_assembly.cu", "assembly.cu"))
+        self.boxed = {
+            name for name in BOXED
+            if "long long nx" in re.search(rf"{name}\((.*?)\)", text, re.S).group(1)
+        }
         for name in ("orc_shift_spmv", "orc_slice_nbr", "orc_slice_spmv",
-                     "orc_momentum_assembly", "orc_pc_assembly"):
+                     "orc_momentum_assembly", "orc_pc_assembly",
+                     "orc_fc_momentum_assembly", "orc_fc_pc_assembly"):
             fn = getattr(self.lib, name)
             fn.argtypes = self.unboxed(name, _cuda.SIGNATURES[name])
             fn.restype = ctypes.c_int
 
     def unboxed(self, name, args):
         """`args` of `name` without (nx, ny, nz) where this version's
-        momentum entry point takes none."""
-        if name == "orc_momentum_assembly" and not self.boxed:
-            return args[:11] + args[14:]
+        entry point takes none."""
+        if name in BOXED and name not in self.boxed:
+            return args[:BOXED[name]] + args[BOXED[name] + 3:]
         return args
 
 
@@ -373,7 +386,8 @@ def slice_shapes(dev, libs, reps, results):
 def momentum_shapes(dev, libs, reps, results):
     """Row 3 at chip_smoke's instances on the 1024^2 f32 cavity (five
     steady, two transient), on the 128x64 f64 couette and on the 128^3
-    f32 cavity (UD, K = 6), from seeded fields."""
+    f32 cavity (UD, K = 6), and row 5 in its three instances on each,
+    from seeded fields."""
     from orc_tpu_torch.models.cavity import cavity_case
     from orc_tpu_torch.ops import fused_assembly as asm
     from orc_tpu_torch.ops.ck_ops import (
@@ -436,21 +450,95 @@ def momentum_shapes(dev, libs, reps, results):
             reads = 4 + sp.rc + 3 * streamed + 9 * tvd + cs.INERTIA_READS * tr
             ab(tag, base, new, None, C * (4 + (reads + 1 + K + 3) * sz), reps, results)
             results[-1]["bitwise"] = same
-        # pc_kernel shares the source and stays as it was: checked, not timed.
+        # Row 5 in its three instances.
         for name, sp in (("linear", asm.AsmSpec()), ("rc gg", cd1),
                          ("rc streamed", cd1._replace(gg=False))):
             sp = sp._replace(vol=vol)
+            streamed = sp.rc and not sp.gg
             pargs = (vel, md, bcv, flags, cols, 1.0, p if sp.rc else None,
-                     None if sp.gg else grad_p, sp)
+                     grad_p if streamed else None, sp)
             base, new = (routed(v, asm._launch_pc, *pargs) for v in libs)
-            same = _check(f"pc {label} {name}", base, new,
+            tag = f"pc {label} {name}"
+            same = _check(tag, base, new,
                           lambda: asm.pc_assembly_plain(*pargs[:-1], spec=sp), dt, cs.ASM_OUT)
-            results.append(dict(label=f"pc {label} {name}", bitwise=same))
+            # vel, md (+ p and a streamed grad p); diag, K off, b; the flag word.
+            reads = 4 + sp.rc + 3 * streamed
+            ab(tag, base, new, None, C * (4 + (reads + 1 + K + 1) * sz), reps, results)
+            results[-1]["bitwise"] = same
         del mesh, ck, vel, p, md, grad_p, grad_v, inertia
 
 
-GROUPS = dict(momentum=momentum_shapes, slice=slice_shapes, spmv=spmv_shapes,
-              gather=gather_shapes)
+def fc_shapes(dev, libs, reps, results):
+    """Row 4 on chip_smoke's two SIMPLE_FC cases (phase 3), the 1024^2
+    f32 cavity with the flagship numerics (TVD_DC + UMIST) and the
+    128x64 f64 couette (CD1 + SecondOrder), and in its UD instance on the
+    1024^2 cavity, steady and transient, from seeded fields and a seeded
+    stored flux; row 6 checked bitwise there."""
+    from orc_tpu_torch.models.cavity import cavity_case
+    from orc_tpu_torch.ops import fused_assembly as asm
+    from orc_tpu_torch.ops.ck_ops import (
+        build_ck_geometry,
+        ck_bc,
+        ck_pressure_gradient,
+        ck_velocity_gradient,
+    )
+    from orc_tpu_torch.ops.fields import device_bc
+    from orc_tpu_torch.utils.settings import tvd_umist
+
+    cases = (
+        ("1024^2 f32 tvd_dc+umist+rc",
+         lambda: cavity_case(n=1024, dtype=torch.float32, device=dev),
+         asm.AsmSpec(scheme="tvd_dc", psi=tvd_umist, rc=True), 1.0, 1e-3, 1.0 / 1024),
+        ("1024^2 f32 ud", lambda: cavity_case(n=1024, dtype=torch.float32, device=dev),
+         asm.AsmSpec(), 1.0, 1e-3, 1.0 / 1024),
+        ("couette 128x64 f64 cd1+so+rc", lambda: cs.couette_mesh(dev),
+         asm.AsmSpec(scheme="cd1", rc=True, p_so=True), 1000.0, 1e-3, 0.005),
+    )
+    for label, make, sp, rho, mu, dt_step in cases:
+        mesh, table = make()
+        dt, C = mesh.dtype, mesh.n_cells
+        zc, zs, zv = device_bc(table, dtype=dt, device=dev)
+        ck = build_ck_geometry(mesh, len(table.zone_ids))
+        bc = ck_bc(ck, zc, zs, zv)
+        cols = asm.column_specs(mesh, table)
+        flags, bcv = asm.pack_flags(ck.interior, ck.mask), asm.bc_value_table(zs, zv)
+        K, sz = len(cols), dt.itemsize
+        rng = np.random.default_rng(5)
+        vel = torch.tensor(rng.standard_normal((C, 3)) * 0.1, dtype=dt, device=dev)
+        p = torch.tensor(rng.standard_normal(C) * 0.05, dtype=dt, device=dev)
+        md = torch.tensor(rng.uniform(0.5, 2.0, C), dtype=dt, device=dev)
+        flux = torch.tensor(rng.standard_normal((K, C)) * 0.1, dtype=dt, device=dev).T
+        grad_p = ck_pressure_gradient(mesh, ck, bc, p)
+        grad_v = ck_velocity_gradient(mesh, ck, bc, vel)
+        sp = sp._replace(vol=float(mesh.cell_volume[0]))
+        margs = (vel, p, flux, bcv, flags, cols, rho, mu, 0.7)
+        tvd = sp.scheme == "tvd_dc"
+        for tr in (False, True):
+            kw = dict(grad_p=grad_p if sp.p_so else None, grad_vel=grad_v if tvd else None,
+                      inertia=cs.step_inertia(mesh, vel, rho, dt_step) if tr else None,
+                      spec=sp)
+            base, new = (routed(v, asm._launch_fc_momentum, *margs, *kw.values())
+                         for v in libs)
+            tag = f"fc momentum {label}{' transient' if tr else ''}"
+            same = _check(tag, base, new,
+                          lambda: asm.fc_momentum_assembly_plain(*margs, **kw), dt, cs.ASM_OUT)
+            # vel, p, K flux planes (+ grad vel, grad p, rho V/dt and
+            # vel^n); diag, K off, 3 b; the flag word.
+            reads = 4 + K + 9 * tvd + 3 * sp.p_so + cs.INERTIA_READS * tr
+            ab(tag, base, new, None, C * (4 + (reads + 1 + K + 3) * sz), reps, results)
+            results[-1]["bitwise"] = same
+        # fc_pc_kernel shares the source and stays as it was: checked, not timed.
+        pargs = (vel, md, bcv, flags, cols, rho, grad_p, sp)
+        base, new = (routed(v, asm._launch_fc_pc, *pargs) for v in libs)
+        same = _check(f"fc pc {label}", base, new,
+                      lambda: asm.fc_pc_assembly_plain(*pargs[:-1], spec=sp), dt,
+                      cs.ASM_OUT + ("flux_h",))
+        results.append(dict(label=f"fc pc {label}", bitwise=same))
+        del mesh, ck, vel, p, md, flux, grad_p, grad_v
+
+
+GROUPS = dict(momentum=momentum_shapes, fc=fc_shapes, slice=slice_shapes,
+              spmv=spmv_shapes, gather=gather_shapes)
 
 
 def sass_counts(lib: Path):

@@ -1,7 +1,8 @@
 // Shared definitions of the fused assembly kernels (assembly.cu for
 // SIMPLE_FC, parity_assembly.cuh for the parity SIMPLE loop): the static
 // per-column constants of a uniform box, the face-flux and limiter
-// helpers, and the in-kernel Green-Gauss pressure gradient.
+// helpers, the box tiles the kernels stage in shared memory and the
+// per-column products formed on the host.
 #pragma once
 
 #include "common.cuh"
@@ -37,13 +38,9 @@ struct AsmCols {
   T e_n[MAX_K];
   T inv_on[MAX_K];
   // Green-Gauss weights n[a] * area / vol of each column on axis a
-  // (0 where the normal has no component a); the same weights on the
-  // axis of column k (gwk[k], zero rows for columns without a
-  // neighbour offset), the weights of the neighbour's gradient that
-  // column k reads; and the bit mask of the axes some neighbour column
-  // has.
+  // (0 where the normal has no component a), and the bit mask of the
+  // axes some neighbour column has.
   T gw[3][MAX_K];
-  T gwk[MAX_K][MAX_K];
   int axes;
   int K;
 };
@@ -88,12 +85,15 @@ AsmCols<T> make_asm_cols(const long long* offsets, const double* geom,
     c.e_n[k] = static_cast<T>(na * (g[4] - g[5]));
     c.inv_on[k] = static_cast<T>(1.0 / g[5]);
   }
-  for (int k = 0; k < K; ++k) {
-    for (int k2 = 0; k2 < K; ++k2) {
-      c.gwk[k][k2] = c.axis[k] >= 0 ? c.gw[c.axis[k]][k2] : T(0);
-    }
-  }
   return c;
+}
+
+// (nx, ny, nz): the box whose cell (x, y, z) is row x + nx (y + ny z),
+// of C cells.
+inline bool valid_box(long long nx, long long ny, long long nz,
+                      long long C) {
+  return nx >= 1 && ny >= 1 && nz >= 1 && nx <= 2147483647LL &&
+         ny <= 2147483647LL && nz <= 2147483647LL && nx * ny * nz == C;
 }
 
 inline bool valid_cols(const int* kind, int K) {
@@ -149,34 +149,194 @@ __device__ __forceinline__ T tvd_psi(T r) {
   return m > T(0) ? m : T(0);
 }
 
-// Green-Gauss cell pressure gradient of cell `cell` with flag word `fl`
-// and pressure p_c on one axis, given that axis' column weights `w`
-// (cols.gw[a], or cols.gwk[k] for column k's axis): orc_tpu's
-// `_gg_eval` with Linear face pressures, exactly ck_pressure_gradient.
-// The sum runs in column order over the columns with a weight: the mean
-// of the two cells on interior faces, the BC value on pressure
-// boundaries, the cell's own value on the others. The neighbours' p
-// comes from device memory (two hops from the cell being assembled, for
-// a neighbour's gradient).
 template <typename T>
-__device__ __forceinline__ T gg_gradient(const AsmCols<T>& cols,
-                                         const T* __restrict__ p,
-                                         const T* __restrict__ bc,
-                                         long long cell, int fl, T p_c,
-                                         const T* w) {
-  T acc = T(0);
-#pragma unroll
-  for (int k = 0; k < kAsmK; ++k) {
-    if (k >= cols.K || w[k] == T(0)) continue;
-    T p_f;
-    if ((fl >> k) & 1) {
-      p_f = T(0.5) * (p_c + p[cell + cols.offset[k]]);
+__device__ __forceinline__ T pick3(int a, T g0, T g1, T g2) {
+  return a == 0 ? g0 : (a == 1 ? g1 : g2);
+}
+
+
+// A block of the box staged in shared memory. Cell (x, y, z) of the box
+// is row x + nx (y + ny z); a CTA assembles the bx x by x bz cells of
+// its tile (one per thread) from a stage of the tile and a halo of hx,
+// hy, hz cells (0 on an axis of extent 1), slot (sx, sy, sz) holding
+// box cell (x0 - hx + sx, ...). Column k's neighbour of slot s is slot
+// s + ds[k], one step along the column's axis. A slot is loaded from row
+// x + nx (y + ny z) whenever that row lies in [0, C): the neighbour
+// i + offset[k] of a row i is then staged whichever face it crosses, so
+// the tile reads exactly what the row-by-row kernel read. Only slots
+// outside the tile along at most one axis are staged: a cell reads its
+// face neighbours, and a neighbour's gradient along that face's axis
+// reads one cell further along it.
+struct BoxTile {
+  int nx, ny, nz;
+  int bx, by, bz, lg_bx, lg_by;
+  int hx, hy, hz;
+  int sx, sy, sz;
+  // The halo slots: on each axis 2 h layers of the tile's cross-section
+  // (nh_x + nh_y + nh_z in all), enumerated with shifts only (lg_hx2 =
+  // log2(2 hx), and so on).
+  int nh_x, nh_y, nh_z, lg_hx2, lg_hy2;
+  int ds[kAsmK];
+};
+
+// The tile shape of `threads` cells (256: 32 x 8 in 2-D, 16 x 4 x 4 in
+// 3-D; 128: 32 x 4, 16 x 2 x 4), narrower on a thin box, smaller (down
+// to `min_cells`) on a small one, and the slot step of each column, or
+// false when a column with a neighbour offset is not one step along the
+// axis of its normal, an axis the halo covers, or its normal has a
+// second component (its Green-Gauss weights would reach slots that are
+// not staged).
+template <typename T>
+bool make_box_tile(const AsmCols<T>& c, int nx, int ny, int nz, int halo,
+                   BoxTile* bt, int threads = kThreads,
+                   int min_cells = 64) {
+  BoxTile t{};
+  t.nx = nx;
+  t.ny = ny;
+  t.nz = nz;
+  t.bz = nz > 1 ? 4 : 1;
+  t.bx = nz > 1 ? 16 : 32;
+  while (t.bx > 1 && t.bx / 2 >= nx) t.bx /= 2;
+  t.by = threads / (t.bx * t.bz);
+  while (t.by > 1 && t.by / 2 >= ny) t.by /= 2;
+  // A small box takes smaller tiles, down to min_cells, until its CTAs
+  // reach every SM of an H100 (132): each thread's work is one cell.
+  auto ctas = [&] {
+    return static_cast<long long>((nx + t.bx - 1) / t.bx) *
+           ((ny + t.by - 1) / t.by) * ((nz + t.bz - 1) / t.bz);
+  };
+  while (t.bx * t.by * t.bz > min_cells && ctas() < 132) {
+    if (t.bz > 2) {
+      t.bz /= 2;
+    } else if (t.by > 4) {
+      t.by /= 2;
+    } else if (t.bx > 16) {
+      t.bx /= 2;
+    } else if (t.bz > 1) {
+      t.bz /= 2;
+    } else if (t.by > 1) {
+      t.by /= 2;
     } else {
-      p_f = cols.kind[k] == kPressure ? bc[4 * cols.zone[k] + 3] : p_c;
+      t.bx /= 2;
     }
-    acc = acc + w[k] * p_f;
   }
-  return acc;
+  t.lg_bx = 0;
+  while ((1 << t.lg_bx) < t.bx) ++t.lg_bx;
+  t.lg_by = 0;
+  while ((1 << t.lg_by) < t.by) ++t.lg_by;
+  t.hx = nx > 1 ? halo : 0;
+  t.hy = ny > 1 ? halo : 0;
+  t.hz = nz > 1 ? halo : 0;
+  t.sx = t.bx + 2 * t.hx;
+  t.sy = t.by + 2 * t.hy;
+  t.sz = t.bz + 2 * t.hz;
+  t.nh_x = 2 * t.hx * t.by * t.bz;
+  t.nh_y = 2 * t.hy * t.bx * t.bz;
+  t.nh_z = 2 * t.hz * t.bx * t.by;
+  t.lg_hx2 = t.hx == 2 ? 2 : 1;
+  t.lg_hy2 = t.hy == 2 ? 2 : 1;
+  const long long nxy = static_cast<long long>(nx) * ny;
+  const int step[3] = {1, t.sx, t.sx * t.sy};
+  const bool covered[3] = {t.hx > 0, t.hy > 0, t.hz > 0};
+  for (int k = 0; k < c.K; ++k) {
+    const long long o = c.offset[k];
+    const long long m = o < 0 ? -o : o;
+    t.ds[k] = 0;
+    if (o == 0) continue;
+    const int a = m == 1 ? 0 : (m == nx ? 1 : (m == nxy ? 2 : -1));
+    if (a < 0 || a != c.axis[k] || !covered[a]) return false;
+    for (int b = 0; b < 3; ++b) {
+      if (b != a && c.gw[b][k] != T(0)) return false;
+    }
+    t.ds[k] = (o < 0 ? -1 : 1) * step[a];
+  }
+  *bt = t;
+  return true;
+}
+
+// Halo slot q < nh_x + nh_y + nh_z of the stage: its coordinates in the
+// stage, its distance d (1 or 2) from the tile and the axis a it lies
+// out along. Consecutive q run along x where the face allows it.
+__device__ __forceinline__ void halo_slot(const BoxTile& t, int q, int& x,
+                                          int& y, int& z, int& d, int& a) {
+  int ls;  // side (bit 0) and layer (bit 1) of the face
+  if (q < t.nh_x) {
+    ls = q & ((2 * t.hx) - 1);
+    const int r = q >> t.lg_hx2;
+    y = t.hy + (r & (t.by - 1));
+    z = t.hz + (r >> t.lg_by);
+    d = (ls >> 1) + 1;
+    x = (ls & 1) ? t.hx + t.bx - 1 + d : t.hx - d;
+    a = 0;
+  } else if ((q -= t.nh_x) < t.nh_y) {
+    x = t.hx + (q & (t.bx - 1));
+    const int r = q >> t.lg_bx;
+    ls = r & ((2 * t.hy) - 1);
+    z = t.hz + (r >> t.lg_hy2);
+    d = (ls >> 1) + 1;
+    y = (ls & 1) ? t.hy + t.by - 1 + d : t.hy - d;
+    a = 1;
+  } else {
+    q -= t.nh_y;
+    x = t.hx + (q & (t.bx - 1));
+    const int r = q >> t.lg_bx;
+    y = t.hy + (r & (t.by - 1));
+    ls = r >> t.lg_by;
+    d = (ls >> 1) + 1;
+    z = (ls & 1) ? t.hz + t.bz - 1 + d : t.hz - d;
+    a = 2;
+  }
+}
+
+// The per-column products of Python numbers the first design formed in
+// every thread, formed once by the launcher with the same rounded
+// operations: mu A / dist_on, mu A / dist_fo, A rho, and the relaxation
+// factor (1 - alpha) / alpha.
+template <typename T>
+struct MomentumConsts {
+  T d_int[kAsmK];
+  T d_bnd[kAsmK];
+  T arho[kAsmK];
+  T relax;
+};
+
+template <typename T>
+MomentumConsts<T> make_momentum_consts(const AsmCols<T>& c, T rho, T mu,
+                                       T alpha) {
+  MomentumConsts<T> m{};
+  for (int k = 0; k < c.K; ++k) {
+    m.d_int[k] = mu * c.area[k] / c.dist_on[k];
+    m.d_bnd[k] = mu * c.area[k] / c.dist_fo[k];
+    m.arho[k] = c.area[k] * rho;
+  }
+  m.relax = (T(1) - alpha) / alpha;
+  return m;
+}
+
+// The launch of a kernel over the tiles of box tile t: its grid, or
+// false when a staged row (up to a tile and a halo of 2 past each far
+// side of the box) would not fit the kernels' 32-bit row arithmetic, or
+// the grid is too tall.
+inline bool box_grid(const BoxTile& t, long long C, dim3* grid) {
+  const long long nx = t.nx, nxy = nx * t.ny;
+  if (C + (t.bz + 3) * nxy + (t.by + 3) * nx + t.bx + 3 > 2147483647LL) {
+    return false;
+  }
+  const long long gy = (t.ny + t.by - 1) / t.by, gz = (t.nz + t.bz - 1) / t.bz;
+  if (gy > 65535 || gz > 65535) return false;
+  *grid = dim3(static_cast<unsigned>((nx + t.bx - 1) / t.bx),
+               static_cast<unsigned>(gy), static_cast<unsigned>(gz));
+  return true;
+}
+
+// Lets `kernel` take `bytes` of dynamic shared memory (above 48 KB only
+// after an opt-in); returns the CUDA error code.
+template <typename Kernel>
+int fit_smem(Kernel kernel, long long bytes) {
+  if (bytes <= 48 * 1024) return 0;
+  return static_cast<int>(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(bytes)));
 }
 
 }  // namespace orc

@@ -3,7 +3,6 @@
 // parity_assembly_f64.cu.
 #include "parity_assembly.cuh"
 
-
 extern "C" int orc_momentum_assembly(
     int dtype, int scheme, int psi, int rc, int p_so, int gg,
     const long long* col_offsets, const double* col_geom, const int* col_kind,
@@ -14,18 +13,14 @@ extern "C" int orc_momentum_assembly(
     double vol, void* diag, void* off, void* b, long long C, void* stream) {
   const bool grad = rc || p_so;
   const bool in_kernel = grad && gg;
-  // (nx, ny, nz): the box whose cell (x, y, z) is row x + nx (y + ny z).
-  if (nx < 1 || ny < 1 || nz < 1 || nx > 2147483647LL ||
-      ny > 2147483647LL || nz > 2147483647LL || nx * ny * nz != C ||
-      !orc::valid_cols(col_kind, K) || scheme < orc::kUD ||
-      scheme > orc::kTvdDc || psi < 0 || psi > 2 || C < 0 ||
+  if (!orc::valid_box(nx, ny, nz, C) || !orc::valid_cols(col_kind, K) ||
+      scheme < orc::kUD || scheme > orc::kTvdDc || psi < 0 || psi > 2 ||
       (grad && !in_kernel && grad_p == nullptr) || (rc && md == nullptr) ||
       (scheme == orc::kTvdDc && grad_vel == nullptr) ||
       ((rc || in_kernel) && !(vol > 0.0)) ||
       ((rv_dt == nullptr) != (vel_n == nullptr))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (C == 0) return 0;
   auto s = static_cast<cudaStream_t>(stream);
   const int* fl = static_cast<const int*>(flags);
   if (dtype == orc::kF32) {
@@ -52,31 +47,36 @@ extern "C" int orc_momentum_assembly(
 extern "C" int orc_pc_assembly(int dtype, int rc, int gg,
                                const long long* col_offsets,
                                const double* col_geom, const int* col_kind,
-                               const int* col_zone, int K, const void* vel,
+                               const int* col_zone, int K, long long nx,
+                               long long ny, long long nz, const void* vel,
                                const void* md, const void* p,
                                const void* grad_p, const void* bc,
                                const void* flags, double rho, double vol,
                                void* diag, void* off, void* b, long long C,
                                void* stream) {
   const bool in_kernel = rc && gg;
-  if (!orc::valid_cols(col_kind, K) || C < 0 || (rc && p == nullptr) ||
-      (rc && !in_kernel && grad_p == nullptr) || (rc && !(vol > 0.0))) {
+  if (!orc::valid_box(nx, ny, nz, C) || !orc::valid_cols(col_kind, K) ||
+      (rc && p == nullptr) || (rc && !in_kernel && grad_p == nullptr) ||
+      (rc && !(vol > 0.0))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (C == 0) return 0;
   auto s = static_cast<cudaStream_t>(stream);
   const int* fl = static_cast<const int*>(flags);
+  const int bx = static_cast<int>(nx), by = static_cast<int>(ny),
+            bz = static_cast<int>(nz);
   if (dtype == orc::kF32) {
     const auto c = orc::make_asm_cols<float>(col_offsets, col_geom, col_kind,
                                              col_zone, K, vol);
-    return orc::launch_pc<float>(rc != 0, in_kernel, c, vel, md, p, grad_p,
-                                 bc, fl, rho, vol, diag, off, b, C, s);
+    return orc::launch_pc<float>(rc != 0, in_kernel, c, bx, by, bz, vel, md,
+                                 p, grad_p, bc, fl, rho, vol, diag, off, b, C,
+                                 s);
   }
   if (dtype == orc::kF64) {
     const auto c = orc::make_asm_cols<double>(col_offsets, col_geom, col_kind,
                                               col_zone, K, vol);
-    return orc::launch_pc<double>(rc != 0, in_kernel, c, vel, md, p, grad_p,
-                                  bc, fl, rho, vol, diag, off, b, C, s);
+    return orc::launch_pc<double>(rc != 0, in_kernel, c, bx, by, bz, vel, md,
+                                  p, grad_p, bc, fl, rho, vol, diag, off, b,
+                                  C, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -10,8 +10,8 @@ template int launch_momentum<double>(
     const void*, const void*, const void*, const void*, const void*,
     const void*, const void*, const void*, const int*, double, double,
     double, double, void*, void*, void*, long long, cudaStream_t);
-template int launch_pc<double>(bool, bool, const AsmCols<double>&,
-                               const void*, const void*, const void*,
+template int launch_pc<double>(bool, bool, const AsmCols<double>&, int, int,
+                               int, const void*, const void*, const void*,
                                const void*, const void*, const int*, double,
                                double, void*, void*, void*, long long,
                                cudaStream_t);

@@ -172,8 +172,9 @@ def column_specs(mesh, table) -> "tuple | None":
 def box_dims(cols, n_cells):
     """(nx, ny, nz) of the box whose cell (x, y, z) is row
     x + nx (y + ny z), with every axis of extent 1 moved last (a 2-D
-    box is (nx, ny, 1)): the tiling of the parity momentum kernel. Raises
-    ValueError when the columns' offsets describe no box."""
+    box is (nx, ny, 1)): the tiling of the parity momentum, pressure-
+    correction and SIMPLE_FC momentum kernels. Raises ValueError when
+    the columns' offsets describe no box."""
     from orc_tpu_torch.solver.gmg import infer_box_dims
 
     dims = infer_box_dims(tuple(c.offset for c in cols), n_cells)
@@ -587,7 +588,8 @@ def _launch_fc_momentum(
     _cuda.call(
         "orc_fc_momentum_assembly", vel.device, _cuda.dtype_code(vel),
         _SCHEMES[spec.scheme], psi, int(spec.p_so), *_col_args(cols), K,
-        vel.data_ptr(), p.data_ptr(), flux_planes.data_ptr(), _ptr(grad_p),
+        *box_dims(cols, C), vel.data_ptr(), p.data_ptr(),
+        flux_planes.data_ptr(), _ptr(grad_p),
         _ptr(grad_vel), _ptr(rv_dt), _ptr(vel_n), bc_values.data_ptr(),
         flags.data_ptr(), float(rho), float(mu), float(alpha), diag.data_ptr(),
         off.data_ptr(), b.data_ptr(), C,
@@ -687,8 +689,9 @@ def _launch_pc(vel, mom_diag, bc_values, flags, cols, rho, p, grad_p, spec):
     b = torch.empty((C,), dtype=vel.dtype, device=vel.device)
     _cuda.call(
         "orc_pc_assembly", vel.device, _cuda.dtype_code(vel), int(spec.rc),
-        int(spec.gg), *_col_args(cols), K, vel.data_ptr(), mom_diag.data_ptr(),
-        _ptr(p), _ptr(grad_p), bc_values.data_ptr(), flags.data_ptr(),
+        int(spec.gg), *_col_args(cols), K, *box_dims(cols, C), vel.data_ptr(),
+        mom_diag.data_ptr(), _ptr(p), _ptr(grad_p), bc_values.data_ptr(),
+        flags.data_ptr(),
         float(rho), float(spec.vol), diag.data_ptr(), off.data_ptr(),
         b.data_ptr(), C,
     )

@@ -308,6 +308,82 @@ def test_momentum_kernel_tile_edges(dev, dtype, box, family):
                 _close(a, r, TOL[dtype], f"momentum {spec} inertia={inertia is not None} {name}")
 
 
+def _tile_case(box, dt, dev):
+    """A box of TILE_BOXES with seeded fields on the card: (mesh, ck
+    geometry, ck BC, BC value table, flags, cols, fields)."""
+    nx, ny, nz, vinlet = TILE_BOXES[box]
+    mesh, table = couette_case(
+        nx, ny, nz, params=ChannelFlowParameters(top_wall_velocity=5e-4, dp_dx=5.0),
+        velocity_inlet=vinlet, dtype=dt, device=dev,
+    )
+    zc, zs, zv = device_bc(table, dtype=dt, device=dev)
+    ck = build_ck_geometry(mesh, len(table.zone_ids))
+    bc = ck_bc(ck, zc, zs, zv)
+    cols = asm.column_specs(mesh, table)
+    assert asm.box_dims(cols, mesh.n_cells) == (nx, ny, nz)
+    C = mesh.n_cells
+    rng = np.random.default_rng(3)
+    f = {name: torch.tensor(a, dtype=dt, device=dev) for name, a in (
+        ("vel", rng.standard_normal((C, 3)) * 0.1),
+        ("p", rng.standard_normal(C) * 0.05),
+        ("md", rng.uniform(0.5, 2.0, C)),
+        ("vel_n", rng.standard_normal((C, 3)) * 0.1),
+        ("vel2", rng.standard_normal((C, 3)) * 0.1),
+    )}
+    f["grad_p"] = ck_pressure_gradient(mesh, ck, bc, f["p"])
+    f["grad_v"] = ck_velocity_gradient(mesh, ck, bc, f["vel"])
+    flags = asm.pack_flags(ck.interior, ck.mask)
+    return mesh, ck, bc, asm.bc_value_table(zs, zv), flags, cols, f
+
+
+@pytest.mark.parametrize("family", sorted(PARITY_FAMILIES))
+@pytest.mark.parametrize("box", sorted(TILE_BOXES))
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_fc_momentum_kernel_tile_edges(dev, dtype, box, family):
+    """Guards orc_tpu/ops/pallas_assembly.py `_momentum_kernel`, SIMPLE_FC
+    branch, at the edges of the kernel's box tiles: the family with
+    Linear and SecondOrder face pressures, steady and with the inertia
+    term, against the plain version."""
+    dt = DTYPES[dtype]
+    mesh, ck, bc, bcv, flags, cols, f = _tile_case(box, dt, dev)
+    flux = ck_flux(mesh, ck, bc, f["vel2"], tset.VelocityInterpolation.LINEAR_WEIGHTED)
+    flux = flux.T.contiguous().T  # the planes layout of FlowState.flux
+    margs = (f["vel"], f["p"], flux, bcv, flags, cols, 1.0, 1e-3, 0.7)
+    scheme, psi = PARITY_FAMILIES[family]
+    for p_so in (False, True):
+        spec = asm.AsmSpec(scheme=scheme, p_so=p_so, psi=psi)
+        for inertia in (None, (1000.0 * mesh.cell_volume / 0.01, f["vel_n"])):
+            kw = dict(grad_p=f["grad_p"], grad_vel=f["grad_v"], inertia=inertia, spec=spec)
+            before = asm.fc_momentum_assembly.launches
+            got = asm.fc_momentum_assembly(*margs, **kw)
+            ref = asm.fc_momentum_assembly_plain(*margs, **kw)
+            torch.cuda.synchronize()
+            assert asm.fc_momentum_assembly.launches == before + 1
+            for name, a, r in zip(("diag", "off", "b"), got, ref):
+                _close(a, r, TOL[dtype], f"fc momentum {spec} inertia={inertia is not None} {name}")
+
+
+@pytest.mark.parametrize("instance", ["linear", "rc-gg", "rc-streamed"])
+@pytest.mark.parametrize("box", sorted(TILE_BOXES))
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_pc_kernel_tile_edges(dev, dtype, box, instance):
+    """Guards orc_tpu/ops/pallas_assembly.py `_pc_kernel` at the edges of
+    the kernel's box tiles, in each of its instances, against the plain
+    version."""
+    dt = DTYPES[dtype]
+    mesh, _ck, _bc, bcv, flags, cols, f = _tile_case(box, dt, dev)
+    rc, gg = instance != "linear", instance == "rc-gg"
+    spec = asm.AsmSpec(rc=rc, gg=gg, vol=float(mesh.cell_volume[0]))
+    kw = dict(p=f["p"] if rc else None, grad_p=None if gg else f["grad_p"], spec=spec)
+    before = asm.pc_assembly.launches
+    got = asm.pc_assembly(f["vel"], f["md"], bcv, flags, cols, 1.0, **kw)
+    ref = asm.pc_assembly_plain(f["vel"], f["md"], bcv, flags, cols, 1.0, **kw)
+    torch.cuda.synchronize()
+    assert asm.pc_assembly.launches == before + 1
+    for name, a, r in zip(("diag", "off", "b"), got, ref):
+        _close(a, r, TOL[dtype], f"pc {spec} {name}")
+
+
 def test_parity_kernels_refuse_what_they_cannot_run(dev):
     """A CUDA call the parity kernels cannot serve raises: a missing
     streamed gradient, diagonal or velocity gradient, a limiter without

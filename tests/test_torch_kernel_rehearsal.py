@@ -1,8 +1,10 @@
-"""CPU rehearsal of two Hopper kernels of orc_tpu_torch: the slice-plan
-SpMV (csrc/slice_spmv.cu, kernel rows 7-9) and the parity momentum
-assembly (csrc/parity_assembly.cuh, row 3), compiled as C++ with g++
-against a mock cuda_runtime.h and run through the wrappers' launch
-helpers on CPU tensors.
+"""CPU rehearsal of four Hopper kernels of orc_tpu_torch: the slice-plan
+SpMV (csrc/slice_spmv.cu, kernel rows 7-9), the parity momentum
+assembly (csrc/parity_assembly.cuh, row 3), the SIMPLE_FC momentum
+assembly (csrc/assembly.cu, row 4) and the pressure-correction assembly
+(csrc/parity_assembly.cuh, row 5), compiled as C++ with g++ against a
+mock cuda_runtime.h and run through the wrappers' launch helpers on CPU
+tensors.
 
 The mock runs a launch's blocks in turn and each block's threads as
 std::threads meeting at one std::barrier for __syncthreads() (a thread
@@ -25,7 +27,13 @@ source does not spell out. What that checks:
   output's largest value), on 10 x 6 and 6 x 5 x 4 channel boxes with a
   velocity inlet and 37 x 9 and 17 x 5 x 3 ones with a pressure inlet,
   each with a pressure outlet: one tile or several, ragged on every
-  side.
+  side;
+- the SIMPLE_FC momentum assembly, in every scheme and limiter family,
+  with Linear and SecondOrder face pressures, steady and with the
+  inertia term, and the pressure-correction assembly in its three
+  instances (Linear, Rhie-Chow with the in-kernel or a streamed
+  gradient), on the same boxes, against the plain versions (1e-5 /
+  1e-12 of each output's largest value).
 
 Skips where g++ is missing. The card's own checks are in
 tests/test_torch_gpu.py and chip_smoke.py.
@@ -114,6 +122,7 @@ inline double __dmul_rn(double a, double b) {
 }
 inline float __fmaf_rn(float a, float b, float c) { return std::fmaf(a, b, c); }
 inline double __fma_rn(double a, double b, double c) { return std::fma(a, b, c); }
+inline int __popc(unsigned x) { return __builtin_popcount(x); }
 using std::max;
 using std::min;
 
@@ -149,7 +158,8 @@ void mock_launch(dim3 grid, dim3 block, size_t smem, K kernel, A... args) {
 """
 
 #: The sources rehearsed, each compiled on its own in parallel.
-SOURCES = ("slice_spmv.cu", "parity_assembly.cu", "parity_assembly_f64.cu")
+SOURCES = ("slice_spmv.cu", "parity_assembly.cu", "parity_assembly_f64.cu",
+           "assembly.cu")
 
 
 def _split_top(text):
@@ -213,7 +223,8 @@ def mock_lib(tmp_path_factory):
     subprocess.run([gxx, "-shared", "-pthread", "-o", str(lib_path), *map(str, objs)],
                    check=True)
     lib = ctypes.CDLL(str(lib_path))
-    for name in ("orc_slice_spmv", "orc_momentum_assembly"):
+    for name in ("orc_slice_spmv", "orc_momentum_assembly", "orc_pc_assembly",
+                 "orc_fc_momentum_assembly"):
         fn = getattr(lib, name)
         fn.argtypes = _cuda.SIGNATURES[name]
         fn.restype = ctypes.c_int
@@ -372,6 +383,80 @@ def test_rehearsed_momentum_matches_plain(mock, dtype, box, family):
                 assert err <= TOL[dtype] * float(r.abs().max()), (
                     f"{spec} inertia={inertia is not None} {name}: {err:.3e}"
                 )
+
+
+def _box_case(box, dtype):
+    """A channel box of BOXES with seeded fields, compiled on the CPU:
+    (mesh, cols, ck geometry, ck BC, BC value table, flags, fields)."""
+    nx, ny, nz, vinlet = BOXES[box]
+    mesh, table = couette_case(
+        nx, ny, nz, params=ChannelFlowParameters(top_wall_velocity=5e-4, dp_dx=5.0),
+        velocity_inlet=vinlet, dtype=dtype, device="cpu",
+    )
+    zc, zs, zv = device_bc(table, dtype=dtype, device="cpu")
+    ck = build_ck_geometry(mesh, len(table.zone_ids))
+    bc = ck_bc(ck, zc, zs, zv)
+    cols = asm.column_specs(mesh, table)
+    assert asm.box_dims(cols, mesh.n_cells) == (nx, ny, nz)
+    C = mesh.n_cells
+    rng = np.random.default_rng(3)
+    f = dict(
+        vel=torch.tensor(rng.standard_normal((C, 3)) * 0.1, dtype=dtype),
+        p=torch.tensor(rng.standard_normal(C) * 0.05, dtype=dtype),
+        md=torch.tensor(rng.uniform(0.5, 2.0, C), dtype=dtype),
+        vel_n=torch.tensor(rng.standard_normal((C, 3)) * 0.1, dtype=dtype),
+        flux=torch.tensor(rng.standard_normal((C, len(cols))) * 0.1, dtype=dtype),
+    )
+    f["grad_p"] = ck_pressure_gradient(mesh, ck, bc, f["p"])
+    f["grad_v"] = ck_velocity_gradient(mesh, ck, bc, f["vel"])
+    bcv = asm.bc_value_table(zs, zv)
+    return mesh, cols, bcv, asm.pack_flags(ck.interior, ck.mask), f
+
+
+def _assert_close(got, ref, dtype, what):
+    for name, a, r in zip(("diag", "off", "b"), got, ref):
+        err = float((a - r).abs().max())
+        assert err <= TOL[dtype] * float(r.abs().max()), f"{what} {name}: {err:.3e}"
+
+
+@pytest.mark.parametrize("family", sorted(FAMILIES))
+@pytest.mark.parametrize("box", sorted(BOXES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_rehearsed_fc_momentum_matches_plain(mock, dtype, box, family):
+    """Guards orc_tpu/ops/pallas_assembly.py `_momentum_kernel`, SIMPLE_FC
+    branch (via fc_momentum_assembly's kernel launch on the mock), with
+    Linear and SecondOrder face pressures, steady and transient."""
+    mesh, cols, bcv, flags, f = _box_case(box, dtype)
+    flux = f["flux"].T.contiguous().T  # the planes layout of FlowState.flux
+    margs = (f["vel"], f["p"], flux, bcv, flags, cols, 1.0, 1e-3, 0.7)
+    scheme, psi = FAMILIES[family]
+    for p_so in (False, True):
+        spec = asm.AsmSpec(scheme=scheme, p_so=p_so, psi=psi)
+        for inertia in (None, (1000.0 * mesh.cell_volume / 0.01, f["vel_n"])):
+            kw = dict(grad_p=f["grad_p"], grad_vel=f["grad_v"], inertia=inertia, spec=spec)
+            got = asm._launch_fc_momentum(*margs, *kw.values())
+            ref = asm.fc_momentum_assembly_plain(*margs, **kw)
+            _assert_close(got, ref, dtype, f"{spec} inertia={inertia is not None}")
+
+
+#: pc_kernel's instances: (Rhie-Chow, in-kernel gradient).
+PC_INSTANCES = {"linear": (False, False), "rc-gg": (True, True), "rc-streamed": (True, False)}
+
+
+@pytest.mark.parametrize("instance", sorted(PC_INSTANCES))
+@pytest.mark.parametrize("box", sorted(BOXES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_rehearsed_pc_matches_plain(mock, dtype, box, instance):
+    """Guards orc_tpu/ops/pallas_assembly.py `_pc_kernel` (via
+    pc_assembly's kernel launch on the mock) in each of its instances."""
+    mesh, cols, bcv, flags, f = _box_case(box, dtype)
+    rc, gg = PC_INSTANCES[instance]
+    spec = asm.AsmSpec(rc=rc, gg=gg, vol=float(mesh.cell_volume[0]))
+    pargs = (f["vel"], f["md"], bcv, flags, cols, 1.0, f["p"] if rc else None,
+             None if gg else f["grad_p"], spec)
+    got = asm._launch_pc(*pargs)
+    ref = asm.pc_assembly_plain(*pargs[:-1], spec=spec)
+    _assert_close(got, ref, dtype, str(spec))
 
 
 @pytest.mark.parametrize(
