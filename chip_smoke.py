@@ -18,7 +18,11 @@ Phases (any failure raises and the script exits non-zero):
    (torch.sparse CSR times x; x[cell_neighbors]), each line with its
    share of 3.35 TB/s: the shift SpMV on the 1024^2 f32 cavity's
    pressure system (B = 1 and 3), the 128x64 f64 couette's (B = 1 and 3)
-   and a K = 6 system of the 128^3 cavity's shape, the parity kernels on
+   and a K = 6 system of the 128^3 cavity's shape, the Jacobi sweeps
+   (six) on the 1024^2 cavity's momentum system (B = 3 and 1), on the
+   couette's shape (f64, B = 3) and on the 128^3 shape (B = 3), each
+   with the kernel instance it takes (tiled and its depth, or a launch
+   per sweep), the parity kernels on
    the 1024^2 f32 cavity (UD, steady and transient), their Rhie-Chow /
    SecondOrder / TVD_DC / in-kernel-gradient branches on the
    reference-default 1024^2 f32 cavity (CD1 + SO + RC + GG also
@@ -85,7 +89,8 @@ Phases (any failure raises and the script exits non-zero):
 16. the Taylor-Green vortex 256^2 f64, 20 steps x 10 inner iterations,
    within 5e-3 of the exact decay;
 phases 4-7 and 9-16 end with a short window under torch.profiler
-(device time by kernel, device busy share, launches per iteration);
+(device time by kernel, device busy share, launches per iteration), and
+each phase that runs the Jacobi sweeps prints the instances it took;
 then one JSON line with every kernel's launches, error, card times and
 bound, the card's name and power limit, and as the last line
 {"ok": true, "device": {...}}.
@@ -431,7 +436,11 @@ def phase_kernels(dev, kernels, mom_t):
     from orc_tpu_torch.ops import fused_assembly as asm
     from orc_tpu_torch.ops.ck_ops import build_ck_geometry
     from orc_tpu_torch.ops.fields import device_bc
-    from orc_tpu_torch.ops.fused_smooth import fused_jacobi_sweeps, sweeps_plain
+    from orc_tpu_torch.ops.fused_smooth import (
+        fused_jacobi_sweeps,
+        sweep_plan,
+        sweeps_plain,
+    )
     from orc_tpu_torch.ops.shift_spmv import shift_spmv, shift_spmv_plain
     from orc_tpu_torch.ops.spmv import EllMatrix
     from orc_tpu_torch.solver.simple import solve_steady
@@ -479,14 +488,20 @@ def phase_kernels(dev, kernels, mom_t):
     A, inv_d = A.jacobi_preconditioned()
     b3 = (b3 * inv_d).contiguous()
     x3 = vel.T.contiguous()
+    # Row 2's bound: the function reads diag, the K columns, b and x0
+    # once and writes x once, whatever the number of sweeps.
     Ks = len(A.off)
-    sweeps.compare(
-        "cavity 1024^2 f32 B=3 6 sweeps",
-        lambda: fused_jacobi_sweeps(A.diag, A.off, A.offsets, b3, x3, 6, 0.8),
-        lambda: sweeps_plain(A.diag, A.off, A.offsets, b3, x3, 6, 0.8),
-        torch.float32, 6 * C * ((1 + Ks) * f32 + 3 * 3 * f32), timed=True,
-        outputs=("x",),
-    )
+    log(f"  fused_jacobi_sweeps cavity 1024^2 f32: "
+        f"{sweep_plan(A.offsets, C, 6, torch.float32).label()}")
+    for B in (3, 1):
+        b, x = (b3, x3) if B == 3 else (b3[0], x3[0])
+        sweeps.compare(
+            f"cavity 1024^2 f32 B={B} 6 sweeps",
+            lambda: fused_jacobi_sweeps(A.diag, A.off, A.offsets, b, x, 6, 0.8),
+            lambda: sweeps_plain(A.diag, A.off, A.offsets, b, x, 6, 0.8),
+            torch.float32, C * ((1 + Ks) * f32 + 3 * B * f32), timed=B == 3,
+            outputs=("x",),
+        )
     pdiag, poff, _bp = asm.pc_assembly(*p_args)
     P, _ = EllMatrix(pdiag, poff, None, mesh.neighbor_offsets).split_columns().jacobi_preconditioned()
     for B in (1, 3):
@@ -509,6 +524,16 @@ def phase_kernels(dev, kernels, mom_t):
             lambda: shift_spmv_plain(diag, cols64, couette_offsets, x),
             torch.float64, 128 * 64 * (5 * 8 + 2 * B * 8), timed=False,
         )
+    # Row 2 on the couette's momentum system (f64, B = 3).
+    b = structured_system(128 * 64, couette_offsets, 3, torch.float64, dev, seed=1)[2]
+    log(f"  fused_jacobi_sweeps couette 128x64 f64: "
+        f"{sweep_plan(couette_offsets, 128 * 64, 6, torch.float64).label()}")
+    sweeps.compare(
+        "couette 128x64 f64 B=3 6 sweeps",
+        lambda: fused_jacobi_sweeps(diag, cols64, couette_offsets, b, x, 6, 0.8),
+        lambda: sweeps_plain(diag, cols64, couette_offsets, b, x, 6, 0.8),
+        torch.float64, 128 * 64 * (5 * 8 + 3 * 3 * 8), timed=False, outputs=("x",),
+    )
     del state, A, P, b3, x3
     # The pressure systems of the 128^3 cavity (phase 15): K = 6, split
     # planes; +-16384 lies far beyond the kernel's shared-memory window.
@@ -523,7 +548,19 @@ def phase_kernels(dev, kernels, mom_t):
         torch.float32, n3 * (7 * f32 + 2 * f32), timed=False,
         nops=2 * n3 * 7, library_call=shift_csr_call(diag, planes, box_offsets, x),
     )
-    del diag, off, x, planes
+    # Row 2 on a momentum system of its shape (B = 3): the smoother of
+    # phase 15.
+    _d, _o, x3d = structured_system(n3, box_offsets, 3, torch.float32, dev)
+    b3d = structured_system(n3, box_offsets, 3, torch.float32, dev, seed=1)[2]
+    log(f"  fused_jacobi_sweeps cavity3d 128^3 f32: "
+        f"{sweep_plan(box_offsets, n3, 6, torch.float32).label()}")
+    sweeps.compare(
+        "cavity3d 128^3 f32 K=6 B=3 6 sweeps",
+        lambda: fused_jacobi_sweeps(diag, planes, box_offsets, b3d, x3d, 6, 0.8),
+        lambda: sweeps_plain(diag, planes, box_offsets, b3d, x3d, 6, 0.8),
+        torch.float32, n3 * (7 * f32 + 3 * 3 * f32), timed=False, outputs=("x",),
+    )
+    del diag, off, x, planes, _d, _o, x3d, b3d
 
 
 def ref_default_settings():
@@ -1976,9 +2013,13 @@ def main():
     for label, run, must, must_not, per_iteration in paths:
         for k in kernels:
             setattr(k.fn, k.counter, 0)
+        fused_jacobi_sweeps.instances = {}
         results[label] = run()
         counts = {k.name: getattr(k.fn, k.counter) for k in kernels}
         log(f"launches, {label}: {counts}")
+        if fused_jacobi_sweeps.instances:
+            log(f"  fused_jacobi_sweeps instances (calls), {label}: "
+                f"{fused_jacobi_sweeps.instances}")
         for k in must:
             if counts[k.name] <= 0:
                 raise AssertionError(f"the {label} run launched no {k.name} kernel")

@@ -1,15 +1,17 @@
-"""Time the structured stencil SpMV, the slice-plan SpMV, the neighbour
-gather and the assembly kernels (parity momentum and pressure
-correction, SIMPLE_FC momentum and pressure) of two versions of their
-CUDA sources in one process on one GPU.
+"""Time the structured stencil SpMV, the Jacobi sweeps, the slice-plan
+SpMV and its exact product, the neighbour gather and the assembly
+kernels (parity momentum and pressure correction, SIMPLE_FC momentum and
+pressure) of two versions of their CUDA sources in one process on one
+GPU.
 
 Usage (from the repository root, on a machine with a CUDA GPU):
 
     git archive <commit> orc_tpu_torch/csrc | tar -x -C build/ab_base
     python3 kernel_ab.py build/ab_base/orc_tpu_torch/csrc [--reps 3]
 
-It builds ``shift_spmv.cu``, ``slice_spmv.cu``, ``parity_assembly.cu``,
-``parity_assembly_f64.cu`` and ``assembly.cu`` of the base directory and of
+It builds ``shift_spmv.cu``, ``jacobi_sweeps.cu``, ``slice_spmv.cu``,
+``parity_assembly.cu``, ``parity_assembly_f64.cu`` and ``assembly.cu`` of
+the base directory and of
 ``orc_tpu_torch/csrc`` into two libraries (one nvcc per source, sm_90a,
 all in parallel) and, at the shapes chip_smoke.py times, checks that
 both agree with the plain torch versions (the gather bitwise) and
@@ -37,17 +39,19 @@ import torch
 import chip_smoke as cs
 
 ROOT = Path(__file__).resolve().parent
-SOURCES = ("shift_spmv.cu", "slice_spmv.cu", "parity_assembly.cu",
-           "parity_assembly_f64.cu", "assembly.cu")
+SOURCES = ("shift_spmv.cu", "jacobi_sweeps.cu", "slice_spmv.cu",
+           "parity_assembly.cu", "parity_assembly_f64.cu", "assembly.cu")
 #: The kernels whose ptxas registers and spills the log lists
 #: ("momentum_kernel" names fc_momentum_kernel too).
-REPORTED = ("slice_spmv_kernel", "momentum_kernel", "pc_kernel", "pc_gg_kernel")
+REPORTED = ("slice_spmv_kernel", "slice_spmv_exact_kernel", "momentum_kernel",
+            "pc_kernel", "pc_gg_kernel", "jacobi_tile_kernel", "jacobi_sweep_kernel")
 #: The entry points that take the box's (nx, ny, nz), each with the
-#: position of nx among its arguments: a base version whose entry point
-#: takes none (the versions before the kernel's box tiles) is called
-#: without them.
-BOXED = {"orc_momentum_assembly": 11, "orc_pc_assembly": 8,
-         "orc_fc_momentum_assembly": 9}
+#: position of nx among its arguments and the count of the arguments
+#: that came with it (the Jacobi sweeps' also take the depth and the
+#: tile): a base version whose entry point takes none (the versions
+#: before the kernel's box tiles) is called without them.
+BOXED = {"orc_momentum_assembly": (11, 3), "orc_pc_assembly": (8, 3),
+         "orc_fc_momentum_assembly": (9, 3), "orc_jacobi_sweeps": (14, 7)}
 
 
 def build(csrc: Path, out: Path):
@@ -71,12 +75,14 @@ class Version:
         from orc_tpu_torch.ops import _cuda
 
         self.lib = ctypes.CDLL(str(path))
-        text = "".join((csrc / s).read_text() for s in ("parity_assembly.cu", "assembly.cu"))
+        text = "".join((csrc / s).read_text()
+                       for s in ("parity_assembly.cu", "assembly.cu", "jacobi_sweeps.cu"))
         self.boxed = {
             name for name in BOXED
             if "long long nx" in re.search(rf"{name}\((.*?)\)", text, re.S).group(1)
         }
         for name in ("orc_shift_spmv", "orc_slice_nbr", "orc_slice_spmv",
+                     "orc_slice_spmv_exact", "orc_jacobi_sweeps",
                      "orc_momentum_assembly", "orc_pc_assembly",
                      "orc_fc_momentum_assembly", "orc_fc_pc_assembly"):
             fn = getattr(self.lib, name)
@@ -87,7 +93,8 @@ class Version:
         """`args` of `name` without (nx, ny, nz) where this version's
         entry point takes none."""
         if name in BOXED and name not in self.boxed:
-            return args[:BOXED[name]] + args[BOXED[name] + 3:]
+            at, n = BOXED[name]
+            return args[:at] + args[at + n:]
         return args
 
 
@@ -383,6 +390,86 @@ def slice_shapes(dev, libs, reps, results):
     del A, P64, P32, hi, lo
 
 
+def sweeps_shapes(dev, libs, reps, results):
+    """Row 2, six sweeps, at chip_smoke's shapes: the 1024^2 f32 cavity's
+    system at B = 3 and 1, the 128^3 f32 K = 6 system at B = 3 and the
+    128x64 f64 couette's at B = 3, each in the instance sweep_plan picks
+    and in the variants beside it (S sweeps a tiled launch), against the
+    base's launch per sweep; bytes: diag, K columns, b and x0 read once,
+    x written once."""
+    from orc_tpu_torch.ops import fused_smooth as fs
+
+    f32, f64 = torch.float32, torch.float64
+    cases = (
+        ("1024^2 f32 B=3", (1024, 1024, 1), 3, f32, (None, 2, 3)),
+        ("1024^2 f32 B=1", (1024, 1024, 1), 1, f32, (None,)),
+        ("128^3 f32 K=6 B=3", (128, 128, 128), 3, f32, (None, 1, 2)),
+        ("couette 128x64 f64 B=3", (128, 64, 1), 3, f64, (None,)),
+    )
+    for label, (nx, ny, nz), B, dt, depths in cases:
+        C = nx * ny * nz
+        offsets = tuple(d for d in (-nx * ny, -nx, -1, 1, nx, nx * ny) if abs(d) < C)
+        diag, off, x0 = cs.structured_system(C, offsets, B, dt, dev)
+        b = cs.structured_system(C, offsets, B, dt, dev, seed=1)[2]
+        cols = tuple(off.T.contiguous())
+        for depth in depths:
+            plan = fs.sweep_plan(offsets, C, 6, dt, depth=depth)
+            # A base without the tiled instance (its entry point takes no
+            # box) runs its launch per sweep.
+            base_plan = plan if "orc_jacobi_sweeps" in libs[0].boxed else fs.SweepPlan()
+            base = routed(libs[0], fs._launch_sweeps, diag, cols, offsets, b, x0, 6, 0.8,
+                          base_plan)
+            new = routed(libs[1], fs._launch_sweeps, diag, cols, offsets, b, x0, 6, 0.8,
+                         plan)
+            name = f"sweeps {label} {plan.label()}{' (picked)' if depth is None else ''}"
+            same = _check(name, base, new,
+                          lambda: fs.sweeps_plain(diag, cols, offsets, b, x0, 6, 0.8),
+                          dt, ("x",))
+            ab(name, base, new, None, C * (1 + len(cols) + 3 * B) * dt.itemsize, reps,
+               results)
+            results[-1].update(bitwise=same, launches=plan.launches(6, B))
+        del diag, off, x0, b, cols
+
+
+def exact_shapes(dev, libs, reps, results):
+    """Row 12 at chip_smoke's shapes: the f32 hi planes of the permuted
+    448^2 cavity's prepared f64 system at B = 1 and 3, and of
+    scripts/bench_df32_ir.py's system (1024-row tiles), bitwise against
+    the plain version (and reported against the base)."""
+    from orc_tpu_torch.ops import slice_spmv as ss
+    from orc_tpu_torch.ops.df32 import df_from_f64
+    from orc_tpu_torch.ops.spmv import EllMatrix
+
+    mesh = cs.permuted_cavity(448, torch.float64, dev)[0]
+    plan, C = mesh.slice_plan, mesh.n_cells
+    interior = cs._interior(mesh)
+    rng = np.random.default_rng(0)
+    off = -torch.tensor(rng.uniform(0.0, 1.0, (C, interior.shape[1])), device=dev) * interior
+    diag = 1.0 + off.abs().sum(dim=1)
+    coef = df_from_f64(EllMatrix(diag, off, mesh.cell_neighbors, plan=plan).prepare().off)[0]
+    cases = [("448^2", coef, plan, B,
+              df_from_f64(torch.tensor(rng.standard_normal((B, C) if B > 1 else C),
+                                       device=dev))[0]) for B in (1, 3)]
+    (m64, _), x_true = cs._bench_df32_system(dev)
+    A = m64[0].prepare()
+    cases.append(("1024-row plan", df_from_f64(A.off)[0], A.plan, 1,
+                  df_from_f64(torch.tensor(x_true, device=dev))[0]))
+    for label, coef, plan, B, x in cases:
+        C, used = plan.n_cells, cs._used_coefs(plan)
+        base, new = (routed(v, ss._launch_slice_spmv_exact, coef, 0, plan, x, B)
+                     for v in libs)
+        name = f"exact {label} B={B}"
+        yn, ref = new(), ss.slice_spmv_exact_plain(coef, plan, x)
+        if not _bitwise(yn, ref):
+            raise AssertionError(f"{name}: new kernel not bitwise equal to its plain version")
+        same = _bitwise(yn, base())
+        cs.log(f"  {name}: new == plain bitwise: True; new == base bitwise: {same}")
+        ab(name, base, new, None,
+           used * 4 + 3 * B * C * 4 + plan.ntiles * 4 * (1 + plan.n_max), reps, results)
+        results[-1]["bitwise"] = same
+    del mesh, off, diag, A, cases
+
+
 def momentum_shapes(dev, libs, reps, results):
     """Row 3 at chip_smoke's instances on the 1024^2 f32 cavity (five
     steady, two transient), on the 128x64 f64 couette and on the 128^3
@@ -537,8 +624,8 @@ def fc_shapes(dev, libs, reps, results):
         del mesh, ck, vel, p, md, flux, grad_p, grad_v
 
 
-GROUPS = dict(momentum=momentum_shapes, fc=fc_shapes, slice=slice_shapes,
-              spmv=spmv_shapes, gather=gather_shapes)
+GROUPS = dict(sweeps=sweeps_shapes, exact=exact_shapes, momentum=momentum_shapes,
+              fc=fc_shapes, slice=slice_shapes, spmv=spmv_shapes, gather=gather_shapes)
 
 
 def sass_counts(lib: Path):

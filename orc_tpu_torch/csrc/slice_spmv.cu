@@ -38,22 +38,22 @@
 // only, reading coef[t, j, l] and the slice of x coalesced (consecutive
 // threads, consecutive addresses; the RCM band keeps x in L2). The
 // diagonal term is folded in and x is read unpadded with a bounds test,
-// so no padded copy of x is made per matvec. The exact product (kernel
-// 12) keeps the first design: one CTA per (tile, batch row), one column
-// at a time.
+// so no padded copy of x is made per matvec.
 //
-// slice_spmv_kernel's first design did the same with one CTA per (tile,
-// batch row): 0.0073 ms for the 8,192-row couette (64 CTAs on 132 SMs)
-// and 34% of HBM on a plan of 1024-row tiles (196 CTAs of 256 threads,
-// 1.48 waves, each thread four rows), on an NVIDIA H100 80GB HBM3 at
-// 700 W. Now:
+// The first design of both SpMVs took one CTA per (tile, batch row):
+// slice_spmv_kernel ran 0.0073 ms for the 8,192-row couette (64 CTAs on
+// 132 SMs) and 34% of HBM on a plan of 1024-row tiles (196 CTAs of 256
+// threads, 1.48 waves, each thread four rows), the exact product 27%
+// there, on an NVIDIA H100 80GB HBM3 at 700 W. Now both take:
 //  - one CTA per (chunk of R rows of a tile, group of batch rows), R a
 //    power of two, at most 128 and at least 32, halved until the grid
 //    has 264 CTAs (two per SM), one row per thread;
 //  - a matrix shared by the batch is read once for up to four batch
 //    rows (a thread keeps one sum per row); one matrix per row takes a
 //    CTA row per batch row;
-//  - 32 registers at one batch row, so 16 CTAs share an SM.
+//  - 32 registers at one batch row, so 16 CTAs share an SM;
+//  - the exact product keeps one (acc, err) pair per batch row and its
+//    error-free transforms in the first design's order.
 // The starts are read from L1 (one address per warp) and one column at a
 // time: staging them in shared memory and issuing the loads of 2, 4 or 8
 // columns before their multiply-adds were each measured slower on the
@@ -150,41 +150,72 @@ __global__ void __launch_bounds__(kSpmvMaxRows, NB == 1 ? 16 : 8)
 //   are for every other kernel. Columns past tile_nj carry zero
 //   coefficients and leave (acc, err) unchanged, so (y, err) equal the
 //   plain version's n_max-column loop bit for bit.
-__global__ void slice_spmv_exact_kernel(const float* __restrict__ coef,
-                                        long long coef_bs,
-                                        const int* __restrict__ starts,
-                                        const int* __restrict__ tile_nj,
-                                        const float* __restrict__ x,
-                                        float* __restrict__ y,
-                                        float* __restrict__ err_out,
-                                        long long C, int tile, int n_max,
-                                        long long pad_lo) {
-  const long long t = blockIdx.x;
-  const long long b = blockIdx.y;
-  const float* xb = x + b * C;
-  const float* cb =
-      coef + b * coef_bs + t * n_max * static_cast<long long>(tile);
-  const int* st = starts + t * n_max;
+//
+// The CTAs are slice_spmv_kernel's: one per (chunk of R = blockDim.x
+// rows of tile t, group of up to NB batch rows), one row per thread, a
+// coefficient shared by the batch read once for all NB rows, each with
+// its own (acc, err) pair.
+template <int NB>
+__global__ void __launch_bounds__(kSpmvMaxRows, NB == 1 ? 16 : 8)
+    slice_spmv_exact_kernel(const float* __restrict__ coef,
+                            long long coef_bs,
+                            const int* __restrict__ starts,
+                            const int* __restrict__ tile_nj,
+                            const float* __restrict__ x,
+                            float* __restrict__ y, float* __restrict__ err_out,
+                            int C, int tile, int n_max, int pad_lo,
+                            int chunks, int B) {
+  const int t = static_cast<int>(blockIdx.x) / chunks;
+  const int r0 = (static_cast<int>(blockIdx.x) - t * chunks) *
+                 static_cast<int>(blockDim.x);
+  const int l = r0 + static_cast<int>(threadIdx.x);
+  const int c = t * tile + l;
+  if (l >= tile || c >= C) return;
+  const int b0 = static_cast<int>(blockIdx.y) * NB;
+  const int nb = min(NB, B - b0);
+  const int* st = starts + static_cast<long long>(t) * n_max;
   const int nj = tile_nj[t];
-  for (int l = threadIdx.x; l < tile; l += blockDim.x) {
-    const long long c = t * tile + l;
-    if (c >= C) break;
-    float acc = 0.0f, err = 0.0f;
-    for (int j = 0; j < nj; ++j) {
-      const long long src = static_cast<long long>(st[j]) - pad_lo + l;
-      const float xv = (src >= 0 && src < C) ? xb[src] : 0.0f;
-      const float a = cb[static_cast<long long>(j) * tile + l];
+  // With one matrix per batch row the launcher sets NB = 1.
+  const float* cb = coef + b0 * coef_bs +
+                    static_cast<long long>(t) * n_max * tile + l;
+  const float* xb = x + static_cast<long long>(b0) * C;
+  float acc[NB], err[NB];
+#pragma unroll
+  for (int q = 0; q < NB; ++q) {
+    acc[q] = 0.0f;
+    err[q] = 0.0f;
+  }
+  // Eight columns unrolled, their loads issued ahead of the transforms:
+  // at 448^2 0.0067 (B=1) and 0.0105 (B=3) ms against 0.0070 and
+  // 0.0106 unrolled by four and 0.0070 and 0.0109 as the compiler
+  // chose, the 1024-row plan alike, on an NVIDIA H100 80GB HBM3 at
+  // 700 W (kernel_ab.py). Four for four batch rows, which spill
+  // unrolled by eight within the 64 registers of 8 CTAs an SM.
+#pragma unroll(NB == 4 ? 4 : 8)
+  for (int j = 0; j < nj; ++j) {
+    const int src = __ldg(st + j) - pad_lo + l;
+    const bool in = static_cast<unsigned>(src) < static_cast<unsigned>(C);
+    const float a = cb[static_cast<long long>(j) * tile];
+#pragma unroll
+    for (int q = 0; q < NB; ++q) {
+      const float xv =
+          (in && q < nb) ? xb[static_cast<long long>(q) * C + src] : 0.0f;
       const float p = __fmul_rn(a, xv);
       const float pe = __fmaf_rn(a, xv, -p);
-      const float s = __fadd_rn(acc, p);
-      const float bb = __fsub_rn(s, acc);
-      const float te =
-          __fadd_rn(__fsub_rn(acc, __fsub_rn(s, bb)), __fsub_rn(p, bb));
-      acc = s;
-      err = __fadd_rn(err, __fadd_rn(te, pe));
+      const float s = __fadd_rn(acc[q], p);
+      const float bb = __fsub_rn(s, acc[q]);
+      const float te = __fadd_rn(__fsub_rn(acc[q], __fsub_rn(s, bb)),
+                                 __fsub_rn(p, bb));
+      acc[q] = s;
+      err[q] = __fadd_rn(err[q], __fadd_rn(te, pe));
     }
-    y[b * C + c] = acc;
-    err_out[b * C + c] = err;
+  }
+#pragma unroll
+  for (int q = 0; q < NB; ++q) {
+    if (q < nb) {
+      y[static_cast<long long>(b0 + q) * C + c] = acc[q];
+      err_out[static_cast<long long>(b0 + q) * C + c] = err[q];
+    }
   }
 }
 
@@ -285,6 +316,20 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// Chunk rows R of the slice SpMVs: a power of two, at most kSpmvMaxRows
+// and no more than the tile needs, halved down to 32 until there are two
+// CTAs per SM of an H100 (the couette's 64 tiles of 128 rows give 256
+// CTAs).
+inline int spmv_chunk_rows(int tile, long long ntiles, long long groups) {
+  int rows = kSpmvMaxRows;
+  while (rows > 32 && rows / 2 >= tile) rows /= 2;
+  while (rows > 32 &&
+         ntiles * ((tile + rows - 1) / rows) * groups < 264) {
+    rows /= 2;
+  }
+  return rows;
+}
+
 template <typename T, int NB>
 int launch_slice_spmv_nb(const void* diag, long long diag_bs,
                          const void* coef, long long coef_bs,
@@ -292,16 +337,8 @@ int launch_slice_spmv_nb(const void* diag, long long diag_bs,
                          const void* x, void* y, long long C, int tile,
                          long long ntiles, int n_max, long long pad_lo,
                          int B, cudaStream_t stream) {
-  // Chunk rows R: a power of two, at most kSpmvMaxRows and no more than
-  // the tile needs, halved down to 32 until there are two CTAs per SM
-  // of an H100 (the couette's 64 tiles of 128 rows give 256 CTAs).
-  int rows = kSpmvMaxRows;
-  while (rows > 32 && rows / 2 >= tile) rows /= 2;
   const long long groups = (B + NB - 1) / NB;
-  while (rows > 32 &&
-         ntiles * ((tile + rows - 1) / rows) * groups < 264) {
-    rows /= 2;
-  }
+  const int rows = spmv_chunk_rows(tile, ntiles, groups);
   const int chunks = (tile + rows - 1) / rows;
   const dim3 grid(static_cast<unsigned>(ntiles * chunks),
                   static_cast<unsigned>(groups));
@@ -344,20 +381,52 @@ int launch_slice_spmv(const void* diag, long long diag_bs, const void* coef,
   }
 }
 
+template <int NB>
+int launch_slice_spmv_exact_nb(const void* coef, long long coef_bs,
+                               const void* starts, const void* tile_nj,
+                               const void* x, void* y, void* err, long long C,
+                               int tile, long long ntiles, int n_max,
+                               long long pad_lo, int B, cudaStream_t stream) {
+  const long long groups = (B + NB - 1) / NB;
+  const int rows = spmv_chunk_rows(tile, ntiles, groups);
+  const int chunks = (tile + rows - 1) / rows;
+  const dim3 grid(static_cast<unsigned>(ntiles * chunks),
+                  static_cast<unsigned>(groups));
+  slice_spmv_exact_kernel<NB><<<grid, rows, 0, stream>>>(
+      static_cast<const float*>(coef), coef_bs,
+      static_cast<const int*>(starts), static_cast<const int*>(tile_nj),
+      static_cast<const float*>(x), static_cast<float*>(y),
+      static_cast<float*>(err), static_cast<int>(C), tile, n_max,
+      static_cast<int>(pad_lo), chunks, B);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The batch as in launch_slice_spmv: up to four rows per CTA over a
+// shared matrix, a CTA row per batch row over one matrix per row.
 int launch_slice_spmv_exact(const void* coef, long long coef_bs,
                             const void* starts, const void* tile_nj,
                             const void* x, void* y, void* err, long long C,
                             int tile, long long ntiles, int n_max,
                             long long pad_lo, int B, cudaStream_t stream) {
-  const unsigned threads = tile < kThreads ? static_cast<unsigned>(tile)
-                                           : static_cast<unsigned>(kThreads);
-  const dim3 grid(static_cast<unsigned>(ntiles), static_cast<unsigned>(B));
-  slice_spmv_exact_kernel<<<grid, threads, 0, stream>>>(
-      static_cast<const float*>(coef), coef_bs,
-      static_cast<const int*>(starts), static_cast<const int*>(tile_nj),
-      static_cast<const float*>(x), static_cast<float*>(y),
-      static_cast<float*>(err), C, tile, n_max, pad_lo);
-  return static_cast<int>(cudaGetLastError());
+  const int nb = coef_bs != 0 ? 1 : (B < 4 ? B : 4);
+  switch (nb) {
+    case 1:
+      return launch_slice_spmv_exact_nb<1>(coef, coef_bs, starts, tile_nj, x,
+                                           y, err, C, tile, ntiles, n_max,
+                                           pad_lo, B, stream);
+    case 2:
+      return launch_slice_spmv_exact_nb<2>(coef, coef_bs, starts, tile_nj, x,
+                                           y, err, C, tile, ntiles, n_max,
+                                           pad_lo, B, stream);
+    case 3:
+      return launch_slice_spmv_exact_nb<3>(coef, coef_bs, starts, tile_nj, x,
+                                           y, err, C, tile, ntiles, n_max,
+                                           pad_lo, B, stream);
+    default:
+      return launch_slice_spmv_exact_nb<4>(coef, coef_bs, starts, tile_nj, x,
+                                           y, err, C, tile, ntiles, n_max,
+                                           pad_lo, B, stream);
+  }
 }
 
 template <typename T, int FT>
@@ -462,8 +531,10 @@ extern "C" int orc_slice_spmv_exact(const void* coef, long long coef_bs,
                                     long long C, int tile, long long ntiles,
                                     int n_max, long long pad_lo, int B,
                                     void* stream) {
-  if (C < 0 || tile < 1 || n_max < 0 || ntiles < 0 || ntiles > 2147483647LL ||
-      B < 1 || B > 65535 || ntiles * tile < C) {
+  // The kernel indexes rows, slices and CTAs in 32 bits.
+  if (C < 0 || tile < 1 || n_max < 0 || ntiles < 0 || B < 1 || B > 65535 ||
+      ntiles * tile < C || ntiles * tile + pad_lo > 2147483647LL ||
+      pad_lo < 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (C == 0) return 0;

@@ -55,9 +55,10 @@ SIGNATURES = {
     # dtype, diag, cols, col_strides, offsets, K, x, y, C, B, stream
     "orc_shift_spmv": (_i, _p, _pp, _pll, _pll, _i, _p, _p, _ll, _i, _p),
     # dtype, diag, cols, col_strides, offsets, K, b, x0, buf0, buf1, C,
-    # B, sweeps, relaxation, stream
+    # B, sweeps, relaxation, nx, ny, nz, depth, bx, by, bz, stream
     "orc_jacobi_sweeps": (
-        _i, _p, _pp, _pll, _pll, _i, _p, _p, _p, _p, _ll, _i, _i, _d, _p,
+        _i, _p, _pp, _pll, _pll, _i, _p, _p, _p, _p, _ll, _i, _i, _d, _ll,
+        _ll, _ll, _i, _i, _i, _i, _p,
     ),
     # dtype, scheme, limiter, rc, p_so, gg, col_offsets, col_geom[K*6],
     # col_kind, col_zone, K, nx, ny, nz, vel, p, grad_p, mom_diag,

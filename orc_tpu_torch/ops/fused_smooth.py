@@ -2,17 +2,153 @@
 
 Replaces orc_tpu/ops/pallas_smooth.py `_kernel` (via
 `fused_jacobi_sweeps` -> `_fused_batched`), the momentum smoother of
-`krylov.jacobi_smooth_solve`. On the card `fused_jacobi_sweeps`
-launches the CUDA kernel of ``csrc/jacobi_sweeps.cu`` once per sweep;
-on CPU tensors it runs `sweeps_plain`, the torch counterpart of
-orc_tpu's `sweeps_xla`.
+`krylov.jacobi_smooth_solve`. On CPU tensors `fused_jacobi_sweeps` runs
+`sweeps_plain`, the torch counterpart of orc_tpu's `sweeps_xla`; on the
+card it launches a kernel of ``csrc/jacobi_sweeps.cu``, the instance
+picked by `sweep_plan` from the offsets and the shape alone:
+
+- on a 2-D box whose every column steps one cell along an axis (or is a
+  padding column of offset 0), `jacobi_tile_kernel` runs every sweep in
+  one launch over box tiles with a halo as deep as the sweeps (temporal
+  blocking; up to MAX_DEPTH_2D sweeps a launch);
+- otherwise (periodic boxes, column counts other than 2, 4 and 6, and
+  3-D boxes, where a window two sweeps deep holds 3.2 times its tile's
+  cells and every tiled depth measured slower: PERF.md)
+  `jacobi_sweep_kernel` takes a launch per sweep.
+
+Both give the same bits.
 """
 
 from __future__ import annotations
 
+import functools
+from typing import NamedTuple
+
 import torch
 
 from orc_tpu_torch.ops import _cuda
+
+#: Window cells a tile CTA stages: 512 threads x 4 (float32) or 2
+#: (float64) cells (csrc/jacobi_sweeps.cu `tile_cells`).
+TILE_WINDOW = {torch.float32: 2048, torch.float64: 1024}
+#: Column counts the tile kernel is instantiated for
+#: (csrc/jacobi_sweeps.cu `launch_tile`).
+TILE_K = (2, 4, 6)
+#: The tile kernel indexes rows in 32 bits: boxes below 2^30 cells.
+TILE_ROWS = 1 << 30
+#: Sweeps one tiled launch fuses at most on a 2-D (or 1-D) box.
+MAX_DEPTH_2D = 8
+
+
+class SweepPlan(NamedTuple):
+    """How `fused_jacobi_sweeps` runs on the card: `depth` sweeps a
+    tiled launch over `tile` cells of the `dims` box, or a launch per
+    sweep when `depth` is 0."""
+
+    depth: int = 0
+    dims: tuple = (0, 0, 0)
+    tile: tuple = (0, 0, 0)
+
+    def passes(self, sweeps: int) -> int:
+        """Launches over the whole batch: ping-pong passes."""
+        return sweeps if self.depth == 0 else -(-sweeps // self.depth)
+
+    def launches(self, sweeps: int, batch: int) -> int:
+        """Kernel launches of one call (the tiles take three batch rows
+        a launch)."""
+        if self.depth == 0:
+            return sweeps
+        return self.passes(sweeps) * -(-batch // 3)
+
+    def label(self) -> str:
+        if self.depth == 0:
+            return "per-sweep"
+        return (
+            f"tiled S={self.depth} box {'x'.join(map(str, self.dims))} "
+            f"tile {'x'.join(map(str, self.tile))}"
+        )
+
+
+@functools.lru_cache(maxsize=64)
+def _box_steps(offsets, n_cells):
+    """(nx, ny, nz) of the box (axes of extent 1 last) on which every
+    offset is 0 or one step along an axis of extent > 1; None when there
+    is none (periodic or irregular boxes)."""
+    from orc_tpu_torch.solver.gmg import infer_box_dims
+
+    dims = infer_box_dims(offsets, n_cells)
+    if dims is None:
+        return None
+    dims = [d for d in dims if d > 1]
+    nx, ny, nz = dims + [1] * (3 - len(dims))
+    for d in offsets:
+        a = abs(d)
+        if not (
+            d == 0 or (a == 1 and nx > 1) or (a == nx and ny > 1)
+            or (a == nx * ny and nz > 1)
+        ):
+            return None
+    return nx, ny, nz
+
+
+@functools.lru_cache(maxsize=64)
+def tile_shape(dims, depth, capacity):
+    """The tile (bx, by, bz) whose windows, a halo of `depth` cells on
+    each axis of extent > 1, hold at most `capacity` cells and cover the
+    box with the fewest window cells in all (the staged and recomputed
+    work); ties go to the wider tile along x (coalesced rows). None when
+    no window fits."""
+    nx, ny, nz = dims
+    hx, hy, hz = (depth if n > 1 else 0 for n in dims)
+    best = None
+    for bx in range(1, min(nx, capacity) + 1):
+        wx = bx + 2 * hx
+        for by in range(1, ny + 1) if nz > 1 else (None,):
+            if by is None:  # 2-D: the tallest tile that fits
+                by = min(ny, capacity // wx - 2 * hy)
+                if by < 1:
+                    break
+            wy = by + 2 * hy
+            bz = min(nz, capacity // (wx * wy) - 2 * hz)
+            if bz < 1:
+                break
+            cells = wx * wy * (bz + 2 * hz)
+            tiles = -(-nx // bx) * -(-ny // by) * -(-nz // bz)
+            key = (tiles * cells, -bx)
+            if best is None or key < best[0]:
+                best = (key, (bx, by, bz))
+    return None if best is None else best[1]
+
+
+def sweep_plan(offsets, n_cells: int, sweeps: int, dtype, depth=None) -> SweepPlan:
+    """The kernel instance for (offsets, n_cells, sweeps, dtype): tiled
+    on a 2-D (or 1-D) box of steps in 2, 4 or 6 columns (TILE_K), all
+    sweeps in one launch up to MAX_DEPTH_2D, else a launch per sweep.
+    `depth` forces the sweeps a tiled launch fuses (0: the per-sweep
+    kernel), 3-D boxes included; a box that is not one of steps then
+    raises."""
+    offsets = tuple(int(d) for d in offsets)
+    tileable = len(offsets) in TILE_K and n_cells < TILE_ROWS
+    dims = _box_steps(offsets, n_cells) if tileable else None
+    if depth is None:
+        if dims is None or dims[2] > 1 or sweeps < 1:
+            return SweepPlan()
+        passes = -(-sweeps // MAX_DEPTH_2D)
+        depth = -(-sweeps // passes)  # even passes of at most MAX_DEPTH_2D
+    if depth == 0:
+        return SweepPlan()
+    if dims is None:
+        raise ValueError(
+            f"the offsets {offsets} of {n_cells} rows are not the steps of a box "
+            f"in {TILE_K} columns: the tiled sweeps cannot run them"
+        )
+    tile = tile_shape(dims, depth, TILE_WINDOW[dtype])
+    if tile is None:
+        raise ValueError(
+            f"no tile of the {dims} box with a halo {depth} cells deep fits "
+            f"{TILE_WINDOW[dtype]} window cells"
+        )
+    return SweepPlan(depth, dims, tile)
 
 
 def sweeps_plain(diag, off, offsets, b, x0, sweeps: int, relaxation):
@@ -42,8 +178,8 @@ def fused_jacobi_sweeps(diag, off, offsets, b, x0, sweeps: int, relaxation):
     """`sweeps` damped-Jacobi sweeps of (diag, off, offsets) on b from
     x0. diag: [C] shared; off: [C,K] or a K-tuple of [C]; b, x0: [C] or
     [B,C]. CPU tensors take the plain version; CUDA tensors launch the
-    kernel (one launch per sweep, all B components per launch) or
-    raise."""
+    kernel instance `sweep_plan` picks (on a 2-D box one launch for all
+    sweeps and up to three batch rows) or raise."""
     if not x0.is_cuda:
         return sweeps_plain(diag, off, offsets, b, x0, sweeps, relaxation)
     dev = x0.device
@@ -75,22 +211,38 @@ def fused_jacobi_sweeps(diag, off, offsets, b, x0, sweeps: int, relaxation):
     _cuda.check_cuda(
         dev, diag=diag, b=b, **{f"off{k}": c for k, c in enumerate(cols)}
     )
-    diag = diag.contiguous()
-    b = b.contiguous()
-    x0 = x0.contiguous()
+    plan = sweep_plan(offsets, C, sweeps, x0.dtype)
+    y = _launch_sweeps(
+        diag.contiguous(), cols, offsets, b.contiguous(), x0.contiguous(),
+        int(sweeps), relaxation, plan,
+    )
+    B = 1 if x0.ndim == 1 else x0.shape[0]
+    fused_jacobi_sweeps.launches += plan.launches(sweeps, B)
+    label = plan.label()
+    fused_jacobi_sweeps.instances[label] = (
+        fused_jacobi_sweeps.instances.get(label, 0) + 1
+    )
+    return y
+
+
+def _launch_sweeps(diag, cols, offsets, b, x0, sweeps, relaxation, plan):
+    """The kernel launches of `fused_jacobi_sweeps` on checked,
+    contiguous tensors, as `plan` says."""
     buf0 = torch.empty_like(x0)
-    buf1 = torch.empty_like(x0) if sweeps > 1 else buf0
+    passes = plan.passes(sweeps)
+    buf1 = torch.empty_like(x0) if passes > 1 else buf0
     ptrs, strides, offs = _cuda.column_args(cols, offsets)
     B = 1 if x0.ndim == 1 else x0.shape[0]
     _cuda.call(
-        "orc_jacobi_sweeps", dev, _cuda.dtype_code(x0), diag.data_ptr(),
+        "orc_jacobi_sweeps", x0.device, _cuda.dtype_code(x0), diag.data_ptr(),
         ptrs, strides, offs, len(cols), b.data_ptr(), x0.data_ptr(),
-        buf0.data_ptr(), buf1.data_ptr(), C, B, int(sweeps),
-        float(relaxation),
+        buf0.data_ptr(), buf1.data_ptr(), x0.shape[-1], B, sweeps,
+        float(relaxation), *plan.dims, plan.depth, *plan.tile,
     )
-    fused_jacobi_sweeps.launches += int(sweeps)
-    return (buf0, buf1)[(sweeps - 1) % 2]
+    return (buf0, buf1)[(passes - 1) % 2]
 
 
-#: Kernel launches (one per sweep) since the last reset.
+#: Kernel launches since the last reset (set to 0 to reset).
 fused_jacobi_sweeps.launches = 0
+#: Calls per instance (SweepPlan.label) since the last reset (set to {}).
+fused_jacobi_sweeps.instances = {}

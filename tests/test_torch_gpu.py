@@ -141,14 +141,80 @@ def test_shift_spmv_kernel_refuses_a_batched_matrix(dev):
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 def test_jacobi_sweeps_kernel_matches_plain(dev, dtype, batch, sweeps):
     """Guards orc_tpu/ops/pallas_smooth.py `_kernel` (via
-    fused_jacobi_sweeps -> _fused_batched)."""
+    fused_jacobi_sweeps -> _fused_batched): on a 2-D box every sweep in
+    one tiled launch."""
     offsets = (-64, -1, 1, 64)
     diag, off, b, x0 = _system(64 * 50, offsets, batch, DTYPES[dtype], dev, 1)
     before = fused_jacobi_sweeps.launches
     y = fused_jacobi_sweeps(diag, off, offsets, b, x0, sweeps, 0.8)
     torch.cuda.synchronize()
-    assert fused_jacobi_sweeps.launches == before + sweeps
+    assert fused_jacobi_sweeps.launches == before + 1
     _close(y, sweeps_plain(diag, off, offsets, b, x0, sweeps, 0.8), TOL[dtype])
+
+
+def _box_offsets(shape, periodic=()):
+    from orc_tpu_torch.mesh.generate import structured_box_mesh
+
+    mesh, _ = structured_box_mesh(*shape, periodic=periodic, device="cpu")
+    return tuple(int(o) for o in mesh.neighbor_offsets if int(o) != 0)
+
+
+#: name -> (box, periodic axes, batch, sweeps, launches of the call):
+#: the instances of the Jacobi sweeps and their edges. A 2-D box takes
+#: every sweep in one tiled launch (three batch rows a launch); an axis
+#: of extent 1 drops out of the tiles; periodic and 3-D boxes take a
+#: launch per sweep (fused_smooth.sweep_plan).
+SWEEP_EDGES = {
+    "2d_sweeps1": ((64, 50, 1), (), 3, 1, 1),
+    "2d_sweeps7": ((64, 50, 1), (), 3, 7, 1),
+    "2d_sweeps9_b4": ((37, 23, 1), (), 4, 9, 4),
+    "extent1_axis": ((40, 1, 30), (), 3, 6, 1),
+    "periodic": ((24, 20, 1), ("x", "y"), 3, 6, 6),
+    "cube128": ((128, 128, 128), (), 3, 6, 6),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SWEEP_EDGES))
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_jacobi_sweeps_kernel_edges(dev, dtype, case):
+    """Guards orc_tpu/ops/pallas_smooth.py `_kernel` at the edges of the
+    tiled instance and on the per-sweep one: against the plain sweeps,
+    with the launches each instance makes."""
+    shape, periodic, batch, sweeps, launches = SWEEP_EDGES[case]
+    offsets = _box_offsets(shape, periodic)
+    C = shape[0] * shape[1] * shape[2]
+    diag, off, b, x0 = _system(C, offsets, batch, DTYPES[dtype], dev, 2)
+    cols = tuple(off.T.contiguous())
+    before = fused_jacobi_sweeps.launches
+    y = fused_jacobi_sweeps(diag, cols, offsets, b, x0, sweeps, 0.7)
+    torch.cuda.synchronize()
+    assert fused_jacobi_sweeps.launches == before + launches
+    _close(y, sweeps_plain(diag, cols, offsets, b, x0, sweeps, 0.7), TOL[dtype])
+
+
+@pytest.mark.parametrize("depth", [1, 2, 6])
+@pytest.mark.parametrize("shape", [(37, 23, 1), (300, 7, 1), (19, 11, 7)],
+                         ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_tiled_sweeps_equal_per_sweep_bitwise(dev, dtype, shape, depth):
+    """Guards orc_tpu/ops/pallas_smooth.py `_kernel`: the tiled instance
+    at `depth` sweeps a launch bit for bit the per-sweep kernel's result
+    (the same contraction, spelt out), on ragged 2-D and 3-D tiles."""
+    from orc_tpu_torch.ops import fused_smooth as fs
+
+    offsets = _box_offsets(shape)
+    C = shape[0] * shape[1] * shape[2]
+    diag, off, b, x0 = _system(C, offsets, 3, DTYPES[dtype], dev, 3)
+    cols = tuple(off.T.contiguous())
+    if depth == 6 and shape[2] > 1:
+        with pytest.raises(ValueError):
+            fs.sweep_plan(offsets, C, 6, DTYPES[dtype], depth=depth)
+        return
+    plan = fs.sweep_plan(offsets, C, 6, DTYPES[dtype], depth=depth)
+    y = fs._launch_sweeps(diag, cols, offsets, b, x0, 6, 0.8, plan)
+    per_sweep = fs._launch_sweeps(diag, cols, offsets, b, x0, 6, 0.8, fs.SweepPlan())
+    torch.cuda.synchronize()
+    assert torch.equal(y, per_sweep)
 
 
 def _asm_mesh(name, dtype, dev):
@@ -952,6 +1018,42 @@ def test_slice_spmv_exact_kernel_matches_plain_bitwise(dev, n, batch, form):
     ref = EllMatrix(zero, coef.double(), None, plan=plan, slice_layout=True).matvec(x.double())
     absrow = EllMatrix(zero, coef.double().abs(), None, plan=plan, slice_layout=True).matvec(x.double().abs())
     assert bool(((y.double() + e.double() - ref).abs() <= 1e-13 * absrow).all())
+
+
+@pytest.mark.parametrize("case", sorted(SLICE_EDGES))
+def test_slice_spmv_exact_kernel_edges(dev, case):
+    """Guards orc_tpu/ops/pallas_slice.py `_kernel_exact` and
+    `_kernel_wide_exact` (via slice_spmv_exact) at the edges of the
+    chunked CTAs it shares with the slice SpMV (SLICE_EDGES): (y, err)
+    bitwise equal to the plain version."""
+    from orc_tpu_torch.mesh.reorder import build_slice_plan
+    from orc_tpu_torch.ops.slice_spmv import slice_spmv_exact, slice_spmv_exact_plain
+    from orc_tpu_torch.ops.spmv import EllMatrix
+
+    n, tile, batch, per_row = SLICE_EDGES[case]
+    mesh, _, _ = _permuted_cavity(n, torch.float64, dev)
+    C, K = mesh.cell_neighbors.shape
+    interior = mesh.face_interior[mesh.cell_faces.long()] & mesh.cell_face_mask
+    plan = mesh.slice_plan
+    if tile is not None:
+        plan = build_slice_plan(
+            mesh.cell_neighbors.cpu().numpy(), interior.cpu().numpy(), tile=tile,
+            device=dev,
+        )
+    rng = np.random.default_rng(7)
+    rows = (batch,) if per_row else ()
+    off = torch.tensor(rng.standard_normal(rows + (C, K)), device=dev) * interior
+    A = EllMatrix(torch.ones(C, dtype=torch.float64, device=dev), off,
+                  mesh.cell_neighbors, plan=plan).prepare()
+    coef = A.off.float()
+    x = torch.tensor(rng.standard_normal((batch, C) if batch else C),
+                     dtype=torch.float32, device=dev)
+    before = slice_spmv_exact.launches
+    y, e = slice_spmv_exact(coef, plan, x)
+    torch.cuda.synchronize()
+    assert slice_spmv_exact.launches == before + 1
+    yr, er = slice_spmv_exact_plain(coef, plan, x)
+    assert torch.equal(y, yr) and torch.equal(e, er)
 
 
 def test_df32_ir_on_cuda_matches_cpu(dev):

@@ -1,10 +1,11 @@
-"""CPU rehearsal of four Hopper kernels of orc_tpu_torch: the slice-plan
-SpMV (csrc/slice_spmv.cu, kernel rows 7-9), the parity momentum
-assembly (csrc/parity_assembly.cuh, row 3), the SIMPLE_FC momentum
-assembly (csrc/assembly.cu, row 4) and the pressure-correction assembly
-(csrc/parity_assembly.cuh, row 5), compiled as C++ with g++ against a
-mock cuda_runtime.h and run through the wrappers' launch helpers on CPU
-tensors.
+"""CPU rehearsal of six Hopper kernels of orc_tpu_torch: the slice-plan
+SpMV and its exact product (csrc/slice_spmv.cu, kernel rows 7-9 and
+12), the Jacobi sweeps (csrc/jacobi_sweeps.cu, row 2), the parity
+momentum assembly (csrc/parity_assembly.cuh, row 3), the SIMPLE_FC
+momentum assembly (csrc/assembly.cu, row 4) and the pressure-correction
+assembly (csrc/parity_assembly.cuh, row 5), compiled as C++ with g++
+against a mock cuda_runtime.h and run through the wrappers' launch
+helpers on CPU tensors.
 
 The mock runs a launch's blocks in turn and each block's threads as
 std::threads meeting at one std::barrier for __syncthreads() (a thread
@@ -21,6 +22,15 @@ source does not spell out. What that checks:
   `spmv.slice_spmv`: permuted cavities (RCM order, 128-row tiles, a
   ragged last tile), a plan of 1024-row tiles (more rows than a CTA, the
   chunk split), B = 3 and 5 sharing the matrix, B = 3 with one per row;
+- the exact slice product, bitwise against its plain version, on the
+  same plans and batches;
+- the tiled Jacobi sweeps (temporal blocking on box tiles) against the
+  plain sweeps (1e-5 / 1e-12 of the largest value) and bitwise against
+  the per-sweep kernel, on 2-D and 3-D boxes with ragged tiles on every
+  side, a box smaller than one tile and boxes with an axis of extent 1,
+  fusing 1, 2 or 6 sweeps a launch, B = 1 and 3, with coefficients on
+  the faces that cross the box's rows (the flat row embedding); a
+  periodic box takes the per-sweep kernel;
 - the momentum assembly, in every instance family (scheme x limiter x
   Rhie-Chow x SecondOrder x streamed or in-kernel gradient), steady and
   with the inertia term, against the plain version (1e-5 / 1e-12 of each
@@ -49,7 +59,7 @@ import numpy as np
 import pytest
 import torch
 
-from torch_kernel_refs import slice_spmv_fma_chain
+from torch_kernel_refs import jacobi_fma_chain, slice_spmv_fma_chain
 
 import jax.numpy as jnp
 from orc_tpu.mesh.reorder import build_slice_plan as jslice_plan
@@ -61,6 +71,7 @@ from orc_tpu_torch.models.cavity import cavity_case
 from orc_tpu_torch.models.channel_flow import ChannelFlowParameters, couette_case
 from orc_tpu_torch.ops import _cuda
 from orc_tpu_torch.ops import fused_assembly as asm
+from orc_tpu_torch.ops import fused_smooth as fs
 from orc_tpu_torch.ops import slice_spmv as ss
 from orc_tpu_torch.ops.ck_ops import (
     build_ck_geometry,
@@ -159,7 +170,7 @@ void mock_launch(dim3 grid, dim3 block, size_t smem, K kernel, A... args) {
 
 #: The sources rehearsed, each compiled on its own in parallel.
 SOURCES = ("slice_spmv.cu", "parity_assembly.cu", "parity_assembly_f64.cu",
-           "assembly.cu")
+           "assembly.cu", "jacobi_sweeps.cu")
 
 
 def _split_top(text):
@@ -223,8 +234,8 @@ def mock_lib(tmp_path_factory):
     subprocess.run([gxx, "-shared", "-pthread", "-o", str(lib_path), *map(str, objs)],
                    check=True)
     lib = ctypes.CDLL(str(lib_path))
-    for name in ("orc_slice_spmv", "orc_momentum_assembly", "orc_pc_assembly",
-                 "orc_fc_momentum_assembly"):
+    for name in ("orc_slice_spmv", "orc_slice_spmv_exact", "orc_momentum_assembly",
+                 "orc_pc_assembly", "orc_fc_momentum_assembly", "orc_jacobi_sweeps"):
         fn = getattr(lib, name)
         fn.argtypes = _cuda.SIGNATURES[name]
         fn.restype = ctypes.c_int
@@ -316,6 +327,134 @@ def test_rehearsed_slice_spmv_matches_plain(mock, dtype, case):
         jnp.asarray(x.numpy()),
     ))
     np.testing.assert_allclose(y.numpy(), yj, rtol=0, atol=TOL[dtype] * scale)
+
+
+@pytest.mark.parametrize("case", sorted(SLICE_CASES))
+def test_rehearsed_slice_spmv_exact_is_bitwise_plain(mock, case):
+    """Guards orc_tpu/ops/pallas_slice.py `_kernel_exact` and
+    `_kernel_wide_exact` (via slice_spmv_exact's kernel launch on the
+    mock): (y, err) bitwise equal to the plain version on the chunked
+    CTAs, the batch sharing the matrix or one per row."""
+    n, tile, B, per_row = SLICE_CASES[case]
+    mesh = _permuted_cavity(n, torch.float64)
+    C, K = mesh.cell_neighbors.shape
+    interior = mesh.face_interior[mesh.cell_faces.long()] & mesh.cell_face_mask
+    plan = mesh.slice_plan
+    if tile is not None:
+        plan = build_slice_plan(
+            mesh.cell_neighbors.numpy(), interior.numpy(), tile=tile, device="cpu"
+        )
+    rng = np.random.default_rng(6)
+    rows = (B,) if per_row else ()
+    off = torch.tensor(rng.uniform(-1, 0, rows + (C, K))) * interior
+    diag = 1.0 + off.abs().sum(-1)
+    coef = EllMatrix(diag, off, mesh.cell_neighbors, plan=plan).prepare().off.float()
+    x = torch.tensor(rng.standard_normal((B, C) if B else (C,)), dtype=torch.float32)
+    y, err = ss._launch_slice_spmv_exact(
+        coef.contiguous(), ss._batch_stride(coef, 3, B, "coef"), plan, x, max(B, 1)
+    )
+    yr, er = ss.slice_spmv_exact_plain(coef, plan, x)
+    assert torch.equal(y, yr) and torch.equal(err, er)
+    assert float(err.abs().max()) > 0.0  # the error plane is not trivially 0
+
+
+# --- the Jacobi sweeps ----------------------------------------------------
+
+#: name -> (nx, ny, nz) of a structured box: ragged tiles on every side,
+#: a box smaller than one tile, axes of extent 1.
+SWEEP_BOXES = {
+    "37x9": (37, 9, 1),
+    "61x23": (61, 23, 1),
+    "5x3": (5, 3, 1),
+    "17x5x3": (17, 5, 3),
+    "1x7x3": (1, 7, 3),
+    "6x1x4": (6, 1, 4),
+    "12x1x1": (12, 1, 1),
+}
+#: Sweeps fused a launch; a 3-D window 6 deep overflows a CTA.
+SWEEP_DEPTHS = (1, 2, 6)
+
+
+def _sweep_system(shape, B, dtype, periodic=()):
+    """A structured box's offsets (padding columns included) and a seeded
+    diagonally dominant system on them: coefficients on every column
+    whose neighbour row lies in [0, C), the faces that cross the box's
+    rows too."""
+    from orc_tpu_torch.mesh.generate import structured_box_mesh
+
+    mesh, _ = structured_box_mesh(*shape, periodic=periodic, device="cpu")
+    offsets = tuple(int(o) for o in mesh.neighbor_offsets)
+    C = mesh.n_cells
+    rng = np.random.default_rng(sum(shape) + B)
+    off = rng.uniform(-1.0, 0.0, (C, len(offsets)))
+    c = np.arange(C)
+    for k, d in enumerate(offsets):
+        off[((c + d) < 0) | ((c + d) >= C), k] = 0.0
+    diag = 1.0 + np.abs(off).sum(axis=1) + rng.random(C)
+    rows = (B, C) if B > 1 else (C,)
+    t = lambda a: torch.tensor(a, dtype=dtype)  # noqa: E731
+    cols = tuple(t(off[:, k]) for k in range(len(offsets)))
+    return offsets, t(diag), cols, t(rng.standard_normal(rows)), t(rng.standard_normal(rows))
+
+
+@pytest.mark.parametrize("B", [1, 3])
+@pytest.mark.parametrize("depth", SWEEP_DEPTHS)
+@pytest.mark.parametrize("box", sorted(SWEEP_BOXES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_rehearsed_tiled_sweeps_match_plain(mock, dtype, box, depth, B):
+    """Guards orc_tpu/ops/pallas_smooth.py `_kernel` (via
+    fused_jacobi_sweeps' tiled launch on the mock): six sweeps at
+    `depth` sweeps a launch against the plain sweeps and the per-sweep
+    kernel, and in float32 bitwise against the rounding both kernels
+    take on the card (the mock compiles the per-sweep kernel without
+    contraction, so the two agree bitwise only on the card)."""
+    shape = SWEEP_BOXES[box]
+    offsets, diag, cols, b, x0 = _sweep_system(shape, B, dtype)
+    C = diag.shape[0]
+    if depth == 6 and sum(n > 1 for n in shape) == 3:
+        with pytest.raises(ValueError):
+            fs.sweep_plan(offsets, C, 6, dtype, depth=depth)
+        return
+    plan = fs.sweep_plan(offsets, C, 6, dtype, depth=depth)
+    want = tuple(n for n in shape if n > 1)
+    assert plan.dims == want + (1,) * (3 - len(want))
+    assert plan.launches(6, B) == -(-6 // depth)
+    y = fs._launch_sweeps(diag, cols, offsets, b, x0, 6, 0.8, plan)
+    ref = fs.sweeps_plain(diag, cols, offsets, b, x0, 6, 0.8)
+    scale = float(ref.abs().max())
+    assert float((y - ref).abs().max()) <= TOL[dtype] * scale
+    per_sweep = fs._launch_sweeps(diag, cols, offsets, b, x0, 6, 0.8, fs.SweepPlan())
+    assert float((y - per_sweep).abs().max()) <= TOL[dtype] * scale
+    if dtype == torch.float32:
+        assert torch.equal(y, jacobi_fma_chain(diag, cols, offsets, b, x0, 6, 0.8))
+
+
+def test_rehearsed_sweep_plans(mock):
+    """The instance each shape takes: all sweeps in one tiled launch on
+    a 2-D box (an even split beyond MAX_DEPTH_2D, three batch rows a
+    launch), the per-sweep kernel on 3-D and periodic boxes; the
+    periodic box's sweeps on the mock against the plain sweeps."""
+    f32 = torch.float32
+    cavity = (-1024, -1, 1, 1024)
+    plan = fs.sweep_plan(cavity, 1024 * 1024, 6, f32)
+    assert (plan.depth, plan.dims, plan.launches(6, 3)) == (6, (1024, 1024, 1), 1)
+    assert fs.sweep_plan(cavity, 1024 * 1024, 7, f32).launches(7, 3) == 1
+    nine = fs.sweep_plan(cavity, 1024 * 1024, 9, f32)
+    assert (nine.depth, nine.launches(9, 1), nine.launches(9, 4)) == (5, 2, 4)
+    box3 = (-128 * 128, -128, -1, 1, 128, 128 * 128)
+    assert fs.sweep_plan(box3, 128**3, 6, f32) == fs.SweepPlan()
+    assert fs.sweep_plan(cavity[:3], 1024 * 1024, 6, f32) == fs.SweepPlan()
+    for dt, cap in fs.TILE_WINDOW.items():
+        bx, by, bz = fs.sweep_plan(cavity, 1024 * 1024, 6, dt).tile
+        assert bz == 1 and (bx + 12) * (by + 12) <= cap
+    offsets, diag, cols, b, x0 = _sweep_system((9, 6, 1), 3, torch.float64, periodic=("x", "y"))
+    plan = fs.sweep_plan(offsets, diag.shape[0], 6, torch.float64)
+    assert plan == fs.SweepPlan() and plan.launches(6, 3) == 6
+    with pytest.raises(ValueError):
+        fs.sweep_plan(offsets, diag.shape[0], 6, torch.float64, depth=6)
+    y = fs._launch_sweeps(diag, cols, offsets, b, x0, 6, 0.8, plan)
+    ref = fs.sweeps_plain(diag, cols, offsets, b, x0, 6, 0.8)
+    assert float((y - ref).abs().max()) <= 1e-12 * float(ref.abs().max())
 
 
 # --- the parity momentum assembly ---------------------------------------
