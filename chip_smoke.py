@@ -34,14 +34,21 @@ Phases (any failure raises and the script exits non-zero):
    f64 couette, the exact slice product of the df32 residual on the
    permuted 448^2 cavity (bitwise, beside the f64 slice SpMV it stands
    in for) and, with the slice SpMV in each form the DF32_IR phase runs
-   it, on scripts/bench_df32_ir.py's system (1024-row tiles);
+   it, on scripts/bench_df32_ir.py's system (1024-row tiles); the
+   per-row branches of the shift SpMV (with the block-diagonal CSR
+   product) and of the Jacobi sweeps on the 1024^2 f32 TVD cavity's
+   momentum system (B = 3, one matrix per component), the shift SpMV's
+   also on the 128x64 f64 CD2 couette's;
 3b. the SIMPLE and SIMPLE_FC slices on the card against the same slices
    on the CPU on a 16^2 float64 cavity (the parity one with
    solve_cavity's and with the reference's default numerics), and the FC
    flux's conservation; the same on a permuted 16^2 cavity (the
    irregular path), the parity one also with DF32_IR solves; the
    transient slice under both couplings (3 steps x 4 inner iterations)
-   and the parity slice under MULTIGRID, card against CPU;
+   and the parity slice under MULTIGRID, card against CPU; the RANS
+   channel 16x12 (10 iterations; k, eps and mu_t too) and the 16^2
+   cavity under least squares with in-matrix TVD and with CD2,
+   structured and permuted, card against CPU;
 4. couette 128x64x1 float64 with bench.py's configuration (parity
    SIMPLE) through solve_steady: 100 warm-up + 200 timed iterations,
    u_mean within 25% of the analytical 1.0833e-3;
@@ -88,19 +95,39 @@ Phases (any failure raises and the script exits non-zero):
    pressure iterations below the twin's, finite fields;
 16. the Taylor-Green vortex 256^2 f64, 20 steps x 10 inner iterations,
    within 5e-3 of the exact decay;
-phases 4-7 and 9-16 end with a short window under torch.profiler
+17. k-epsilon RANS: the developing channel 1024x512x1 f32 with
+   tests/test_turbulence.py's geometry, boundary conditions and SETTINGS
+   under implicit relaxation (the test's explicit relaxation diverges on
+   meshes finer than its own, in orc_tpu too), 10 warm-up + 30 timed
+   iterations, finite fields, k > 0, mu_t <= 1e5 mu, the split between
+   the SIMPLE step and turbulence_step;
+18. the Re_tau = 590 channel 4x16 f64, 800 iterations, with the test's
+   parity settings (held to its DNS bars) and under SIMPLE_FC, implicit
+   0.6 / 0.3 (held to orc_tpu's profile, ORC_TPU_RE_TAU_FC_U_PROFILE_800);
+19. least squares at 1024^2 f32: the reference-default cavity (the
+   parity kernels' streamed-gradient instances once per iteration) and
+   the SIMPLE_FC flagship (rows 4 and 6 fed least-squares gradients), 10
+   warm-up + 50 timed iterations each, with the least-squares pieces
+   timed on the card;
+20. one matrix per velocity component: the 1024^2 f32 cavity with
+   in-matrix TVD at Re = 100 (row 2's per-row instance; at Re = 1000
+   in-matrix TVD diverges, in orc_tpu too) and bench.py's couette with
+   CD2 (row 1's), the latter's u_mean within 25% of the analytical value;
+phases 4-7 and 9-20 end with a short window under torch.profiler
 (device time by kernel, device busy share, launches per iteration), and
 each phase that runs the Jacobi sweeps prints the instances it took;
 then one JSON line with every kernel's launches, error, card times and
 bound, the card's name and power limit, and as the last line
 {"ok": true, "device": {...}}.
 
-Kernel launch counters are set to 0 just before each of phases 4-16 and
-read just after it: each phase must launch every kernel of its path,
+Kernel launch counters are set to 0 just before each of phases 4-20 and
+read just after it, and no plain version of rows 1 and 2 may run on the
+card meanwhile: each phase must launch every kernel of its path,
 the SIMPLE_FC phases none of the parity assembly kernels, the
 structured phases no slice-plan kernel, the irregular phases none of
-the structured kernels, only the DF32_IR phase the exact slice product
-and only phases 13-14 the transient instances of the momentum kernels.
+the structured kernels, only the DF32_IR phase the exact slice product,
+only phases 13-14 the transient instances of the momentum kernels, only
+phase 20 the per-row branches, and phases 17-18 no assembly kernel.
 """
 
 from __future__ import annotations
@@ -113,6 +140,7 @@ import shutil
 import subprocess
 import sys
 import time
+import types
 
 import numpy as np
 import torch
@@ -125,6 +153,19 @@ ANALYTICAL_U_MEAN = 5e-4 / 2 + 1e-3**2 / (12 * 0.001) * 10.0  # 1.0833e-3
 #: orc_tpu itself is 48% short of the analytical value there, 24% at
 #: 1200 and 17% at 1500.
 ORC_TPU_FC_COUETTE_U_MEAN_600 = 5.663693306183816e-4
+#: The streamwise-mean u profile (bottom wall to top) of orc_tpu's
+#: SIMPLE_FC Re_tau = 590 channel, 4 x 16 f64, after 800 RANS
+#: iterations (JAX on CPU, f64; implicit relaxation 0.6 / 0.3);
+#: recomputed from orc_tpu by
+#: tests/test_torch_turbulence.py::test_re_tau_fc_reference_profile.
+ORC_TPU_RE_TAU_FC_U_PROFILE_800 = (
+    14.272714873867166, 16.947675032256356, 18.433327362277186,
+    19.44600314915601, 20.179983945244622, 20.704377598498166,
+    21.041746101858436, 21.204168872236323, 21.204168872236323,
+    21.04174610185844, 20.704377598498155, 20.179983945244615,
+    19.446003149156002, 18.433327362277183, 16.947675032256353,
+    14.272714873867166,
+)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 #: Peak rates outside the tensor cores (H100 SXM data sheet): float32
 #: 67 TFLOP/s, float64 34 TFLOP/s.
@@ -1525,9 +1566,10 @@ def phase_slice_kernels(dev, sspmv, snbr):
         del A, off, diag, mesh
 
 
-def _irregular_twins(dev, settings, iterations, chunk=None):
+def _irregular_twins(dev, settings, iterations, chunk=None, mu=None):
     """The same SIMPLE run on a permuted 16^2 f64 cavity on the card and
-    on the CPU (one array set compiled twice)."""
+    on the CPU (one array set compiled twice), at Re 1000 under a TVD
+    limiter and Re 100 otherwise unless `mu` is given."""
     from orc_tpu_torch.models.cavity import cavity_case
     from orc_tpu_torch.solver.simple import solve_steady, stack_history
 
@@ -1536,7 +1578,8 @@ def _irregular_twins(dev, settings, iterations, chunk=None):
     for d in (dev, torch.device("cpu")):
         mesh, _ = permuted_mesh(box, torch.float64, d, seed=3)
         state, hist = solve_steady(
-            mesh, table, settings, 1.0, 1e-3 if settings.tvd_psi else 0.01,
+            mesh, table, settings, 1.0,
+            mu if mu is not None else (1e-3 if settings.tvd_psi else 0.01),
             iterations=iterations, reporting_interval=chunk or iterations,
             verbose=False,
         )
@@ -1884,6 +1927,653 @@ def phase_df32(dev):
     return out
 
 
+# --- k-epsilon RANS, least squares, CD2 and in-matrix TVD ----------------
+
+
+def tvd_cavity_settings():
+    """solve_cavity's numerics with in-matrix TVD momentum (UMIST): one
+    matrix per velocity component, implicit relaxation (the 6-sweep
+    smoother runs row 2's per-row instance)."""
+    from orc_tpu_torch.models.cavity import default_settings
+    from orc_tpu_torch.utils.settings import MomentumScheme, tvd_umist
+
+    return default_settings().replace(momentum=MomentumScheme.TVD, tvd_psi=tvd_umist)
+
+
+def cd2_couette_settings():
+    """bench.py's couette numerics with CD2 momentum: explicit relaxation,
+    BiCGSTAB(50) Jacobi (row 1's per-row instance in the momentum
+    solves)."""
+    from orc_tpu_torch.utils.settings import MomentumScheme, NumericalSettings
+
+    return NumericalSettings(momentum=MomentumScheme.CD2, matrix_solver=_bicgstab_50())
+
+
+def lsq(settings):
+    from orc_tpu_torch.utils.settings import GradientReconstruction
+
+    return settings.replace(gradient_reconstruction=GradientReconstruction.LEAST_SQUARES)
+
+
+def per_row_system(mesh, table, settings, state, rho, mu):
+    """The momentum system the (c,k) step solves from `state` under a
+    per-component scheme, as the solver sees it: split into [3,C]
+    columns and Jacobi-preconditioned. Returns (A, b3, x3)."""
+    from orc_tpu_torch.ops.ck_ops import (
+        build_ck_geometry,
+        ck_bc,
+        ck_diffusion,
+        ck_face_pressure,
+        ck_flux,
+        ck_momentum,
+        nbr_values,
+    )
+    from orc_tpu_torch.ops.fields import device_bc
+    from orc_tpu_torch.solver import simple
+
+    zc, zs, zv = device_bc(table, dtype=mesh.dtype, device=mesh.device)
+    ck = build_ck_geometry(mesh, len(table.zone_ids))
+    bc = ck_bc(ck, zc, zs, zv)
+    diff = ck_diffusion(mesh, ck, bc, torch.tensor(mu, dtype=mesh.dtype, device=mesh.device))
+    gp_fn, gv_fn = simple.gradient_fns(settings)
+    vel, p = state.vel, state.p
+    grad_p = grad_p_nbr = None
+    if simple._needs_grad_p(settings):
+        grad_p = gp_fn(mesh, ck, bc, p)
+        grad_p_nbr = nbr_values(mesh, grad_p, ck.interior)
+    flux = ck_flux(
+        mesh, ck, bc, vel, settings.velocity_interpolation, p=p, grad_p=grad_p,
+        grad_p_nbr=grad_p_nbr, mom_diag=state.mom_diag.T,
+    )
+    p_f = ck_face_pressure(
+        mesh, ck, bc, p, settings.pressure_interpolation, grad_p=grad_p,
+        grad_p_nbr=grad_p_nbr,
+    )
+    A3, b3, _ = ck_momentum(
+        mesh, ck, bc, settings, rho, vel, flux * ck.area * rho, p_f, *diff,
+        grad_vel=gv_fn(mesh, ck, bc, vel),
+    )
+    A, inv_d = A3.split_columns().jacobi_preconditioned()
+    return A, (b3 * inv_d).contiguous(), vel.T.contiguous()
+
+
+def per_row_csr_call(diag, cols, offsets, x):
+    """csr_call of B structured matrices, one per batch row, as one
+    block-diagonal [B C, B C] matrix times the flattened x."""
+    B, C = diag.shape
+    i = torch.arange(C, device=diag.device)
+    rows, nbrs, vals = [], [], []
+    for b in range(B):
+        for col, d in zip(cols, offsets):
+            ok = ((i + d) >= 0) & ((i + d) < C)
+            rows.append(b * C + i[ok])
+            nbrs.append(b * C + i[ok] + d)
+            vals.append(col[b][ok])
+    return csr_call(
+        diag.reshape(-1), torch.cat(rows), torch.cat(nbrs), torch.cat(vals),
+        x.reshape(-1),
+    )
+
+
+def phase_per_row_kernels(dev, spmv_pr, sweeps_pr):
+    """Rows 1 and 2's per-row instances against their plain versions on
+    the systems of phase 20: the 1024^2 f32 TVD cavity's momentum system
+    after 2 iterations (B = 3, one matrix per component: the shift SpMV,
+    with the block-diagonal CSR product as its library yardstick, and
+    six Jacobi sweeps) and the 128x64 f64 CD2 couette's after 5."""
+    log("== phase 3: per-row branches of rows 1 and 2 (one matrix per velocity component)")
+    from orc_tpu_torch.models.cavity import cavity_case
+    from orc_tpu_torch.ops.fused_smooth import (
+        fused_jacobi_sweeps,
+        sweep_plan,
+        sweeps_plain,
+    )
+    from orc_tpu_torch.ops.shift_spmv import shift_spmv, shift_spmv_plain
+    from orc_tpu_torch.solver.simple import solve_steady
+
+    f32 = 4
+    mesh, table = cavity_case(n=1024, dtype=torch.float32, device=dev)
+    settings = tvd_cavity_settings()
+    state, _ = solve_steady(
+        mesh, table, settings, 1.0, TVD_CAVITY_MU, iterations=2,
+        reporting_interval=2, verbose=False,
+    )
+    A, b3, x3 = per_row_system(mesh, table, settings, state, 1.0, TVD_CAVITY_MU)
+    C, K = mesh.n_cells, len(A.off)
+    log(f"  tvd cavity 1024^2 f32 system: diag {tuple(A.diag.shape)}, {K} [3,C] columns")
+    spmv_pr.compare(
+        "tvd cavity 1024^2 f32 B=3 per-row",
+        lambda: shift_spmv(A.diag, A.off, A.offsets, x3),
+        lambda: shift_spmv_plain(A.diag, A.off, A.offsets, x3),
+        torch.float32, C * 3 * (1 + K + 2) * f32, timed=True,
+        nops=2 * 3 * C * (1 + K),
+        library_call=per_row_csr_call(A.diag, A.off, A.offsets, x3),
+    )
+    log(f"  fused_jacobi_sweeps tvd cavity 1024^2 f32: "
+        f"{sweep_plan(A.offsets, C, 6, torch.float32, per_row=True).label()}")
+    sweeps_pr.compare(
+        "tvd cavity 1024^2 f32 B=3 per-row 6 sweeps",
+        lambda: fused_jacobi_sweeps(A.diag, A.off, A.offsets, b3, x3, 6, 0.8),
+        lambda: sweeps_plain(A.diag, A.off, A.offsets, b3, x3, 6, 0.8),
+        torch.float32, C * 3 * (1 + K + 3) * f32, timed=True, outputs=("x",),
+    )
+    del A, b3, x3, state, mesh
+    mesh, table = couette_mesh(dev)
+    settings = cd2_couette_settings()
+    state, _ = solve_steady(
+        mesh, table, settings, 1000.0, 0.001, iterations=5, reporting_interval=5,
+        verbose=False,
+    )
+    A, b3, x3 = per_row_system(mesh, table, settings, state, 1000.0, 0.001)
+    C, K = mesh.n_cells, len(A.off)
+    spmv_pr.compare(
+        "cd2 couette 128x64 f64 B=3 per-row",
+        lambda: shift_spmv(A.diag, A.off, A.offsets, x3),
+        lambda: shift_spmv_plain(A.diag, A.off, A.offsets, x3),
+        torch.float64, C * 3 * (1 + K + 2) * 8, timed=False,
+        nops=2 * 3 * C * (1 + K),
+        library_call=per_row_csr_call(A.diag, A.off, A.offsets, x3),
+    )
+
+
+def rans_channel(dev, nx, ny, dtype):
+    """tests/test_turbulence.py channel(): an 8 x 2 x 0.5 channel, walls
+    top and bottom, a velocity inlet at 1 and a pressure outlet."""
+    from orc_tpu_torch.mesh.generate import structured_box_mesh
+    from orc_tpu_torch.mesh.zones import FaceCondition
+
+    mesh, table = structured_box_mesh(
+        nx, ny, 1, lengths=(8.0, 2.0, 0.5), dtype=dtype, device=dev
+    )
+    table.set("TOP_WALL", FaceCondition.WALL)
+    table.set("BOTTOM_WALL", FaceCondition.WALL)
+    table.set("INLET", FaceCondition.VELOCITY_INLET, vector_value=(1.0, 0, 0))
+    table.set("OUTLET", FaceCondition.PRESSURE_OUTLET, scalar_value=0.0)
+    table.set("PERIODIC_-Z", FaceCondition.SYMMETRY)
+    table.set("PERIODIC_+Z", FaceCondition.SYMMETRY)
+    return mesh, table
+
+
+def rans_settings():
+    """tests/test_turbulence.py SETTINGS: parity SIMPLE, UD +
+    LinearWeighted, explicit relaxation 0.6 / 0.05, BiCGSTAB(30) Jacobi."""
+    from orc_tpu_torch.utils.settings import (
+        MatrixSolverSettings,
+        MomentumScheme,
+        NumericalSettings,
+        PreconditionMethod,
+        PressureInterpolation,
+        SolutionMethod,
+        VelocityInterpolation,
+    )
+
+    return NumericalSettings(
+        momentum=MomentumScheme.UD,
+        pressure_interpolation=PressureInterpolation.LINEAR_WEIGHTED,
+        velocity_interpolation=VelocityInterpolation.LINEAR_WEIGHTED,
+        matrix_solver=MatrixSolverSettings(
+            solver_type=SolutionMethod.BICGSTAB, iterations=30,
+            preconditioner=PreconditionMethod.JACOBI,
+        ),
+        momentum_relaxation=0.6,
+        pressure_relaxation=0.05,
+    )
+
+
+#: The developing channel's turbulence inlet (tests/test_turbulence.py).
+CHANNEL_TURB = dict(u_ref=1.0, intensity=0.05, length_scale=0.14)
+
+
+def _timed_rans(mesh, table, settings, rho, mu, iterations, chunk, carry=None, **kw):
+    """solve_steady_turbulent from `carry` = (flow, turb) (or from rest),
+    synchronized: (flow, turb, history, wall seconds)."""
+    from orc_tpu_torch.solver.turbulence import solve_steady_turbulent
+
+    flow, turb = carry or (None, None)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    flow, turb, hist = solve_steady_turbulent(
+        mesh, table, settings, rho, mu, iterations=iterations,
+        reporting_interval=chunk, state=flow, turb=turb, verbose=False, **kw,
+    )
+    torch.cuda.synchronize()
+    return flow, turb, hist, time.perf_counter() - t0
+
+
+#: The RANS channel's card-against-CPU tolerance after 10 iterations:
+#: the k-epsilon loop amplifies roundoff about tenfold every four
+#: iterations (orc_tpu against the port on the CPU: 2e-10 of scale at
+#: iteration 10, 1.7e-6 at 40; ROADMAP Queue 3), and the card's fused
+#: multiply-adds start it larger: 3.2e-8 of scale (vel; mu_t 5.2e-8)
+#: measured on an NVIDIA H100 80GB HBM3 at 700 W, with equal inner
+#: iteration counts. Thirty times that.
+RANS_CARD_CPU_TOL = 1e-6
+
+
+def phase_small_reference_schemes(dev):
+    """Phase 3b for this slice's numerics, card against CPU, f64, equal
+    inner iteration counts, fields to 1e-9 of their scale: the developing
+    RANS channel 16x12 (10 iterations; vel, p, k, eps, mu_t; to 1e-6,
+    RANS_CARD_CPU_TOL), and the 16^2
+    cavity under least squares with in-matrix TVD (1 iteration: the
+    limiter flips branches on rounding, and the permuted cavity parted by
+    1.6e-3 of scale within 5 on an H100) and with CD2 (10 iterations),
+    forced SIMPLE, Rhie-Chow, structured and permuted (the permuted ones
+    run the slice SpMV with one matrix per component and, under CD2, the
+    9-field velocity-gradient gather)."""
+    log("== phase 3b: RANS channel 16x12 f64 on the card vs on the CPU, 10 iterations")
+    from orc_tpu_torch.models.cavity import cavity_case, default_settings
+    from orc_tpu_torch.solver.simple import solve_steady, stack_history
+    from orc_tpu_torch.utils.settings import (
+        MomentumScheme,
+        PressureVelocityCoupling,
+        VelocityInterpolation,
+        tvd_umist,
+    )
+
+    from orc_tpu_torch.solver.turbulence import solve_steady_turbulent
+
+    out = []
+    for d in (dev, torch.device("cpu")):
+        mesh, table = rans_channel(d, 16, 12, torch.float64)
+        flow, turb, hist = solve_steady_turbulent(
+            mesh, table, rans_settings(), 1.0, 1e-5, iterations=10,
+            reporting_interval=10, verbose=False, **CHANNEL_TURB,
+        )
+        fields = types.SimpleNamespace(
+            vel=flow.vel, p=flow.p, k=turb.k, eps=turb.eps, mu_t=turb.mu_t
+        )
+        out.append((fields, stack_history(hist)))
+    _card_cpu_gap(
+        "rans channel", out, RANS_CARD_CPU_TOL, fields=("vel", "p", "k", "eps", "mu_t")
+    )
+    base = default_settings().replace(
+        pressure_velocity_coupling=PressureVelocityCoupling.SIMPLE,
+        velocity_interpolation=VelocityInterpolation.RHIE_CHOW,
+    )
+    runs = {
+        "lsq tvd": lsq(base.replace(momentum=MomentumScheme.TVD, tvd_psi=tvd_umist)),
+        "lsq cd2": lsq(base.replace(momentum=MomentumScheme.CD2)),
+    }
+    for name, settings in runs.items():
+        n = 1 if settings.momentum == MomentumScheme.TVD else 10
+        log(f"== phase 3b: {name} cavity 16^2 f64 on the card vs on the CPU, structured and permuted, {n} iterations")
+        out = []
+        for d in (dev, torch.device("cpu")):
+            mesh, table = cavity_case(n=16, device=d)
+            state, hist = solve_steady(
+                mesh, table, settings, 1.0, 0.01, iterations=n,
+                reporting_interval=n, verbose=False,
+            )
+            out.append((state, stack_history(hist)))
+        _card_cpu_gap(f"{name} structured", out, 1e-9, fields=("vel", "p", "mom_diag"))
+        _card_cpu_gap(
+            f"{name} permuted", _irregular_twins(dev, settings, n, mu=0.01), 1e-9,
+            fields=("vel", "p", "mom_diag"),
+        )
+
+
+def rans_split(mesh, table, settings, rho, mu, carry, iterations, **kw):
+    """Wall seconds of `iterations` RANS iterations and of their
+    turbulence_step calls (each synchronized), the SIMPLE step being the
+    rest."""
+    from orc_tpu_torch.solver import turbulence
+
+    spent = []
+    real = turbulence.turbulence_step
+
+    def timed(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real(*a, **k)
+        torch.cuda.synchronize()
+        spent.append(time.perf_counter() - t0)
+        return out
+
+    turbulence.turbulence_step = timed
+    try:
+        wall = _timed_rans(mesh, table, settings, rho, mu, iterations, iterations, carry, **kw)[3]
+    finally:
+        turbulence.turbulence_step = real
+    return wall, sum(spent)
+
+
+def phase_rans_channel(dev):
+    """The developing RANS channel at full width: 1024 x 512 x 1 f32 with
+    tests/test_turbulence.py's geometry, boundary conditions and SETTINGS
+    (parity SIMPLE, UD, BiCGSTAB(30) Jacobi, rho 1, mu 1e-5) under
+    implicit relaxation with SETTINGS' factors (0.6 / 0.05): with the
+    test's explicit relaxation the channel diverges on any mesh finer
+    than the test's 16 x 12, in orc_tpu as in the port (measured on the
+    CPU: |u| above 1e18 within 40 iterations at 32 x 16, 64 x 32 and 256 x
+    128, in f32 and f64), while under implicit relaxation orc_tpu's 256 x
+    128 f32 channel stays bounded (u_mean 0.335, max |u| 3.6 after 40).
+    Its momentum and k/eps solves then run the 6-sweep smoother (row 2).
+    10 warm-up + 30 timed iterations, finite fields, k > 0, mu_t <= 1e5
+    mu; ms/iter, a profile window of 3 iterations (launches per
+    iteration, busy share) and the split between the SIMPLE step and
+    turbulence_step over 5 synchronized iterations."""
+    from orc_tpu_torch.utils.settings import RelaxationMode
+
+    log("== phase 17: RANS developing channel 1024x512x1 f32 (k-epsilon, wall functions, implicit relaxation)")
+    mesh, table = rans_channel(dev, 1024, 512, torch.float32)
+    s = rans_settings().replace(relaxation_mode=RelaxationMode.IMPLICIT)
+    rho, mu = 1.0, 1e-5
+    flow, turb, _, warm = _timed_rans(mesh, table, s, rho, mu, 10, 10, **CHANNEL_TURB)
+    flow, turb, hist, wall = _timed_rans(mesh, table, s, rho, mu, 30, 30, (flow, turb), **CHANNEL_TURB)
+    vel, k, mu_t = (t.cpu().numpy() for t in (flow.vel, turb.k, turb.mu_t))
+    ok = bool(np.isfinite(vel).all() and np.isfinite(k).all() and np.isfinite(mu_t).all())
+    log(
+        f"  warm-up 10 iterations {warm:.2f} s; 30 timed iterations {wall:.3f} s -> "
+        f"{1e3 * wall / 30:.2f} ms/iter; u_mean {vel[:, 0].mean():.4f}; k min {k.min():.3e}; "
+        f"mu_t/mu max {mu_t.max() / mu:.1f}; pressure iterations "
+        f"{hist[-1].pc_iters.float().mean().item():.2f}; finite {ok}"
+    )
+    if not (ok and (k > 0).all() and mu_t.max() <= 1e5 * mu * (1 + 1e-6)):
+        raise AssertionError("RANS channel: non-finite fields, k <= 0 or mu_t above 1e5 mu")
+    split_wall, turb_s = rans_split(mesh, table, s, rho, mu, (flow, turb), 5, **CHANNEL_TURB)
+    log(
+        f"  split over 5 synchronized iterations: {1e3 * split_wall / 5:.2f} ms/iter, "
+        f"SIMPLE step {1e3 * (split_wall - turb_s) / 5:.2f} ms, turbulence_step "
+        f"{1e3 * turb_s / 5:.2f} ms ({100 * turb_s / split_wall:.1f}%)"
+    )
+    prof = profile_window(
+        lambda: _timed_rans(mesh, table, s, rho, mu, 3, 3, (flow, turb), **CHANNEL_TURB)[3], 3
+    )
+    return dict(ms_per_iter=1e3 * wall / 30, turb_share=turb_s / split_wall, **prof)
+
+
+def re_tau_channel(dev, ny):
+    """tests/test_turbulence.py test_channel_re_tau_590: 4 x ny f64, x
+    periodic, walls top and bottom, driven by the body force G V."""
+    from orc_tpu_torch.mesh.generate import structured_box_mesh
+    from orc_tpu_torch.mesh.zones import FaceCondition
+
+    mesh, table = structured_box_mesh(
+        4, ny, 1, lengths=(4.0, RE_TAU_H, 0.2), periodic=("x",), device=dev
+    )
+    table.set("BOTTOM_WALL", FaceCondition.WALL)
+    table.set("TOP_WALL", FaceCondition.WALL)
+    table.set("PERIODIC_-Z", FaceCondition.SYMMETRY)
+    table.set("PERIODIC_+Z", FaceCondition.SYMMETRY)
+    force = (1.0 / (RE_TAU_H / 2)) * float(mesh.cell_volume[0])
+
+    def source(cc):
+        s = torch.zeros_like(cc)
+        s[:, 0] = force
+        return s
+
+    return mesh, table, source
+
+
+RE_TAU, RE_TAU_H = 590.0, 2.0
+#: test_channel_re_tau_590's turbulence start.
+RE_TAU_TURB = dict(u_ref=18.0, intensity=0.05, length_scale=0.2 * RE_TAU_H)
+
+
+def re_tau_settings(source, fc):
+    """test_channel_re_tau_590's numerics (parity SIMPLE, UD +
+    LinearWeighted pressure + Rhie-Chow, explicit relaxation,
+    BiCGSTAB(30)), or under SIMPLE_FC with implicit relaxation 0.6 / 0.3
+    (test_sharded_turbulent_fc_matches_single_device's)."""
+    from orc_tpu_torch.utils.settings import (
+        MatrixSolverSettings,
+        MomentumScheme,
+        NumericalSettings,
+        PressureInterpolation,
+        PressureVelocityCoupling,
+        RelaxationMode,
+        SolutionMethod,
+        VelocityInterpolation,
+    )
+
+    s = NumericalSettings(
+        momentum=MomentumScheme.UD,
+        pressure_interpolation=PressureInterpolation.LINEAR_WEIGHTED,
+        velocity_interpolation=VelocityInterpolation.RHIE_CHOW,
+        matrix_solver=MatrixSolverSettings(solver_type=SolutionMethod.BICGSTAB, iterations=30),
+        momentum_source=source,
+    )
+    if fc:
+        s = s.replace(
+            pressure_velocity_coupling=PressureVelocityCoupling.SIMPLE_FC,
+            relaxation_mode=RelaxationMode.IMPLICIT,
+            momentum_relaxation=0.6, pressure_relaxation=0.3,
+        )
+    return s
+
+
+def phase_re_tau(dev, fc=False):
+    """The Re_tau = 590 channel, ny = 16 f64, 800 iterations, on the card:
+    the parity run held to test_channel_re_tau_590's DNS bars (U_b+ within
+    10% of 18.5, U_c+ within 5% of 21.26, the wall cell on the log law
+    within 5%, its k within 10% of 1/sqrt(C_mu)); the SIMPLE_FC run
+    (implicit 0.6 / 0.3: its momentum and k/eps solves run row 2's
+    per-sweep instance, the box being periodic) held to orc_tpu's profile
+    ORC_TPU_RE_TAU_FC_U_PROFILE_800 at rtol 1e-2. Finite fields; ms/iter
+    and a profile window of 3 iterations."""
+    from orc_tpu_torch.solver.turbulence import E_WALL, KAPPA
+
+    name = "SIMPLE_FC" if fc else "parity"
+    log(f"== phase 18: Re_tau = 590 channel 4x16 f64, {name}, 800 iterations")
+    ny = 16
+    mesh, table, source = re_tau_channel(dev, ny)
+    s, mu = re_tau_settings(source, fc), RE_TAU_H / 2 / RE_TAU
+    flow, turb, hist, wall = _timed_rans(mesh, table, s, 1.0, mu, 800, 800, **RE_TAU_TURB)
+    u = flow.vel[:, 0].cpu().numpy().reshape(ny, 4)
+    prof_u = u.mean(axis=1)
+    k1 = turb.k.cpu().numpy().reshape(ny, 4).mean(axis=1)[0]
+    finite = bool(np.isfinite(flow.vel.cpu().numpy()).all() and np.isfinite(turb.k.cpu().numpy()).all())
+    U_b, U_c = prof_u.mean(), prof_u.max()
+    yp1 = RE_TAU * (RE_TAU_H / ny) / 2
+    log_law = np.log(E_WALL * yp1) / KAPPA
+    log(
+        f"  800 iterations {wall:.2f} s -> {1e3 * wall / 800:.2f} ms/iter; U_b+ {U_b:.3f} "
+        f"U_c+ {U_c:.3f} wall cell u+ {prof_u[0]:.3f} (log law {log_law:.3f}) k+ {k1:.3f} "
+        f"(1/sqrt(C_mu) {0.09 ** -0.5:.3f}); finite {finite}"
+    )
+    if not finite:
+        raise AssertionError(f"Re_tau {name}: non-finite fields")
+    if fc:
+        ref = np.asarray(ORC_TPU_RE_TAU_FC_U_PROFILE_800)
+        rel = float(np.abs(prof_u - ref).max() / np.abs(ref).max())
+        log(f"  profile against orc_tpu's: max difference / max {rel:.3e} (limit 1e-2)")
+        if not rel < 1e-2:
+            raise AssertionError("Re_tau SIMPLE_FC left orc_tpu's profile")
+    else:
+        bars = (
+            abs(U_b - 18.5) / 18.5 < 0.10,
+            abs(U_c - 21.26) / 21.26 < 0.05,
+            abs(prof_u[0] - log_law) < 0.05 * prof_u[0],
+            abs(k1 - 0.09 ** -0.5) / 0.09 ** -0.5 < 0.10,
+        )
+        if not all(bars):
+            raise AssertionError(f"Re_tau parity run missed a DNS bar: {bars}")
+    prof = profile_window(
+        lambda: _timed_rans(mesh, table, s, 1.0, mu, 3, 3, (flow, turb), **RE_TAU_TURB)[3], 3
+    )
+    return dict(ms_per_iter=1e3 * wall / 800, **prof)
+
+
+def _lsq_timings(mesh, table, state):
+    """Card times of the least-squares pieces at the 1024^2 f32 shapes:
+    the batched 2 x 2 solves of [C, 2, 2] (closed form, and
+    torch.linalg.solve_ex as a yardstick) and the two ck_lsq gradients."""
+    from orc_tpu_torch.ops import gradients
+    from orc_tpu_torch.ops.ck_ops import (
+        build_ck_geometry,
+        ck_bc,
+        ck_lsq_pressure_gradient,
+        ck_lsq_velocity_gradient,
+    )
+    from orc_tpu_torch.ops.fields import device_bc
+
+    C = mesh.n_cells
+    g = torch.Generator(device=mesh.device).manual_seed(0)
+    m = torch.randn((C, 2, 2), generator=g, device=mesh.device, dtype=mesh.dtype)
+    a = m @ m.transpose(1, 2) + torch.eye(2, device=mesh.device, dtype=mesh.dtype)
+    b = torch.randn((C, 2), generator=g, device=mesh.device, dtype=mesh.dtype)
+    zc, zs, zv = device_bc(table, dtype=mesh.dtype, device=mesh.device)
+    ck = build_ck_geometry(mesh, len(table.zone_ids))
+    bc = ck_bc(ck, zc, zs, zv)
+    g = {(0, 0): a[:, 0, 0], (0, 1): a[:, 0, 1], (1, 1): a[:, 1, 1]}
+    calls = {
+        f"solve [{C}, 2, 2] closed form": lambda: gradients._cramer(g, [b[:, 0], b[:, 1]]),
+        f"solve [{C}, 2, 2] torch.linalg.solve_ex": lambda: torch.linalg.solve_ex(
+            a, b[..., None], check_errors=False
+        )[0],
+        "ck_lsq_pressure_gradient": lambda: ck_lsq_pressure_gradient(mesh, ck, bc, state.p),
+        "ck_lsq_velocity_gradient": lambda: ck_lsq_velocity_gradient(mesh, ck, bc, state.vel),
+    }
+    out = {}
+    for name, fn in calls.items():
+        ev = time_ms(fn)
+        out[name] = card_ms(fn, ev)
+        log(f"  {name}: events {ev:.4f} ms, card {out[name]:.4f} ms")
+    return out
+
+
+def phase_lsq(dev, fc=False):
+    """Least squares at 1024^2 f32, 10 warm-up + 50 timed iterations,
+    finite |u| < 2: refdef-1M's configuration (CD1 + SO + RC, forced
+    SIMPLE; the parity kernels' streamed-gradient instances, AsmSpec.gg
+    False, the least-squares grad p pass once per iteration) or the
+    SIMPLE_FC flagship numerics (rows 4 and 6 with least-squares grad p
+    and grad vel); the least-squares pieces timed on the card."""
+    from orc_tpu_torch.models.cavity import cavity_case, flagship_settings
+    from orc_tpu_torch.ops.ck_ops import build_ck_geometry
+    from orc_tpu_torch.solver import simple
+
+    if fc:
+        log("== phase 19: SIMPLE_FC cavity 1024^2 f32, flagship numerics with least squares, Re=1000")
+        settings = lsq(flagship_settings())
+    else:
+        log("== phase 19: reference-default cavity 1024^2 f32 with least squares (CD1 + SO + RC, forced SIMPLE), Re=1000")
+        settings = lsq(ref_default_settings())
+    mesh, table = cavity_case(n=1024, dtype=torch.float32, device=dev)
+    ck = build_ck_geometry(mesh, len(table.zone_ids))
+    spec = simple._kernel_asm_spec(mesh, table, settings, ck, fc=fc)[1]
+    log(f"  kernel spec: scheme {spec.scheme} rc {spec.rc} p_so {spec.p_so} gg {spec.gg}")
+    if spec.gg:
+        raise AssertionError("least squares took the in-kernel Green-Gauss instance")
+    del ck
+    passes = []
+    real = simple.ck_lsq_pressure_gradient
+
+    def counted(*a, **k):
+        passes.append(1)
+        return real(*a, **k)
+
+    simple.ck_lsq_pressure_gradient = counted
+    warm, timed, prof_n = 10, 50, 5
+    try:
+        state, _, warm_s = _timed_solve(mesh, table, settings, 1.0, 1e-3, None, warm, warm)
+        state, hist, dt = _timed_solve(mesh, table, settings, 1.0, 1e-3, state, timed, timed)
+        prof = profile(mesh, table, settings, 1.0, 1e-3, state, iterations=prof_n)
+    finally:
+        simple.ck_lsq_pressure_gradient = real
+    n = warm + timed + prof_n
+    u = state.vel.cpu().numpy()
+    if not (np.isfinite(u).all() and np.abs(u).max() < 2.0):
+        raise AssertionError("least-squares cavity fields not finite or |u| >= 2")
+    log(
+        f"  warm-up {warm} iterations {warm_s:.2f} s; {timed} timed iterations {dt:.3f} s -> "
+        f"{1e3 * dt / timed:.2f} ms/iter; |u| max {np.abs(u).max():.3f}; pressure "
+        f"iterations {hist[-1].pc_iters.cpu().numpy().mean():.2f}; least-squares grad p "
+        f"passes {len(passes)} in {n} iterations"
+    )
+    # SIMPLE_FC seeds its stored flux with one more pass (ck_initial_flux).
+    if len(passes) != n + fc:
+        raise AssertionError("the least-squares grad p pass did not run once per iteration")
+    lsq_ms = _lsq_timings(mesh, table, state)
+    return dict(ms_per_iter=1e3 * dt / timed, iterations=n, lsq_ms=lsq_ms, **prof)
+
+
+#: The TVD cavity's viscosity: Re = 100. At solve_cavity's Re = 1000
+#: in-matrix TVD (whose inflow faces take the central coefficient,
+#: PARITY.md) diverges, in orc_tpu as in the port (measured on the CPU in
+#: f32: the 24^2 cavity at iteration 10, the 128^2 at 50); at Re = 100
+#: orc_tpu's 128^2 cavity runs 60 iterations with max |u| 0.946.
+TVD_CAVITY_MU = 1e-2
+
+
+def phase_tvd_cavity(dev):
+    """tvd-cavity-1M: the 1024^2 f32 cavity with in-matrix TVD (UMIST)
+    momentum and solve_cavity's other numerics (implicit 0.7 / 0.1) at Re
+    = 100 (TVD_CAVITY_MU): one matrix per component, so the momentum
+    smoother runs row 2's per-row instance and the residuals row 1's. 10
+    warm-up + 50 timed iterations, finite |u| < 2."""
+    log("== phase 20: TVD cavity 1024^2 f32 (in-matrix TVD, UMIST), Re=100")
+    from orc_tpu_torch.models.cavity import cavity_case
+
+    settings = tvd_cavity_settings()
+    mu = TVD_CAVITY_MU
+    mesh, table = cavity_case(n=1024, dtype=torch.float32, device=dev)
+    state, _, warm_s = _timed_solve(mesh, table, settings, 1.0, mu, None, 10, 10)
+    state, hist, dt = _timed_solve(mesh, table, settings, 1.0, mu, state, 50, 50)
+    u = state.vel.cpu().numpy()
+    if not (np.isfinite(u).all() and np.abs(u).max() < 2.0):
+        raise AssertionError("TVD cavity fields not finite or |u| >= 2")
+    log(
+        f"  warm-up 10 iterations {warm_s:.2f} s; 50 timed iterations {dt:.3f} s -> "
+        f"{1e3 * dt / 50:.2f} ms/iter; |u| max {np.abs(u).max():.3f}; pressure "
+        f"iterations {hist[-1].pc_iters.cpu().numpy().mean():.2f}"
+    )
+    prof = profile(mesh, table, settings, 1.0, mu, state, iterations=3)
+    return dict(ms_per_iter=1e3 * dt / 50, **prof)
+
+
+def phase_cd2_couette(dev):
+    """cd2-couette: bench.py's couette 128x64 f64 with CD2 momentum
+    (explicit relaxation, BiCGSTAB(50) Jacobi: row 1's per-row instance
+    in the momentum solves), 100 warm-up + 200 timed iterations, u_mean
+    within 25% of the analytical 1.0833e-3 (orc_tpu's own u_mean after
+    those 300 iterations, JAX on CPU in f64, is 1.08453e-3)."""
+    log("== phase 20: CD2 couette 128x64x1 f64, bench.py numerics with CD2 momentum")
+    settings = cd2_couette_settings()
+    mesh, table = couette_mesh(dev)
+    state, _, warm_s = _timed_solve(mesh, table, settings, 1000.0, 0.001, None, 100, 100)
+    state, hist, dt = _timed_solve(mesh, table, settings, 1000.0, 0.001, state, 200, 100)
+    u = state.vel[:, 0].cpu().numpy()
+    if not np.isfinite(u).all():
+        raise AssertionError("CD2 couette produced non-finite fields")
+    mom_it = np.concatenate([h.mom_iters.cpu().numpy() for h in hist])
+    log(
+        f"  warm-up 100 iterations {warm_s:.2f} s; 200 timed iterations {dt:.3f} s -> "
+        f"{200 / dt:.1f} iters/s ({1e3 * dt / 200:.3f} ms/iter); mean momentum iterations "
+        f"{mom_it.mean(axis=0).round(2).tolist()}"
+    )
+    check_couette_u_mean(u, 300)
+    prof = profile(mesh, table, settings, 1000.0, 0.001, state, iterations=5)
+    return dict(ms_per_iter=1e3 * dt / 200, u_mean=float(u.mean()), **prof)
+
+
+class PlainOnCard:
+    """Counts calls of rows 1 and 2's plain versions with a CUDA tensor
+    (none may happen on a main path: a CUDA tensor launches the kernel or
+    raises) while installed."""
+
+    def __init__(self):
+        from orc_tpu_torch.ops import fused_smooth, shift_spmv
+
+        self.mods = ((shift_spmv, "shift_spmv_plain"), (fused_smooth, "sweeps_plain"))
+        self.real = [getattr(m, n) for m, n in self.mods]
+        self.calls = {n: 0 for _, n in self.mods}
+
+    def __enter__(self):
+        for (mod, name), fn in zip(self.mods, self.real):
+            def counted(*a, _fn=fn, _name=name, **k):
+                if any(isinstance(t, torch.Tensor) and t.is_cuda for t in a):
+                    self.calls[_name] += 1
+                return _fn(*a, **k)
+            setattr(mod, name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        for (mod, name), fn in zip(self.mods, self.real):
+            setattr(mod, name, fn)
+
+
 def profile(mesh, table, settings, rho, mu, state, iterations):
     """torch.profiler over a few steady iterations (profile_window)."""
     return profile_window(
@@ -1961,9 +2651,16 @@ def main():
                "orc_tpu/ops/pallas_slice.py:574"),
         Kernel("slice_spmv_exact", slice_spmv_exact, slice_src,
                "orc_tpu/ops/pallas_slice.py:798"),
+        Kernel("shift_spmv[per-row]", shift_spmv, "orc_tpu_torch/csrc/shift_spmv.cu",
+               "orc_tpu/ops/pallas_spmv.py:39", counter="per_row_launches"),
+        Kernel("fused_jacobi_sweeps[per-row]", fused_jacobi_sweeps,
+               "orc_tpu_torch/csrc/jacobi_sweeps.cu", "orc_tpu/ops/pallas_smooth.py:98",
+               counter="per_row_launches"),
     )
-    spmv, sweeps, mom, pc, fc_mom, fc_pc, mom_t, fc_mom_t, sspmv, snbr, sexact = kernels
+    (spmv, sweeps, mom, pc, fc_mom, fc_pc, mom_t, fc_mom_t, sspmv, snbr, sexact,
+     spmv_pr, sweeps_pr) = kernels
     phase_kernels(dev, (spmv, sweeps, mom, pc), mom_t)
+    phase_per_row_kernels(dev, spmv_pr, sweeps_pr)
     phase_parity_branches(dev, mom, pc, mom_t)
     phase_fc_kernels(dev, fc_mom, fc_pc, fc_mom_t)
     phase_slice_kernels(dev, sspmv, snbr)
@@ -1971,50 +2668,72 @@ def main():
     phase_small_reference(dev)
     phase_small_reference_irregular(dev)
     phase_small_reference_transient(dev)
+    phase_small_reference_schemes(dev)
 
     # The main paths, each driven with the launch counts set to 0 just
     # before it and read just after it.
     parity, fc = (spmv, sweeps, mom, pc), (spmv, sweeps, fc_mom, fc_pc)
-    transient = (mom_t, fc_mom_t)
-    structured = (spmv, sweeps, mom, pc, fc_mom, fc_pc) + transient
+    per_row = (spmv_pr, sweeps_pr)
+    # Instances only some paths launch: the extra ones and the
+    # per-row branches.
+    extra = (mom_t, fc_mom_t) + per_row
+    assembly = (mom, pc, fc_mom, fc_pc, mom_t, fc_mom_t)
+    structured = (spmv, sweeps, mom, pc, fc_mom, fc_pc) + extra
     irregular = (sspmv, snbr, sexact)
     results = {}
     paths = (  # label, run, kernels it must launch, kernels it must not,
         # kernels it must launch exactly once per (inner) iteration
-        ("parity couette", lambda: phase_couette(dev), (spmv,), irregular + transient, ()),
+        ("parity couette", lambda: phase_couette(dev), (spmv,), irregular + extra, ()),
         ("parity cavity", lambda: phase_cavity(dev), parity,
-         (fc_mom, fc_pc) + transient + irregular, ()),
+         (fc_mom, fc_pc) + extra + irregular, ()),
         ("fc couette", lambda: phase_couette(dev, fc=True), fc,
-         (mom, pc) + transient + irregular, ()),
+         (mom, pc) + extra + irregular, ()),
         ("fc cavity", lambda: phase_cavity(dev, fc=True), fc,
-         (mom, pc) + transient + irregular, ()),
+         (mom, pc) + extra + irregular, ()),
         ("fc sequenced", lambda: phase_sequenced(dev), fc,
-         (mom, pc) + transient + irregular, ()),
+         (mom, pc) + extra + irregular, ()),
         ("irregular cavity", lambda: phase_irregular_cavity(dev), (sspmv, snbr),
          structured + (sexact,), ()),
         ("structured twin", lambda: phase_irregular_twin(dev, results["irregular cavity"]),
-         parity, transient + irregular, ()),
+         parity, extra + irregular, ()),
         ("irregular couette",
          lambda: phase_irregular_couette(dev, results["parity couette"]["u_mean"]),
          (sspmv, snbr), structured + (sexact,), ()),
         ("reference-default cavity", lambda: phase_ref_default_cavity(dev), parity,
-         (fc_mom, fc_pc) + transient + irregular, (mom, pc)),
+         (fc_mom, fc_pc) + extra + irregular, (mom, pc)),
         ("df32_ir", lambda: phase_df32(dev), irregular, structured, ()),
         ("transient cavity", lambda: phase_transient_cavity(dev), parity + (mom_t,),
          (fc_mom, fc_pc, fc_mom_t) + irregular, (mom, pc, mom_t)),
         ("transient fc cavity", lambda: phase_transient_cavity(dev, fc=True),
          fc + (fc_mom_t,), (mom, pc, mom_t) + irregular, (fc_mom, fc_pc, fc_mom_t)),
         ("3-D cavity multigrid", lambda: phase_cavity_3d(dev), parity,
-         (fc_mom, fc_pc) + transient + irregular, ()),
+         (fc_mom, fc_pc) + extra + irregular, ()),
         ("taylor-green", lambda: phase_taylor_green(dev), (spmv, sweeps),
-         (mom, pc, fc_mom, fc_pc) + transient + irregular, ()),
+         (mom, pc, fc_mom, fc_pc) + extra + irregular, ()),
+        ("rans channel", lambda: phase_rans_channel(dev), (spmv, sweeps),
+         assembly + per_row + irregular, ()),
+        ("re_tau parity", lambda: phase_re_tau(dev), (spmv,),
+         assembly + per_row + irregular + (sweeps,), ()),
+        ("re_tau fc", lambda: phase_re_tau(dev, fc=True), (spmv, sweeps),
+         assembly + per_row + irregular, ()),
+        ("lsq cavity", lambda: phase_lsq(dev), parity,
+         (fc_mom, fc_pc) + extra + irregular, (mom, pc)),
+        ("lsq fc cavity", lambda: phase_lsq(dev, fc=True), fc,
+         (mom, pc) + extra + irregular, (fc_mom, fc_pc)),
+        ("tvd cavity", lambda: phase_tvd_cavity(dev), (spmv, sweeps) + per_row,
+         assembly + irregular, ()),
+        ("cd2 couette", lambda: phase_cd2_couette(dev), (spmv, spmv_pr),
+         assembly + irregular + (sweeps, sweeps_pr), ()),
     )
     launches = {k.name: 0 for k in kernels}
     for label, run, must, must_not, per_iteration in paths:
         for k in kernels:
             setattr(k.fn, k.counter, 0)
         fused_jacobi_sweeps.instances = {}
-        results[label] = run()
+        with PlainOnCard() as plain:
+            results[label] = run()
+        if any(plain.calls.values()):
+            raise AssertionError(f"the {label} run ran plain versions on the card: {plain.calls}")
         counts = {k.name: getattr(k.fn, k.counter) for k in kernels}
         log(f"launches, {label}: {counts}")
         if fused_jacobi_sweeps.instances:
@@ -2059,7 +2778,16 @@ def main():
         f"ms/iter, BiCGSTAB(50) "
         f"{results['3-D cavity multigrid']['BiCGSTAB(50)']['ms_per_iter']:.2f}; "
         f"Taylor-Green 256^2 f64 {results['taylor-green']['ms_per_iter']:.2f} ms per "
-        f"inner iteration; {time.perf_counter() - _T0:.1f} s since the start"
+        f"inner iteration; RANS channel 1024x512 f32 "
+        f"{results['rans channel']['ms_per_iter']:.2f} ms/iter (turbulence_step "
+        f"{100 * results['rans channel']['turb_share']:.1f}%); Re_tau 590 4x16 f64 "
+        f"{results['re_tau parity']['ms_per_iter']:.2f} ms/iter (SIMPLE_FC "
+        f"{results['re_tau fc']['ms_per_iter']:.2f}); least-squares cavity 1024^2 f32 "
+        f"{results['lsq cavity']['ms_per_iter']:.2f} ms/iter (SIMPLE_FC "
+        f"{results['lsq fc cavity']['ms_per_iter']:.2f}); TVD cavity 1024^2 f32 "
+        f"{results['tvd cavity']['ms_per_iter']:.2f} ms/iter; CD2 couette f64 "
+        f"{results['cd2 couette']['ms_per_iter']:.3f} ms/iter; "
+        f"{time.perf_counter() - _T0:.1f} s since the start"
     )
     log(json.dumps({"kernels": [k.summary(launches[k.name]) for k in kernels]}))
     smi = subprocess.run(

@@ -35,6 +35,11 @@ from orc_tpu_torch.mesh import (
     read_mesh,
     structured_box_mesh,
 )
+from orc_tpu_torch.solver.turbulence import (
+    TurbState,
+    initial_turbulence,
+    solve_steady_turbulent,
+)
 from orc_tpu_torch.utils.settings import (
     DiffusionScheme,
     GradientReconstruction,
@@ -65,9 +70,12 @@ __all__ = [
     "PressureVelocityCoupling",
     "RelaxationMode",
     "SolutionMethod",
+    "TurbState",
     "VelocityInterpolation",
     "compile_mesh",
+    "initial_turbulence",
     "read_mesh",
+    "solve_steady_turbulent",
     "structured_box_mesh",
     "__version__",
 ]

@@ -8,13 +8,20 @@
 //
 // with reads outside [0, C) taken as 0, like the TPU kernel's zero
 // padding. B right-hand sides (the u/v/w momentum systems) share one
-// matrix. Both float32 and float64 (the couette case runs in f64).
+// matrix, or (the per-row instance, `orc_shift_spmv_rows`) each has its
+// own: diag and column k of batch row b start a batch-row stride
+// further on (the CD2 and in-matrix TVD momentum systems, one matrix
+// per velocity component). Both float32 and float64 (the couette case
+// runs in f64).
 //
 // Bound on the H100: device memory. At B = 1 each row moves
 // (K + 3) * sizeof(T) bytes (diag, K columns, x, y), and each further
 // batch row 2 * sizeof(T): 29.4 MB, 8.8 us at 3.35 TB/s, for the
 // 1024^2 f32 pressure system (K = 4). The K neighbour reads of x hit
 // lines that nearby rows already brought into L1/L2, so HBM sees x once.
+// Per row, each batch row moves (K + 3) * sizeof(T) bytes a row: 21
+// float32 planes, 88.1 MB, 26.3 us for the 1024^2 TVD cavity's momentum
+// systems (B = 3, K = 4).
 //
 // Design. The first design (one row per thread, scalar loads, a 64-bit
 // index product per column and row, one CTA row per batch row that
@@ -40,6 +47,11 @@
 // The arithmetic is the first design's: diag * x rounded, then one fused
 // multiply-add per column in order (acc = acc + col * x as nvcc
 // contracted it), so the results are unchanged bit for bit.
+//
+// The per-row instance (template flag PR) is the same kernel with the
+// matrix loads moved into the batch loop, at the batch row's strides:
+// 16-byte loads where that row's plane is contiguous and aligned,
+// scalar loads otherwise. The shared instance is unchanged.
 #include <cstdint>
 
 #include "common.cuh"
@@ -117,11 +129,24 @@ __device__ __forceinline__ Vec<T> window_read(const T* w, int pos, int d) {
   }
 }
 
-template <typename T, int KT>
+// Batch-row strides (elements) of a matrix per batch row: diag and each
+// column of batch row b start at b * stride.
+struct RowStrides {
+  long long diag;
+  long long col[MAX_K];
+};
+
+template <typename T>
+__device__ __forceinline__ bool aligned16(const T* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+template <typename T, int KT, bool PR>
 __global__ void __launch_bounds__(kSpmvThreads)
     shift_spmv_kernel(const T* __restrict__ diag, Columns<T> cols,
-                      unsigned col_vec, const T* __restrict__ x,
-                      T* __restrict__ y, long long C, int B) {
+                      unsigned col_vec, RowStrides rs,
+                      const T* __restrict__ x, T* __restrict__ y,
+                      long long C, int B) {
   constexpr int V = Vec<T>::V;
   constexpr int H = 4 * V;               // window halo on each side
   constexpr int N = kSpmvThreads * V;    // rows of a CTA
@@ -133,20 +158,35 @@ __global__ void __launch_bounds__(kSpmvThreads)
   const long long i = i0 + m;
   // Rows of this thread: V, fewer at the end of C, <= 0 past it.
   const int n = static_cast<int>(min(static_cast<long long>(V), C - i));
-  const Vec<T> dg = load_rows(
-      diag + i, 1, (reinterpret_cast<uintptr_t>(diag) & 15) == 0, n);
+  Vec<T> dg;
   Vec<T> a[KM];
+  if constexpr (!PR) {
+    dg = load_rows(diag + i, 1, (reinterpret_cast<uintptr_t>(diag) & 15) == 0,
+                   n);
 #pragma unroll
-  for (int k = 0; k < KM; ++k) {
-    if (k < K) {
-      a[k] = load_rows(cols.col[k] + i * cols.stride[k], cols.stride[k],
-                       (col_vec >> k) & 1u, n);
+    for (int k = 0; k < KM; ++k) {
+      if (k < K) {
+        a[k] = load_rows(cols.col[k] + i * cols.stride[k], cols.stride[k],
+                         (col_vec >> k) & 1u, n);
+      }
     }
   }
   // Batch rows blockIdx.y, + gridDim.y, ...: all of them in one CTA on
   // large systems; one each where C alone gives too few CTAs.
   int parity = 0;
   for (int b = blockIdx.y; b < B; b += gridDim.y, parity ^= 1) {
+    if constexpr (PR) {
+      const T* db = diag + b * rs.diag;
+      dg = load_rows(db + i, 1, aligned16(db), n);
+#pragma unroll
+      for (int k = 0; k < KM; ++k) {
+        if (k < K) {
+          const T* cb = cols.col[k] + b * rs.col[k];
+          a[k] = load_rows(cb + i * cols.stride[k], cols.stride[k],
+                           cols.stride[k] == 1 && aligned16(cb), n);
+        }
+      }
+    }
     const T* xb = x + b * C;
     T* w = reinterpret_cast<T*>(win[parity]);
     const Vec<T> xo = load_rows(
@@ -192,10 +232,10 @@ __global__ void __launch_bounds__(kSpmvThreads)
   }
 }
 
-template <typename T, int KT>
+template <typename T, int KT, bool PR>
 int launch_shift_spmv_k(const void* diag, const Columns<T>& c, unsigned col_vec,
-                        const void* x, void* y, long long C, int B,
-                        cudaStream_t stream) {
+                        const RowStrides& rs, const void* x, void* y,
+                        long long C, int B, cudaStream_t stream) {
   constexpr long long N = kSpmvThreads * Vec<T>::V;
   const long long blocks = (C + N - 1) / N;
   if (blocks > 2147483647LL) return static_cast<int>(cudaErrorInvalidValue);
@@ -203,17 +243,20 @@ int launch_shift_spmv_k(const void* diag, const Columns<T>& c, unsigned col_vec,
   // re-reads the (small) matrix from L2 instead of looping over B.
   const dim3 grid(static_cast<unsigned>(blocks),
                   blocks < 264 ? static_cast<unsigned>(B) : 1u);
-  shift_spmv_kernel<T, KT><<<grid, kSpmvThreads, 0, stream>>>(
-          static_cast<const T*>(diag), c, col_vec, static_cast<const T*>(x),
-          static_cast<T*>(y), C, B);
+  shift_spmv_kernel<T, KT, PR><<<grid, kSpmvThreads, 0, stream>>>(
+          static_cast<const T*>(diag), c, col_vec, rs,
+          static_cast<const T*>(x), static_cast<T*>(y), C, B);
   return static_cast<int>(cudaGetLastError());
 }
 
+// batch_strides == nullptr: the batch shares the matrix; otherwise
+// diag_bs and batch_strides[k] step diag and column k by batch row.
 template <typename T>
-int launch_shift_spmv(const void* diag, const void* const* cols,
-                      const long long* strides, const long long* offsets,
-                      int K, const void* x, void* y, long long C, int B,
-                      cudaStream_t stream) {
+int launch_shift_spmv(const void* diag, long long diag_bs,
+                      const void* const* cols, const long long* strides,
+                      const long long* batch_strides,
+                      const long long* offsets, int K, const void* x,
+                      void* y, long long C, int B, cudaStream_t stream) {
   const Columns<T> c = make_columns<T>(cols, strides, offsets, K);
   // Bit k: column k is contiguous and 16-byte aligned (16-byte loads).
   unsigned col_vec = 0;
@@ -222,13 +265,52 @@ int launch_shift_spmv(const void* diag, const void* const* cols,
       col_vec |= 1u << k;
     }
   }
+  RowStrides rs{};
+  if (batch_strides != nullptr) {
+    rs.diag = diag_bs;
+    for (int k = 0; k < K; ++k) rs.col[k] = batch_strides[k];
+    if (K == 4) {
+      return launch_shift_spmv_k<T, 4, true>(diag, c, col_vec, rs, x, y, C, B,
+                                             stream);
+    }
+    if (K == 6) {
+      return launch_shift_spmv_k<T, 6, true>(diag, c, col_vec, rs, x, y, C, B,
+                                             stream);
+    }
+    return launch_shift_spmv_k<T, 0, true>(diag, c, col_vec, rs, x, y, C, B,
+                                           stream);
+  }
   if (K == 4) {
-    return launch_shift_spmv_k<T, 4>(diag, c, col_vec, x, y, C, B, stream);
+    return launch_shift_spmv_k<T, 4, false>(diag, c, col_vec, rs, x, y, C, B,
+                                            stream);
   }
   if (K == 6) {
-    return launch_shift_spmv_k<T, 6>(diag, c, col_vec, x, y, C, B, stream);
+    return launch_shift_spmv_k<T, 6, false>(diag, c, col_vec, rs, x, y, C, B,
+                                            stream);
   }
-  return launch_shift_spmv_k<T, 0>(diag, c, col_vec, x, y, C, B, stream);
+  return launch_shift_spmv_k<T, 0, false>(diag, c, col_vec, rs, x, y, C, B,
+                                          stream);
+}
+
+inline int shift_spmv_entry(int dtype, const void* diag, long long diag_bs,
+                            const void* const* cols, const long long* strides,
+                            const long long* batch_strides,
+                            const long long* offsets, int K, const void* x,
+                            void* y, long long C, int B, void* stream) {
+  if (K < 0 || K > MAX_K || B < 1 || B > 65535 || C < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (C == 0) return 0;
+  auto s = static_cast<cudaStream_t>(stream);
+  if (dtype == kF32) {
+    return launch_shift_spmv<float>(diag, diag_bs, cols, strides,
+                                    batch_strides, offsets, K, x, y, C, B, s);
+  }
+  if (dtype == kF64) {
+    return launch_shift_spmv<double>(diag, diag_bs, cols, strides,
+                                     batch_strides, offsets, K, x, y, C, B, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace orc
@@ -239,20 +321,23 @@ extern "C" int orc_shift_spmv(int dtype, const void* diag,
                               const long long* offsets, int K,
                               const void* x, void* y, long long C, int B,
                               void* stream) {
-  if (K < 0 || K > orc::MAX_K || B < 1 || B > 65535 || C < 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  if (C == 0) return 0;
-  auto s = static_cast<cudaStream_t>(stream);
-  if (dtype == orc::kF32) {
-    return orc::launch_shift_spmv<float>(diag, cols, strides, offsets, K,
-                                         x, y, C, B, s);
-  }
-  if (dtype == orc::kF64) {
-    return orc::launch_shift_spmv<double>(diag, cols, strides, offsets, K,
-                                          x, y, C, B, s);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+  return orc::shift_spmv_entry(dtype, diag, 0, cols, strides, nullptr,
+                               offsets, K, x, y, C, B, stream);
+}
+
+// One matrix per batch row: diag of row b at diag + b * diag_bs, column
+// k at cols[k] + b * batch_strides[k].
+extern "C" int orc_shift_spmv_rows(int dtype, const void* diag,
+                                   long long diag_bs,
+                                   const void* const* cols,
+                                   const long long* strides,
+                                   const long long* batch_strides,
+                                   const long long* offsets, int K,
+                                   const void* x, void* y, long long C,
+                                   int B, void* stream) {
+  if (batch_strides == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return orc::shift_spmv_entry(dtype, diag, diag_bs, cols, strides,
+                               batch_strides, offsets, K, x, y, C, B, stream);
 }
 
 extern "C" const char* orc_error_string(int err) {

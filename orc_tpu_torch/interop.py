@@ -1,4 +1,5 @@
-"""Carry meshes, slice plans and flow states across from numpy arrays.
+"""Carry meshes, slice plans, flow and turbulence states across from numpy
+arrays.
 
 Tests use these to feed a mesh or a state produced by the JAX package
 into the port: convert the JAX arrays with ``numpy.asarray`` and pass
@@ -17,6 +18,7 @@ import torch
 from orc_tpu_torch.mesh.compile import CompiledMesh
 from orc_tpu_torch.mesh.reorder import SlicePlan
 from orc_tpu_torch.solver.simple import FlowState
+from orc_tpu_torch.solver.turbulence import TurbState
 
 #: The tensor fields every CompiledMesh has.
 MESH_FIELDS = tuple(
@@ -87,4 +89,11 @@ def flow_state_from_numpy(vel, p, mom_diag, flux=None, *, device) -> FlowState:
         p=_tensor(p, device),
         mom_diag=_tensor(mom_diag, device),
         flux=None if flux is None else _tensor(flux, device),
+    )
+
+
+def turb_state_from_numpy(k, eps, mu_t, *, device) -> TurbState:
+    """TurbState on `device` from numpy k [C], eps [C] and mu_t [C]."""
+    return TurbState(
+        k=_tensor(k, device), eps=_tensor(eps, device), mu_t=_tensor(mu_t, device)
     )

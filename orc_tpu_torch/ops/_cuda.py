@@ -54,11 +54,23 @@ _pi = ctypes.POINTER(ctypes.c_int)
 SIGNATURES = {
     # dtype, diag, cols, col_strides, offsets, K, x, y, C, B, stream
     "orc_shift_spmv": (_i, _p, _pp, _pll, _pll, _i, _p, _p, _ll, _i, _p),
+    # dtype, diag, diag batch stride, cols, col_strides, col batch
+    # strides, offsets, K, x, y, C, B, stream
+    "orc_shift_spmv_rows": (
+        _i, _p, _ll, _pp, _pll, _pll, _pll, _i, _p, _p, _ll, _i, _p,
+    ),
     # dtype, diag, cols, col_strides, offsets, K, b, x0, buf0, buf1, C,
     # B, sweeps, relaxation, nx, ny, nz, depth, bx, by, bz, stream
     "orc_jacobi_sweeps": (
         _i, _p, _pp, _pll, _pll, _i, _p, _p, _p, _p, _ll, _i, _i, _d, _ll,
         _ll, _ll, _i, _i, _i, _i, _p,
+    ),
+    # dtype, diag, diag batch stride, cols, col_strides, col batch
+    # strides, offsets, K, b, x0, buf0, buf1, C, B, sweeps, relaxation,
+    # stream
+    "orc_jacobi_sweeps_rows": (
+        _i, _p, _ll, _pp, _pll, _pll, _pll, _i, _p, _p, _p, _p, _ll, _i, _i,
+        _d, _p,
     ),
     # dtype, scheme, limiter, rc, p_so, gg, col_offsets, col_geom[K*6],
     # col_kind, col_zone, K, nx, ny, nz, vel, p, grad_p, mom_diag,
@@ -205,15 +217,24 @@ def dtype_code(t: torch.Tensor) -> int:
 
 
 def column_args(columns, offsets):
-    """ctypes arrays (pointers, element strides, offsets) for K [C]
-    column tensors; the caller keeps `columns` alive over the call."""
+    """ctypes arrays (pointers, element strides along the rows, offsets)
+    for K [C] (or per-row [B,C]) column tensors; the caller keeps
+    `columns` alive over the call."""
     K = len(columns)
     if K > MAX_K:
         raise ValueError(f"at most {MAX_K} ELL columns, got {K}")
     ptrs = (ctypes.c_void_p * max(K, 1))(*(c.data_ptr() for c in columns))
-    strides = (ctypes.c_longlong * max(K, 1))(*(c.stride(0) for c in columns))
+    strides = (ctypes.c_longlong * max(K, 1))(*(c.stride(-1) for c in columns))
     offs = (ctypes.c_longlong * max(K, 1))(*(int(d) for d in offsets))
     return ptrs, strides, offs
+
+
+def batch_strides(columns):
+    """ctypes array of the batch-row strides of K per-row [B,C] column
+    tensors."""
+    return (ctypes.c_longlong * max(len(columns), 1))(
+        *(c.stride(0) for c in columns)
+    )
 
 
 def check_cuda(device: torch.device, **tensors) -> None:

@@ -10,14 +10,16 @@ of the cell fields on structured meshes, from the slice-plan gather
 arithmetic follows orc_tpu term by term, so both packages agree to
 roundoff.
 
-Ported: both geometries, every branch of `nbr_values`, `zone_sel`,
-`CKBC`/`ck_bc`, `ck_face_pressure` (Linear, LinearWeighted,
-SecondOrder), `ck_flux` (Linear, LinearWeighted, Rhie-Chow),
-`ck_pressure_gradient` and `ck_velocity_gradient` (Green-Gauss cell),
-`ck_diffusion`, `ck_momentum` (UD, CD1, TVD_DC, with momentum sources
-and the transient inertia term), `ck_pressure_correction`,
-`ck_apply_correction`. Other schemes raise NotImplementedError (ROADMAP
-Queue 1, item 5).
+Ported: every function of orc_tpu's module: both geometries, every
+branch of `nbr_values`, `zone_sel`, `CKBC`/`ck_bc`, `ck_face_pressure`
+(Linear, LinearWeighted, SecondOrder), `ck_flux` (Linear,
+LinearWeighted, Rhie-Chow), `ck_pressure_gradient` and
+`ck_velocity_gradient` (Green-Gauss cell), `ck_lsq_pressure_gradient`
+and `ck_lsq_velocity_gradient` (least squares, ops/gradients.py),
+`ck_diffusion` (a scalar or a per-(c,k) [C,K] viscosity), `ck_momentum`
+(UD, CD1 and TVD_DC with one matrix shared by u/v/w; CD2 and in-matrix
+TVD with one matrix per component; momentum sources and the transient
+inertia term in both), `ck_pressure_correction`, `ck_apply_correction`.
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ from orc_tpu_torch.ops.fields import (
     WALL,
     momentum_source_term,
 )
+from orc_tpu_torch.ops.gradients import least_squares
 from orc_tpu_torch.ops.slice_spmv import slice_nbr_values
 from orc_tpu_torch.ops.spmv import EllMatrix
 from orc_tpu_torch.utils.settings import (
@@ -373,6 +376,39 @@ def ck_pressure_gradient(mesh, ck, bc: CKBC, p):
     return torch.sum((wgt * pf)[..., None] * ck.n_out, dim=1)
 
 
+def ck_lsq_pressure_gradient(mesh, ck, bc: CKBC, p):
+    """Least-squares cell pressure gradient [C,3]: interior rows the
+    neighbour deltas, boundary rows the face deltas with the zone value
+    at pressure BCs (zero delta elsewhere). `ck.r_on` is the table of
+    displacement rows (interior: c -> nbr, periodic translation
+    included; boundary: c -> face; padded: 0)."""
+    p_c = p[:, None]
+    p_n = nbr_values(mesh, p, ck.interior)
+    zero = _zero_like(p)
+    b = torch.where(
+        ck.interior,
+        p_n - p_c,
+        torch.where(bc.is_pressure, bc.scalar - p_c, zero),
+    )
+    b = torch.where(ck.mask, b, zero)
+    return least_squares(mesh.dim, ck.r_on, b)
+
+
+def ck_lsq_velocity_gradient(mesh, ck, bc: CKBC, vel, vel_nbr=None):
+    """Least-squares velocity gradient [C,3,3] (row i = grad of component
+    i): boundary rows take the BC vector at Dirichlet-velocity faces."""
+    v_c = vel[:, None, :]
+    v_n = vel_nbr if vel_nbr is not None else nbr_values(mesh, vel, ck.interior)
+    zero = _zero_like(vel)
+    b = torch.where(
+        ck.interior[..., None],
+        v_n - v_c,
+        torch.where(bc.is_dirichlet_vel[..., None], bc.vector - v_c, zero),
+    )
+    b = torch.where(ck.mask[..., None], b, zero)
+    return least_squares(mesh.dim, ck.r_on, b)
+
+
 def ck_velocity_gradient(mesh, ck, bc: CKBC, vel, vel_nbr=None):
     """Green-Gauss velocity gradient [C,3,3] (row i = grad of component
     i): Dirichlet-velocity faces take the BC vector, interior faces the
@@ -389,7 +425,8 @@ def ck_velocity_gradient(mesh, ck, bc: CKBC, vel, vel_nbr=None):
 
 
 def ck_diffusion(mesh, ck, bc: CKBC, mu):
-    """Diffusion contributions (diag [C], off [C,K], b [C,3])."""
+    """Diffusion contributions (diag [C], off [C,K], b [C,3]); `mu` a
+    scalar or a per-(c,k) face viscosity [C,K] (the RANS mu + mu_t)."""
     area = ck.area
     d_bnd = mu * area / ck.dist_fo
     d_int = mu * area / ck.dist_on
@@ -410,21 +447,48 @@ def ck_momentum(
     vel, F, p_f, diff_diag, diff_off, diff_b, grad_vel=None, vel_nbr=None,
     inertia=None,
 ):
-    """Shared-matrix momentum system (diag [C], off [C,K]) and RHS
-    [3,C] from per-(c,k) mass flows F = flux * area * rho, plus the
-    per-cell Peclet estimate [C,3]. UD, CD1 and TVD_DC (the implicit UD
-    matrix plus an explicit limited correction from the upwind side,
-    which needs `grad_vel` [C,3,3] and settings.tvd_psi), with
-    settings.momentum_source (fields.momentum_source_term) added to the
-    RHS. `inertia` = (rv_dt [C], vel_n [C,3]) adds the implicit-Euler
-    term rho V/dt to the diagonal and rho V/dt vel^n to the RHS, before
-    the Patankar relaxation. CD2 and TVD are not ported yet."""
+    """Momentum system and RHS [3,C] from per-(c,k) mass flows
+    F = flux * area * rho, plus the per-cell Peclet estimate [C,3].
+
+    UD, CD1 and TVD_DC (the implicit UD matrix plus an explicit limited
+    correction from the upwind side) give one matrix shared by u/v/w:
+    diag [C], off [C,K]. CD2 (the central matrix plus an explicit
+    gradient correction) and TVD (the limited coefficients in the
+    matrix) give one matrix per component: diag [3,C], off [3,C,K], each
+    column of off a contiguous [3,C] plane (the layout the kernels read
+    after `split_columns`). TVD, TVD_DC and CD2 need `grad_vel` [C,3,3];
+    TVD and TVD_DC also settings.tvd_psi. TVD keeps orc_tpu's handling
+    of faces whose downstream value equals the cell's (the central
+    coefficient, PARITY.md). settings.momentum_source
+    (fields.momentum_source_term) is added to the RHS. `inertia` = (rv_dt
+    [C], vel_n [C,3]) adds the implicit-Euler term rho V/dt to the
+    diagonal and rho V/dt vel^n to the RHS, before the Patankar
+    relaxation."""
     scheme = settings.momentum
+    Fv = F[..., None]
+    zero = _zero_like(F)
     s_dc = None
     if scheme == MomentumScheme.UD:
         a_nb = torch.clamp(F, max=0.0)
     elif scheme == MomentumScheme.CD1:
         a_nb = F / 2.0
+    elif scheme == MomentumScheme.CD2:
+        if grad_vel is None:
+            raise ValueError("CD2 momentum requires grad_vel")
+        gv_n = nbr_values(mesh, grad_vel, ck.interior)
+        r_cf = ck.r_cf
+        r_nf = r_cf - ck.r_on
+        g_c = torch.einsum("cij,ckj->cki", grad_vel, r_cf)
+        g_d = torch.sum(gv_n * r_nf[..., None, :], dim=-1)
+        delta = 0.5 * (g_c + g_d)
+        a_nb = Fv / 2.0 * torch.ones((1, 1, 3), dtype=F.dtype, device=F.device)
+        s_dc = -torch.sum(
+            torch.where(ck.interior[..., None], Fv * delta, zero), dim=1
+        )
+    elif scheme == MomentumScheme.TVD:
+        if settings.tvd_psi is None or grad_vel is None:
+            raise ValueError("TVD momentum requires tvd_psi and grad_vel")
+        a_nb = _tvd_coefficients(mesh, ck, settings.tvd_psi, vel, Fv, grad_vel, vel_nbr)
     elif scheme == MomentumScheme.TVD_DC:
         if settings.tvd_psi is None or grad_vel is None:
             raise ValueError("TVD_DC momentum requires tvd_psi and grad_vel")
@@ -433,25 +497,26 @@ def ck_momentum(
             mesh, ck, settings.tvd_psi, vel, F, grad_vel, vel_nbr
         )
     else:
-        raise NotImplementedError(
-            f"momentum scheme {scheme} is not ported yet (ROADMAP Queue 1, "
-            "item 5)"
-        )
-    zero = _zero_like(F)
+        raise NotImplementedError(f"momentum scheme {scheme}")
+    shared = a_nb.ndim == 2  # component-independent matrix
     mask = ck.mask
     area = ck.area
     n_out = ck.n_out
-    a_nb = torch.where(mask, a_nb, zero)
-    a_p = torch.sum(torch.where(mask, -a_nb + F, zero), dim=1)  # [C]
+    if shared:
+        a_nb = torch.where(mask, a_nb, zero)
+        a_p = torch.sum(torch.where(mask, -a_nb + F, zero), dim=1)  # [C]
+        a_nb_src = a_nb[..., None]
+    else:
+        a_nb = torch.where(mask[..., None], a_nb, zero)
+        a_p = torch.sum(torch.where(mask[..., None], -a_nb + Fv, zero), dim=1)
+        a_nb_src = a_nb
     s_u = -torch.sum(
         torch.where(mask[..., None], n_out * (p_f * area)[..., None], zero),
         dim=1,
     )
     dirichlet = bc.is_dirichlet_vel & ~ck.interior
     s_u = s_u + torch.sum(
-        torch.where(
-            dirichlet[..., None], (a_nb - F)[..., None] * bc.vector, zero
-        ),
+        torch.where(dirichlet[..., None], (a_nb_src - Fv) * bc.vector, zero),
         dim=1,
     )
     if s_dc is not None:
@@ -461,27 +526,71 @@ def ck_momentum(
             settings.momentum_source, mesh.cell_centroid, mesh.cell_volume
         )
     active = mask.any(dim=1)
-    off = torch.where(ck.interior, a_nb + diff_off, zero)  # [C,K]
-    diag = a_p + diff_diag  # [C]
-    b = s_u + diff_b  # [C,3]
+    one = torch.ones((), dtype=F.dtype, device=F.device)
+    safe_dd = torch.where(active, diff_diag, one)
+    if shared:
+        off = torch.where(ck.interior, a_nb + diff_off, zero)  # [C,K]
+        diag = a_p + diff_diag  # [C]
+        b = s_u + diff_b  # [C,3]
+        if inertia is not None:
+            rv_dt, vel_n = inertia
+            diag = diag + rv_dt
+            b = b + rv_dt[:, None] * vel_n
+        if settings.relaxation_mode == RelaxationMode.IMPLICIT:
+            alpha = settings.momentum_relaxation
+            b = b + (1.0 - alpha) / alpha * diag[:, None] * vel
+            diag = diag / alpha
+        diag = torch.where(active, diag, one)
+        b = torch.where(active[:, None], b, zero)
+        pe = torch.where(
+            active[:, None],
+            (a_p / safe_dd)[:, None]
+            * torch.ones((1, 3), dtype=a_p.dtype, device=a_p.device),
+            zero,
+        )
+        return mesh_matrix(mesh, diag, off), b.T, pe
+
+    off = torch.where(ck.interior[..., None], a_nb + diff_off[..., None], zero)
+    diag = a_p + diff_diag[:, None]  # [C,3]
+    b = s_u + diff_b
     if inertia is not None:
         rv_dt, vel_n = inertia
-        diag = diag + rv_dt
+        diag = diag + rv_dt[:, None]
         b = b + rv_dt[:, None] * vel_n
     if settings.relaxation_mode == RelaxationMode.IMPLICIT:
         alpha = settings.momentum_relaxation
-        b = b + (1.0 - alpha) / alpha * diag[:, None] * vel
+        b = b + (1.0 - alpha) / alpha * diag * vel
         diag = diag / alpha
-    one = torch.ones((), dtype=diag.dtype, device=diag.device)
-    diag = torch.where(active, diag, one)
+    diag = torch.where(active[:, None], diag, one)
     b = torch.where(active[:, None], b, zero)
-    pe = torch.where(
-        active[:, None],
-        (a_p / torch.where(active, diff_diag, one))[:, None]
-        * torch.ones((1, 3), dtype=a_p.dtype, device=a_p.device),
-        zero,
+    pe = torch.where(active[:, None], a_p / safe_dd[:, None], zero)
+    # [3,C,K] over contiguous [3,K,C] storage: column k is a [3,C] plane.
+    off3 = off.permute(2, 1, 0).contiguous().transpose(1, 2)
+    return mesh_matrix(mesh, diag.T.contiguous(), off3), b.T, pe
+
+
+def _tvd_coefficients(mesh, ck, psi, vel, Fv, grad_vel, vel_nbr):
+    """In-matrix TVD neighbour coefficients [C,K,3]: interior faces take
+    F psi(r)/2 with r = 2 grad_c . r_on / (phi_down - phi_c) - 1 (r = 1
+    where phi_down == phi_c), or F/2 where the downstream velocity
+    equals the cell's; boundary faces take the UD coefficient. As in
+    orc_tpu, an inflow face's downstream value is the cell's own, so it
+    takes the central coefficient (PARITY.md)."""
+    one = torch.ones((), dtype=Fv.dtype, device=Fv.device)
+    v_c = vel[:, None, :]
+    v_n = vel_nbr if vel_nbr is not None else nbr_values(mesh, vel, ck.interior)
+    downstream = torch.where(Fv > 0, v_n, v_c)
+    diffv = downstream - v_c
+    same = torch.sqrt(torch.sum(diffv * diffv, dim=-1)) == 0.0
+    gdotr = torch.einsum("cij,ckj->cki", grad_vel, ck.r_on)
+    safe = torch.where(diffv == 0.0, one, diffv)
+    r = torch.where(diffv == 0.0, one, 2.0 * gdotr / safe - 1.0)
+    a_tvd = Fv * psi(r) / 2.0
+    a_cd = Fv / 2.0 * torch.ones_like(a_tvd)
+    a_ud = torch.clamp(Fv, max=0.0) * torch.ones_like(a_tvd)
+    return torch.where(
+        ck.interior[..., None], torch.where(same[..., None], a_cd, a_tvd), a_ud
     )
-    return mesh_matrix(mesh, diag, off), b.T, pe
 
 
 def _tvd_dc_source(mesh, ck, psi, vel, F, grad_vel, vel_nbr):

@@ -14,9 +14,12 @@ picked by `sweep_plan` from the offsets and the shape alone:
 - otherwise (periodic boxes, column counts other than 2, 4 and 6, and
   3-D boxes, where a window two sweeps deep holds 3.2 times its tile's
   cells and every tiled depth measured slower: PERF.md)
-  `jacobi_sweep_kernel` takes a launch per sweep.
+  `jacobi_sweep_kernel` takes a launch per sweep;
+- one matrix per batch row (diag [B,C], the CD2 and in-matrix TVD
+  momentum systems) takes the per-row instance of
+  `jacobi_sweep_kernel`, a launch per sweep, on every box.
 
-Both give the same bits.
+The shared instances give the same bits.
 """
 
 from __future__ import annotations
@@ -43,11 +46,13 @@ MAX_DEPTH_2D = 8
 class SweepPlan(NamedTuple):
     """How `fused_jacobi_sweeps` runs on the card: `depth` sweeps a
     tiled launch over `tile` cells of the `dims` box, or a launch per
-    sweep when `depth` is 0."""
+    sweep when `depth` is 0 (with one matrix per batch row when
+    `per_row`)."""
 
     depth: int = 0
     dims: tuple = (0, 0, 0)
     tile: tuple = (0, 0, 0)
+    per_row: bool = False
 
     def passes(self, sweeps: int) -> int:
         """Launches over the whole batch: ping-pong passes."""
@@ -62,7 +67,7 @@ class SweepPlan(NamedTuple):
 
     def label(self) -> str:
         if self.depth == 0:
-            return "per-sweep"
+            return "per-sweep per-row" if self.per_row else "per-sweep"
         return (
             f"tiled S={self.depth} box {'x'.join(map(str, self.dims))} "
             f"tile {'x'.join(map(str, self.tile))}"
@@ -120,13 +125,20 @@ def tile_shape(dims, depth, capacity):
     return None if best is None else best[1]
 
 
-def sweep_plan(offsets, n_cells: int, sweeps: int, dtype, depth=None) -> SweepPlan:
+def sweep_plan(
+    offsets, n_cells: int, sweeps: int, dtype, depth=None, per_row=False
+) -> SweepPlan:
     """The kernel instance for (offsets, n_cells, sweeps, dtype): tiled
     on a 2-D (or 1-D) box of steps in 2, 4 or 6 columns (TILE_K), all
     sweeps in one launch up to MAX_DEPTH_2D, else a launch per sweep.
     `depth` forces the sweeps a tiled launch fuses (0: the per-sweep
     kernel), 3-D boxes included; a box that is not one of steps then
-    raises."""
+    raises. `per_row` (one matrix per batch row) takes the per-sweep
+    kernel's per-row instance, and no tiled depth."""
+    if per_row:
+        if depth:
+            raise ValueError("the tiled sweeps take one shared matrix only")
+        return SweepPlan(per_row=True)
     offsets = tuple(int(d) for d in offsets)
     tileable = len(offsets) in TILE_K and n_cells < TILE_ROWS
     dims = _box_steps(offsets, n_cells) if tileable else None
@@ -176,48 +188,57 @@ def sweeps_plain(diag, off, offsets, b, x0, sweeps: int, relaxation):
 
 def fused_jacobi_sweeps(diag, off, offsets, b, x0, sweeps: int, relaxation):
     """`sweeps` damped-Jacobi sweeps of (diag, off, offsets) on b from
-    x0. diag: [C] shared; off: [C,K] or a K-tuple of [C]; b, x0: [C] or
-    [B,C]. CPU tensors take the plain version; CUDA tensors launch the
-    kernel instance `sweep_plan` picks (on a 2-D box one launch for all
-    sweeps and up to three batch rows) or raise."""
+    x0. diag: [C] shared, or [B,C] one matrix per batch row; off: [C,K]
+    / [B,C,K] or a K-tuple of [C] / [B,C] columns (the form of diag); b,
+    x0: [C] or [B,C]. CPU tensors take the plain version; CUDA tensors
+    launch the kernel instance `sweep_plan` picks (on a 2-D box one
+    launch for all sweeps and up to three batch rows; a launch per sweep
+    per row) or raise."""
     if not x0.is_cuda:
         return sweeps_plain(diag, off, offsets, b, x0, sweeps, relaxation)
     dev = x0.device
     C = x0.shape[-1]
-    if diag.ndim != 1 or diag.shape[0] != C:
-        raise ValueError(
-            f"fused_jacobi_sweeps kernel takes one [C] diagonal shared by "
-            f"the batch; got diag {tuple(diag.shape)} for x0 "
-            f"{tuple(x0.shape)}"
-        )
+    per_row = diag.ndim == 2
     if x0.ndim not in (1, 2) or b.shape != x0.shape:
         raise ValueError(
             f"b and x0 must both be [C] or [B,C]; got {tuple(b.shape)} "
             f"and {tuple(x0.shape)}"
+        )
+    row = tuple(x0.shape) if per_row else (C,)
+    if diag.ndim not in (1, 2) or tuple(diag.shape) != row:
+        raise ValueError(
+            f"fused_jacobi_sweeps kernel takes diag [C] shared by the batch "
+            f"or [B,C] one per batch row; got diag {tuple(diag.shape)} for "
+            f"x0 {tuple(x0.shape)}"
         )
     if not isinstance(relaxation, (int, float)):
         raise TypeError("relaxation must be a Python number")
     if sweeps < 1:
         return x0
     cols = off if isinstance(off, tuple) else tuple(
-        off[:, k] for k in range(off.shape[-1])
+        off[..., k] for k in range(off.shape[-1])
     )
     if len(cols) != len(offsets) or any(
-        c.shape != (C,) or c.dtype != x0.dtype for c in cols
+        tuple(c.shape) != row or c.dtype != x0.dtype for c in cols
     ):
-        raise ValueError("off must hold one [C] column per offset, x0's dtype")
+        raise ValueError(
+            f"off must hold one {list(row)} column per offset, x0's dtype"
+        )
     if diag.dtype != x0.dtype or b.dtype != x0.dtype:
         raise TypeError("diag, b and x0 must share one dtype")
     _cuda.check_cuda(
         dev, diag=diag, b=b, **{f"off{k}": c for k, c in enumerate(cols)}
     )
-    plan = sweep_plan(offsets, C, sweeps, x0.dtype)
+    plan = sweep_plan(offsets, C, sweeps, x0.dtype, per_row=per_row)
     y = _launch_sweeps(
         diag.contiguous(), cols, offsets, b.contiguous(), x0.contiguous(),
         int(sweeps), relaxation, plan,
     )
     B = 1 if x0.ndim == 1 else x0.shape[0]
-    fused_jacobi_sweeps.launches += plan.launches(sweeps, B)
+    launches = plan.launches(sweeps, B)
+    fused_jacobi_sweeps.launches += launches
+    if per_row:
+        fused_jacobi_sweeps.per_row_launches += launches
     label = plan.label()
     fused_jacobi_sweeps.instances[label] = (
         fused_jacobi_sweeps.instances.get(label, 0) + 1
@@ -227,22 +248,34 @@ def fused_jacobi_sweeps(diag, off, offsets, b, x0, sweeps: int, relaxation):
 
 def _launch_sweeps(diag, cols, offsets, b, x0, sweeps, relaxation, plan):
     """The kernel launches of `fused_jacobi_sweeps` on checked,
-    contiguous tensors, as `plan` says."""
+    contiguous tensors (a per-row diag and columns with unit row
+    stride), as `plan` says."""
     buf0 = torch.empty_like(x0)
     passes = plan.passes(sweeps)
     buf1 = torch.empty_like(x0) if passes > 1 else buf0
     ptrs, strides, offs = _cuda.column_args(cols, offsets)
     B = 1 if x0.ndim == 1 else x0.shape[0]
-    _cuda.call(
-        "orc_jacobi_sweeps", x0.device, _cuda.dtype_code(x0), diag.data_ptr(),
-        ptrs, strides, offs, len(cols), b.data_ptr(), x0.data_ptr(),
-        buf0.data_ptr(), buf1.data_ptr(), x0.shape[-1], B, sweeps,
-        float(relaxation), *plan.dims, plan.depth, *plan.tile,
-    )
+    if plan.per_row:
+        _cuda.call(
+            "orc_jacobi_sweeps_rows", x0.device, _cuda.dtype_code(x0),
+            diag.data_ptr(), diag.stride(0), ptrs, strides,
+            _cuda.batch_strides(cols), offs, len(cols), b.data_ptr(),
+            x0.data_ptr(), buf0.data_ptr(), buf1.data_ptr(), x0.shape[-1], B,
+            sweeps, float(relaxation),
+        )
+    else:
+        _cuda.call(
+            "orc_jacobi_sweeps", x0.device, _cuda.dtype_code(x0),
+            diag.data_ptr(), ptrs, strides, offs, len(cols), b.data_ptr(),
+            x0.data_ptr(), buf0.data_ptr(), buf1.data_ptr(), x0.shape[-1], B,
+            sweeps, float(relaxation), *plan.dims, plan.depth, *plan.tile,
+        )
     return (buf0, buf1)[(passes - 1) % 2]
 
 
 #: Kernel launches since the last reset (set to 0 to reset).
 fused_jacobi_sweeps.launches = 0
+#: Launches of the per-row instance, counted in `launches` too.
+fused_jacobi_sweeps.per_row_launches = 0
 #: Calls per instance (SweepPlan.label) since the last reset (set to {}).
 fused_jacobi_sweeps.instances = {}

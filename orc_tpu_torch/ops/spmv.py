@@ -133,9 +133,9 @@ def ell_spmv(diag, off, neighbors, x, offsets=None):
     """y = diag * x + sum_k off[..., k] * x[..., neighbors[:, k]].
 
     With static `offsets` the gathers are shifts: kernel 1 on CUDA
-    tensors (batched x shares one [C] matrix there), torch.roll on
-    CPU. Without, one gather over the neighbor table (meshes without a
-    slice plan)."""
+    tensors (batched x shares one [C] matrix, or takes one [B,C] matrix
+    per batch row), torch.roll on CPU. Without, one gather over the
+    neighbor table (meshes without a slice plan)."""
     if offsets is not None:
         return shift_spmv(diag, off, offsets, x)
     xg = x[..., neighbors.long()]  # [..., C, K]

@@ -39,14 +39,11 @@ from orc_tpu_torch.ops.ck_ops import (
     ck_face_pressure,
     ck_flux,
     ck_momentum,
-    ck_pressure_gradient,
-    ck_velocity_gradient,
     mesh_matrix,
     nbr_values,
 )
 from orc_tpu_torch.solver import simple
 from orc_tpu_torch.utils.settings import (
-    MomentumScheme,
     PressureCorrectionForm,
     VelocityInterpolation,
 )
@@ -182,7 +179,7 @@ def ck_initial_flux(mesh, ck, bc, settings, state):
     the interpolated face flux of the starting fields."""
     grad_p = None
     if simple._needs_grad_p(settings):
-        grad_p = ck_pressure_gradient(mesh, ck, bc, state.p)
+        grad_p = simple.gradient_fns(settings)[0](mesh, ck, bc, state.p)
     return planes(
         ck_flux(
             mesh, ck, bc, state.vel, settings.velocity_interpolation,
@@ -219,13 +216,14 @@ def ck_simple_step_fc(
     # neighbour tables are built only for the plain ops.
     vel_nbr = None if kernel_asm is not None else nbr_values(mesh, vel, ck.interior)
     grad_p = grad_p_nbr = None
+    gp_fn, gv_fn = simple.gradient_fns(settings)
     if simple._needs_grad_p(settings):
-        grad_p = ck_pressure_gradient(mesh, ck, bc, p)
+        grad_p = gp_fn(mesh, ck, bc, p)
         if kernel_asm is None:
             grad_p_nbr = nbr_values(mesh, grad_p, ck.interior)
     grad_v = (
-        ck_velocity_gradient(mesh, ck, bc, vel, vel_nbr=vel_nbr)
-        if settings.momentum == MomentumScheme.TVD_DC
+        gv_fn(mesh, ck, bc, vel, vel_nbr=vel_nbr)
+        if simple._needs_grad_vel(settings)
         else None
     )
 

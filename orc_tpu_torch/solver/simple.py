@@ -27,10 +27,15 @@ with a slice plan), whose assembly is plain (c,k) ops, as in orc_tpu;
 the exact slice product in the residuals of DF32_IR solves. On CPU they
 take the plain versions.
 
+The (c,k) step takes Green-Gauss cell or least-squares gradients and
+every momentum scheme: UD, CD1 and TVD_DC solve the u/v/w systems over
+one shared matrix, CD2 and in-matrix TVD over one matrix per component
+(diag [3,C]), whose diagonals the next iteration reads.
+
 Not ported yet (each raises NotImplementedError naming its ROADMAP
-item): the face-major step (`use_ck=False`), least-squares and
-node-based gradients, Gauss-Seidel solves, multigrid on meshes without
-a structured box (the algebraic hierarchy) and the sharded runtime.
+item): the face-major step (`use_ck=False`), node-based Green-Gauss
+gradients, Gauss-Seidel solves, multigrid on meshes without a
+structured box (the algebraic hierarchy) and the sharded runtime.
 """
 
 from __future__ import annotations
@@ -50,6 +55,8 @@ from orc_tpu_torch.ops.ck_ops import (
     ck_diffusion,
     ck_face_pressure,
     ck_flux,
+    ck_lsq_pressure_gradient,
+    ck_lsq_velocity_gradient,
     ck_momentum,
     ck_pressure_correction,
     ck_pressure_gradient,
@@ -159,6 +166,21 @@ def _needs_grad_p(settings: NumericalSettings) -> bool:
     )
 
 
+def _needs_grad_vel(settings: NumericalSettings) -> bool:
+    return settings.momentum in (
+        MomentumScheme.TVD, MomentumScheme.TVD_DC, MomentumScheme.CD2
+    )
+
+
+def gradient_fns(settings: NumericalSettings):
+    """(pressure gradient, velocity gradient) of the (c,k) step:
+    least squares or Green-Gauss cell, by settings.gradient_reconstruction
+    (looked up when called, so a caller may wrap either)."""
+    if settings.gradient_reconstruction == GradientReconstruction.LEAST_SQUARES:
+        return ck_lsq_pressure_gradient, ck_lsq_velocity_gradient
+    return ck_pressure_gradient, ck_velocity_gradient
+
+
 def table_maybe_singular(table) -> bool:
     """True when no zone can anchor the p' system (every zone interior
     or periodic): the pressure-correction matrix is then singular."""
@@ -205,13 +227,16 @@ def _solve_p_prime(
 
 
 def _solve_momentum(A3, b3, vel, active, settings, mg_hierarchy=None):
-    """One batched solve of the u/v/w systems over the shared matrix,
-    warm-started from vel: (new vel [C,3], new mom_diag [3,C], info)."""
+    """One batched solve of the u/v/w systems, over the shared matrix or
+    one matrix per component, warm-started from vel: (new vel [C,3], new
+    mom_diag [3,C], info)."""
     zero = torch.zeros((), dtype=vel.dtype, device=vel.device)
     x0 = torch.where(active[None, :], vel.T, zero)  # [3,C]
     sol, info = iterative_solve(
         A3, b3, x0, settings.momentum_matrix_solver(), mg_hierarchy=mg_hierarchy
     )
+    if A3.diag.ndim == 2:
+        return sol.T, A3.diag, info
     return sol.T, A3.diag[None, :].expand(3, -1), info
 
 
@@ -291,7 +316,8 @@ def ck_simple_step(
     active = ck.mask.any(dim=1)
 
     grad_p = grad_p_nbr = None
-    tvd = settings.momentum == MomentumScheme.TVD_DC
+    gp_fn, gv_fn = gradient_fns(settings)
+    need_gv = _needs_grad_vel(settings)
     if kernel_asm is not None:
         # Fused assembly kernels (ops/fused_assembly.py): one pass over
         # the cell fields yields the shared momentum matrix and RHS. With
@@ -306,8 +332,8 @@ def ck_simple_step(
         flags = pack_flags(ck.interior, ck.mask)
         bcv = bc_value_table(zone_scalar, zone_vector)
         if _needs_grad_p(settings) and not aspec.gg:
-            grad_p = ck_pressure_gradient(mesh, ck, bc, p)
-        grad_v = ck_velocity_gradient(mesh, ck, bc, vel) if tvd else None
+            grad_p = gp_fn(mesh, ck, bc, p)
+        grad_v = gv_fn(mesh, ck, bc, vel) if need_gv else None
         mdiag, moff, b3 = momentum_assembly(
             vel, p, bcv, flags, cols, rho, mu, settings.momentum_relaxation,
             grad_p=grad_p, mom_diag=state.mom_diag[0], grad_vel=grad_v,
@@ -320,12 +346,9 @@ def ck_simple_step(
         md_c = state.mom_diag.T  # cell-major [C,3] view
         vel_nbr = nbr_values(mesh, vel, ck.interior)
         if _needs_grad_p(settings):
-            grad_p = ck_pressure_gradient(mesh, ck, bc, p)
+            grad_p = gp_fn(mesh, ck, bc, p)
             grad_p_nbr = nbr_values(mesh, grad_p, ck.interior)
-        grad_v = (
-            ck_velocity_gradient(mesh, ck, bc, vel, vel_nbr=vel_nbr) if tvd
-            else None
-        )
+        grad_v = gv_fn(mesh, ck, bc, vel, vel_nbr=vel_nbr) if need_gv else None
         mom_diag_nbr = nbr_values(mesh, md_c, ck.interior)
         flux = ck_flux(
             mesh, ck, bc, vel, settings.velocity_interpolation,
@@ -501,7 +524,7 @@ def _check_ported(mesh, settings: NumericalSettings, use_ck):
             "the face-major SIMPLE and SIMPLE_FC steps are not ported yet "
             "(ROADMAP Queue 1, item 3); use use_ck=True or 'auto'"
         )
-    if settings.gradient_reconstruction != GradientReconstruction.GREEN_GAUSS_CELL:
+    if settings.gradient_reconstruction == GradientReconstruction.GREEN_GAUSS_NODE:
         raise NotImplementedError(
             f"{settings.gradient_reconstruction} gradients are not ported "
             "yet (ROADMAP Queue 1, item 3)"

@@ -7,7 +7,10 @@ gather) and a graded 10^2 box (the expanded CKGeometry with shifts).
 
 Tolerance: rtol 1e-10 (the same formulas in the same order; only sum
 order may differ), plus atol 1e-13 x the largest reference magnitude
-for entries that cancel to roundoff."""
+for entries that cancel to roundoff. The least-squares gradients hold
+at rtol 1e-10 (closed-form solves against orc_tpu's LU), the CD2 and
+in-matrix TVD systems (one matrix per component: diag [3,C], off
+[3,C,K]) at rtol 1e-12."""
 
 import numpy as np
 import pytest
@@ -122,7 +125,7 @@ def op_diffusion(J, T):
         _close(x, y, name)
 
 
-def _momentum(S, settings, rho=1.0, mu=1e-3):
+def _momentum(S, settings, rho=1.0, mu=1e-3, grad_vel=None):
     vi = settings.velocity_interpolation
     flux = S.ops.ck_flux(S.mesh, S.ck, S.bc, S.vel, vi)
     F = flux * S.ck.area * rho
@@ -131,7 +134,8 @@ def _momentum(S, settings, rho=1.0, mu=1e-3):
     )
     diff = S.ops.ck_diffusion(S.mesh, S.ck, S.bc, S.arr(mu))
     return S.ops.ck_momentum(
-        S.mesh, S.ck, S.bc, settings, rho, S.vel, F, p_f, *diff
+        S.mesh, S.ck, S.bc, settings, rho, S.vel, F, p_f, *diff,
+        grad_vel=grad_vel,
     )
 
 
@@ -201,6 +205,75 @@ def op_momentum_tvd_dc(J, T):
             _close(pet, pej, tag + " pe")
 
 
+def op_lsq_gradients(J, T):
+    _close(
+        T.ops.ck_lsq_pressure_gradient(T.mesh, T.ck, T.bc, T.p),
+        J.ops.ck_lsq_pressure_gradient(J.mesh, J.ck, J.bc, J.p),
+        "grad p",
+    )
+    _close(
+        T.ops.ck_lsq_velocity_gradient(T.mesh, T.ck, T.bc, T.vel),
+        J.ops.ck_lsq_velocity_gradient(J.mesh, J.ck, J.bc, J.vel),
+        "grad vel",
+    )
+
+
+def _per_component_momentum(S, ts, inertia=None):
+    """CD2 / TVD momentum system of S's fields with Rhie-Chow mass flows
+    (F changes sign across the box) and the least-squares velocity
+    gradient."""
+    s = S.conv(ts)
+    flux = S.ops.ck_flux(
+        S.mesh, S.ck, S.bc, S.vel,
+        S.conv(tset.VelocityInterpolation.RHIE_CHOW), p=S.p,
+        grad_p=S.grad_p, grad_p_nbr=S.gp_nbr, mom_diag=S.md3,
+    )
+    p_f = S.ops.ck_face_pressure(S.mesh, S.ck, S.bc, S.p, s.pressure_interpolation)
+    diff = S.ops.ck_diffusion(S.mesh, S.ck, S.bc, S.arr(1e-3))
+    grad_v = S.ops.ck_lsq_velocity_gradient(S.mesh, S.ck, S.bc, S.vel)
+    kw = {} if inertia is None else dict(inertia=tuple(S.arr(a) for a in inertia))
+    return S.ops.ck_momentum(
+        S.mesh, S.ck, S.bc, s, 1.0, S.vel, flux * S.ck.area, p_f, *diff,
+        grad_vel=grad_v, **kw,
+    )
+
+
+def _assert_system(At, bt, pet, Aj, bj, pej, tag):
+    """The port's [3,C] / [3,C,K] system against orc_tpu's at rtol 1e-12."""
+    assert At.offsets == Aj.offsets
+    for name, a, b in (("diag", At.diag, Aj.diag), ("off", At.off, Aj.off),
+                       ("b", bt, bj), ("pe", pet, pej)):
+        b = np_(b)
+        assert tuple(a.shape) == b.shape, (tag, name)
+        scale = float(np.max(np.abs(b)))
+        np.testing.assert_allclose(
+            np_(a), b, rtol=1e-12, atol=1e-13 * scale, err_msg=f"{tag} {name}"
+        )
+
+
+def op_momentum_per_component(J, T):
+    """CD2 and TVD with each limiter, both relaxation modes, and CD2 with
+    the transient inertia term: one matrix per velocity component."""
+    rng = np.random.default_rng(7)
+    inertia = (rng.uniform(0.5, 1.5, J.mesh.n_cells), rng.standard_normal((J.mesh.n_cells, 3)))
+    runs = [("CD2", None, None), ("CD2", None, inertia)] + [
+        ("TVD", psi, None) for psi in (tset.tvd_lud, tset.tvd_quick, tset.tvd_umist)
+    ]
+    for scheme, psi, inert in runs:
+        for mode in tset.RelaxationMode:
+            ts = tset.NumericalSettings(
+                momentum=tset.MomentumScheme[scheme], tvd_psi=psi,
+                pressure_interpolation=tset.PressureInterpolation.LINEAR_WEIGHTED,
+                relaxation_mode=mode, momentum_relaxation=0.7,
+            )
+            (Aj, bj, pej), (At, bt, pet) = (
+                _per_component_momentum(S, ts, inert) for S in (J, T)
+            )
+            tag = f"{scheme}/{getattr(psi, '__name__', '')}/{mode}/{inert is not None}"
+            assert At.diag.shape == (3, T.mesh.n_cells)
+            _assert_system(At, bt, pet, Aj, bj, pej, tag)
+
+
 def op_pressure_correction(J, T):
     outs = []
     for S in (J, T):
@@ -252,14 +325,28 @@ def test_ck_op_matches_orc_tpu(case, op):
 
 @pytest.mark.parametrize("scheme", ["CD2", "TVD"])
 def test_unported_momentum_schemes_raise(scheme):
-    _, T = _sides("cavity")
+    """CD2 and in-matrix TVD on the 20^2 cavity with test_ck.py's face
+    models (Linear-weighted mass flows and face pressures, the
+    Green-Gauss velocity gradient): the per-component systems against
+    orc_tpu's at rtol 1e-12; without their velocity gradient (or, for
+    TVD, a limiter) both raise ValueError, as in orc_tpu."""
+    J, T = _sides("cavity")
     ts = tset.NumericalSettings(
         momentum=tset.MomentumScheme[scheme], tvd_psi=tset.tvd_umist,
         velocity_interpolation=tset.VelocityInterpolation.LINEAR_WEIGHTED,
         pressure_interpolation=tset.PressureInterpolation.LINEAR_WEIGHTED,
     )
-    with pytest.raises(NotImplementedError):
+    outs = []
+    for S in (J, T):
+        grad_v = S.ops.ck_velocity_gradient(S.mesh, S.ck, S.bc, S.vel)
+        outs.append(_momentum(S, S.conv(ts), grad_vel=grad_v))
+    (Aj, bj, pej), (At, bt, pet) = outs
+    _assert_system(At, bt, pet, Aj, bj, pej, scheme)
+    with pytest.raises(ValueError):
         _momentum(T, ts)
+    if scheme == "TVD":
+        with pytest.raises(ValueError):
+            _momentum(T, ts.replace(tvd_psi=None), grad_vel=T.grad_p[:, None, :].expand(-1, 3, -1))
 
 
 def test_tvd_dc_needs_its_gradient():

@@ -129,11 +129,99 @@ def test_shift_spmv_kernel_edges(dev, dtype, case):
 
 
 def test_shift_spmv_kernel_refuses_a_batched_matrix(dev):
-    """Guards orc_tpu/ops/pallas_spmv.py `_kernel`'s contract (one
-    matrix shared by the batch): a CUDA call outside it raises."""
+    """Guards orc_tpu/ops/pallas_spmv.py `_kernel`'s contract: a matrix
+    is shared by the batch (diag [C], [C] columns) or held per row (diag
+    [B,C], [B,C] columns); a CUDA call mixing the two raises."""
     diag, off, _b, x = _system(100, (-10, -1, 1, 10), 3, torch.float64, dev)
     with pytest.raises(ValueError):
         shift_spmv(diag.expand(3, -1), off, (-10, -1, 1, 10), x)
+
+
+def _per_row(C, offsets, B, dtype, dev, seed=0):
+    """One seeded system per batch row: diag [B,C], K columns [B,C]
+    (views of [B,C,K] coefficients over contiguous [B,K,C] storage, the
+    layout ck_momentum gives), b and x [B,C]."""
+    rows = [_system(C, offsets, 0, dtype, dev, seed + r) for r in range(B)]
+    diag = torch.stack([r[0] for r in rows])
+    off = torch.stack([r[1] for r in rows]).permute(0, 2, 1).contiguous().transpose(1, 2)
+    b, x = (torch.stack([r[i] for r in rows]) for i in (2, 3))
+    return diag, tuple(off[..., k] for k in range(len(offsets))), b, x
+
+
+#: name -> (box, periodic axes, batch): the per-row instances of rows 1
+#: and 2 on a 2-D box, a ragged C (batch rows 1 and up start unaligned),
+#: a 3-D box whose +-576 lies beyond the shift SpMV's window, a periodic
+#: box and B = 1 and 4.
+PER_ROW_CASES = {
+    "2d_b3": ((64, 50, 1), (), 3),
+    "ragged_b3": ((13, 77, 1), (), 3),
+    "k6_3d_b3": ((24, 24, 6), (), 3),
+    "periodic_b3": ((24, 20, 1), ("x", "y"), 3),
+    "2d_b1": ((64, 50, 1), (), 1),
+    "2d_b4": ((37, 23, 1), (), 4),
+}
+
+
+def _per_row_case(case, dtype, dev, seed=0):
+    shape, periodic, B = PER_ROW_CASES[case]
+    offsets = _box_offsets(shape, periodic)
+    C = shape[0] * shape[1] * shape[2]
+    return (C, offsets, B) + tuple(_per_row(C, offsets, B, DTYPES[dtype], dev, seed))
+
+
+@pytest.mark.parametrize("case", sorted(PER_ROW_CASES))
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_per_row_shift_spmv_kernel_matches_plain(dev, dtype, case):
+    """Guards orc_tpu/ops/pallas_spmv.py `_kernel` (via shift_spmv's
+    per-row instance): one matrix per batch row, strided and contiguous
+    columns, against the plain version; equal rows give the shared
+    instance's bits."""
+    C, offsets, B, diag, cols, _b, x = _per_row_case(case, dtype, dev)
+    for form in (cols, tuple(c.contiguous() for c in cols)):
+        before = (shift_spmv.launches, shift_spmv.per_row_launches)
+        y = shift_spmv(diag, form, offsets, x)
+        torch.cuda.synchronize()
+        assert (shift_spmv.launches, shift_spmv.per_row_launches) == (
+            before[0] + 1, before[1] + 1
+        )
+        _close(y, shift_spmv_plain(diag, form, offsets, x), TOL[dtype])
+    same = shift_spmv(
+        diag[:1].expand(B, -1).contiguous(),
+        tuple(c[:1].expand(B, -1).contiguous() for c in cols), offsets, x,
+    )
+    shared = shift_spmv(diag[0].contiguous(), tuple(c[0].contiguous() for c in cols), offsets, x)
+    torch.cuda.synchronize()
+    assert torch.equal(same, shared)
+
+
+@pytest.mark.parametrize("case", sorted(PER_ROW_CASES))
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_per_row_sweeps_kernel_matches_plain(dev, dtype, case):
+    """Guards orc_tpu/ops/pallas_smooth.py `_kernel` (via
+    fused_jacobi_sweeps' per-row instance): six sweeps, a launch each,
+    against the plain sweeps; equal rows give the shared per-sweep
+    instance's bits."""
+    from orc_tpu_torch.ops import fused_smooth as fs
+
+    C, offsets, B, diag, cols, b, x0 = _per_row_case(case, dtype, dev, seed=4)
+    before = (fused_jacobi_sweeps.launches, fused_jacobi_sweeps.per_row_launches)
+    y = fused_jacobi_sweeps(diag, cols, offsets, b, x0, 6, 0.8)
+    torch.cuda.synchronize()
+    assert (fused_jacobi_sweeps.launches, fused_jacobi_sweeps.per_row_launches) == (
+        before[0] + 6, before[1] + 6
+    )
+    _close(y, sweeps_plain(diag, cols, offsets, b, x0, 6, 0.8), TOL[dtype])
+    plan = fs.sweep_plan(offsets, C, 6, DTYPES[dtype], per_row=True)
+    same = fs._launch_sweeps(
+        diag[:1].expand(B, -1), tuple(c[:1].expand(B, -1) for c in cols),
+        offsets, b, x0, 6, 0.8, plan,
+    )
+    shared = fs._launch_sweeps(
+        diag[0].contiguous(), tuple(c[0].contiguous() for c in cols), offsets,
+        b, x0, 6, 0.8, fs.SweepPlan(),
+    )
+    torch.cuda.synchronize()
+    assert torch.equal(same, shared)
 
 
 @pytest.mark.parametrize("sweeps", [1, 6])
@@ -1094,3 +1182,118 @@ def test_df32_ir_on_cuda_matches_cpu(dev):
         assert err < 1e-11, (d, err)
         out.append(x.cpu())
     assert float((out[0] - out[1]).abs().max()) < 1e-12
+
+
+#: The (c,k) step's least-squares and per-component schemes on the
+#: 16^2 cavity, implicit relaxation: least squares with in-matrix TVD
+#: (UMIST) and Rhie-Chow, and CD2; BiCGSTAB(50) pressure.
+SCHEMES = {
+    "lsq_tvd": default_settings().replace(
+        momentum=tset.MomentumScheme.TVD, tvd_psi=tset.tvd_umist,
+        gradient_reconstruction=tset.GradientReconstruction.LEAST_SQUARES,
+        velocity_interpolation=tset.VelocityInterpolation.RHIE_CHOW,
+        pressure_velocity_coupling=tset.PressureVelocityCoupling.SIMPLE,
+    ),
+    "cd2": default_settings().replace(momentum=tset.MomentumScheme.CD2),
+}
+
+
+@pytest.mark.parametrize("mesh_kind", ["box", "permuted"])
+@pytest.mark.parametrize("scheme", sorted(SCHEMES))
+def test_scheme_slice_on_cuda_matches_cpu(dev, scheme, mesh_kind):
+    """Guards the per-row branches of pallas_spmv.py `_kernel` and
+    pallas_smooth.py `_kernel` (and, permuted, the slice kernels with one
+    matrix per row and CD2's 9-field gradient gather) on the solver path:
+    5 iterations on the 16^2 f64 cavity (one under TVD, whose limiter
+    flips branches on rounding: the permuted cavity parted by 1.6e-3 of
+    scale in 5 on an H100), card against CPU, equal inner counts, fields
+    to 1e-9 of their scale; on the box the per-row instances launched and
+    no plain version of a kernel ran on the card."""
+    from orc_tpu_torch.ops import fused_smooth as fs
+    from orc_tpu_torch.ops import shift_spmv as sh
+
+    settings = SCHEMES[scheme]
+    out = []
+    for d in (dev, "cpu"):
+        shift_spmv.per_row_launches = fused_jacobi_sweeps.per_row_launches = 0
+        if mesh_kind == "box":
+            mesh, table = cavity_case(n=16, device=d)
+        else:
+            mesh, table, _ = _permuted_cavity(16, torch.float64, d, seed=3)
+        plain_on_card = []
+        real = (sh.shift_spmv_plain, fs.sweeps_plain)
+
+        def spy(fn):
+            def counted(*a, **k):
+                if any(isinstance(t, torch.Tensor) and t.is_cuda for t in a):
+                    plain_on_card.append(fn.__name__)
+                return fn(*a, **k)
+            return counted
+
+        sh.shift_spmv_plain, fs.sweeps_plain = (spy(f) for f in real)
+        try:
+            n = 1 if settings.momentum == tset.MomentumScheme.TVD else 5
+            state, hist = simple.solve_steady(
+                mesh, table, settings, 1.0, 0.01, iterations=n,
+                reporting_interval=n, verbose=False,
+            )
+        finally:
+            sh.shift_spmv_plain, fs.sweeps_plain = real
+        assert not plain_on_card
+        if d == dev and mesh_kind == "box":
+            assert shift_spmv.per_row_launches > 0
+            assert fused_jacobi_sweeps.per_row_launches > 0
+        out.append((state, simple.stack_history(hist)))
+    (sg, hg), (sc, hc) = out
+    np.testing.assert_array_equal(hg.mom_iters, hc.mom_iters)
+    np.testing.assert_array_equal(hg.pc_iters, hc.pc_iters)
+    for f in ("vel", "p", "mom_diag"):
+        _close(getattr(sg, f), getattr(sc, f), 1e-9, f)
+
+
+def test_rans_channel_on_cuda_matches_cpu(dev):
+    """Guards the solver kernels under k-epsilon RANS: the developing
+    channel 16x12 f64 (tests/test_turbulence.py), 10 iterations, card
+    against CPU: equal inner counts, vel, p, k, eps and mu_t to 1e-6 of
+    their scale (the RANS loop amplifies roundoff about tenfold every
+    four iterations, ROADMAP Queue 3: 3.2e-8 measured here on an H100);
+    no assembly kernel launched (the viscosity varies per face)."""
+    from orc_tpu_torch.mesh.generate import structured_box_mesh
+    from orc_tpu_torch.mesh.zones import FaceCondition
+    from orc_tpu_torch.solver.turbulence import solve_steady_turbulent
+
+    settings = tset.NumericalSettings(
+        momentum=tset.MomentumScheme.UD,
+        pressure_interpolation=tset.PressureInterpolation.LINEAR_WEIGHTED,
+        velocity_interpolation=tset.VelocityInterpolation.LINEAR_WEIGHTED,
+        matrix_solver=tset.MatrixSolverSettings(
+            solver_type=tset.SolutionMethod.BICGSTAB, iterations=30,
+            preconditioner=tset.PreconditionMethod.JACOBI,
+        ),
+        momentum_relaxation=0.6, pressure_relaxation=0.05,
+    )
+    out = []
+    for d in (dev, "cpu"):
+        mesh, table = structured_box_mesh(16, 12, 1, lengths=(8.0, 2.0, 0.5), device=d)
+        table.set("TOP_WALL", FaceCondition.WALL)
+        table.set("BOTTOM_WALL", FaceCondition.WALL)
+        table.set("INLET", FaceCondition.VELOCITY_INLET, vector_value=(1.0, 0, 0))
+        table.set("OUTLET", FaceCondition.PRESSURE_OUTLET, scalar_value=0.0)
+        table.set("PERIODIC_-Z", FaceCondition.SYMMETRY)
+        table.set("PERIODIC_+Z", FaceCondition.SYMMETRY)
+        for k in KERNELS + FC_KERNELS:
+            k.launches = 0
+        flow, turb, hist = solve_steady_turbulent(
+            mesh, table, settings, 1.0, 1e-5, u_ref=1.0, iterations=10,
+            reporting_interval=10, intensity=0.05, length_scale=0.14, verbose=False,
+        )
+        if d == dev:
+            assert shift_spmv.launches > 0
+            assert all(k.launches == 0 for k in KERNELS[2:] + FC_KERNELS[2:])
+        out.append((flow, turb, simple.stack_history(hist)))
+    (fg, tg, hg), (fc, tc, hc) = out
+    np.testing.assert_array_equal(hg.mom_iters, hc.mom_iters)
+    np.testing.assert_array_equal(hg.pc_iters, hc.pc_iters)
+    for name, a, b in (("vel", fg.vel, fc.vel), ("p", fg.p, fc.p), ("k", tg.k, tc.k),
+                       ("eps", tg.eps, tc.eps), ("mu_t", tg.mu_t, tc.mu_t)):
+        _close(a, b, 1e-6, name)

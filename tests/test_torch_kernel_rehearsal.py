@@ -1,6 +1,7 @@
-"""CPU rehearsal of six Hopper kernels of orc_tpu_torch: the slice-plan
+"""CPU rehearsal of seven Hopper kernels of orc_tpu_torch: the slice-plan
 SpMV and its exact product (csrc/slice_spmv.cu, kernel rows 7-9 and
-12), the Jacobi sweeps (csrc/jacobi_sweeps.cu, row 2), the parity
+12), the shift SpMV's and the Jacobi sweeps' per-row instances
+(csrc/shift_spmv.cu, row 1; csrc/jacobi_sweeps.cu, row 2, also tiled), the parity
 momentum assembly (csrc/parity_assembly.cuh, row 3), the SIMPLE_FC
 momentum assembly (csrc/assembly.cu, row 4) and the pressure-correction
 assembly (csrc/parity_assembly.cuh, row 5), compiled as C++ with g++
@@ -31,6 +32,12 @@ source does not spell out. What that checks:
   fusing 1, 2 or 6 sweeps a launch, B = 1 and 3, with coefficients on
   the faces that cross the box's rows (the flat row embedding); a
   periodic box takes the per-sweep kernel;
+- the per-row instances of the shift SpMV and the Jacobi sweeps (one
+  matrix per batch row: the CD2 and in-matrix TVD momentum systems) on
+  2-D, 3-D and periodic boxes with a ragged C, B = 1, 3 and 4, against
+  the plain versions (1e-5 / 1e-12 of the largest value), the shift
+  SpMV in float32 bitwise against the rounding its source spells out,
+  and each equal bitwise to its shared instance when the rows agree;
 - the momentum assembly, in every instance family (scheme x limiter x
   Rhie-Chow x SecondOrder x streamed or in-kernel gradient), steady and
   with the inertia term, against the plain version (1e-5 / 1e-12 of each
@@ -59,7 +66,11 @@ import numpy as np
 import pytest
 import torch
 
-from torch_kernel_refs import jacobi_fma_chain, slice_spmv_fma_chain
+from torch_kernel_refs import (
+    jacobi_fma_chain,
+    shift_spmv_fma_chain,
+    slice_spmv_fma_chain,
+)
 
 import jax.numpy as jnp
 from orc_tpu.mesh.reorder import build_slice_plan as jslice_plan
@@ -72,6 +83,7 @@ from orc_tpu_torch.models.channel_flow import ChannelFlowParameters, couette_cas
 from orc_tpu_torch.ops import _cuda
 from orc_tpu_torch.ops import fused_assembly as asm
 from orc_tpu_torch.ops import fused_smooth as fs
+from orc_tpu_torch.ops import shift_spmv as sh
 from orc_tpu_torch.ops import slice_spmv as ss
 from orc_tpu_torch.ops.ck_ops import (
     build_ck_geometry,
@@ -170,7 +182,7 @@ void mock_launch(dim3 grid, dim3 block, size_t smem, K kernel, A... args) {
 
 #: The sources rehearsed, each compiled on its own in parallel.
 SOURCES = ("slice_spmv.cu", "parity_assembly.cu", "parity_assembly_f64.cu",
-           "assembly.cu", "jacobi_sweeps.cu")
+           "assembly.cu", "jacobi_sweeps.cu", "shift_spmv.cu")
 
 
 def _split_top(text):
@@ -235,7 +247,8 @@ def mock_lib(tmp_path_factory):
                    check=True)
     lib = ctypes.CDLL(str(lib_path))
     for name in ("orc_slice_spmv", "orc_slice_spmv_exact", "orc_momentum_assembly",
-                 "orc_pc_assembly", "orc_fc_momentum_assembly", "orc_jacobi_sweeps"):
+                 "orc_pc_assembly", "orc_fc_momentum_assembly", "orc_jacobi_sweeps",
+                 "orc_jacobi_sweeps_rows", "orc_shift_spmv", "orc_shift_spmv_rows"):
         fn = getattr(lib, name)
         fn.argtypes = _cuda.SIGNATURES[name]
         fn.restype = ctypes.c_int
@@ -455,6 +468,93 @@ def test_rehearsed_sweep_plans(mock):
     y = fs._launch_sweeps(diag, cols, offsets, b, x0, 6, 0.8, plan)
     ref = fs.sweeps_plain(diag, cols, offsets, b, x0, 6, 0.8)
     assert float((y - ref).abs().max()) <= 1e-12 * float(ref.abs().max())
+
+
+# --- rows 1 and 2 with one matrix per batch row ---------------------------
+
+#: name -> (nx, ny, nz, periodic axes): 2-D and 3-D boxes with a ragged C
+#: (C not a multiple of a thread's V rows) and a periodic box.
+PER_ROW_BOXES = {
+    "37x9": (37, 9, 1, ()),
+    "17x5x3": (17, 5, 3, ()),
+    "9x6_periodic": (9, 6, 1, ("x", "y")),
+    "130x4": (130, 4, 1, ()),
+}
+
+
+def _per_row_system(box, B, dtype):
+    """A seeded diagonally dominant system per batch row on the box's
+    offsets (every column whose neighbour row lies in [0, C)): diag
+    [B,C], K [B,C] columns (strided views of one [B,C,K] tensor, as
+    `split_columns` gives them), b and x0 [B,C]."""
+    from orc_tpu_torch.mesh.generate import structured_box_mesh
+
+    nx, ny, nz, periodic = PER_ROW_BOXES[box]
+    mesh, _ = structured_box_mesh(nx, ny, nz, periodic=periodic, device="cpu")
+    offsets = tuple(int(o) for o in mesh.neighbor_offsets)
+    C, K = mesh.n_cells, len(offsets)
+    rng = np.random.default_rng(nx + ny + nz + B)
+    off = rng.uniform(-1.0, 0.0, (B, C, K))
+    c = np.arange(C)
+    for k, d in enumerate(offsets):
+        off[:, ((c + d) < 0) | ((c + d) >= C), k] = 0.0
+    diag = 1.0 + np.abs(off).sum(axis=-1) + rng.random((B, C))
+    t = lambda a: torch.tensor(a, dtype=dtype)  # noqa: E731
+    off = t(off)
+    cols = tuple(off[..., k] for k in range(K))
+    return offsets, t(diag), cols, t(rng.standard_normal((B, C))), t(rng.standard_normal((B, C)))
+
+
+@pytest.mark.parametrize("B", [1, 3, 4])
+@pytest.mark.parametrize("box", sorted(PER_ROW_BOXES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_rehearsed_per_row_shift_spmv_matches_plain(mock, dtype, box, B):
+    """Guards orc_tpu/ops/pallas_spmv.py `_kernel` (via shift_spmv's
+    per-row launch on the mock): one matrix per batch row, strided and
+    contiguous columns, against the plain version (1e-5 / 1e-12 of the
+    largest value), in float32 bitwise against the rounding the source
+    spells out; with B identical rows it equals the shared instance
+    bitwise."""
+    offsets, diag, cols, x, _ = _per_row_system(box, B, dtype)
+    ref = sh.shift_spmv_plain(diag, cols, offsets, x)
+    scale = float(ref.abs().max())
+    for form in (cols, tuple(c.contiguous() for c in cols)):
+        y = sh._launch_shift_spmv(diag, form, offsets, x)
+        assert float((y - ref).abs().max()) <= TOL[dtype] * scale
+        if dtype == torch.float32:
+            assert torch.equal(y, shift_spmv_fma_chain(diag, form, offsets, x))
+    same = sh._launch_shift_spmv(
+        diag[:1].expand(B, -1), tuple(c[:1].expand(B, -1) for c in cols), offsets, x
+    )
+    shared = sh._launch_shift_spmv(diag[0].contiguous(), tuple(c[0] for c in cols), offsets, x)
+    assert torch.equal(same, shared)
+
+
+@pytest.mark.parametrize("B", [1, 3, 4])
+@pytest.mark.parametrize("box", sorted(PER_ROW_BOXES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_rehearsed_per_row_sweeps_match_plain(mock, dtype, box, B):
+    """Guards orc_tpu/ops/pallas_smooth.py `_kernel` (via
+    fused_jacobi_sweeps' per-row launch on the mock): six sweeps, one
+    matrix per batch row, against the plain sweeps (1e-5 / 1e-12 of the
+    largest value); with B identical rows it equals the shared per-sweep
+    instance bitwise."""
+    offsets, diag, cols, b, x0 = _per_row_system(box, B, dtype)
+    plan = fs.sweep_plan(offsets, diag.shape[-1], 6, dtype, per_row=True)
+    assert plan.per_row and plan.label() == "per-sweep per-row"
+    assert plan.launches(6, B) == 6
+    y = fs._launch_sweeps(diag, cols, offsets, b, x0, 6, 0.8, plan)
+    ref = fs.sweeps_plain(diag, cols, offsets, b, x0, 6, 0.8)
+    assert float((y - ref).abs().max()) <= TOL[dtype] * float(ref.abs().max())
+    same = fs._launch_sweeps(
+        diag[:1].expand(B, -1), tuple(c[:1].expand(B, -1) for c in cols),
+        offsets, b, x0, 6, 0.8, plan,
+    )
+    shared = fs._launch_sweeps(
+        diag[0].contiguous(), tuple(c[0] for c in cols), offsets, b, x0, 6, 0.8,
+        fs.SweepPlan(),
+    )
+    assert torch.equal(same, shared)
 
 
 # --- the parity momentum assembly ---------------------------------------

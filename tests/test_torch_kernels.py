@@ -134,6 +134,56 @@ def test_shift_spmv_batched_matches_ell_spmv(form):
     _close(y, y_ref, TOL["f64"])
 
 
+def _per_row_systems(dims, seeds):
+    """One seeded box system per batch row: offsets, diag [B,C], off
+    [B,C,K], x [B,C]."""
+    systems = [_box_system(dims, "f64", seed=s) for s in seeds]
+    offsets = systems[0][0]
+    diag = np.stack([d for _o, d, _f, _x in systems])
+    off = np.stack([f for _o, _d, f, _x in systems])
+    x = np.stack([x[0] for _o, _d, _f, x in systems])
+    return offsets, diag, off, x
+
+
+@pytest.mark.parametrize("form", ["ck", "split"])
+@pytest.mark.parametrize("dims", [(12, 7, 2), (9, 5, 1)])
+def test_shift_spmv_per_row_matches_ell_spmv(dims, form):
+    """Each batch row over its own matrix (diag [3,C], off [3,C,K] or
+    K [3,C] columns: the CD2 / TVD momentum systems) against orc_tpu's
+    XLA shift SpMV of each row."""
+    import jax
+
+    offsets, diag, off, x = _per_row_systems(dims, (3, 4, 5))
+    y_ref = jax.vmap(lambda d, o, v: j_ell_spmv(d, o, None, v, offsets))(
+        jnp.asarray(diag), jnp.asarray(off), jnp.asarray(x)
+    )
+    toff = torch.tensor(off)
+    if form == "split":
+        toff = tuple(toff[..., k] for k in range(toff.shape[-1]))
+    y = shift_spmv(torch.tensor(diag), toff, offsets, torch.tensor(x))
+    _close(y, y_ref, TOL["f64"])
+
+
+@pytest.mark.parametrize("split", [False, True], ids=["ck", "split"])
+def test_sweeps_per_row_match_xla_loop(split):
+    """Six sweeps with one matrix per batch row against orc_tpu's
+    sweeps_xla of each row."""
+    import jax
+
+    offsets, diag, off, x0 = _per_row_systems((11, 6, 1), (6, 7, 8))
+    b = np.random.default_rng(9).standard_normal(x0.shape)
+    y_ref = jax.vmap(lambda d, o, bb, xx: sweeps_xla(d, o, offsets, bb, xx, 6, 0.8))(
+        *(jnp.asarray(a) for a in (diag, off, b, x0))
+    )
+    toff = torch.tensor(off)
+    if split:
+        toff = tuple(toff[..., k] for k in range(toff.shape[-1]))
+    y = fused_jacobi_sweeps(
+        torch.tensor(diag), toff, offsets, torch.tensor(b), torch.tensor(x0), 6, 0.8
+    )
+    _close(y, y_ref, TOL["f64"])
+
+
 def test_cpu_tensors_take_the_plain_version():
     offsets, diag, off, x = _box_system((6, 5, 1), "f64")
     before = shift_spmv.launches
@@ -627,10 +677,11 @@ def test_parity_assembly_refuses_only_the_transient_branch():
 @pytest.mark.parametrize("scheme", ["UD", "CD1", "TVD_DC", "CD2", "TVD"])
 def test_kernel_gate_admits_what_orc_tpu_admits(monkeypatch, scheme):
     """_kernel_asm_spec(fc=False) against orc_tpu's _pallas_asm_spec over
-    every face-velocity and face-pressure model: the same configurations
-    get a spec, with the same scheme, face models, volume and gg (the
-    port's gate with the mesh read as on the card, orc_tpu's forced on
-    its CPU)."""
+    every face-velocity and face-pressure model and both gradient
+    methods of the (c,k) step: the same configurations get a spec, with
+    the same scheme, face models, volume and gg (the port's gate with
+    the mesh read as on the card, orc_tpu's forced on its CPU); under
+    least squares gg is False (the kernels take the streamed gradient)."""
     from orc_tpu.solver import simple as jsimple
     from orc_tpu.utils import settings as js
 
@@ -644,28 +695,36 @@ def test_kernel_gate_admits_what_orc_tpu_admits(monkeypatch, scheme):
     ckj = jck.build_ck_geometry(mj, len(tj.zone_ids))
     ckt = build_ck_geometry(mt, len(tt.zone_ids))
     admitted = 0
-    for vi in tset.VelocityInterpolation:
-        for pi in tset.PressureInterpolation:
-            s = tset.NumericalSettings(
-                momentum=tset.MomentumScheme[scheme],
-                tvd_psi=tset.tvd_umist if scheme in ("TVD", "TVD_DC") else None,
-                velocity_interpolation=vi, pressure_interpolation=pi,
-                relaxation_mode=tset.RelaxationMode.IMPLICIT,
-            )
-            ref = jsimple._pallas_asm_spec(mj, tj, to_jax_settings(s), ckj, fc=False)
-            got = tsimple._kernel_asm_spec(mt, tt, s, ckt, fc=False)
-            assert (got is None) == (ref is None), (vi, pi)
-            if got is None:
-                continue
-            admitted += 1
-            (cols, spec), (jcols, jspec, _interp) = got, ref
-            assert tuple(cols) == tuple(tuple(c) for c in jcols)
-            for f in ("scheme", "rc", "p_so", "vol", "gg"):
-                assert getattr(spec, f) == getattr(jspec, f), (f, vi, pi)
-            assert (spec.psi is None) == (jspec.psi is None)
+    gradients = (
+        tset.GradientReconstruction.GREEN_GAUSS_CELL,
+        tset.GradientReconstruction.LEAST_SQUARES,
+    )
+    for gr in gradients:
+        for vi in tset.VelocityInterpolation:
+            for pi in tset.PressureInterpolation:
+                s = tset.NumericalSettings(
+                    momentum=tset.MomentumScheme[scheme],
+                    tvd_psi=tset.tvd_umist if scheme in ("TVD", "TVD_DC") else None,
+                    velocity_interpolation=vi, pressure_interpolation=pi,
+                    relaxation_mode=tset.RelaxationMode.IMPLICIT,
+                    gradient_reconstruction=gr,
+                )
+                ref = jsimple._pallas_asm_spec(mj, tj, to_jax_settings(s), ckj, fc=False)
+                got = tsimple._kernel_asm_spec(mt, tt, s, ckt, fc=False)
+                assert (got is None) == (ref is None), (gr, vi, pi)
+                if got is None:
+                    continue
+                admitted += 1
+                (cols, spec), (jcols, jspec, _interp) = got, ref
+                assert tuple(cols) == tuple(tuple(c) for c in jcols)
+                for f in ("scheme", "rc", "p_so", "vol", "gg"):
+                    assert getattr(spec, f) == getattr(jspec, f), (f, gr, vi, pi)
+                assert (spec.psi is None) == (jspec.psi is None)
+                if gr == tset.GradientReconstruction.LEAST_SQUARES:
+                    assert not spec.gg
     explicit = tset.NumericalSettings(momentum=tset.MomentumScheme[scheme])
     assert tsimple._kernel_asm_spec(mt, tt, explicit, ckt) is None
-    assert admitted == (9 if scheme in ("UD", "CD1", "TVD_DC") else 0)
+    assert admitted == (18 if scheme in ("UD", "CD1", "TVD_DC") else 0)
 
 
 def test_failed_build_raises(monkeypatch):

@@ -149,15 +149,15 @@ def test_continue_from_orc_tpu_state():
 
 def test_unported_paths_raise():
     (_, _), (mt, tt), settings, rho, mu = _case("cavity", "f64")
-    lsq = settings.replace(
-        gradient_reconstruction=tset.GradientReconstruction.LEAST_SQUARES
+    node = settings.replace(
+        gradient_reconstruction=tset.GradientReconstruction.GREEN_GAUSS_NODE
     )
     gs = settings.replace(
         matrix_solver=tset.MatrixSolverSettings(
             solver_type=tset.SolutionMethod.GAUSS_SEIDEL
         )
     )
-    for s, kw in ((gs, {}), (lsq, {}), (settings, dict(use_ck=False))):
+    for s, kw in ((gs, {}), (node, {}), (settings, dict(use_ck=False))):
         with pytest.raises(NotImplementedError):
             ts.solve_steady(mt, tt, s, rho, mu, iterations=1, verbose=False, **kw)
 

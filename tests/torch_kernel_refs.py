@@ -26,6 +26,21 @@ def slice_spmv_fma_chain(diag, coef, plan, x):
     return acc.reshape(*x.shape[:-1], -1)[..., :C]
 
 
+def shift_spmv_fma_chain(diag, cols, offsets, x):
+    """The float32 rounding csrc/shift_spmv.cu spells out for y = diag x
+    + sum_k col_k x[i + d_k]: diag * x rounded, then fma(col_k,
+    x[i + d_k], acc) per column in order (0 outside [0, C)), each fused
+    multiply-add evaluated exactly in float64 and rounded once. diag and
+    cols [C] (shared) or [B, C] (per row); x [C] or [B, C]."""
+    C = x.shape[-1]
+    xp = F.pad(x, (C, C))
+    acc = diag * x
+    for col, d in zip(cols, offsets):
+        xk = xp[..., C + int(d):2 * C + int(d)]
+        acc = (col.double() * xk.double() + acc.double()).float()
+    return acc
+
+
 def jacobi_fma_chain(diag, cols, offsets, b, x0, sweeps, relaxation):
     """The float32 rounding csrc/jacobi_sweeps.cu spells out for
     `sweeps` damped-Jacobi sweeps (nvcc's contraction of the first
