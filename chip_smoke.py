@@ -20,9 +20,10 @@ Phases (any failure raises and the script exits non-zero):
    pressure system (B = 1 and 3), the 128x64 f64 couette's (B = 1 and 3)
    and a K = 6 system of the 128^3 cavity's shape, the Jacobi sweeps
    (six) on the 1024^2 cavity's momentum system (B = 3 and 1), on the
-   couette's shape (f64, B = 3) and on the 128^3 shape (B = 3), each
-   with the kernel instance it takes (tiled and its depth, or a launch
-   per sweep), the parity kernels on
+   couette's shape (f64, B = 3) and on the 128^3 shape (B = 3: the
+   z-march, timed, held bitwise to the launch per sweep, which is timed
+   beside it), each with the kernel instance it takes (tiled and its
+   depth, marching, or a launch per sweep), the parity kernels on
    the 1024^2 f32 cavity (UD, steady and transient), their Rhie-Chow /
    SecondOrder / TVD_DC / in-kernel-gradient branches on the
    reference-default 1024^2 f32 cavity (CD1 + SO + RC + GG also
@@ -36,9 +37,10 @@ Phases (any failure raises and the script exits non-zero):
    in for) and, with the slice SpMV in each form the DF32_IR phase runs
    it, on scripts/bench_df32_ir.py's system (1024-row tiles); the
    per-row branches of the shift SpMV (with the block-diagonal CSR
-   product) and of the Jacobi sweeps on the 1024^2 f32 TVD cavity's
-   momentum system (B = 3, one matrix per component), the shift SpMV's
-   also on the 128x64 f64 CD2 couette's;
+   product) and of the Jacobi sweeps (the per-row tiles, held bitwise to
+   the per-sweep per-row kernel, which is timed beside them) on the
+   1024^2 f32 TVD cavity's momentum system (B = 3, one matrix per
+   component), both also on the 128x64 f64 CD2 couette's;
 3b. the SIMPLE and SIMPLE_FC slices on the card against the same slices
    on the CPU on a 16^2 float64 cavity (the parity one with
    solve_cavity's and with the reference's default numerics), and the FC
@@ -127,7 +129,8 @@ the SIMPLE_FC phases none of the parity assembly kernels, the
 structured phases no slice-plan kernel, the irregular phases none of
 the structured kernels, only the DF32_IR phase the exact slice product,
 only phases 13-14 the transient instances of the momentum kernels, only
-phase 20 the per-row branches, and phases 17-18 no assembly kernel.
+phase 20 the per-row branches, only phase 15 the z-march of the Jacobi
+sweeps, and phases 17-18 no assembly kernel.
 """
 
 from __future__ import annotations
@@ -471,13 +474,15 @@ def step_inertia(mesh, vel, rho, dt):
 INERTIA_READS = 4
 
 
-def phase_kernels(dev, kernels, mom_t):
+def phase_kernels(dev, kernels, mom_t, march):
     log("== phase 3: kernels against their plain versions, main-path shapes")
     from orc_tpu_torch.models.cavity import cavity_case, default_settings
     from orc_tpu_torch.ops import fused_assembly as asm
     from orc_tpu_torch.ops.ck_ops import build_ck_geometry
     from orc_tpu_torch.ops.fields import device_bc
     from orc_tpu_torch.ops.fused_smooth import (
+        SweepPlan,
+        _launch_sweeps,
         fused_jacobi_sweeps,
         sweep_plan,
         sweeps_plain,
@@ -590,18 +595,36 @@ def phase_kernels(dev, kernels, mom_t):
         nops=2 * n3 * 7, library_call=shift_csr_call(diag, planes, box_offsets, x),
     )
     # Row 2 on a momentum system of its shape (B = 3): the smoother of
-    # phase 15.
+    # phase 15, in the march sweep_plan picks, held bitwise to the
+    # per-sweep kernel, which is timed beside it.
     _d, _o, x3d = structured_system(n3, box_offsets, 3, torch.float32, dev)
     b3d = structured_system(n3, box_offsets, 3, torch.float32, dev, seed=1)[2]
     log(f"  fused_jacobi_sweeps cavity3d 128^3 f32: "
         f"{sweep_plan(box_offsets, n3, 6, torch.float32).label()}")
-    sweeps.compare(
-        "cavity3d 128^3 f32 K=6 B=3 6 sweeps",
-        lambda: fused_jacobi_sweeps(diag, planes, box_offsets, b3d, x3d, 6, 0.8),
-        lambda: sweeps_plain(diag, planes, box_offsets, b3d, x3d, 6, 0.8),
-        torch.float32, n3 * (7 * f32 + 3 * 3 * f32), timed=False, outputs=("x",),
+    args3 = (diag, planes, box_offsets, b3d, x3d, 6, 0.8)
+    plain3 = lambda: sweeps_plain(*args3)  # noqa: E731
+    nbytes3 = n3 * (7 * f32 + 3 * 3 * f32)
+    march.compare(
+        "cavity3d 128^3 f32 K=6 B=3 6 sweeps", lambda: fused_jacobi_sweeps(*args3),
+        plain3, torch.float32, nbytes3, timed=True, outputs=("x",),
     )
+    per_sweep3 = lambda: _launch_sweeps(*args3, SweepPlan())  # noqa: E731
+    march.compare(
+        "cavity3d 128^3 f32 K=6 B=3 per-sweep", per_sweep3, plain3, torch.float32,
+        nbytes3, timed=False, outputs=("x",),
+    )
+    check_bitwise("cavity3d 128^3 f32 K=6 B=3", fused_jacobi_sweeps(*args3), per_sweep3())
     del diag, off, x, planes, _d, _o, x3d, b3d
+
+
+def check_bitwise(label, got, per_sweep):
+    """Raise unless a Jacobi sweeps instance gave the per-sweep kernel's
+    bits (each redesign is held to the kernel before it)."""
+    torch.cuda.synchronize()
+    same = torch.equal(got, per_sweep)
+    log(f"  fused_jacobi_sweeps {label}: equal to the per-sweep kernel bit for bit: {same}")
+    if not same:
+        raise AssertionError(f"fused_jacobi_sweeps {label}: not bitwise equal to the per-sweep kernel")
 
 
 def ref_default_settings():
@@ -2024,6 +2047,8 @@ def phase_per_row_kernels(dev, spmv_pr, sweeps_pr):
     log("== phase 3: per-row branches of rows 1 and 2 (one matrix per velocity component)")
     from orc_tpu_torch.models.cavity import cavity_case
     from orc_tpu_torch.ops.fused_smooth import (
+        SweepPlan,
+        _launch_sweeps,
         fused_jacobi_sweeps,
         sweep_plan,
         sweeps_plain,
@@ -2051,13 +2076,19 @@ def phase_per_row_kernels(dev, spmv_pr, sweeps_pr):
     )
     log(f"  fused_jacobi_sweeps tvd cavity 1024^2 f32: "
         f"{sweep_plan(A.offsets, C, 6, torch.float32, per_row=True).label()}")
+    args = (A.diag, A.off, A.offsets, b3, x3, 6, 0.8)
+    plain = lambda: sweeps_plain(*args)  # noqa: E731
+    per_sweep = lambda: _launch_sweeps(*args, SweepPlan(per_row=True))  # noqa: E731
     sweeps_pr.compare(
-        "tvd cavity 1024^2 f32 B=3 per-row 6 sweeps",
-        lambda: fused_jacobi_sweeps(A.diag, A.off, A.offsets, b3, x3, 6, 0.8),
-        lambda: sweeps_plain(A.diag, A.off, A.offsets, b3, x3, 6, 0.8),
-        torch.float32, C * 3 * (1 + K + 3) * f32, timed=True, outputs=("x",),
+        "tvd cavity 1024^2 f32 B=3 per-row 6 sweeps", lambda: fused_jacobi_sweeps(*args),
+        plain, torch.float32, C * 3 * (1 + K + 3) * f32, timed=True, outputs=("x",),
     )
-    del A, b3, x3, state, mesh
+    sweeps_pr.compare(
+        "tvd cavity 1024^2 f32 B=3 per-row per-sweep", per_sweep, plain, torch.float32,
+        C * 3 * (1 + K + 3) * f32, timed=False, outputs=("x",),
+    )
+    check_bitwise("tvd cavity 1024^2 f32 B=3 per-row", fused_jacobi_sweeps(*args), per_sweep())
+    del A, b3, x3, state, mesh, args
     mesh, table = couette_mesh(dev)
     settings = cd2_couette_settings()
     state, _ = solve_steady(
@@ -2074,6 +2105,16 @@ def phase_per_row_kernels(dev, spmv_pr, sweeps_pr):
         nops=2 * 3 * C * (1 + K),
         library_call=per_row_csr_call(A.diag, A.off, A.offsets, x3),
     )
+    args = (A.diag, A.off, A.offsets, b3, x3, 6, 0.8)
+    log(f"  fused_jacobi_sweeps cd2 couette 128x64 f64: "
+        f"{sweep_plan(A.offsets, C, 6, torch.float64, per_row=True).label()}")
+    sweeps_pr.compare(
+        "cd2 couette 128x64 f64 B=3 per-row 6 sweeps", lambda: fused_jacobi_sweeps(*args),
+        lambda: sweeps_plain(*args), torch.float64, C * 3 * (1 + K + 3) * 8, timed=False,
+        outputs=("x",),
+    )
+    check_bitwise("cd2 couette 128x64 f64 B=3 per-row", fused_jacobi_sweeps(*args),
+                  _launch_sweeps(*args, SweepPlan(per_row=True)))
 
 
 def rans_channel(dev, nx, ny, dtype):
@@ -2656,10 +2697,13 @@ def main():
         Kernel("fused_jacobi_sweeps[per-row]", fused_jacobi_sweeps,
                "orc_tpu_torch/csrc/jacobi_sweeps.cu", "orc_tpu/ops/pallas_smooth.py:98",
                counter="per_row_launches"),
+        Kernel("fused_jacobi_sweeps[march]", fused_jacobi_sweeps,
+               "orc_tpu_torch/csrc/jacobi_sweeps.cu", "orc_tpu/ops/pallas_smooth.py:98",
+               counter="march_launches"),
     )
     (spmv, sweeps, mom, pc, fc_mom, fc_pc, mom_t, fc_mom_t, sspmv, snbr, sexact,
-     spmv_pr, sweeps_pr) = kernels
-    phase_kernels(dev, (spmv, sweeps, mom, pc), mom_t)
+     spmv_pr, sweeps_pr, march) = kernels
+    phase_kernels(dev, (spmv, sweeps, mom, pc), mom_t, march)
     phase_per_row_kernels(dev, spmv_pr, sweeps_pr)
     phase_parity_branches(dev, mom, pc, mom_t)
     phase_fc_kernels(dev, fc_mom, fc_pc, fc_mom_t)
@@ -2674,9 +2718,9 @@ def main():
     # before it and read just after it.
     parity, fc = (spmv, sweeps, mom, pc), (spmv, sweeps, fc_mom, fc_pc)
     per_row = (spmv_pr, sweeps_pr)
-    # Instances only some paths launch: the extra ones and the
-    # per-row branches.
-    extra = (mom_t, fc_mom_t) + per_row
+    # Instances only some paths launch: the transient ones, the per-row
+    # branches and the 3-D march.
+    extra = (mom_t, fc_mom_t) + per_row + (march,)
     assembly = (mom, pc, fc_mom, fc_pc, mom_t, fc_mom_t)
     structured = (spmv, sweeps, mom, pc, fc_mom, fc_pc) + extra
     irregular = (sspmv, snbr, sexact)
@@ -2706,8 +2750,8 @@ def main():
          (fc_mom, fc_pc, fc_mom_t) + irregular, (mom, pc, mom_t)),
         ("transient fc cavity", lambda: phase_transient_cavity(dev, fc=True),
          fc + (fc_mom_t,), (mom, pc, mom_t) + irregular, (fc_mom, fc_pc, fc_mom_t)),
-        ("3-D cavity multigrid", lambda: phase_cavity_3d(dev), parity,
-         (fc_mom, fc_pc) + extra + irregular, ()),
+        ("3-D cavity multigrid", lambda: phase_cavity_3d(dev), parity + (march,),
+         (fc_mom, fc_pc, mom_t, fc_mom_t) + per_row + irregular, ()),
         ("taylor-green", lambda: phase_taylor_green(dev), (spmv, sweeps),
          (mom, pc, fc_mom, fc_pc) + extra + irregular, ()),
         ("rans channel", lambda: phase_rans_channel(dev), (spmv, sweeps),

@@ -27,6 +27,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import importlib.util
 import json
 import re
 import subprocess
@@ -44,14 +45,16 @@ SOURCES = ("shift_spmv.cu", "jacobi_sweeps.cu", "slice_spmv.cu",
 #: The kernels whose ptxas registers and spills the log lists
 #: ("momentum_kernel" names fc_momentum_kernel too).
 REPORTED = ("slice_spmv_kernel", "slice_spmv_exact_kernel", "momentum_kernel",
-            "pc_kernel", "pc_gg_kernel", "jacobi_tile_kernel", "jacobi_sweep_kernel")
+            "pc_kernel", "pc_gg_kernel", "jacobi_tile_kernel", "jacobi_sweep_kernel",
+            "jacobi_march_kernel")
 #: The entry points that take the box's (nx, ny, nz), each with the
 #: position of nx among its arguments and the count of the arguments
 #: that came with it (the Jacobi sweeps' also take the depth and the
 #: tile): a base version whose entry point takes none (the versions
 #: before the kernel's box tiles) is called without them.
 BOXED = {"orc_momentum_assembly": (11, 3), "orc_pc_assembly": (8, 3),
-         "orc_fc_momentum_assembly": (9, 3), "orc_jacobi_sweeps": (14, 7)}
+         "orc_fc_momentum_assembly": (9, 3), "orc_jacobi_sweeps": (14, 7),
+         "orc_jacobi_sweeps_rows": (16, 7)}
 
 
 def build(csrc: Path, out: Path):
@@ -81,10 +84,13 @@ class Version:
             name for name in BOXED
             if "long long nx" in re.search(rf"{name}\((.*?)\)", text, re.S).group(1)
         }
+        # Older versions have no z-march.
+        self.march = hasattr(self.lib, "orc_jacobi_march")
         for name in ("orc_shift_spmv", "orc_slice_nbr", "orc_slice_spmv",
                      "orc_slice_spmv_exact", "orc_jacobi_sweeps",
-                     "orc_momentum_assembly", "orc_pc_assembly",
-                     "orc_fc_momentum_assembly", "orc_fc_pc_assembly"):
+                     "orc_jacobi_sweeps_rows", "orc_momentum_assembly",
+                     "orc_pc_assembly", "orc_fc_momentum_assembly",
+                     "orc_fc_pc_assembly") + ("orc_jacobi_march",) * self.march:
             fn = getattr(self.lib, name)
             fn.argtypes = self.unboxed(name, _cuda.SIGNATURES[name])
             fn.restype = ctypes.c_int
@@ -390,45 +396,100 @@ def slice_shapes(dev, libs, reps, results):
     del A, P64, P32, hi, lo
 
 
+def per_row_planes(C, offsets, B, dtype, dev):
+    """A seeded system per batch row in the solver's per-component
+    layout: diag [B,C] and K [B,C] columns over [B,K,C] storage."""
+    rows = [cs.structured_system(C, offsets, 1, dtype, dev, seed=r) for r in range(B)]
+    diag = torch.stack([d for d, _o, _x in rows])
+    off = torch.stack([o.T for _d, o, _x in rows]).contiguous()
+    return diag, tuple(off[:, k, :] for k in range(len(offsets)))
+
+
+def march_variants(fs, dims, dtype):
+    """Marches beside the picked one: depths 1-3 in march_shape's
+    windows, and 32 x 32 windows over 16-plane chunks at depths 2 and 3
+    (two waves of CTAs)."""
+    return tuple(
+        fs.SweepPlan(S, dims, fs.march_shape(dims, S, dtype), march=True)
+        for S in range(1, fs.MAX_DEPTH_MARCH + 1)
+    ) + tuple(
+        fs.SweepPlan(S, dims, (32 - 2 * S, 32 - 2 * S, 16), march=True) for S in (2, 3)
+    )
+
+
+def _base_plan(base, plan, fs):
+    """The plan the base version runs beside `plan`: the same where it
+    has that instance, else its launch per sweep (a base without the
+    tiles' box arguments, without the per-row tiles or without the
+    march)."""
+    entry = "orc_jacobi_sweeps_rows" if plan.per_row else "orc_jacobi_sweeps"
+    if (plan.march and not base.march) or (plan.depth and entry not in base.boxed):
+        return fs.SweepPlan(per_row=plan.per_row)
+    return plan
+
+
 def sweeps_shapes(dev, libs, reps, results):
     """Row 2, six sweeps, at chip_smoke's shapes: the 1024^2 f32 cavity's
-    system at B = 3 and 1, the 128^3 f32 K = 6 system at B = 3 and the
-    128x64 f64 couette's at B = 3, each in the instance sweep_plan picks
-    and in the variants beside it (S sweeps a tiled launch), against the
-    base's launch per sweep; bytes: diag, K columns, b and x0 read once,
-    x written once."""
+    system at B = 3 and 1, the 128^3 f32 K = 6 system at B = 3, the
+    128x64 f64 couette's at B = 3, and one matrix per batch row (B = 3) on
+    the 1024^2 f32 and the f64 couette's shapes, each in the instance
+    sweep_plan picks and in the variants beside it (S sweeps a tiled or
+    marching launch, the march's windows, the launch per sweep), against
+    the base's instance (its
+    launch per sweep where it lacks the variant's); bytes: diag, K
+    columns (per batch row when one matrix each), b and x0 read once, x
+    written once."""
     from orc_tpu_torch.ops import fused_smooth as fs
 
+    spec = importlib.util.spec_from_file_location(
+        "torch_kernel_refs", ROOT / "tests" / "torch_kernel_refs.py")
+    refs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(refs)
+    jacobi_fma_chain = refs.jacobi_fma_chain
     f32, f64 = torch.float32, torch.float64
+    cube = (128, 128, 128)
     cases = (
-        ("1024^2 f32 B=3", (1024, 1024, 1), 3, f32, (None, 2, 3)),
-        ("1024^2 f32 B=1", (1024, 1024, 1), 1, f32, (None,)),
-        ("128^3 f32 K=6 B=3", (128, 128, 128), 3, f32, (None, 1, 2)),
-        ("couette 128x64 f64 B=3", (128, 64, 1), 3, f64, (None,)),
+        ("1024^2 f32 B=3", (1024, 1024, 1), 3, f32, False, (None, 2, 3)),
+        ("1024^2 f32 B=1", (1024, 1024, 1), 1, f32, False, (None,)),
+        ("128^3 f32 K=6 B=3", cube, 3, f32, False,
+         (None, 0, 1, 2) + march_variants(fs, cube, f32)),
+        ("couette 128x64 f64 B=3", (128, 64, 1), 3, f64, False, (None,)),
+        ("per-row 1024^2 f32 B=3", (1024, 1024, 1), 3, f32, True, (None, 0, 2, 3)),
+        ("per-row couette 128x64 f64 B=3", (128, 64, 1), 3, f64, True, (None, 0)),
     )
-    for label, (nx, ny, nz), B, dt, depths in cases:
+    for label, (nx, ny, nz), B, dt, per_row, variants in cases:
+        if MATCH not in label:
+            continue
         C = nx * ny * nz
         offsets = tuple(d for d in (-nx * ny, -nx, -1, 1, nx, nx * ny) if abs(d) < C)
-        diag, off, x0 = cs.structured_system(C, offsets, B, dt, dev)
+        if per_row:
+            diag, cols = per_row_planes(C, offsets, B, dt, dev)
+            x0 = cs.structured_system(C, offsets, B, dt, dev, seed=7)[2]
+            nbytes = B * C * (1 + len(cols) + 3) * dt.itemsize
+        else:
+            diag, off, x0 = cs.structured_system(C, offsets, B, dt, dev)
+            cols = tuple(off.T.contiguous())
+            nbytes = C * (1 + len(cols) + 3 * B) * dt.itemsize
         b = cs.structured_system(C, offsets, B, dt, dev, seed=1)[2]
-        cols = tuple(off.T.contiguous())
-        for depth in depths:
-            plan = fs.sweep_plan(offsets, C, 6, dt, depth=depth)
-            # A base without the tiled instance (its entry point takes no
-            # box) runs its launch per sweep.
-            base_plan = plan if "orc_jacobi_sweeps" in libs[0].boxed else fs.SweepPlan()
+        for v in variants:
+            plan = v if isinstance(v, fs.SweepPlan) else fs.sweep_plan(
+                offsets, C, 6, dt, depth=v, per_row=per_row)
             base = routed(libs[0], fs._launch_sweeps, diag, cols, offsets, b, x0, 6, 0.8,
-                          base_plan)
+                          _base_plan(libs[0], plan, fs))
             new = routed(libs[1], fs._launch_sweeps, diag, cols, offsets, b, x0, 6, 0.8,
                          plan)
-            name = f"sweeps {label} {plan.label()}{' (picked)' if depth is None else ''}"
+            name = f"sweeps {label} {plan.label()}{' (picked)' if v is None else ''}"
             same = _check(name, base, new,
                           lambda: fs.sweeps_plain(diag, cols, offsets, b, x0, 6, 0.8),
                           dt, ("x",))
-            ab(name, base, new, None, C * (1 + len(cols) + 3 * B) * dt.itemsize, reps,
-               results)
+            if dt == f32:  # values off the rounding the kernels spell out
+                chain = jacobi_fma_chain(diag, cols, offsets, b, x0, 6, 0.8)
+                off = [int((fn() != chain).sum()) for fn in (base, new)]
+                cs.log(f"  {name}: values off the f64-emulated FMA chain: base {off[0]}, "
+                       f"new {off[1]} of {x0.numel()}")
+            ab(name, base, new, None, nbytes, reps, results)
             results[-1].update(bitwise=same, launches=plan.launches(6, B))
-        del diag, off, x0, b, cols
+        del diag, x0, b, cols
 
 
 def exact_shapes(dev, libs, reps, results):
@@ -624,6 +685,9 @@ def fc_shapes(dev, libs, reps, results):
         del mesh, ck, vel, p, md, flux, grad_p, grad_v
 
 
+#: Only the sweeps shapes whose label holds this text (--match).
+MATCH = ""
+
 GROUPS = dict(sweeps=sweeps_shapes, exact=exact_shapes, momentum=momentum_shapes,
               fc=fc_shapes, slice=slice_shapes, spmv=spmv_shapes, gather=gather_shapes)
 
@@ -654,7 +718,12 @@ def main():
     ap.add_argument("--sass", action="store_true",
                     help="also print the SASS instruction count of each kernel "
                          "of REPORTED (cuobjdump)")
+    ap.add_argument("--match", default="",
+                    help="time only the sweeps shapes whose label holds this text "
+                         "(e.g. 128^3)")
     args = ap.parse_args()
+    global MATCH
+    MATCH = args.match
     only = args.only.split(",")
     if not set(only) <= set(GROUPS):
         raise SystemExit(f"--only takes groups of {GROUPS}, got {only}")

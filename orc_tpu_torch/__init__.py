@@ -50,6 +50,9 @@ from orc_tpu_torch.utils.settings import (
     PressureInterpolation,
     PressureVelocityCoupling,
     RelaxationMode,
+    TVD_LUD,
+    TVD_QUICK,
+    TVD_UMIST,
     SolutionMethod,
     VelocityInterpolation,
 )
@@ -70,6 +73,9 @@ __all__ = [
     "PressureVelocityCoupling",
     "RelaxationMode",
     "SolutionMethod",
+    "TVD_LUD",
+    "TVD_QUICK",
+    "TVD_UMIST",
     "TurbState",
     "VelocityInterpolation",
     "compile_mesh",

@@ -67,10 +67,16 @@ SIGNATURES = {
     ),
     # dtype, diag, diag batch stride, cols, col_strides, col batch
     # strides, offsets, K, b, x0, buf0, buf1, C, B, sweeps, relaxation,
-    # stream
+    # nx, ny, nz, depth, bx, by, bz, stream
     "orc_jacobi_sweeps_rows": (
         _i, _p, _ll, _pp, _pll, _pll, _pll, _i, _p, _p, _p, _p, _ll, _i, _i,
-        _d, _p,
+        _d, _ll, _ll, _ll, _i, _i, _i, _i, _p,
+    ),
+    # dtype, diag, cols, col_strides, offsets, K, b, x0, buf0, buf1, C,
+    # B, sweeps, relaxation, nx, ny, nz, depth, bx, by, bz, stream
+    "orc_jacobi_march": (
+        _i, _p, _pp, _pll, _pll, _i, _p, _p, _p, _p, _ll, _i, _i, _d, _ll,
+        _ll, _ll, _i, _i, _i, _i, _p,
     ),
     # dtype, scheme, limiter, rc, p_so, gg, col_offsets, col_geom[K*6],
     # col_kind, col_zone, K, nx, ny, nz, vel, p, grad_p, mom_diag,

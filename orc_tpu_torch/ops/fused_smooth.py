@@ -1,4 +1,5 @@
-"""Kernel 4: damped-Jacobi sweeps over a batch sharing one matrix.
+"""Kernel 4: damped-Jacobi sweeps over a batch sharing one matrix, or
+one matrix per batch row.
 
 Replaces orc_tpu/ops/pallas_smooth.py `_kernel` (via
 `fused_jacobi_sweeps` -> `_fused_batched`), the momentum smoother of
@@ -10,16 +11,18 @@ picked by `sweep_plan` from the offsets and the shape alone:
 - on a 2-D box whose every column steps one cell along an axis (or is a
   padding column of offset 0), `jacobi_tile_kernel` runs every sweep in
   one launch over box tiles with a halo as deep as the sweeps (temporal
-  blocking; up to MAX_DEPTH_2D sweeps a launch);
-- otherwise (periodic boxes, column counts other than 2, 4 and 6, and
-  3-D boxes, where a window two sweeps deep holds 3.2 times its tile's
-  cells and every tiled depth measured slower: PERF.md)
-  `jacobi_sweep_kernel` takes a launch per sweep;
-- one matrix per batch row (diag [B,C], the CD2 and in-matrix TVD
-  momentum systems) takes the per-row instance of
-  `jacobi_sweep_kernel`, a launch per sweep, on every box.
+  blocking; up to MAX_DEPTH_2D sweeps a launch), for a shared matrix
+  (three batch rows a CTA) and for one matrix per batch row (a CTA per
+  tile and batch row: the CD2 and in-matrix TVD momentum systems);
+- on a 3-D box of steps with a shared matrix, `jacobi_march_kernel`
+  marches along z, up to MARCH_DEPTH sweeps a launch (full 3-D windows
+  hold 3.2 times their tile's cells, and every tiled depth measured
+  slower than a launch per sweep: PERF.md);
+- otherwise (periodic boxes, column counts other than 2, 4 and 6, 3-D
+  boxes with one matrix per batch row) `jacobi_sweep_kernel` takes a
+  launch per sweep.
 
-The shared instances give the same bits.
+Every instance gives the same bits.
 """
 
 from __future__ import annotations
@@ -41,35 +44,53 @@ TILE_K = (2, 4, 6)
 TILE_ROWS = 1 << 30
 #: Sweeps one tiled launch fuses at most on a 2-D (or 1-D) box.
 MAX_DEPTH_2D = 8
+#: Cells of a marching CTA's xy window: 512 threads x 2 slots
+#: (csrc/jacobi_sweeps.cu `kMarchThreads`, `kMarchQ`), and its deepest
+#: march (`kMaxMarchDepth`).
+MARCH_WINDOW = 1024
+MAX_DEPTH_MARCH = 3
+#: Sweeps a march takes at most on a 3-D box of steps: three ran
+#: faster than one or two (kernel_ab.py, PERF.md).
+MARCH_DEPTH = 3
+#: Streaming multiprocessors of an H100 SXM, each running one marching
+#: CTA at a time (512 threads of up to 128 registers), and the shared
+#: memory a CTA may take (227 KB).
+SMS = 132
+SMEM_PER_CTA = 232448
 
 
 class SweepPlan(NamedTuple):
     """How `fused_jacobi_sweeps` runs on the card: `depth` sweeps a
-    tiled launch over `tile` cells of the `dims` box, or a launch per
-    sweep when `depth` is 0 (with one matrix per batch row when
-    `per_row`)."""
+    launch over `tile` cells of the `dims` box (tiled, or marching along
+    z when `march`), or a launch per sweep when `depth` is 0; `per_row`:
+    one matrix per batch row."""
 
     depth: int = 0
     dims: tuple = (0, 0, 0)
     tile: tuple = (0, 0, 0)
     per_row: bool = False
+    march: bool = False
 
     def passes(self, sweeps: int) -> int:
         """Launches over the whole batch: ping-pong passes."""
         return sweeps if self.depth == 0 else -(-sweeps // self.depth)
 
     def launches(self, sweeps: int, batch: int) -> int:
-        """Kernel launches of one call (the tiles take three batch rows
-        a launch)."""
+        """Kernel launches of one call (a shared matrix takes three batch
+        rows a launch, the per-row tiles every row in one)."""
         if self.depth == 0:
             return sweeps
-        return self.passes(sweeps) * -(-batch // 3)
+        return self.passes(sweeps) * (1 if self.per_row else -(-batch // 3))
 
     def label(self) -> str:
         if self.depth == 0:
             return "per-sweep per-row" if self.per_row else "per-sweep"
+        kind = (
+            f"march S={self.depth}" if self.march
+            else f"tiled S={self.depth}{' per-row' if self.per_row else ''}"
+        )
         return (
-            f"tiled S={self.depth} box {'x'.join(map(str, self.dims))} "
+            f"{kind} box {'x'.join(map(str, self.dims))} "
             f"tile {'x'.join(map(str, self.tile))}"
         )
 
@@ -125,30 +146,88 @@ def tile_shape(dims, depth, capacity):
     return None if best is None else best[1]
 
 
+def march_smem(depth, window, wx, itemsize, nb=3):
+    """Shared-memory bytes of a marching CTA (csrc/jacobi_sweeps.cu
+    `march_smem`): a ring of three planes of nb components of x for each
+    of `depth` levels, each plane padded by wx slots a side."""
+    return 3 * depth * nb * (window + 2 * wx) * itemsize
+
+
+@functools.lru_cache(maxsize=64)
+def march_shape(dims, depth, dtype):
+    """The xy tile (bx, by) and z-chunk bz of a march `depth` sweeps
+    deep: windows of at most MARCH_WINDOW cells whose shared memory (three
+    batch rows) fits a CTA, and the least time as waves of CTAs over
+    the SMS SMs times a CTA's work (window cells times planes walked,
+    the chunk and 2 depth); ties go to the fewest window cells in all,
+    then the wider tile. None when no window fits."""
+    nx, ny, nz = dims
+    h = depth
+    best = None
+    bzs = sorted({-(-nz // t) for t in range(1, nz + 1)})
+    for bx in range(1, nx + 1):
+        wx = bx + 2 * h
+        by = min(ny, MARCH_WINDOW // wx - 2 * h)
+        while by >= 1 and march_smem(h, wx * (by + 2 * h), wx, dtype.itemsize) > SMEM_PER_CTA:
+            by -= 1
+        if by < 1:
+            break
+        W = wx * (by + 2 * h)
+        xy = -(-nx // bx) * -(-ny // by)
+        for bz in bzs:
+            ctas = xy * -(-nz // bz)
+            work = W * (bz + 2 * h)
+            key = (-(-ctas // SMS) * work, ctas * work, -bx)
+            if best is None or key < best[0]:
+                best = (key, (bx, by, bz))
+    return None if best is None else best[1]
+
+
 def sweep_plan(
-    offsets, n_cells: int, sweeps: int, dtype, depth=None, per_row=False
+    offsets, n_cells: int, sweeps: int, dtype, depth=None, per_row=False,
+    march=False,
 ) -> SweepPlan:
-    """The kernel instance for (offsets, n_cells, sweeps, dtype): tiled
-    on a 2-D (or 1-D) box of steps in 2, 4 or 6 columns (TILE_K), all
-    sweeps in one launch up to MAX_DEPTH_2D, else a launch per sweep.
-    `depth` forces the sweeps a tiled launch fuses (0: the per-sweep
-    kernel), 3-D boxes included; a box that is not one of steps then
-    raises. `per_row` (one matrix per batch row) takes the per-sweep
-    kernel's per-row instance, and no tiled depth."""
-    if per_row:
-        if depth:
-            raise ValueError("the tiled sweeps take one shared matrix only")
-        return SweepPlan(per_row=True)
+    """The kernel instance for (offsets, n_cells, sweeps, dtype): on a
+    2-D (or 1-D) box of steps in 2, 4 or 6 columns (TILE_K) the tiles,
+    all sweeps in one launch up to MAX_DEPTH_2D, with a shared matrix or
+    one per batch row (`per_row`); on a 3-D box of steps with a shared
+    matrix the march, up to MARCH_DEPTH sweeps a launch (evenly split
+    passes); else (periodic boxes, other column counts, per-row 3-D
+    systems) a launch per sweep. `depth` forces the sweeps a tiled
+    launch fuses (0: the per-sweep kernel), 3-D boxes included; `march`
+    forces a march, at `depth` sweeps a launch (MARCH_DEPTH by default).
+    A box that is not one of steps then raises."""
     offsets = tuple(int(d) for d in offsets)
     tileable = len(offsets) in TILE_K and n_cells < TILE_ROWS
     dims = _box_steps(offsets, n_cells) if tileable else None
-    if depth is None:
-        if dims is None or dims[2] > 1 or sweeps < 1:
-            return SweepPlan()
-        passes = -(-sweeps // MAX_DEPTH_2D)
-        depth = -(-sweeps // passes)  # even passes of at most MAX_DEPTH_2D
+    if not march and depth is None:
+        if dims is None or sweeps < 1:
+            return SweepPlan(per_row=per_row)
+        most = MAX_DEPTH_2D
+        if dims[2] > 1:
+            if per_row:
+                return SweepPlan(per_row=True)
+            march, most = True, MARCH_DEPTH
+        passes = -(-sweeps // most)
+        depth = -(-sweeps // passes)  # even passes of at most `most`
+    if march:
+        depth = depth or MARCH_DEPTH
+        if per_row or not 1 <= depth <= MAX_DEPTH_MARCH:
+            raise ValueError(
+                f"a march takes a shared matrix and 1 to {MAX_DEPTH_MARCH} sweeps a "
+                f"launch; got depth {depth}, per_row {per_row}"
+            )
+        if dims is None or dims[2] == 1 or len(offsets) != 6:
+            raise ValueError(
+                f"the offsets {offsets} of {n_cells} rows are not the six steps "
+                f"of a 3-D box: the march cannot run them"
+            )
+        tile = march_shape(dims, depth, dtype)
+        if tile is None:
+            raise ValueError(f"no march window of the {dims} box fits a CTA")
+        return SweepPlan(depth, dims, tile, march=True)
     if depth == 0:
-        return SweepPlan()
+        return SweepPlan(per_row=per_row)
     if dims is None:
         raise ValueError(
             f"the offsets {offsets} of {n_cells} rows are not the steps of a box "
@@ -160,7 +239,7 @@ def sweep_plan(
             f"no tile of the {dims} box with a halo {depth} cells deep fits "
             f"{TILE_WINDOW[dtype]} window cells"
         )
-    return SweepPlan(depth, dims, tile)
+    return SweepPlan(depth, dims, tile, per_row)
 
 
 def sweeps_plain(diag, off, offsets, b, x0, sweeps: int, relaxation):
@@ -239,6 +318,8 @@ def fused_jacobi_sweeps(diag, off, offsets, b, x0, sweeps: int, relaxation):
     fused_jacobi_sweeps.launches += launches
     if per_row:
         fused_jacobi_sweeps.per_row_launches += launches
+    if plan.march:
+        fused_jacobi_sweeps.march_launches += launches
     label = plan.label()
     fused_jacobi_sweeps.instances[label] = (
         fused_jacobi_sweeps.instances.get(label, 0) + 1
@@ -261,7 +342,14 @@ def _launch_sweeps(diag, cols, offsets, b, x0, sweeps, relaxation, plan):
             diag.data_ptr(), diag.stride(0), ptrs, strides,
             _cuda.batch_strides(cols), offs, len(cols), b.data_ptr(),
             x0.data_ptr(), buf0.data_ptr(), buf1.data_ptr(), x0.shape[-1], B,
-            sweeps, float(relaxation),
+            sweeps, float(relaxation), *plan.dims, plan.depth, *plan.tile,
+        )
+    elif plan.march:
+        _cuda.call(
+            "orc_jacobi_march", x0.device, _cuda.dtype_code(x0),
+            diag.data_ptr(), ptrs, strides, offs, len(cols), b.data_ptr(),
+            x0.data_ptr(), buf0.data_ptr(), buf1.data_ptr(), x0.shape[-1], B,
+            sweeps, float(relaxation), *plan.dims, plan.depth, *plan.tile,
         )
     else:
         _cuda.call(
@@ -275,7 +363,9 @@ def _launch_sweeps(diag, cols, offsets, b, x0, sweeps, relaxation, plan):
 
 #: Kernel launches since the last reset (set to 0 to reset).
 fused_jacobi_sweeps.launches = 0
-#: Launches of the per-row instance, counted in `launches` too.
+#: Launches of the per-row instances, counted in `launches` too.
 fused_jacobi_sweeps.per_row_launches = 0
+#: Launches of the z-march (3-D boxes), counted in `launches` too.
+fused_jacobi_sweeps.march_launches = 0
 #: Calls per instance (SweepPlan.label) since the last reset (set to {}).
 fused_jacobi_sweeps.instances = {}

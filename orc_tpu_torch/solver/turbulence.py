@@ -224,7 +224,7 @@ def turbulence_step(
 
 
 def rans_outer_step(
-    mesh, ck, bc0, zc, zs, zv, settings, rho, mu, k_in, eps_in, has_wall,
+    mesh, ckg, bc0, zc, zs, zv, settings, rho, mu, k_in, eps_in, has_wall,
     y_p, is_wall_face, carry, mg_hierarchy=None,
 ):
     """One RANS outer iteration on carry = (FlowState, TurbState): a
@@ -232,14 +232,14 @@ def rans_outer_step(
     viscosity on wall faces), then one k/eps update. Returns (carry,
     StepMetrics)."""
     flow, tb = carry
-    mu_t_f = 0.5 * (tb.mu_t[:, None] + nbr_values(mesh, tb.mu_t, ck.interior))
+    mu_t_f = 0.5 * (tb.mu_t[:, None] + nbr_values(mesh, tb.mu_t, ckg.interior))
     mu_w = wall_viscosity(tb.k, y_p, has_wall, rho, mu)
     gamma = torch.where(
-        ck.interior,
+        ckg.interior,
         mu + mu_t_f,
         torch.where(is_wall_face, mu_w[:, None], mu + tb.mu_t[:, None]),
     )
-    ck_diff = ck_diffusion(mesh, ck, bc0, gamma)
+    ck_diff = ck_diffusion(mesh, ckg, bc0, gamma)
     # RANS runs have wall zones, so the parity p' system is anchored; the
     # FC full-p system anchors only through pressure zones (a body-force
     # channel has none), so it is always solved deflated.
@@ -247,16 +247,16 @@ def rans_outer_step(
         from orc_tpu_torch.solver.fc import ck_simple_step_fc
 
         flow2, metrics = ck_simple_step_fc(
-            mesh, ck, zc, zs, zv, settings, rho, mu, ck_diff, flow,
+            mesh, ckg, zc, zs, zv, settings, rho, mu, ck_diff, flow,
             kernel_asm=None, maybe_singular=True, mg_hierarchy=mg_hierarchy,
         )
     else:
         flow2, metrics = ck_simple_step(
-            mesh, ck, zc, zs, zv, settings, rho, mu, ck_diff, flow,
+            mesh, ckg, zc, zs, zv, settings, rho, mu, ck_diff, flow,
             kernel_asm=None, maybe_singular=False, mg_hierarchy=mg_hierarchy,
         )
     tb2, _ = turbulence_step(
-        mesh, ck, bc0, settings, rho, mu, flow2, tb, k_in, eps_in,
+        mesh, ckg, bc0, settings, rho, mu, flow2, tb, k_in, eps_in,
         mg_hierarchy=mg_hierarchy,
     )
     return (flow2, tb2), metrics

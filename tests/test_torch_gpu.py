@@ -198,20 +198,29 @@ def test_per_row_shift_spmv_kernel_matches_plain(dev, dtype, case):
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 def test_per_row_sweeps_kernel_matches_plain(dev, dtype, case):
     """Guards orc_tpu/ops/pallas_smooth.py `_kernel` (via
-    fused_jacobi_sweeps' per-row instance): six sweeps, a launch each,
-    against the plain sweeps; equal rows give the shared per-sweep
-    instance's bits."""
+    fused_jacobi_sweeps' per-row instances): six sweeps, in one launch of
+    the per-row tiles on a 2-D box and a launch each on 3-D and periodic
+    boxes, against the plain sweeps and bitwise against the per-sweep
+    per-row kernel; equal rows give the shared per-sweep instance's
+    bits."""
     from orc_tpu_torch.ops import fused_smooth as fs
 
     C, offsets, B, diag, cols, b, x0 = _per_row_case(case, dtype, dev, seed=4)
+    shape, periodic, _B = PER_ROW_CASES[case]
+    launches = 6 if shape[2] > 1 or periodic else 1
     before = (fused_jacobi_sweeps.launches, fused_jacobi_sweeps.per_row_launches)
     y = fused_jacobi_sweeps(diag, cols, offsets, b, x0, 6, 0.8)
     torch.cuda.synchronize()
     assert (fused_jacobi_sweeps.launches, fused_jacobi_sweeps.per_row_launches) == (
-        before[0] + 6, before[1] + 6
+        before[0] + launches, before[1] + launches
     )
     _close(y, sweeps_plain(diag, cols, offsets, b, x0, 6, 0.8), TOL[dtype])
-    plan = fs.sweep_plan(offsets, C, 6, DTYPES[dtype], per_row=True)
+    per_sweep = fs._launch_sweeps(
+        diag, cols, offsets, b, x0, 6, 0.8, fs.SweepPlan(per_row=True)
+    )
+    torch.cuda.synchronize()
+    assert torch.equal(y, per_sweep)
+    plan = fs.sweep_plan(offsets, C, 6, DTYPES[dtype], depth=0, per_row=True)
     same = fs._launch_sweeps(
         diag[:1].expand(B, -1), tuple(c[:1].expand(B, -1) for c in cols),
         offsets, b, x0, 6, 0.8, plan,
@@ -250,15 +259,18 @@ def _box_offsets(shape, periodic=()):
 #: name -> (box, periodic axes, batch, sweeps, launches of the call):
 #: the instances of the Jacobi sweeps and their edges. A 2-D box takes
 #: every sweep in one tiled launch (three batch rows a launch); an axis
-#: of extent 1 drops out of the tiles; periodic and 3-D boxes take a
-#: launch per sweep (fused_smooth.sweep_plan).
+#: of extent 1 drops out of the tiles; a 3-D box marches along z, up to
+#: three sweeps a launch in even passes (three batch rows a launch);
+#: periodic boxes take a launch per sweep (fused_smooth.sweep_plan).
 SWEEP_EDGES = {
     "2d_sweeps1": ((64, 50, 1), (), 3, 1, 1),
     "2d_sweeps7": ((64, 50, 1), (), 3, 7, 1),
     "2d_sweeps9_b4": ((37, 23, 1), (), 4, 9, 4),
     "extent1_axis": ((40, 1, 30), (), 3, 6, 1),
     "periodic": ((24, 20, 1), ("x", "y"), 3, 6, 6),
-    "cube128": ((128, 128, 128), (), 3, 6, 6),
+    "cube128": ((128, 128, 128), (), 3, 6, 2),
+    "3d_ragged_sweeps5_b4": ((37, 23, 19), (), 4, 5, 4),
+    "3d_sweeps1_b1": ((19, 11, 7), (), 0, 1, 1),
 }
 
 
@@ -266,8 +278,8 @@ SWEEP_EDGES = {
 @pytest.mark.parametrize("dtype", sorted(DTYPES))
 def test_jacobi_sweeps_kernel_edges(dev, dtype, case):
     """Guards orc_tpu/ops/pallas_smooth.py `_kernel` at the edges of the
-    tiled instance and on the per-sweep one: against the plain sweeps,
-    with the launches each instance makes."""
+    tiled instance, the march and the per-sweep one: against the plain
+    sweeps, with the launches each instance makes."""
     shape, periodic, batch, sweeps, launches = SWEEP_EDGES[case]
     offsets = _box_offsets(shape, periodic)
     C = shape[0] * shape[1] * shape[2]
@@ -301,6 +313,72 @@ def test_tiled_sweeps_equal_per_sweep_bitwise(dev, dtype, shape, depth):
     plan = fs.sweep_plan(offsets, C, 6, DTYPES[dtype], depth=depth)
     y = fs._launch_sweeps(diag, cols, offsets, b, x0, 6, 0.8, plan)
     per_sweep = fs._launch_sweeps(diag, cols, offsets, b, x0, 6, 0.8, fs.SweepPlan())
+    torch.cuda.synchronize()
+    assert torch.equal(y, per_sweep)
+
+
+@pytest.mark.parametrize("depth", [1, 2, 3])
+@pytest.mark.parametrize("shape", [(19, 11, 7), (37, 23, 19)],
+                         ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_march_equals_per_sweep_bitwise(dev, dtype, shape, depth):
+    """Guards orc_tpu/ops/pallas_smooth.py `_kernel` on 3-D boxes: the
+    z-march at `depth` sweeps a launch, in the windows march_shape picks
+    and in small ones (ragged xy tiles, several z-chunks), bit for bit
+    the per-sweep kernel's result (the same contraction, spelt out)."""
+    from orc_tpu_torch.ops import fused_smooth as fs
+
+    offsets = _box_offsets(shape)
+    C = shape[0] * shape[1] * shape[2]
+    diag, off, b, x0 = _system(C, offsets, 3, DTYPES[dtype], dev, 5)
+    cols = tuple(off.T.contiguous())
+    per_sweep = fs._launch_sweeps(diag, cols, offsets, b, x0, 6, 0.8, fs.SweepPlan())
+    picked = fs.sweep_plan(offsets, C, 6, DTYPES[dtype], depth=depth, march=True)
+    small = fs.SweepPlan(depth, shape, (7, 5, 3), march=True)
+    for plan in (picked, small):
+        y = fs._launch_sweeps(diag, cols, offsets, b, x0, 6, 0.8, plan)
+        torch.cuda.synchronize()
+        assert torch.equal(y, per_sweep), plan.label()
+
+
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_march_on_the_128_cube_equals_per_sweep_bitwise(dev, dtype):
+    """Guards orc_tpu/ops/pallas_smooth.py `_kernel` at cavity3d-128's
+    smoother shape (K = 6, B = 3, six sweeps): the instance sweep_plan
+    picks against the plain sweeps and bitwise against the per-sweep
+    kernel."""
+    from orc_tpu_torch.ops import fused_smooth as fs
+
+    shape = (128, 128, 128)
+    offsets = _box_offsets(shape)
+    C = 128**3
+    diag, off, b, x0 = _system(C, offsets, 3, DTYPES[dtype], dev, 6)
+    cols = tuple(off.T.contiguous())
+    plan = fs.sweep_plan(offsets, C, 6, DTYPES[dtype])
+    assert plan.march
+    y = fused_jacobi_sweeps(diag, cols, offsets, b, x0, 6, 0.8)
+    per_sweep = fs._launch_sweeps(diag, cols, offsets, b, x0, 6, 0.8, fs.SweepPlan())
+    torch.cuda.synchronize()
+    assert torch.equal(y, per_sweep)
+    _close(y, sweeps_plain(diag, cols, offsets, b, x0, 6, 0.8), TOL[dtype])
+
+
+@pytest.mark.parametrize("depth", [1, 2, 6])
+@pytest.mark.parametrize("case", ["2d_b3", "ragged_b3", "2d_b4"])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_per_row_tiled_sweeps_equal_per_sweep_bitwise(dev, dtype, case, depth):
+    """Guards orc_tpu/ops/pallas_smooth.py `_kernel` with one matrix per
+    batch row: the per-row tiles at `depth` sweeps a launch bit for bit
+    the per-sweep per-row kernel's result."""
+    from orc_tpu_torch.ops import fused_smooth as fs
+
+    C, offsets, B, diag, cols, b, x0 = _per_row_case(case, dtype, dev, seed=7)
+    plan = fs.sweep_plan(offsets, C, 6, DTYPES[dtype], depth=depth, per_row=True)
+    assert plan.per_row and plan.launches(6, B) == -(-6 // depth)
+    y = fs._launch_sweeps(diag, cols, offsets, b, x0, 6, 0.8, plan)
+    per_sweep = fs._launch_sweeps(
+        diag, cols, offsets, b, x0, 6, 0.8, fs.SweepPlan(per_row=True)
+    )
     torch.cuda.synchronize()
     assert torch.equal(y, per_sweep)
 

@@ -27,11 +27,18 @@ source does not spell out. What that checks:
   same plans and batches;
 - the tiled Jacobi sweeps (temporal blocking on box tiles) against the
   plain sweeps (1e-5 / 1e-12 of the largest value) and bitwise against
-  the per-sweep kernel, on 2-D and 3-D boxes with ragged tiles on every
-  side, a box smaller than one tile and boxes with an axis of extent 1,
-  fusing 1, 2 or 6 sweeps a launch, B = 1 and 3, with coefficients on
-  the faces that cross the box's rows (the flat row embedding); a
-  periodic box takes the per-sweep kernel;
+  the per-sweep kernel (every instance spells out one rounding), on 2-D
+  and 3-D boxes with ragged tiles on every side, a box smaller than one
+  tile and boxes with an axis of extent 1, fusing 1, 2 or 6 sweeps a
+  launch, B = 1 and 3, with coefficients on the faces that cross the
+  box's rows (the flat row embedding); a periodic box takes the
+  per-sweep kernel;
+- the z-march of 3-D boxes (jacobi_march_kernel) the same way, 1, 2 or
+  3 sweeps a launch over ragged xy tiles and several z-chunks, B = 1
+  and 3;
+- the per-row tiles of 2-D boxes (one matrix per batch row) the same
+  way at depths 1, 2 and 6, B = 1, 3 and 4, bitwise against the
+  per-sweep per-row kernel and, with identical rows, the shared tiles;
 - the per-row instances of the shift SpMV and the Jacobi sweeps (one
   matrix per batch row: the CD2 and in-matrix TVD momentum systems) on
   2-D, 3-D and periodic boxes with a ragged C, B = 1, 3 and 4, against
@@ -102,6 +109,9 @@ MOCK_CUDA_RUNTIME = r"""#pragma once
 #include <algorithm>
 #include <barrier>
 #include <cmath>
+#include <condition_variable>
+#include <functional>
+#include <mutex>
 #include <cstddef>
 #include <cstdint>
 #include <thread>
@@ -153,6 +163,52 @@ inline std::barrier<>* mock_barrier = nullptr;
 inline void __syncthreads() { mock_barrier->arrive_and_wait(); }
 alignas(16) inline unsigned char mock_smem[1 << 20];
 
+// Threads that run a block's threads, kept from launch to launch
+// (creating 512 threads a block dominated the rehearsal's time). Never
+// destroyed: the threads wait for work until the process exits.
+struct MockPool {
+  std::mutex m;
+  std::condition_variable cv, done_cv;
+  std::function<void(unsigned)> job;
+  unsigned gen = 0, want = 0, finished = 0;
+  std::vector<std::thread> threads;
+
+  void run(unsigned n, std::function<void(unsigned)> f) {
+    while (threads.size() < n) {
+      const unsigned id = static_cast<unsigned>(threads.size());
+      threads.emplace_back([this, id] {
+        unsigned seen = 0;
+        for (;;) {
+          std::function<void(unsigned)> g;
+          {
+            std::unique_lock<std::mutex> l(m);
+            cv.wait(l, [&] { return gen != seen && id < want; });
+            seen = gen;
+            g = job;
+          }
+          g(id);
+          std::lock_guard<std::mutex> l(m);
+          if (++finished == want) done_cv.notify_one();
+        }
+      });
+    }
+    {
+      std::lock_guard<std::mutex> l(m);
+      job = std::move(f);
+      want = n;
+      finished = 0;
+      ++gen;
+    }
+    cv.notify_all();
+    std::unique_lock<std::mutex> l(m);
+    done_cv.wait(l, [&] { return finished == want; });
+  }
+};
+inline MockPool& mock_pool() {
+  static MockPool* pool = new MockPool;
+  return *pool;
+}
+
 template <class K, class... A>
 void mock_launch(dim3 grid, dim3 block, size_t smem, K kernel, A... args) {
   if (smem > sizeof(mock_smem)) std::abort();
@@ -164,18 +220,13 @@ void mock_launch(dim3 grid, dim3 block, size_t smem, K kernel, A... args) {
       for (unsigned bx = 0; bx < grid.x; ++bx) {
         std::barrier<> bar(n);
         mock_barrier = &bar;
-        std::vector<std::thread> threads;
-        threads.reserve(n);
-        for (unsigned t = 0; t < n; ++t) {
-          threads.emplace_back([&, t] {
-            blockIdx = dim3(bx, by, bz);
-            threadIdx = dim3(t % block.x, (t / block.x) % block.y,
-                             t / (block.x * block.y));
-            kernel(args...);
-            bar.arrive_and_drop();
-          });
-        }
-        for (auto& th : threads) th.join();
+        mock_pool().run(n, [&](unsigned t) {
+          blockIdx = dim3(bx, by, bz);
+          threadIdx = dim3(t % block.x, (t / block.x) % block.y,
+                           t / (block.x * block.y));
+          kernel(args...);
+          bar.arrive_and_drop();
+        });
       }
 }
 """
@@ -248,7 +299,8 @@ def mock_lib(tmp_path_factory):
     lib = ctypes.CDLL(str(lib_path))
     for name in ("orc_slice_spmv", "orc_slice_spmv_exact", "orc_momentum_assembly",
                  "orc_pc_assembly", "orc_fc_momentum_assembly", "orc_jacobi_sweeps",
-                 "orc_jacobi_sweeps_rows", "orc_shift_spmv", "orc_shift_spmv_rows"):
+                 "orc_jacobi_sweeps_rows", "orc_jacobi_march", "orc_shift_spmv",
+                 "orc_shift_spmv_rows"):
         fn = getattr(lib, name)
         fn.argtypes = _cuda.SIGNATURES[name]
         fn.restype = ctypes.c_int
@@ -417,10 +469,9 @@ def _sweep_system(shape, B, dtype, periodic=()):
 def test_rehearsed_tiled_sweeps_match_plain(mock, dtype, box, depth, B):
     """Guards orc_tpu/ops/pallas_smooth.py `_kernel` (via
     fused_jacobi_sweeps' tiled launch on the mock): six sweeps at
-    `depth` sweeps a launch against the plain sweeps and the per-sweep
-    kernel, and in float32 bitwise against the rounding both kernels
-    take on the card (the mock compiles the per-sweep kernel without
-    contraction, so the two agree bitwise only on the card)."""
+    `depth` sweeps a launch against the plain sweeps, bitwise against
+    the per-sweep kernel (both spell out one rounding) and in float32
+    bitwise against that rounding, emulated."""
     shape = SWEEP_BOXES[box]
     offsets, diag, cols, b, x0 = _sweep_system(shape, B, dtype)
     C = diag.shape[0]
@@ -437,7 +488,7 @@ def test_rehearsed_tiled_sweeps_match_plain(mock, dtype, box, depth, B):
     scale = float(ref.abs().max())
     assert float((y - ref).abs().max()) <= TOL[dtype] * scale
     per_sweep = fs._launch_sweeps(diag, cols, offsets, b, x0, 6, 0.8, fs.SweepPlan())
-    assert float((y - per_sweep).abs().max()) <= TOL[dtype] * scale
+    assert torch.equal(y, per_sweep)
     if dtype == torch.float32:
         assert torch.equal(y, jacobi_fma_chain(diag, cols, offsets, b, x0, 6, 0.8))
 
@@ -455,7 +506,17 @@ def test_rehearsed_sweep_plans(mock):
     nine = fs.sweep_plan(cavity, 1024 * 1024, 9, f32)
     assert (nine.depth, nine.launches(9, 1), nine.launches(9, 4)) == (5, 2, 4)
     box3 = (-128 * 128, -128, -1, 1, 128, 128 * 128)
-    assert fs.sweep_plan(box3, 128**3, 6, f32) == fs.SweepPlan()
+    march = fs.sweep_plan(box3, 128**3, 6, f32)
+    assert (march.march, march.dims, march.per_row) == (True, (128, 128, 128), False)
+    assert march.launches(6, 3) == -(-6 // fs.MARCH_DEPTH) and march.label().startswith("march")
+    for S in range(1, fs.MAX_DEPTH_MARCH + 1):
+        forced = fs.sweep_plan(box3, 128**3, 6, f32, depth=S, march=True)
+        assert forced.launches(6, 3) == -(-6 // S) and forced.launches(6, 4) == 2 * -(-6 // S)
+    assert fs.sweep_plan(box3, 128**3, 6, f32, per_row=True) == fs.SweepPlan(per_row=True)
+    tvd = fs.sweep_plan(cavity, 1024 * 1024, 6, f32, per_row=True)
+    assert (tvd.depth, tvd.per_row, tvd.launches(6, 3)) == (6, True, 1)
+    assert tvd.label().startswith("tiled S=6 per-row")
+    assert fs.sweep_plan(cavity, 1024 * 1024, 9, f32, per_row=True).launches(9, 3) == 2
     assert fs.sweep_plan(cavity[:3], 1024 * 1024, 6, f32) == fs.SweepPlan()
     for dt, cap in fs.TILE_WINDOW.items():
         bx, by, bz = fs.sweep_plan(cavity, 1024 * 1024, 6, dt).tile
@@ -465,9 +526,46 @@ def test_rehearsed_sweep_plans(mock):
     assert plan == fs.SweepPlan() and plan.launches(6, 3) == 6
     with pytest.raises(ValueError):
         fs.sweep_plan(offsets, diag.shape[0], 6, torch.float64, depth=6)
+    for kw in (dict(march=True), dict(march=True, per_row=True)):
+        with pytest.raises(ValueError):
+            fs.sweep_plan(offsets, diag.shape[0], 6, torch.float64, **kw)
     y = fs._launch_sweeps(diag, cols, offsets, b, x0, 6, 0.8, plan)
     ref = fs.sweeps_plain(diag, cols, offsets, b, x0, 6, 0.8)
     assert float((y - ref).abs().max()) <= 1e-12 * float(ref.abs().max())
+
+
+#: name -> (nx, ny, nz, march tile (bx, by, bz)): 3-D boxes ragged in
+#: x, y and z, each with more than one z-chunk.
+MARCH_BOXES = {
+    "17x5x3": (17, 5, 3, (7, 4, 2)),
+    "13x7x5": (13, 7, 5, (5, 3, 2)),
+}
+
+
+@pytest.mark.parametrize("B", [1, 3])
+@pytest.mark.parametrize("depth", [1, 2, 3])
+@pytest.mark.parametrize("box", sorted(MARCH_BOXES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_rehearsed_march_matches_plain(mock, dtype, box, depth, B):
+    """Guards orc_tpu/ops/pallas_smooth.py `_kernel` (via
+    fused_jacobi_sweeps' march on 3-D boxes, on the mock): six sweeps in
+    marches `depth` sweeps deep over ragged xy tiles and z-chunks,
+    against the plain sweeps (1e-5
+    / 1e-12 of the largest value), bitwise against the per-sweep kernel
+    and in float32 bitwise against the rounding both spell out."""
+    nx, ny, nz, tile = MARCH_BOXES[box]
+    offsets, diag, cols, b, x0 = _sweep_system((nx, ny, nz), B, dtype)
+    ref = fs.sweeps_plain(diag, cols, offsets, b, x0, 6, 0.8)
+    scale = float(ref.abs().max())
+    per_sweep = fs._launch_sweeps(diag, cols, offsets, b, x0, 6, 0.8, fs.SweepPlan())
+    picked = fs.sweep_plan(offsets, diag.shape[0], 6, dtype, depth=depth, march=True)
+    assert picked.dims == (nx, ny, nz) and picked.launches(6, B) == -(-6 // depth)
+    plan = fs.SweepPlan(depth, (nx, ny, nz), tile, march=True)
+    y = fs._launch_sweeps(diag, cols, offsets, b, x0, 6, 0.8, plan)
+    assert float((y - ref).abs().max()) <= TOL[dtype] * scale
+    assert torch.equal(y, per_sweep)
+    if dtype == torch.float32:
+        assert torch.equal(y, jacobi_fma_chain(diag, cols, offsets, b, x0, 6, 0.8))
 
 
 # --- rows 1 and 2 with one matrix per batch row ---------------------------
@@ -482,14 +580,14 @@ PER_ROW_BOXES = {
 }
 
 
-def _per_row_system(box, B, dtype):
+def _per_row_system(box, B, dtype, boxes=PER_ROW_BOXES):
     """A seeded diagonally dominant system per batch row on the box's
     offsets (every column whose neighbour row lies in [0, C)): diag
     [B,C], K [B,C] columns (strided views of one [B,C,K] tensor, as
     `split_columns` gives them), b and x0 [B,C]."""
     from orc_tpu_torch.mesh.generate import structured_box_mesh
 
-    nx, ny, nz, periodic = PER_ROW_BOXES[box]
+    nx, ny, nz, periodic = boxes[box]
     mesh, _ = structured_box_mesh(nx, ny, nz, periodic=periodic, device="cpu")
     offsets = tuple(int(o) for o in mesh.neighbor_offsets)
     C, K = mesh.n_cells, len(offsets)
@@ -535,13 +633,16 @@ def test_rehearsed_per_row_shift_spmv_matches_plain(mock, dtype, box, B):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
 def test_rehearsed_per_row_sweeps_match_plain(mock, dtype, box, B):
     """Guards orc_tpu/ops/pallas_smooth.py `_kernel` (via
-    fused_jacobi_sweeps' per-row launch on the mock): six sweeps, one
-    matrix per batch row, against the plain sweeps (1e-5 / 1e-12 of the
-    largest value); with B identical rows it equals the shared per-sweep
+    fused_jacobi_sweeps' per-sweep per-row launch on the mock, which
+    3-D and periodic per-row systems take): six sweeps, one matrix per
+    batch row, against the plain sweeps (1e-5 / 1e-12 of the largest
+    value); with B identical rows it equals the shared per-sweep
     instance bitwise."""
     offsets, diag, cols, b, x0 = _per_row_system(box, B, dtype)
-    plan = fs.sweep_plan(offsets, diag.shape[-1], 6, dtype, per_row=True)
+    plan = fs.sweep_plan(offsets, diag.shape[-1], 6, dtype, depth=0, per_row=True)
     assert plan.per_row and plan.label() == "per-sweep per-row"
+    if PER_ROW_BOXES[box][2] > 1 or PER_ROW_BOXES[box][3]:
+        assert fs.sweep_plan(offsets, diag.shape[-1], 6, dtype, per_row=True) == plan
     assert plan.launches(6, B) == 6
     y = fs._launch_sweeps(diag, cols, offsets, b, x0, 6, 0.8, plan)
     ref = fs.sweeps_plain(diag, cols, offsets, b, x0, 6, 0.8)
@@ -553,6 +654,53 @@ def test_rehearsed_per_row_sweeps_match_plain(mock, dtype, box, B):
     shared = fs._launch_sweeps(
         diag[0].contiguous(), tuple(c[0] for c in cols), offsets, b, x0, 6, 0.8,
         fs.SweepPlan(),
+    )
+    assert torch.equal(same, shared)
+
+
+#: The 2-D boxes of PER_ROW_BOXES and a box whose tiles are ragged at
+#: every depth.
+PER_ROW_TILE_BOXES = {
+    "37x9": PER_ROW_BOXES["37x9"],
+    "130x4": PER_ROW_BOXES["130x4"],
+    "61x45": (61, 45, 1, ()),
+}
+
+
+@pytest.mark.parametrize("depth", [1, 2, 6])
+@pytest.mark.parametrize("B", [1, 3, 4])
+@pytest.mark.parametrize("box", sorted(PER_ROW_TILE_BOXES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_rehearsed_per_row_tiled_sweeps_match_plain(mock, dtype, box, B, depth):
+    """Guards orc_tpu/ops/pallas_smooth.py `_kernel` (via
+    fused_jacobi_sweeps' per-row tiles on the mock: a CTA per tile and
+    batch row): six sweeps at `depth` sweeps a launch, one matrix per
+    batch row, against the plain sweeps (1e-5 / 1e-12 of the largest
+    value), bitwise against the per-sweep per-row kernel and in float32
+    against the rounding both spell out; with B identical rows it equals
+    the shared tiled instance bitwise."""
+    offsets, diag, cols, b, x0 = _per_row_system(box, B, dtype, PER_ROW_TILE_BOXES)
+    C = diag.shape[-1]
+    plan = fs.sweep_plan(offsets, C, 6, dtype, depth=depth, per_row=True)
+    assert plan.per_row and plan.launches(6, B) == -(-6 // depth)
+    if box == "61x45":  # several tiles along x, the last one ragged
+        assert 61 % plan.tile[0]
+    y = fs._launch_sweeps(diag, cols, offsets, b, x0, 6, 0.8, plan)
+    ref = fs.sweeps_plain(diag, cols, offsets, b, x0, 6, 0.8)
+    assert float((y - ref).abs().max()) <= TOL[dtype] * float(ref.abs().max())
+    per_sweep = fs._launch_sweeps(
+        diag, cols, offsets, b, x0, 6, 0.8, fs.SweepPlan(per_row=True)
+    )
+    assert torch.equal(y, per_sweep)
+    if dtype == torch.float32:
+        assert torch.equal(y, jacobi_fma_chain(diag, cols, offsets, b, x0, 6, 0.8))
+    same = fs._launch_sweeps(
+        diag[:1].expand(B, -1), tuple(c[:1].expand(B, -1) for c in cols),
+        offsets, b, x0, 6, 0.8, plan,
+    )
+    shared = fs._launch_sweeps(
+        diag[0].contiguous(), tuple(c[0] for c in cols), offsets, b, x0, 6, 0.8,
+        plan._replace(per_row=False),
     )
     assert torch.equal(same, shared)
 

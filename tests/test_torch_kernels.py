@@ -320,6 +320,51 @@ def test_pc_assembly_matches_pallas_kernel(case):
         _close(a, b, TOL["f64"], name)
 
 
+#: The assembly cases of the thread test: the kernel tests' meshes and a
+#: 128^2 cavity, whose [C,K,3] face tensors (294,912 values) exceed
+#: ATen's 32,768-element grain, so at::parallel_for splits them.
+THREAD_CASES = sorted(CASES) + ["cavity128"]
+
+
+@pytest.mark.parametrize("kernel", ["momentum", "pc"])
+@pytest.mark.parametrize("case", THREAD_CASES)
+def test_plain_assembly_bits_do_not_depend_on_threads(case, kernel):
+    """The plain momentum_assembly (CD1) and pc_assembly give the same
+    bits under 1 and 4 intra-op threads (test_pc_assembly_matches_pallas_kernel
+    [cavity] once failed with diag off by ~1e-16 in rows 200-399 of 400:
+    ROADMAP Queue 3)."""
+    from orc_tpu_torch.models.cavity import cavity_case
+
+    if case == "cavity128":
+        mesh, table = cavity_case(n=128, device="cpu")
+    else:
+        mesh, table = both(case)[1]
+    zc, zs, zv = tdevice_bc(table, dtype=torch.float64, device="cpu")
+    ck = tck.build_ck_geometry(mesh, len(table.zone_ids))
+    cols, flags = tasm.column_specs(mesh, table), tasm.pack_flags(ck.interior, ck.mask)
+    bcv = tasm.bc_value_table(zs, zv)
+    vel, p, md = (torch.tensor(a) for a in cell_fields(mesh.n_cells))
+
+    def run():
+        if kernel == "pc":
+            return tasm.pc_assembly(vel, md, bcv, flags, cols, 1.0, spec=tasm.AsmSpec())
+        return tasm.momentum_assembly(
+            vel, p, bcv, flags, cols, 1.0, 1e-3, 0.7, mom_diag=md,
+            spec=tasm.AsmSpec(scheme="cd1"),
+        )
+
+    threads = torch.get_num_threads()
+    try:
+        torch.set_num_threads(1)
+        one = run()
+        torch.set_num_threads(4)
+        four = run()
+    finally:
+        torch.set_num_threads(threads)
+    for name, a, b in zip(("diag", "off", "b"), one, four):
+        assert torch.equal(a, b), name
+
+
 @pytest.mark.parametrize("scheme", ["ud", "cd1"])
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_momentum_assembly_matches_ck_oracle(case, scheme):

@@ -88,3 +88,14 @@ def test_tvd_limiters_equal(name):
     a = getattr(jset, name)(jnp.asarray(r))
     b = getattr(tset, name)(torch.tensor(r, dtype=torch.float64))
     np.testing.assert_array_equal(np.asarray(a), b.numpy())
+
+
+def test_package_exports_every_name_of_orc_tpu():
+    """Every name orc_tpu exports (orc_tpu.__all__: the settings enums,
+    the TVD presets, the mesh entry points) is exported by the port."""
+    import orc_tpu
+    import orc_tpu_torch
+
+    assert set(orc_tpu.__all__) <= set(orc_tpu_torch.__all__)
+    for name in ("TVD_LUD", "TVD_QUICK", "TVD_UMIST"):
+        assert getattr(orc_tpu_torch, name) == getattr(tset, name)

@@ -21,10 +21,14 @@ tests/test_turbulence.py.
   orc_tpu's at rtol 1e-6. Under SIMPLE_FC (implicit 0.6 / 0.3) the first
   20 iterations track orc_tpu at rtol 1e-6, and the profile chip_smoke.py
   holds the card's 800-iteration FC run to is recomputed from orc_tpu.
+- rans_outer_step's interface: orc_tpu's parameter names where both
+  packages have the parameter, and a call by keyword (ckg=...) equal to
+  solve_steady_turbulent's first iteration.
 - The paths that raise, each naming its ROADMAP item.
 """
 
 import importlib.util
+import inspect
 from pathlib import Path
 
 import numpy as np
@@ -317,6 +321,49 @@ def test_re_tau_fc_reference_profile():
     np.testing.assert_allclose(
         prof, smoke_module().ORC_TPU_RE_TAU_FC_U_PROFILE_800, rtol=1e-9
     )
+
+
+def test_rans_outer_step_signature_matches_orc_tpu():
+    """The parameters both packages' rans_outer_step take have orc_tpu's
+    names, in orc_tpu's order. Left out: orc_tpu's sharded hook `comm`
+    (item 14) and `solver_extras`, which the port names `mg_hierarchy`
+    (it carries only the multigrid hierarchy)."""
+    j = list(inspect.signature(jt.rans_outer_step).parameters)
+    t = list(inspect.signature(tt.rans_outer_step).parameters)
+    sharded = {"comm", "solver_extras"}
+    assert [n for n in j if n not in sharded] == [n for n in t if n != "mg_hierarchy"]
+    assert t[1] == "ckg"
+
+
+def test_rans_outer_step_takes_its_arguments_by_keyword():
+    """One outer iteration of the 16x12 developing channel, every
+    argument passed by keyword (ckg=...), equals solve_steady_turbulent's
+    first iteration bit for bit."""
+    from orc_tpu_torch.ops.ck_ops import build_ck_geometry, ck_bc
+    from orc_tpu_torch.ops.fields import WALL, device_bc
+    from orc_tpu_torch.solver.simple import initial_state
+
+    mesh, table = channel("torch")
+    flow, turb, _ = solve_steady_turbulent(
+        mesh, table, SETTINGS, 1.0, 1e-5, iterations=1, reporting_interval=1, **CHANNEL_KW
+    )
+    zc, zs, zv = device_bc(table, dtype=mesh.dtype, device=mesh.device)
+    ck = build_ck_geometry(mesh, len(table.zone_ids))
+    bc0 = ck_bc(ck, zc, zs, zv)
+    has_wall, y_p = tt._wall_adjacent(ck, bc0)
+    k_in = 1.5 * (CHANNEL_KW["intensity"] * CHANNEL_KW["u_ref"]) ** 2
+    tb0 = initial_turbulence(mesh, CHANNEL_KW["u_ref"], CHANNEL_KW["intensity"],
+                             CHANNEL_KW["length_scale"], 1.0)
+    (flow1, turb1), metrics = tt.rans_outer_step(
+        mesh=mesh, ckg=ck, bc0=bc0, zc=zc, zs=zs, zv=zv, settings=SETTINGS, rho=1.0,
+        mu=1e-5, k_in=k_in, eps_in=tt.C_MU ** 0.75 * k_in ** 1.5 / CHANNEL_KW["length_scale"],
+        has_wall=has_wall, y_p=y_p, is_wall_face=(bc0.code == WALL) & ck.mask & ~ck.interior,
+        carry=(initial_state(mesh), tb0),
+    )
+    for a, b in ((flow1.vel, flow.vel), (flow1.p, flow.p), (turb1.k, turb.k),
+                 (turb1.eps, turb.eps), (turb1.mu_t, turb.mu_t)):
+        assert torch.equal(a, b)
+    assert int(metrics.pc_iters) > 0
 
 
 def test_unported_paths_raise():
