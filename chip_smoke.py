@@ -50,7 +50,12 @@ Phases (any failure raises and the script exits non-zero):
    and the parity slice under MULTIGRID, card against CPU; the RANS
    channel 16x12 (10 iterations; k, eps and mu_t too) and the 16^2
    cavity under least squares with in-matrix TVD and with CD2,
-   structured and permuted, card against CPU;
+   structured and permuted, card against CPU; the face-major step
+   (use_ck=False): the reference-default cavity, structured and
+   permuted, SIMPLE_FC with a Jacobi(50) pressure solve, the transient
+   slice, and node-based Green-Gauss on a 16^2 TGRID cavity read with
+   read_mesh(nodes=True), structured and with relabelled cells, each
+   card against CPU to 1e-9 with equal inner counts;
 4. couette 128x64x1 float64 with bench.py's configuration (parity
    SIMPLE) through solve_steady: 100 warm-up + 200 timed iterations,
    u_mean within 25% of the analytical 1.0833e-3;
@@ -115,14 +120,29 @@ Phases (any failure raises and the script exits non-zero):
    in-matrix TVD at Re = 100 (row 2's per-row instance; at Re = 1000
    in-matrix TVD diverges, in orc_tpu too) and bench.py's couette with
    CD2 (row 1's), the latter's u_mean within 25% of the analytical value;
-phases 4-7 and 9-20 end with a short window under torch.profiler
+21. the face-major step, which assembles in plain ops (as orc_tpu's does)
+   and solves through rows 1, 2 and 7: (a) fm-couette, phase 4's couette
+   with use_ck=False, 100 + 200 iterations, u_mean within 25% of the
+   analytical value and within 1e-4 of phase 4's; (b) fm-cavity-1M,
+   phase 5's cavity with use_ck=False, 10 + 50 iterations, finite
+   |u| < 2, the same Jacobi-sweep instance and launches per iteration
+   as phase 5; (c) fm-fc-cavity-1M, phase 7's with use_ck=False, 10 + 50
+   from cold, the flux divergence equal to minus the pressure solve's
+   residual, the median pressure residual within twice phase 7's; (d)
+   ggnode-448, a
+   448^2 TGRID cavity with relabelled cells read with
+   read_mesh(nodes=True) (RCM order, slice plan, vertex tables), GG node
+   under use_ck="auto", 5 + 25 iterations; (e) fm-auto-216, the 216^3 f32
+   cavity above CK_AUTO_MAX_CELLS under "auto", 3 + 5 iterations, its
+   build seconds and peak memory;
+phases 4-7 and 9-21 end with a short window under torch.profiler
 (device time by kernel, device busy share, launches per iteration), and
 each phase that runs the Jacobi sweeps prints the instances it took;
 then one JSON line with every kernel's launches, error, card times and
 bound, the card's name and power limit, and as the last line
 {"ok": true, "device": {...}}.
 
-Kernel launch counters are set to 0 just before each of phases 4-20 and
+Kernel launch counters are set to 0 just before each of phases 4-21 and
 read just after it, and no plain version of rows 1 and 2 may run on the
 card meanwhile: each phase must launch every kernel of its path,
 the SIMPLE_FC phases none of the parity assembly kernels, the
@@ -1328,14 +1348,14 @@ def phase_taylor_green(dev):
     return dict(ms_per_iter=1e3 * wall / (10 * steps), err=err, e_ratio=e_ratio, **prof)
 
 
-def _timed_solve(mesh, table, settings, rho, mu, state, iterations, chunk):
+def _timed_solve(mesh, table, settings, rho, mu, state, iterations, chunk, use_ck="auto"):
     from orc_tpu_torch.solver.simple import solve_steady
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     state, hist = solve_steady(
         mesh, table, settings, rho, mu, state=state, iterations=iterations,
-        reporting_interval=chunk, verbose=False,
+        reporting_interval=chunk, verbose=False, use_ck=use_ck,
     )
     torch.cuda.synchronize()
     return state, hist, time.perf_counter() - t0
@@ -1410,7 +1430,9 @@ def phase_cavity(dev, fc=False):
         settings = default_settings()
     mesh, table = cavity_case(n=1024, dtype=torch.float32, device=dev)
     state, _, warm_s = _timed_solve(mesh, table, settings, 1.0, 1e-3, None, 10, 10)
+    before = launch_snapshot()
     state, hist, dt = _timed_solve(mesh, table, settings, 1.0, 1e-3, state, 50, 50)
+    structure = launch_structure(before, hist, settings)
     u = state.vel.cpu().numpy()
     if not (np.isfinite(u).all() and np.abs(u).max() < 2.0):
         raise AssertionError("cavity fields not finite or |u| >= 2")
@@ -1424,8 +1446,20 @@ def phase_cavity(dev, fc=False):
         f"  mean inner iterations: momentum {mom_it.mean(axis=0).tolist()}, "
         f"pressure {pc_it.mean():.2f}"
     )
+    div_ratio = None
+    pc_res = float(np.median(np.concatenate([h.pc_residual.cpu().numpy() for h in hist])))
+    if fc:
+        div, scale = _ck_flux_divergence(mesh, state.flux)
+        div_ratio = div / scale
+        log(
+            f"  max |div flux| / max |flux A| = {div_ratio:.3e} (the last pressure "
+            f"solve's residual); median pressure residual {pc_res:.3e}"
+        )
     profile(mesh, table, settings, 1.0, 1e-3, state, iterations=5)
-    return dict(ms_per_iter=1e3 * dt / 50)
+    return dict(
+        ms_per_iter=1e3 * dt / 50, vel_avg=hist[-1].vel_avg[-1].cpu().numpy(),
+        structure=structure, div_ratio=div_ratio, pc_residual_median=pc_res,
+    )
 
 
 def phase_sequenced(dev):
@@ -1481,6 +1515,35 @@ def permuted_mesh(box, dtype, dev, seed=0):
         device=dev,
     )
     return mesh, perm
+
+
+def permuted_tgrid(src, dst, seed=0):
+    """Copy the TGRID box `src` (mesh.generate.write_tgrid) to `dst` with
+    its cells relabelled by a seeded permutation (old cell i becomes cell
+    perm[i]): the file then reads as an irregular mesh, which read_mesh
+    RCM-reorders and gives a slice plan. Returns perm."""
+    with open(src) as f:
+        lines = f.read().split("\n")
+    n_cells = next(
+        int(line.split()[3], 16) for line in lines if line.startswith("(12 (0 ")
+    )
+    perm = np.random.default_rng(seed).permutation(n_cells)
+    in_faces = False
+    for i, line in enumerate(lines):
+        if line.startswith("(13 (") and not line.startswith("(13 (0 "):
+            in_faces = True
+        elif in_faces and line.startswith(")"):
+            in_faces = False
+        elif in_faces:
+            tok = line.split()
+            for j in (-2, -1):  # the face's two cells, 0 for none
+                c = int(tok[j], 16)
+                if c:
+                    tok[j] = f"{perm[c - 1] + 1:x}"
+            lines[i] = " ".join(tok)
+    with open(dst, "w") as f:
+        f.write("\n".join(lines))
+    return perm
 
 
 def to_box_order(mesh, perm, field):
@@ -1589,7 +1652,7 @@ def phase_slice_kernels(dev, sspmv, snbr):
         del A, off, diag, mesh
 
 
-def _irregular_twins(dev, settings, iterations, chunk=None, mu=None):
+def _irregular_twins(dev, settings, iterations, chunk=None, mu=None, use_ck="auto"):
     """The same SIMPLE run on a permuted 16^2 f64 cavity on the card and
     on the CPU (one array set compiled twice), at Re 1000 under a TVD
     limiter and Re 100 otherwise unless `mu` is given."""
@@ -1604,7 +1667,7 @@ def _irregular_twins(dev, settings, iterations, chunk=None, mu=None):
             mesh, table, settings, 1.0,
             mu if mu is not None else (1e-3 if settings.tvd_psi else 0.01),
             iterations=iterations, reporting_interval=chunk or iterations,
-            verbose=False,
+            verbose=False, use_ck=use_ck,
         )
         out.append((state, stack_history(hist)))
     return out
@@ -2589,6 +2652,439 @@ def phase_cd2_couette(dev):
     return dict(ms_per_iter=1e3 * dt / 200, u_mean=float(u.mean()), **prof)
 
 
+# --- the face-major step (phases 3b and 21) -----------------------------
+
+
+def smoke_dir():
+    """build/chip_smoke/ in the checkout (git-ignored), for the TGRID
+    files the face-major phases write."""
+    import pathlib
+
+    path = pathlib.Path(__file__).resolve().parent / "build" / "chip_smoke"
+    path.mkdir(parents=True, exist_ok=True)
+    return path
+
+
+class CkGeometryBuilds:
+    """Counts CKGeometry builds by solve_steady while installed: a run on
+    the face-major step builds none."""
+
+    def __enter__(self):
+        from orc_tpu_torch.solver import simple
+
+        self.mod, self.real, self.calls = simple, simple.build_ck_geometry, 0
+
+        def counted(*a, **k):
+            self.calls += 1
+            return self.real(*a, **k)
+
+        simple.build_ck_geometry = counted
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.build_ck_geometry = self.real
+
+
+def launch_snapshot():
+    """(shift SpMV launches, Jacobi-sweep launches, sweep instances) now."""
+    from orc_tpu_torch.ops.fused_smooth import fused_jacobi_sweeps
+    from orc_tpu_torch.ops.shift_spmv import shift_spmv
+
+    return (
+        shift_spmv.launches, fused_jacobi_sweeps.launches,
+        dict(fused_jacobi_sweeps.instances),
+    )
+
+
+def launch_structure(before, hist, settings):
+    """The launches of rows 1 and 2 per outer iteration since `before`
+    (launch_snapshot) over the iterations of `hist`: sweep launches, the
+    sweep instances' calls, shift SpMV launches, and those outside the
+    pressure BiCGSTAB loop (each loop iteration runs two SpMVs; the loop
+    checks its exit every EXIT_CHECK_EVERY iterations, so it runs
+    ceil(pc_iters / 8) * 8 of them, at most the cap)."""
+    from orc_tpu_torch.solver.krylov import EXIT_CHECK_EVERY
+
+    spmv0, sweeps0, inst0 = before
+    spmv1, sweeps1, inst1 = launch_snapshot()
+    pc = np.concatenate([h.pc_iters.cpu().numpy() for h in hist]).astype(np.int64)
+    n = pc.shape[0]
+    every = EXIT_CHECK_EVERY
+    loop = np.where(pc == 0, 0, np.minimum(
+        settings.matrix_solver.iterations, -(-pc // every) * every
+    ))
+    return dict(
+        sweeps_per_iter=(sweeps1 - sweeps0) / n,
+        instances={k: (v - inst0.get(k, 0)) / n for k, v in inst1.items() if v != inst0.get(k, 0)},
+        spmv_per_iter=(spmv1 - spmv0) / n,
+        spmv_outside_krylov_per_iter=(spmv1 - spmv0 - 2 * int(loop.sum())) / n,
+        pc_iters_mean=float(pc.mean()),
+    )
+
+
+class LastPressureSolve:
+    """Keeps the matrix, right-hand side and solution of the last
+    pressure solve of solve_steady's steps while installed."""
+
+    def __enter__(self):
+        from orc_tpu_torch.solver import simple
+
+        self.mod, self.real, self.last = simple, simple._solve_p_prime, None
+
+        def kept(Pmat, b_p, *a, **k):
+            out = self.real(Pmat, b_p, *a, **k)
+            self.last = (Pmat, b_p, out[0])
+            return out
+
+        simple._solve_p_prime = kept
+        return self
+
+    def __exit__(self, *exc):
+        self.mod._solve_p_prime = self.real
+
+    def residual(self):
+        """b - A p of the last pressure solve, per cell."""
+        Pmat, b, x = self.last
+        return b - Pmat.matvec(x)
+
+
+def _ck_flux_divergence(mesh, flux):
+    """(max |sum_k flux A|, max |flux A|) over the cells of a (c,k) [C,K]
+    flux (already oriented outward)."""
+    area = mesh.face_area[mesh.cell_faces.long()]
+    fa = torch.where(mesh.cell_face_mask, flux * area, torch.zeros((), dtype=area.dtype, device=area.device))
+    return float(fa.sum(dim=1).abs().max()), float(fa.abs().max())
+
+
+def _face_flux_divergence(mesh, flux):
+    """(max |sum_k sgn flux A|, max |flux A|) over the cells of a face-major
+    [F] flux."""
+    cf = mesh.cell_faces.long()
+    fa = mesh.cell_face_sign * flux[cf] * mesh.face_area[cf]
+    fa = torch.where(mesh.cell_face_mask, fa, torch.zeros((), dtype=fa.dtype, device=fa.device))
+    return float(fa.sum(dim=1).abs().max()), float(fa.abs().max())
+
+
+def gg_node_tgrid(n, dev, dtype=torch.float64, permuted=False, nodes=True):
+    """The n^2 lid-driven cavity as a TGRID file (write_tgrid, cavity_case's
+    geometry), its cells relabelled by permuted_tgrid when `permuted`, read
+    back with read_mesh(nodes=...) onto `dev`: (mesh, table, read seconds)."""
+    from orc_tpu_torch.mesh.generate import write_tgrid
+    from orc_tpu_torch.mesh.tgrid import read_mesh
+    from orc_tpu_torch.mesh.zones import FaceCondition
+
+    path = smoke_dir() / f"cavity{n}.msh"
+    write_tgrid(str(path), n, n, 1, lengths=(1.0, 1.0, 1.0 / n))
+    if permuted:
+        src, path = path, smoke_dir() / f"cavity{n}-permuted.msh"
+        permuted_tgrid(str(src), str(path), seed=3)
+    t0 = time.perf_counter()
+    mesh, table = read_mesh(str(path), dtype=dtype, nodes=nodes, device=dev)
+    read_s = time.perf_counter() - t0
+    table.set("TOP_WALL", FaceCondition.WALL, vector_value=(1.0, 0.0, 0.0))
+    for zone in ("BOTTOM_WALL", "INLET", "OUTLET"):
+        table.set(zone, FaceCondition.WALL)
+    table.set("PERIODIC_-Z", FaceCondition.SYMMETRY)
+    table.set("PERIODIC_+Z", FaceCondition.SYMMETRY)
+    return mesh, table, read_s
+
+
+def gg_node_settings():
+    """solve_cavity's numerics with node-based Green-Gauss gradients and
+    TVD_DC (UMIST) momentum, whose limiter reads the velocity gradient
+    (tests/test_torch_nodes.py's steady solve)."""
+    from orc_tpu_torch.models.cavity import default_settings
+    from orc_tpu_torch.utils.settings import (
+        GradientReconstruction,
+        MomentumScheme,
+        tvd_umist,
+    )
+
+    return default_settings().replace(
+        gradient_reconstruction=GradientReconstruction.GREEN_GAUSS_NODE,
+        momentum=MomentumScheme.TVD_DC,
+        tvd_psi=tvd_umist,
+    )
+
+
+def phase_small_reference_face_major(dev):
+    """Phase 3b on the face-major step (use_ck=False; "auto" for GG
+    node), card against CPU, float64, 10 iterations, equal inner
+    iteration counts and fields to 1e-9 of scale: the 16^2 cavity with
+    the reference's default numerics (CD1 + SecondOrder + Rhie-Chow,
+    forced SIMPLE), structured and permuted; SIMPLE_FC with the flagship
+    numerics and a Jacobi(50) pressure solve (flux included); the
+    transient slice (3 steps x 4 inner iterations, solve_cavity's
+    numerics); and node-based Green-Gauss on a 16^2 TGRID cavity read
+    with read_mesh(nodes=True), structured and with relabelled cells."""
+    log("== phase 3b: face-major step on the card vs on the CPU, 16^2 f64")
+    from orc_tpu_torch.models.cavity import cavity_case, default_settings, flagship_settings
+    from orc_tpu_torch.solver.simple import solve_steady, stack_history
+    from orc_tpu_torch.solver.transient import solve_transient
+    from orc_tpu_torch.utils.settings import MatrixSolverSettings, SolutionMethod
+
+    jacobi = MatrixSolverSettings(solver_type=SolutionMethod.JACOBI, iterations=50)
+    kw = dict(iterations=10, reporting_interval=10, verbose=False, use_ck=False)
+    for name, settings, mu in (
+        ("face-major reference default", ref_default_settings(), 0.01),
+        ("face-major SIMPLE_FC jacobi", flagship_settings().replace(matrix_solver=jacobi), 1e-3),
+    ):
+        out = []
+        for d in (dev, torch.device("cpu")):
+            mesh, table = cavity_case(n=16, device=d)
+            state, hist = solve_steady(mesh, table, settings, 1.0, mu, **kw)
+            out.append((state, stack_history(hist)))
+        fields = ("vel", "p") + (("flux",) if out[0][0].flux is not None else ())
+        _card_cpu_gap(name, out, 1e-9, fields)
+        if out[0][0].flux is not None:
+            div, scale = _face_flux_divergence(mesh, out[1][0].flux)
+            log(f"  {name}: max |div flux| / max |flux A| = {div / scale:.3e} (CPU)")
+    _card_cpu_gap(
+        "face-major reference default, permuted",
+        _irregular_twins(dev, ref_default_settings(), 10, mu=0.01, use_ck=False), 1e-9,
+    )
+    out = []
+    for d in (dev, torch.device("cpu")):
+        mesh, table = cavity_case(n=16, device=d)
+        out.append(solve_transient(
+            mesh, table, default_settings(), 1.0, 0.01, dt=0.05, n_steps=3,
+            inner_iterations=4, verbose=False, use_ck=False,
+        ))
+    _card_cpu_gap("face-major transient SIMPLE", out, 1e-9)
+    for permuted in (False, True):
+        out = []
+        for d in (dev, torch.device("cpu")):
+            mesh, table, _ = gg_node_tgrid(16, d, permuted=permuted)
+            with CkGeometryBuilds() as builds:
+                state, hist = solve_steady(
+                    mesh, table, gg_node_settings(), 1.0, 0.01, iterations=10,
+                    reporting_interval=10, verbose=False,
+                )
+            if builds.calls:
+                raise AssertionError("GG node under use_ck='auto' took the (c,k) step")
+            out.append((state, stack_history(hist)))
+        _card_cpu_gap(f"GG node TGRID 16^2{' permuted' if permuted else ''}", out, 1e-9)
+
+
+#: Largest relative difference allowed between the face-major couette's
+#: u_mean and the (c,k) couette's (phase 4) after 300 iterations: the
+#: two steps sum in different orders and the explicitly relaxed
+#: BiCGSTAB loop amplifies it, as for the permuted couette.
+FACE_MAJOR_COUETTE_TOL = 1e-4
+
+
+def phase_fm_couette(dev, u_ck):
+    """21a, fm-couette: bench.py's couette on the face-major step
+    (use_ck=False), 100 warm-up + 200 timed iterations, u_mean within 25%
+    of the analytical value and within FACE_MAJOR_COUETTE_TOL of phase
+    4's (c,k) u_mean."""
+    log("== phase 21a: fm-couette 128x64x1 f64, bench.py configuration, face-major step")
+    from orc_tpu_torch.utils.settings import NumericalSettings
+
+    settings = NumericalSettings(matrix_solver=_bicgstab_50())
+    mesh, table = couette_mesh(dev)
+    with CkGeometryBuilds() as builds:
+        state, _, warm_s = _timed_solve(mesh, table, settings, 1000.0, 0.001, None, 100, 100, False)
+        state, hist, dt = _timed_solve(mesh, table, settings, 1000.0, 0.001, state, 200, 100, False)
+    if builds.calls:
+        raise AssertionError("use_ck=False built a CKGeometry")
+    pc_it = np.concatenate([h.pc_iters.cpu().numpy() for h in hist])
+    log(
+        f"  warm-up 100 iterations {warm_s:.2f} s; 200 timed iterations "
+        f"{dt:.3f} s -> {200 / dt:.1f} iters/s ({1e3 * dt / 200:.3f} ms/iter); "
+        f"mean pressure iterations {pc_it.mean():.2f}"
+    )
+    u = state.vel[:, 0].cpu().numpy()
+    if not np.isfinite(u).all():
+        raise AssertionError("fm-couette produced non-finite fields")
+    check_couette_u_mean(u, 300)
+    rel = abs(u.mean() - u_ck) / abs(u_ck)
+    log(f"  u_mean against the (c,k) couette {u_ck:.10e}: rel diff {rel:.3e} (tol {FACE_MAJOR_COUETTE_TOL:.0e})")
+    if not rel <= FACE_MAJOR_COUETTE_TOL:
+        raise AssertionError("fm-couette left the (c,k) couette's u_mean")
+    prof = profile(mesh, table, settings, 1000.0, 0.001, state, iterations=5, use_ck=False)
+    return dict(ms_per_iter=1e3 * dt / 200, u_mean=float(u.mean()), **prof)
+
+
+def phase_fm_cavity(dev, twin):
+    """21b, fm-cavity-1M: cavity-1M's numerics (solve_cavity's) on the
+    face-major step, 10 warm-up + 50 timed iterations: finite, |u| < 2,
+    the gap to the (c,k) twin's vel_avg (phase 5), and the same Jacobi
+    sweep instance, sweep launches and shift SpMV launches outside the
+    pressure Krylov loop per iteration as the twin."""
+    log("== phase 21b: fm-cavity-1M 1024^2 f32, solve_cavity configuration, face-major step")
+    from orc_tpu_torch.models.cavity import cavity_case, default_settings
+
+    settings = default_settings()
+    mesh, table = cavity_case(n=1024, dtype=torch.float32, device=dev)
+    with CkGeometryBuilds() as builds:
+        state, _, warm_s = _timed_solve(mesh, table, settings, 1.0, 1e-3, None, 10, 10, False)
+        before = launch_snapshot()
+        state, hist, dt = _timed_solve(mesh, table, settings, 1.0, 1e-3, state, 50, 50, False)
+        structure = launch_structure(before, hist, settings)
+    if builds.calls:
+        raise AssertionError("use_ck=False built a CKGeometry")
+    u = state.vel.cpu().numpy()
+    if not (np.isfinite(u).all() and np.abs(u).max() < 2.0):
+        raise AssertionError("fm-cavity fields not finite or |u| >= 2")
+    va = hist[-1].vel_avg[-1].cpu().numpy()
+    gap = float(np.abs(va - twin["vel_avg"]).max() / np.abs(twin["vel_avg"]).max())
+    log(
+        f"  warm-up 10 iterations {warm_s:.2f} s; 50 timed iterations {dt:.3f} s "
+        f"-> {1e3 * dt / 50:.2f} ms/iter ((c,k) twin {twin['ms_per_iter']:.2f}); "
+        f"|u| max {np.abs(u).max():.3f}; vel_avg {va.tolist()} vs (c,k) twin "
+        f"{twin['vel_avg'].tolist()}: gap {gap:.3e} of scale"
+    )
+    log(f"  launch structure, face-major: {structure}")
+    log(f"  launch structure, (c,k) twin: {twin['structure']}")
+    for key in ("instances", "sweeps_per_iter", "spmv_outside_krylov_per_iter"):
+        if structure[key] != twin["structure"][key]:
+            raise AssertionError(f"fm-cavity {key} differs from its (c,k) twin's")
+    prof = profile(mesh, table, settings, 1.0, 1e-3, state, iterations=3, use_ck=False)
+    return dict(ms_per_iter=1e3 * dt / 50, gap=gap, **prof)
+
+
+#: The stored flux's divergence must equal minus the last pressure
+#: solve's residual to this share of max |flux A| (f32 sums; 2.3e-7
+#: measured on a 128^2 f32 cavity on the CPU).
+FC_CONSERVATION_TOL = 1e-5
+
+
+def phase_fm_fc_cavity(dev, twin):
+    """21c, fm-fc-cavity-1M: fc-cavity-1M's numerics (the Ghia flagship:
+    SIMPLE_FC, TVD_DC + UMIST, Rhie-Chow, LinearWeighted) on the
+    face-major step, 10 warm-up + 50 timed iterations from cold: finite;
+    conservative, as SIMPLE_FC is by construction: the stored flux's
+    divergence equals minus the last pressure solve's residual b - A p
+    (to FC_CONSERVATION_TOL of max |flux A|). Every pressure solve here
+    stops at the BiCGSTAB(50) cap, and the residual it leaves varies
+    2-3x from one iteration to the next, so the residual is held over the
+    50 timed iterations: the median pressure residual within twice the
+    (c,k) twin's (phase 7); max |div flux| / max |flux A| at the end is
+    printed beside the twin's."""
+    log("== phase 21c: fm-fc-cavity-1M 1024^2 f32, Ghia flagship numerics, face-major step")
+    from orc_tpu_torch.models.cavity import cavity_case, flagship_settings
+
+    settings = flagship_settings()
+    mesh, table = cavity_case(n=1024, dtype=torch.float32, device=dev)
+    state, _, warm_s = _timed_solve(mesh, table, settings, 1.0, 1e-3, None, 10, 10, False)
+    with LastPressureSolve() as solve:
+        state, hist, dt = _timed_solve(mesh, table, settings, 1.0, 1e-3, state, 50, 50, False)
+    u = state.vel.cpu().numpy()
+    if not (np.isfinite(u).all() and np.isfinite(state.flux.cpu().numpy()).all()):
+        raise AssertionError("fm-fc-cavity fields not finite")
+    div, scale = _face_flux_divergence(mesh, state.flux)
+    cf = mesh.cell_faces.long()
+    fa = mesh.cell_face_sign * state.flux[cf] * mesh.face_area[cf]
+    fa = torch.where(mesh.cell_face_mask, fa, torch.zeros((), dtype=fa.dtype, device=fa.device))
+    gap = float((fa.sum(dim=1) + solve.residual()).abs().max()) / scale  # rho = 1
+    log(
+        f"  warm-up 10 iterations {warm_s:.2f} s; 50 timed iterations {dt:.3f} s "
+        f"-> {1e3 * dt / 50:.2f} ms/iter; |u| max {np.abs(u).max():.3f}; "
+        f"mean pressure iterations {hist[-1].pc_iters.float().mean().item():.2f}"
+    )
+    pc_res = float(np.median(np.concatenate([h.pc_residual.cpu().numpy() for h in hist])))
+    log(
+        f"  max |div flux| / max |flux A| = {div / scale:.3e} ((c,k) twin "
+        f"{twin['div_ratio']:.3e}); div flux + pressure residual: {gap:.3e} of max "
+        f"|flux A| (limit {FC_CONSERVATION_TOL:.0e}); median pressure residual "
+        f"{pc_res:.3e} ((c,k) twin {twin['pc_residual_median']:.3e}, limit twice that)"
+    )
+    if not gap <= FC_CONSERVATION_TOL:
+        raise AssertionError("fm-fc-cavity flux divergence is not the pressure solve's residual")
+    if not pc_res <= 2.0 * twin["pc_residual_median"]:
+        raise AssertionError("fm-fc-cavity pressure solves left more residual than its (c,k) twin's")
+    prof = profile(mesh, table, settings, 1.0, 1e-3, state, iterations=3, use_ck=False)
+    return dict(ms_per_iter=1e3 * dt / 50, **prof)
+
+
+def phase_ggnode(dev, n=448):
+    """21d, ggnode-448: the 448^2 cavity written with write_tgrid, its
+    cells relabelled (permuted_tgrid) and read with read_mesh(nodes=True)
+    in f32: RCM order, slice plan and vertex tables. Irregular-448's
+    numerics (forced SIMPLE, UD + LinearWeighted pressure, implicit 0.7 /
+    0.1) with node-based Green-Gauss and Rhie-Chow face fluxes, whose
+    pressure gradient the vertex tables feed (under LinearWeighted fluxes
+    the step would read no gradient), under use_ck="auto", which takes the
+    face-major step: 5 warm-up + 25 timed iterations, finite, |u| < 2."""
+    log("== phase 21d: ggnode-448 f32, TGRID with relabelled cells, GG node, face-major step")
+    from orc_tpu_torch.mesh.geometry import derive_geometry
+    from orc_tpu_torch.mesh.nodes import build_node_interp
+    from orc_tpu_torch.mesh.tgrid import parse_tgrid
+    from orc_tpu_torch.utils.settings import GradientReconstruction, VelocityInterpolation
+
+    mesh, table, read_s = gg_node_tgrid(n, dev, torch.float32, permuted=True)
+    with open(smoke_dir() / f"cavity{n}-permuted.msh") as f:
+        raw = parse_tgrid(f.read())
+    t0 = time.perf_counter()
+    build_node_interp(raw, derive_geometry(raw).cell_centroid, torch.float32, device=dev)
+    nodes_s = time.perf_counter() - t0
+    log(
+        f"  read_mesh(nodes=True) {read_s:.2f} s, of which the vertex tables "
+        f"{nodes_s:.2f} s (build_node_interp alone); {plan_line(mesh)}"
+    )
+    if mesh.slice_plan is None or mesh.nodes is None:
+        raise AssertionError("the relabelled TGRID cavity has no slice plan or vertex tables")
+    settings = bench_irregular_settings().replace(
+        gradient_reconstruction=GradientReconstruction.GREEN_GAUSS_NODE,
+        velocity_interpolation=VelocityInterpolation.RHIE_CHOW,
+    )
+    with CkGeometryBuilds() as builds:
+        state, _, warm_s = _timed_solve(mesh, table, settings, 1.0, 1e-3, None, 5, 5)
+        state, hist, dt = _timed_solve(mesh, table, settings, 1.0, 1e-3, state, 25, 25)
+    if builds.calls:
+        raise AssertionError("GG node under use_ck='auto' took the (c,k) step")
+    u = state.vel.cpu().numpy()
+    if not (np.isfinite(u).all() and np.abs(u).max() < 2.0):
+        raise AssertionError("ggnode-448 fields not finite or |u| >= 2")
+    log(
+        f"  warm-up 5 iterations {warm_s:.2f} s; 25 timed iterations {dt:.3f} s "
+        f"-> {1e3 * dt / 25:.2f} ms/iter; |u| max {np.abs(u).max():.3f}; pressure "
+        f"iterations {hist[-1].pc_iters.float().mean().item():.2f}"
+    )
+    prof = profile(mesh, table, settings, 1.0, 1e-3, state, iterations=3)
+    return dict(ms_per_iter=1e3 * dt / 25, read_s=read_s, nodes_s=nodes_s, **prof)
+
+
+def phase_fm_auto_216(dev, n=216):
+    """21e, fm-auto-216: the 216^3 f32 cavity (10,077,696 cells, the first
+    cube above CK_AUTO_MAX_CELLS) at Re 100, solve_cavity's numerics
+    (UD + LinearWeighted, SIMPLE, BiCGSTAB(50) pressure, the 6-sweep
+    smoother, which marches along z), under use_ck="auto": no CKGeometry
+    is built; 3 warm-up + 5 timed iterations, finite fields; the mesh
+    build seconds and the card's peak memory."""
+    log("== phase 21e: fm-auto-216 216^3 f32 cavity, Re 100, use_ck='auto' above CK_AUTO_MAX_CELLS")
+    from orc_tpu_torch.models.cavity import cavity_case, default_settings
+    from orc_tpu_torch.solver.simple import CK_AUTO_MAX_CELLS
+
+    t0 = time.perf_counter()
+    mesh, table = cavity_case(n=n, nz=n, dtype=torch.float32, device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    log(f"  mesh build {build_s:.2f} s; {mesh.n_cells} cells (CK_AUTO_MAX_CELLS {CK_AUTO_MAX_CELLS})")
+    if not mesh.n_cells > CK_AUTO_MAX_CELLS:
+        raise AssertionError("the 216^3 cavity is not above CK_AUTO_MAX_CELLS")
+    settings = default_settings()
+    torch.cuda.reset_peak_memory_stats(dev)
+    with CkGeometryBuilds() as builds:
+        state, _, warm_s = _timed_solve(mesh, table, settings, 1.0, 1e-2, None, 3, 3)
+        state, hist, dt = _timed_solve(mesh, table, settings, 1.0, 1e-2, state, 5, 5)
+    if builds.calls:
+        raise AssertionError("use_ck='auto' above CK_AUTO_MAX_CELLS built a CKGeometry")
+    peak = torch.cuda.max_memory_allocated(dev)
+    u = state.vel.cpu().numpy()
+    if not (np.isfinite(u).all() and np.abs(u).max() < 2.0):
+        raise AssertionError("fm-auto-216 fields not finite or |u| >= 2")
+    log(
+        f"  warm-up 3 iterations {warm_s:.2f} s; 5 timed iterations {dt:.3f} s "
+        f"-> {1e3 * dt / 5:.1f} ms/iter; peak memory allocated "
+        f"{peak / 2**30:.2f} GiB; |u| max {np.abs(u).max():.3f}; pressure "
+        f"iterations {hist[-1].pc_iters.float().mean().item():.2f}"
+    )
+    prof = profile(mesh, table, settings, 1.0, 1e-2, state, iterations=1)
+    return dict(ms_per_iter=1e3 * dt / 5, build_s=build_s, peak_gib=peak / 2**30, **prof)
+
+
 class PlainOnCard:
     """Counts calls of rows 1 and 2's plain versions with a CUDA tensor
     (none may happen on a main path: a CUDA tensor launches the kernel or
@@ -2615,11 +3111,11 @@ class PlainOnCard:
             setattr(mod, name, fn)
 
 
-def profile(mesh, table, settings, rho, mu, state, iterations):
+def profile(mesh, table, settings, rho, mu, state, iterations, use_ck="auto"):
     """torch.profiler over a few steady iterations (profile_window)."""
     return profile_window(
         lambda: _timed_solve(
-            mesh, table, settings, rho, mu, state, iterations, iterations
+            mesh, table, settings, rho, mu, state, iterations, iterations, use_ck
         )[2],
         iterations,
     )
@@ -2713,6 +3209,7 @@ def main():
     phase_small_reference_irregular(dev)
     phase_small_reference_transient(dev)
     phase_small_reference_schemes(dev)
+    phase_small_reference_face_major(dev)
 
     # The main paths, each driven with the launch counts set to 0 just
     # before it and read just after it.
@@ -2768,6 +3265,19 @@ def main():
          assembly + irregular, ()),
         ("cd2 couette", lambda: phase_cd2_couette(dev), (spmv, spmv_pr),
          assembly + irregular + (sweeps, sweeps_pr), ()),
+        # Phase 21: the face-major step assembles in plain ops, as in
+        # orc_tpu, and solves through rows 1, 2 and 7.
+        ("fm-couette", lambda: phase_fm_couette(dev, results["parity couette"]["u_mean"]),
+         (spmv,), assembly + extra + irregular, ()),
+        ("fm-cavity-1M", lambda: phase_fm_cavity(dev, results["parity cavity"]),
+         (spmv, sweeps), assembly + extra + irregular, ()),
+        ("fm-fc-cavity-1M", lambda: phase_fm_fc_cavity(dev, results["fc cavity"]),
+         (spmv, sweeps),
+         assembly + extra + irregular, ()),
+        ("ggnode-448", lambda: phase_ggnode(dev), (sspmv,),
+         structured + (snbr, sexact), ()),
+        ("fm-auto-216", lambda: phase_fm_auto_216(dev), (spmv, sweeps, march),
+         assembly + (mom_t, fc_mom_t) + per_row + irregular, ()),
     )
     launches = {k.name: 0 for k in kernels}
     for label, run, must, must_not, per_iteration in paths:
@@ -2830,7 +3340,13 @@ def main():
         f"{results['lsq cavity']['ms_per_iter']:.2f} ms/iter (SIMPLE_FC "
         f"{results['lsq fc cavity']['ms_per_iter']:.2f}); TVD cavity 1024^2 f32 "
         f"{results['tvd cavity']['ms_per_iter']:.2f} ms/iter; CD2 couette f64 "
-        f"{results['cd2 couette']['ms_per_iter']:.3f} ms/iter; "
+        f"{results['cd2 couette']['ms_per_iter']:.3f} ms/iter; face-major: couette "
+        f"f64 {results['fm-couette']['ms_per_iter']:.3f} ms/iter, cavity 1024^2 f32 "
+        f"{results['fm-cavity-1M']['ms_per_iter']:.2f} (SIMPLE_FC "
+        f"{results['fm-fc-cavity-1M']['ms_per_iter']:.2f}), GG node 448^2 f32 "
+        f"{results['ggnode-448']['ms_per_iter']:.2f}, 216^3 f32 "
+        f"{results['fm-auto-216']['ms_per_iter']:.1f} ms/iter "
+        f"({results['fm-auto-216']['peak_gib']:.2f} GiB peak); "
         f"{time.perf_counter() - _T0:.1f} s since the start"
     )
     log(json.dumps({"kernels": [k.summary(launches[k.name]) for k in kernels]}))

@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from orc_tpu_torch.mesh.compile import CompiledMesh
+from orc_tpu_torch.mesh.nodes import NodeInterp
 from orc_tpu_torch.mesh.reorder import SlicePlan
 from orc_tpu_torch.solver.simple import FlowState
 from orc_tpu_torch.solver.turbulence import TurbState
@@ -25,8 +26,13 @@ MESH_FIELDS = tuple(
     f.name
     for f in dataclasses.fields(CompiledMesh)
     if f.name
-    not in ("dim", "neighbor_offsets", "ck_constants", "cell_order", "slice_plan")
+    not in (
+        "dim", "neighbor_offsets", "ck_constants", "nodes", "cell_order",
+        "slice_plan",
+    )
 )
+#: The tables of a NodeInterp (mesh/nodes.py).
+NODE_TABLES = ("node_cells", "node_w", "face_nodes", "face_node_w")
 #: The index tables of a SlicePlan and its sizes.
 PLAN_TABLES = ("starts", "col_of", "tile_nj", "col_tile")
 PLAN_SIZES = ("tile", "n_max", "pad_lo", "pad_hi", "n_cells", "j0", "n_heavy")
@@ -52,6 +58,15 @@ def slice_plan_from_numpy(fields: dict, *, device) -> SlicePlan:
     )
 
 
+def node_interp_from_numpy(fields: dict, *, device) -> NodeInterp:
+    """NodeInterp on `device` from a dict holding its four tables
+    (NODE_TABLES) as numpy arrays."""
+    missing = [name for name in NODE_TABLES if fields.get(name) is None]
+    if missing:
+        raise KeyError(f"node tables missing: {missing}")
+    return NodeInterp(**{name: _tensor(fields[name], device) for name in NODE_TABLES})
+
+
 def compiled_mesh_from_numpy(
     fields: dict,
     neighbor_offsets: tuple | None,
@@ -61,11 +76,13 @@ def compiled_mesh_from_numpy(
     device,
     cell_order=None,
     slice_plan: SlicePlan | None = None,
+    nodes: NodeInterp | None = None,
 ) -> CompiledMesh:
     """CompiledMesh on `device` from a dict holding every tensor field
     as a numpy array, plus the static `neighbor_offsets` and
-    `ck_constants` and, for irregular meshes, the numpy `cell_order`
-    and a `slice_plan` (see slice_plan_from_numpy)."""
+    `ck_constants`, for irregular meshes the numpy `cell_order` and a
+    `slice_plan` (see slice_plan_from_numpy), and for node-based
+    Green-Gauss the vertex tables `nodes` (see node_interp_from_numpy)."""
     missing = set(MESH_FIELDS) - set(fields)
     if missing:
         raise KeyError(f"mesh fields missing: {sorted(missing)}")
@@ -76,6 +93,7 @@ def compiled_mesh_from_numpy(
             int(d) for d in neighbor_offsets
         ),
         ck_constants=ck_constants,
+        nodes=None if nodes is None else nodes.to(device),
         cell_order=None if cell_order is None else _tensor(cell_order, device),
         slice_plan=None if slice_plan is None else slice_plan.to(device),
     )
@@ -83,7 +101,8 @@ def compiled_mesh_from_numpy(
 
 def flow_state_from_numpy(vel, p, mom_diag, flux=None, *, device) -> FlowState:
     """FlowState on `device` from numpy vel [C,3], p [C], mom_diag [3,C]
-    (and the SIMPLE_FC flux, when given)."""
+    and, when given, the SIMPLE_FC flux in either shape: [F] per face
+    (the face-major step) or [C,K] per (cell, slot) (the (c,k) step)."""
     return FlowState(
         vel=_tensor(vel, device),
         p=_tensor(p, device),

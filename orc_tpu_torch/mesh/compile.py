@@ -57,6 +57,10 @@ class CompiledMesh:
     # Uniform-box per-column geometry constants
     # (int_slot, K x (area, n_out, dist_fo, dist_on, zone_slot)).
     ck_constants: tuple | None = None
+    # Vertex-interpolation tables of node-based Green-Gauss
+    # (mesh/nodes.py NodeInterp), built on request from the raw face-node
+    # topology the compiled mesh otherwise discards.
+    nodes: "object | None" = None
     # Irregular meshes: the RCM permutation (cell_order[new_id] = old_id,
     # [C] i32; None when the input order was kept) and the slice plan of
     # EllMatrix.prepare() and the neighbour-value gather.
@@ -111,6 +115,7 @@ def trim_for_ck(mesh: CompiledMesh) -> CompiledMesh:
         cell_faces=torch.zeros((2, K), dtype=torch.int32, device=dev),
         cell_face_sign=torch.zeros((2, K), dtype=dt, device=dev),
         cell_neighbors=torch.zeros((2, K), dtype=torch.int32, device=dev),
+        nodes=None,
     )
 
 
@@ -126,14 +131,10 @@ def compile_mesh(
     Translational-periodic pairs (RawMesh.periodic_pairs) are merged:
     each (face, shadow) pair becomes one interior face between the two
     owner cells, with the periodic translation folded into the face
-    interpolation geometry. `nodes=True` (the vertex tables of node-based
-    Green-Gauss, orc_tpu's mesh/nodes.py) is not ported yet."""
+    interpolation geometry. `nodes=True` also builds the vertex tables of
+    node-based Green-Gauss (mesh/nodes.py), their cell ids remapped
+    through the RCM `cell_order` when the mesh was reordered."""
     device = resolve_device(device)
-    if nodes:
-        raise NotImplementedError(
-            "vertex-interpolation tables (mesh/nodes.py) are not ported "
-            "yet (ROADMAP Queue 1, item 2)"
-        )
     geo = derive_geometry(raw)
     table = BoundaryTable(raw.face_zones)
     zone_slot = np.array(
@@ -160,6 +161,21 @@ def compile_mesh(
         face_shift=face_shift,
         device=device,
     )
+    if nodes:
+        from orc_tpu_torch.mesh.nodes import build_node_interp
+
+        ni = build_node_interp(raw, geo.cell_centroid, dtype=mesh.dtype, device=device)
+        if mesh.cell_order is not None:
+            # The tables name cells in the raw order; the weights stay.
+            order = mesh.cell_order.cpu().numpy()
+            inv = np.empty(order.shape[0], dtype=np.int64)
+            inv[order] = np.arange(order.shape[0])
+            remapped = inv[ni.node_cells.cpu().numpy()]
+            ni = dataclasses.replace(
+                ni,
+                node_cells=torch.tensor(remapped, dtype=torch.int32, device=device),
+            )
+        mesh = dataclasses.replace(mesh, nodes=ni)
     return mesh, table
 
 

@@ -239,6 +239,20 @@ def mesh_matrix(mesh, diag, off) -> EllMatrix:
     )
 
 
+def planes(x):
+    """x [C,K] as a view of K contiguous [C] planes ([K,C] storage), the
+    layout the kernels read and write; no copy when x already has it."""
+    return x.T.contiguous().T
+
+
+def component_planes(off):
+    """Per-component coefficients off [C,K,3] as [3,C,K] over
+    contiguous [3,K,C] storage: column k of component i is a contiguous
+    [C] plane, and column k a [3,C] plane set (the per-row kernels'
+    layout)."""
+    return off.permute(2, 1, 0).contiguous().transpose(1, 2)
+
+
 def zone_sel(zone_vals, zone_slot, n_zones: int):
     """Static Z-way select of per-zone values onto [C,K].
 
@@ -564,9 +578,7 @@ def ck_momentum(
     diag = torch.where(active[:, None], diag, one)
     b = torch.where(active[:, None], b, zero)
     pe = torch.where(active[:, None], a_p / safe_dd[:, None], zero)
-    # [3,C,K] over contiguous [3,K,C] storage: column k is a [3,C] plane.
-    off3 = off.permute(2, 1, 0).contiguous().transpose(1, 2)
-    return mesh_matrix(mesh, diag.T.contiguous(), off3), b.T, pe
+    return mesh_matrix(mesh, diag.T.contiguous(), component_planes(off)), b.T, pe
 
 
 def _tvd_coefficients(mesh, ck, psi, vel, Fv, grad_vel, vel_nbr):

@@ -1,8 +1,10 @@
 """Flux-corrected SIMPLE (`PressureVelocityCoupling.SIMPLE_FC`), port of
-the gather-free (c,k) half of orc_tpu/solver/fc.py.
+the single-device half of orc_tpu/solver/fc.py: the face-major step
+(`simple_step_fc`) and the gather-free (c,k) one (`ck_simple_step_fc`).
 
-The face fluxes are state (`FlowState.flux`, the outward normal velocity
-per (cell, ELL slot) [C,K]). Each iteration:
+The face fluxes are state (`FlowState.flux`: the owner-outward normal
+velocity per face [F] on the face-major step, the outward normal
+velocity per (cell, ELL slot) [C,K] on the (c,k) step). Each iteration:
 - momentum advects with last iteration's corrected, conservative flux;
 - the pressure equation solves for the full p (warm-started from p),
   assembled from the flux predictor `flux_h`: the Rhie-Chow flux
@@ -21,18 +23,23 @@ Pallas counterparts, behind the same gate (solver/simple.py
 `_kernel_asm_spec(..., fc=True)`). Like the parity step it takes the
 transient `inertia`, the momentum source and the multigrid hierarchy.
 
-Layout: the stored flux and the predictor are kept as [C,K] views of K
-contiguous [C] planes (`planes`), the layout the kernels read and
-write, so no [C,K] transpose runs between iterations on the card.
-
-Not ported: the face-major step (`face_flux_h`, `simple_step_fc`), which
-waits for the face-major SIMPLE step (ROADMAP Queue 1, item 3).
+Layout: on the (c,k) step the stored flux and the predictor are kept as
+[C,K] views of K contiguous [C] planes (`planes`), the layout the
+kernels read and write, so no [C,K] transpose runs between iterations
+on the card. The face-major step assembles in plain ops, as orc_tpu's
+does, and solves through the same kernels.
 """
 
 from __future__ import annotations
 
 import torch
 
+from orc_tpu_torch.ops.assembly import (
+    _gathered,
+    _normal_momentum_coeff,
+    apply_pressure_correction,
+    momentum_system,
+)
 from orc_tpu_torch.ops.ck_ops import (
     ck_apply_correction,
     ck_bc,
@@ -41,7 +48,19 @@ from orc_tpu_torch.ops.ck_ops import (
     ck_momentum,
     mesh_matrix,
     nbr_values,
+    planes,
 )
+from orc_tpu_torch.ops.fields import (
+    INTERIOR,
+    PRESSURE_INLET,
+    PRESSURE_OUTLET,
+    SYMMETRY,
+    VELOCITY_INLET,
+    WALL,
+    face_bc,
+)
+from orc_tpu_torch.ops.gradients import pressure_gradient, velocity_gradient
+from orc_tpu_torch.ops.interpolation import _dot, face_flux, face_pressure
 from orc_tpu_torch.solver import simple
 from orc_tpu_torch.utils.settings import (
     PressureCorrectionForm,
@@ -49,24 +68,182 @@ from orc_tpu_torch.utils.settings import (
 )
 
 
-def planes(x):
-    """x [C,K] as a view of K contiguous [C] planes; no copy when x
-    already has that layout."""
-    return x.T.contiguous().T
-
-
-_FACE_MAJOR = (
-    "the face-major SIMPLE_FC step waits for the face-major SIMPLE step "
-    "(ROADMAP Queue 1, item 3); use the (c,k) step"
-)
-
-
 def face_flux_h(mesh, fbc, vel, scheme, p=None, grad_p=None, mom_diag=None):
-    raise NotImplementedError(_FACE_MAJOR)
+    """Flux predictor [F] of the p-form pressure equation: the face
+    normal velocity without the compact pressure-difference term. For
+    LINEAR / LINEAR_WEIGHTED it is face_flux; for RHIE_CHOW 0.5 (term1 +
+    term3) of face_flux's formula (term2 is what the pressure equation's
+    flux correction re-adds with the new p). Boundary faces keep
+    face_flux's rules."""
+    if scheme in (
+        VelocityInterpolation.LINEAR,
+        VelocityInterpolation.LINEAR_WEIGHTED,
+    ):
+        return face_flux(mesh, fbc, vel, scheme)
+    if scheme != VelocityInterpolation.RHIE_CHOW:
+        raise NotImplementedError(f"SIMPLE_FC with {scheme}")
+    if p is None or grad_p is None or mom_diag is None:
+        raise ValueError("Rhie-Chow flux_h requires p, grad_p, mom_diag")
+    n = mesh.face_normal
+    own_i = mesh.face_owner.long()
+    nbr_i = mesh.face_neighbor.long()
+    v_own = vel[own_i]
+    a_i = torch.linalg.vector_norm(mom_diag[own_i] * n, dim=1)
+    a_j = torch.linalg.vector_norm(mom_diag[nbr_i] * n, dim=1)
+    voa_i = mesh.cell_volume[own_i] / a_i
+    voa_j = mesh.cell_volume[nbr_i] / a_j
+    term1 = _dot(v_own + vel[nbr_i], n)
+    gsum = voa_i[:, None] * grad_p[own_i] + voa_j[:, None] * grad_p[nbr_i]
+    term3 = _dot(gsum, mesh.face_r_on) / mesh.face_dist_on
+    interior = 0.5 * (term1 + term3)
+    boundary_vn = torch.where(
+        fbc.is_(VELOCITY_INLET),
+        _dot(fbc.vector, n),
+        _dot(v_own, n),  # pressure inlet / outlet
+    )
+    zero = torch.zeros((), dtype=interior.dtype, device=interior.device)
+    return torch.where(
+        fbc.is_(WALL, SYMMETRY),
+        zero,
+        torch.where(fbc.is_(INTERIOR), interior, boundary_vn),
+    )
 
 
-def simple_step_fc(*args, **kwargs):
-    raise NotImplementedError(_FACE_MAJOR)
+def _face_d_coeffs(mesh, fbc, rho, mom_diag):
+    """Per-face pressure-coupling coefficients of the flux model (mass
+    flow per pressure): interior d = 0.5 rho A (V_i/a_i + V_j/a_j)/dist,
+    the Rhie-Chow damping coefficient; pressure boundaries the one-sided
+    d = rho A (V_c/a_c)/dist_fo; prescribed-flux boundaries 0."""
+    n = mesh.face_normal
+    own_i = mesh.face_owner.long()
+    nbr_i = mesh.face_neighbor.long()
+    a_i = _normal_momentum_coeff(mom_diag[own_i], n)
+    a_j = _normal_momentum_coeff(mom_diag[nbr_i], n)
+    voa_i = mesh.cell_volume[own_i] / a_i
+    voa_j = mesh.cell_volume[nbr_i] / a_j
+    A = mesh.face_area
+    d_int = 0.5 * rho * A * (voa_i + voa_j) / mesh.face_dist_on
+    d_bnd = rho * A * voa_i / mesh.face_dist_fo
+    zero = torch.zeros((), dtype=A.dtype, device=A.device)
+    is_p = fbc.is_(PRESSURE_INLET, PRESSURE_OUTLET)
+    return torch.where(fbc.is_(INTERIOR), d_int, torch.where(is_p, d_bnd, zero))
+
+
+def fc_pressure_system(mesh, fbc, rho, flux_h, d_face):
+    """Full-p continuity system A p = b from the flux predictor; row c:
+    sum_int d_f (p_c - p_nb) + sum_pf d_b (p_c - p_BC)
+    = - sum_f sgn flux_h A rho. Prescribed-flux faces add nothing to the
+    matrix; a domain without pressure BCs is singular (solved
+    deflated)."""
+    cf, m, (code, scalar, _), area, interior = _gathered(mesh, fbc)
+    sgn = mesh.cell_face_sign
+    zero = torch.zeros((), dtype=area.dtype, device=area.device)
+    one = torch.ones((), dtype=area.dtype, device=area.device)
+    d_ck = d_face[cf]
+    is_p = ((code == PRESSURE_INLET) | (code == PRESSURE_OUTLET)) & m
+    b = torch.sum(torch.where(m, -sgn * flux_h[cf] * area * rho, zero), dim=1)
+    b = b + torch.sum(torch.where(is_p, d_ck * scalar, zero), dim=1)
+    diag = torch.sum(torch.where(interior | is_p, d_ck, zero), dim=1)
+    active = m.any(dim=1)
+    diag = torch.where(active, diag, one)
+    b = torch.where(active, b, zero)
+    off = torch.where(interior, -d_ck, zero)
+    return mesh_matrix(mesh, diag, planes(off)), b
+
+
+def correct_flux(mesh, fbc, flux_h, d_face, rho, p_new):
+    """Conservative flux update [F] with the unrelaxed new p:
+    div(corrected flux) == b - A p_new, the linear-solve residual."""
+    p_own = p_new[mesh.face_owner.long()]
+    dv = d_face / (rho * torch.clamp(mesh.face_area, min=1e-300))
+    delta = torch.where(
+        fbc.is_(INTERIOR),
+        p_own - p_new[mesh.face_neighbor.long()],
+        p_own - fbc.scalar,  # d_face is 0 except at pressure faces
+    )
+    return flux_h + dv * delta
+
+
+def simple_step_fc(
+    mesh,
+    zone_codes,
+    zone_scalar,
+    zone_vector,
+    settings,
+    rho,
+    mu,
+    diff,
+    state,
+    solver_extras=None,
+    inertia=None,
+    maybe_singular: bool = True,
+):
+    """One flux-corrected SIMPLE iteration in the face-major formulation
+    (orc_tpu's `simple_step_fc`, single device). `state.flux` [F] must be
+    seeded (simple.initial_flux); `maybe_singular` is the host fact "no
+    pressure zones" (simple.table_has_pressure_bc); `solver_extras` may
+    carry the MULTIGRID hierarchy as "mg_hierarchy"."""
+    mg_hierarchy = (solver_extras or {}).get("mg_hierarchy")
+    fbc = face_bc(mesh, zone_codes, zone_scalar, zone_vector)
+    active = mesh.cell_face_mask.any(dim=1)
+    vel, p, flux = state.vel, state.p, state.flux
+
+    grad_p = (
+        pressure_gradient(mesh, fbc, p, settings.gradient_reconstruction)
+        if simple._needs_grad_p(settings)
+        else None
+    )
+    grad_v = (
+        velocity_gradient(mesh, fbc, vel, settings.gradient_reconstruction)
+        if simple._needs_grad_vel(settings)
+        else None
+    )
+    p_f = face_pressure(mesh, fbc, p, settings.pressure_interpolation, grad_p=grad_p)
+    A3, b3, pe = momentum_system(
+        mesh, fbc, settings, rho, vel, flux, p_f, diff, grad_vel=grad_v,
+        inertia=inertia,
+    )
+    new_vel, new_mom_diag, info = simple._solve_momentum(
+        A3, b3, vel, active, settings, mg_hierarchy
+    )
+    new_md_c = new_mom_diag.T
+
+    # The pressure equation from the flux predictor (the full p).
+    flux_h = face_flux_h(
+        mesh, fbc, new_vel, settings.velocity_interpolation,
+        p=p, grad_p=grad_p, mom_diag=new_md_c,
+    )
+    d_face = _face_d_coeffs(mesh, fbc, rho, new_md_c)
+    Pmat, b_p = fc_pressure_system(mesh, fbc, rho, flux_h, d_face)
+    p_new, p_info = simple._solve_p_prime(
+        Pmat, b_p, p, settings, active, maybe_singular, x0=p,
+        mg_hierarchy=mg_hierarchy,
+    )
+
+    # Conservative stored flux from the unrelaxed p_new, blended with the
+    # previous one under explicit relaxation (both are divergence-free).
+    new_flux = correct_flux(mesh, fbc, flux_h, d_face, rho, p_new)
+    beta_f = settings.resolved_fc_flux_relaxation()
+    if beta_f != 1.0:
+        new_flux = flux + beta_f * (new_flux - flux)
+
+    # Relaxed pressure and the face-value velocity correction of the
+    # relaxed increment (what the next momentum solve sees).
+    dp = (p_new - p) * settings.pressure_relaxation
+    s_corr = settings.replace(
+        pressure_relaxation=1.0,
+        pressure_correction_form=PressureCorrectionForm.FACE_VALUE,
+    )
+    vel3, p_out, (p_corr_sq, vel_corr_sq) = apply_pressure_correction(
+        mesh, fbc, s_corr, dp, new_md_c, new_vel, p
+    )
+    metrics = simple._step_metrics(
+        active, vel3, pe, p_corr_sq, vel_corr_sq, info, p_info
+    )
+    new_state = simple.FlowState(
+        vel=vel3, p=p_out, mom_diag=new_mom_diag, flux=new_flux
+    )
+    return new_state, metrics
 
 
 def ck_flux_h(

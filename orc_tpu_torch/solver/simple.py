@@ -1,46 +1,56 @@
 """SIMPLE pressure-velocity coupling, the outer loop (port of the
-single-device (c,k) path of orc_tpu/solver/simple.py).
+single-device half of orc_tpu/solver/simple.py).
 
-One SIMPLE iteration is `ck_simple_step`: face fluxes -> momentum
-assembly -> one batched [3,C] momentum solve -> pressure-correction
-assembly and solve -> correction -> metrics. `solve_steady` drives it in
-a Python loop, `reporting_interval` iterations per chunk, and reads the
-small metrics back to the host once per chunk.
+One SIMPLE iteration is face fluxes -> momentum assembly -> one batched
+[3,C] momentum solve -> pressure-correction assembly and solve ->
+correction -> metrics. `solve_steady` drives it in a Python loop,
+`reporting_interval` iterations per chunk, and reads the small metrics
+back to the host once per chunk. It runs one of two steps, as orc_tpu's
+does:
+- `ck_simple_step`, the gather-free (c,k) formulation (ops/ck_ops.py),
+  which use_ck="auto" takes for meshes up to CK_AUTO_MAX_CELLS with
+  Green-Gauss cell or least-squares gradients;
+- `simple_step`, the face-major formulation (ops/interpolation.py,
+  ops/gradients.py, ops/assembly.py: per-face fluxes and face pressures,
+  then [C,K] gathers and masked reductions), which use_ck=False forces
+  and "auto" takes for node-based Green-Gauss and above the ceiling.
 
 SIMPLE_FC (AUTO under Rhie-Chow + implicit relaxation) runs
-`solver/fc.py`'s `ck_simple_step_fc` in the same loop, with the stored
-face flux carried in `FlowState.flux`. Both steps take the implicit-Euler
-`inertia` of transient runs (solver/transient.py) and the momentum
-source of settings.momentum_source; MULTIGRID solves run the geometric
-V-cycle of solver/gmg.py over a hierarchy built once per run.
+`solver/fc.py`'s `ck_simple_step_fc` or `simple_step_fc` in the same
+loop, with the stored face flux carried in `FlowState.flux`. Every step
+takes the implicit-Euler `inertia` of transient runs
+(solver/transient.py) and the momentum source of
+settings.momentum_source; MULTIGRID solves run the geometric V-cycle of
+solver/gmg.py over a hierarchy built once per run.
 
 On a CUDA mesh the steps run the hand-written kernels where orc_tpu runs
 its Pallas kernels: the fused assembly kernels behind the gate
-`_kernel_asm_spec` (mirroring orc_tpu's `_pallas_asm_spec`, uniform
-boxes only; every scheme and face model of orc_tpu's kernels, steady and
-transient, the parity kernels with the Green-Gauss pressure gradient
-computed in the kernel), the Jacobi-sweep kernel in the momentum
-smoother and the shift SpMV in every Krylov iteration, on every
-multigrid level, on structured meshes; the slice
-SpMV and the slice neighbour gather on irregular meshes (RCM-reordered,
-with a slice plan), whose assembly is plain (c,k) ops, as in orc_tpu;
-the exact slice product in the residuals of DF32_IR solves. On CPU they
-take the plain versions.
+`_kernel_asm_spec` (mirroring orc_tpu's `_pallas_asm_spec`: the (c,k)
+step on uniform boxes; every scheme and face model of orc_tpu's kernels,
+steady and transient, the parity kernels with the Green-Gauss pressure
+gradient computed in the kernel), the Jacobi-sweep kernel in the
+momentum smoother and the shift SpMV in every Krylov iteration, on every
+multigrid level, on structured meshes; the slice SpMV on irregular
+meshes (RCM-reordered, with a slice plan) and the slice neighbour gather
+in their (c,k) assembly; the exact slice product in the residuals of
+DF32_IR solves. The face-major step assembles in plain ops, as in
+orc_tpu, and solves through the same kernels. On CPU they take the plain
+versions.
 
-The (c,k) step takes Green-Gauss cell or least-squares gradients and
-every momentum scheme: UD, CD1 and TVD_DC solve the u/v/w systems over
-one shared matrix, CD2 and in-matrix TVD over one matrix per component
-(diag [3,C]), whose diagonals the next iteration reads.
+Both steps take every momentum scheme: UD, CD1 and TVD_DC solve the
+u/v/w systems over one shared matrix, CD2 and in-matrix TVD over one
+matrix per component (diag [3,C]), whose diagonals the next iteration
+reads.
 
-Not ported yet (each raises NotImplementedError naming its ROADMAP
-item): the face-major step (`use_ck=False`), node-based Green-Gauss
-gradients, Gauss-Seidel solves, multigrid on meshes without a
-structured box (the algebraic hierarchy) and the sharded runtime.
+Not ported (each raises NotImplementedError naming its ROADMAP item):
+Gauss-Seidel solves (item 4), multigrid on meshes without a structured
+box (the algebraic hierarchy, item 8) and the sharded runtime (item 14).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 from typing import Optional
 
@@ -64,7 +74,16 @@ from orc_tpu_torch.ops.ck_ops import (
     mesh_matrix,
     nbr_values,
 )
-from orc_tpu_torch.ops.fields import device_bc, momentum_source_term
+from orc_tpu_torch.ops.assembly import (
+    DiffusionSystem,
+    apply_pressure_correction,
+    diffusion_system,
+    momentum_system,
+    pressure_correction_system,
+)
+from orc_tpu_torch.ops.fields import device_bc, face_bc, momentum_source_term
+from orc_tpu_torch.ops.gradients import pressure_gradient, velocity_gradient
+from orc_tpu_torch.ops.interpolation import face_flux, face_pressure
 from orc_tpu_torch.solver.krylov import (
     _no_project,
     constant_deflation,
@@ -81,8 +100,9 @@ from orc_tpu_torch.utils.settings import (
     VelocityInterpolation,
 )
 
-#: Cell-count ceiling under which use_ck="auto" picks the (c,k) step.
-CK_AUTO_MAX_CELLS = 10_000_000
+#: Cell-count ceiling under which use_ck="auto" picks the (c,k) step,
+#: read once at import from ORC_TPU_CK_MAX_CELLS as orc_tpu reads it.
+CK_AUTO_MAX_CELLS = int(os.environ.get("ORC_TPU_CK_MAX_CELLS", "10000000"))
 
 
 class SolverDivergedError(RuntimeError):
@@ -98,9 +118,10 @@ class FlowState:
     # Momentum-matrix diagonals of the previous iteration, component-
     # major [3,C] as in orc_tpu (1.0 before the first iteration).
     mom_diag: torch.Tensor  # [3,C]
-    # Stored face fluxes of SIMPLE_FC: the outward normal velocity per
-    # (cell, ELL slot) [C,K], a view of K contiguous [C] planes; None on
-    # the parity loop.
+    # Stored face fluxes of SIMPLE_FC; None on the parity loop. On the
+    # (c,k) step the outward normal velocity per (cell, ELL slot) [C,K],
+    # a view of K contiguous [C] planes; on the face-major step the
+    # owner-outward normal velocity per face [F].
     flux: "torch.Tensor | None" = None
 
 
@@ -140,6 +161,15 @@ def stack_history(history):
 
 def _np(t):
     return t.detach().cpu().numpy()
+
+
+def save_history(path, history):
+    """Write the stacked iteration history as an npz archive, one array
+    per StepMetrics field."""
+    import numpy as np
+
+    hs = stack_history(history)
+    np.savez_compressed(path, **{f: getattr(hs, f) for f in _metric_names()})
 
 
 def initial_state(mesh: CompiledMesh, vel=None, p=None) -> FlowState:
@@ -198,6 +228,27 @@ def table_has_pressure_bc(table) -> bool:
         fz.zone_type
         in (FaceCondition.PRESSURE_INLET, FaceCondition.PRESSURE_OUTLET)
         for fz in table.zones.values()
+    )
+
+
+def initial_flux(mesh, zone_codes, zone_scalar, zone_vector, settings, state):
+    """Seed FlowState.flux [F] for a face-major SIMPLE_FC run: the plain
+    interpolated flux of the initial fields (solver/fc.py corrects it
+    conservatively from the first iteration on)."""
+    fbc = face_bc(mesh, zone_codes, zone_scalar, zone_vector)
+    grad_p = (
+        pressure_gradient(mesh, fbc, state.p, settings.gradient_reconstruction)
+        if _needs_grad_p(settings)
+        else None
+    )
+    return face_flux(
+        mesh,
+        fbc,
+        state.vel,
+        settings.velocity_interpolation,
+        p=state.p,
+        grad_p=grad_p,
+        mom_diag=state.mom_diag.T,
     )
 
 
@@ -291,6 +342,72 @@ def _step_metrics(active, vel3, pe, p_corr_sq, vel_corr_sq, info, p_info):
         mom_iters=info.iterations,
         pc_iters=p_info.iterations,
     )
+
+
+def simple_step(
+    mesh: CompiledMesh,
+    zone_codes,
+    zone_scalar,
+    zone_vector,
+    settings: NumericalSettings,
+    rho,
+    mu,
+    diff: DiffusionSystem,
+    state: FlowState,
+    solver_extras: Optional[dict] = None,
+    inertia=None,
+    maybe_singular: bool = True,
+):
+    """One SIMPLE iteration in the face-major formulation (orc_tpu's
+    `simple_step`, single device). `solver_extras` may carry the
+    MULTIGRID hierarchy as "mg_hierarchy"; `inertia` = (rv_dt [C],
+    vel_n [C,3]) of a transient step."""
+    mg_hierarchy = (solver_extras or {}).get("mg_hierarchy")
+    fbc = face_bc(mesh, zone_codes, zone_scalar, zone_vector)
+    active = mesh.cell_face_mask.any(dim=1)  # non-padded cells
+    vel, p = state.vel, state.p
+    mom_diag = state.mom_diag.T  # cell-major [C,3] view
+
+    grad_p = (
+        pressure_gradient(mesh, fbc, p, settings.gradient_reconstruction)
+        if _needs_grad_p(settings)
+        else None
+    )
+    grad_v = (
+        velocity_gradient(mesh, fbc, vel, settings.gradient_reconstruction)
+        if _needs_grad_vel(settings)
+        else None
+    )
+    flux = face_flux(
+        mesh, fbc, vel, settings.velocity_interpolation,
+        p=p, grad_p=grad_p, mom_diag=mom_diag,
+    )
+    p_f = face_pressure(mesh, fbc, p, settings.pressure_interpolation, grad_p=grad_p)
+    A3, b3, pe = momentum_system(
+        mesh, fbc, settings, rho, vel, flux, p_f, diff, grad_vel=grad_v,
+        inertia=inertia,
+    )
+    new_vel, new_mom_diag, info = _solve_momentum(
+        A3, b3, vel, active, settings, mg_hierarchy
+    )
+    new_md_c = new_mom_diag.T
+
+    # Pressure correction with the post-solve velocities and the new
+    # momentum diagonals (reference: solver.rs:137-148).
+    flux2 = face_flux(
+        mesh, fbc, new_vel, settings.velocity_interpolation,
+        p=p, grad_p=grad_p, mom_diag=new_md_c,
+    )
+    Pmat, b_p = pressure_correction_system(mesh, fbc, rho, flux2, new_md_c)
+    p_prime, p_info = _solve_p_prime(
+        Pmat, b_p, p, settings, active, maybe_singular,
+        mg_hierarchy=mg_hierarchy,
+    )
+    vel3, p_new, (p_corr_sq, vel_corr_sq) = apply_pressure_correction(
+        mesh, fbc, settings, p_prime, new_md_c, new_vel, p
+    )
+    metrics = _step_metrics(active, vel3, pe, p_corr_sq, vel_corr_sq, info, p_info)
+    return FlowState(vel=vel3, p=p_new, mom_diag=new_mom_diag), metrics
 
 
 def ck_simple_step(
@@ -403,28 +520,14 @@ def ck_simple_step(
     return FlowState(vel=vel3, p=p_new, mom_diag=new_mom_diag), metrics
 
 
-def _run_chunk(
-    mesh, ck, ck_diff, state, zc, zs, zv, rho, mu, *, settings, n_steps,
-    kernel_asm=None, maybe_singular=True, use_fc=False, mg_hierarchy=None,
-):
-    """n_steps SIMPLE (or SIMPLE_FC) iterations; returns (state,
-    StepMetrics of [n_steps]-leading tensors). Float32 runs accumulate
-    (vel, p) with Kahan compensation when settings.compensated_state is
-    set: without it, increments below f32 epsilon of the fields round
-    away and the run freezes short of steady state. The SIMPLE_FC flux
-    is not compensated: it rides in the step's new state."""
-    if use_fc:
-        from orc_tpu_torch.solver.fc import ck_simple_step_fc as step_fn
-    else:
-        step_fn = ck_simple_step
-
-    def step(s):
-        return step_fn(
-            mesh, ck, zc, zs, zv, settings, rho, mu, ck_diff, s,
-            kernel_asm=kernel_asm, maybe_singular=maybe_singular,
-            mg_hierarchy=mg_hierarchy,
-        )
-
+def _run_chunk(step, state, settings, n_steps):
+    """n_steps iterations of `step` (state -> (state, metrics)); returns
+    (state, StepMetrics of [n_steps]-leading tensors). Float32 runs
+    accumulate (vel, p) with Kahan compensation when
+    settings.compensated_state is set: without it, increments below f32
+    epsilon of the fields round away and the run freezes short of steady
+    state. The SIMPLE_FC flux is not compensated: it rides in the step's
+    new state."""
     use_comp = settings.compensated_state and state.vel.dtype == torch.float32
     cv = torch.zeros_like(state.vel) if use_comp else None
     cp = torch.zeros_like(state.p) if use_comp else None
@@ -518,28 +621,35 @@ def _kernel_asm_spec(mesh, table, settings, ck, fc=False):
     )
 
 
-def _check_ported(mesh, settings: NumericalSettings, use_ck):
-    if use_ck is False:
-        raise NotImplementedError(
-            "the face-major SIMPLE and SIMPLE_FC steps are not ported yet "
-            "(ROADMAP Queue 1, item 3); use use_ck=True or 'auto'"
-        )
-    if settings.gradient_reconstruction == GradientReconstruction.GREEN_GAUSS_NODE:
-        raise NotImplementedError(
-            f"{settings.gradient_reconstruction} gradients are not ported "
-            "yet (ROADMAP Queue 1, item 3)"
-        )
+def _check_ported(settings: NumericalSettings):
+    """Raise NotImplementedError for the solvers not ported yet."""
     for ms in (settings.matrix_solver, settings.momentum_matrix_solver()):
         if ms.solver_type == SolutionMethod.GAUSS_SEIDEL:
             raise NotImplementedError(
                 f"solver {ms.solver_type} is not ported yet (ROADMAP Queue 1, "
                 "item 4)"
             )
-    if use_ck == "auto" and mesh.n_cells > CK_AUTO_MAX_CELLS:
-        raise NotImplementedError(
-            f"{mesh.n_cells} cells exceed CK_AUTO_MAX_CELLS: the face-major "
-            "step is not ported yet (ROADMAP Queue 1, item 3)"
+
+
+def _takes_ck_step(mesh, settings: NumericalSettings, use_ck) -> bool:
+    """orc_tpu's choice of step in `solve_steady`: use_ck=True forces the
+    (c,k) step (which computes Green-Gauss cell or least-squares
+    gradients only, so node-based Green-Gauss raises ValueError); "auto"
+    takes it for those gradients up to CK_AUTO_MAX_CELLS cells; anything
+    else takes the face-major step."""
+    ck_grad_ok = settings.gradient_reconstruction in (
+        GradientReconstruction.GREEN_GAUSS_CELL,
+        GradientReconstruction.LEAST_SQUARES,
+    )
+    if use_ck is True and not ck_grad_ok:
+        raise ValueError(
+            "use_ck=True requires green_gauss_cell or least_squares "
+            f"gradients (the ck-direct step does not implement "
+            f"{settings.gradient_reconstruction})"
         )
+    return use_ck is True or (
+        use_ck == "auto" and ck_grad_ok and mesh.n_cells <= CK_AUTO_MAX_CELLS
+    )
 
 
 def _mg_hierarchy(mesh, settings):
@@ -569,11 +679,20 @@ def solve_steady(
     """Host loop of the steady SIMPLE solve on the mesh's device: the
     parity loop, or SIMPLE_FC when settings.resolved_coupling() says so.
 
-    `use_ck`: "auto" or True select the gather-free (c,k) step, the
-    only step ported so far. Returns (FlowState, list of per-chunk
-    StepMetrics with [n]-leading tensors)."""
+    `use_ck`: "auto" takes the gather-free (c,k) step for Green-Gauss
+    cell or least-squares gradients on meshes up to CK_AUTO_MAX_CELLS,
+    the face-major step otherwise; True forces the (c,k) step, False the
+    face-major one. Returns (FlowState, list of per-chunk StepMetrics
+    with [n]-leading tensors)."""
+    from orc_tpu_torch.solver.fc import (
+        ck_initial_flux,
+        ck_simple_step_fc,
+        simple_step_fc,
+    )
+
     table.validate_supported()
-    _check_ported(mesh, settings, use_ck)
+    _check_ported(settings)
+    use_ck_step = _takes_ck_step(mesh, settings, use_ck)
     mg_hierarchy = _mg_hierarchy(mesh, settings)
     reporting_interval = max(1, min(reporting_interval, iterations))
     zc, zs, zv = device_bc(table, dtype=mesh.dtype, device=mesh.device)
@@ -581,36 +700,57 @@ def solve_steady(
         state = initial_state(mesh)
 
     use_fc = settings.resolved_coupling() == PressureVelocityCoupling.SIMPLE_FC
-    ck = build_ck_geometry(mesh, len(table.zone_ids))
-    bc0 = ck_bc(ck, zc, zs, zv)
     mu_t = torch.tensor(mu, dtype=mesh.dtype, device=mesh.device)
-    ck_diff = ck_diffusion(mesh, ck, bc0, mu_t)
+    ck = ck_diff = diff = None
+    if use_ck_step:
+        ck = build_ck_geometry(mesh, len(table.zone_ids))
+        bc0 = ck_bc(ck, zc, zs, zv)
+        ck_diff = ck_diffusion(mesh, ck, bc0, mu_t)
+    else:
+        # The face-major diffusion system is built only when that step
+        # runs (the geometric multigrid hierarchy does not read it).
+        diff = diffusion_system(mesh, face_bc(mesh, zc, zs, zv), mu_t)
     if use_fc and state.flux is None:
-        from orc_tpu_torch.solver.fc import ck_initial_flux
-
-        state = dataclasses.replace(
-            state, flux=ck_initial_flux(mesh, ck, bc0, settings, state)
-        )
+        # The stored flux exists before the loop: [C,K] on the (c,k)
+        # step, [F] on the face-major one.
+        if ck is not None:
+            flux0 = ck_initial_flux(mesh, ck, bc0, settings, state)
+        else:
+            flux0 = initial_flux(mesh, zc, zs, zv, settings, state)
+        state = dataclasses.replace(state, flux=flux0)
     kernel_asm = _kernel_asm_spec(mesh, table, settings, ck, fc=use_fc)
     # Under SIMPLE_FC walls anchor nothing: only pressure zones do.
     maybe_singular = (
         not table_has_pressure_bc(table) if use_fc else table_maybe_singular(table)
     )
-    if mesh.neighbor_offsets is not None:
+    if ck is not None and mesh.neighbor_offsets is not None:
         # The irregular step still reads cell_neighbors and the plan.
         mesh = trim_for_ck(mesh)
+    if ck is None:
+        fm_step = simple_step_fc if use_fc else simple_step
+        extras = {} if mg_hierarchy is None else dict(mg_hierarchy=mg_hierarchy)
+
+        def step(s):
+            return fm_step(
+                mesh, zc, zs, zv, settings, rho, mu, diff, s, extras,
+                maybe_singular=maybe_singular,
+            )
+    else:
+        ck_step = ck_simple_step_fc if use_fc else ck_simple_step
+
+        def step(s):
+            return ck_step(
+                mesh, ck, zc, zs, zv, settings, rho, mu, ck_diff, s,
+                kernel_asm=kernel_asm, maybe_singular=maybe_singular,
+                mg_hierarchy=mg_hierarchy,
+            )
 
     history = []
     done = 0
     t0 = time.perf_counter()
     while done < iterations:
         n = min(reporting_interval, iterations - done)
-        state, metrics = _run_chunk(
-            mesh, ck, ck_diff, state, zc, zs, zv, rho, mu,
-            settings=settings, n_steps=n, kernel_asm=kernel_asm,
-            maybe_singular=maybe_singular, use_fc=use_fc,
-            mg_hierarchy=mg_hierarchy,
-        )
+        state, metrics = _run_chunk(step, state, settings, n)
         done += n
         history.append(metrics)
         if verbose:

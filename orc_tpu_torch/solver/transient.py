@@ -5,9 +5,14 @@ Each physical time step adds the first-order implicit unsteady term
 rho V/dt (phi - phi^n) to the momentum systems and runs
 `inner_iterations` SIMPLE (or SIMPLE_FC) iterations to converge the
 coupled step. orc_tpu compiles the two scans into one program; here
-they are two host loops on the mesh's device. On a uniform box on the
-card the momentum assembly is the parity or SIMPLE_FC kernel with its
-inertia branch, once per inner iteration.
+they are two host loops on the mesh's device. The (c,k) step or the
+face-major one runs each inner iteration, as in orc_tpu: use_ck="auto"
+picks the (c,k) step by the cell count alone (CK_AUTO_MAX_CELLS), so a
+node-based Green-Gauss run under "auto" takes the (c,k) step, which
+computes Green-Gauss cell gradients (orc_tpu's behaviour, kept). On a
+uniform box on the card the (c,k) step's momentum assembly is the
+parity or SIMPLE_FC kernel with its inertia branch, once per inner
+iteration.
 
 The steps run as orc_tpu's scan runs them: the state each one returns
 is the next one's input, with no Kahan-compensated accumulation (which
@@ -29,9 +34,11 @@ import torch
 from orc_tpu_torch.mesh.compile import CompiledMesh, trim_for_ck
 from orc_tpu_torch.mesh.zones import BoundaryTable
 from orc_tpu_torch.ops.ck_ops import build_ck_geometry, ck_bc, ck_diffusion, ck_flux
-from orc_tpu_torch.ops.fields import device_bc
+from orc_tpu_torch.ops.assembly import diffusion_system
+from orc_tpu_torch.ops.fields import device_bc, face_bc
 from orc_tpu_torch.solver import fc as fc_step
 from orc_tpu_torch.solver.simple import (
+    CK_AUTO_MAX_CELLS,
     FlowState,
     SolverDivergedError,
     StepMetrics,
@@ -40,7 +47,9 @@ from orc_tpu_torch.solver.simple import (
     _metric_names,
     _mg_hierarchy,
     ck_simple_step,
+    initial_flux,
     initial_state,
+    simple_step,
     table_has_pressure_bc,
     table_maybe_singular,
 )
@@ -77,7 +86,7 @@ def solve_transient(
     ignores it, as orc_tpu's does (its sharded driver, not ported, reads
     it)."""
     table.validate_supported()
-    _check_ported(mesh, settings, use_ck)
+    _check_ported(settings)
     use_fc = settings.resolved_coupling() == PressureVelocityCoupling.SIMPLE_FC
     maybe_singular = (
         not table_has_pressure_bc(table) if use_fc else table_maybe_singular(table)
@@ -85,33 +94,51 @@ def solve_transient(
     zc, zs, zv = device_bc(table, dtype=mesh.dtype, device=mesh.device)
     if state is None:
         state = initial_state(mesh)
-    ck = build_ck_geometry(mesh, len(table.zone_ids))
-    bc0 = ck_bc(ck, zc, zs, zv)
     mu_t = torch.tensor(mu, dtype=mesh.dtype, device=mesh.device)
-    ck_diff = ck_diffusion(mesh, ck, bc0, mu_t)
     rv_dt = rho * mesh.cell_volume / dt  # [C]
-    kernel_asm = _kernel_asm_spec(mesh, table, settings, ck, fc=use_fc)
     mg_hierarchy = _mg_hierarchy(mesh, settings)
-    if use_fc and state.flux is None:
-        # SIMPLE_FC: the stored conservative flux must exist before the
-        # first step (solver/fc.py).
-        state = dataclasses.replace(
-            state, flux=fc_step.ck_initial_flux(mesh, ck, bc0, settings, state)
-        )
-    if mesh.neighbor_offsets is not None:
-        mesh = trim_for_ck(mesh)
-    step_fn = fc_step.ck_simple_step_fc if use_fc else ck_simple_step
+    if use_ck is True or (use_ck == "auto" and mesh.n_cells <= CK_AUTO_MAX_CELLS):
+        ck = build_ck_geometry(mesh, len(table.zone_ids))
+        bc0 = ck_bc(ck, zc, zs, zv)
+        ck_diff = ck_diffusion(mesh, ck, bc0, mu_t)
+        kernel_asm = _kernel_asm_spec(mesh, table, settings, ck, fc=use_fc)
+        if use_fc and state.flux is None:
+            # SIMPLE_FC: the stored conservative flux must exist before
+            # the first step (solver/fc.py).
+            state = dataclasses.replace(
+                state, flux=fc_step.ck_initial_flux(mesh, ck, bc0, settings, state)
+            )
+        if mesh.neighbor_offsets is not None:
+            mesh = trim_for_ck(mesh)
+        step_fn = fc_step.ck_simple_step_fc if use_fc else ck_simple_step
+
+        def step(s, inertia):
+            return step_fn(
+                mesh, ck, zc, zs, zv, settings, rho, mu, ck_diff, s,
+                kernel_asm=kernel_asm, maybe_singular=maybe_singular,
+                inertia=inertia, mg_hierarchy=mg_hierarchy,
+            )
+    else:
+        diff = diffusion_system(mesh, face_bc(mesh, zc, zs, zv), mu_t)
+        if use_fc and state.flux is None:
+            state = dataclasses.replace(
+                state, flux=initial_flux(mesh, zc, zs, zv, settings, state)
+            )
+        fm_step = fc_step.simple_step_fc if use_fc else simple_step
+        extras = {} if mg_hierarchy is None else dict(mg_hierarchy=mg_hierarchy)
+
+        def step(s, inertia):
+            return fm_step(
+                mesh, zc, zs, zv, settings, rho, mu, diff, s, extras,
+                inertia=inertia, maybe_singular=maybe_singular,
+            )
 
     t0 = time.perf_counter()
     last = []
     for _ in range(n_steps):
         inertia = (rv_dt, state.vel)  # vel^n: the state at the step's start
         for _ in range(inner_iterations):
-            state, metrics = step_fn(
-                mesh, ck, zc, zs, zv, settings, rho, mu, ck_diff, state,
-                kernel_asm=kernel_asm, maybe_singular=maybe_singular,
-                inertia=inertia, mg_hierarchy=mg_hierarchy,
-            )
+            state, metrics = step(state, inertia)
         last.append(metrics)
     metrics = StepMetrics(
         **{f: torch.stack([getattr(m, f) for m in last]) for f in _metric_names()}

@@ -282,7 +282,7 @@ def solve_steady_turbulent(
     Returns (FlowState, TurbState, list of per-chunk StepMetrics with
     [n]-leading tensors)."""
     table.validate_supported()
-    _check_ported(mesh, settings, True)
+    _check_ported(settings)
     mg_hierarchy = _mg_hierarchy(mesh, settings)
     zc, zs, zv = device_bc(table, dtype=mesh.dtype, device=mesh.device)
     ck = build_ck_geometry(mesh, len(table.zone_ids))

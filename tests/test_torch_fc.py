@@ -213,10 +213,54 @@ def test_fc_op_matches_orc_tpu(case, op):
 
 
 def test_face_major_fc_raises():
-    with pytest.raises(NotImplementedError, match="Queue 1, item 3"):
-        tfc.simple_step_fc()
-    with pytest.raises(NotImplementedError, match="Queue 1, item 3"):
-        tfc.face_flux_h(None, None, None, None)
+    """The face-major SIMPLE_FC step runs: `face_flux_h` under Rhie-Chow
+    and one `simple_step_fc` from a seeded state on the 16^2 cavity match
+    orc_tpu's (rtol 1e-10; the step's pressure solved by Jacobi(50), its
+    state and metrics at rtol 1e-8, equal inner counts). The ops are
+    held entry for entry in tests/test_torch_face_major.py."""
+    from orc_tpu.ops.assembly import diffusion_system as j_diffusion
+    from orc_tpu.ops.fields import face_bc as j_face_bc
+
+    from orc_tpu_torch.ops.assembly import diffusion_system as t_diffusion
+    from orc_tpu_torch.ops.fields import face_bc as t_face_bc
+
+    settings = flagship_settings().replace(matrix_solver=JACOBI_50)
+    mj, tj = j_cavity(n=16)
+    mt, tt = t_cavity(n=16, device="cpu")
+    vel, p, md = cell_fields(mj.n_cells, seed=5)
+    outs = []
+    for pkg, mesh, table in (("jax", mj, tj), ("torch", mt, tt)):
+        if pkg == "jax":
+            arr, fc, simple = jnp.asarray, jfc, js
+            zc, zs, zv = jdevice_bc(table, dtype=mesh.dtype)
+            fbc, s = j_face_bc(mesh, zc, zs, zv), to_jax_settings(settings)
+            diff = j_diffusion(mesh, fbc, 1e-3)
+        else:
+            arr, fc, simple = torch.tensor, tfc, ts
+            zc, zs, zv = tdevice_bc(table, dtype=mesh.dtype, device="cpu")
+            fbc, s = t_face_bc(mesh, zc, zs, zv), settings
+            diff = t_diffusion(mesh, fbc, 1e-3)
+        md3 = arr(np.repeat(md[:, None], 3, axis=1))
+        grad_p = arr(np.random.default_rng(6).standard_normal((mj.n_cells, 3)))
+        flux_h = fc.face_flux_h(
+            mesh, fbc, arr(vel), s.velocity_interpolation, p=arr(p),
+            grad_p=grad_p, mom_diag=md3,
+        )
+        state = simple.initial_state(mesh, vel=arr(vel), p=arr(p))
+        state = dataclasses.replace(
+            state, flux=simple.initial_flux(mesh, zc, zs, zv, s, state)
+        )
+        outs.append((flux_h, fc.simple_step_fc(
+            mesh, zc, zs, zv, s, 1.0, 1e-3, diff, state, None,
+            maybe_singular=True,
+        )))
+    (fh_j, (sj, mj_)), (fh_t, (st, mt_)) = outs
+    _close(fh_t, fh_j, "flux_h")
+    assert st.flux.shape == (mt.n_faces,)
+    for f in ("vel", "p", "mom_diag", "flux"):
+        _close(getattr(st, f), getattr(sj, f), f, rtol=1e-8)
+    for f in ("mom_iters", "pc_iters"):
+        np.testing.assert_array_equal(np_(getattr(mt_, f)), np.asarray(getattr(mj_, f)))
 
 
 # --- the slice ----------------------------------------------------------

@@ -148,18 +148,18 @@ def test_continue_from_orc_tpu_state():
 
 
 def test_unported_paths_raise():
+    """Gauss-Seidel solves (item 4) raise on both steps; node-based
+    Green-Gauss and the face-major step run (tests/test_torch_nodes.py,
+    tests/test_torch_face_major_steps.py)."""
     (_, _), (mt, tt), settings, rho, mu = _case("cavity", "f64")
-    node = settings.replace(
-        gradient_reconstruction=tset.GradientReconstruction.GREEN_GAUSS_NODE
-    )
     gs = settings.replace(
         matrix_solver=tset.MatrixSolverSettings(
             solver_type=tset.SolutionMethod.GAUSS_SEIDEL
         )
     )
-    for s, kw in ((gs, {}), (node, {}), (settings, dict(use_ck=False))):
-        with pytest.raises(NotImplementedError):
-            ts.solve_steady(mt, tt, s, rho, mu, iterations=1, verbose=False, **kw)
+    for use_ck in ("auto", False):
+        with pytest.raises(NotImplementedError, match="item 4"):
+            ts.solve_steady(mt, tt, gs, rho, mu, iterations=1, verbose=False, use_ck=use_ck)
 
 
 def _forced_simple(momentum, vi, pi, **kw):
