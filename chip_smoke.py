@@ -40,7 +40,10 @@ Phases (any failure raises and the script exits non-zero):
    product) and of the Jacobi sweeps (the per-row tiles, held bitwise to
    the per-sweep per-row kernel, which is timed beside them) on the
    1024^2 f32 TVD cavity's momentum system (B = 3, one matrix per
-   component), both also on the 128x64 f64 CD2 couette's;
+   component), both also on the 128x64 f64 CD2 couette's; the slice-plan
+   SpMV on the coarse plans of the algebraic multigrid hierarchy of the
+   permuted 448^2 f32 cavity (levels whose 128-row plan would be
+   degenerate gather instead, as in orc_tpu; each level's form printed);
 3b. the SIMPLE and SIMPLE_FC slices on the card against the same slices
    on the CPU on a 16^2 float64 cavity (the parity one with
    solve_cavity's and with the reference's default numerics), and the FC
@@ -55,7 +58,11 @@ Phases (any failure raises and the script exits non-zero):
    permuted, SIMPLE_FC with a Jacobi(50) pressure solve, the transient
    slice, and node-based Green-Gauss on a 16^2 TGRID cavity read with
    read_mesh(nodes=True), structured and with relabelled cells, each
-   card against CPU to 1e-9 with equal inner counts;
+   card against CPU to 1e-9 with equal inner counts; the permuted 16^2
+   cavity under MULTIGRID (the algebraic hierarchy), the 16^2 cavity
+   under GAUSS_SEIDEL, initialize_flow on a 64x32 velocity-inlet channel
+   and solve_steady_with_recovery on tests/test_aux.py's diverging case
+   (the same recovery log), card against CPU to 1e-9;
 4. couette 128x64x1 float64 with bench.py's configuration (parity
    SIMPLE) through solve_steady: 100 warm-up + 200 timed iterations,
    u_mean within 25% of the analytical 1.0833e-3;
@@ -135,14 +142,26 @@ Phases (any failure raises and the script exits non-zero):
    under use_ck="auto", 5 + 25 iterations; (e) fm-auto-216, the 216^3 f32
    cavity above CK_AUTO_MAX_CELLS under "auto", 3 + 5 iterations, its
    build seconds and peak memory;
-phases 4-7 and 9-21 end with a short window under torch.profiler
+22. the solvers and drivers of slice 13: (a) amg-448, phase 9's permuted
+   448^2 f32 cavity with MULTIGRID on the pressure system (the algebraic
+   hierarchy at the settings' defaults: 3 levels, STRONGEST, coarsest
+   16; its host build timed alone), 5 + 25 iterations beside its
+   BiCGSTAB(50) twin, finite |u| < 2; (b) gs-cavity-1M, phase 5's cavity
+   with the pressure solved by GAUSS_SEIDEL(50) over the greedy colouring,
+   10 + 50 iterations, finite |u| < 2, the pressure residual beside phase
+   5's; (c) init-channel, initialize_flow on the 1024x512 f32 channel of
+   phase 17, its time, the inlet column's mass flow, the card against
+   the CPU; (d) channel-128x64, solve_channel_flow at 128x64 f64 with
+   default numerics (MULTIGRID, the geometric hierarchy), 100
+   iterations, its validation passed;
+phases 4-7 and 9-22 end with a short window under torch.profiler
 (device time by kernel, device busy share, launches per iteration), and
 each phase that runs the Jacobi sweeps prints the instances it took;
 then one JSON line with every kernel's launches, error, card times and
 bound, the card's name and power limit, and as the last line
 {"ok": true, "device": {...}}.
 
-Kernel launch counters are set to 0 just before each of phases 4-21 and
+Kernel launch counters are set to 0 just before each of phases 4-22 and
 read just after it, and no plain version of rows 1 and 2 may run on the
 card meanwhile: each phase must launch every kernel of its path,
 the SIMPLE_FC phases none of the parity assembly kernels, the
@@ -150,7 +169,9 @@ structured phases no slice-plan kernel, the irregular phases none of
 the structured kernels, only the DF32_IR phase the exact slice product,
 only phases 13-14 the transient instances of the momentum kernels, only
 phase 20 the per-row branches, only phase 15 the z-march of the Jacobi
-sweeps, and phases 17-18 no assembly kernel.
+sweeps, only phase 22a the slice SpMV on plans built without the gather
+table (the multigrid's coarse levels), and phases 17-18 no assembly
+kernel.
 """
 
 from __future__ import annotations
@@ -1261,7 +1282,7 @@ def phase_cavity_3d(dev):
     for name, ms in (("MULTIGRID", mg_settings(levels=5, smoother=4)), ("BiCGSTAB(50)", _bicgstab_50())):
         settings = base.replace(matrix_solver=ms)
         if name == "MULTIGRID":
-            levels = build_mg_hierarchy(mesh, settings)
+            levels = build_mg_hierarchy(mesh, None, settings)
             log(f"  levels: {[lv.cdims for lv in levels]}")
         state, hist, wall = _timed_solve(mesh, table, settings, 1.0, 1e-2, None, 20, 20)
         h = hist[-1]
@@ -3085,6 +3106,360 @@ def phase_fm_auto_216(dev, n=216):
     return dict(ms_per_iter=1e3 * dt / 5, build_s=build_s, peak_gib=peak / 2**30, **prof)
 
 
+# --- slice 13: algebraic multigrid, Gauss-Seidel, initialisation --------
+
+
+def timed_extras(mesh, table, mu, settings):
+    """(solver extras, seconds): what solve_steady builds once for
+    `settings` (the multigrid hierarchy under MULTIGRID, from the
+    diffusion system it aggregates on; the colouring under
+    GAUSS_SEIDEL), timed on the host."""
+    from orc_tpu_torch.ops.assembly import diffusion_system
+    from orc_tpu_torch.ops.fields import device_bc, face_bc
+    from orc_tpu_torch.solver.simple import _solver_extras
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    zc, zs, zv = device_bc(table, mesh.dtype, device=mesh.device)
+    diff = diffusion_system(
+        mesh, face_bc(mesh, zc, zs, zv), torch.tensor(mu, dtype=mesh.dtype, device=mesh.device)
+    )
+    extras = _solver_extras(mesh, diff, settings)
+    torch.cuda.synchronize()
+    return extras, time.perf_counter() - t0
+
+
+def level_form(level):
+    """How a coarse level's SpMV runs: kernel 7 over its slice plan, or
+    the gather form where the 128-row plan would be degenerate."""
+    p = level.plan
+    if p is None:
+        return "gather (128-row plan degenerate: more distinct deltas a tile than rows)"
+    nj = p.tile_nj.double()
+    return (
+        f"slice plan (kernel 7): tile {p.tile}, ntiles {p.ntiles}, n_max {p.n_max}, "
+        f"mean tile_nj {float(nj.mean()):.2f}, gather table built: {p.col_tile is not None}"
+    )
+
+
+class PrebuiltExtras:
+    """Hands `extras` (a colouring or a multigrid hierarchy, built and
+    timed beforehand) to every solve_steady call while installed, so
+    that timed iterations leave out the host build that each call
+    repeats."""
+
+    def __init__(self, extras):
+        self.extras = extras
+
+    def __enter__(self):
+        from orc_tpu_torch.solver import simple
+
+        self.mod, self.real = simple, simple._solver_extras
+        simple._solver_extras = lambda *a, **k: self.extras
+        return self
+
+    def __exit__(self, *exc):
+        self.mod._solver_extras = self.real
+
+
+def amg_settings():
+    """irregular-448's numerics with MULTIGRID on the pressure system at
+    the solver settings' defaults (3 levels, STRONGEST, coarsest 16,
+    smoother iterations = iterations)."""
+    from orc_tpu_torch.utils.settings import SolutionMethod
+
+    base = bench_irregular_settings()
+    return base.replace(
+        matrix_solver=dataclasses.replace(base.matrix_solver, solver_type=SolutionMethod.MULTIGRID)
+    )
+
+
+def gs_settings(base):
+    """`base` with its pressure solved by GAUSS_SEIDEL (its iterations and
+    relaxation, the greedy colouring)."""
+    from orc_tpu_torch.utils.settings import SolutionMethod
+
+    return base.replace(
+        matrix_solver=dataclasses.replace(base.matrix_solver, solver_type=SolutionMethod.GAUSS_SEIDEL)
+    )
+
+
+def phase_amg_coarse_kernels(dev, kern):
+    """Kernel 7 on the algebraic multigrid's coarse plans of the permuted
+    448^2 f32 cavity (phase 22a's hierarchy): the Galerkin matrices of a
+    seeded diagonally dominant system over the fine sparsity, level by
+    level, each prepared on its plan and Jacobi-scaled, against the plain
+    version, with the CSR product and the bound. Levels without a plan
+    gather."""
+    log("== phase 3: kernel 7 on the algebraic multigrid's coarse plans, permuted cavity 448^2 f32")
+    from orc_tpu_torch.ops.slice_spmv import slice_spmv, slice_spmv_plain
+    from orc_tpu_torch.ops.spmv import EllMatrix
+    from orc_tpu_torch.solver.amg import galerkin_values
+
+    mesh, table, _ = permuted_cavity(448, torch.float32, dev)
+    extras, secs = timed_extras(mesh, table, 1e-3, amg_settings())
+    levels = extras["mg_hierarchy"]
+    log(f"  hierarchy of {len(levels)} levels built on the host in {secs:.2f} s")
+    interior = _interior(mesh)
+    C, K = interior.shape
+    rng = np.random.default_rng(0)
+    off = -torch.tensor(rng.uniform(0.0, 1.0, (C, K)), dtype=torch.float32, device=dev) * interior
+    diag = 1.0 + off.abs().sum(dim=1) + torch.tensor(rng.random(C), dtype=torch.float32, device=dev)
+    A = EllMatrix(diag, off, mesh.cell_neighbors)
+    timed = True
+    for i, level in enumerate(levels, 1):
+        A = galerkin_values(A, level)
+        log(f"  level {i}: n_c {level.n_coarse}, K_c {level.k_coarse}; {level_form(level)}")
+        plan = level.plan
+        if plan is None:
+            continue
+        Ap, _ = A.prepare().jacobi_preconditioned()
+        n = level.n_coarse
+        nj = plan.tile_nj.long()
+        t_rows = torch.clamp(n - torch.arange(plan.ntiles, device=dev) * plan.tile, max=plan.tile)
+        used = int((nj * t_rows).sum())
+        x = torch.tensor(rng.standard_normal(n), dtype=torch.float32, device=dev)
+        kern.compare(
+            f"amg level {i} ({n} rows) B=1",
+            lambda: slice_spmv(Ap.diag, Ap.off, plan, x),
+            lambda: slice_spmv_plain(Ap.diag, Ap.off, plan, x),
+            torch.float32, 4 * (used + 3 * n) + plan.ntiles * 4 * (1 + plan.n_max),
+            timed=timed, nops=2 * (used + n),
+            library_call=plan_csr_call(Ap.diag, Ap.off, plan, x),
+        )
+        timed = False
+    if timed:
+        raise AssertionError("no coarse level of the permuted 448^2 cavity has a slice plan")
+
+
+def _recovery_case(d):
+    """tests/test_aux.py::test_recovery_backs_off_and_completes: the 4x4
+    channel at dp/dx = 500 with an over-relaxed Jacobi solver on every
+    solve, which diverges until the relaxation is backed off."""
+    from orc_tpu_torch.models.channel_flow import ChannelFlowParameters, couette_case
+    from orc_tpu_torch.utils.settings import (
+        MatrixSolverSettings,
+        MomentumScheme,
+        NumericalSettings,
+        PressureInterpolation,
+        SolutionMethod,
+        VelocityInterpolation,
+    )
+
+    settings = NumericalSettings(
+        momentum=MomentumScheme.UD,
+        pressure_interpolation=PressureInterpolation.LINEAR_WEIGHTED,
+        velocity_interpolation=VelocityInterpolation.LINEAR_WEIGHTED,
+        matrix_solver=MatrixSolverSettings(
+            solver_type=SolutionMethod.JACOBI, iterations=4, relaxation=1.9,
+            momentum_iterations=None,
+        ),
+        pressure_relaxation=0.5,
+        momentum_relaxation=1.0,
+    )
+    mesh, table = couette_case(4, 4, params=ChannelFlowParameters(dp_dx=500.0), device=d)
+    return mesh, table, settings
+
+
+def phase_small_reference_solvers(dev):
+    """Phase 3b for slice 13, card against CPU, float64: the permuted 16^2
+    cavity under MULTIGRID (the algebraic hierarchy) and the 16^2 cavity
+    under GAUSS_SEIDEL, 10 iterations each (equal inner counts, fields to
+    1e-9 of scale); initialize_flow on the 64x32 velocity-inlet channel
+    (1e-9); solve_steady_with_recovery on tests/test_aux.py:73's case (the
+    same recovery log, finite fields, the card's within 1e-9 of the
+    CPU's)."""
+    log("== phase 3b: AMG, Gauss-Seidel, initialisation and recovery on the card vs on the CPU, f64")
+    from orc_tpu_torch.models.cavity import cavity_case, default_settings
+    from orc_tpu_torch.solver.amg import MgLevel
+    from orc_tpu_torch.solver.init_fields import initialize_flow
+    from orc_tpu_torch.solver.recovery import solve_steady_with_recovery
+    from orc_tpu_torch.solver.simple import solve_steady, stack_history
+
+    amg = default_settings().replace(matrix_solver=mg_settings(3, 5))
+    box, table = cavity_case(n=16, device="cpu")
+    mesh, _ = permuted_mesh(box, torch.float64, dev, seed=3)
+    levels = timed_extras(mesh, table, 0.01, amg)[0]["mg_hierarchy"]
+    if not (levels and all(isinstance(lv, MgLevel) for lv in levels)):
+        raise AssertionError("the permuted 16^2 cavity did not get the algebraic hierarchy")
+    log("  permuted 16^2 levels: " + "; ".join(
+        f"n_c {lv.n_coarse} {'slice plan' if lv.plan is not None else 'gather'}" for lv in levels
+    ))
+    _card_cpu_gap("permuted MULTIGRID (AMG)", _irregular_twins(dev, amg, 10), 1e-9)
+    gs = gs_settings(default_settings())
+    out = []
+    for d in (dev, torch.device("cpu")):
+        m, t = cavity_case(n=16, device=d)
+        state, hist = solve_steady(m, t, gs, 1.0, 0.01, iterations=10, reporting_interval=10, verbose=False)
+        out.append((state, stack_history(hist)))
+    _card_cpu_gap("structured GAUSS_SEIDEL", out, 1e-9)
+    states = [initialize_flow(*rans_channel(d, 64, 32, torch.float64), 1e-5, 1.0)
+              for d in (dev, torch.device("cpu"))]
+    errs = {n: max_err(getattr(states[0], n).cpu(), getattr(states[1], n))[1][0] for n in ("vel", "p")}
+    log(f"  initialize_flow, channel 64x32: error / scale vel {errs['vel']:.3e} p {errs['p']:.3e} (tol 1e-9)")
+    if not all(e <= 1e-9 for e in errs.values()):
+        raise AssertionError("initialize_flow on the card left the CPU's")
+    runs = []
+    for d in (dev, torch.device("cpu")):
+        m, t, settings = _recovery_case(d)
+        runs.append(solve_steady_with_recovery(
+            m, t, settings, 1000.0, 0.001, iterations=40, reporting_interval=10,
+            max_retries=5, verbose=False,
+        ))
+    (sg, _, log_g), (sc, _, log_c) = runs
+    gap = max_err(sg.vel.cpu(), sc.vel)[1][0]
+    log(f"  recovery: card log {log_g}; the same as the CPU's: {log_g == log_c}; vel gap {gap:.3e} of scale")
+    if not (log_g == log_c and log_g and np.isfinite(sg.vel.cpu().numpy()).all() and gap <= 1e-9):
+        raise AssertionError("solve_steady_with_recovery on the card left the CPU's")
+
+
+def phase_amg_448(dev):
+    """22a, amg-448: the permuted 448^2 f32 cavity (irregular-448) with
+    MULTIGRID on the pressure system, the algebraic hierarchy at the
+    settings' defaults; 5 warm-up + 25 timed iterations beside its
+    BiCGSTAB(50) twin from the same run. The host build of the hierarchy
+    is timed alone and left out of the iterations. Finite fields, |u| <
+    2."""
+    log("== phase 22a: amg-448, permuted cavity 448^2 f32, MULTIGRID (algebraic hierarchy, 3 levels, STRONGEST)")
+    t_start = time.perf_counter()
+    mesh, table, _ = permuted_cavity(448, torch.float32, dev)
+    out = {}
+    for name, settings in (("MULTIGRID", amg_settings()), ("BiCGSTAB(50)", bench_irregular_settings())):
+        extras, build_s = timed_extras(mesh, table, 1e-3, settings)
+        if name == "MULTIGRID":
+            log(f"  hierarchy built on the host in {build_s:.2f} s")
+            for i, lv in enumerate(extras["mg_hierarchy"], 1):
+                log(f"  level {i}: n_c {lv.n_coarse}, K_c {lv.k_coarse}; {level_form(lv)}")
+        with PrebuiltExtras(extras):
+            state, _, warm_s = _timed_solve(mesh, table, settings, 1.0, 1e-3, None, 5, 5)
+            state, hist, dt = _timed_solve(mesh, table, settings, 1.0, 1e-3, state, 25, 25)
+            u = state.vel.cpu().numpy()
+            if not (np.isfinite(u).all() and np.isfinite(state.p.cpu().numpy()).all() and np.abs(u).max() < 2.0):
+                raise AssertionError(f"amg-448 {name}: fields not finite or |u| >= 2")
+            h = hist[-1]
+            res = dict(
+                ms_per_iter=1e3 * dt / 25, pc_iters=h.pc_iters.float().mean().item(),
+                pc_residual=h.pc_residual[-1].item(), build_s=build_s,
+            )
+            log(
+                f"  {name}: warm-up 5 iterations {warm_s:.2f} s; 25 timed iterations {dt:.3f} s "
+                f"-> {res['ms_per_iter']:.2f} ms/iter; mean pressure iterations "
+                f"{res['pc_iters']:.2f}; pressure residual after iteration 30 "
+                f"{res['pc_residual']:.3e}; |u| max {np.abs(u).max():.3f}"
+            )
+            res.update(profile(mesh, table, settings, 1.0, 1e-3, state, iterations=2))
+        out[name] = res
+    out["seconds"] = time.perf_counter() - t_start
+    return out
+
+
+def phase_gs_cavity(dev, twin):
+    """22b, gs-cavity-1M: cavity-1M's numerics (solve_cavity's) with the
+    pressure solved by GAUSS_SEIDEL(50) over the greedy colouring (built
+    and timed alone), 10 warm-up + 50 timed iterations: finite, |u| < 2;
+    the median pressure residual beside cavity-1M's (phase 5)."""
+    log("== phase 22b: gs-cavity-1M 1024^2 f32, solve_cavity configuration, GAUSS_SEIDEL(50) pressure")
+    from orc_tpu_torch.models.cavity import cavity_case, default_settings
+
+    t_start = time.perf_counter()
+    settings = gs_settings(default_settings())
+    mesh, table = cavity_case(n=1024, dtype=torch.float32, device=dev)
+    extras, color_s = timed_extras(mesh, table, 1e-3, settings)
+    log(f"  greedy colouring of {mesh.n_cells} cells on the host in {color_s:.2f} s: {extras['n_colors']} colours")
+    with PrebuiltExtras(extras):
+        state, _, warm_s = _timed_solve(mesh, table, settings, 1.0, 1e-3, None, 10, 10)
+        state, hist, dt = _timed_solve(mesh, table, settings, 1.0, 1e-3, state, 50, 50)
+        u = state.vel.cpu().numpy()
+        if not (np.isfinite(u).all() and np.abs(u).max() < 2.0):
+            raise AssertionError("gs-cavity-1M fields not finite or |u| >= 2")
+        pc_res = float(np.median(np.concatenate([h.pc_residual.cpu().numpy() for h in hist])))
+        log(
+            f"  warm-up 10 iterations {warm_s:.2f} s; 50 timed iterations {dt:.3f} s -> "
+            f"{1e3 * dt / 50:.2f} ms/iter (cavity-1M, BiCGSTAB(50): {twin['ms_per_iter']:.2f}); "
+            f"median pressure residual {pc_res:.3e} (cavity-1M {twin['pc_residual_median']:.3e}); "
+            f"|u| max {np.abs(u).max():.3f}"
+        )
+        prof = profile(mesh, table, settings, 1.0, 1e-3, state, iterations=3)
+    return dict(
+        ms_per_iter=1e3 * dt / 50, n_colors=extras["n_colors"], color_s=color_s,
+        pc_residual_median=pc_res, seconds=time.perf_counter() - t_start, **prof,
+    )
+
+
+#: initialize_flow's mass balance at the inlet: the first cell column's
+#: mean u within this share of the inlet velocity (the tolerance of
+#: tests/test_channel_flow.py's inlet tests).
+INIT_INLET_TOL = 0.05
+#: The card's initial fields against the CPU's (f32, sums in another
+#: order over ten Krylov iterations), share of each field's scale.
+INIT_CARD_CPU_TOL = 1e-4
+
+
+def phase_init_channel(dev, nx=1024, ny=512):
+    """22c, init-channel: initialize_flow on rans-channel's 1024x512x1 f32
+    box (velocity inlet 1): its seconds; finite fields; the inlet column
+    carries the inlet's mass flow (INIT_INLET_TOL); the card's fields
+    against the port's CPU run on the same mesh (INIT_CARD_CPU_TOL). The
+    potential-flow solve takes orc_tpu's ten BiCGSTAB iterations, which
+    reach a few tens of cells from the inlet, so the bulk velocity is
+    far below the inlet's (in orc_tpu too); it is printed, not held."""
+    log("== phase 22c: init-channel, initialize_flow on the 1024x512 f32 channel, velocity inlet 1")
+    from orc_tpu_torch.solver.init_fields import initialize_flow
+
+    t_start = time.perf_counter()
+    mesh, table = rans_channel(dev, nx, ny, torch.float32)
+    initialize_flow(mesh, table, 1e-5, 1.0)  # the first call's one-time work
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state = initialize_flow(mesh, table, 1e-5, 1.0)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    cpu = initialize_flow(*rans_channel("cpu", nx, ny, torch.float32), 1e-5, 1.0)
+    u = state.vel[:, 0].cpu().numpy().reshape(ny, nx)
+    inlet, outlet = float(u[:, 0].mean()), float(u[:, -1].mean())
+    errs = {n: max_err(getattr(state, n).cpu(), getattr(cpu, n))[1][0] for n in ("vel", "p")}
+    log(
+        f"  initialize_flow {1e3 * secs:.2f} ms; inlet column mean u {inlet:.5f} (inlet 1, tol "
+        f"{INIT_INLET_TOL}); outlet column {outlet:.3e}; u_mean {float(u.mean()):.5f}; "
+        f"card vs CPU error / scale vel {errs['vel']:.3e} p {errs['p']:.3e} (tol {INIT_CARD_CPU_TOL:.0e})"
+    )
+    finite = bool(np.isfinite(state.vel.cpu().numpy()).all() and np.isfinite(state.p.cpu().numpy()).all())
+    if not (finite and abs(inlet - 1.0) < INIT_INLET_TOL):
+        raise AssertionError("init-channel: fields not finite or the inlet column's mass flow is off")
+    if not all(e <= INIT_CARD_CPU_TOL for e in errs.values()):
+        raise AssertionError("init-channel: the card's initial fields left the CPU's")
+    return dict(ms=1e3 * secs, u_mean=float(u.mean()), seconds=time.perf_counter() - t_start)
+
+
+def phase_channel_128(dev):
+    """22d, channel-128x64: solve_channel_flow at the reference's largest
+    mesh (128x64, f64) with default NumericalSettings (MULTIGRID, which
+    takes the geometric hierarchy on this box) and the reference's
+    validated parameters (moving top wall 5e-4, dp/dx 10), 100
+    iterations from initialize_flow: ms/iter of the whole call, the
+    statistics; result["passed"]; a profile window of one iteration."""
+    log("== phase 22d: channel-128x64, solve_channel_flow f64, default numerics (MULTIGRID), 100 iterations")
+    from orc_tpu_torch.models.channel_flow import ChannelFlowParameters, solve_channel_flow
+    from orc_tpu_torch.utils.settings import NumericalSettings
+
+    t_start = time.perf_counter()
+    params = ChannelFlowParameters(top_wall_velocity=5e-4, dp_dx=10.0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r = solve_channel_flow(params, nx=128, ny=64, iterations=100, reporting_interval=100,
+                           verbose=False, device=dev)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    stats = {k: v for k, v in r.items() if isinstance(v, float)}
+    log(f"  100 iterations (with mesh build and initialize_flow) {dt:.3f} s -> {1e3 * dt / 100:.2f} ms/iter")
+    log("  " + ", ".join(f"{k} {v:.6e}" for k, v in stats.items()))
+    log(f"  mean_ok {r['mean_ok']} min_ok {r['min_ok']} max_ok {r['max_ok']}: passed {r['passed']}")
+    if not r["passed"]:
+        raise AssertionError("solve_channel_flow 128x64 did not pass its validation")
+    prof = profile(r["mesh"], r["table"], NumericalSettings(), params.rho, params.mu, r["state"], iterations=1)
+    return dict(ms_per_iter=1e3 * dt / 100, passed=r["passed"], seconds=time.perf_counter() - t_start, **prof)
+
+
 class PlainOnCard:
     """Counts calls of rows 1 and 2's plain versions with a CUDA tensor
     (none may happen on a main path: a CUDA tensor launches the kernel or
@@ -3196,28 +3571,32 @@ def main():
         Kernel("fused_jacobi_sweeps[march]", fused_jacobi_sweeps,
                "orc_tpu_torch/csrc/jacobi_sweeps.cu", "orc_tpu/ops/pallas_smooth.py:98",
                counter="march_launches"),
+        Kernel("slice_spmv[amg coarse]", slice_spmv, slice_src,
+               "orc_tpu/ops/pallas_slice.py:47", counter="spmv_only_launches"),
     )
     (spmv, sweeps, mom, pc, fc_mom, fc_pc, mom_t, fc_mom_t, sspmv, snbr, sexact,
-     spmv_pr, sweeps_pr, march) = kernels
+     spmv_pr, sweeps_pr, march, amg_coarse) = kernels
     phase_kernels(dev, (spmv, sweeps, mom, pc), mom_t, march)
     phase_per_row_kernels(dev, spmv_pr, sweeps_pr)
     phase_parity_branches(dev, mom, pc, mom_t)
     phase_fc_kernels(dev, fc_mom, fc_pc, fc_mom_t)
     phase_slice_kernels(dev, sspmv, snbr)
+    phase_amg_coarse_kernels(dev, amg_coarse)
     exact = phase_exact_kernel(dev, sexact, sspmv)
     phase_small_reference(dev)
     phase_small_reference_irregular(dev)
     phase_small_reference_transient(dev)
     phase_small_reference_schemes(dev)
     phase_small_reference_face_major(dev)
+    phase_small_reference_solvers(dev)
 
     # The main paths, each driven with the launch counts set to 0 just
     # before it and read just after it.
     parity, fc = (spmv, sweeps, mom, pc), (spmv, sweeps, fc_mom, fc_pc)
     per_row = (spmv_pr, sweeps_pr)
     # Instances only some paths launch: the transient ones, the per-row
-    # branches and the 3-D march.
-    extra = (mom_t, fc_mom_t) + per_row + (march,)
+    # branches, the 3-D march and kernel 7 on multigrid coarse plans.
+    extra = (mom_t, fc_mom_t) + per_row + (march, amg_coarse)
     assembly = (mom, pc, fc_mom, fc_pc, mom_t, fc_mom_t)
     structured = (spmv, sweeps, mom, pc, fc_mom, fc_pc) + extra
     irregular = (sspmv, snbr, sexact)
@@ -3277,7 +3656,16 @@ def main():
         ("ggnode-448", lambda: phase_ggnode(dev), (sspmv,),
          structured + (snbr, sexact), ()),
         ("fm-auto-216", lambda: phase_fm_auto_216(dev), (spmv, sweeps, march),
-         assembly + (mom_t, fc_mom_t) + per_row + irregular, ()),
+         assembly + (mom_t, fc_mom_t) + per_row + irregular + (amg_coarse,), ()),
+        # Phase 22: the algebraic multigrid (kernel 7 on its coarse plans),
+        # Gauss-Seidel, initialize_flow and solve_channel_flow.
+        ("amg-448", lambda: phase_amg_448(dev), (sspmv, snbr, amg_coarse),
+         tuple(k for k in structured if k is not amg_coarse) + (sexact,), ()),
+        ("gs-cavity-1M", lambda: phase_gs_cavity(dev, results["parity cavity"]), parity,
+         (fc_mom, fc_pc) + extra + irregular, ()),
+        ("init-channel", lambda: phase_init_channel(dev), (spmv,),
+         assembly + extra + irregular + (sweeps,), ()),
+        ("channel-128x64", lambda: phase_channel_128(dev), (spmv,), extra + irregular, ()),
     )
     launches = {k.name: 0 for k in kernels}
     for label, run, must, must_not, per_iteration in paths:
@@ -3347,6 +3735,12 @@ def main():
         f"{results['ggnode-448']['ms_per_iter']:.2f}, 216^3 f32 "
         f"{results['fm-auto-216']['ms_per_iter']:.1f} ms/iter "
         f"({results['fm-auto-216']['peak_gib']:.2f} GiB peak); "
+        f"AMG permuted cavity 448^2 f32 {results['amg-448']['MULTIGRID']['ms_per_iter']:.2f} "
+        f"ms/iter (BiCGSTAB(50) twin {results['amg-448']['BiCGSTAB(50)']['ms_per_iter']:.2f}), "
+        f"Gauss-Seidel cavity 1024^2 f32 {results['gs-cavity-1M']['ms_per_iter']:.2f} ms/iter, "
+        f"initialize_flow 1024x512 f32 {results['init-channel']['ms']:.2f} ms, "
+        f"solve_channel_flow 128x64 f64 {results['channel-128x64']['ms_per_iter']:.2f} ms/iter; "
+        f"phase 22 {sum(results[k]['seconds'] for k in ('amg-448', 'gs-cavity-1M', 'init-channel', 'channel-128x64')):.1f} s; "
         f"{time.perf_counter() - _T0:.1f} s since the start"
     )
     log(json.dumps({"kernels": [k.summary(launches[k.name]) for k in kernels]}))

@@ -50,7 +50,9 @@ class SlicePlan:
              ranked within each tile, so the used ones are the first
              tile_nj[t].
     col_tile: [ntiles, K, tile] i32, col_of in the tile layout of the
-             neighbour-value gather (rows past C hold column 0).
+             neighbour-value gather (rows past C hold column 0); None in
+             a plan built without it (build_col_tile=False: the SpMV
+             alone, as on the algebraic multigrid's coarse levels).
     j0, n_heavy: orc_tpu's heavy-tail split of 128-row plans (its TPU
              kernel runs the first j0 columns of every tile and the rest
              of the n_heavy tiles that have more in a second kernel).
@@ -61,7 +63,7 @@ class SlicePlan:
     starts: torch.Tensor = dataclasses.field(repr=False)
     col_of: torch.Tensor = dataclasses.field(repr=False)
     tile_nj: torch.Tensor = dataclasses.field(repr=False)
-    col_tile: torch.Tensor = dataclasses.field(repr=False)
+    col_tile: "torch.Tensor | None" = dataclasses.field(repr=False)
     tile: int
     n_max: int
     pad_lo: int
@@ -80,7 +82,7 @@ class SlicePlan:
             starts=self.starts.to(device),
             col_of=self.col_of.to(device),
             tile_nj=self.tile_nj.to(device),
-            col_tile=self.col_tile.to(device),
+            col_tile=None if self.col_tile is None else self.col_tile.to(device),
         )
 
 
@@ -139,7 +141,7 @@ def rcm_permutation(
     return order[::-1].copy()
 
 
-def _host_plan(cell_neighbors, entry_interior, tile):
+def _host_plan(cell_neighbors, entry_interior, tile, build_col_tile=True):
     """The plan with CPU tensors (no copy of the numpy tables), or None
     when it would be degenerate (n_max > tile)."""
     C, K = cell_neighbors.shape
@@ -181,11 +183,13 @@ def _host_plan(cell_neighbors, entry_interior, tile):
     starts = np.broadcast_to(first_start[:, None], (ntiles, n_max)).copy()
     starts[ut, j_of_pair] = raw_start + pad_lo
 
-    col_pad = np.zeros((ntiles * tile, K), dtype=np.int64)
-    col_pad[:C] = col_of
-    col_tile = np.ascontiguousarray(
-        np.swapaxes(col_pad.reshape(ntiles, tile, K), 1, 2)
-    )
+    col_tile = None
+    if build_col_tile:
+        col_pad = np.zeros((ntiles * tile, K), dtype=np.int64)
+        col_pad[:C] = col_of
+        col_tile = np.ascontiguousarray(
+            np.swapaxes(col_pad.reshape(ntiles, tile, K), 1, 2)
+        )
 
     # orc_tpu's heavy-tail split (128-row plans): the smallest multiple
     # of 8 that fully covers >= 3/4 of the tiles, gated on the group
@@ -218,7 +222,7 @@ def _host_plan(cell_neighbors, entry_interior, tile):
         pad_lo=pad_lo,
         pad_hi=pad_hi,
         n_cells=C,
-        col_tile=i32(col_tile),
+        col_tile=None if col_tile is None else i32(col_tile),
         j0=j0,
         n_heavy=n_heavy,
     )
@@ -228,12 +232,16 @@ def build_slice_plan(
     cell_neighbors: np.ndarray,
     entry_interior: np.ndarray,
     tile: int = 128,
+    build_col_tile: bool = True,
     device: torch.device | str = "cuda",
 ) -> SlicePlan | None:
     """The per-tile slice schedule on `device`, or None when the plan
-    would be degenerate (more distinct deltas in a tile than its rows)."""
+    would be degenerate (more distinct deltas in a tile than its rows).
+    `build_col_tile` builds the neighbour gather's table (orc_tpu builds
+    it only on request; the port's mesh plans feed the gather kernel, so
+    here it is on unless the caller runs the SpMV alone)."""
     device = resolve_device(device)
-    plan = _host_plan(cell_neighbors, entry_interior, tile)
+    plan = _host_plan(cell_neighbors, entry_interior, tile, build_col_tile)
     return None if plan is None else plan.to(device)
 
 

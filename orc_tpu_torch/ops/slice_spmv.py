@@ -90,6 +90,8 @@ def slice_spmv(diag, coef, plan, x):
         diag.contiguous(), d_bs, coef.contiguous(), c_bs, plan, x.contiguous(),
         max(B, 1),
     )
+    if plan.col_tile is None:
+        slice_spmv.spmv_only_launches += 1
     slice_spmv.launches += 1
     return y
 
@@ -201,6 +203,8 @@ def slice_nbr_values(plan, x, interior):
     plan; the own value at slots where `interior` [C, K] is False. CPU
     tensors take the plain version; CUDA tensors launch the kernel or
     raise."""
+    if plan.col_tile is None:
+        raise ValueError("the plan was built without col_tile (build_col_tile=False)")
     if not x.is_cuda:
         return slice_nbr_values_plain(plan, x, interior)
     dev = x.device
@@ -239,5 +243,8 @@ def _launch_slice_nbr(plan, flat, interior):
 
 #: Kernel launches since the last reset (set to 0 to reset).
 slice_spmv.launches = 0
+#: Launches over plans built without the gather table (the algebraic
+#: multigrid's coarse levels), counted in `launches` too.
+slice_spmv.spmv_only_launches = 0
 slice_spmv_exact.launches = 0
 slice_nbr_values.launches = 0

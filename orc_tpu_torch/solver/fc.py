@@ -21,7 +21,7 @@ findings. On a CUDA mesh the step runs the SIMPLE_FC assembly kernels
 (`fc_momentum_assembly`, `fc_pc_assembly`) where orc_tpu runs their
 Pallas counterparts, behind the same gate (solver/simple.py
 `_kernel_asm_spec(..., fc=True)`). Like the parity step it takes the
-transient `inertia`, the momentum source and the multigrid hierarchy.
+transient `inertia`, the momentum source and the solver extras.
 
 Layout: on the (c,k) step the stored flux and the predictor are kept as
 [C,K] views of K contiguous [C] planes (`planes`), the layout the
@@ -181,9 +181,9 @@ def simple_step_fc(
     """One flux-corrected SIMPLE iteration in the face-major formulation
     (orc_tpu's `simple_step_fc`, single device). `state.flux` [F] must be
     seeded (simple.initial_flux); `maybe_singular` is the host fact "no
-    pressure zones" (simple.table_has_pressure_bc); `solver_extras` may
-    carry the MULTIGRID hierarchy as "mg_hierarchy"."""
-    mg_hierarchy = (solver_extras or {}).get("mg_hierarchy")
+    pressure zones" (simple.table_has_pressure_bc); `solver_extras` is
+    orc_tpu's: the colouring of GAUSS_SEIDEL runs, the hierarchy of
+    MULTIGRID ones."""
     fbc = face_bc(mesh, zone_codes, zone_scalar, zone_vector)
     active = mesh.cell_face_mask.any(dim=1)
     vel, p, flux = state.vel, state.p, state.flux
@@ -204,7 +204,7 @@ def simple_step_fc(
         inertia=inertia,
     )
     new_vel, new_mom_diag, info = simple._solve_momentum(
-        A3, b3, vel, active, settings, mg_hierarchy
+        A3, b3, vel, active, settings, solver_extras
     )
     new_md_c = new_mom_diag.T
 
@@ -217,7 +217,7 @@ def simple_step_fc(
     Pmat, b_p = fc_pressure_system(mesh, fbc, rho, flux_h, d_face)
     p_new, p_info = simple._solve_p_prime(
         Pmat, b_p, p, settings, active, maybe_singular, x0=p,
-        mg_hierarchy=mg_hierarchy,
+        solver_extras=solver_extras,
     )
 
     # Conservative stored flux from the unrelaxed p_new, blended with the
@@ -379,7 +379,7 @@ def ck_simple_step_fc(
     kernel_asm=None,  # (cols, AsmSpec) -> SIMPLE_FC assembly kernels
     maybe_singular: bool = True,
     inertia=None,  # (rv_dt [C], vel_n [C,3]) of a transient step
-    mg_hierarchy=None,  # solver/gmg.py levels of MULTIGRID solves
+    solver_extras=None,  # orc_tpu's: colouring or multigrid hierarchy
 ):
     """One flux-corrected SIMPLE iteration in the (c,k) formulation.
     `state.flux` must be seeded (ck_initial_flux); `maybe_singular` is
@@ -436,7 +436,7 @@ def ck_simple_step_fc(
         )
 
     new_vel, new_mom_diag, info = simple._solve_momentum(
-        A3, b3, vel, active, settings, mg_hierarchy
+        A3, b3, vel, active, settings, solver_extras
     )
     new_md_c = new_mom_diag.T  # cell-major [C,3] view
     new_md_nbr = nbr_values(mesh, new_md_c, ck.interior)
@@ -461,7 +461,7 @@ def ck_simple_step_fc(
         Pmat, b_p = ck_fc_pressure_system(mesh, ck, bc, rho, flux_h, d_ck)
     p_new, p_info = simple._solve_p_prime(
         Pmat, b_p, p, settings, active, maybe_singular, x0=p,
-        mg_hierarchy=mg_hierarchy,
+        solver_extras=solver_extras,
     )
     p_new_nbr = nbr_values(mesh, p_new, ck.interior)
     new_flux = ck_correct_flux(mesh, ck, bc, flux_h, d_ck, rho, p_new, p_new_nbr)

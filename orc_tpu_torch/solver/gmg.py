@@ -17,9 +17,9 @@ without tensors. Smoothing is the reference's Jacobi-preconditioned
 BiCGSTAB per level (solver/amg.py `_smooth`). Vectors may carry leading
 batch dimensions ([..., C]), so the three momentum systems can share one
 cycle, as orc_tpu's vmapped cycle does. Meshes whose offsets do not
-describe a box need the algebraic hierarchy, which is not ported yet
-(`build_mg_hierarchy` raises); neither is the sharded V-cycle (ROADMAP
-Queue 1, items 8 and 14).
+describe a coarsenable box take the algebraic hierarchy of
+solver/amg.py (`build_mg_hierarchy`). The sharded V-cycle waits for the
+port's sharded runtime (ROADMAP Queue 1, item 14).
 """
 
 from __future__ import annotations
@@ -203,11 +203,11 @@ def build_gmg_hierarchy(
     return tuple(levels) if levels else None
 
 
-def build_mg_hierarchy(mesh, settings):
+def build_mg_hierarchy(mesh, diff, settings):
     """The hierarchy of `SolutionMethod.MULTIGRID`: geometric when the
-    mesh's neighbor offsets describe a structured box. orc_tpu falls
-    back to its algebraic hierarchy otherwise; that one is not ported
-    yet, so other meshes raise."""
+    mesh's neighbor offsets describe a box that coarsens, algebraic
+    (solver/amg.py, aggregated on the diffusion system `diff`)
+    otherwise, as orc_tpu chooses."""
     if mesh.neighbor_offsets is not None:
         dims = infer_box_dims(mesh.neighbor_offsets, mesh.n_cells)
         if dims is not None:
@@ -216,11 +216,9 @@ def build_mg_hierarchy(mesh, settings):
             )
             if h:
                 return h
-    raise NotImplementedError(
-        "MULTIGRID on a mesh without a coarsenable structured box needs the "
-        "algebraic multigrid hierarchy, which is not ported yet (ROADMAP "
-        "Queue 1, item 8)"
-    )
+    from orc_tpu_torch.solver.amg import build_hierarchy
+
+    return build_hierarchy(mesh, diff, settings.matrix_solver)
 
 
 # --- per-level transfer ops (reshapes of [..., C] vectors) -------------

@@ -11,13 +11,15 @@ which gives the same iterates and counts as checking after every one,
 without a device-to-host sync per iteration.
 
 Ported: `SolveInfo`, `constant_deflation`, `jacobi_solve`,
-`jacobi_smooth_solve`, `bicgstab_solve`, and `iterative_solve` for
-JACOBI / JACOBI_SMOOTH / BICGSTAB, on structured, slice-plan and gather
+`jacobi_smooth_solve`, `bicgstab_solve`, `gauss_seidel_solve` (multi-
+colour, over a colouring from solver/coloring.py), and `iterative_solve`
+for every solution method on structured, slice-plan and gather
 matrices, with DF32 iterative refinement (`solver/refine.py`) for
-float64 systems under `SolverPrecision.DF32_IR`, and for MULTIGRID with
-a geometric hierarchy (`solver/gmg.py`, structured meshes). Gauss-Seidel
-and the algebraic hierarchy of irregular meshes raise
-NotImplementedError (ROADMAP Queue 1, items 4 and 8).
+float64 systems under `SolverPrecision.DF32_IR`, and MULTIGRID over a
+geometric (`solver/gmg.py`, structured boxes) or algebraic
+(`solver/amg.py`, any mesh) hierarchy. The sharded hooks of orc_tpu's
+solvers (`axis_sum`, `refresh`, `mg_owned`) wait for the sharded runtime
+(ROADMAP Queue 1, item 14).
 """
 
 from __future__ import annotations
@@ -247,18 +249,43 @@ def bicgstab_solve(
     return x, SolveInfo(iterations=it, residual=rn, diverged=diverged)
 
 
+def gauss_seidel_solve(
+    A: EllMatrix, b, x0, iterations: int, relaxation, colors, n_colors: int,
+    project=_no_project,
+):
+    """Multi-colour Gauss-Seidel: the rows of one colour update together
+    from the latest values of every other colour, one SpMV per colour
+    (the shift SpMV on a box, the slice SpMV on a prepared irregular
+    matrix). colors: [C] int32 colour of each row (greedy_coloring)."""
+    sel = [colors == c for c in range(n_colors)]
+    x = x0
+    for _ in range(iterations):
+        for c in range(n_colors):
+            ax_off = A.matvec(x) - A.diag * x
+            x_gs = (1.0 - relaxation) * x + relaxation * (b - ax_off) / A.diag
+            x = torch.where(sel[c], x_gs, x)
+    x = project(x)
+    rn = _norm(project(b - A.matvec(x)))
+    diverged = torch.isnan(rn) | (_max_abs(x) > 1e10)
+    it = torch.full(rn.shape, iterations, dtype=torch.int32, device=rn.device)
+    return x, SolveInfo(iterations=it, residual=rn, diverged=diverged)
+
+
 def iterative_solve(
-    A: EllMatrix, b, x0, settings: MatrixSolverSettings, project=_no_project,
-    mg_hierarchy=None, null_scale=None,
+    A: EllMatrix, b, x0, settings: MatrixSolverSettings, colors=None,
+    n_colors: int = 0, mg_hierarchy=None, project=_no_project,
+    null_scale=None,
 ):
     """Solver dispatch (orc_tpu's `iterative_solve`, single device).
     Matrices with a slice plan take the slice-column layout, and
     structured ones are split into their K columns, once, before the
     loop (not under MULTIGRID: its cycle keeps the array form for the
     Galerkin products); Jacobi preconditioning scales the rows by
-    1/diag. `mg_hierarchy` (solver/gmg.build_mg_hierarchy) drives
-    MULTIGRID; `null_scale` lets its coarse levels deflate the constant
-    mode that `project` removes on the fine level."""
+    1/diag. `colors` / `n_colors` (solver/coloring.greedy_coloring)
+    drive GAUSS_SEIDEL; `mg_hierarchy` (solver/gmg.build_mg_hierarchy:
+    GmgLevels or amg.MgLevels) drives MULTIGRID; `null_scale` lets its
+    coarse levels deflate the constant mode that `project` removes on
+    the fine level."""
     method = settings.solver_type
     if (
         settings.precision == SolverPrecision.DF32_IR
@@ -301,25 +328,33 @@ def iterative_solve(
             convergence_threshold=settings.relative_convergence_threshold,
             compensated=settings.compensated_f32, project=project,
         )
+    if method == SolutionMethod.GAUSS_SEIDEL:
+        if colors is None:
+            raise ValueError(
+                "Gauss-Seidel needs a host-precomputed coloring; pass "
+                "colors/n_colors (see orc_tpu_torch.solver.coloring)"
+            )
+        return gauss_seidel_solve(
+            A, b, x0, settings.iterations, settings.relaxation, colors,
+            n_colors, project=project,
+        )
     if method == SolutionMethod.MULTIGRID:
         if mg_hierarchy is None:
-            if A.offsets is None:
-                raise NotImplementedError(
-                    "multigrid on a matrix without structured offsets needs "
-                    "the algebraic hierarchy, which is not ported yet "
-                    "(ROADMAP Queue 1, item 8)"
-                )
             raise ValueError(
                 "Multigrid needs a host-built hierarchy; pass mg_hierarchy "
                 "(see orc_tpu_torch.solver.gmg.build_mg_hierarchy)"
             )
-        from orc_tpu_torch.solver.gmg import gmg_solve
+        from orc_tpu_torch.solver.gmg import GmgLevel, gmg_solve
 
-        return gmg_solve(
+        if len(mg_hierarchy) and isinstance(mg_hierarchy[0], GmgLevel):
+            return gmg_solve(
+                A, b, x0, settings, mg_hierarchy, project=project,
+                null_scale=null_scale,
+            )
+        from orc_tpu_torch.solver.amg import multigrid_solve
+
+        return multigrid_solve(
             A, b, x0, settings, mg_hierarchy, project=project,
             null_scale=null_scale,
         )
-    raise NotImplementedError(
-        f"solution method {method} is not ported yet (ROADMAP Queue 1, "
-        "item 4)"
-    )
+    raise NotImplementedError(f"solution method {method}")

@@ -20,8 +20,11 @@ SIMPLE_FC (AUTO under Rhie-Chow + implicit relaxation) runs
 loop, with the stored face flux carried in `FlowState.flux`. Every step
 takes the implicit-Euler `inertia` of transient runs
 (solver/transient.py) and the momentum source of
-settings.momentum_source; MULTIGRID solves run the geometric V-cycle of
-solver/gmg.py over a hierarchy built once per run.
+settings.momentum_source. A run builds orc_tpu's `solver_extras` once:
+the greedy colouring of GAUSS_SEIDEL solves (solver/coloring.py), or the
+multigrid hierarchy of MULTIGRID ones (solver/gmg.py on a box that
+coarsens, the algebraic hierarchy of solver/amg.py on any other mesh,
+aggregated on the face-major diffusion system).
 
 On a CUDA mesh the steps run the hand-written kernels where orc_tpu runs
 its Pallas kernels: the fused assembly kernels behind the gate
@@ -42,9 +45,7 @@ u/v/w systems over one shared matrix, CD2 and in-matrix TVD over one
 matrix per component (diag [3,C]), whose diagonals the next iteration
 reads.
 
-Not ported (each raises NotImplementedError naming its ROADMAP item):
-Gauss-Seidel solves (item 4), multigrid on meshes without a structured
-box (the algebraic hierarchy, item 8) and the sharded runtime (item 14).
+Not ported: the sharded runtime (ROADMAP Queue 1, item 14).
 """
 
 from __future__ import annotations
@@ -254,7 +255,7 @@ def initial_flux(mesh, zone_codes, zone_scalar, zone_vector, settings, state):
 
 def _solve_p_prime(
     Pmat, b_p, p, settings, active, maybe_singular: bool, x0=None,
-    mg_hierarchy=None,
+    solver_extras=None,
 ):
     """Solve the pressure(-correction) system, with the constant null
     mode deflated when the system is singular (on every multigrid level:
@@ -272,19 +273,19 @@ def _solve_p_prime(
         x0 = torch.where(active, x0, torch.zeros((), dtype=p.dtype, device=p.device))
     p_prime, p_info = iterative_solve(
         Pmat, b_p, x0, settings.matrix_solver, project=project,
-        mg_hierarchy=mg_hierarchy, null_scale=null_scale,
+        null_scale=null_scale, **(solver_extras or {}),
     )
     return project(p_prime), p_info
 
 
-def _solve_momentum(A3, b3, vel, active, settings, mg_hierarchy=None):
+def _solve_momentum(A3, b3, vel, active, settings, solver_extras=None):
     """One batched solve of the u/v/w systems, over the shared matrix or
     one matrix per component, warm-started from vel: (new vel [C,3], new
     mom_diag [3,C], info)."""
     zero = torch.zeros((), dtype=vel.dtype, device=vel.device)
     x0 = torch.where(active[None, :], vel.T, zero)  # [3,C]
     sol, info = iterative_solve(
-        A3, b3, x0, settings.momentum_matrix_solver(), mg_hierarchy=mg_hierarchy
+        A3, b3, x0, settings.momentum_matrix_solver(), **(solver_extras or {})
     )
     if A3.diag.ndim == 2:
         return sol.T, A3.diag, info
@@ -359,10 +360,9 @@ def simple_step(
     maybe_singular: bool = True,
 ):
     """One SIMPLE iteration in the face-major formulation (orc_tpu's
-    `simple_step`, single device). `solver_extras` may carry the
-    MULTIGRID hierarchy as "mg_hierarchy"; `inertia` = (rv_dt [C],
-    vel_n [C,3]) of a transient step."""
-    mg_hierarchy = (solver_extras or {}).get("mg_hierarchy")
+    `simple_step`, single device). `solver_extras` is orc_tpu's: the
+    colouring of GAUSS_SEIDEL runs, the hierarchy of MULTIGRID ones;
+    `inertia` = (rv_dt [C], vel_n [C,3]) of a transient step."""
     fbc = face_bc(mesh, zone_codes, zone_scalar, zone_vector)
     active = mesh.cell_face_mask.any(dim=1)  # non-padded cells
     vel, p = state.vel, state.p
@@ -388,7 +388,7 @@ def simple_step(
         inertia=inertia,
     )
     new_vel, new_mom_diag, info = _solve_momentum(
-        A3, b3, vel, active, settings, mg_hierarchy
+        A3, b3, vel, active, settings, solver_extras
     )
     new_md_c = new_mom_diag.T
 
@@ -401,7 +401,7 @@ def simple_step(
     Pmat, b_p = pressure_correction_system(mesh, fbc, rho, flux2, new_md_c)
     p_prime, p_info = _solve_p_prime(
         Pmat, b_p, p, settings, active, maybe_singular,
-        mg_hierarchy=mg_hierarchy,
+        solver_extras=solver_extras,
     )
     vel3, p_new, (p_corr_sq, vel_corr_sq) = apply_pressure_correction(
         mesh, fbc, settings, p_prime, new_md_c, new_vel, p
@@ -424,7 +424,7 @@ def ck_simple_step(
     kernel_asm=None,  # (cols, AsmSpec) -> fused assembly kernels
     maybe_singular: bool = True,
     inertia=None,  # (rv_dt [C], vel_n [C,3]) of a transient step
-    mg_hierarchy=None,  # solver/gmg.py levels of MULTIGRID solves
+    solver_extras=None,  # orc_tpu's: colouring or multigrid hierarchy
 ):
     """One SIMPLE iteration in the gather-free (c,k) formulation."""
     bc = ck_bc(ck, zone_codes, zone_scalar, zone_vector)
@@ -484,7 +484,7 @@ def ck_simple_step(
         )
 
     new_vel, new_mom_diag, info = _solve_momentum(
-        A3, b3, vel, active, settings, mg_hierarchy
+        A3, b3, vel, active, settings, solver_extras
     )
 
     if kernel_asm is not None:
@@ -510,7 +510,7 @@ def ck_simple_step(
         )
     p_prime, p_info = _solve_p_prime(
         Pmat, b_p, p, settings, active, maybe_singular,
-        mg_hierarchy=mg_hierarchy,
+        solver_extras=solver_extras,
     )
     vel3, p_new, (p_corr_sq, vel_corr_sq) = ck_apply_correction(
         mesh, ck, bc, settings, p_prime, new_mom_diag.T, new_vel, p
@@ -621,16 +621,6 @@ def _kernel_asm_spec(mesh, table, settings, ck, fc=False):
     )
 
 
-def _check_ported(settings: NumericalSettings):
-    """Raise NotImplementedError for the solvers not ported yet."""
-    for ms in (settings.matrix_solver, settings.momentum_matrix_solver()):
-        if ms.solver_type == SolutionMethod.GAUSS_SEIDEL:
-            raise NotImplementedError(
-                f"solver {ms.solver_type} is not ported yet (ROADMAP Queue 1, "
-                "item 4)"
-            )
-
-
 def _takes_ck_step(mesh, settings: NumericalSettings, use_ck) -> bool:
     """orc_tpu's choice of step in `solve_steady`: use_ck=True forces the
     (c,k) step (which computes Green-Gauss cell or least-squares
@@ -652,15 +642,22 @@ def _takes_ck_step(mesh, settings: NumericalSettings, use_ck) -> bool:
     )
 
 
-def _mg_hierarchy(mesh, settings):
-    """The geometric hierarchy of a MULTIGRID run (orc_tpu's
-    solver_extras), else None; raises on meshes that would need the
-    algebraic one."""
-    if settings.matrix_solver.solver_type != SolutionMethod.MULTIGRID:
-        return None
-    from orc_tpu_torch.solver.gmg import build_mg_hierarchy
+def _solver_extras(mesh, diff, settings):
+    """orc_tpu's `solver_extras` of a run, built once: the greedy
+    colouring under GAUSS_SEIDEL, the multigrid hierarchy under MULTIGRID
+    (geometric on a box that coarsens, else algebraic, aggregated on the
+    diffusion system `diff`), else nothing."""
+    method = settings.matrix_solver.solver_type
+    if method == SolutionMethod.GAUSS_SEIDEL:
+        from orc_tpu_torch.solver.coloring import greedy_coloring
 
-    return build_mg_hierarchy(mesh, settings)
+        colors, n_colors = greedy_coloring(mesh)
+        return dict(colors=colors, n_colors=n_colors)
+    if method == SolutionMethod.MULTIGRID:
+        from orc_tpu_torch.solver.gmg import build_mg_hierarchy
+
+        return dict(mg_hierarchy=build_mg_hierarchy(mesh, diff, settings))
+    return {}
 
 
 def solve_steady(
@@ -691,9 +688,7 @@ def solve_steady(
     )
 
     table.validate_supported()
-    _check_ported(settings)
     use_ck_step = _takes_ck_step(mesh, settings, use_ck)
-    mg_hierarchy = _mg_hierarchy(mesh, settings)
     reporting_interval = max(1, min(reporting_interval, iterations))
     zc, zs, zv = device_bc(table, dtype=mesh.dtype, device=mesh.device)
     if state is None:
@@ -706,10 +701,13 @@ def solve_steady(
         ck = build_ck_geometry(mesh, len(table.zone_ids))
         bc0 = ck_bc(ck, zc, zs, zv)
         ck_diff = ck_diffusion(mesh, ck, bc0, mu_t)
-    else:
-        # The face-major diffusion system is built only when that step
-        # runs (the geometric multigrid hierarchy does not read it).
+    if ck is None or settings.matrix_solver.solver_type == SolutionMethod.MULTIGRID:
+        # The face-major diffusion system: the face-major step's, or the
+        # coupling values the algebraic hierarchy aggregates on.
         diff = diffusion_system(mesh, face_bc(mesh, zc, zs, zv), mu_t)
+    extras = _solver_extras(mesh, diff, settings)
+    if ck is not None:
+        diff = None  # the (c,k) step does not read it
     if use_fc and state.flux is None:
         # The stored flux exists before the loop: [C,K] on the (c,k)
         # step, [F] on the face-major one.
@@ -728,7 +726,6 @@ def solve_steady(
         mesh = trim_for_ck(mesh)
     if ck is None:
         fm_step = simple_step_fc if use_fc else simple_step
-        extras = {} if mg_hierarchy is None else dict(mg_hierarchy=mg_hierarchy)
 
         def step(s):
             return fm_step(
@@ -742,7 +739,7 @@ def solve_steady(
             return ck_step(
                 mesh, ck, zc, zs, zv, settings, rho, mu, ck_diff, s,
                 kernel_asm=kernel_asm, maybe_singular=maybe_singular,
-                mg_hierarchy=mg_hierarchy,
+                solver_extras=extras,
             )
 
     history = []

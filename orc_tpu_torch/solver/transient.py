@@ -42,10 +42,9 @@ from orc_tpu_torch.solver.simple import (
     FlowState,
     SolverDivergedError,
     StepMetrics,
-    _check_ported,
     _kernel_asm_spec,
     _metric_names,
-    _mg_hierarchy,
+    _solver_extras,
     ck_simple_step,
     initial_flux,
     initial_state,
@@ -56,6 +55,7 @@ from orc_tpu_torch.solver.simple import (
 from orc_tpu_torch.utils.settings import (
     NumericalSettings,
     PressureVelocityCoupling,
+    SolutionMethod,
     VelocityInterpolation,
 )
 
@@ -86,7 +86,6 @@ def solve_transient(
     ignores it, as orc_tpu's does (its sharded driver, not ported, reads
     it)."""
     table.validate_supported()
-    _check_ported(settings)
     use_fc = settings.resolved_coupling() == PressureVelocityCoupling.SIMPLE_FC
     maybe_singular = (
         not table_has_pressure_bc(table) if use_fc else table_maybe_singular(table)
@@ -96,8 +95,15 @@ def solve_transient(
         state = initial_state(mesh)
     mu_t = torch.tensor(mu, dtype=mesh.dtype, device=mesh.device)
     rv_dt = rho * mesh.cell_volume / dt  # [C]
-    mg_hierarchy = _mg_hierarchy(mesh, settings)
-    if use_ck is True or (use_ck == "auto" and mesh.n_cells <= CK_AUTO_MAX_CELLS):
+    take_ck = use_ck is True or (use_ck == "auto" and mesh.n_cells <= CK_AUTO_MAX_CELLS)
+    diff = None
+    if not take_ck or settings.matrix_solver.solver_type == SolutionMethod.MULTIGRID:
+        # The face-major step's diffusion system, or the coupling values
+        # the algebraic multigrid hierarchy aggregates on.
+        diff = diffusion_system(mesh, face_bc(mesh, zc, zs, zv), mu_t)
+    extras = _solver_extras(mesh, diff, settings)
+    if take_ck:
+        diff = None  # the (c,k) step does not read it
         ck = build_ck_geometry(mesh, len(table.zone_ids))
         bc0 = ck_bc(ck, zc, zs, zv)
         ck_diff = ck_diffusion(mesh, ck, bc0, mu_t)
@@ -116,16 +122,14 @@ def solve_transient(
             return step_fn(
                 mesh, ck, zc, zs, zv, settings, rho, mu, ck_diff, s,
                 kernel_asm=kernel_asm, maybe_singular=maybe_singular,
-                inertia=inertia, mg_hierarchy=mg_hierarchy,
+                inertia=inertia, solver_extras=extras,
             )
     else:
-        diff = diffusion_system(mesh, face_bc(mesh, zc, zs, zv), mu_t)
         if use_fc and state.flux is None:
             state = dataclasses.replace(
                 state, flux=initial_flux(mesh, zc, zs, zv, settings, state)
             )
         fm_step = fc_step.simple_step_fc if use_fc else simple_step
-        extras = {} if mg_hierarchy is None else dict(mg_hierarchy=mg_hierarchy)
 
         def step(s, inertia):
             return fm_step(

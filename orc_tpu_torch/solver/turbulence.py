@@ -19,14 +19,15 @@ plain (c,k) ops (`kernel_asm=None`, as in orc_tpu): no assembly kernel
 sees mu + mu_t. The momentum, pressure and k/eps solves run the solver
 kernels on the card (the shift SpMV and the Jacobi sweeps on structured
 boxes; the slice SpMV and the neighbour gather on irregular meshes).
-MULTIGRID builds the geometric hierarchy of structured boxes once.
+The run builds orc_tpu's `solver_extras` once: the colouring of
+GAUSS_SEIDEL, the multigrid hierarchy of MULTIGRID (geometric on a box
+that coarsens, else algebraic, aggregated on the laminar diffusion
+system: the Galerkin values come from each solve's own matrix).
 
 `solve_steady_turbulent` drives the step in a Python loop in chunks of
 `reporting_interval` iterations and reads the metrics back once per
-chunk. Not ported (each raises NotImplementedError naming its ROADMAP
-item): MULTIGRID on meshes without a structured box (the algebraic
-hierarchy, item 8), Gauss-Seidel solves (item 4) and
-`solve_steady_turbulent_sharded` (item 14).
+chunk. Not ported: `solve_steady_turbulent_sharded` (ROADMAP Queue 1,
+item 14).
 """
 
 from __future__ import annotations
@@ -46,20 +47,27 @@ from orc_tpu_torch.ops.ck_ops import (
     mesh_matrix,
     nbr_values,
 )
-from orc_tpu_torch.ops.fields import PRESSURE_INLET, VELOCITY_INLET, WALL, device_bc
+from orc_tpu_torch.ops.assembly import diffusion_system
+from orc_tpu_torch.ops.fields import (
+    PRESSURE_INLET,
+    VELOCITY_INLET,
+    WALL,
+    device_bc,
+    face_bc,
+)
 from orc_tpu_torch.solver.krylov import iterative_solve
 from orc_tpu_torch.solver.simple import (
     FlowState,
     StepMetrics,
-    _check_ported,
     _metric_names,
-    _mg_hierarchy,
+    _solver_extras,
     ck_simple_step,
     initial_state,
 )
 from orc_tpu_torch.utils.settings import (
     NumericalSettings,
     PressureVelocityCoupling,
+    SolutionMethod,
     VelocityInterpolation,
 )
 
@@ -157,7 +165,7 @@ def ck_scalar_system(mesh, ck, bc, F, gamma_ck, diag_src, b_src, inlet_value):
 
 def turbulence_step(
     mesh, ck, bc, settings: NumericalSettings, rho, mu, flow: FlowState,
-    turb: TurbState, k_in, eps_in, relax=0.7, mg_hierarchy=None,
+    turb: TurbState, k_in, eps_in, relax=0.7, solver_extras=None,
 ):
     """One k/epsilon update of the flow field `flow`: returns (TurbState,
     the wall viscosity [C])."""
@@ -191,6 +199,7 @@ def turbulence_step(
 
     active = ck.mask.any(dim=1)
     solver = settings.momentum_matrix_solver()
+    extras = solver_extras or {}
     # --- k: implicit destruction rho eps / k. Inactive rows are identity
     # rows with b = 0, so the warm start is zero there.
     A_k, b_k = ck_scalar_system(
@@ -198,7 +207,7 @@ def turbulence_step(
         p_k * vol, k_in,
     )
     k_sol, _ = iterative_solve(
-        A_k, b_k, torch.where(active, k, zero), solver, mg_hierarchy=mg_hierarchy
+        A_k, b_k, torch.where(active, k, zero), solver, **extras
     )
     k_new = torch.clamp(k + relax * (k_sol - k), min=FLOOR)
 
@@ -214,8 +223,7 @@ def turbulence_step(
     )
     b_e = torch.where(has_wall, eps_wall, b_e)
     e_sol, _ = iterative_solve(
-        A_e, b_e, torch.where(active, eps, zero), solver,
-        mg_hierarchy=mg_hierarchy,
+        A_e, b_e, torch.where(active, eps, zero), solver, **extras
     )
     eps_new = torch.clamp(eps + relax * (e_sol - eps), min=FLOOR)
 
@@ -225,7 +233,7 @@ def turbulence_step(
 
 def rans_outer_step(
     mesh, ckg, bc0, zc, zs, zv, settings, rho, mu, k_in, eps_in, has_wall,
-    y_p, is_wall_face, carry, mg_hierarchy=None,
+    y_p, is_wall_face, carry, solver_extras=None,
 ):
     """One RANS outer iteration on carry = (FlowState, TurbState): a
     SIMPLE (or SIMPLE_FC) step with mu_eff = mu + mu_t (the log-law wall
@@ -248,16 +256,16 @@ def rans_outer_step(
 
         flow2, metrics = ck_simple_step_fc(
             mesh, ckg, zc, zs, zv, settings, rho, mu, ck_diff, flow,
-            kernel_asm=None, maybe_singular=True, mg_hierarchy=mg_hierarchy,
+            kernel_asm=None, maybe_singular=True, solver_extras=solver_extras,
         )
     else:
         flow2, metrics = ck_simple_step(
             mesh, ckg, zc, zs, zv, settings, rho, mu, ck_diff, flow,
-            kernel_asm=None, maybe_singular=False, mg_hierarchy=mg_hierarchy,
+            kernel_asm=None, maybe_singular=False, solver_extras=solver_extras,
         )
     tb2, _ = turbulence_step(
         mesh, ckg, bc0, settings, rho, mu, flow2, tb, k_in, eps_in,
-        mg_hierarchy=mg_hierarchy,
+        solver_extras=solver_extras,
     )
     return (flow2, tb2), metrics
 
@@ -282,9 +290,18 @@ def solve_steady_turbulent(
     Returns (FlowState, TurbState, list of per-chunk StepMetrics with
     [n]-leading tensors)."""
     table.validate_supported()
-    _check_ported(settings)
-    mg_hierarchy = _mg_hierarchy(mesh, settings)
     zc, zs, zv = device_bc(table, dtype=mesh.dtype, device=mesh.device)
+    diff = None
+    if settings.matrix_solver.solver_type == SolutionMethod.MULTIGRID:
+        # The laminar diffusion system, the aggregation's coupling values
+        # should the algebraic hierarchy be needed (orc_tpu builds it for
+        # meshes that are no box; boxes too small or odd to coarsen need
+        # it as well).
+        diff = diffusion_system(
+            mesh, face_bc(mesh, zc, zs, zv),
+            torch.tensor(mu, dtype=mesh.dtype, device=mesh.device),
+        )
+    extras = _solver_extras(mesh, diff, settings)
     ck = build_ck_geometry(mesh, len(table.zone_ids))
     bc0 = ck_bc(ck, zc, zs, zv)
     if state is None:
@@ -316,7 +333,7 @@ def solve_steady_turbulent(
         for _ in range(n):
             carry, metrics = rans_outer_step(
                 mesh, ck, bc0, zc, zs, zv, settings, rho, mu, k_in, eps_in,
-                has_wall, y_p, is_wall_face, carry, mg_hierarchy=mg_hierarchy,
+                has_wall, y_p, is_wall_face, carry, solver_extras=extras,
             )
             chunk.append(metrics)
         done += n

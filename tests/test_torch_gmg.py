@@ -17,8 +17,8 @@ CPU, float64.
   coarse levels;
 - the body-force periodic Poiseuille channel under MULTIGRID matches
   the parabola to 5e-3 (tests/test_gmg.py::test_gmg_periodic_poiseuille);
-- MULTIGRID on an irregular mesh raises NotImplementedError (the
-  algebraic hierarchy is not ported).
+- MULTIGRID on an irregular mesh takes the algebraic hierarchy
+  (solver/amg.py) and tracks orc_tpu.
 """
 
 import dataclasses
@@ -320,7 +320,7 @@ def test_gmg_periodic_poiseuille():
             preconditioner=tset.PreconditionMethod.JACOBI,
         ),
     )
-    assert ts._mg_hierarchy(mesh, settings)
+    assert isinstance(tg.build_mg_hierarchy(mesh, None, settings)[0], tg.GmgLevel)
     state, _ = ts.solve_steady(
         mesh, table, settings, 1.0, 0.1, iterations=400, reporting_interval=200,
         verbose=False,
@@ -333,17 +333,35 @@ def test_gmg_periodic_poiseuille():
 
 
 def test_multigrid_on_irregular_mesh_raises():
-    from orc_tpu_torch.mesh.compile import compile_from_arrays
-    from orc_tpu_torch.models.cavity import cavity_case
+    """MULTIGRID on the permuted 8^2 cavity, which this test once saw
+    raise: build_mg_hierarchy falls back to the algebraic hierarchy, as
+    orc_tpu's does, and 10 iterations track orc_tpu."""
+    from torch_parity import _cavity_table, compiled_both
 
     kw, _perm = permuted_arrays(8, seed=1)
-    mesh = compile_from_arrays(**kw, dtype=torch.float64, device="cpu")
-    table = cavity_case(n=4, device="cpu")[1]
+    mj, mesh = compiled_both(kw)
     assert mesh.neighbor_offsets is None
-    with pytest.raises(NotImplementedError, match="Queue 1, item 8"):
-        ts.solve_steady(mesh, table, CAVITY_MG, 1.0, 0.01, iterations=1, verbose=False)
-    with pytest.raises(NotImplementedError, match="Queue 1, item 8"):
-        tg.build_mg_hierarchy(mesh, CAVITY_MG)
+    table = _cavity_table("torch")
+    zc, zs, zv = device_bc(_cavity_table("jax"), mj.dtype)
+    hj = jg.build_mg_hierarchy(
+        mj, diffusion_system(mj, face_bc(mj, zc, zs, zv), jnp.asarray(0.01)),
+        to_jax_settings(CAVITY_MG),
+    )
+    from orc_tpu_torch.ops.assembly import diffusion_system as tdiff
+    from orc_tpu_torch.ops.fields import device_bc as tbc, face_bc as tfbc
+
+    tz = tbc(table, device="cpu")
+    ht = tg.build_mg_hierarchy(
+        mesh, tdiff(mesh, tfbc(mesh, *tz), torch.tensor(0.01, dtype=torch.float64)),
+        CAVITY_MG,
+    )
+    assert [type(l).__name__ for l in ht] == ["MgLevel"] * len(hj)
+    for lj, lt in zip(hj, ht):
+        np.testing.assert_array_equal(np_(lt.agg), np.asarray(lj.agg))
+    run = dict(iterations=10, reporting_interval=10, verbose=False)
+    sj, hist_j = js.solve_steady(mj, _cavity_table("jax"), to_jax_settings(CAVITY_MG), 1.0, 0.01, **run)
+    st, hist_t = ts.solve_steady(mesh, table, CAVITY_MG, 1.0, 0.01, **run)
+    _assert_tracks(js.stack_history(hist_j), ts.stack_history(hist_t), sj, st)
 
 
 def test_smoother_is_jacobi_preconditioned_bicgstab():

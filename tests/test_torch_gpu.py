@@ -1375,3 +1375,161 @@ def test_rans_channel_on_cuda_matches_cpu(dev):
     for name, a, b in (("vel", fg.vel, fc.vel), ("p", fg.p, fc.p), ("k", tg.k, tc.k),
                        ("eps", tg.eps, tc.eps), ("mu_t", tg.mu_t, tc.mu_t)):
         _close(a, b, 1e-6, name)
+
+
+# --- algebraic multigrid, Gauss-Seidel and initialisation ---------------
+
+
+def _amg_levels(mesh, table, dev):
+    """The AMG hierarchy of a mesh (aggregated on its diffusion system)
+    on `dev`, and that system."""
+    from orc_tpu_torch.ops.assembly import diffusion_system
+    from orc_tpu_torch.ops.fields import face_bc
+    from orc_tpu_torch.solver.amg import build_hierarchy
+
+    zc, zs, zv = device_bc(table, mesh.dtype, device=mesh.device)
+    diff = diffusion_system(
+        mesh, face_bc(mesh, zc, zs, zv),
+        torch.tensor(0.01, dtype=mesh.dtype, device=mesh.device),
+    )
+    return build_hierarchy(mesh, diff, tset.MatrixSolverSettings()), diff
+
+
+@pytest.mark.parametrize("batch", [0, 3])
+@pytest.mark.parametrize("n", [40, 96])
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_slice_spmv_on_amg_coarse_plans(dev, dtype, n, batch):
+    """Guards orc_tpu/ops/pallas_slice.py `_kernel` (via slice_spmv) on
+    the coarse levels of the algebraic multigrid: each level's Galerkin
+    matrix, prepared on its own plan (built without the gather table)
+    and Jacobi-scaled, against the plain version and, in float32,
+    bitwise against the rounding the kernel spells out. Levels whose
+    128-row plan would be degenerate have none (orc_tpu's rule) and
+    gather instead; the first coarse level always has one here."""
+    from orc_tpu_torch.ops.slice_spmv import slice_spmv, slice_spmv_plain
+    from orc_tpu_torch.ops.spmv import EllMatrix
+    from orc_tpu_torch.solver.amg import galerkin_values
+    from torch_kernel_refs import slice_spmv_fma_chain
+
+    dt = DTYPES[dtype]
+    mesh, table, _ = _permuted_cavity(n, dt, dev)
+    levels, diff = _amg_levels(mesh, table, dev)
+    assert len(levels) == 3
+    A = EllMatrix(diff.diag + 1.0, diff.off, mesh.cell_neighbors, plan=mesh.slice_plan)
+    rng = np.random.default_rng(8)
+    assert levels[0].plan is not None
+    for level in levels:
+        A = galerkin_values(A, level)
+        if level.plan is None:
+            continue
+        assert level.plan.col_tile is None
+        Ap, _ = A.prepare().jacobi_preconditioned()
+        C = level.n_coarse
+        x = torch.tensor(rng.standard_normal((batch, C) if batch else (C,)), dtype=dt, device=dev)
+        before = slice_spmv.launches
+        y = slice_spmv(Ap.diag, Ap.off, level.plan, x)
+        torch.cuda.synchronize()
+        assert slice_spmv.launches == before + 1
+        _close(y, slice_spmv_plain(Ap.diag, Ap.off, level.plan, x), TOL[dtype])
+        if dt == torch.float32:
+            assert torch.equal(y, slice_spmv_fma_chain(Ap.diag, Ap.off, level.plan, x))
+
+
+def test_amg_sums_on_cuda_equal_cpu_bitwise(dev):
+    """The restriction and Galerkin gathers add in one order on the card
+    and on the CPU (no atomics): from the same inputs, the same bits on
+    every level."""
+    from orc_tpu_torch.ops.spmv import EllMatrix
+    from orc_tpu_torch.solver.amg import build_hierarchy_from_matrix, galerkin_values, restrict
+
+    mesh, table, _ = _permuted_cavity(40, torch.float64, "cpu")
+    _, diff = _amg_levels(mesh, table, "cpu")
+    nbrs = mesh.cell_neighbors.numpy()
+    r0 = torch.tensor(np.random.default_rng(2).standard_normal((3, mesh.n_cells)))
+    out = []
+    for d in (dev, "cpu"):
+        levels = build_hierarchy_from_matrix(
+            diff.diag.numpy(), diff.off.numpy(), nbrs, tset.MatrixSolverSettings(), device=d
+        )
+        A = EllMatrix(diff.diag.to(d), diff.off.to(d), None)
+        r = r0.to(d)
+        got = []
+        for level in levels:
+            A = galerkin_values(A, level)
+            r = restrict(r, level)
+            got += [A.diag.cpu(), A.off.cpu(), r.cpu()]
+        out.append(got)
+    assert len(out[0]) == 9
+    for a, b in zip(*out):
+        assert torch.equal(a, b)
+
+
+#: name -> (mesh kind, n, solver): the 16^2 cavity's pressure solved by
+#: MULTIGRID on the algebraic hierarchy (permuted mesh; a 4^2 box, too
+#: small for the geometric one) or by GAUSS_SEIDEL (box and permuted).
+AMG_GS = {
+    "amg_permuted": ("permuted", 16, "MULTIGRID"),
+    "amg_tiny_box": ("box", 4, "MULTIGRID"),
+    "gs_box": ("box", 16, "GAUSS_SEIDEL"),
+    "gs_permuted": ("permuted", 16, "GAUSS_SEIDEL"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(AMG_GS))
+def test_amg_and_gauss_seidel_on_cuda_match_cpu(dev, name):
+    """solve_steady (solve_cavity's numerics, 10 iterations) on the card
+    against the CPU: equal inner counts, fields to 1e-9 of their scale;
+    the slice SpMV launched on the permuted meshes, the shift SpMV on
+    the boxes."""
+    from orc_tpu_torch.ops.slice_spmv import slice_spmv
+
+    kind, n, method = AMG_GS[name]
+    settings = default_settings().replace(
+        matrix_solver=tset.MatrixSolverSettings(
+            solver_type=tset.SolutionMethod[method], iterations=30,
+            relaxation=0.9, multigrid_smoother_iterations=5,
+            preconditioner=tset.PreconditionMethod.JACOBI,
+        )
+    )
+    out = []
+    for d in (dev, "cpu"):
+        if kind == "box":
+            mesh, table = cavity_case(n=n, device=d)
+        else:
+            mesh, table, _ = _permuted_cavity(n, torch.float64, d)
+        shift_spmv.launches = slice_spmv.launches = 0
+        state, hist = simple.solve_steady(
+            mesh, table, settings, 1.0, 0.01, iterations=10, reporting_interval=10,
+            verbose=False,
+        )
+        if d == dev:
+            assert (slice_spmv if kind == "permuted" else shift_spmv).launches > 0
+        out.append((state, simple.stack_history(hist)))
+    (sg, hg), (sc, hc) = out
+    np.testing.assert_array_equal(hg.mom_iters, hc.mom_iters)
+    np.testing.assert_array_equal(hg.pc_iters, hc.pc_iters)
+    for f in ("vel", "p"):
+        _close(getattr(sg, f), getattr(sc, f), 1e-9, f)
+
+
+@pytest.mark.parametrize("kind", ["box", "permuted"])
+def test_initialize_flow_on_cuda_matches_cpu(dev, kind):
+    """initialize_flow (the Jacobi pressure and BiCGSTAB psi solves on the
+    shift or slice SpMV, the per-cell least-squares solve) on the card
+    against the CPU to 1e-12 of scale, float64: a velocity-inlet channel
+    and the permuted cavity as a pressure-driven duct."""
+    from orc_tpu_torch.mesh.zones import FaceCondition
+    from orc_tpu_torch.solver.init_fields import initialize_flow
+
+    out = []
+    for d in (dev, "cpu"):
+        if kind == "box":
+            mesh, table = couette_case(16, 8, params=ChannelFlowParameters(), velocity_inlet=1e-3, device=d)
+        else:
+            mesh, table, _ = _permuted_cavity(16, torch.float64, d)
+            table.set("INLET", FaceCondition.PRESSURE_INLET, scalar_value=1.0)
+            table.set("OUTLET", FaceCondition.PRESSURE_OUTLET, scalar_value=0.0)
+            table.set("TOP_WALL", FaceCondition.WALL, vector_value=(0.0, 0.0, 0.0))
+        out.append(initialize_flow(mesh, table, 1e-3, 1000.0))
+    for f in ("vel", "p"):
+        _close(getattr(out[0], f), getattr(out[1], f), 1e-12, f)

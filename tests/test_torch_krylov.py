@@ -161,14 +161,14 @@ def test_exit_check_interval_does_not_change_results(monkeypatch):
 
 @pytest.mark.parametrize("method", ["GAUSS_SEIDEL", "MULTIGRID"])
 def test_unported_methods_raise(method):
-    """Gauss-Seidel, and multigrid on a matrix without structured offsets
-    (the algebraic hierarchy; structured ones take solver/gmg.py)."""
-    import dataclasses
-
+    """Gauss-Seidel without a colouring and multigrid without a hierarchy
+    raise ValueError in both packages (before the port had them it
+    raised NotImplementedError); tests/test_torch_gauss_seidel.py and
+    tests/test_torch_amg.py run them."""
     diag, off, b, x0 = _system(False)
-    _, At = _pair(diag, off)
-    if method == "MULTIGRID":
-        At = dataclasses.replace(At, offsets=None)
+    Aj, At = _pair(diag, off)
     ts = tset.MatrixSolverSettings(solver_type=tset.SolutionMethod[method])
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):
+        jk.iterative_solve(Aj, jnp.asarray(b), jnp.asarray(x0), to_jax_settings(ts))
+    with pytest.raises(ValueError):
         tk.iterative_solve(At, torch.tensor(b), torch.tensor(x0), ts)

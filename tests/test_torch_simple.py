@@ -148,18 +148,22 @@ def test_continue_from_orc_tpu_state():
 
 
 def test_unported_paths_raise():
-    """Gauss-Seidel solves (item 4) raise on both steps; node-based
-    Green-Gauss and the face-major step run (tests/test_torch_nodes.py,
-    tests/test_torch_face_major_steps.py)."""
-    (_, _), (mt, tt), settings, rho, mu = _case("cavity", "f64")
+    """Gauss-Seidel solves, which this test once saw raise, run on both
+    steps and track orc_tpu for 5 iterations on the 16^2 cavity (the
+    greedy colouring built once per run); node-based Green-Gauss and the
+    face-major step run in tests/test_torch_nodes.py and
+    tests/test_torch_face_major_steps.py."""
+    (mj, tj), (mt, tt), settings, rho, mu = _case("cavity", "f64")
     gs = settings.replace(
         matrix_solver=tset.MatrixSolverSettings(
             solver_type=tset.SolutionMethod.GAUSS_SEIDEL
         )
     )
+    kw = dict(iterations=5, reporting_interval=5, verbose=False)
     for use_ck in ("auto", False):
-        with pytest.raises(NotImplementedError, match="item 4"):
-            ts.solve_steady(mt, tt, gs, rho, mu, iterations=1, verbose=False, use_ck=use_ck)
+        sj, hj = js.solve_steady(mj, tj, to_jax_settings(gs), rho, mu, use_ck=use_ck, **kw)
+        st, ht = ts.solve_steady(mt, tt, gs, rho, mu, use_ck=use_ck, **kw)
+        _assert_tracks((sj, js.stack_history(hj)), (st, ts.stack_history(ht)))
 
 
 def _forced_simple(momentum, vi, pi, **kw):

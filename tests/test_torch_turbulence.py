@@ -24,7 +24,9 @@ tests/test_turbulence.py.
 - rans_outer_step's interface: orc_tpu's parameter names where both
   packages have the parameter, and a call by keyword (ckg=...) equal to
   solve_steady_turbulent's first iteration.
-- The paths that raise, each naming its ROADMAP item.
+- Gauss-Seidel solves and MULTIGRID on an irregular mesh (the algebraic
+  hierarchy) track orc_tpu; the sharded loop raises, naming its ROADMAP
+  item.
 """
 
 import importlib.util
@@ -325,13 +327,11 @@ def test_re_tau_fc_reference_profile():
 
 def test_rans_outer_step_signature_matches_orc_tpu():
     """The parameters both packages' rans_outer_step take have orc_tpu's
-    names, in orc_tpu's order. Left out: orc_tpu's sharded hook `comm`
-    (item 14) and `solver_extras`, which the port names `mg_hierarchy`
-    (it carries only the multigrid hierarchy)."""
+    names, in orc_tpu's order, `solver_extras` included. Left out:
+    orc_tpu's sharded hook `comm` (item 14)."""
     j = list(inspect.signature(jt.rans_outer_step).parameters)
     t = list(inspect.signature(tt.rans_outer_step).parameters)
-    sharded = {"comm", "solver_extras"}
-    assert [n for n in j if n not in sharded] == [n for n in t if n != "mg_hierarchy"]
+    assert [n for n in j if n != "comm"] == t
     assert t[1] == "ckg"
 
 
@@ -366,22 +366,38 @@ def test_rans_outer_step_takes_its_arguments_by_keyword():
     assert int(metrics.pc_iters) > 0
 
 
+def _rans_both(jcase, tcase, settings, iterations):
+    kw = dict(iterations=iterations, reporting_interval=iterations, **RE_KW)
+    fj, tj, hj = jt.solve_steady_turbulent(
+        *jcase, to_jax_settings(settings), 1.0, 1e-5, **kw
+    )
+    ft, tt_, ht = solve_steady_turbulent(*tcase, settings, 1.0, 1e-5, **kw)
+    _assert_tracks(js.stack_history(hj), ts.stack_history(ht))
+    _assert_turb_close(tj, tt_, 1e-6)
+    for f in ("vel", "p"):
+        a = np.asarray(getattr(fj, f))
+        np.testing.assert_allclose(
+            np_(getattr(ft, f)), a, rtol=0, atol=1e-8 * float(np.abs(a).max())
+        )
+
+
 def test_unported_paths_raise():
-    """Gauss-Seidel solves (item 4), MULTIGRID without a structured box
-    (the algebraic hierarchy, item 8) and the sharded loop (item 14)."""
-    mesh, table = channel("torch", 6, 4)
+    """The paths this test once refused now run and track orc_tpu for 3
+    iterations: Gauss-Seidel solves on the 6x4 channel (explicit
+    relaxation, so the momentum and k/eps solves take the colouring
+    too) and MULTIGRID on the permuted cavity (the algebraic
+    hierarchy). The sharded loop still raises (item 14)."""
     gs = SETTINGS.replace(
         matrix_solver=tset.MatrixSolverSettings(
             solver_type=tset.SolutionMethod.GAUSS_SEIDEL
         )
     )
-    with pytest.raises(NotImplementedError, match="item 4"):
-        solve_steady_turbulent(mesh, table, gs, 1.0, 1e-5, iterations=1, **RE_KW)
+    _rans_both(channel("jax", 6, 4), channel("torch", 6, 4), gs, 3)
     mg = SETTINGS.replace(
         matrix_solver=tset.MatrixSolverSettings(solver_type=tset.SolutionMethod.MULTIGRID)
     )
-    _, (permuted, ptable) = both("permuted")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        solve_steady_turbulent(permuted, ptable, mg, 1.0, 1e-5, iterations=1, **RE_KW)
+    jcase, tcase = both("permuted")
+    _rans_both(jcase, tcase, mg, 3)
+    mesh, table = channel("torch", 6, 4)
     with pytest.raises(NotImplementedError, match="item 14"):
         tt.solve_steady_turbulent_sharded(mesh, table, SETTINGS, 1.0, 1e-5, u_ref=1.0)
