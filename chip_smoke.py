@@ -154,6 +154,32 @@ Phases (any failure raises and the script exits non-zero):
    the CPU; (d) channel-128x64, solve_channel_flow at 128x64 f64 with
    default numerics (MULTIGRID, the geometric hierarchy), 100
    iterations, its validation passed;
+23. the CLI (orc_tpu_torch.cli.main in this process, so no interpreter
+   start and no kernel rebuild), at most 90 s by its own clock: (a)
+   every examples/*.toml at its own mesh size, [case] iterations and
+   iterations_per_level capped at 20 and [time] steps at 2, outputs
+   moved into build/chip_smoke/cli/, each with a checkpoint and
+   --history (couette_flow also --vtk): every file read back, the
+   fields finite, the velocity-inlet channel's and the couette's u_mean
+   of the right sign and within a factor 10 of 1e-3 and of the
+   analytical 1.0833e-3, the periodic channels' positive; (b) couette_flow
+   and turbulent_channel resumed from those checkpoints (k, eps, mu_t
+   too): the first u-momentum residual nearer the first run's last one
+   than its first one; (c) cavity.toml's numerics on a 256^2 TGRID
+   cavity with relabelled cells: the C++ reader built, timed against
+   the Python parser (the same RawMesh) and read_mesh(native=True) (RCM
+   order, slice plan); `run` with data, checkpoint and VTK, the data
+   rows and the VTK cells equal to the checkpoint mapped through
+   to_raw_order, rows 7 and 10 launched, `info` on the file; (d)
+   cli-1M, cavity.toml's numerics at 1024^2 (float64: case files carry
+   no dtype), 10 then 50 iterations with --history and a checkpoint,
+   the solver's median ms/iter over the CLI's chunks of 10 at most 10%
+   above the same solve_steady in this process (run before and after
+   it, the slower median), the seconds of the CLI's
+   save_checkpoint, a profile window; (e) the `bench` subcommand at BENCH_ITERS=50, its JSON line;
+   (f) `run --device cuda` against `run --device cpu` on a 16^2
+   cavity.toml and on the relabelled 16^2 TGRID cavity, checkpoints
+   within 1e-9 of scale with equal inner counts;
 phases 4-7 and 9-22 end with a short window under torch.profiler
 (device time by kernel, device busy share, launches per iteration), and
 each phase that runs the Jacobi sweeps prints the instances it took;
@@ -161,7 +187,7 @@ then one JSON line with every kernel's launches, error, card times and
 bound, the card's name and power limit, and as the last line
 {"ok": true, "device": {...}}.
 
-Kernel launch counters are set to 0 just before each of phases 4-22 and
+Kernel launch counters are set to 0 just before each of phases 4-23 and
 read just after it, and no plain version of rows 1 and 2 may run on the
 card meanwhile: each phase must launch every kernel of its path,
 the SIMPLE_FC phases none of the parity assembly kernels, the
@@ -171,7 +197,8 @@ only phases 13-14 the transient instances of the momentum kernels, only
 phase 20 the per-row branches, only phase 15 the z-march of the Jacobi
 sweeps, only phase 22a the slice SpMV on plans built without the gather
 table (the multigrid's coarse levels), and phases 17-18 no assembly
-kernel.
+kernel, and phase 23 must launch rows 1, 2, 3, 5, 7 and 10 and not the
+exact slice product.
 """
 
 from __future__ import annotations
@@ -656,6 +683,21 @@ def phase_kernels(dev, kernels, mom_t, march):
     )
     check_bitwise("cavity3d 128^3 f32 K=6 B=3", fused_jacobi_sweeps(*args3), per_sweep3())
     del diag, off, x, planes, _d, _o, x3d, b3d
+    # Row 2 at examples/cavity_3d.toml's shape (phase 23a): case files
+    # carry no dtype, so its 48^3 box runs in f64, B = 3.
+    n48 = 48**3
+    offsets48 = (-48 * 48, -48, -1, 1, 48, 48 * 48)
+    diag, off, x = structured_system(n48, offsets48, 3, torch.float64, dev)
+    b48 = structured_system(n48, offsets48, 3, torch.float64, dev, seed=1)[2]
+    args48 = (diag, tuple(off.T.contiguous()), offsets48, b48, x, 6, 0.8)
+    log(f"  fused_jacobi_sweeps cavity_3d.toml 48^3 f64: "
+        f"{sweep_plan(offsets48, n48, 6, torch.float64).label()}")
+    march.compare(
+        "cavity_3d.toml 48^3 f64 K=6 B=3 6 sweeps", lambda: fused_jacobi_sweeps(*args48),
+        lambda: sweeps_plain(*args48), torch.float64, n48 * (7 * 8 + 3 * 3 * 8),
+        timed=False, outputs=("x",),
+    )
+    del diag, off, x, b48, args48
 
 
 def check_bitwise(label, got, per_sweep):
@@ -3460,6 +3502,553 @@ def phase_channel_128(dev):
     return dict(ms_per_iter=1e3 * dt / 100, passed=r["passed"], seconds=time.perf_counter() - t_start, **prof)
 
 
+# --- phase 23: the CLI ----------------------------------------------------
+
+#: The example case files, each run through the CLI at its own mesh size.
+EXAMPLES = (
+    "cavity", "cavity_3d", "cavity_sequenced", "channel_flow_velocity_inlet",
+    "couette_flow", "periodic_channel", "transient_startup", "turbulent_channel",
+)
+#: Bulk velocity each channel example's run must reach in sign and order
+#: of magnitude (within a factor CLI_U_MEAN_FACTOR either way): the
+#: velocity inlet's 1e-3 and the couette's analytical u_mean.
+CLI_U_MEAN_REF = {
+    "channel_flow_velocity_inlet": 1e-3,
+    "couette_flow": ANALYTICAL_U_MEAN,
+}
+CLI_U_MEAN_FACTOR = 10.0
+#: The CLI's ms/iter on the 1024^2 case may exceed the same solve called
+#: in this process by this share at most: the CLI adds no per-iteration
+#: cost, and host noise moves either by a few percent.
+CLI_OVERHEAD_TOL = 0.10
+#: Card against CPU through the CLI (float64 checkpoints), share of
+#: each field's scale.
+CLI_CARD_CPU_TOL = 1e-9
+
+
+def case_copy(text, out_dir, iterations=None, steps=None, inner=None,
+              cap=None, dims=None, levels=None, mesh=None, checkpoint=True,
+              data=True, reporting=None):
+    """The text of a case file with its run cut and its outputs moved into
+    `out_dir`: [case] iterations and [case.sequencing]
+    iterations_per_level at most `iterations`, [case] reporting_interval
+    set to `reporting`; [time] steps and
+    inner_iterations at most `steps` and `inner`; each [case.generate]
+    dim at most `cap`, or set to `dims` (nx, ny, nz); [case.sequencing]
+    levels set to `levels`; data_file (dropped unless `data`),
+    gradients_file and vtk_file moved into out_dir; checkpoint_file
+    out_dir/checkpoint.npz when `checkpoint`; `mesh` in place of the
+    [case.generate] table. Every other line is kept as it is."""
+    import os
+    import tomllib
+
+    def at_most(value, limit):
+        return value if limit is None else min(value, limit)
+
+    out_dir = str(out_dir)
+    lines, table = [], None
+    for line in text.splitlines():
+        s = line.strip()
+        if s.startswith("["):
+            table = s.strip("[]").strip()
+            if not (mesh is not None and table == "case.generate"):
+                lines.append(line)
+            if table == "case":
+                if mesh is not None:
+                    lines.append(f"mesh = {json.dumps(str(mesh))}")
+                if checkpoint:
+                    ckpt = os.path.join(out_dir, "checkpoint.npz")
+                    lines.append(f"checkpoint_file = {json.dumps(ckpt)}")
+            continue
+        if mesh is not None and table == "case.generate":
+            continue
+        if "=" not in s or s.startswith("#"):
+            lines.append(line)
+            continue
+        key, value = next(iter(tomllib.loads(s).items()))
+        new = value
+        if table == "case.generate" and key in ("nx", "ny", "nz"):
+            new = at_most(value, cap) if dims is None else dims["xyz".index(key[1])]
+        elif table == "case" and key == "iterations":
+            new = at_most(value, iterations)
+        elif table == "case" and key == "reporting_interval" and reporting is not None:
+            new = reporting
+        elif table == "case" and key in ("data_file", "gradients_file", "vtk_file", "checkpoint_file"):
+            if (key == "data_file" and not data) or (key == "checkpoint_file" and checkpoint):
+                continue
+            new = os.path.join(out_dir, os.path.basename(value))
+        elif table == "case" and key == "mesh" and mesh is not None:
+            continue
+        elif table == "case.sequencing" and key == "iterations_per_level":
+            new = at_most(value, iterations)
+        elif table == "case.sequencing" and key == "levels" and levels is not None:
+            new = levels
+        elif table == "time" and key == "steps":
+            new = at_most(value, steps)
+        elif table == "time" and key == "inner_iterations":
+            new = at_most(value, inner)
+        lines.append(line if new == value else f"{key} = {json.dumps(new)}")
+    return "\n".join(lines) + "\n"
+
+
+def run_cli(argv):
+    """orc_tpu_torch.cli.main(argv) in this process (no interpreter start,
+    no kernel rebuild), its standard output captured: (output, seconds).
+    Raises when it fails, after logging the output's tail."""
+    import contextlib
+    import io
+
+    from orc_tpu_torch.cli import main
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = main([str(a) for a in argv])
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+    except BaseException:
+        log("  CLI output before the failure:\n" + buf.getvalue()[-4000:])
+        raise
+    if rc != 0:
+        log(buf.getvalue()[-4000:])
+        raise AssertionError(f"cli {' '.join(map(str, argv))} exited {rc}")
+    return buf.getvalue(), time.perf_counter() - t0
+
+
+def chunk_ms(output):
+    """The ms/iter of each chunk solve_steady reported in a run's output
+    (its own clock, synchronised, setup excluded)."""
+    found = [float(x) for x in re.findall(r"ms/iter = ([0-9.eE+-]+)", output)]
+    if not found:
+        raise AssertionError("the run reported no ms/iter")
+    return found
+
+
+def read_back(case_path, history=None, vtk=None):
+    """Read back every file a CLI run of `case_path` wrote and check the
+    fields are finite: returns {"cells", "u_mean"} of its data file."""
+    from orc_tpu_torch.io.data import read_data
+    from orc_tpu_torch.io.vtk import read_vtk_cell_data
+    from orc_tpu_torch.utils.config import load_case
+
+    case = load_case(str(case_path))
+    got = {}
+    if case.data_file:
+        vel, p = read_data(case.data_file)
+        if not (np.isfinite(vel).all() and np.isfinite(p).all()):
+            raise AssertionError(f"{case.data_file}: non-finite fields")
+        got = dict(cells=vel.shape[0], u_mean=float(vel[:, 0].mean()))
+    if case.gradients_file:
+        with open(case.gradients_file) as f:
+            rows = [re.findall(r"[-0-9.e]+", line) for line in f]
+        g = np.array(rows, dtype=np.float64)
+        if g.shape[1] != 15 or not np.isfinite(g).all() or g.shape[0] != got.get("cells", g.shape[0]):
+            raise AssertionError(f"{case.gradients_file}: bad rows {g.shape}")
+    if case.checkpoint_file:
+        with np.load(case.checkpoint_file) as z:
+            for key in ("vel", "p", "mom_diag"):
+                if not np.isfinite(z[key]).all():
+                    raise AssertionError(f"{case.checkpoint_file}: non-finite {key}")
+    if history:
+        with np.load(history) as z:
+            if z["diverged"].any() or not np.isfinite(z["vel_avg"]).all():
+                raise AssertionError(f"{history}: diverged")
+    if vtk:
+        f = read_vtk_cell_data(str(vtk))
+        if not (np.isfinite(f["velocity"]).all() and np.isfinite(f["pressure"]).all()):
+            raise AssertionError(f"{vtk}: non-finite fields")
+        if got and f["pressure"].shape[0] != got["cells"]:
+            raise AssertionError(f"{vtk}: {f['pressure'].shape[0]} cells")
+    return got
+
+
+def launch_counts(kernels):
+    return {k.name: getattr(k.fn, k.counter) for k in kernels}
+
+
+def launched_since(kernels, before):
+    """{kernel: launches} since `before` (launch_counts), nonzero only."""
+    now = launch_counts(kernels)
+    return {n: now[n] - before[n] for n in now if now[n] != before[n]}
+
+
+def cli_dir(*parts):
+    """An empty directory build/chip_smoke/cli/<parts> (earlier runs'
+    checkpoints would be resumed)."""
+    path = smoke_dir().joinpath("cli", *parts)
+    shutil.rmtree(path, ignore_errors=True)
+    path.mkdir(parents=True)
+    return path
+
+
+def npz(path):
+    """The arrays of an npz archive, read and closed."""
+    with np.load(path) as z:
+        return {k: z[k] for k in z.files}
+
+
+def _u_residuals(history):
+    """The u-momentum solve's final residual at the first and the last
+    iteration of a run's history."""
+    with np.load(history) as z:
+        mom = z["mom_residual"].reshape(-1, 3)[:, 0]
+    return mom[0], mom[-1]
+
+
+def _log_gap(a, b):
+    return abs(np.log10(max(float(a), 1e-300)) - np.log10(max(float(b), 1e-300)))
+
+
+def phase_cli_examples(dev, kernels, examples_dir, iterations=20, steps=2):
+    """23a: every examples/*.toml through `run` at its own mesh size,
+    [case] iterations and iterations_per_level capped at `iterations`,
+    [time] steps at `steps`, outputs in build/chip_smoke/cli/<case>/,
+    each with a checkpoint and --history, couette_flow also with --vtk;
+    every file read back. Returns {case: (case path, out dir, result)}."""
+    from orc_tpu_torch.ops.fused_smooth import fused_jacobi_sweeps
+
+    runs = {}
+    for name in EXAMPLES:
+        out = cli_dir(name)
+        case = out / "case.toml"
+        case.write_text(case_copy(
+            (examples_dir / f"{name}.toml").read_text(), out,
+            iterations=iterations, steps=steps,
+        ))
+        hist = out / "history.npz"
+        vtk = out / "solution.vtk" if name == "couette_flow" else None
+        before = launch_counts(kernels)
+        inst0 = dict(fused_jacobi_sweeps.instances)
+        argv = ["run", case, "--history", hist, "--device", dev]
+        if vtk:
+            argv += ["--vtk", vtk]
+        text, secs = run_cli(argv)
+        got = read_back(case, history=hist, vtk=vtk)
+        mesh_line = next(line for line in text.splitlines() if line.startswith("mesh:"))
+        ms = re.findall(r"ms/iter = ([0-9.eE+-]+)", text)
+        log(
+            f"  {name:28s} {secs:6.2f} s  {mesh_line[6:]}; u_mean {got['u_mean']:.4e}; "
+            f"solver ms/iter {ms[-1] if ms else '-'}; launched {launched_since(kernels, before)}"
+        )
+        inst = {k: v - inst0.get(k, 0) for k, v in fused_jacobi_sweeps.instances.items()
+                if v != inst0.get(k, 0)}
+        if inst:
+            log(f"    fused_jacobi_sweeps instances (calls): {inst}")
+        ref = CLI_U_MEAN_REF.get(name)
+        if ref is not None and not (1 / CLI_U_MEAN_FACTOR < got["u_mean"] / ref < CLI_U_MEAN_FACTOR):
+            raise AssertionError(f"{name}: u_mean {got['u_mean']:.3e} is not of the order of {ref:.3e}")
+        if name in ("periodic_channel", "turbulent_channel") and not got["u_mean"] > 0:
+            raise AssertionError(f"{name}: the body force drove no positive flow")
+        runs[name] = (case, out, dict(got, seconds=secs))
+    return runs
+
+
+def phase_cli_resume(dev, runs, iterations=3):
+    """23b: couette_flow and turbulent_channel again from the checkpoints
+    23a wrote (a case copy naming no data file, so the run starts from
+    the checkpoint; turbulent_channel's k/eps/mu_t come from it too): the
+    resumed run's first u-momentum residual lies nearer (in log10) the
+    first run's last one than the first run's first one did. (The
+    pressure solve's final residual is no measure of progress: BiCGSTAB
+    stops at its relative threshold, so on the couette it stays flat.)"""
+    from orc_tpu_torch.utils.config import load_case
+
+    for name in ("couette_flow", "turbulent_channel"):
+        case, out, _ = runs[name]
+        fresh, last = _u_residuals(out / "history.npz")
+        resume = out / "resume.toml"
+        resume.write_text(case_copy(case.read_text(), out, iterations=iterations, data=False))
+        if not load_case(str(resume)).checkpoint_file:
+            raise AssertionError("the resume case names no checkpoint")
+        hist = out / "resume_history.npz"
+        _, secs = run_cli(["run", resume, "--history", hist, "--device", dev])
+        first, _ = _u_residuals(hist)
+        log(
+            f"  {name}: resumed in {secs:.2f} s; u-momentum residual: first run's first "
+            f"{fresh:.3e}, its last {last:.3e}, the resumed run's first {first:.3e}"
+        )
+        if not _log_gap(first, last) < _log_gap(fresh, last):
+            raise AssertionError(f"{name}: the resumed run restarted instead of continuing")
+
+
+def relabelled_cavity(out, n):
+    """A TGRID n^2 cavity (cavity_case's geometry) with its cells relabelled
+    by permuted_tgrid: (path, perm)."""
+    from orc_tpu_torch.mesh.generate import write_tgrid
+
+    box = out / f"cavity{n}.msh"
+    write_tgrid(str(box), n, n, 1, lengths=(1.0, 1.0, 1.0 / n))
+    path = out / f"cavity{n}-relabelled.msh"
+    perm = permuted_tgrid(str(box), str(path), seed=5)
+    box.unlink()
+    return path, perm
+
+
+def phase_cli_tgrid(dev, kernels, examples_dir, n, iterations=10):
+    """23c: a case file whose mesh is a relabelled n^2 TGRID cavity with
+    cavity.toml's numerics: the C++ reader built and timed against the
+    Python parser (same RawMesh), read_mesh(native=True) onto the card
+    (RCM order, slice plan); `run` with data, checkpoint and VTK; the
+    data file's rows, and the VTK's, equal to the checkpoint's fields
+    mapped through to_raw_order; rows 7 and 10 launched; `info`."""
+    from orc_tpu_torch.io.checkpoint import load_checkpoint
+    from orc_tpu_torch.io.data import read_data
+    from orc_tpu_torch.io.vtk import read_vtk_cell_data
+    from orc_tpu_torch.mesh import native
+    from orc_tpu_torch.mesh.compile import to_raw_order
+    from orc_tpu_torch.mesh.tgrid import parse_tgrid, read_mesh
+
+    out = cli_dir("tgrid")
+    path, _ = relabelled_cavity(out, n)
+    t0 = time.perf_counter()
+    native.library()
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    raw_n = native.parse_tgrid_native(str(path))
+    native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with open(path) as f:
+        raw_p = parse_tgrid(f.read())
+    python_s = time.perf_counter() - t0
+    same = (
+        raw_n.n_cells == raw_p.n_cells
+        and np.array_equal(raw_n.face_cells, raw_p.face_cells)
+        and np.array_equal(raw_n.points, raw_p.points)
+        and np.array_equal(raw_n.face_zone_id, raw_p.face_zone_id)
+    )
+    t0 = time.perf_counter()
+    mesh, _ = read_mesh(str(path), native=True, device=dev)
+    read_s = time.perf_counter() - t0
+    log(
+        f"  {n}^2 relabelled TGRID ({path.stat().st_size / 1e6:.1f} MB): C++ reader built/loaded "
+        f"in {build_s:.2f} s, parse {native_s:.3f} s vs Python {python_s:.3f} s "
+        f"({python_s / native_s:.1f}x), same RawMesh {same}; read_mesh(native=True) {read_s:.2f} s; "
+        f"{plan_line(mesh)}"
+    )
+    if not same or mesh.cell_order is None or mesh.slice_plan is None:
+        raise AssertionError("the relabelled TGRID case did not read as an irregular mesh")
+    case = out / "case.toml"
+    case.write_text(case_copy(
+        (examples_dir / "cavity.toml").read_text(), out, iterations=iterations, mesh=path,
+    ))
+    vtk = out / "solution.vtk"
+    before = launch_counts(kernels)
+    text, secs = run_cli(["run", case, "--vtk", vtk, "--history", out / "history.npz", "--device", dev])
+    launched = launched_since(kernels, before)
+    got = read_back(case, history=out / "history.npz", vtk=vtk)
+    state, _ = load_checkpoint(str(out / "checkpoint.npz"), mesh)
+    vel_raw, p_raw = to_raw_order(mesh, state.vel), to_raw_order(mesh, state.p)
+    vel_txt, p_txt = read_data(str(out / "cavity.csv"))
+    fields = read_vtk_cell_data(str(vtk))
+    # The text holds 7 significant digits; the VTK the float64 bits.
+    txt_err = max(
+        float(np.max(np.abs(vel_txt - vel_raw) / (np.abs(vel_raw) + 1e-30))),
+        float(np.max(np.abs(p_txt - p_raw) / (np.abs(p_raw) + 1e-30))),
+    )
+    vtk_same = np.array_equal(fields["velocity"], vel_raw) and np.array_equal(fields["pressure"], p_raw)
+    moved = not np.array_equal(vel_raw, state.vel.cpu().numpy())
+    info, _ = run_cli(["info", path, "--device", dev])
+    log(
+        f"  run {secs:.2f} s ({iterations} iterations, solver {chunk_ms(text)[-1]:.3f} ms/iter); "
+        f"launched {launched}; data rows vs to_raw_order(checkpoint) max rel err {txt_err:.1e} "
+        f"(7 digits); VTK bitwise {vtk_same}; raw order differs from compiled {moved}"
+    )
+    log("  info: " + " | ".join(info.strip().splitlines()[-2:]))
+    if not (txt_err < 1e-6 and vtk_same and moved):
+        raise AssertionError("the relabelled case's files are not in raw order")
+    for k in ("slice_spmv", "slice_nbr_values"):
+        if not launched.get(k):
+            raise AssertionError(f"the relabelled case launched no {k}")
+    return dict(seconds=secs, parse_native_s=native_s, parse_python_s=python_s, cells=got["cells"])
+
+
+class SaveCheckpointTimer:
+    """Times each call of io.checkpoint.save_checkpoint (which cli.run
+    imports when it runs) while installed: `seconds`."""
+
+    def __enter__(self):
+        from orc_tpu_torch.io import checkpoint
+
+        self.mod, self.real, self.seconds = checkpoint, checkpoint.save_checkpoint, []
+
+        def timed(*a, **k):
+            t0 = time.perf_counter()
+            out = self.real(*a, **k)
+            self.seconds.append(time.perf_counter() - t0)
+            return out
+
+        checkpoint.save_checkpoint = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.save_checkpoint = self.real
+
+
+def _inprocess_chunks(mesh, table, case, state, iterations, chunk):
+    """chunk_ms of solve_steady run in this process, its output captured."""
+    import contextlib
+    import io
+
+    from orc_tpu_torch.solver.simple import solve_steady
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        solve_steady(mesh, table, case.settings, case.rho, case.mu, state=state,
+                     iterations=iterations, reporting_interval=chunk)
+    return chunk_ms(buf.getvalue())
+
+
+def phase_cli_1m(dev, kernels, examples_dir, twin_ms, n=1024, chunk=10):
+    """23d: cavity.toml's numerics at n^2 = 1024^2 (float64: case files have no
+    dtype key) through `run`: 10 iterations to warm up, then 50 timed in
+    chunks of `chunk`, each run with --history and a checkpoint only (the
+    timed run resumes from the warm-up's). The median of the solver's own
+    ms/iter over the CLI's chunks against the same solve_steady called in
+    this process from the same warm state for three chunks, once before
+    and once after the CLI's run (the host's speed wanders within
+    seconds): at most
+    CLI_OVERHEAD_TOL above the slower of the two. The seconds of the CLI's
+    own save_checkpoint; a profile window."""
+    from orc_tpu_torch.io.checkpoint import load_checkpoint
+    from orc_tpu_torch.utils.config import build_problem, load_case
+
+    out = cli_dir("cli-1M")
+    text = (examples_dir / "cavity.toml").read_text()
+    warm, timed = out / "warm.toml", out / "timed.toml"
+    warm.write_text(case_copy(text, out, iterations=10, dims=(n, n, 1), data=False))
+    timed.write_text(case_copy(text, out, iterations=50, dims=(n, n, 1), data=False,
+                               reporting=chunk))
+    _, warm_s = run_cli(["run", warm, "--history", out / "warm.npz", "--device", dev])
+    warm_ckpt = out / "warm_checkpoint.npz"
+    shutil.copy(out / "checkpoint.npz", warm_ckpt)
+    case = load_case(str(timed))
+    mesh, table = build_problem(case, device=dev)
+
+    def in_process():
+        state, _ = load_checkpoint(str(warm_ckpt), mesh)
+        return _inprocess_chunks(mesh, table, case, state, 3 * chunk, chunk)
+
+    before_ms = in_process()
+    before = launch_counts(kernels)
+    with SaveCheckpointTimer() as saves:
+        output, secs = run_cli(["run", timed, "--history", out / "timed.npz", "--device", dev])
+    launched = launched_since(kernels, before)
+    after_ms = in_process()
+    cli_chunks = chunk_ms(output)
+    cli_ms = float(np.median(cli_chunks))
+    inproc = [float(np.median(before_ms)), float(np.median(after_ms))]
+    save_s = sum(saves.seconds)
+    with np.load(out / "timed.npz") as z:
+        pc_it = float(z["pc_iters"].mean())
+    log(
+        f"  cli-1M ({n}^2): warm-up run {warm_s:.2f} s; timed run {secs:.2f} s wall; solver "
+        f"ms/iter by chunk of {chunk}: CLI {cli_chunks} (median {cli_ms:.3f}), in process "
+        f"before {before_ms}, after {after_ms} (medians {inproc[0]:.3f}, {inproc[1]:.3f}); "
+        f"phase 5's f32 Re 1000 cavity {twin_ms:.3f}; mean pressure iterations {pc_it:.2f}; "
+        f"the CLI's save_checkpoint {save_s:.3f} s ({(out / 'checkpoint.npz').stat().st_size / 1e6:.1f} MB); "
+        f"launched {launched} ({sum(launched.values()) / 50:.1f} per iteration)"
+    )
+    state, _ = load_checkpoint(str(out / "checkpoint.npz"), mesh)
+    prof = profile(mesh, table, case.settings, case.rho, case.mu, state, iterations=1)
+    if not cli_ms <= (1 + CLI_OVERHEAD_TOL) * max(inproc):
+        raise AssertionError(
+            f"cli-1M: the CLI's median {cli_ms:.3f} ms/iter exceeds the slower in-process "
+            f"median {max(inproc):.3f} by more than {CLI_OVERHEAD_TOL:.0%}"
+        )
+    return dict(ms_per_iter=cli_ms, inproc_ms_per_iter=inproc, run_s=secs,
+                save_checkpoint_s=save_s, launches=launched, **prof)
+
+
+def phase_cli_bench(dev, iters=50):
+    """23e: the `bench` subcommand (orc_tpu_torch/bench.py) at BENCH_ITERS
+    = `iters`; returns its JSON line."""
+    import os
+
+    old = os.environ.get("BENCH_ITERS")
+    os.environ["BENCH_ITERS"] = str(iters)
+    try:
+        output, secs = run_cli(["bench", "--device", dev])
+    finally:
+        if old is None:
+            del os.environ["BENCH_ITERS"]
+        else:
+            os.environ["BENCH_ITERS"] = old
+    line = json.loads(output.strip().splitlines()[-1])
+    log(f"  bench ({secs:.2f} s): {json.dumps(line)}")
+    return line
+
+
+def phase_cli_card_cpu(dev, examples_dir, n=16, iterations=20):
+    """23f: `run --device cuda` against `run --device cpu` on an n^2
+    cavity.toml and on the relabelled n^2 TGRID cavity: the checkpoints'
+    vel, p and mom_diag within CLI_CARD_CPU_TOL of scale, the histories'
+    inner iteration counts equal."""
+    text = (examples_dir / "cavity.toml").read_text()
+    mesh_path, _ = relabelled_cavity(cli_dir("card-cpu-mesh"), n)
+    worst = {}
+    for label, kw in (("box", dict(dims=(n, n, 1))), ("relabelled", dict(mesh=mesh_path))):
+        ckpts = {}
+        for device in (dev, "cpu"):
+            out = cli_dir("card-cpu", label, str(device))
+            case = out / "case.toml"
+            case.write_text(case_copy(text, out, iterations=iterations, data=False, **kw))
+            run_cli(["run", case, "--history", out / "history.npz", "--device", device])
+            ckpts[str(device)] = out
+        a, b = (npz(ckpts[k] / "checkpoint.npz") for k in (str(dev), "cpu"))
+        ha, hb = (npz(ckpts[k] / "history.npz") for k in (str(dev), "cpu"))
+        gaps = {
+            k: float(np.abs(a[k] - b[k]).max() / max(np.abs(b[k]).max(), 1e-300))
+            for k in ("vel", "p", "mom_diag")
+        }
+        same_iters = all(np.array_equal(ha[k], hb[k]) for k in ("mom_iters", "pc_iters"))
+        log(f"  {label} {n}^2: card vs CPU error/scale {gaps}; equal inner counts {same_iters}")
+        if not (all(g <= CLI_CARD_CPU_TOL for g in gaps.values()) and same_iters):
+            raise AssertionError(f"card-cpu {label}: the card's run left the CPU's")
+        worst[label] = max(gaps.values())
+    return worst
+
+
+def phase_cli(dev, kernels, twin_ms, tgrid_n=256, n_1m=1024):
+    """23: the CLI on the card (orc_tpu_torch.cli.main in this process):
+    (a) the examples, (b) resume, (c) the relabelled TGRID case (256^2:
+    at 448^2 its host work alone, the Python parse inside the VTK writer,
+    three mesh compiles and the text, takes most of the phase's 90 s),
+    (d) cli-1M, (e) bench, (f) the card against the CPU; each sub-phase's
+    seconds."""
+    import pathlib
+
+    log(f"== phase 23: the CLI on the card (orc_tpu_torch.cli.main), {tgrid_n}^2 relabelled TGRID case")
+    examples_dir = pathlib.Path(__file__).resolve().parent / "examples"
+    t_start = time.perf_counter()
+    secs = {}
+    t0 = time.perf_counter()
+    runs = phase_cli_examples(dev, kernels, examples_dir)
+    secs["a"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    phase_cli_resume(dev, runs)
+    secs["b"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tgrid = phase_cli_tgrid(dev, kernels, examples_dir, tgrid_n)
+    secs["c"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    one_m = phase_cli_1m(dev, kernels, examples_dir, twin_ms, n_1m)
+    secs["d"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    bench = phase_cli_bench(dev)
+    secs["e"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    card_cpu = phase_cli_card_cpu(dev, examples_dir)
+    secs["f"] = time.perf_counter() - t0
+    total = time.perf_counter() - t_start
+    log(f"  phase 23 {total:.1f} s (budget 90 s): "
+        + ", ".join(f"23{k} {v:.1f} s" for k, v in secs.items()))
+    return dict(
+        seconds=total, sub_seconds=secs, examples={k: v[2] for k, v in runs.items()},
+        tgrid=tgrid, cli_1m=one_m, bench=bench, card_cpu=card_cpu,
+    )
+
+
 class PlainOnCard:
     """Counts calls of rows 1 and 2's plain versions with a CUDA tensor
     (none may happen on a main path: a CUDA tensor launches the kernel or
@@ -3666,6 +4255,10 @@ def main():
         ("init-channel", lambda: phase_init_channel(dev), (spmv,),
          assembly + extra + irregular + (sweeps,), ()),
         ("channel-128x64", lambda: phase_channel_128(dev), (spmv,), extra + irregular, ()),
+        # Phase 23: the CLI, in this process: the examples, resume, the
+        # relabelled TGRID case, cli-1M, bench and the card against the CPU.
+        ("cli", lambda: phase_cli(dev, kernels, results["parity cavity"]["ms_per_iter"]),
+         parity + (sspmv, snbr), (sexact,), ()),
     )
     launches = {k.name: 0 for k in kernels}
     for label, run, must, must_not, per_iteration in paths:
@@ -3741,6 +4334,9 @@ def main():
         f"initialize_flow 1024x512 f32 {results['init-channel']['ms']:.2f} ms, "
         f"solve_channel_flow 128x64 f64 {results['channel-128x64']['ms_per_iter']:.2f} ms/iter; "
         f"phase 22 {sum(results[k]['seconds'] for k in ('amg-448', 'gs-cavity-1M', 'init-channel', 'channel-128x64')):.1f} s; "
+        f"CLI: cli-1M {results['cli']['cli_1m']['ms_per_iter']:.2f} ms/iter (in-process "
+        f"{max(results['cli']['cli_1m']['inproc_ms_per_iter']):.2f}), bench "
+        f"{results['cli']['bench']['value']:.2f} iters/s, phase 23 {results['cli']['seconds']:.1f} s; "
         f"{time.perf_counter() - _T0:.1f} s since the start"
     )
     log(json.dumps({"kernels": [k.summary(launches[k.name]) for k in kernels]}))

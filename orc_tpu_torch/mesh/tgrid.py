@@ -22,8 +22,9 @@ Face body lines carry a leading node count when the section's face type
 is 0 (mixed) or 5 (polygonal); otherwise the node count equals the face
 type code.
 
-The C++ reader of orc_tpu (mesh/native.py) is not ported yet:
-`read_mesh(native=True)` raises; "auto" takes this parser.
+`read_mesh` parses with the port's C++ reader (mesh/native.py,
+csrc/tgrid_reader.cpp) where it can: `native="auto"` tries it and takes
+this parser when it fails, True requires it, False takes this parser.
 """
 
 from __future__ import annotations
@@ -280,17 +281,27 @@ def read_mesh(
     """Read a TGRID mesh file and compile it onto `device`: returns
     (CompiledMesh, BoundaryTable).
 
-    `native`: "auto" and False take this module's parser; True asks for
-    orc_tpu's C++ reader, which is not ported yet and raises."""
+    `native`: "auto" tries the C++ parser (mesh/native.py) and takes this
+    module's Python parser when it fails; True requires it (a failed
+    g++ build or parse raises); False forces Python. Either parser gives
+    the same RawMesh: a host parser choice, not a device fallback.
+
+    `nodes=True` also builds the vertex-interpolation tables required
+    by node-based Green-Gauss gradients (mesh/nodes.py)."""
     from orc_tpu_torch.mesh.compile import compile_mesh
 
-    if native is True:
-        raise NotImplementedError(
-            "the native TGRID reader (mesh/native.py) is not ported yet "
-            "(ROADMAP Queue 1, item 2); use native='auto' or False"
-        )
-    with open(path) as f:
-        raw = parse_tgrid(f.read())
+    raw = None
+    if native in ("auto", True):
+        try:
+            from orc_tpu_torch.mesh.native import parse_tgrid_native
+
+            raw = parse_tgrid_native(path)
+        except Exception:
+            if native is True:
+                raise
+    if raw is None:
+        with open(path) as f:
+            raw = parse_tgrid(f.read())
     if verbose:
         print(
             f"Read mesh {path}: {raw.n_cells} cells, {raw.n_faces} faces, "

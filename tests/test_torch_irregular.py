@@ -22,6 +22,7 @@ port's own structured twin.
 
 import numpy as np
 import pytest
+import torch
 
 from torch_parity import compiled_both, np_, permuted_arrays, to_jax_settings
 
@@ -172,10 +173,15 @@ def test_couette_case_reads_tgrid(tmp_path):
 
 
 def test_native_reader_is_not_ported(tmp_path):
+    """The native reader is ported now (mesh/native.py): read_mesh with
+    native=True compiles the same mesh as the Python parser's
+    (tests/test_torch_native.py holds the parsers against each other)."""
     from orc_tpu_torch.mesh.generate import write_tgrid
     from orc_tpu_torch.mesh.tgrid import read_mesh
 
     path = str(tmp_path / "box.msh")
     write_tgrid(path, 3, 3, 1)
-    with pytest.raises(NotImplementedError):
-        read_mesh(path, native=True, device="cpu")
+    mn, _ = read_mesh(path, native=True, device="cpu")
+    mp, _ = read_mesh(path, native=False, device="cpu")
+    assert torch.equal(mn.cell_centroid, mp.cell_centroid)
+    assert torch.equal(mn.cell_neighbors, mp.cell_neighbors)

@@ -238,3 +238,77 @@ def structured_system(C, offsets, B=0, seed=0):
     diag = 1.0 + np.abs(off).sum(axis=1) + rng.random(C)
     shape = (B, C) if B else (C,)
     return diag, off, rng.standard_normal(shape), rng.standard_normal(shape)
+
+
+# --- files both packages read (I/O, the CLI, the native reader) --------
+
+
+def chip_smoke():
+    """chip_smoke.py as a module (its case_copy and permuted_tgrid)."""
+    import importlib.util
+    import sys
+    from pathlib import Path
+
+    if "chip_smoke" not in sys.modules:
+        path = Path(__file__).resolve().parent.parent / "chip_smoke.py"
+        spec = importlib.util.spec_from_file_location("chip_smoke", path)
+        module = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(module)
+        sys.modules["chip_smoke"] = module
+    return sys.modules["chip_smoke"]
+
+
+def relabelled_tgrid(tmp_path, n, nz=1, seed=0):
+    """A write_tgrid n x n x nz box whose cells are relabelled by a seeded
+    permutation (chip_smoke.permuted_tgrid), so that read_mesh takes the
+    RCM / slice-plan path: its path."""
+    from orc_tpu_torch.mesh.generate import write_tgrid
+
+    box = tmp_path / f"box{n}x{nz}.msh"
+    write_tgrid(str(box), n, n, nz, lengths=(1.0, 1.0, 1.0 / n if nz == 1 else 1.0))
+    path = tmp_path / f"box{n}x{nz}-relabelled.msh"
+    chip_smoke().permuted_tgrid(str(box), str(path), seed=seed)
+    return path
+
+
+def tgrid_2d(path, nx, ny, lengths=(2.0, 1.0)):
+    """A genuinely two-dimensional TGRID file ((2 2), 2-node edge faces) of
+    an nx x ny quad box: interior, and the four sides as WALL zones."""
+    hx, hy = lengths[0] / nx, lengths[1] / ny
+    nid = lambda i, j: 1 + i + (nx + 1) * j  # noqa: E731
+    cid = lambda i, j: 1 + i + nx * j  # noqa: E731
+    zones = {"interior": [], "BOTTOM": [], "TOP": [], "LEFT": [], "RIGHT": []}
+    for j in range(ny):
+        for i in range(nx + 1):  # vertical edges, owner on the left
+            a, b = nid(i, j), nid(i, j + 1)
+            if i == 0:
+                zones["LEFT"].append((b, a, cid(0, j), 0))
+            elif i == nx:
+                zones["RIGHT"].append((a, b, cid(nx - 1, j), 0))
+            else:
+                zones["interior"].append((a, b, cid(i - 1, j), cid(i, j)))
+    for j in range(ny + 1):
+        for i in range(nx):  # horizontal edges, owner below
+            a, b = nid(i, j), nid(i + 1, j)
+            if j == 0:
+                zones["BOTTOM"].append((a, b, cid(i, 0), 0))
+            elif j == ny:
+                zones["TOP"].append((b, a, cid(i, ny - 1), 0))
+            else:
+                zones["interior"].append((b, a, cid(i, j - 1), cid(i, j)))
+    n_nodes, n_cells = (nx + 1) * (ny + 1), nx * ny
+    out = ['(0 "two-dimensional test mesh")', "(2 2)", f"(10 (0 1 {n_nodes:x} 0 2))",
+           f"(10 (1 1 {n_nodes:x} 1 2)("]
+    out += [f"{i * hx:.12e} {j * hy:.12e}" for j in range(ny + 1) for i in range(nx + 1)]
+    out += ["))", f"(12 (0 1 {n_cells:x} 0))", f"(12 (2 1 {n_cells:x} 1 3))"]
+    first = 1
+    for zone_id, (name, faces) in enumerate(zones.items(), start=3):
+        bc = 2 if name == "interior" else 3
+        last = first + len(faces) - 1
+        out += [f'(0 "faces of zone {name}")', f"(13 ({zone_id:x} {first:x} {last:x} {bc:x} 2)("]
+        out += [" ".join(f"{v:x}" for v in f) for f in faces]
+        out += ["))"]
+        first = last + 1
+    with open(path, "w") as f:
+        f.write("\n".join(out) + "\n")
+    return path
