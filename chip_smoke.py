@@ -180,6 +180,24 @@ Phases (any failure raises and the script exits non-zero):
    (f) `run --device cuda` against `run --device cpu` on a 16^2
    cavity.toml and on the relabelled 16^2 TGRID cavity, checkpoints
    within 1e-9 of scale with equal inner counts;
+24. the sharded runtime (orc_tpu_torch/parallel), several partitions on
+   the one card (`devices=[card] * P`): (a) run after phase 3b, small
+   float64 slices at 2, 3 and 4 partitions, slab and RCB: the parity,
+   reference-default and SIMPLE_FC 16^2 cavities (the parity and FC ones
+   over 3 slabs too, whose windows start and end inside rows, each
+   assembly kernel launched once per partition per iteration), the
+   transient 16^2 cavity, geometric and algebraic MULTIGRID (16^2 box,
+   permuted 16^2 cavity), the 16x12 RANS channel: each within 1e-8 of the single-
+   device run on the card and within 1e-9 of the same sharded run on the
+   CPU with equal inner counts, then `run --devices 2` through the CLI,
+   cut to the one visible card; (b) refdef-1M (phase 11's numerics) over
+   4 slabs, 10 + 30 iterations; (c) fc-cavity-1M (phase 7's) over 4
+   slabs, 10 + 30; (d) cavity3d-128 under MULTIGRID (phase 15's) over 4
+   slabs, 5 + 10: each with the assembly kernels once per partition per
+   iteration (rows 3 and 5 in their streamed-gradient instances, rows 4
+   and 6 on the FC path), no fused sweep, finite |u| < 2, the median
+   pressure residual within twice the single-device phase's over the
+   same iterations, ms/iter, launches and busy share beside it;
 phases 4-7 and 9-22 end with a short window under torch.profiler
 (device time by kernel, device busy share, launches per iteration), and
 each phase that runs the Jacobi sweeps prints the instances it took;
@@ -187,7 +205,7 @@ then one JSON line with every kernel's launches, error, card times and
 bound, the card's name and power limit, and as the last line
 {"ok": true, "device": {...}}.
 
-Kernel launch counters are set to 0 just before each of phases 4-23 and
+Kernel launch counters are set to 0 just before each of phases 4-24d and
 read just after it, and no plain version of rows 1 and 2 may run on the
 card meanwhile: each phase must launch every kernel of its path,
 the SIMPLE_FC phases none of the parity assembly kernels, the
@@ -198,7 +216,8 @@ phase 20 the per-row branches, only phase 15 the z-march of the Jacobi
 sweeps, only phase 22a the slice SpMV on plans built without the gather
 table (the multigrid's coarse levels), and phases 17-18 no assembly
 kernel, and phase 23 must launch rows 1, 2, 3, 5, 7 and 10 and not the
-exact slice product.
+exact slice product; phases 24b-d launch their assembly kernels once per
+partition per iteration and no Jacobi-sweep kernel.
 """
 
 from __future__ import annotations
@@ -1331,7 +1350,10 @@ def phase_cavity_3d(dev):
         pc = h.pc_iters.float().mean().item()
         u = state.vel.cpu().numpy()
         finite = bool(np.isfinite(u).all() and np.isfinite(state.p.cpu().numpy()).all())
-        out[name] = dict(ms_per_iter=1e3 * wall / 20, pc_iters=pc)
+        out[name] = dict(
+            ms_per_iter=1e3 * wall / 20, pc_iters=pc, warm=0,
+            pc_residual=h.pc_residual.cpu().numpy(),
+        )
         log(
             f"  {name}: 20 iterations {wall:.3f} s -> {1e3 * wall / 20:.2f} ms/iter; mean "
             f"pressure iterations {pc:.2f}; p_corr_norm last {h.p_corr_norm[-1].item():.3e}; "
@@ -1518,10 +1540,12 @@ def phase_cavity(dev, fc=False):
             f"  max |div flux| / max |flux A| = {div_ratio:.3e} (the last pressure "
             f"solve's residual); median pressure residual {pc_res:.3e}"
         )
-    profile(mesh, table, settings, 1.0, 1e-3, state, iterations=5)
+    window = profile(mesh, table, settings, 1.0, 1e-3, state, iterations=5)
     return dict(
         ms_per_iter=1e3 * dt / 50, vel_avg=hist[-1].vel_avg[-1].cpu().numpy(),
         structure=structure, div_ratio=div_ratio, pc_residual_median=pc_res,
+        pc_residual=np.concatenate([h.pc_residual.cpu().numpy() for h in hist]),
+        warm=10, **window,
     )
 
 
@@ -1918,7 +1942,7 @@ def phase_ref_default_cavity(dev):
     try:
         state, _, warm_s = _timed_solve(mesh, table, settings, 1.0, 1e-3, None, warm, warm)
         state, hist, dt = _timed_solve(mesh, table, settings, 1.0, 1e-3, state, timed, timed)
-        profile(mesh, table, settings, 1.0, 1e-3, state, iterations=prof)
+        window = profile(mesh, table, settings, 1.0, 1e-3, state, iterations=prof)
     finally:
         simple.ck_pressure_gradient = real
     u = state.vel.cpu().numpy()
@@ -1931,7 +1955,10 @@ def phase_ref_default_cavity(dev):
     )
     if passes:
         raise AssertionError("the in-kernel GG step ran a plain grad-p pass")
-    return dict(ms_per_iter=1e3 * dt / timed, iterations=warm + timed + prof)
+    return dict(
+        ms_per_iter=1e3 * dt / timed, iterations=warm + timed + prof,
+        pc_residual=hist[-1].pc_residual.cpu().numpy(), warm=warm, **window,
+    )
 
 
 #: Largest difference, relative to the field's scale, allowed between the
@@ -4049,6 +4076,317 @@ def phase_cli(dev, kernels, twin_ms, tgrid_n=256, n_1m=1024):
     )
 
 
+#: Sharded runs on the card against the single-device run on the card
+#: (they differ by the order of the reductions only) and against the same
+#: sharded run on the CPU (equal inner iteration counts).
+SHARDED_SINGLE_TOL = 1e-8
+SHARDED_CARD_CPU_TOL = 1e-9
+
+
+def _sharded_cases():
+    """Phase 24a's runs: (label, partitions, run(device, devices or None)
+    -> (FlowState, stacked StepMetrics)[, the assembly kernels the sharded
+    run on the card must launch and how many times]); devices None runs
+    one device. The three-slab runs' windows (86 cells of the 16^2
+    cavity) start and end inside rows."""
+    from orc_tpu_torch.models.cavity import (
+        cavity_case,
+        default_settings,
+        flagship_settings,
+    )
+    from orc_tpu_torch.parallel.sharded import (
+        solve_steady_sharded,
+        solve_transient_sharded,
+    )
+    from orc_tpu_torch.solver.simple import solve_steady, stack_history
+    from orc_tpu_torch.solver.transient import solve_transient
+    from orc_tpu_torch.solver.turbulence import (
+        solve_steady_turbulent,
+        solve_steady_turbulent_sharded,
+    )
+
+    def steady(build, settings, iterations=6, method="auto"):
+        def run(d, devices):
+            mesh, table = build(d)
+            kw = dict(iterations=iterations, reporting_interval=iterations, verbose=False)
+            if devices is None:
+                state, hist = solve_steady(mesh, table, settings, 1.0, 0.01, **kw)
+            else:
+                state, hist = solve_steady_sharded(
+                    mesh, table, settings, 1.0, 0.01, partition_method=method,
+                    devices=devices, **kw,
+                )
+            return state, stack_history(hist)
+        return run
+
+    def transient(d, devices):
+        mesh, table = cavity_case(n=16, device=d)
+        kw = dict(dt=0.05, n_steps=3, inner_iterations=4, verbose=False)
+        if devices is None:
+            return solve_transient(mesh, table, default_settings(), 1.0, 0.01, **kw)
+        return solve_transient_sharded(
+            mesh, table, default_settings(), 1.0, 0.01, devices=devices, **kw
+        )
+
+    def rans(d, devices):
+        mesh, table = rans_channel(d, 16, 12, torch.float64)
+        kw = dict(iterations=2, reporting_interval=2, verbose=False, **CHANNEL_TURB)
+        if devices is None:
+            flow, _, hist = solve_steady_turbulent(mesh, table, rans_settings(), 1.0, 1e-5, **kw)
+        else:
+            flow, _, hist = solve_steady_turbulent_sharded(
+                mesh, table, rans_settings(), 1.0, 1e-5, devices=devices, **kw
+            )
+        return flow, stack_history(hist)
+
+    def cavity(d):
+        return cavity_case(n=16, device=d)
+
+    def permuted(d):
+        mesh, table, _ = permuted_cavity(16, torch.float64, d)
+        return mesh, table
+
+    mg = default_settings().replace(matrix_solver=mg_settings())
+    return (
+        ("parity slab", 2, steady(cavity, default_settings())),
+        ("parity slab, ragged windows", 3, steady(cavity, default_settings()),
+         dict(momentum=18, pc=18)),
+        ("SIMPLE_FC slab, ragged windows", 3, steady(cavity, flagship_settings()),
+         dict(fc_momentum=18, fc_pc=18)),
+        ("reference-default slab", 4, steady(cavity, ref_default_settings())),
+        ("parity rcb (face-major)", 4, steady(cavity, default_settings(), method="rcb")),
+        ("SIMPLE_FC slab", 4, steady(cavity, flagship_settings())),
+        ("transient slab", 2, transient),
+        ("GMG slab", 4, steady(cavity, mg)),
+        ("AMG rcb, permuted", 4, steady(permuted, mg)),
+        ("RANS channel 16x12 slab", 4, rans),
+    )
+
+
+def phase_sharded_small(dev, cases=None):
+    """24a: the sharded solvers on small f64 cases, 2, 3 and 4 partitions
+    on the one card (`devices=[card] * P`): each within SHARDED_SINGLE_TOL of
+    the single-device run on the card and within SHARDED_CARD_CPU_TOL of
+    the same sharded run on the CPU, with equal inner iteration counts;
+    then `run --devices 2` through the CLI, cut to the one visible card
+    as orc_tpu's jax.devices()[:n] cuts it."""
+    log("== phase 24a: sharded slices, 2, 3 and 4 partitions on the one card, against one device and the CPU")
+    t0 = time.perf_counter()
+    cpu = torch.device("cpu")
+    for label, parts, run, *want in cases or _sharded_cases():
+        single = run(dev, None)
+        before = _assembly_launches()
+        card = run(dev, [dev] * parts)
+        if want:
+            after = _assembly_launches()
+            got = {k: after[k] - before[k] for k in want[0]}
+            log(f"  {label}: assembly kernel launches {got}")
+            if got != want[0]:
+                raise AssertionError(f"{label}: launches {got}, expected {want[0]}")
+        host = run(cpu, [cpu] * parts)
+        gaps = {
+            n: max_err(getattr(card[0], n).cpu(), getattr(single[0], n).cpu())[1][0]
+            for n in ("vel", "p")
+        }
+        log(
+            f"  {label}, {parts} partitions: sharded vs one device on the card, error / "
+            f"scale " + " ".join(f"{n} {e:.3e}" for n, e in gaps.items())
+            + f" (tol {SHARDED_SINGLE_TOL:.0e})"
+        )
+        if not all(e <= SHARDED_SINGLE_TOL for e in gaps.values()):
+            raise AssertionError(f"{label}: the sharded run left the single-device one")
+        _card_cpu_gap(f"{label} sharded", (card, host), SHARDED_CARD_CPU_TOL)
+    text = (pathlib_repo() / "examples" / "cavity.toml").read_text()
+    out = cli_dir("sharded")
+    case = out / "case.toml"
+    case.write_text(case_copy(text, out, iterations=4, dims=(16, 16, 1), reporting=2))
+    output, secs = run_cli(["run", case, "--devices", "2"])
+    cut = "[1 devices] Iteration" in output
+    log(f"  cli run --devices 2: {secs:.1f} s, cut to the one visible card: {cut}")
+    if not cut:
+        raise AssertionError("run --devices 2 did not run sharded over the one visible card")
+    return dict(seconds=time.perf_counter() - t0)
+
+
+def pathlib_repo():
+    import pathlib
+
+    return pathlib.Path(__file__).resolve().parent
+
+
+def _sharded_run(mesh, table, settings, rho, mu, warm, timed, parts, dev):
+    """solve_steady_sharded over `parts` partitions on the card from rest,
+    warm + timed iterations in chunks of `warm`: (state, the timed
+    chunks' histories, ms/iter of the timed chunks by the solver's own
+    clock, which leaves the partitioning out)."""
+    import contextlib
+    import io
+
+    from orc_tpu_torch.parallel.sharded import solve_steady_sharded
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        state, hist = solve_steady_sharded(
+            mesh, table, settings, rho, mu, iterations=warm + timed,
+            reporting_interval=warm, devices=[dev] * parts,
+        )
+    torch.cuda.synchronize()
+    return state, hist[1:], float(np.mean(chunk_ms(buf.getvalue())[1:]))
+
+
+def _sharded_window(mesh, table, settings, rho, mu, state, parts, dev, iterations=3):
+    """profile_window over `iterations` sharded iterations alone: the
+    partitions, their state and their steps are built first, with the
+    solver's own set-up, and `iterations` run once outside the window
+    (the first V-cycle builds each partition's coarse tables)."""
+    from orc_tpu_torch.parallel import sharded
+
+    s = sharded._setup(
+        mesh, table, settings, mu, None, [dev] * parts, "auto", "auto", state
+    )
+    run = sharded.make_sharded_step(
+        s["partition"], settings, n_steps=iterations, use_ck=s["use_ck"],
+        n_zones=len(table.zone_ids), mg_hierarchy=s["mg"],
+        maybe_singular=s["maybe_singular"], use_fc=s["use_fc"],
+        kernel_asm=s["kernel_asm"],
+    )
+    local, _ = run(s["local"], *s["zones"], rho, mu)
+    return profile_window(
+        lambda: _timed_run(lambda: run(local, *s["zones"], rho, mu)), iterations
+    )
+
+
+def _assembly_launches():
+    from orc_tpu_torch.ops import fused_assembly as asm
+    from orc_tpu_torch.ops.fused_smooth import fused_jacobi_sweeps
+    from orc_tpu_torch.ops.shift_spmv import shift_spmv
+
+    return dict(
+        momentum=asm.momentum_assembly.launches, pc=asm.pc_assembly.launches,
+        fc_momentum=asm.fc_momentum_assembly.launches, fc_pc=asm.fc_pc_assembly.launches,
+        shift_spmv=shift_spmv.launches, sweeps=fused_jacobi_sweeps.launches,
+    )
+
+
+def phase_sharded_full(dev, label, twin, build, settings, mu, warm, timed, parts=4,
+                       kernels=("momentum", "pc")):
+    """24b-d: one full-width cell over `parts` slab partitions of the one
+    card, `warm` + `timed` iterations from rest, then 3 + a profile
+    window of 3 from that state:
+    the assembly `kernels` launched once per partition per iteration (no
+    plain assembly, no fused sweep: the momentum smoother refreshes its
+    halo every sweep), finite |u| < 2, the median pressure residual of
+    the timed iterations within twice the single-device twin's over the
+    same iterations (`twin`: that phase's result), ms/iter and the busy
+    share beside the twin's."""
+    from orc_tpu_torch.solver import simple
+
+    mesh, table = build(dev)
+    passes = []
+    real = simple.ck_pressure_gradient
+
+    def counted(*args, **kw):
+        passes.append(1)
+        return real(*args, **kw)
+
+    before = _assembly_launches()
+    simple.ck_pressure_gradient = counted
+    try:
+        t0 = time.perf_counter()
+        state, hist, ms = _sharded_run(mesh, table, settings, 1.0, mu, warm, timed, parts, dev)
+        window = _sharded_window(mesh, table, settings, 1.0, mu, state, parts, dev)
+        wall = time.perf_counter() - t0
+    finally:
+        simple.ck_pressure_gradient = real
+    after = _assembly_launches()
+    n_it = warm + timed + 6
+    per_it = {k: (after[k] - before[k]) / n_it for k in after}
+    u = state.vel.cpu().numpy()
+    pc_res = float(np.median(np.concatenate([h.pc_residual.cpu().numpy() for h in hist])))
+    tw = np.asarray(twin["pc_residual"])[warm - twin["warm"]:][:timed]
+    twin_res = float(np.median(tw))
+    log(
+        f"  {parts} slabs: {warm} + {timed} iterations, then 3 + a window of 3 ({wall:.1f} s with "
+        f"two partitionings): {ms:.2f} ms/iter by the solver's clock, {window['window_ms_per_iter']:.2f} "
+        f"in the window (one device {twin['ms_per_iter']:.2f}), device busy "
+        f"{100 * window['busy']:.1f}% (one device {100 * twin['busy']:.1f}%), "
+        f"{window['launches_per_iter']:.0f} launches per iteration (one device "
+        f"{twin['launches_per_iter']:.0f}); |u| max {np.abs(u).max():.3f}"
+    )
+    log(
+        f"  launches per iteration: {per_it}; streamed grad-p passes per iteration "
+        f"{len(passes) / n_it:.2f}; median pressure residual {pc_res:.3e} (one device "
+        f"{twin_res:.3e} over the same iterations, limit twice that)"
+    )
+    if not (np.isfinite(u).all() and np.abs(u).max() < 2.0):
+        raise AssertionError(f"{label}: fields not finite or |u| >= 2")
+    for k in kernels:
+        if after[k] - before[k] != parts * n_it:
+            raise AssertionError(f"{label}: {k} launched other than once per partition per iteration")
+    if after["sweeps"] != before["sweeps"]:
+        raise AssertionError(f"{label}: a fused sweep ran under a halo refresh")
+    if "momentum" in kernels and settings.velocity_interpolation.name == "RHIE_CHOW" \
+            and len(passes) != parts * n_it:
+        raise AssertionError(f"{label}: the kernels did not take the streamed gradient")
+    if not pc_res <= 2.0 * twin_res:
+        raise AssertionError(f"{label}: the sharded pressure solves left more residual than one device's")
+    return dict(
+        iterations=parts * n_it, ms_per_iter=ms, window_ms_per_iter=window["window_ms_per_iter"],
+        busy=window["busy"], launches_per_iter=window["launches_per_iter"], per_it=per_it,
+        pc_residual=pc_res, twin_pc_residual=twin_res, seconds=wall,
+    )
+
+
+def _timed_run(run):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def phase_sharded_refdef(dev, twin, n=1024):
+    """24b: refdef-1M's numerics (phase 11) over 4 slabs of the one card."""
+    log("== phase 24b: refdef-1M 1024^2 f32 (CD1 + SO + RC, forced SIMPLE), 4 slabs on the one card")
+    from orc_tpu_torch.models.cavity import cavity_case
+
+    def build(d):
+        return cavity_case(n=n, dtype=torch.float32, device=d)
+
+    return phase_sharded_full(dev, "refdef-1M x4", twin, build, ref_default_settings(), 1e-3, 10, 30)
+
+
+def phase_sharded_fc(dev, twin, n=1024):
+    """24c: fc-cavity-1M's numerics (phase 7) over 4 slabs of the one card."""
+    log("== phase 24c: fc-cavity-1M 1024^2 f32 (SIMPLE_FC, Ghia flagship numerics), 4 slabs on the one card")
+    from orc_tpu_torch.models.cavity import cavity_case, flagship_settings
+
+    def build(d):
+        return cavity_case(n=n, dtype=torch.float32, device=d)
+
+    return phase_sharded_full(
+        dev, "fc-cavity-1M x4", twin, build, flagship_settings(), 1e-3, 10, 30,
+        kernels=("fc_momentum", "fc_pc"),
+    )
+
+
+def phase_sharded_3d(dev, twin, n=128):
+    """24d: cavity3d-128 under MULTIGRID (phase 15) over 4 slabs of the
+    one card: the geometric V-cycle's fine level distributed, its coarse
+    correction replicated on every partition."""
+    log("== phase 24d: cavity3d-128 f32 MULTIGRID (5 levels), 4 slabs on the one card")
+    from orc_tpu_torch.models.cavity import cavity_case
+
+    def build(d):
+        return cavity_case(n=n, nz=n, dtype=torch.float32, device=d)
+
+    settings = bench_irregular_settings().replace(
+        pressure_relaxation=CAVITY_3D_PRESSURE_RELAXATION,
+        matrix_solver=mg_settings(levels=5, smoother=4),
+    )
+    return phase_sharded_full(dev, "cavity3d-128 x4", twin, build, settings, 1e-2, 5, 10)
+
+
 class PlainOnCard:
     """Counts calls of rows 1 and 2's plain versions with a CUDA tensor
     (none may happen on a main path: a CUDA tensor launches the kernel or
@@ -4110,7 +4448,10 @@ def profile_window(run, iterations):
     )
     for t, key, count in sorted(rows, reverse=True)[:12]:
         log(f"    {t / 1e3:9.2f} ms  {count:6d}x  {key[:90]}")
-    return dict(busy=busy_us / 1e6 / dt, launches_per_iter=n_launch / iterations)
+    return dict(
+        busy=busy_us / 1e6 / dt, launches_per_iter=n_launch / iterations,
+        window_ms_per_iter=1e3 * dt / iterations,
+    )
 
 
 def main():
@@ -4178,6 +4519,7 @@ def main():
     phase_small_reference_schemes(dev)
     phase_small_reference_face_major(dev)
     phase_small_reference_solvers(dev)
+    sharded_small = phase_sharded_small(dev)
 
     # The main paths, each driven with the launch counts set to 0 just
     # before it and read just after it.
@@ -4259,6 +4601,21 @@ def main():
         # relabelled TGRID case, cli-1M, bench and the card against the CPU.
         ("cli", lambda: phase_cli(dev, kernels, results["parity cavity"]["ms_per_iter"]),
          parity + (sspmv, snbr), (sexact,), ()),
+        # Phase 24: the sharded runtime, 4 slab partitions on the one card;
+        # "once per iteration" reads once per partition per iteration (the
+        # phases return partitions x iterations), and no fused sweep may
+        # run: the momentum smoother refreshes its halo every sweep.
+        ("refdef-1M x4",
+         lambda: phase_sharded_refdef(dev, results["reference-default cavity"]),
+         (spmv, mom, pc), (fc_mom, fc_pc, sweeps) + extra + irregular, (mom, pc)),
+        ("fc-cavity-1M x4", lambda: phase_sharded_fc(dev, results["fc cavity"]),
+         (spmv, fc_mom, fc_pc), (mom, pc, sweeps) + extra + irregular, (fc_mom, fc_pc)),
+        ("cavity3d-128 x4",
+         lambda: phase_sharded_3d(dev, {
+             **results["3-D cavity multigrid"]["MULTIGRID"],
+             **results["3-D cavity multigrid"]["profile"],
+         }),
+         (spmv, mom, pc), (fc_mom, fc_pc, sweeps) + extra + irregular, (mom, pc)),
     )
     launches = {k.name: 0 for k in kernels}
     for label, run, must, must_not, per_iteration in paths:
@@ -4337,6 +4694,12 @@ def main():
         f"CLI: cli-1M {results['cli']['cli_1m']['ms_per_iter']:.2f} ms/iter (in-process "
         f"{max(results['cli']['cli_1m']['inproc_ms_per_iter']):.2f}), bench "
         f"{results['cli']['bench']['value']:.2f} iters/s, phase 23 {results['cli']['seconds']:.1f} s; "
+        f"sharded, 4 slabs on the one card: refdef-1M "
+        f"{results['refdef-1M x4']['ms_per_iter']:.2f} ms/iter, fc-cavity-1M "
+        f"{results['fc-cavity-1M x4']['ms_per_iter']:.2f}, cavity3d-128 MULTIGRID "
+        f"{results['cavity3d-128 x4']['ms_per_iter']:.2f}; phase 24 "
+        f"{sharded_small['seconds'] + sum(results[k]['seconds'] for k in ('refdef-1M x4', 'fc-cavity-1M x4', 'cavity3d-128 x4')):.1f} s "
+        f"(24a {sharded_small['seconds']:.1f}); "
         f"{time.perf_counter() - _T0:.1f} s since the start"
     )
     log(json.dumps({"kernels": [k.summary(launches[k.name]) for k in kernels]}))

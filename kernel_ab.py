@@ -50,10 +50,12 @@ REPORTED = ("slice_spmv_kernel", "slice_spmv_exact_kernel", "momentum_kernel",
 #: The entry points that take the box's (nx, ny, nz), each with the
 #: position of nx among its arguments and the count of the arguments
 #: that came with it (the Jacobi sweeps' also take the depth and the
-#: tile): a base version whose entry point takes none (the versions
-#: before the kernel's box tiles) is called without them.
-BOXED = {"orc_momentum_assembly": (11, 3), "orc_pc_assembly": (8, 3),
-         "orc_fc_momentum_assembly": (9, 3), "orc_jacobi_sweeps": (14, 7),
+#: tile, the assembly kernels' the box's first row, row0): a base
+#: version whose entry point takes none (the versions before the
+#: kernel's box tiles) is called without them, one that takes the box
+#: but no row0 (before the sharded runtime's windows) without row0.
+BOXED = {"orc_momentum_assembly": (11, 4), "orc_pc_assembly": (8, 4),
+         "orc_fc_momentum_assembly": (9, 4), "orc_jacobi_sweeps": (14, 7),
          "orc_jacobi_sweeps_rows": (16, 7)}
 
 
@@ -72,7 +74,7 @@ def build(csrc: Path, out: Path):
 
 class Version:
     """One build of the sources: its library and which of its entry
-    points take the box's (nx, ny, nz)."""
+    points take the box's (nx, ny, nz) and which its row0 too."""
 
     def __init__(self, path: Path, csrc: Path):
         from orc_tpu_torch.ops import _cuda
@@ -80,10 +82,11 @@ class Version:
         self.lib = ctypes.CDLL(str(path))
         text = "".join((csrc / s).read_text()
                        for s in ("parity_assembly.cu", "assembly.cu", "jacobi_sweeps.cu"))
-        self.boxed = {
-            name for name in BOXED
-            if "long long nx" in re.search(rf"{name}\((.*?)\)", text, re.S).group(1)
+        params = {
+            name: re.search(rf"{name}\((.*?)\)", text, re.S).group(1) for name in BOXED
         }
+        self.boxed = {name for name in BOXED if "long long nx" in params[name]}
+        self.row0 = {name for name in BOXED if "long long row0" in params[name]}
         # Older versions have no z-march.
         self.march = hasattr(self.lib, "orc_jacobi_march")
         for name in ("orc_shift_spmv", "orc_slice_nbr", "orc_slice_spmv",
@@ -96,11 +99,15 @@ class Version:
             fn.restype = ctypes.c_int
 
     def unboxed(self, name, args):
-        """`args` of `name` without (nx, ny, nz) where this version's
-        entry point takes none."""
+        """`args` of `name` without (nx, ny, nz, row0) where this
+        version's entry point takes no box, without row0 where it takes
+        the box alone."""
         if name in BOXED and name not in self.boxed:
             at, n = BOXED[name]
             return args[:at] + args[at + n:]
+        if name in BOXED and name not in self.row0 and BOXED[name][1] == 4:
+            at = BOXED[name][0] + 3
+            return args[:at] + args[at + 1:]
         return args
 
 

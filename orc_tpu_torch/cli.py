@@ -11,9 +11,10 @@
 files are orc_tpu's. The port adds `--device` (default `cuda`): without
 a GPU, `run`, `info` and `bench` fail with resolve_device's message
 unless the caller passes `--device cpu`; nothing falls back to the CPU.
-A run over more than one device (`--devices N` with N > 1, or `all`
-resolving to more than one card) raises NotImplementedError: the port
-has no sharded runtime yet (ROADMAP Queue 1, item 14).
+`--devices N` (or `all`, every visible card) runs a steady or turbulent
+case sharded, as orc_tpu's CLI does (orc_tpu_torch/parallel): on the
+card one partition per visible card, N beyond them cut to them; with
+`--device cpu`, N partitions on the CPU.
 """
 
 from __future__ import annotations
@@ -61,11 +62,6 @@ def cmd_run(args):
     if args.devices:
         case.devices = args.devices
     n_dev = _n_devices(case.devices, dev)
-    if n_dev > 1:
-        raise NotImplementedError(
-            f"a run over {n_dev} devices waits for the port's sharded "
-            "runtime (ROADMAP Queue 1, item 14); run with --devices 1"
-        )
     if case.mesh_path and not os.path.exists(case.mesh_path):
         print(
             f"error: mesh file not found: {case.mesh_path}", file=sys.stderr
@@ -108,7 +104,10 @@ def cmd_run(args):
     t0 = time.perf_counter()
     turb = None  # set by the turbulence arm; checkpointed when present
     if case.turbulence:
-        from orc_tpu_torch.solver.turbulence import solve_steady_turbulent
+        from orc_tpu_torch.solver.turbulence import (
+            solve_steady_turbulent,
+            solve_steady_turbulent_sharded,
+        )
 
         tb = case.turbulence
         # Resume k/eps/mu_t too when the checkpoint carries them.
@@ -122,8 +121,7 @@ def cmd_run(args):
                 )
             except ValueError:
                 pass  # different mesh: fresh turbulence init
-        state, turb, history = solve_steady_turbulent(
-            mesh, table, case.settings, case.rho, case.mu,
+        kw = dict(
             u_ref=float(tb.get("u_ref", 1.0)),
             iterations=case.iterations,
             reporting_interval=case.reporting_interval,
@@ -132,6 +130,15 @@ def cmd_run(args):
             state=state,
             turb=turb0,
         )
+        if n_dev > 1:
+            state, turb, history = solve_steady_turbulent_sharded(
+                mesh, table, case.settings, case.rho, case.mu,
+                n_devices=n_dev, **kw,
+            )
+        else:
+            state, turb, history = solve_steady_turbulent(
+                mesh, table, case.settings, case.rho, case.mu, **kw
+            )
     elif case.time:
         from orc_tpu_torch.solver.transient import solve_transient
 
@@ -148,6 +155,20 @@ def cmd_run(args):
             state=state,
         )
         history = [metrics]
+    elif n_dev > 1:
+        from orc_tpu_torch.parallel.sharded import solve_steady_sharded
+
+        state, history = solve_steady_sharded(
+            mesh,
+            table,
+            case.settings,
+            case.rho,
+            case.mu,
+            state=state,
+            iterations=case.iterations,
+            reporting_interval=case.reporting_interval,
+            n_devices=n_dev,
+        )
     elif case.sequencing:
         from orc_tpu_torch.solver.sequencing import solve_steady_sequenced
         from orc_tpu_torch.utils.config import sequencing_schedule

@@ -143,13 +143,13 @@ __global__ void fc_momentum_kernel(
   const int s =
       (tx + box.hx) + box.sx * ((ty + box.hy) + box.sy * (tz + box.hz));
   const int i32 = (x0 + box.hx + tx) + nx * (y0 + box.hy + ty) +
-                  nxy * (z0 + box.hz + tz);
+                  nxy * (z0 + box.hz + tz) - box.r0;
   stage(s, i32);
   const int nh = box.nh_x + box.nh_y + box.nh_z;
   for (int h = t; h < nh; h += blockDim.x) {
     int x, y, z, d, a;
     halo_slot(box, h, x, y, z, d, a);
-    const int r = (x0 + x) + nx * (y0 + y) + nxy * (z0 + z);
+    const int r = (x0 + x) + nx * (y0 + y) + nxy * (z0 + z) - box.r0;
     const int sh = x + box.sx * (y + box.sy * z);
     stage(sh, r);
     if (kTvd && ((cols.axes >> a) & 1)) {
@@ -171,7 +171,7 @@ __global__ void fc_momentum_kernel(
       const int cy = (c >> box.lg_bx) & (box.by - 1);
       const int cz = c >> (box.lg_bx + box.lg_by);
       const int r = (x0 + box.hx + cx) + nx * (y0 + box.hy + cy) +
-                    nxy * (z0 + box.hz + cz);
+                    nxy * (z0 + box.hz + cz) - box.r0;
       const int sc = (cx + box.hx) +
                      box.sx * ((cy + box.hy) + box.sy * (cz + box.hz));
       gvs[(__popc(cols.axes & ((1 << a) - 1)) * 3 + q) * S + sc] =
@@ -182,7 +182,7 @@ __global__ void fc_momentum_kernel(
   // 2. Its own flag word and flux planes, read while the stage fills
   // (row 0 by the threads past the box).
   const bool mine = x0 + box.hx + tx < box.nx && y0 + box.hy + ty < box.ny &&
-                    z0 + box.hz + tz < box.nz && i32 < rows;
+                    z0 + box.hz + tz < box.nz && i32 >= 0 && i32 < rows;
   const long long i = mine ? i32 : 0;
   const int fl = flags[i];
   T flux_k[kAsmK];
@@ -380,7 +380,7 @@ FcMomentumKernel<T> fc_momentum_select(int scheme, int psi, bool p_so) {
 
 template <typename T>
 int launch_fc_momentum(int scheme, int psi, bool p_so, const AsmCols<T>& c,
-                       int nx, int ny, int nz, const void* vel,
+                       int nx, int ny, int nz, int row0, const void* vel,
                        const void* p, const void* flux, const void* grad_p,
                        const void* grad_vel, const void* rv_dt,
                        const void* vel_n, const void* bc, const int* flags,
@@ -390,10 +390,10 @@ int launch_fc_momentum(int scheme, int psi, bool p_so, const AsmCols<T>& c,
   BoxTile t;
   dim3 grid;
   const int threads = nz > 1 ? kThreads : kFcThreads2D;
-  if (!make_box_tile(c, nx, ny, nz, 1, &t, threads) ||
-      !box_grid(t, C, &grid)) {
+  if (!make_box_tile(c, nx, ny, nz, 1, &t, threads) || !box_grid(t, &grid)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  t.r0 = row0;
   // 3-D float64 tiles under TVD_DC take over 48 KB.
   const long long smem =
       fc_momentum_smem_bytes<T>(t, c.axes, p_so, scheme == kTvdDc);
@@ -434,13 +434,14 @@ int launch_fc_pc(bool rc, const AsmCols<T>& c, const void* vel,
 extern "C" int orc_fc_momentum_assembly(
     int dtype, int scheme, int psi, int p_so, const long long* col_offsets,
     const double* col_geom, const int* col_kind, const int* col_zone, int K,
-    long long nx, long long ny, long long nz, const void* vel, const void* p,
-    const void* flux, const void* grad_p, const void* grad_vel,
+    long long nx, long long ny, long long nz, long long row0, const void* vel,
+    const void* p, const void* flux, const void* grad_p, const void* grad_vel,
     const void* rv_dt, const void* vel_n, const void* bc, const void* flags,
     double rho, double mu, double alpha, void* diag, void* off, void* b,
     long long C, void* stream) {
-  if (!orc::valid_box(nx, ny, nz, C) || !orc::valid_cols(col_kind, K) ||
-      scheme < orc::kUD || scheme > orc::kTvdDc || psi < 0 || psi > 2 ||
+  if (!orc::valid_box(nx, ny, nz, row0, C) ||
+      !orc::valid_cols(col_kind, K) || scheme < orc::kUD ||
+      scheme > orc::kTvdDc || psi < 0 || psi > 2 ||
       (p_so && grad_p == nullptr) ||
       (scheme == orc::kTvdDc && grad_vel == nullptr) ||
       ((rv_dt == nullptr) != (vel_n == nullptr))) {
@@ -449,20 +450,20 @@ extern "C" int orc_fc_momentum_assembly(
   auto s = static_cast<cudaStream_t>(stream);
   const int* fl = static_cast<const int*>(flags);
   const int bx = static_cast<int>(nx), by = static_cast<int>(ny),
-            bz = static_cast<int>(nz);
+            bz = static_cast<int>(nz), r0 = static_cast<int>(row0);
   if (dtype == orc::kF32) {
     const auto c =
         orc::make_asm_cols<float>(col_offsets, col_geom, col_kind, col_zone, K);
     return orc::launch_fc_momentum<float>(
-        scheme, psi, p_so != 0, c, bx, by, bz, vel, p, flux, grad_p, grad_vel,
-        rv_dt, vel_n, bc, fl, rho, mu, alpha, diag, off, b, C, s);
+        scheme, psi, p_so != 0, c, bx, by, bz, r0, vel, p, flux, grad_p,
+        grad_vel, rv_dt, vel_n, bc, fl, rho, mu, alpha, diag, off, b, C, s);
   }
   if (dtype == orc::kF64) {
     const auto c = orc::make_asm_cols<double>(col_offsets, col_geom,
                                               col_kind, col_zone, K);
     return orc::launch_fc_momentum<double>(
-        scheme, psi, p_so != 0, c, bx, by, bz, vel, p, flux, grad_p, grad_vel,
-        rv_dt, vel_n, bc, fl, rho, mu, alpha, diag, off, b, C, s);
+        scheme, psi, p_so != 0, c, bx, by, bz, r0, vel, p, flux, grad_p,
+        grad_vel, rv_dt, vel_n, bc, fl, rho, mu, alpha, diag, off, b, C, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -88,12 +88,18 @@ AsmCols<T> make_asm_cols(const long long* offsets, const double* geom,
   return c;
 }
 
-// (nx, ny, nz): the box whose cell (x, y, z) is row x + nx (y + ny z),
-// of C cells.
+// (nx, ny, nz, row0): the box whose cell (x, y, z) is row
+// x + nx (y + ny z) - row0, of the fewest planes that hold rows [0, C)
+// from row0 on. On a mesh that is the box, row0 = 0 and C = nx ny nz; a
+// slab partition's window (parallel/partition.py) starts row0 cells
+// into its first plane and may end inside its last. The box's cells
+// outside rows [0, C) are neither read nor written.
 inline bool valid_box(long long nx, long long ny, long long nz,
-                      long long C) {
+                      long long row0, long long C) {
+  const long long plane = nx * ny;
   return nx >= 1 && ny >= 1 && nz >= 1 && nx <= 2147483647LL &&
-         ny <= 2147483647LL && nz <= 2147483647LL && nx * ny * nz == C;
+         ny <= 2147483647LL && nz <= 2147483647LL && row0 >= 0 &&
+         row0 < plane && C >= 1 && nz == (row0 + C + plane - 1) / plane;
 }
 
 inline bool valid_cols(const int* kind, int K) {
@@ -156,19 +162,19 @@ __device__ __forceinline__ T pick3(int a, T g0, T g1, T g2) {
 
 
 // A block of the box staged in shared memory. Cell (x, y, z) of the box
-// is row x + nx (y + ny z); a CTA assembles the bx x by x bz cells of
-// its tile (one per thread) from a stage of the tile and a halo of hx,
-// hy, hz cells (0 on an axis of extent 1), slot (sx, sy, sz) holding
-// box cell (x0 - hx + sx, ...). Column k's neighbour of slot s is slot
-// s + ds[k], one step along the column's axis. A slot is loaded from row
-// x + nx (y + ny z) whenever that row lies in [0, C): the neighbour
-// i + offset[k] of a row i is then staged whichever face it crosses, so
-// the tile reads exactly what the row-by-row kernel read. Only slots
-// outside the tile along at most one axis are staged: a cell reads its
-// face neighbours, and a neighbour's gradient along that face's axis
-// reads one cell further along it.
+// is row x + nx (y + ny z) - r0 (valid_box); a CTA assembles the
+// bx x by x bz cells of its tile (one per thread) from a stage of the
+// tile and a halo of hx, hy, hz cells (0 on an axis of extent 1), slot
+// (sx, sy, sz) holding box cell (x0 - hx + sx, ...). Column k's
+// neighbour of slot s is slot s + ds[k], one step along the column's
+// axis. A slot is loaded from its row whenever that row lies in [0, C):
+// the neighbour i + offset[k] of a row i is then staged whichever face
+// it crosses, so the tile reads exactly what the row-by-row kernel
+// read. Only slots outside the tile along at most one axis are staged:
+// a cell reads its face neighbours, and a neighbour's gradient along
+// that face's axis reads one cell further along it.
 struct BoxTile {
-  int nx, ny, nz;
+  int nx, ny, nz, r0;
   int bx, by, bz, lg_bx, lg_by;
   int hx, hy, hz;
   int sx, sy, sz;
@@ -317,9 +323,9 @@ MomentumConsts<T> make_momentum_consts(const AsmCols<T>& c, T rho, T mu,
 // false when a staged row (up to a tile and a halo of 2 past each far
 // side of the box) would not fit the kernels' 32-bit row arithmetic, or
 // the grid is too tall.
-inline bool box_grid(const BoxTile& t, long long C, dim3* grid) {
+inline bool box_grid(const BoxTile& t, dim3* grid) {
   const long long nx = t.nx, nxy = nx * t.ny;
-  if (C + (t.bz + 3) * nxy + (t.by + 3) * nx + t.bx + 3 > 2147483647LL) {
+  if ((t.nz + t.bz + 3) * nxy + (t.by + 3) * nx + t.bx + 3 > 2147483647LL) {
     return false;
   }
   const long long gy = (t.ny + t.by - 1) / t.by, gz = (t.nz + t.bz - 1) / t.bz;

@@ -223,18 +223,18 @@ __global__ void momentum_kernel(
   const int s =
       (tx + box.hx) + box.sx * ((ty + box.hy) + box.sy * (tz + box.hz));
   const int i32 = (x0 + box.hx + tx) + nx * (y0 + box.hy + ty) +
-                  nxy * (z0 + box.hz + tz);
+                  nxy * (z0 + box.hz + tz) - box.r0;
   stage(s, i32, true);
   const int nh = box.nh_x + box.nh_y + box.nh_z;
   for (int q = threadIdx.x; q < nh; q += blockDim.x) {
     int x, y, z, d, a;
     halo_slot(box, q, x, y, z, d, a);
     stage(x + box.sx * (y + box.sy * z),
-          (x0 + x) + nx * (y0 + y) + nxy * (z0 + z), d == 1);
+          (x0 + x) + nx * (y0 + y) + nxy * (z0 + z) - box.r0, d == 1);
   }
   __syncthreads();
   const bool mine = x0 + box.hx + tx < box.nx && y0 + box.hy + ty < box.ny &&
-                    z0 + box.hz + tz < box.nz && i32 < rows;
+                    z0 + box.hz + tz < box.nz && i32 >= 0 && i32 < rows;
   const int fl = fs[s];
   const T p_c = ps[s];
   // 2. The in-kernel gradient, once per cell: the tile's cells (those
@@ -501,18 +501,18 @@ __global__ void pc_gg_kernel(AsmCols<T> cols, BoxTile box, PcConsts<T> pcc,
   const int s =
       (tx + box.hx) + box.sx * ((ty + box.hy) + box.sy * (tz + box.hz));
   const int i32 = (x0 + box.hx + tx) + nx * (y0 + box.hy + ty) +
-                  nxy * (z0 + box.hz + tz);
+                  nxy * (z0 + box.hz + tz) - box.r0;
   stage(s, i32, true);
   const int nh = box.nh_x + box.nh_y + box.nh_z;
   for (int q = threadIdx.x; q < nh; q += blockDim.x) {
     int x, y, z, d, a;
     halo_slot(box, q, x, y, z, d, a);
     stage(x + box.sx * (y + box.sy * z),
-          (x0 + x) + nx * (y0 + y) + nxy * (z0 + z), d == 1);
+          (x0 + x) + nx * (y0 + y) + nxy * (z0 + z) - box.r0, d == 1);
   }
   __syncthreads();
   const bool mine = x0 + box.hx + tx < box.nx && y0 + box.hy + ty < box.ny &&
-                    z0 + box.hz + tz < box.nz && i32 < rows;
+                    z0 + box.hz + tz < box.nz && i32 >= 0 && i32 < rows;
   const int fl = fs[s];
   const T p_c = ps[s];
   // 2. The gradient, once per cell (as momentum_kernel).
@@ -606,7 +606,7 @@ MomentumKernel<T> momentum_select(int scheme, int psi, bool rc, bool p_so,
 
 template <typename T>
 int launch_momentum(int scheme, int psi, bool rc, bool p_so, bool gg,
-                    const AsmCols<T>& c, int nx, int ny, int nz,
+                    const AsmCols<T>& c, int nx, int ny, int nz, int row0,
                     const void* vel, const void* p, const void* grad_p,
                     const void* md, const void* grad_vel, const void* rv_dt,
                     const void* vel_n, const void* bc, const int* flags,
@@ -617,10 +617,10 @@ int launch_momentum(int scheme, int psi, bool rc, bool p_so, bool gg,
       momentum_select<T>(scheme, psi, rc, p_so, gg);
   BoxTile t;
   dim3 grid;
-  if (!make_box_tile(c, nx, ny, nz, gg ? 2 : 1, &t) ||
-      !box_grid(t, C, &grid)) {
+  if (!make_box_tile(c, nx, ny, nz, gg ? 2 : 1, &t) || !box_grid(t, &grid)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  t.r0 = row0;
   // 3-D float64 tiles with the in-kernel gradient take over 48 KB.
   const long long smem = momentum_smem_bytes<T>(t, rc, rc || p_so);
   if (const int e = fit_smem(kernel, smem)) return e;
@@ -640,7 +640,7 @@ int launch_momentum(int scheme, int psi, bool rc, bool p_so, bool gg,
 
 template <typename T>
 int launch_pc(bool rc, bool gg, const AsmCols<T>& c, int nx, int ny, int nz,
-              const void* vel, const void* md, const void* p,
+              int row0, const void* vel, const void* md, const void* p,
               const void* grad_p, const void* bc, const int* flags,
               double rho, double vol, void* diag, void* off, void* b,
               long long C, cudaStream_t stream) {
@@ -662,9 +662,10 @@ int launch_pc(bool rc, bool gg, const AsmCols<T>& c, int nx, int ny, int nz,
   // of two a cell (the 128 x 64 couette ran 0.0081 ms against 0.0077 on
   // an NVIDIA H100 80GB HBM3 at 700 W).
   if (!make_box_tile(c, nx, ny, nz, 2, &t, kThreads, kThreads) ||
-      !box_grid(t, C, &grid)) {
+      !box_grid(t, &grid)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  t.r0 = row0;
   // 3-D tiles take over 48 KB.
   const long long smem = pc_smem_bytes<T>(t);
   if (const int e = fit_smem(pc_gg_kernel<T>, smem)) return e;
@@ -681,12 +682,12 @@ int launch_pc(bool rc, bool gg, const AsmCols<T>& c, int nx, int ny, int nz,
 // The float64 instances compile in parity_assembly_f64.cu, beside this
 // translation unit, so nvcc builds the two halves in parallel.
 extern template int launch_momentum<double>(
-    int, int, bool, bool, bool, const AsmCols<double>&, int, int, int,
+    int, int, bool, bool, bool, const AsmCols<double>&, int, int, int, int,
     const void*, const void*, const void*, const void*, const void*,
     const void*, const void*, const void*, const int*, double, double,
     double, double, void*, void*, void*, long long, cudaStream_t);
 extern template int launch_pc<double>(bool, bool, const AsmCols<double>&,
-                                      int, int, int, const void*,
+                                      int, int, int, int, const void*,
                                       const void*, const void*, const void*,
                                       const void*, const int*, double, double,
                                       void*, void*, void*, long long,

@@ -6,12 +6,12 @@
 namespace orc {
 
 template int launch_momentum<double>(
-    int, int, bool, bool, bool, const AsmCols<double>&, int, int, int,
+    int, int, bool, bool, bool, const AsmCols<double>&, int, int, int, int,
     const void*, const void*, const void*, const void*, const void*,
     const void*, const void*, const void*, const int*, double, double,
     double, double, void*, void*, void*, long long, cudaStream_t);
 template int launch_pc<double>(bool, bool, const AsmCols<double>&, int, int,
-                               int, const void*, const void*, const void*,
+                               int, int, const void*, const void*, const void*,
                                const void*, const void*, const int*, double,
                                double, void*, void*, void*, long long,
                                cudaStream_t);

@@ -111,6 +111,30 @@ def flow_state_from_numpy(vel, p, mom_diag, flux=None, *, device) -> FlowState:
     )
 
 
+def flow_states_from_numpy(vel, p, mom_diag, *, devices) -> list:
+    """One FlowState per partition from orc_tpu's stacked local layout:
+    numpy vel [P,L,3], p [P,L] and mom_diag [P,3,L], partition q on
+    devices[q] (parallel/sharded.py scatter_state)."""
+    if not len(vel) == len(p) == len(mom_diag) == len(devices):
+        raise ValueError("one vel, p, mom_diag and device per partition")
+    return [
+        flow_state_from_numpy(vel[q], p[q], mom_diag[q], device=dev)
+        for q, dev in enumerate(devices)
+    ]
+
+
+def flow_states_to_numpy(states) -> tuple:
+    """orc_tpu's stacked local layout of per-partition FlowStates:
+    (vel [P,L,3], p [P,L], mom_diag [P,3,L]) as numpy."""
+
+    def stack(name):
+        return np.stack(
+            [getattr(s, name).detach().cpu().numpy() for s in states]
+        )
+
+    return stack("vel"), stack("p"), stack("mom_diag")
+
+
 def turb_state_from_numpy(k, eps, mu_t, *, device) -> TurbState:
     """TurbState on `device` from numpy k [C], eps [C] and mu_t [C]."""
     return TurbState(

@@ -110,24 +110,33 @@ def solve_cavity(
 ):
     """Solve the cavity at a given Reynolds number (rho = 1,
     mu = U L / Re) on `device` (the CUDA device unless the caller names
-    another). Returns the result state + diagnostics."""
+    another), sharded over `n_devices` partitions when it is above 1
+    (parallel/sharded.py: one per visible card on the card, cut to them;
+    n_devices partitions on the CPU). Returns the result state +
+    diagnostics."""
     from orc_tpu_torch.solver.simple import initial_state, solve_steady
 
-    if n_devices != 1:
-        raise NotImplementedError(
-            "sharded runs are not ported yet (ROADMAP Queue 1, item 14)"
-        )
     settings = settings or default_settings()
     rho = 1.0
     mu = lid_velocity * 1.0 / reynolds
     mesh, table = cavity_case(
         n=n, lid_velocity=lid_velocity, dtype=dtype, device=device
     )
-    state, history = solve_steady(
-        mesh, table, settings, rho, mu, state=initial_state(mesh),
-        iterations=iterations, reporting_interval=reporting_interval,
-        verbose=verbose,
-    )
+    state = initial_state(mesh)
+    if n_devices > 1:
+        from orc_tpu_torch.parallel.sharded import solve_steady_sharded
+
+        state, history = solve_steady_sharded(
+            mesh, table, settings, rho, mu, state=state,
+            iterations=iterations, reporting_interval=reporting_interval,
+            n_devices=n_devices, verbose=verbose,
+        )
+    else:
+        state, history = solve_steady(
+            mesh, table, settings, rho, mu, state=state,
+            iterations=iterations, reporting_interval=reporting_interval,
+            verbose=verbose,
+        )
     vel = state.vel.cpu().numpy()
     cc = mesh.cell_centroid.cpu().numpy()
     # Centerline profiles (the Ghia-style cuts).

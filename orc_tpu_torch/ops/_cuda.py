@@ -79,25 +79,26 @@ SIGNATURES = {
         _ll, _ll, _i, _i, _i, _i, _p,
     ),
     # dtype, scheme, limiter, rc, p_so, gg, col_offsets, col_geom[K*6],
-    # col_kind, col_zone, K, nx, ny, nz, vel, p, grad_p, mom_diag,
+    # col_kind, col_zone, K, nx, ny, nz, row0, vel, p, grad_p, mom_diag,
     # grad_vel, rv_dt, vel_n, bc, flags, rho, mu, alpha, vol, diag, off,
     # b, C, stream
     "orc_momentum_assembly": (
-        _i, _i, _i, _i, _i, _i, _pll, _pd, _pi, _pi, _i, _ll, _ll, _ll, _p,
+        _i, _i, _i, _i, _i, _i, _pll, _pd, _pi, _pi, _i, _ll, _ll, _ll, _ll, _p,
         _p, _p, _p, _p, _p, _p, _p, _p, _d, _d, _d, _d, _p, _p, _p, _ll, _p,
     ),
     # dtype, rc, gg, col_offsets, col_geom[K*6], col_kind, col_zone, K,
-    # nx, ny, nz, vel, mom_diag, p, grad_p, bc, flags, rho, vol, diag,
-    # off, b, C, stream
+    # nx, ny, nz, row0, vel, mom_diag, p, grad_p, bc, flags, rho, vol,
+    # diag, off, b, C, stream
     "orc_pc_assembly": (
-        _i, _i, _i, _pll, _pd, _pi, _pi, _i, _ll, _ll, _ll, _p, _p, _p, _p,
+        _i, _i, _i, _pll, _pd, _pi, _pi, _i, _ll, _ll, _ll, _ll, _p, _p, _p, _p,
         _p, _p, _d, _d, _p, _p, _p, _ll, _p,
     ),
     # dtype, scheme, limiter, p_so, col_offsets, col_geom[K*6], col_kind,
-    # col_zone, K, nx, ny, nz, vel, p, flux planes, grad_p, grad_vel,
-    # rv_dt, vel_n, bc, flags, rho, mu, alpha, diag, off, b, C, stream
+    # col_zone, K, nx, ny, nz, row0, vel, p, flux planes, grad_p,
+    # grad_vel, rv_dt, vel_n, bc, flags, rho, mu, alpha, diag, off, b, C,
+    # stream
     "orc_fc_momentum_assembly": (
-        _i, _i, _i, _i, _pll, _pd, _pi, _pi, _i, _ll, _ll, _ll, _p, _p, _p,
+        _i, _i, _i, _i, _pll, _pd, _pi, _pi, _i, _ll, _ll, _ll, _ll, _p, _p, _p,
         _p, _p, _p, _p, _p, _p, _d, _d, _d, _p, _p, _p, _ll, _p,
     ),
     # dtype, rc, col_offsets, col_geom[K*6], col_kind, col_zone, K, vel,

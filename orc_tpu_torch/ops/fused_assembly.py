@@ -187,6 +187,26 @@ def box_dims(cols, n_cells):
     return tuple(dims + [1] * (3 - len(dims)))
 
 
+def kernel_box(cols, n_cells, box=None):
+    """(nx, ny, nz, row0) of the box the tiled kernels launch over, whose
+    cell (x, y, z) is row x + nx (y + ny z) - row0: `box_dims(cols,
+    n_cells)` from row 0, or the given (nx, ny, nz, row0), which must be
+    the fewest planes of nx x ny cells holding rows [0, n_cells) from
+    row0 on. A slab partition's window (parallel/partition.py) is such a
+    box: it starts row0 cells into its first plane, and its trash row
+    (the last) may end inside the last plane."""
+    if box is None:
+        return (*box_dims(cols, n_cells), 0)
+    nx, ny, nz, row0 = (int(d) for d in box)
+    plane = nx * ny
+    if not (0 <= row0 < plane and nz == -(-(row0 + n_cells) // plane)):
+        raise ValueError(
+            f"the box {(nx, ny, nz)} from row {row0} is not the planes that "
+            f"hold {n_cells} rows"
+        )
+    return nx, ny, nz, row0
+
+
 def bc_value_table(zone_scalar, zone_vector):
     """[Z,4] (vx, vy, vz, pressure) rows of the device zone tables."""
     return torch.cat([zone_vector, zone_scalar[:, None]], dim=1)
@@ -433,6 +453,7 @@ def _check_inputs(vel, bc_values, flags, cols, **fields):
 def momentum_assembly(
     vel, p, bc_values, flags, cols: tuple, rho, mu, alpha, grad_p=None,
     mom_diag=None, grad_vel=None, inertia=None, spec: AsmSpec = AsmSpec(),
+    box=None,
 ):
     """Fused momentum assembly on a uniform box.
 
@@ -445,7 +466,9 @@ def momentum_assembly(
     [C,3,3] under "tvd_dc"; spec.vol is the cell volume. In transient
     runs `inertia` = (rv_dt [C], vel_n [C,3]) adds rho V/dt to the
     diagonal and rho V/dt vel^n to the RHS before the relaxation. `off`
-    is a [C,K] view of K contiguous [C] planes. CPU tensors take the
+    is a [C,K] view of K contiguous [C] planes. `box` (nx, ny, nz, row0)
+    is the box the kernel tiles when it is not the one the columns'
+    offsets give for C cells (see `kernel_box`). CPU tensors take the
     plain version; CUDA tensors launch the kernel or raise."""
     if not vel.is_cuda:
         return momentum_assembly_plain(
@@ -454,7 +477,7 @@ def momentum_assembly(
         )
     return _launch_momentum(
         vel, p, bc_values, flags, cols, rho, mu, alpha, grad_p, mom_diag,
-        grad_vel, inertia, spec,
+        grad_vel, inertia, spec, box,
     )
 
 
@@ -487,7 +510,7 @@ def _need(t, shape, what):
 
 def _launch_momentum(
     vel, p, bc_values, flags, cols, rho, mu, alpha, grad_p, mom_diag,
-    grad_vel, inertia, spec,
+    grad_vel, inertia, spec, box=None,
 ):
     """The kernel launch of `momentum_assembly` (checks included)."""
     C, K = vel.shape[0], len(cols)
@@ -519,7 +542,8 @@ def _launch_momentum(
     _cuda.call(
         "orc_momentum_assembly", vel.device, _cuda.dtype_code(vel),
         _SCHEMES[spec.scheme], psi, int(spec.rc), int(spec.p_so), int(gg),
-        *_col_args(cols), K, *box_dims(cols, C), vel.data_ptr(), p.data_ptr(),
+        *_col_args(cols), K, *kernel_box(cols, C, box), vel.data_ptr(),
+        p.data_ptr(),
         _ptr(grad_p), _ptr(mom_diag), _ptr(grad_vel), _ptr(rv_dt), _ptr(vel_n),
         bc_values.data_ptr(), flags.data_ptr(), float(rho), float(mu),
         float(alpha), float(spec.vol), diag.data_ptr(), off.data_ptr(),
@@ -538,6 +562,7 @@ def _ptr(t):
 def fc_momentum_assembly(
     vel, p, flux, bc_values, flags, cols: tuple, rho, mu, alpha,
     grad_p=None, grad_vel=None, inertia=None, spec: AsmSpec = AsmSpec(),
+    box=None,
 ):
     """SIMPLE_FC fused momentum assembly on a uniform box: the parity
     assembly, advected with the stored conservative flux [C,K] (best
@@ -546,8 +571,9 @@ def fc_momentum_assembly(
 
     -> (diag [C], off [C,K], b [3,C]); `grad_p` [C,3] is read when
     spec.p_so, `grad_vel` [C,3,3] when spec.scheme is "tvd_dc", and
-    `inertia` = (rv_dt [C], vel_n [C,3]) in transient runs. CPU tensors
-    take the plain version; CUDA tensors launch the kernel or raise."""
+    `inertia` = (rv_dt [C], vel_n [C,3]) in transient runs; `box` as in
+    momentum_assembly. CPU tensors take the plain version; CUDA tensors
+    launch the kernel or raise."""
     if not vel.is_cuda:
         return fc_momentum_assembly_plain(
             vel, p, flux, bc_values, flags, cols, rho, mu, alpha, grad_p,
@@ -555,13 +581,13 @@ def fc_momentum_assembly(
         )
     return _launch_fc_momentum(
         vel, p, flux, bc_values, flags, cols, rho, mu, alpha, grad_p,
-        grad_vel, inertia, spec,
+        grad_vel, inertia, spec, box,
     )
 
 
 def _launch_fc_momentum(
     vel, p, flux, bc_values, flags, cols, rho, mu, alpha, grad_p, grad_vel,
-    inertia, spec,
+    inertia, spec, box=None,
 ):
     C, K = vel.shape[0], len(cols)
     _check_spec(spec, inertia, C)
@@ -588,7 +614,7 @@ def _launch_fc_momentum(
     _cuda.call(
         "orc_fc_momentum_assembly", vel.device, _cuda.dtype_code(vel),
         _SCHEMES[spec.scheme], psi, int(spec.p_so), *_col_args(cols), K,
-        *box_dims(cols, C), vel.data_ptr(), p.data_ptr(),
+        *kernel_box(cols, C, box), vel.data_ptr(), p.data_ptr(),
         flux_planes.data_ptr(), _ptr(grad_p),
         _ptr(grad_vel), _ptr(rv_dt), _ptr(vel_n), bc_values.data_ptr(),
         flags.data_ptr(), float(rho), float(mu), float(alpha), diag.data_ptr(),
@@ -647,7 +673,7 @@ def _launch_fc_pc(vel, mom_diag, bc_values, flags, cols, rho, grad_p, spec):
 
 def pc_assembly(
     vel, mom_diag, bc_values, flags, cols: tuple, rho, p=None, grad_p=None,
-    spec: AsmSpec = AsmSpec(),
+    spec: AsmSpec = AsmSpec(), box=None,
 ):
     """Fused pressure-correction assembly on a uniform box.
 
@@ -656,16 +682,21 @@ def pc_assembly(
     Linear[Weighted] face fluxes or, under spec.rc, Rhie-Chow ones from
     the iteration-start `p` [C] and its gradient (in the kernel under
     spec.gg, else the streamed `grad_p` [C,3]). gg applies under
-    Rhie-Chow only, as orc_tpu forces. CPU tensors take the plain
-    version; CUDA tensors launch the kernel or raise."""
+    Rhie-Chow only, as orc_tpu forces; `box` as in momentum_assembly.
+    CPU tensors take the plain version; CUDA tensors launch the kernel
+    or raise."""
     if not vel.is_cuda:
         return pc_assembly_plain(
             vel, mom_diag, bc_values, flags, cols, rho, p, grad_p, spec
         )
-    return _launch_pc(vel, mom_diag, bc_values, flags, cols, rho, p, grad_p, spec)
+    return _launch_pc(
+        vel, mom_diag, bc_values, flags, cols, rho, p, grad_p, spec, box
+    )
 
 
-def _launch_pc(vel, mom_diag, bc_values, flags, cols, rho, p, grad_p, spec):
+def _launch_pc(
+    vel, mom_diag, bc_values, flags, cols, rho, p, grad_p, spec, box=None
+):
     """The kernel launch of `pc_assembly` (checks included)."""
     spec = spec._replace(gg=spec.gg and spec.rc)
     _check_spec(spec)
@@ -689,7 +720,8 @@ def _launch_pc(vel, mom_diag, bc_values, flags, cols, rho, p, grad_p, spec):
     b = torch.empty((C,), dtype=vel.dtype, device=vel.device)
     _cuda.call(
         "orc_pc_assembly", vel.device, _cuda.dtype_code(vel), int(spec.rc),
-        int(spec.gg), *_col_args(cols), K, *box_dims(cols, C), vel.data_ptr(),
+        int(spec.gg), *_col_args(cols), K, *kernel_box(cols, C, box),
+        vel.data_ptr(),
         mom_diag.data_ptr(), _ptr(p), _ptr(grad_p), bc_values.data_ptr(),
         flags.data_ptr(),
         float(rho), float(spec.vol), diag.data_ptr(), off.data_ptr(),

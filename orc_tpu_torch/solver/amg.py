@@ -1,5 +1,5 @@
 """Algebraic multigrid with a host-built, device-run hierarchy (port of
-orc_tpu/solver/amg.py, single device).
+orc_tpu/solver/amg.py).
 
 The irregular part (greedy pairwise aggregation and the coarse sparsity)
 runs once per mesh on the host in numpy, from the diffusion matrix as
@@ -23,8 +23,12 @@ Aggregation strategies are the reference's RestrictionMethods: Injection
 pairs consecutive cells; Strongest pairs each cell with its most
 negatively coupled unmerged neighbour.
 
-The sharded V-cycle (`multigrid_solve_sharded`) waits for the port's
-sharded runtime (ROADMAP Queue 1, item 14).
+The sharded V-cycle (`multigrid_solve_sharded`) smooths the fine level
+distributed and corrects replicated: each partition sums its owned rows'
+share of the level-0 Galerkin product and coarse residual through gather
+tables built on the host from its rows (`sharded_tables`), the
+partitions' shares are added in partition order (`axis_sum`), and every
+partition then runs the same coarse correction.
 """
 
 from __future__ import annotations
@@ -39,8 +43,11 @@ from orc_tpu_torch.mesh.reorder import build_slice_plan
 from orc_tpu_torch.ops.spmv import EllMatrix
 from orc_tpu_torch.solver.krylov import (
     SolveInfo,
+    _identity_sum,
     _max_abs,
+    _mv,
     _no_project,
+    _no_refresh,
     _norm,
     bicgstab_solve,
     constant_deflation,
@@ -258,14 +265,16 @@ def galerkin_values(A: EllMatrix, level: MgLevel):
     )
 
 
-def _smooth(A, b, x0, settings: MatrixSolverSettings, iterations=None,
-            project=None):
+def _smooth(A, b, x0, settings: MatrixSolverSettings, axis_sum=_identity_sum,
+            iterations=None, refresh=None, project=None):
     """Per-level smoother: Jacobi-preconditioned BiCGSTAB (the
     reference's MULTIGRID_SMOOTHER, linear_algebra.rs:9), for
     `iterations` or else multigrid_smoother_iterations (falling back to
-    settings.iterations). `project` is the constant-nullspace deflation
-    hook of singular (unanchored) pressure systems."""
-    if A.plan is not None:
+    settings.iterations). `axis_sum` / `refresh` are the sharded hooks of
+    a distributed fine level; `project` is the constant-nullspace
+    deflation hook of singular (unanchored) pressure systems."""
+    refresh = refresh if refresh is not None else _no_refresh
+    if refresh is _no_refresh and A.plan is not None:
         A = A.prepare()  # the slice SpMV for the whole smooth
     if A.offsets is not None:
         # The cycle keeps `off` as one array for the Galerkin products;
@@ -279,7 +288,9 @@ def _smooth(A, b, x0, settings: MatrixSolverSettings, iterations=None,
         iterations
         if iterations is not None
         else (settings.multigrid_smoother_iterations or settings.iterations),
+        axis_sum,
         convergence_threshold=settings.relative_convergence_threshold,
+        refresh=refresh,
         compensated=settings.compensated_f32,
         project=project if project is not None else _no_project,
     )
@@ -302,6 +313,7 @@ def multigrid_solve(
     x0,
     settings: MatrixSolverSettings,
     hierarchy: List[MgLevel],
+    axis_sum=_identity_sum,
     project=None,
     null_scale=None,
 ):
@@ -309,27 +321,164 @@ def multigrid_solve(
     270-296): smooth on the fine grid, then add the recursively computed
     coarse-grid correction, post-smoothing on the way up the coarse
     levels. b, x0: [..., C]."""
-    x, info0 = _smooth(A, b, x0, settings, project=project)
+    x, info0 = _smooth(A, b, x0, settings, axis_sum, project=project)
     if hierarchy:
         r = b - A.matvec(x)
         x = x + _mg_correction(
-            A, r, 0, settings, hierarchy, project=_coarse_project(null_scale)
+            A, r, 0, settings, hierarchy, axis_sum,
+            project=_coarse_project(null_scale),
         )
-    rn = _norm(b - A.matvec(x))
+    rn = _norm(b - A.matvec(x), axis_sum)
     diverged = torch.isnan(rn) | (_max_abs(x) > 1e10)
     return x, SolveInfo(
         iterations=info0.iterations, residual=rn, diverged=diverged
     )
 
 
-def multigrid_solve_sharded(*args, **kwargs):
-    raise NotImplementedError(
-        "the sharded AMG V-cycle waits for the port's sharded runtime "
-        "(ROADMAP Queue 1, item 14)"
+class ShardedTables:
+    """A partition's share of one transfer, as gather tables over its
+    local rows: `slots` the flat coarse slots its owned rows reach
+    (ascending), `src` [len(slots), m] the entries of the local source
+    vector summed into each (ascending, padded with the source's
+    length, a zero appended to it)."""
+
+    def __init__(self, target, n_slots: int, device):
+        """target [n_src] i64: the coarse slot of each source entry, or
+        -1 where the entry is not the partition's."""
+        mine = np.nonzero(target >= 0)[0]
+        slots, local = np.unique(target[mine], return_inverse=True)
+        pos = _gather_table(local, len(slots))  # positions in `mine`
+        table = np.append(mine, len(target))[pos]
+        self.n_slots = n_slots
+        self.slots = torch.from_numpy(slots).to(device)
+        self.src = torch.from_numpy(table).to(device)
+
+    def partial(self, v):
+        """[..., n_slots] share of the source v [..., n_src]: each slot's
+        entries added column by column, zero at the slots of other
+        partitions."""
+        out = torch.zeros(
+            v.shape[:-1] + (self.n_slots,), dtype=v.dtype, device=v.device
+        )
+        out[..., self.slots] = _gather_sum(_zero_pad(v), self.src)
+        return out
+
+
+def cached_on(t: torch.Tensor, key, build):
+    """build(), computed once per key and kept on the tensor `t` (a
+    partition's owned_global rows), so host-built tables live as long as
+    the partition's run."""
+    per = t.__dict__.setdefault("_orc_tables", {})
+    if key not in per:
+        per[key] = build()
+    return per[key]
+
+
+def sharded_tables(level: MgLevel, owned_mask, owned_global, neighbors):
+    """(coarse id of each local row [L], Galerkin tables, restriction
+    tables) of a partition for level 0 of the hierarchy, built once on
+    the host from the global aggregation: local row i (global id g) adds
+    its diagonal to slot agg[g] * stride and its k-th coefficient
+    (neighbour global id g_nb) to the slot of (agg[g], agg[g_nb]) in
+    `coarse_neighbors`, intra-aggregate entries folding into the coarse
+    diagonal, as orc_tpu's device-side scatter does."""
+    return cached_on(
+        owned_global, ("amg", id(level)),
+        lambda: _sharded_tables(level, owned_mask, owned_global, neighbors),
     )
 
 
-def _mg_correction(A_f, r, level_idx, settings, hierarchy, project=None):
+def _sharded_tables(level, owned_mask, owned_global, neighbors):
+    dev = owned_global.device
+    og = owned_global.cpu().numpy().astype(np.int64)
+    om = owned_mask.cpu().numpy()
+    nb = neighbors.cpu().numpy().astype(np.int64)
+    agg = level.agg.cpu().numpy().astype(np.int64)
+    cn = level.coarse_neighbors.cpu().numpy().astype(np.int64)
+    stride = level.k_coarse + 1
+    L, K = nb.shape
+    I = agg[og]
+    J = agg[og[nb]]
+    slot = np.argmax(cn[I][:, None, :] == J[:, :, None], axis=-1)
+    tgt = np.where(
+        J == I[:, None], (I * stride)[:, None], I[:, None] * stride + 1 + slot
+    )
+    own = om.astype(bool)
+    diag_t = np.where(own, I * stride, -1)
+    off_t = np.where(own[:, None], tgt, -1).reshape(-1)
+    n_c = level.n_coarse
+    return (
+        torch.from_numpy(I).to(dev),
+        ShardedTables(np.concatenate([diag_t, off_t]), n_c * stride, dev),
+        ShardedTables(np.where(own, I, -1), n_c, dev),
+    )
+
+
+def multigrid_solve_sharded(
+    A: EllMatrix,
+    b,
+    x0,
+    settings: MatrixSolverSettings,
+    hierarchy: List[MgLevel],
+    axis_sum,
+    refresh,
+    owned_mask,
+    owned_global,
+    project=None,
+    null_scale=None,
+):
+    """Distributed AMG V-cycle (counterpart of gmg.gmg_solve_sharded):
+    fine-level smoothing runs distributed through the halo-refresh and
+    reduction hooks; the level-0 Galerkin product and coarse residual are
+    summed from each partition's owned rows (`sharded_tables`) and
+    completed by `axis_sum`, after which every partition carries the
+    same coarse problem and computes the correction replicated, with no
+    collective below level 0. The hierarchy is built on the global mesh
+    (on the partition's device)."""
+    x, info0 = _smooth(
+        A, b, x0, settings, axis_sum, refresh=refresh, project=project
+    )
+    cproject = _coarse_project(null_scale)
+    if hierarchy:
+        level = hierarchy[0]
+        if A.neighbors is None:
+            raise ValueError("sharded AMG needs the local neighbor table")
+        r = b - _mv(A, x, refresh)
+        I, gal, res = sharded_tables(level, owned_mask, owned_global, A.neighbors)
+        batch = A.diag.shape[:-1]
+        vals = torch.cat([A.diag, A.off.reshape(*batch, -1)], dim=-1)
+        flat = axis_sum(gal.partial(vals))
+        r_c = axis_sum(res.partial(r))
+        flat = flat.reshape(*batch, level.n_coarse, level.k_coarse + 1)
+        cdiag = flat[..., 0]
+        A_c = EllMatrix(
+            diag=torch.where(cdiag == 0.0, torch.ones_like(cdiag), cdiag),
+            off=flat[..., 1:],
+            neighbors=level.coarse_neighbors,
+            plan=level.plan,
+        )
+        # Replicated coarse correction (the same on every partition).
+        e_c, _ = _smooth(
+            A_c, r_c, torch.zeros_like(r_c), settings,
+            iterations=settings.iterations if len(hierarchy) == 1 else None,
+            project=cproject,
+        )
+        if len(hierarchy) > 1:
+            e_c = e_c + _mg_correction(
+                A_c, r_c, 1, settings, hierarchy, project=cproject
+            )
+            e_c, _ = _smooth(A_c, r_c, e_c, settings, project=cproject)
+        zero = torch.zeros((), dtype=x.dtype, device=x.device)
+        x = x + torch.where(owned_mask, e_c[..., I], zero)
+    rn = _norm(b - _mv(A, x, refresh), axis_sum)
+    diverged = torch.isnan(rn) | (_max_abs(x) > 1e10)
+    return x, SolveInfo(
+        iterations=info0.iterations, residual=rn, diverged=diverged
+    )
+
+
+def _mg_correction(A_f, r, level_idx, settings, hierarchy,
+                   axis_sum=_identity_sum, project=None):
     level = hierarchy[level_idx]
     r_c = restrict(r, level)
     A_c = galerkin_values(A_f, level)
@@ -337,13 +486,14 @@ def _mg_correction(A_f, r, level_idx, settings, hierarchy, project=None):
     # take smoother sweeps only.
     coarsest = level_idx + 1 == len(hierarchy)
     e_c, _ = _smooth(
-        A_c, r_c, torch.zeros_like(r_c), settings,
+        A_c, r_c, torch.zeros_like(r_c), settings, axis_sum,
         iterations=settings.iterations if coarsest else None,
         project=project,
     )
     if not coarsest:
         e_c = e_c + _mg_correction(
-            A_c, r_c, level_idx + 1, settings, hierarchy, project=project
+            A_c, r_c, level_idx + 1, settings, hierarchy, axis_sum,
+            project=project,
         )
-        e_c, _ = _smooth(A_c, r_c, e_c, settings, project=project)
+        e_c, _ = _smooth(A_c, r_c, e_c, settings, axis_sum, project=project)
     return e_c[..., level.agg.long()]

@@ -1,5 +1,5 @@
 """Flux-corrected SIMPLE (`PressureVelocityCoupling.SIMPLE_FC`), port of
-the single-device half of orc_tpu/solver/fc.py: the face-major step
+orc_tpu/solver/fc.py: the face-major step
 (`simple_step_fc`) and the gather-free (c,k) one (`ck_simple_step_fc`).
 
 The face fluxes are state (`FlowState.flux`: the owner-outward normal
@@ -21,7 +21,9 @@ findings. On a CUDA mesh the step runs the SIMPLE_FC assembly kernels
 (`fc_momentum_assembly`, `fc_pc_assembly`) where orc_tpu runs their
 Pallas counterparts, behind the same gate (solver/simple.py
 `_kernel_asm_spec(..., fc=True)`). Like the parity step it takes the
-transient `inertia`, the momentum source and the solver extras.
+transient `inertia`, the momentum source, the solver extras and the
+communication context `comm` of sharded runs (a partition's stored flux
+is its own: it is indexed by its local faces or (cell, slot) pairs).
 
 Layout: on the (c,k) step the stored flux and the predictor are kept as
 [C,K] views of K contiguous [C] planes (`planes`), the layout the
@@ -175,26 +177,34 @@ def simple_step_fc(
     diff,
     state,
     solver_extras=None,
+    comm=None,
     inertia=None,
     maybe_singular: bool = True,
 ):
     """One flux-corrected SIMPLE iteration in the face-major formulation
-    (orc_tpu's `simple_step_fc`, single device). `state.flux` [F] must be
-    seeded (simple.initial_flux); `maybe_singular` is the host fact "no
+    (orc_tpu's `simple_step_fc`). `state.flux` [F] must be seeded
+    (simple.initial_flux); `maybe_singular` is the host fact "no
     pressure zones" (simple.table_has_pressure_bc); `solver_extras` is
     orc_tpu's: the colouring of GAUSS_SEIDEL runs, the hierarchy of
-    MULTIGRID ones."""
+    MULTIGRID ones; `comm` the communication context."""
+    comm = comm or simple.NullComm()
     fbc = face_bc(mesh, zone_codes, zone_scalar, zone_vector)
     active = mesh.cell_face_mask.any(dim=1)
-    vel, p, flux = state.vel, state.p, state.flux
+    vel = comm.refresh(state.vel)
+    p = comm.refresh(state.p)
+    flux = state.flux
 
     grad_p = (
-        pressure_gradient(mesh, fbc, p, settings.gradient_reconstruction)
+        comm.refresh(
+            pressure_gradient(mesh, fbc, p, settings.gradient_reconstruction)
+        )
         if simple._needs_grad_p(settings)
         else None
     )
     grad_v = (
-        velocity_gradient(mesh, fbc, vel, settings.gradient_reconstruction)
+        comm.refresh(
+            velocity_gradient(mesh, fbc, vel, settings.gradient_reconstruction)
+        )
         if simple._needs_grad_vel(settings)
         else None
     )
@@ -204,7 +214,7 @@ def simple_step_fc(
         inertia=inertia,
     )
     new_vel, new_mom_diag, info = simple._solve_momentum(
-        A3, b3, vel, active, settings, solver_extras
+        A3, b3, vel, active, settings, solver_extras, comm
     )
     new_md_c = new_mom_diag.T
 
@@ -216,8 +226,8 @@ def simple_step_fc(
     d_face = _face_d_coeffs(mesh, fbc, rho, new_md_c)
     Pmat, b_p = fc_pressure_system(mesh, fbc, rho, flux_h, d_face)
     p_new, p_info = simple._solve_p_prime(
-        Pmat, b_p, p, settings, active, maybe_singular, x0=p,
-        solver_extras=solver_extras,
+        Pmat, b_p, p, settings, active, comm, solver_extras, maybe_singular,
+        x0=p,
     )
 
     # Conservative stored flux from the unrelaxed p_new, blended with the
@@ -235,10 +245,10 @@ def simple_step_fc(
         pressure_correction_form=PressureCorrectionForm.FACE_VALUE,
     )
     vel3, p_out, (p_corr_sq, vel_corr_sq) = apply_pressure_correction(
-        mesh, fbc, s_corr, dp, new_md_c, new_vel, p
+        mesh, fbc, s_corr, comm.refresh(dp), new_md_c, new_vel, p
     )
     metrics = simple._step_metrics(
-        active, vel3, pe, p_corr_sq, vel_corr_sq, info, p_info
+        active, vel3, pe, p_corr_sq, vel_corr_sq, info, p_info, comm
     )
     new_state = simple.FlowState(
         vel=vel3, p=p_out, mom_diag=new_mom_diag, flux=new_flux
@@ -376,17 +386,22 @@ def ck_simple_step_fc(
     mu,
     ck_diff,
     state,
-    kernel_asm=None,  # (cols, AsmSpec) -> SIMPLE_FC assembly kernels
-    maybe_singular: bool = True,
-    inertia=None,  # (rv_dt [C], vel_n [C,3]) of a transient step
     solver_extras=None,  # orc_tpu's: colouring or multigrid hierarchy
+    inertia=None,  # (rv_dt [C], vel_n [C,3]) of a transient step
+    comm=None,
+    kernel_asm=None,  # (cols, AsmSpec[, box]) -> SIMPLE_FC assembly kernels
+    maybe_singular: bool = True,
 ):
     """One flux-corrected SIMPLE iteration in the (c,k) formulation.
     `state.flux` must be seeded (ck_initial_flux); `maybe_singular` is
-    the host fact "no pressure zones" (simple.table_has_pressure_bc)."""
+    the host fact "no pressure zones" (simple.table_has_pressure_bc);
+    `comm` and the box in `kernel_asm` as in simple.ck_simple_step."""
+    comm = comm or simple.NullComm()
     bc = ck_bc(ck, zone_codes, zone_scalar, zone_vector)
     diff_diag, diff_off, diff_b = ck_diff
-    vel, p, flux = state.vel, state.p, state.flux
+    vel = comm.refresh(state.vel)
+    p = comm.refresh(state.p)
+    flux = state.flux
     active = ck.mask.any(dim=1)
 
     # The kernels read neighbour values themselves: the [C,K(,3)]
@@ -395,11 +410,11 @@ def ck_simple_step_fc(
     grad_p = grad_p_nbr = None
     gp_fn, gv_fn = simple.gradient_fns(settings)
     if simple._needs_grad_p(settings):
-        grad_p = gp_fn(mesh, ck, bc, p)
+        grad_p = comm.refresh(gp_fn(mesh, ck, bc, p))
         if kernel_asm is None:
             grad_p_nbr = nbr_values(mesh, grad_p, ck.interior)
     grad_v = (
-        gv_fn(mesh, ck, bc, vel, vel_nbr=vel_nbr)
+        comm.refresh(gv_fn(mesh, ck, bc, vel, vel_nbr=vel_nbr))
         if simple._needs_grad_vel(settings)
         else None
     )
@@ -412,13 +427,14 @@ def ck_simple_step_fc(
             pack_flags,
         )
 
-        cols, aspec = kernel_asm
+        cols, aspec, box = simple._unpack_kernel_asm(kernel_asm)
         flags = pack_flags(ck.interior, ck.mask)
         bcv = bc_value_table(zone_scalar, zone_vector)
         mdiag, moff, b3 = fc_momentum_assembly(
             vel, p, flux, bcv, flags, cols, rho, mu,
             settings.momentum_relaxation,
             grad_p=grad_p, grad_vel=grad_v, inertia=inertia, spec=aspec,
+            box=box,
         )
         b3 = simple._add_momentum_source(mesh, settings, b3, active)
         A3 = mesh_matrix(mesh, mdiag, moff)
@@ -436,13 +452,14 @@ def ck_simple_step_fc(
         )
 
     new_vel, new_mom_diag, info = simple._solve_momentum(
-        A3, b3, vel, active, settings, solver_extras
+        A3, b3, vel, active, settings, solver_extras, comm
     )
     new_md_c = new_mom_diag.T  # cell-major [C,3] view
     new_md_nbr = nbr_values(mesh, new_md_c, ck.interior)
     if kernel_asm is not None:
         pdiag, poff, b_p, flux_h = fc_pc_assembly(
-            new_vel, A3.diag, bcv, flags, cols, rho, grad_p=grad_p, spec=aspec
+            new_vel, new_mom_diag[0], bcv, flags, cols, rho, grad_p=grad_p,
+            spec=aspec,
         )
         Pmat = mesh_matrix(mesh, pdiag, poff)
         # d for the conservative correction, recomputed from the shared
@@ -460,8 +477,8 @@ def ck_simple_step_fc(
         d_ck = ck_d_coeffs(mesh, ck, bc, rho, new_md_c, new_md_nbr)
         Pmat, b_p = ck_fc_pressure_system(mesh, ck, bc, rho, flux_h, d_ck)
     p_new, p_info = simple._solve_p_prime(
-        Pmat, b_p, p, settings, active, maybe_singular, x0=p,
-        solver_extras=solver_extras,
+        Pmat, b_p, p, settings, active, comm, solver_extras, maybe_singular,
+        x0=p,
     )
     p_new_nbr = nbr_values(mesh, p_new, ck.interior)
     new_flux = ck_correct_flux(mesh, ck, bc, flux_h, d_ck, rho, p_new, p_new_nbr)
@@ -479,10 +496,10 @@ def ck_simple_step_fc(
         pressure_correction_form=PressureCorrectionForm.FACE_VALUE,
     )
     vel3, p_out, (p_corr_sq, vel_corr_sq) = ck_apply_correction(
-        mesh, ck, bc, s_corr, dp, new_md_c, new_vel, p
+        mesh, ck, bc, s_corr, comm.refresh(dp), new_md_c, new_vel, p
     )
     metrics = simple._step_metrics(
-        active, vel3, pe, p_corr_sq, vel_corr_sq, info, p_info
+        active, vel3, pe, p_corr_sq, vel_corr_sq, info, p_info, comm
     )
     new_state = simple.FlowState(
         vel=vel3, p=p_out, mom_diag=new_mom_diag, flux=new_flux

@@ -1,5 +1,4 @@
-"""Structured geometric multigrid (port of the single-device half of
-orc_tpu/solver/gmg.py).
+"""Structured geometric multigrid (port of orc_tpu/solver/gmg.py).
 
 On a structured box mesh coarsening is 2x per axis (block aggregation),
 so every level is itself a structured box and every smoother SpMV stays
@@ -18,8 +17,14 @@ BiCGSTAB per level (solver/amg.py `_smooth`). Vectors may carry leading
 batch dimensions ([..., C]), so the three momentum systems can share one
 cycle, as orc_tpu's vmapped cycle does. Meshes whose offsets do not
 describe a coarsenable box take the algebraic hierarchy of
-solver/amg.py (`build_mg_hierarchy`). The sharded V-cycle waits for the
-port's sharded runtime (ROADMAP Queue 1, item 14).
+solver/amg.py (`build_mg_hierarchy`).
+
+The sharded V-cycle (`gmg_solve_sharded`) smooths the fine level
+distributed and computes the coarse correction replicated: each
+partition sums its owned rows' share of the first coarse matrix and
+residual through host-built gather tables (amg.ShardedTables, in place
+of orc_tpu's scatter-adds), and `axis_sum` adds the shares in partition
+order.
 """
 
 from __future__ import annotations
@@ -30,9 +35,22 @@ from typing import List, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+import numpy as np
+
 from orc_tpu_torch.ops.spmv import EllMatrix
-from orc_tpu_torch.solver.amg import _coarse_project, _smooth
-from orc_tpu_torch.solver.krylov import SolveInfo, _max_abs, _norm
+from orc_tpu_torch.solver.amg import (
+    ShardedTables,
+    _coarse_project,
+    _smooth,
+    cached_on,
+)
+from orc_tpu_torch.solver.krylov import (
+    SolveInfo,
+    _identity_sum,
+    _max_abs,
+    _mv,
+    _norm,
+)
 from orc_tpu_torch.utils.settings import MatrixSolverSettings
 
 
@@ -322,6 +340,7 @@ def gmg_solve(
     x0,
     settings: MatrixSolverSettings,
     hierarchy: Tuple[GmgLevel, ...],
+    axis_sum=_identity_sum,
     project=None,
     null_scale=None,
 ):
@@ -334,21 +353,23 @@ def gmg_solve(
     `project` / `null_scale`: constant-nullspace deflation of singular
     (unanchored) pressure systems, `project` on the fine level and a
     plain-mean projection built from `null_scale` on the coarse ones."""
-    x, info0 = _smooth(A, b, x0, settings, project=project)
+    x, info0 = _smooth(A, b, x0, settings, axis_sum, project=project)
     if hierarchy:
         r = b - A.matvec(x)
         x = x + _gmg_correction(
-            A, r, 0, settings, hierarchy, project=_coarse_project(null_scale)
+            A, r, 0, settings, hierarchy, axis_sum,
+            project=_coarse_project(null_scale),
         )
-        x, _ = _smooth(A, b, x, settings, project=project)
-    rn = _norm(b - A.matvec(x))
+        x, _ = _smooth(A, b, x, settings, axis_sum, project=project)
+    rn = _norm(b - A.matvec(x), axis_sum)
     diverged = torch.isnan(rn) | (_max_abs(x) > 1e10)
     return x, SolveInfo(
         iterations=info0.iterations, residual=rn, diverged=diverged
     )
 
 
-def _gmg_correction(A_f, r, idx, settings, hierarchy, project=None):
+def _gmg_correction(A_f, r, idx, settings, hierarchy, axis_sum=_identity_sum,
+                    project=None):
     level = hierarchy[idx]
     r_c = restrict(r, level)
     A_c = galerkin(A_f, level)
@@ -358,13 +379,145 @@ def _gmg_correction(A_f, r, idx, settings, hierarchy, project=None):
         r_c,
         torch.zeros_like(r_c),
         settings,
+        axis_sum,
         iterations=settings.iterations if coarsest else None,
         project=project,
     )
     if not coarsest:
         rr = r_c - A_c.matvec(e_c)
         e_c = e_c + _gmg_correction(
-            A_c, rr, idx + 1, settings, hierarchy, project=project
+            A_c, rr, idx + 1, settings, hierarchy, axis_sum, project=project
         )
-        e_c, _ = _smooth(A_c, r_c, e_c, settings, project=project)
+        e_c, _ = _smooth(A_c, r_c, e_c, settings, axis_sum, project=project)
     return prolong(e_c, level)
+
+
+# --- distributed V-cycle ----------------------------------------------
+
+
+def _coarse_index_of(level: GmgLevel, g):
+    """Coarse cell of global fine cell id g (flat block arithmetic)."""
+    nx, ny, _ = level.dims
+    bx, by, bz = level.block
+    cx, cy, _ = level.cdims
+    ix = g % nx
+    iy = (g // nx) % ny
+    iz = g // (nx * ny)
+    return (ix // bx) + cx * ((iy // by) + cy * (iz // bz))
+
+
+def _local_coarse_contrib(A, r, owned_mask, owned_global, level: GmgLevel):
+    """(flat coarse-matrix values [..., n_c*(K_c+1)], coarse residual
+    [..., n_c]) from this partition's owned fine rows; `axis_sum` across
+    partitions completes R A P and R r. The slot of every entry comes
+    from host tables built once per partition (orc_tpu's scatter-adds,
+    as gathers)."""
+    K = A.off.shape[-1]
+    gal, res = cached_on(
+        owned_global, ("gmg", id(level), K),
+        lambda: _coarse_tables(level, owned_mask, owned_global, K),
+    )
+    batch = A.diag.shape[:-1]
+    vals = torch.cat([A.diag, A.off.reshape(*batch, -1)], dim=-1)
+    return gal.partial(vals), res.partial(r)
+
+
+def _coarse_tables(level: GmgLevel, owned_mask, owned_global, K: int):
+    """Host-built (Galerkin, restriction) ShardedTables of a partition:
+    the flat coarse slot of each local diagonal and off-diagonal entry
+    of its owned rows (-1 elsewhere), by orc_tpu's rules: in-block
+    entries fold into the coarse diagonal, cross-block ones into their
+    coarse column."""
+    dev = owned_global.device
+    g = owned_global.cpu().numpy().astype(np.int64)
+    own = owned_mask.cpu().numpy().astype(bool)
+    nx, ny, _ = level.dims
+    I = _coarse_index_of(level, g)
+    stride = len(level.coarse_offsets) + 1
+    diag_t = np.where(own, I * stride, -1)
+    off_t = np.full((g.shape[0], K), -1, dtype=np.int64)
+    for k, info in enumerate(level.col_info):
+        tgt = level.coarse_col_of[k]
+        if tgt == -2:
+            continue
+        if tgt == -1:
+            t = I * stride
+        else:
+            axis, direction, wrap = info
+            if wrap or level.block[axis] == 1:
+                t = I * stride + 1 + tgt
+            else:
+                idx_ax = (g % nx, (g // nx) % ny, g // (nx * ny))[axis]
+                cross = (idx_ax % 2) == (1 if direction > 0 else 0)
+                t = np.where(cross, I * stride + 1 + tgt, I * stride)
+        off_t[:, k] = np.where(own, t, -1)
+    n_c = level.n_coarse
+    return (
+        ShardedTables(
+            np.concatenate([diag_t, off_t.reshape(-1)]), n_c * stride, dev
+        ),
+        ShardedTables(np.where(own, I, -1), n_c, dev),
+    )
+
+
+def gmg_solve_sharded(
+    A,
+    b,
+    x0,
+    settings: MatrixSolverSettings,
+    hierarchy: Tuple[GmgLevel, ...],
+    axis_sum,
+    refresh,
+    owned_mask,
+    owned_global,
+    project=None,
+    null_scale=None,
+):
+    """Distributed V-cycle: smooth the partition's rows with halo
+    refreshes and completed reductions, then add the coarse correction,
+    computed the same on every partition from the summed coarse system,
+    prolonged to the global box and read at the owned rows' global
+    ids."""
+    x, info0 = _smooth(
+        A, b, x0, settings, axis_sum, refresh=refresh, project=project
+    )
+    cproject = _coarse_project(null_scale)
+    if hierarchy:
+        level = hierarchy[0]
+        r = b - _mv(A, x, refresh)
+        flat, r_c = _local_coarse_contrib(A, r, owned_mask, owned_global, level)
+        flat = axis_sum(flat)
+        r_c = axis_sum(r_c)
+        stride = len(level.coarse_offsets) + 1
+        flat = flat.reshape(*flat.shape[:-1], level.n_coarse, stride)
+        cdiag = flat[..., 0]
+        A_c = EllMatrix(
+            diag=torch.where(cdiag == 0.0, torch.ones_like(cdiag), cdiag),
+            off=flat[..., 1:],
+            neighbors=None,
+            offsets=level.coarse_offsets,
+        )
+        # Replicated coarse correction (the same on every partition; no
+        # collective below this point).
+        e_c, _ = _smooth(
+            A_c, r_c, torch.zeros_like(r_c), settings,
+            iterations=settings.iterations if len(hierarchy) == 1 else None,
+            project=cproject,
+        )
+        if len(hierarchy) > 1:
+            rr = r_c - A_c.matvec(e_c)
+            e_c = e_c + _gmg_correction(
+                A_c, rr, 1, settings, hierarchy, project=cproject
+            )
+            e_c, _ = _smooth(A_c, r_c, e_c, settings, project=cproject)
+        e_f = prolong(e_c, level)  # [..., C] global, replicated
+        zero = torch.zeros((), dtype=x.dtype, device=x.device)
+        x = x + torch.where(owned_mask, e_f[..., owned_global.long()], zero)
+        x, _ = _smooth(
+            A, b, x, settings, axis_sum, refresh=refresh, project=project
+        )
+    rn = _norm(b - _mv(A, x, refresh), axis_sum)
+    diverged = torch.isnan(rn) | (_max_abs(x) > 1e10)
+    return x, SolveInfo(
+        iterations=info0.iterations, residual=rn, diverged=diverged
+    )

@@ -1,5 +1,5 @@
 """Iterative sparse solvers over ELL matrices (port of
-orc_tpu/solver/krylov.py, single device).
+orc_tpu/solver/krylov.py).
 
 Batched systems are a leading batch dimension written out: the three
 momentum systems solve as one [3,C] call, each component with its own
@@ -17,9 +17,17 @@ for every solution method on structured, slice-plan and gather
 matrices, with DF32 iterative refinement (`solver/refine.py`) for
 float64 systems under `SolverPrecision.DF32_IR`, and MULTIGRID over a
 geometric (`solver/gmg.py`, structured boxes) or algebraic
-(`solver/amg.py`, any mesh) hierarchy. The sharded hooks of orc_tpu's
-solvers (`axis_sum`, `refresh`, `mg_owned`) wait for the sharded runtime
-(ROADMAP Queue 1, item 14).
+(`solver/amg.py`, any mesh) hierarchy.
+
+The sharded hooks are orc_tpu's: `axis_sum` completes every dot product
+and norm across partitions, and `refresh` fills a vector's halo slots
+before each neighbour read (`_mv`); `mg_owned` carries a partition's
+owned rows to the distributed V-cycles. The defaults are the single-
+device identities, and dispatch sites test `refresh is _no_refresh` to
+keep the single-device fast paths (fused Jacobi sweeps, slice plans,
+DF32_IR), as orc_tpu does. Under a sharded `axis_sum` the loops' exit
+checks are reductions too, so every partition leaves a loop after the
+same iteration.
 """
 
 from __future__ import annotations
@@ -47,12 +55,20 @@ class SolveInfo(NamedTuple):
     diverged: torch.Tensor  # [...] bool: NaN or >1e10 blowup detected
 
 
-def _norm(v):
-    return torch.sqrt(torch.sum(v * v, dim=-1))
+def _identity_sum(x):
+    return x
 
 
-def _dot(a, b):
-    return torch.sum(a * b, dim=-1)
+def _no_refresh(x):
+    return x
+
+
+def _norm(v, axis_sum=_identity_sum):
+    return torch.sqrt(axis_sum(torch.sum(v * v, dim=-1)))
+
+
+def _dot(a, b, axis_sum=_identity_sum):
+    return axis_sum(torch.sum(a * b, dim=-1))
 
 
 def _wide(v):
@@ -60,13 +76,13 @@ def _wide(v):
     return v.double() if v.dtype == torch.float32 else v
 
 
-def _norm_comp(v):
+def _norm_comp(v, axis_sum=_identity_sum):
     w = _wide(v)
-    return torch.sqrt(torch.sum(w * w, dim=-1)).to(v.dtype)
+    return torch.sqrt(axis_sum(torch.sum(w * w, dim=-1))).to(v.dtype)
 
 
-def _dot_comp(a, b):
-    return torch.sum(_wide(a) * _wide(b), dim=-1).to(a.dtype)
+def _dot_comp(a, b, axis_sum=_identity_sum):
+    return axis_sum(torch.sum(_wide(a) * _wide(b), dim=-1)).to(a.dtype)
 
 
 def _reducers(compensated: bool):
@@ -90,30 +106,59 @@ def _max_abs(x):
     return torch.amax(torch.abs(x), dim=-1)
 
 
-def constant_deflation(null_scale, active=None):
+def constant_deflation(null_scale, active=None, axis_sum=_identity_sum):
     """Projection x -> x - null_scale * mean_active(x) removing the
     constant (gauge) mode of an unanchored pressure-correction system.
-    `active` [C] bool masks padded rows (None: every row, the plain mean
-    of the multigrid coarse levels). 1-D vectors only."""
+    `active` [C] bool masks padded and halo rows (None: every row, the
+    plain mean of the multigrid coarse levels); `axis_sum` completes the
+    sums across partitions. 1-D vectors only."""
 
     def project(x):
         if active is None:
-            return x - null_scale * (torch.sum(x, dim=-1) / x.shape[-1])
+            n = x.shape[-1]
+            if axis_sum is not _identity_sum:
+                n = axis_sum(torch.full((), n, dtype=x.dtype, device=x.device))
+            return x - null_scale * (axis_sum(torch.sum(x, dim=-1)) / n)
         zero = torch.zeros((), dtype=x.dtype, device=x.device)
-        n = torch.sum(active.to(x.dtype))
-        mean = torch.sum(torch.where(active, x, zero)) / n
+        n = axis_sum(torch.sum(active.to(x.dtype)))
+        mean = axis_sum(torch.sum(torch.where(active, x, zero))) / n
         return x - null_scale * torch.where(active, mean, zero)
 
     return project
 
 
-def _exit_check(i: int, done) -> bool:
-    return (i + 1) % EXIT_CHECK_EVERY == 0 and bool(done.all())
+def _all_done(done, axis_sum) -> bool:
+    """Whether every system is done; across partitions too under a
+    sharded `axis_sum`, so that every partition leaves a loop at the same
+    iteration and reaches the same collectives."""
+    if axis_sum is _identity_sum:
+        return bool(done.all())
+    return bool(axis_sum(torch.sum((~done).to(torch.int64))) == 0)
+
+
+def _exit_check(i: int, done, axis_sum) -> bool:
+    return (i + 1) % EXIT_CHECK_EVERY == 0 and _all_done(done, axis_sum)
+
+
+def _mv(A: EllMatrix, x, refresh):
+    """A @ x with a halo-refresh hook: neighbour reads see the refreshed
+    vector (remote values at halo slots) while the diagonal term uses the
+    local vector, so halo rows (diag 1, off 0) keep Krylov vectors
+    identically zero outside owned cells, as orc_tpu's `_mv`. The matrix's
+    own SpMV (the shift SpMV kernel on a box) runs on the refreshed
+    vector; the rows the refresh changed take diag * x instead, their
+    off-diagonal coefficients being zero. A batched x [..., C] is
+    refreshed along its cell axis (refresh fills the leading axis)."""
+    if refresh is _no_refresh:
+        return A.matvec(x)
+    xr = refresh(x) if x.ndim == 1 else refresh(x.movedim(-1, 0)).movedim(0, -1)
+    return torch.where(xr == x, A.matvec(xr), A.diag * x)
 
 
 def jacobi_solve(
     A: EllMatrix, b, x0, iterations: int, relaxation, convergence_threshold,
-    compensated: bool = False, project=_no_project,
+    axis_sum=_identity_sum, refresh=_no_refresh, compensated: bool = False,
+    project=_no_project,
 ):
     """Relaxed Jacobi with the reference's convergence semantics: the
     baseline residual is recorded after the second sweep and the loop
@@ -129,11 +174,11 @@ def jacobi_solve(
     done = torch.zeros(batch, dtype=torch.bool, device=dev)
     diverged = torch.zeros(batch, dtype=torch.bool, device=dev)
     for i in range(iterations):
-        ax_off = A.matvec(x) - A.diag * x
+        ax_off = _mv(A, x, refresh) - A.diag * x
         x_new = relaxation * (b_prime - ax_off * inv_diag) + (
             1.0 - relaxation
         ) * x
-        r = norm(b - A.matvec(x_new))
+        r = norm(b - _mv(A, x_new, refresh), axis_sum)
         live = ~done
         base_r = torch.where(live & (it == 1), r, base_r)
         conv = (it >= 2) & (r / base_r < convergence_threshold)
@@ -142,26 +187,27 @@ def jacobi_solve(
         it = it + live.to(torch.int32)
         done = done | (live & (conv | bad))
         diverged = diverged | (live & bad)
-        if _exit_check(i, done):
+        if _exit_check(i, done, axis_sum):
             break
     # Stationary sweeps are neutral in the constant null mode, so one
     # deflation at exit suffices.
     x = project(x)
-    rn = norm(project(b - A.matvec(x)))
+    rn = norm(project(b - _mv(A, x, refresh)), axis_sum)
     return x, SolveInfo(iterations=it, residual=rn, diverged=diverged)
 
 
 def jacobi_smooth_solve(
-    A: EllMatrix, b, x0, iterations: int, relaxation,
-    compensated: bool = False, project=_no_project,
+    A: EllMatrix, b, x0, iterations: int, relaxation, axis_sum=_identity_sum,
+    refresh=_no_refresh, compensated: bool = False, project=_no_project,
 ):
     """Fixed-count damped Jacobi, the warm-started momentum smoother: no
-    residual norm inside, no adaptive exit. On structured matrices the
-    sweeps run as kernel 4 on the card (one launch per sweep, all batch
-    components per launch); on others, as orc_tpu's sweep loop over the
-    matrix's own SpMV (the slice SpMV on irregular meshes)."""
+    residual norm inside, no adaptive exit. On structured matrices of a
+    single device the sweeps run as kernel 4 on the card (one launch per
+    sweep, all batch components per launch); otherwise, as orc_tpu's
+    sweep loop over the matrix's own SpMV (the slice SpMV on irregular
+    meshes), with a halo refresh per sweep under sharding."""
     _, norm = _reducers(compensated)
-    if A.offsets is not None:
+    if refresh is _no_refresh and A.offsets is not None:
         x = fused_jacobi_sweeps(
             A.diag, A.off, A.offsets, b, x0, iterations, relaxation
         )
@@ -170,19 +216,20 @@ def jacobi_smooth_solve(
         b_prime = b * inv_diag
         x = x0
         for _ in range(iterations):
-            ax_off = A.matvec(x) - A.diag * x
+            ax_off = _mv(A, x, refresh) - A.diag * x
             x = relaxation * (b_prime - ax_off * inv_diag) + (
                 1.0 - relaxation
             ) * x
     x = project(x)
-    rn = norm(project(b - A.matvec(x)))
+    rn = norm(project(b - _mv(A, x, refresh)), axis_sum)
     diverged = torch.isnan(rn) | (_max_abs(x) > 1e10)
     it = torch.full(rn.shape, iterations, dtype=torch.int32, device=rn.device)
     return x, SolveInfo(iterations=it, residual=rn, diverged=diverged)
 
 
 def bicgstab_solve(
-    A: EllMatrix, b, x0, iterations: int, convergence_threshold: float = 1e-14,
+    A: EllMatrix, b, x0, iterations: int, axis_sum=_identity_sum,
+    convergence_threshold: float = 1e-14, refresh=_no_refresh,
     compensated: bool = False, project=_no_project,
 ):
     """BiCGSTAB with the relative-to-r0 exit (||r|| <= thresh * ||r0||),
@@ -193,11 +240,11 @@ def bicgstab_solve(
     b, x0: [C] or [B,C]; every scalar below has shape [B] (or []), so
     each system runs its own iteration and exit."""
     dot, norm = _reducers(compensated)
-    r0 = project(b - A.matvec(x0))
+    r0 = project(b - _mv(A, x0, refresh))
     r_hat = r0
-    rho = dot(r0, r_hat)
-    bnorm = norm(b)
-    r0norm = norm(r0)
+    rho = dot(r0, r_hat, axis_sum)
+    bnorm = norm(b, axis_sum)
+    r0norm = norm(r0, axis_sum)
     finfo = torch.finfo(b.dtype)
     tiny = torch.tensor(finfo.tiny, dtype=b.dtype, device=b.device)
     floor = torch.maximum(64.0 * finfo.eps * bnorm, tiny)
@@ -210,22 +257,22 @@ def bicgstab_solve(
 
     x, r, p = x0, r0, r0
     it = torch.zeros(done.shape, dtype=torch.int32, device=b.device)
-    if not bool(done.all()):
+    if not _all_done(done, axis_sum):
         for i in range(iterations):
-            nu = project(A.matvec(p))
-            d_rn = dot(r_hat, nu)
+            nu = project(_mv(A, p, refresh))
+            d_rn = dot(r_hat, nu, axis_sum)
             alpha = safe_div(rho, d_rn)
             h = x + alpha[..., None] * p
             s = r - alpha[..., None] * nu
-            t = project(A.matvec(s))
-            d_tt = dot(t, t)
-            omega = safe_div(dot(t, s), d_tt)
+            t = project(_mv(A, s, refresh))
+            d_tt = dot(t, t, axis_sum)
+            omega = safe_div(dot(t, s, axis_sum), d_tt)
             x_new = h + omega[..., None] * s
             r_new = s - omega[..., None] * t
-            rho_new = dot(r_hat, r_new)
+            rho_new = dot(r_hat, r_new, axis_sum)
             beta = safe_div(rho_new, rho) * safe_div(alpha, omega)
             p_new = r_new + beta[..., None] * (p - omega[..., None] * nu)
-            rn_new = norm(r_new)
+            rn_new = norm(r_new, axis_sum)
             breakdown = (
                 (torch.abs(d_rn) <= tiny)
                 | (d_tt <= tiny)
@@ -242,16 +289,16 @@ def bicgstab_solve(
             rho = torch.where(frozen, rho, rho_new)
             it = it + (~done).to(torch.int32)
             done = done | conv | breakdown
-            if _exit_check(i, done):
+            if _exit_check(i, done, axis_sum):
                 break
-    rn = norm(project(b - A.matvec(x)))
+    rn = norm(project(b - _mv(A, x, refresh)), axis_sum)
     diverged = torch.isnan(rn) | (_max_abs(x) > 1e10)
     return x, SolveInfo(iterations=it, residual=rn, diverged=diverged)
 
 
 def gauss_seidel_solve(
     A: EllMatrix, b, x0, iterations: int, relaxation, colors, n_colors: int,
-    project=_no_project,
+    axis_sum=_identity_sum, refresh=_no_refresh, project=_no_project,
 ):
     """Multi-colour Gauss-Seidel: the rows of one colour update together
     from the latest values of every other colour, one SpMV per colour
@@ -261,11 +308,11 @@ def gauss_seidel_solve(
     x = x0
     for _ in range(iterations):
         for c in range(n_colors):
-            ax_off = A.matvec(x) - A.diag * x
+            ax_off = _mv(A, x, refresh) - A.diag * x
             x_gs = (1.0 - relaxation) * x + relaxation * (b - ax_off) / A.diag
             x = torch.where(sel[c], x_gs, x)
     x = project(x)
-    rn = _norm(project(b - A.matvec(x)))
+    rn = _norm(project(b - _mv(A, x, refresh)), axis_sum)
     diverged = torch.isnan(rn) | (_max_abs(x) > 1e10)
     it = torch.full(rn.shape, iterations, dtype=torch.int32, device=rn.device)
     return x, SolveInfo(iterations=it, residual=rn, diverged=diverged)
@@ -273,23 +320,27 @@ def gauss_seidel_solve(
 
 def iterative_solve(
     A: EllMatrix, b, x0, settings: MatrixSolverSettings, colors=None,
-    n_colors: int = 0, mg_hierarchy=None, project=_no_project,
-    null_scale=None,
+    n_colors: int = 0, axis_sum=_identity_sum, mg_hierarchy=None,
+    mg_owned=None, refresh=_no_refresh, project=_no_project, null_scale=None,
 ):
-    """Solver dispatch (orc_tpu's `iterative_solve`, single device).
-    Matrices with a slice plan take the slice-column layout, and
-    structured ones are split into their K columns, once, before the
-    loop (not under MULTIGRID: its cycle keeps the array form for the
-    Galerkin products); Jacobi preconditioning scales the rows by
-    1/diag. `colors` / `n_colors` (solver/coloring.greedy_coloring)
-    drive GAUSS_SEIDEL; `mg_hierarchy` (solver/gmg.build_mg_hierarchy:
-    GmgLevels or amg.MgLevels) drives MULTIGRID; `null_scale` lets its
+    """Solver dispatch (orc_tpu's `iterative_solve`). On a single device
+    matrices with a slice plan take the slice-column layout, and
+    structured ones are split into their K columns, once, before the loop
+    (not under MULTIGRID: its cycle keeps the array form for the Galerkin
+    products); Jacobi preconditioning scales the rows by 1/diag. Under a
+    halo `refresh` (a sharded run) there is no DF32_IR, no slice layout
+    and no fused sweep, as in orc_tpu. `colors` / `n_colors`
+    (solver/coloring.greedy_coloring) drive GAUSS_SEIDEL; `mg_hierarchy`
+    (solver/gmg.build_mg_hierarchy: GmgLevels or amg.MgLevels) drives
+    MULTIGRID, distributed when `mg_owned` = (owned_mask [L],
+    owned_global [L]) names a partition's rows; `null_scale` lets its
     coarse levels deflate the constant mode that `project` removes on
     the fine level."""
     method = settings.solver_type
     if (
         settings.precision == SolverPrecision.DF32_IR
         and A.diag.dtype == torch.float64
+        and refresh is _no_refresh
         and method
         in (
             SolutionMethod.BICGSTAB,
@@ -302,9 +353,14 @@ def iterative_solve(
         from orc_tpu_torch.solver.refine import df32_ir_solve
 
         return df32_ir_solve(
-            A, b, x0, settings, project, refine_steps=settings.refine_steps
+            A, b, x0, settings, axis_sum, project,
+            refine_steps=settings.refine_steps,
         )
-    if A.plan is not None and method != SolutionMethod.MULTIGRID:
+    if (
+        refresh is _no_refresh
+        and A.plan is not None
+        and method != SolutionMethod.MULTIGRID
+    ):
         A = A.prepare()
     if A.offsets is not None and method != SolutionMethod.MULTIGRID:
         A = A.split_columns()
@@ -314,19 +370,20 @@ def iterative_solve(
     if method == SolutionMethod.JACOBI:
         return jacobi_solve(
             A, b, x0, settings.iterations, settings.relaxation,
-            settings.relative_convergence_threshold,
+            settings.relative_convergence_threshold, axis_sum, refresh,
             compensated=settings.compensated_f32, project=project,
         )
     if method == SolutionMethod.JACOBI_SMOOTH:
         return jacobi_smooth_solve(
-            A, b, x0, settings.iterations, settings.relaxation,
-            compensated=settings.compensated_f32, project=project,
+            A, b, x0, settings.iterations, settings.relaxation, axis_sum,
+            refresh, compensated=settings.compensated_f32, project=project,
         )
     if method == SolutionMethod.BICGSTAB:
         return bicgstab_solve(
-            A, b, x0, settings.iterations,
+            A, b, x0, settings.iterations, axis_sum,
             convergence_threshold=settings.relative_convergence_threshold,
-            compensated=settings.compensated_f32, project=project,
+            refresh=refresh, compensated=settings.compensated_f32,
+            project=project,
         )
     if method == SolutionMethod.GAUSS_SEIDEL:
         if colors is None:
@@ -336,7 +393,7 @@ def iterative_solve(
             )
         return gauss_seidel_solve(
             A, b, x0, settings.iterations, settings.relaxation, colors,
-            n_colors, project=project,
+            n_colors, axis_sum, refresh, project=project,
         )
     if method == SolutionMethod.MULTIGRID:
         if mg_hierarchy is None:
@@ -344,17 +401,36 @@ def iterative_solve(
                 "Multigrid needs a host-built hierarchy; pass mg_hierarchy "
                 "(see orc_tpu_torch.solver.gmg.build_mg_hierarchy)"
             )
-        from orc_tpu_torch.solver.gmg import GmgLevel, gmg_solve
+        from orc_tpu_torch.solver.gmg import (
+            GmgLevel,
+            gmg_solve,
+            gmg_solve_sharded,
+        )
 
         if len(mg_hierarchy) and isinstance(mg_hierarchy[0], GmgLevel):
+            if mg_owned is not None:  # a sharded run
+                return gmg_solve_sharded(
+                    A, b, x0, settings, mg_hierarchy, axis_sum, refresh,
+                    mg_owned[0], mg_owned[1], project=project,
+                    null_scale=null_scale,
+                )
             return gmg_solve(
-                A, b, x0, settings, mg_hierarchy, project=project,
+                A, b, x0, settings, mg_hierarchy, axis_sum, project=project,
                 null_scale=null_scale,
             )
-        from orc_tpu_torch.solver.amg import multigrid_solve
+        from orc_tpu_torch.solver.amg import (
+            multigrid_solve,
+            multigrid_solve_sharded,
+        )
 
+        if mg_owned is not None:  # a sharded run
+            return multigrid_solve_sharded(
+                A, b, x0, settings, mg_hierarchy, axis_sum, refresh,
+                mg_owned[0], mg_owned[1], project=project,
+                null_scale=null_scale,
+            )
         return multigrid_solve(
-            A, b, x0, settings, mg_hierarchy, project=project,
+            A, b, x0, settings, mg_hierarchy, axis_sum, project=project,
             null_scale=null_scale,
         )
     raise NotImplementedError(f"solution method {method}")

@@ -91,9 +91,13 @@ class _DfMatrix:
         return yh, yl
 
 
-def df32_ir_solve(A: EllMatrix, b, x0, settings, project, refine_steps: int = 3):
+def df32_ir_solve(
+    A: EllMatrix, b, x0, settings, axis_sum, project, refine_steps: int = 3
+):
     """f64-accuracy solve of the float64 system (A, b) by df32 iterative
-    refinement with plain float32 inner solves. b, x0: [C] or [B, C].
+    refinement with plain float32 inner solves. b, x0: [C] or [B, C];
+    `axis_sum` completes the inner solves' and the final norm's sums
+    (iterative_solve takes this path on a single device only).
     Returns (x float64, SolveInfo): iterations summed over the
     refinements per batch row, the residual the projected df32 final
     residual's norm (computed in float32, widened to b's dtype)."""
@@ -111,7 +115,8 @@ def df32_ir_solve(A: EllMatrix, b, x0, settings, project, refine_steps: int = 3)
         rh, _rl = df_add(bh, bl, -axh, -axl)
         rh = project(rh)
         d, info = iterative_solve(
-            M.A32, rh, torch.zeros_like(rh), inner, project=project
+            M.A32, rh, torch.zeros_like(rh), inner, axis_sum=axis_sum,
+            project=project,
         )
         xh, xl = df_add(xh, xl, d, torch.zeros_like(d))
         it_total = it_total + info.iterations
@@ -119,7 +124,7 @@ def df32_ir_solve(A: EllMatrix, b, x0, settings, project, refine_steps: int = 3)
     axh, axl = M.df_matvec(xh, xl)
     rh, _rl = df_add(bh, bl, -axh, -axl)
     rh = project(rh)
-    rn = torch.sqrt(torch.sum(rh * rh, dim=-1)).to(b.dtype)
+    rn = torch.sqrt(axis_sum(torch.sum(rh * rh, dim=-1))).to(b.dtype)
     return df_to_f64(xh, xl), SolveInfo(
         iterations=it_total, residual=rn, diverged=diverged | torch.isnan(rn)
     )

@@ -1,5 +1,5 @@
-"""SIMPLE pressure-velocity coupling, the outer loop (port of the
-single-device half of orc_tpu/solver/simple.py).
+"""SIMPLE pressure-velocity coupling, the outer loop (port of
+orc_tpu/solver/simple.py).
 
 One SIMPLE iteration is face fluxes -> momentum assembly -> one batched
 [3,C] momentum solve -> pressure-correction assembly and solve ->
@@ -45,7 +45,11 @@ u/v/w systems over one shared matrix, CD2 and in-matrix TVD over one
 matrix per component (diag [3,C]), whose diagonals the next iteration
 reads.
 
-Not ported: the sharded runtime (ROADMAP Queue 1, item 14).
+Both steps take orc_tpu's communication context `comm`: `NullComm` on
+one device; in a sharded run (orc_tpu_torch/parallel) a `ShardedComm`
+whose `refresh` fills a partition's halo slots before every neighbour
+read and whose `axis_sum` / `axis_min` / `axis_max` complete every
+reduction across partitions. The step code is the same in both cases.
 """
 
 from __future__ import annotations
@@ -87,6 +91,7 @@ from orc_tpu_torch.ops.gradients import pressure_gradient, velocity_gradient
 from orc_tpu_torch.ops.interpolation import face_flux, face_pressure
 from orc_tpu_torch.solver.krylov import (
     _no_project,
+    _no_refresh,
     constant_deflation,
     iterative_solve,
 )
@@ -104,6 +109,35 @@ from orc_tpu_torch.utils.settings import (
 #: Cell-count ceiling under which use_ck="auto" picks the (c,k) step,
 #: read once at import from ORC_TPU_CK_MAX_CELLS as orc_tpu reads it.
 CK_AUTO_MAX_CELLS = int(os.environ.get("ORC_TPU_CK_MAX_CELLS", "10000000"))
+
+
+class NullComm:
+    """Single-device communication context: no halo, local reductions.
+
+    The sharded runtime (orc_tpu_torch/parallel) substitutes a context
+    whose `refresh` exchanges halo slots and whose reductions combine the
+    partitions; the step code is identical in both cases."""
+
+    # The krylov module's no-op sentinel, not a method: dispatch sites
+    # test `refresh is _no_refresh` to keep the single-device fast paths.
+    refresh = staticmethod(_no_refresh)
+
+    def axis_sum(self, v):
+        return v
+
+    def axis_min(self, v):
+        return v
+
+    def axis_max(self, v):
+        return v
+
+
+def _refresh_rows(comm, md):
+    """comm.refresh for a component-major [B,C] array (refresh fills
+    halo slots along the leading cell axis)."""
+    if comm.refresh is _no_refresh:
+        return md
+    return comm.refresh(md.T).T
 
 
 class SolverDivergedError(RuntimeError):
@@ -254,17 +288,22 @@ def initial_flux(mesh, zone_codes, zone_scalar, zone_vector, settings, state):
 
 
 def _solve_p_prime(
-    Pmat, b_p, p, settings, active, maybe_singular: bool, x0=None,
-    solver_extras=None,
+    Pmat, b_p, p, settings, active, comm, solver_extras, maybe_singular: bool,
+    x0=None,
 ):
     """Solve the pressure(-correction) system, with the constant null
     mode deflated when the system is singular (on every multigrid level:
     `null_scale` reaches the coarse ones). The parity loop starts from
     zero; SIMPLE_FC solves the full p warm-started from `x0` = p, zeroed
-    outside the active rows."""
+    outside the active rows (halo and padded rows of a partition are
+    identity rows with b = 0, where the Krylov vectors stay zero). The
+    solution comes back with its halo refreshed."""
+    comm = comm or NullComm()
     if maybe_singular:
         null_scale = torch.ones((), dtype=p.dtype, device=p.device)
-        project = constant_deflation(null_scale, active=active)
+        project = constant_deflation(
+            null_scale, active=active, axis_sum=comm.axis_sum
+        )
     else:
         null_scale, project = None, _no_project
     if x0 is None:
@@ -272,24 +311,29 @@ def _solve_p_prime(
     else:
         x0 = torch.where(active, x0, torch.zeros((), dtype=p.dtype, device=p.device))
     p_prime, p_info = iterative_solve(
-        Pmat, b_p, x0, settings.matrix_solver, project=project,
-        null_scale=null_scale, **(solver_extras or {}),
+        Pmat, b_p, x0, settings.matrix_solver, axis_sum=comm.axis_sum,
+        refresh=comm.refresh, project=project, null_scale=null_scale,
+        **(solver_extras or {}),
     )
-    return project(p_prime), p_info
+    return comm.refresh(project(p_prime)), p_info
 
 
-def _solve_momentum(A3, b3, vel, active, settings, solver_extras=None):
+def _solve_momentum(A3, b3, vel, active, settings, solver_extras=None, comm=None):
     """One batched solve of the u/v/w systems, over the shared matrix or
     one matrix per component, warm-started from vel: (new vel [C,3], new
-    mom_diag [3,C], info)."""
+    mom_diag [3,C], info), both with their halos refreshed."""
+    comm = comm or NullComm()
     zero = torch.zeros((), dtype=vel.dtype, device=vel.device)
     x0 = torch.where(active[None, :], vel.T, zero)  # [3,C]
     sol, info = iterative_solve(
-        A3, b3, x0, settings.momentum_matrix_solver(), **(solver_extras or {})
+        A3, b3, x0, settings.momentum_matrix_solver(), axis_sum=comm.axis_sum,
+        refresh=comm.refresh, **(solver_extras or {}),
     )
     if A3.diag.ndim == 2:
-        return sol.T, A3.diag, info
-    return sol.T, A3.diag[None, :].expand(3, -1), info
+        new_mom_diag = _refresh_rows(comm, A3.diag)
+    else:
+        new_mom_diag = comm.refresh(A3.diag)[None, :].expand(3, -1)
+    return comm.refresh(sol.T), new_mom_diag, info
 
 
 def _kernel_peclet(settings, mdiag, diff_diag, active, inertia=None):
@@ -320,22 +364,31 @@ def _add_momentum_source(mesh, settings, b3, active):
     return b3 + torch.where(active[None, :], src.T, zero)
 
 
-def _step_metrics(active, vel3, pe, p_corr_sq, vel_corr_sq, info, p_info):
-    """StepMetrics of one iteration over the active cells."""
+def _step_metrics(
+    active, vel3, pe, p_corr_sq, vel_corr_sq, info, p_info, comm=None
+):
+    """StepMetrics of one iteration over the active cells (of every
+    partition: `comm` completes the reductions)."""
+    comm = comm or NullComm()
     zero = torch.zeros((), dtype=vel3.dtype, device=vel3.device)
-    n_active = torch.sum(active).to(vel3.dtype)
-    vel_avg = torch.sum(torch.where(active[:, None], vel3, zero), dim=0) / n_active
+    n_active = comm.axis_sum(torch.sum(active)).to(vel3.dtype)
+    vel_avg = (
+        comm.axis_sum(torch.sum(torch.where(active[:, None], vel3, zero), dim=0))
+        / n_active
+    )
     inf = torch.full((), float("inf"), dtype=pe.dtype, device=pe.device)
     return StepMetrics(
         vel_avg=vel_avg,
-        peclet_avg=torch.sum(pe) / (3.0 * n_active),
-        peclet_min=torch.amin(torch.where(active[:, None], pe, inf)),
-        peclet_max=torch.amax(torch.where(active[:, None], pe, -inf)),
-        p_corr_norm=torch.sqrt(p_corr_sq),
-        vel_corr_norm=torch.sqrt(vel_corr_sq),
+        peclet_avg=comm.axis_sum(torch.sum(pe)) / (3.0 * n_active),
+        peclet_min=comm.axis_min(torch.amin(torch.where(active[:, None], pe, inf))),
+        peclet_max=comm.axis_max(
+            torch.amax(torch.where(active[:, None], pe, -inf))
+        ),
+        p_corr_norm=torch.sqrt(comm.axis_sum(p_corr_sq)),
+        vel_corr_norm=torch.sqrt(comm.axis_sum(vel_corr_sq)),
         mom_residual=info.residual,
         pc_residual=p_info.residual,
-        diverged=(
+        diverged=comm.axis_max(
             torch.any(torch.isnan(vel_avg))
             | torch.any(info.diverged)
             | p_info.diverged
@@ -356,25 +409,34 @@ def simple_step(
     diff: DiffusionSystem,
     state: FlowState,
     solver_extras: Optional[dict] = None,
+    comm: Optional[NullComm] = None,
     inertia=None,
     maybe_singular: bool = True,
 ):
     """One SIMPLE iteration in the face-major formulation (orc_tpu's
-    `simple_step`, single device). `solver_extras` is orc_tpu's: the
-    colouring of GAUSS_SEIDEL runs, the hierarchy of MULTIGRID ones;
-    `inertia` = (rv_dt [C], vel_n [C,3]) of a transient step."""
+    `simple_step`). `solver_extras` is orc_tpu's: the colouring of
+    GAUSS_SEIDEL runs, the hierarchy of MULTIGRID ones (with a
+    partition's `mg_owned` rows in a sharded run); `comm` the
+    communication context (NullComm on one device); `inertia` =
+    (rv_dt [C], vel_n [C,3]) of a transient step."""
+    comm = comm or NullComm()
     fbc = face_bc(mesh, zone_codes, zone_scalar, zone_vector)
-    active = mesh.cell_face_mask.any(dim=1)  # non-padded cells
-    vel, p = state.vel, state.p
-    mom_diag = state.mom_diag.T  # cell-major [C,3] view
+    active = mesh.cell_face_mask.any(dim=1)  # owned, non-padded cells
+    vel = comm.refresh(state.vel)
+    p = comm.refresh(state.p)
+    mom_diag = _refresh_rows(comm, state.mom_diag).T  # cell-major [C,3]
 
     grad_p = (
-        pressure_gradient(mesh, fbc, p, settings.gradient_reconstruction)
+        comm.refresh(
+            pressure_gradient(mesh, fbc, p, settings.gradient_reconstruction)
+        )
         if _needs_grad_p(settings)
         else None
     )
     grad_v = (
-        velocity_gradient(mesh, fbc, vel, settings.gradient_reconstruction)
+        comm.refresh(
+            velocity_gradient(mesh, fbc, vel, settings.gradient_reconstruction)
+        )
         if _needs_grad_vel(settings)
         else None
     )
@@ -388,7 +450,7 @@ def simple_step(
         inertia=inertia,
     )
     new_vel, new_mom_diag, info = _solve_momentum(
-        A3, b3, vel, active, settings, solver_extras
+        A3, b3, vel, active, settings, solver_extras, comm
     )
     new_md_c = new_mom_diag.T
 
@@ -400,13 +462,14 @@ def simple_step(
     )
     Pmat, b_p = pressure_correction_system(mesh, fbc, rho, flux2, new_md_c)
     p_prime, p_info = _solve_p_prime(
-        Pmat, b_p, p, settings, active, maybe_singular,
-        solver_extras=solver_extras,
+        Pmat, b_p, p, settings, active, comm, solver_extras, maybe_singular
     )
     vel3, p_new, (p_corr_sq, vel_corr_sq) = apply_pressure_correction(
         mesh, fbc, settings, p_prime, new_md_c, new_vel, p
     )
-    metrics = _step_metrics(active, vel3, pe, p_corr_sq, vel_corr_sq, info, p_info)
+    metrics = _step_metrics(
+        active, vel3, pe, p_corr_sq, vel_corr_sq, info, p_info, comm
+    )
     return FlowState(vel=vel3, p=p_new, mom_diag=new_mom_diag), metrics
 
 
@@ -421,15 +484,24 @@ def ck_simple_step(
     mu,
     ck_diff,
     state: FlowState,
-    kernel_asm=None,  # (cols, AsmSpec) -> fused assembly kernels
-    maybe_singular: bool = True,
-    inertia=None,  # (rv_dt [C], vel_n [C,3]) of a transient step
     solver_extras=None,  # orc_tpu's: colouring or multigrid hierarchy
+    inertia=None,  # (rv_dt [C], vel_n [C,3]) of a transient step
+    comm: Optional[NullComm] = None,
+    kernel_asm=None,  # (cols, AsmSpec[, box]) -> fused assembly kernels
+    maybe_singular: bool = True,
 ):
-    """One SIMPLE iteration in the gather-free (c,k) formulation."""
+    """One SIMPLE iteration in the gather-free (c,k) formulation. Like
+    `simple_step` it runs unchanged on a partition of a sharded run:
+    `comm.refresh` fills the ghost-layer slots before every neighbour
+    shift. `kernel_asm` carries, after the columns and the AsmSpec, the
+    box of a slab partition's window (`parallel.sharded`), which the
+    kernels tile instead of the one the columns' offsets give."""
+    comm = comm or NullComm()
     bc = ck_bc(ck, zone_codes, zone_scalar, zone_vector)
     diff_diag, diff_off, diff_b = ck_diff
-    vel, p = state.vel, state.p
+    vel = comm.refresh(state.vel)
+    p = comm.refresh(state.p)
+    mom_diag = _refresh_rows(comm, state.mom_diag)  # [3,C]
     active = ck.mask.any(dim=1)
 
     grad_p = grad_p_nbr = None
@@ -445,27 +517,31 @@ def ck_simple_step(
             pack_flags,
         )
 
-        cols, aspec = kernel_asm
+        cols, aspec, box = _unpack_kernel_asm(kernel_asm)
         flags = pack_flags(ck.interior, ck.mask)
         bcv = bc_value_table(zone_scalar, zone_vector)
         if _needs_grad_p(settings) and not aspec.gg:
-            grad_p = gp_fn(mesh, ck, bc, p)
-        grad_v = gv_fn(mesh, ck, bc, vel) if need_gv else None
+            grad_p = comm.refresh(gp_fn(mesh, ck, bc, p))
+        grad_v = comm.refresh(gv_fn(mesh, ck, bc, vel)) if need_gv else None
         mdiag, moff, b3 = momentum_assembly(
             vel, p, bcv, flags, cols, rho, mu, settings.momentum_relaxation,
-            grad_p=grad_p, mom_diag=state.mom_diag[0], grad_vel=grad_v,
-            inertia=inertia, spec=aspec,
+            grad_p=grad_p, mom_diag=mom_diag[0], grad_vel=grad_v,
+            inertia=inertia, spec=aspec, box=box,
         )
         b3 = _add_momentum_source(mesh, settings, b3, active)
         A3 = mesh_matrix(mesh, mdiag, moff)
         pe = _kernel_peclet(settings, mdiag, diff_diag, active, inertia)
     else:
-        md_c = state.mom_diag.T  # cell-major [C,3] view
+        md_c = mom_diag.T  # cell-major [C,3] view
         vel_nbr = nbr_values(mesh, vel, ck.interior)
         if _needs_grad_p(settings):
-            grad_p = gp_fn(mesh, ck, bc, p)
+            grad_p = comm.refresh(gp_fn(mesh, ck, bc, p))
             grad_p_nbr = nbr_values(mesh, grad_p, ck.interior)
-        grad_v = gv_fn(mesh, ck, bc, vel, vel_nbr=vel_nbr) if need_gv else None
+        grad_v = (
+            comm.refresh(gv_fn(mesh, ck, bc, vel, vel_nbr=vel_nbr))
+            if need_gv
+            else None
+        )
         mom_diag_nbr = nbr_values(mesh, md_c, ck.interior)
         flux = ck_flux(
             mesh, ck, bc, vel, settings.velocity_interpolation,
@@ -484,15 +560,15 @@ def ck_simple_step(
         )
 
     new_vel, new_mom_diag, info = _solve_momentum(
-        A3, b3, vel, active, settings, solver_extras
+        A3, b3, vel, active, settings, solver_extras, comm
     )
 
     if kernel_asm is not None:
         from orc_tpu_torch.ops.fused_assembly import pc_assembly
 
         pdiag, poff, b_p = pc_assembly(
-            new_vel, A3.diag, bcv, flags, cols, rho, p=p, grad_p=grad_p,
-            spec=aspec,
+            new_vel, new_mom_diag[0], bcv, flags, cols, rho, p=p,
+            grad_p=grad_p, spec=aspec, box=box,
         )
         Pmat = mesh_matrix(mesh, pdiag, poff)
     else:
@@ -509,15 +585,21 @@ def ck_simple_step(
             mesh, ck, bc, rho, F2, new_md_c, mom_diag_nbr=new_md_nbr
         )
     p_prime, p_info = _solve_p_prime(
-        Pmat, b_p, p, settings, active, maybe_singular,
-        solver_extras=solver_extras,
+        Pmat, b_p, p, settings, active, comm, solver_extras, maybe_singular
     )
     vel3, p_new, (p_corr_sq, vel_corr_sq) = ck_apply_correction(
         mesh, ck, bc, settings, p_prime, new_mom_diag.T, new_vel, p
     )
-
-    metrics = _step_metrics(active, vel3, pe, p_corr_sq, vel_corr_sq, info, p_info)
+    metrics = _step_metrics(
+        active, vel3, pe, p_corr_sq, vel_corr_sq, info, p_info, comm
+    )
     return FlowState(vel=vel3, p=p_new, mom_diag=new_mom_diag), metrics
+
+
+def _unpack_kernel_asm(kernel_asm):
+    """(cols, AsmSpec, box or None) of a step's `kernel_asm`."""
+    cols, aspec, *rest = kernel_asm
+    return cols, aspec, rest[0] if rest else None
 
 
 def _run_chunk(step, state, settings, n_steps):
@@ -554,7 +636,9 @@ def _on_cuda(mesh) -> bool:
     return mesh.cell_volume.is_cuda
 
 
-def _kernel_asm_spec(mesh, table, settings, ck, fc=False):
+def _kernel_asm_spec(
+    mesh, table, settings, ck, fc=False, transient=False, sharded=False
+):
     """Static (cols, AsmSpec) for the fused assembly kernels when the
     configuration is eligible, else None: orc_tpu's `_pallas_asm_spec`
     with "on CPU" read as "mesh not on CUDA" and the float32 condition
@@ -564,6 +648,10 @@ def _kernel_asm_spec(mesh, table, settings, ck, fc=False):
     relaxation, on uniform boxes (`column_specs`), steady or transient
     (the kernels take the inertia term, so orc_tpu's `transient` flag
     selects nothing here).
+    - `sharded`: a slab partition's ghost layer is one plane deep, too
+      shallow for the in-kernel gradient's two hops, so sharded runs keep
+      `gg` off and stream the refreshed grad p, as orc_tpu's gate does.
+      The sharded solvers pass the global mesh here.
 
     - A CUDA kernel takes no Python callable, so the TVD limiter travels
       as a code: only tvd_lud, tvd_quick and tvd_umist are eligible; any
@@ -608,6 +696,7 @@ def _kernel_asm_spec(mesh, table, settings, ck, fc=False):
     gg = (
         (rc or p_so)
         and not fc
+        and not sharded
         and settings.gradient_reconstruction
         == GradientReconstruction.GREEN_GAUSS_CELL
     )
@@ -737,9 +826,8 @@ def solve_steady(
 
         def step(s):
             return ck_step(
-                mesh, ck, zc, zs, zv, settings, rho, mu, ck_diff, s,
+                mesh, ck, zc, zs, zv, settings, rho, mu, ck_diff, s, extras,
                 kernel_asm=kernel_asm, maybe_singular=maybe_singular,
-                solver_extras=extras,
             )
 
     history = []

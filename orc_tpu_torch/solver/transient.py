@@ -1,5 +1,5 @@
 """Transient (unsteady) solver: implicit-Euler SIMPLE time marching
-(port of the single-device half of orc_tpu/solver/transient.py).
+(port of orc_tpu/solver/transient.py).
 
 Each physical time step adds the first-order implicit unsteady term
 rho V/dt (phi - phi^n) to the momentum systems and runs
@@ -18,9 +18,8 @@ The steps run as orc_tpu's scan runs them: the state each one returns
 is the next one's input, with no Kahan-compensated accumulation (which
 `solve_steady` applies to float32 runs). The metrics stay on the device
 and are stacked once, and divergence is checked once, after the last
-step.
-
-Not ported: `solve_transient_sharded` (ROADMAP Queue 1, item 14).
+step. `solve_transient_sharded` is orc_tpu_torch/parallel/sharded.py's,
+re-exported here.
 """
 
 from __future__ import annotations
@@ -83,8 +82,7 @@ def solve_transient(
     iteration). SIMPLE or SIMPLE_FC as settings.resolved_coupling()
     says; `use_ck` as in solve_steady (only the (c,k) step is ported).
     `report_interval` keeps orc_tpu's signature: the single-device march
-    ignores it, as orc_tpu's does (its sharded driver, not ported, reads
-    it)."""
+    ignores it, as orc_tpu's does (its sharded march reads it)."""
     table.validate_supported()
     use_fc = settings.resolved_coupling() == PressureVelocityCoupling.SIMPLE_FC
     maybe_singular = (
@@ -120,9 +118,9 @@ def solve_transient(
 
         def step(s, inertia):
             return step_fn(
-                mesh, ck, zc, zs, zv, settings, rho, mu, ck_diff, s,
-                kernel_asm=kernel_asm, maybe_singular=maybe_singular,
-                inertia=inertia, solver_extras=extras,
+                mesh, ck, zc, zs, zv, settings, rho, mu, ck_diff, s, extras,
+                inertia=inertia, kernel_asm=kernel_asm,
+                maybe_singular=maybe_singular,
             )
     else:
         if use_fc and state.flux is None:
@@ -181,3 +179,14 @@ def courant_numbers(mesh: CompiledMesh, table: BoundaryTable, vel, dt):
         torch.amin(torch.where(active, co, inf)),
         torch.amax(torch.where(active, co, -inf)),
     )
+
+
+def solve_transient_sharded(*args, **kw):
+    """Multi-partition implicit-Euler marching: see
+    parallel/sharded.solve_transient_sharded (re-exported here so the
+    transient surface parallels solve_steady / solve_steady_sharded)."""
+    from orc_tpu_torch.parallel.sharded import (
+        solve_transient_sharded as _impl,
+    )
+
+    return _impl(*args, **kw)

@@ -1,5 +1,5 @@
-"""Standard k-epsilon RANS with equilibrium wall functions, single device
-(port of orc_tpu/solver/turbulence.py).
+"""Standard k-epsilon RANS with equilibrium wall functions (port of
+orc_tpu/solver/turbulence.py).
 
 Each outer iteration (`rans_outer_step`) runs one SIMPLE or SIMPLE_FC
 (c,k) step with the effective viscosity mu + mu_t on interior faces and
@@ -26,8 +26,9 @@ system: the Galerkin values come from each solve's own matrix).
 
 `solve_steady_turbulent` drives the step in a Python loop in chunks of
 `reporting_interval` iterations and reads the metrics back once per
-chunk. Not ported: `solve_steady_turbulent_sharded` (ROADMAP Queue 1,
-item 14).
+chunk; `solve_steady_turbulent_sharded` runs the same outer step on each
+partition of a sharded run (orc_tpu_torch/parallel), the steps taking
+orc_tpu's communication context `comm`.
 """
 
 from __future__ import annotations
@@ -58,6 +59,7 @@ from orc_tpu_torch.ops.fields import (
 from orc_tpu_torch.solver.krylov import iterative_solve
 from orc_tpu_torch.solver.simple import (
     FlowState,
+    NullComm,
     StepMetrics,
     _metric_names,
     _solver_extras,
@@ -65,6 +67,7 @@ from orc_tpu_torch.solver.simple import (
     initial_state,
 )
 from orc_tpu_torch.utils.settings import (
+    GradientReconstruction,
     NumericalSettings,
     PressureVelocityCoupling,
     SolutionMethod,
@@ -165,11 +168,14 @@ def ck_scalar_system(mesh, ck, bc, F, gamma_ck, diag_src, b_src, inlet_value):
 
 def turbulence_step(
     mesh, ck, bc, settings: NumericalSettings, rho, mu, flow: FlowState,
-    turb: TurbState, k_in, eps_in, relax=0.7, solver_extras=None,
+    turb: TurbState, k_in, eps_in, relax=0.7, comm=None, solver_extras=None,
 ):
     """One k/epsilon update of the flow field `flow`: returns (TurbState,
-    the wall viscosity [C])."""
-    vel = flow.vel
+    the wall viscosity [C]). On a partition of a sharded run `comm`
+    refreshes the halo slots of the velocity and of k, eps and mu_t
+    before their neighbour reads, and completes the solves' reductions."""
+    comm = comm or NullComm()
+    vel = comm.refresh(flow.vel)
     zero = torch.zeros((), dtype=vel.dtype, device=vel.device)
     one = torch.ones((), dtype=vel.dtype, device=vel.device)
     vel_nbr = nbr_values(mesh, vel, ck.interior)
@@ -182,9 +188,9 @@ def turbulence_step(
     vol = mesh.cell_volume
     has_wall, y_p = _wall_adjacent(ck, bc)
 
-    k = torch.clamp(turb.k, min=FLOOR)
-    eps = torch.clamp(turb.eps, min=FLOOR)
-    mu_t = turb.mu_t
+    k = torch.clamp(comm.refresh(turb.k), min=FLOOR)
+    eps = torch.clamp(comm.refresh(turb.eps), min=FLOOR)
+    mu_t = comm.refresh(turb.mu_t)
     mu_t_f = mu + 0.5 * (mu_t[:, None] + nbr_values(mesh, mu_t, ck.interior))
 
     # Production: mu_t S^2 inside; wall-adjacent cells the equilibrium
@@ -207,7 +213,8 @@ def turbulence_step(
         p_k * vol, k_in,
     )
     k_sol, _ = iterative_solve(
-        A_k, b_k, torch.where(active, k, zero), solver, **extras
+        A_k, b_k, torch.where(active, k, zero), solver,
+        axis_sum=comm.axis_sum, refresh=comm.refresh, **extras,
     )
     k_new = torch.clamp(k + relax * (k_sol - k), min=FLOOR)
 
@@ -223,7 +230,8 @@ def turbulence_step(
     )
     b_e = torch.where(has_wall, eps_wall, b_e)
     e_sol, _ = iterative_solve(
-        A_e, b_e, torch.where(active, eps, zero), solver, **extras
+        A_e, b_e, torch.where(active, eps, zero), solver,
+        axis_sum=comm.axis_sum, refresh=comm.refresh, **extras,
     )
     eps_new = torch.clamp(eps + relax * (e_sol - eps), min=FLOOR)
 
@@ -233,19 +241,22 @@ def turbulence_step(
 
 def rans_outer_step(
     mesh, ckg, bc0, zc, zs, zv, settings, rho, mu, k_in, eps_in, has_wall,
-    y_p, is_wall_face, carry, solver_extras=None,
+    y_p, is_wall_face, carry, comm=None, solver_extras=None,
 ):
     """One RANS outer iteration on carry = (FlowState, TurbState): a
     SIMPLE (or SIMPLE_FC) step with mu_eff = mu + mu_t (the log-law wall
     viscosity on wall faces), then one k/eps update. Returns (carry,
-    StepMetrics)."""
+    StepMetrics). Shared by the single-device and sharded loops (the
+    `comm` hooks)."""
+    comm = comm or NullComm()
     flow, tb = carry
-    mu_t_f = 0.5 * (tb.mu_t[:, None] + nbr_values(mesh, tb.mu_t, ckg.interior))
+    mu_t = comm.refresh(tb.mu_t)
+    mu_t_f = 0.5 * (mu_t[:, None] + nbr_values(mesh, mu_t, ckg.interior))
     mu_w = wall_viscosity(tb.k, y_p, has_wall, rho, mu)
     gamma = torch.where(
         ckg.interior,
         mu + mu_t_f,
-        torch.where(is_wall_face, mu_w[:, None], mu + tb.mu_t[:, None]),
+        torch.where(is_wall_face, mu_w[:, None], mu + mu_t[:, None]),
     )
     ck_diff = ck_diffusion(mesh, ckg, bc0, gamma)
     # RANS runs have wall zones, so the parity p' system is anchored; the
@@ -256,16 +267,16 @@ def rans_outer_step(
 
         flow2, metrics = ck_simple_step_fc(
             mesh, ckg, zc, zs, zv, settings, rho, mu, ck_diff, flow,
-            kernel_asm=None, maybe_singular=True, solver_extras=solver_extras,
+            solver_extras, comm=comm, maybe_singular=True,
         )
     else:
         flow2, metrics = ck_simple_step(
             mesh, ckg, zc, zs, zv, settings, rho, mu, ck_diff, flow,
-            kernel_asm=None, maybe_singular=False, solver_extras=solver_extras,
+            solver_extras, comm=comm, maybe_singular=False,
         )
     tb2, _ = turbulence_step(
         mesh, ckg, bc0, settings, rho, mu, flow2, tb, k_in, eps_in,
-        solver_extras=solver_extras,
+        comm=comm, solver_extras=solver_extras,
     )
     return (flow2, tb2), metrics
 
@@ -356,8 +367,143 @@ def solve_steady_turbulent(
     return flow, tb, history
 
 
-def solve_steady_turbulent_sharded(*args, **kwargs):
-    raise NotImplementedError(
-        "sharded RANS waits for the port's sharded runtime (ROADMAP Queue 1, "
-        "item 14)"
+def solve_steady_turbulent_sharded(
+    mesh,
+    table,
+    settings: NumericalSettings,
+    rho: float,
+    mu: float,
+    u_ref: float,
+    iterations: int = 500,
+    reporting_interval: int = 100,
+    intensity: float = 0.05,
+    length_scale: float = 0.1,
+    state: Optional[FlowState] = None,
+    turb: Optional[TurbState] = None,
+    n_devices: Optional[int] = None,
+    partition_method: str = "auto",
+    verbose: bool = True,
+    check_divergence: bool = True,
+    devices=None,
+):
+    """Multi-partition RANS: the outer step of solve_steady_turbulent on
+    each partition (parallel/sharded.py: one thread per partition,
+    partitions placed as solve_steady_sharded places them), with the (c,k)
+    geometry per partition, a halo refresh before every neighbour read
+    (the flow and k, eps, mu_t) and completed reductions in all four
+    solves. Returns the global (FlowState, TurbState, history)."""
+    from orc_tpu_torch.parallel.sharded import (
+        _partition_devices,
+        _refresh_state,
+        gather_tree,
+        make_comms,
+        run_partitions,
+        ShardGroup,
+        scatter_state,
+        scatter_tree,
     )
+    from orc_tpu_torch.parallel.partition import partition_mesh
+    from orc_tpu_torch.solver.simple import CK_AUTO_MAX_CELLS, SolverDivergedError
+
+    table.validate_supported()
+    if settings.matrix_solver.solver_type == SolutionMethod.MULTIGRID:
+        raise NotImplementedError(
+            "sharded RANS does not plumb the multigrid coarse-grid "
+            "ownership data; use BICGSTAB/JACOBI for distributed "
+            "turbulent runs (single-device RANS supports MULTIGRID)"
+        )
+    if settings.gradient_reconstruction == GradientReconstruction.GREEN_GAUSS_NODE:
+        raise ValueError(
+            "the ck-direct RANS step does not implement node-based "
+            "Green-Gauss gradients"
+        )
+    devs = _partition_devices(mesh, n_devices, devices)
+    n = len(devs)
+    partition = partition_mesh(mesh, n, method=partition_method, devices=devs)
+    if partition.local_size > CK_AUTO_MAX_CELLS:
+        raise ValueError(
+            "per-partition size exceeds the ck geometry ceiling "
+            f"({partition.local_size} > {CK_AUTO_MAX_CELLS}); use more "
+            "partitions"
+        )
+    use_fc = settings.resolved_coupling() == PressureVelocityCoupling.SIMPLE_FC
+    n_zones = len(table.zone_ids)
+    if state is None:
+        state = initial_state(mesh)
+    if turb is None:
+        turb = initial_turbulence(mesh, u_ref, intensity, length_scale, rho)
+    k_in = 1.5 * (intensity * abs(u_ref)) ** 2
+    eps_in = C_MU ** 0.75 * k_in ** 1.5 / length_scale
+    # Per-partition (c,k) fluxes are seeded in the partitions' threads:
+    # a global flux's halo rows would be stale after the scatter.
+    flows = scatter_state(partition, state)
+    turbs = scatter_tree(partition, turb)
+    local = list(zip(flows, turbs))
+    zones = device_bc(table, dtype=mesh.dtype, device=mesh.device)
+    group = ShardGroup(n)
+    comms = make_comms(partition, group)
+    statics = []
+    for lmesh in partition.local_meshes:
+        zc, zs, zv = (z.to(lmesh.device) for z in zones)
+        ck = build_ck_geometry(lmesh, n_zones)
+        bc0 = ck_bc(ck, zc, zs, zv)
+        has_wall, y_p = _wall_adjacent(ck, bc0)
+        is_wall_face = (bc0.code == WALL) & ck.mask & ~ck.interior
+        statics.append((lmesh, ck, bc0, zc, zs, zv, has_wall, y_p, is_wall_face))
+
+    def work(rank, carry, n_steps):
+        lmesh, ck, bc0, zc, zs, zv, has_wall, y_p, is_wall_face = statics[rank]
+        comm = comms[rank]
+        if use_fc and carry[0].flux is None:
+            from orc_tpu_torch.solver.fc import ck_initial_flux
+
+            seeded = dataclasses.replace(
+                carry[0],
+                flux=ck_initial_flux(
+                    lmesh, ck, bc0, settings, _refresh_state(comm, carry[0])
+                ),
+            )
+            carry = (seeded, carry[1])
+        chunk = []
+        for _ in range(n_steps):
+            carry, metrics = rans_outer_step(
+                lmesh, ck, bc0, zc, zs, zv, settings, rho, mu, k_in, eps_in,
+                has_wall, y_p, is_wall_face, carry, comm=comm,
+            )
+            chunk.append(metrics)
+        return carry, StepMetrics(
+            **{f: torch.stack([getattr(m, f) for m in chunk]) for f in _metric_names()}
+        )
+
+    reporting_interval = max(1, min(reporting_interval, iterations))
+    history = []
+    done = 0
+    t0 = time.perf_counter()
+    while done < iterations:
+        k_steps = min(reporting_interval, iterations - done)
+        out = run_partitions(
+            partition.devices, lambda r: work(r, local[r], k_steps), group
+        )
+        local = [c for c, _ in out]
+        metrics = out[0][1]
+        done += k_steps
+        history.append(metrics)
+        if verbose:
+            va = metrics.vel_avg[-1].cpu().tolist()
+            dt_ms = (time.perf_counter() - t0) * 1e3 / k_steps
+            t0 = time.perf_counter()
+            print(
+                f"[k-eps x{n}] iter {done}: avg velocity = "
+                f"({va[0]:.2e}, {va[1]:.2e}, {va[2]:.2e})  "
+                f"ms/iter = {dt_ms:.3g}"
+            )
+        if check_divergence and bool(torch.any(metrics.diverged)):
+            raise SolverDivergedError(done)
+    flow, tb = gather_tree(
+        partition,
+        [((f.vel, f.p, f.mom_diag.T), t) for f, t in local],
+        mesh.n_cells,
+        mesh.device,
+    )
+    vel, p, md = flow
+    return FlowState(vel=vel, p=p, mom_diag=md.T.contiguous()), tb, history

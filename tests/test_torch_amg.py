@@ -319,12 +319,11 @@ SIGNATURES = list(_signature_pairs())
 @pytest.mark.parametrize("label,jf,tf", SIGNATURES, ids=[s[0] for s in SIGNATURES])
 def test_signature_matches_orc_tpu(label, jf, tf):
     """Every parameter of orc_tpu's function is the port's, in orc_tpu's
-    order; left out are orc_tpu's sharded hooks (ROADMAP item 14), and
-    the port adds only an explicit device."""
+    order, the sharded hooks (axis_sum, refresh, mg_owned, comm)
+    included; the port adds only an explicit device."""
     import inspect
 
-    sharded = {"axis_sum", "refresh", "mg_owned", "comm"}
-    j = [n for n in inspect.signature(jf).parameters if n not in sharded]
+    j = list(inspect.signature(jf).parameters)
     t = [n for n in inspect.signature(tf).parameters if n != "device"]
     assert j == t, (j, t)
 

@@ -15,7 +15,9 @@
 - `info` prints orc_tpu's lines; `init-case` orc_tpu's text; `plot`
   writes its PNGs (matplotlib on the CPU) and write_analytical_profile
   orc_tpu's text;
-- `--devices 2` raises NotImplementedError naming Queue 1 item 14;
+- `run --devices 2 --device cpu` runs the case over two partitions on
+  the CPU, equal to orc_tpu's `--devices 2` over two of its virtual CPU
+  devices (and to the port's own one-device run) at 1e-8 of scale;
 - bench.build_case is the repository bench.py's case;
 - two subprocesses: `python -m orc_tpu_torch run` without `--device cpu`
   exits non-zero with the no-GPU message (where there is no GPU), and a
@@ -170,10 +172,27 @@ def test_plot_writes_pngs(tmp_path):
 
 
 def test_devices_beyond_one_raise(tmp_path):
-    case = shrunk_case("cavity", tmp_path)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        t_main(["run", str(case), "--devices", "2", "--device", "cpu"])
-    assert not (tmp_path / "cavity.csv").exists()
+    """`--devices 2`, which once raised, runs sharded: beside orc_tpu's
+    CLI over two of its virtual devices, and beside the port's own
+    single-device run (the name is kept from then)."""
+    runs = {}
+    for tag, main, extra in (
+        ("jax", j_main, []),
+        ("torch", t_main, ["--device", "cpu"]),
+        ("one", t_main, ["--device", "cpu", "--devices", "1"]),
+    ):
+        case = shrunk_case("cavity", tmp_path / tag)
+        devices = [] if tag == "one" else ["--devices", "2"]
+        assert main(["run", str(case), *devices, *extra]) == 0
+        runs[tag] = _npz(tmp_path / tag / "checkpoint.npz")
+    ref = runs["jax"]
+    u_scale = float(np.abs(ref["vel"]).max())
+    for tag in ("torch", "one"):
+        _scale_close(runs[tag]["vel"], ref["vel"], TOL, u_scale, f"{tag} vel")
+        _scale_close(
+            runs[tag]["p"], ref["p"], TOL, max(float(np.abs(ref["p"]).max()), u_scale**2),
+            f"{tag} p",
+        )
 
 
 def test_missing_files_exit_2(tmp_path):
@@ -224,6 +243,7 @@ def test_run_imports_no_jax(tmp_path):
     case = shrunk_case("couette_flow", tmp_path)
     code = (
         "import sys\n"
+        "import orc_tpu_torch.parallel\n"
         "from orc_tpu_torch.cli import main\n"
         f"rc = main(['run', {str(case)!r}, '--vtk', 'x.vtk', '--history', 'h.npz', '--device', 'cpu'])\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'orc_tpu.')) or m == 'orc_tpu')\n"

@@ -57,7 +57,13 @@ source does not spell out. What that checks:
   inertia term, and the pressure-correction assembly in its three
   instances (Linear, Rhie-Chow with the in-kernel or a streamed
   gradient), on the same boxes, against the plain versions (1e-5 /
-  1e-12 of each output's largest value).
+  1e-12 of each output's largest value);
+- the three tiled assembly kernels on every window of a slab partition
+  (parallel/partition.py: the global box cut to the planes that hold
+  the window's rows, from its first row's place in its plane; ghost,
+  padding and trash rows inactive), whole planes or not, in the sharded
+  instances (streamed gradient) and the in-kernel gradient ones,
+  against the plain versions on every row of the window.
 
 Skips where g++ is missing. The card's own checks are in
 tests/test_torch_gpu.py and chip_smoke.py.
@@ -863,3 +869,83 @@ def test_box_dims_tiles_axes_of_extent_one_last(shape):
     bad = (asm.ColumnSpec(5, 1.0, (1.0, 0.0, 0.0), 0.5, 1.0, "wall", 0),) + cols[1:]
     with pytest.raises(ValueError):
         asm.box_dims(bad, mesh.n_cells + 1)
+
+
+@pytest.mark.parametrize("ragged", [False, True], ids=["planes", "ragged"])
+@pytest.mark.parametrize("n_parts", [2, 3])
+@pytest.mark.parametrize("box", ["37x9_pressure", "17x5x3_pressure"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_rehearsed_slab_windows_match_plain(mock, dtype, box, n_parts, ragged):
+    """The window of each slab partition: rows 3, 4 and 5 given the box
+    parallel/sharded.slab_kernel_box computes against their plain
+    versions on every row of the window (the trash row included), halo
+    values refreshed (here: any values) and the ghost and padding rows
+    inactive. With `ragged`, the mesh has one plane more, so the owned
+    ranges start and end inside planes (row0 > 0)."""
+    from orc_tpu_torch.parallel.partition import partition_mesh
+    from orc_tpu_torch.parallel.sharded import slab_kernel_box
+
+    nx, ny, nz, _ = BOXES[box]
+    shape = (
+        (nx, ny * n_parts + ragged, nz) if nz == 1 else (nx, ny, nz * n_parts + ragged)
+    )
+    mesh, table = couette_case(
+        *shape, params=ChannelFlowParameters(top_wall_velocity=5e-4, dp_dx=5.0),
+        dtype=dtype, device="cpu",
+    )
+    cols = asm.column_specs(mesh, table)
+    part = partition_mesh(mesh, n_parts, method="slab")
+    windows = slab_kernel_box(mesh, part, cols)
+    assert len(windows) == n_parts
+    assert any(w[3] for w in windows) == ragged
+    zc, zs, zv = device_bc(table, dtype=dtype, device="cpu")
+    bcv = asm.bc_value_table(zs, zv)
+    rng = np.random.default_rng(5)
+    vol = float(mesh.cell_volume[0])
+    for lmesh, window in zip(part.local_meshes, windows):
+        L = lmesh.n_cells
+        ck = build_ck_geometry(lmesh, len(table.zone_ids))
+        bc = ck_bc(ck, zc, zs, zv)
+        flags = asm.pack_flags(ck.interior, ck.mask)
+        vel = torch.tensor(rng.standard_normal((L, 3)) * 0.1, dtype=dtype)
+        p = torch.tensor(rng.standard_normal(L) * 0.05, dtype=dtype)
+        md = torch.tensor(rng.uniform(0.5, 2.0, L), dtype=dtype)
+        flux = torch.tensor(rng.standard_normal((len(cols), L)) * 0.1, dtype=dtype).T
+        grad_p = ck_pressure_gradient(lmesh, ck, bc, p)
+        grad_v = ck_velocity_gradient(lmesh, ck, bc, vel)
+        # A row with an interior face onto a ghost row reads that row's
+        # gradient, which the in-kernel instances form from the ghost's
+        # own (inactive) flags where the plain version has zero: orc_tpu's
+        # gate turns the in-kernel gradient off under sharding for that
+        # reason. Those instances are held on the other rows.
+        nbr = (torch.arange(L)[:, None] + torch.tensor([c.offset for c in cols])).clamp(0, L - 1)
+        keep = ~(ck.interior & ~ck.mask.any(dim=1)[nbr]).any(dim=1)
+
+        def rows(out, gg):
+            return out if not gg else (out[0][keep], out[1][keep], out[2][..., keep])
+
+        for scheme, psi, gg in (
+            ("cd1", None, False), ("tvd_dc", tset.tvd_umist, False), ("cd1", None, True)
+        ):
+            spec = asm.AsmSpec(scheme=scheme, rc=True, p_so=True, psi=psi, vol=vol, gg=gg)
+            margs = (vel, p, bcv, flags, cols, 1.0, 1e-3, 0.7)
+            kw = dict(grad_p=None if gg else grad_p, mom_diag=md, grad_vel=grad_v,
+                      inertia=None, spec=spec)
+            got = asm._launch_momentum(*margs, *kw.values(), window)
+            ref = asm.momentum_assembly_plain(*margs, **kw)
+            _assert_close(rows(got, gg), rows(ref, gg), dtype, "momentum")
+            if gg:
+                continue
+            fargs = (vel, p, flux, bcv, flags, cols, 1.0, 1e-3, 0.7)
+            fkw = dict(grad_p=grad_p, grad_vel=grad_v, inertia=None,
+                       spec=spec._replace(rc=False))
+            got = asm._launch_fc_momentum(*fargs, *fkw.values(), window)
+            _assert_close(got, asm.fc_momentum_assembly_plain(*fargs, **fkw), dtype, "fc")
+        for rc, gg in ((False, False), (True, True), (True, False)):
+            spec = asm.AsmSpec(rc=rc, vol=vol, gg=gg)
+            pargs = (vel, md, bcv, flags, cols, 1.0, p if rc else None,
+                     grad_p if rc and not gg else None, spec)
+            got = asm._launch_pc(*pargs, window)
+            ref = asm.pc_assembly_plain(*pargs[:-1], spec=spec)
+            _assert_close(rows(got, gg), rows(ref, gg), dtype, "pc")
+        assert float(got[0][-1]) == 1.0 and not got[1][-1].any() and float(got[2][-1]) == 0.0

@@ -242,12 +242,15 @@ def test_kernel_gate_is_off_on_cpu():
 
 
 def test_port_runs_without_jax():
-    """Importing and running the port loads no jax module."""
+    """Importing and running the port, its sharded runtime included,
+    loads no jax module."""
     code = (
         "import sys\n"
         "import orc_tpu_torch\n"
+        "import orc_tpu_torch.parallel\n"
         "from orc_tpu_torch.models.cavity import solve_cavity\n"
         "solve_cavity(n=8, iterations=2, verbose=False, device='cpu')\n"
+        "solve_cavity(n=8, iterations=2, n_devices=2, verbose=False, device='cpu')\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'orc_tpu.')))\n"
         "assert not bad, bad\n"
         "print('ok')\n"

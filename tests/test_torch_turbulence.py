@@ -25,8 +25,8 @@ tests/test_turbulence.py.
   packages have the parameter, and a call by keyword (ckg=...) equal to
   solve_steady_turbulent's first iteration.
 - Gauss-Seidel solves and MULTIGRID on an irregular mesh (the algebraic
-  hierarchy) track orc_tpu; the sharded loop raises, naming its ROADMAP
-  item.
+  hierarchy) track orc_tpu, and the sharded loop runs, equal to the
+  single-device one.
 """
 
 import importlib.util
@@ -327,12 +327,12 @@ def test_re_tau_fc_reference_profile():
 
 def test_rans_outer_step_signature_matches_orc_tpu():
     """The parameters both packages' rans_outer_step take have orc_tpu's
-    names, in orc_tpu's order, `solver_extras` included. Left out:
-    orc_tpu's sharded hook `comm` (item 14)."""
+    names, in orc_tpu's order, `solver_extras` and the sharded hook
+    `comm` included."""
     j = list(inspect.signature(jt.rans_outer_step).parameters)
     t = list(inspect.signature(tt.rans_outer_step).parameters)
-    assert [n for n in j if n != "comm"] == t
-    assert t[1] == "ckg"
+    assert j == t
+    assert t[1] == "ckg" and "comm" in t
 
 
 def test_rans_outer_step_takes_its_arguments_by_keyword():
@@ -386,7 +386,8 @@ def test_unported_paths_raise():
     iterations: Gauss-Seidel solves on the 6x4 channel (explicit
     relaxation, so the momentum and k/eps solves take the colouring
     too) and MULTIGRID on the permuted cavity (the algebraic
-    hierarchy). The sharded loop still raises (item 14)."""
+    hierarchy). The sharded loop, which this test once held to raise,
+    runs the 6x4 channel over 2 partitions equal to one device."""
     gs = SETTINGS.replace(
         matrix_solver=tset.MatrixSolverSettings(
             solver_type=tset.SolutionMethod.GAUSS_SEIDEL
@@ -399,5 +400,10 @@ def test_unported_paths_raise():
     jcase, tcase = both("permuted")
     _rans_both(jcase, tcase, mg, 3)
     mesh, table = channel("torch", 6, 4)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        tt.solve_steady_turbulent_sharded(mesh, table, SETTINGS, 1.0, 1e-5, u_ref=1.0)
+    kw = dict(iterations=2, reporting_interval=2, **CHANNEL_KW)
+    f1, t1, _ = solve_steady_turbulent(mesh, table, SETTINGS, 1.0, 1e-5, **kw)
+    f2, t2, _ = tt.solve_steady_turbulent_sharded(
+        mesh, table, SETTINGS, 1.0, 1e-5, n_devices=2, **kw
+    )
+    for a, b in ((f2.vel, f1.vel), (f2.p, f1.p), (t2.k, t1.k), (t2.mu_t, t1.mu_t)):
+        np.testing.assert_allclose(np_(a), np_(b), rtol=1e-8, atol=1e-12)
