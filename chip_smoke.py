@@ -44,6 +44,9 @@ Phases (any failure raises and the script exits non-zero):
    SpMV on the coarse plans of the algebraic multigrid hierarchy of the
    permuted 448^2 f32 cavity (levels whose 128-row plan would be
    degenerate gather instead, as in orc_tpu; each level's form printed);
+   and the shift SpMV on `bench`'s extended line-1 system (the 1024^2
+   box's [C,K] form, six offsets, two of them 0), whose card time phase
+   23e holds the line to;
 3b. the SIMPLE and SIMPLE_FC slices on the card against the same slices
    on the CPU on a 16^2 float64 cavity (the parity one with
    solve_cavity's and with the reference's default numerics), and the FC
@@ -176,7 +179,13 @@ Phases (any failure raises and the script exits non-zero):
    the solver's median ms/iter over the CLI's chunks of 10 at most 10%
    above the same solve_steady in this process (run before and after
    it, the slower median), the seconds of the CLI's
-   save_checkpoint, a profile window; (e) the `bench` subcommand at BENCH_ITERS=50, its JSON line;
+   save_checkpoint, a profile window; (e) the `bench` subcommand at
+   BENCH_ITERS=50 with the extended lines at BENCH_EXT_N=1024: the seven
+   lines in orc_tpu's order, finite and positive, the headline last, no
+   "extended metrics failed" on stderr; line 1's time per step within
+   20% of phase 3's card time of the same shift SpMV instance, and
+   lines 3 and 4's no lower than the sum of phase 3's card times of the
+   momentum and p' kernels of the same instances;
    (f) `run --device cuda` against `run --device cpu` on a 16^2
    cavity.toml and on the relabelled 16^2 TGRID cavity, checkpoints
    within 1e-9 of scale with equal inner counts;
@@ -293,25 +302,6 @@ def time_ms(fn, reps=5, inner=10):
     return float(np.median(times))
 
 
-_SLEEP_CYCLES_PER_MS = []
-
-
-def _sleep_cycles_per_ms():
-    """Clock cycles of torch.cuda._sleep per millisecond, measured once
-    with CUDA events (it only sizes the sleep of card_ms)."""
-    if not _SLEEP_CYCLES_PER_MS:
-        cycles = 20_000_000
-        torch.cuda._sleep(1000)
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        torch.cuda._sleep(cycles)
-        end.record()
-        torch.cuda.synchronize()
-        _SLEEP_CYCLES_PER_MS.append(cycles / start.elapsed_time(end))
-    return _SLEEP_CYCLES_PER_MS[0]
-
-
 def card_ms(fn, event_ms, tries=3):
     """Card time per call: calls of fn queued behind a sleeping kernel,
     so that the card runs them back to back whatever the host's dispatch
@@ -322,6 +312,8 @@ def card_ms(fn, event_ms, tries=3):
     within half the sleep (fn synchronizes, or fills the launch queue),
     the sleep grows fourfold and the window is taken again; after
     `tries` windows the time stands, marked host-limited in the log."""
+    from orc_tpu_torch.utils.profiling import sleep_cycles_per_ms
+
     calls = max(2, min(20, round(2.0 / event_ms)))
     sleep_ms = 1.0 + 2.0 * event_ms * calls
     fn()
@@ -330,7 +322,7 @@ def card_ms(fn, event_ms, tries=3):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         t0 = time.perf_counter()
-        torch.cuda._sleep(int(sleep_ms * _sleep_cycles_per_ms()))
+        torch.cuda._sleep(int(sleep_ms * sleep_cycles_per_ms()))
         start.record()
         for _ in range(calls):
             fn()
@@ -372,6 +364,7 @@ class Kernel:
         self.max_abs_err = 0.0
         self.ms = self.plain_ms = self.bound_ms = self.library_ms = None
         self.bound_by = "bytes"
+        self.card = {}  # label -> the kernel's card ms of that comparison
 
     def compare(self, label, kernel_call, plain_call, dtype, nbytes, timed,
                 outputs=("y",), nops=0, library_call=None, exact=False):
@@ -380,7 +373,8 @@ class Kernel:
         then time both and, when given, the one PyTorch call computing
         the same function: per call with CUDA events (host dispatch
         included) and on the card alone (card_ms). The summary keeps
-        the card times of the `timed` comparison. The bound is the
+        the card times of the `timed` comparison; `card[label]` keeps
+        the kernel's card time of every comparison. The bound is the
         larger of `nbytes` over the HBM rate and `nops` over the peak
         rate of the dtype."""
         got, ref = kernel_call(), plain_call()
@@ -397,6 +391,7 @@ class Kernel:
         lib = "" if lib_ms is None else f"  library {lib_ms:.4f} ms"
         c_ms, c_plain = card_ms(kernel_call, ms), card_ms(plain_call, plain_ms)
         c_lib = None if library_call is None else card_ms(library_call, lib_ms)
+        self.card[label] = c_ms
         if timed:
             self.ms, self.plain_ms, self.library_ms = c_ms, c_plain, c_lib
             self.bound_ms = bound_ms
@@ -562,6 +557,9 @@ INERTIA_READS = 4
 
 
 def phase_kernels(dev, kernels, mom_t, march):
+    """Phase 3 (the kernels' comparisons at main-path shapes). Returns
+    the (C, K) of the instances phase 23e holds bench's lines 1, 3 and 4
+    to: {"spmv": line 1's box, "fused": the 1024^2 cavity}."""
     log("== phase 3: kernels against their plain versions, main-path shapes")
     from orc_tpu_torch.models.cavity import cavity_case, default_settings
     from orc_tpu_torch.ops import fused_assembly as asm
@@ -647,6 +645,22 @@ def phase_kernels(dev, kernels, mom_t, march):
             timed=B == 1, nops=2 * B * C * (1 + len(P.off)),
             library_call=shift_csr_call(P.diag, P.off, P.offsets, x),
         )
+    # bench's extended line 1 (bench.spmv_case): the [C,K] form over the
+    # box's six offsets, two of them 0; phase 23e holds the line to it.
+    from orc_tpu_torch import bench
+
+    box, _, bdiag, boff, bx = bench.spmv_case(1024, dev, np.random.default_rng(0))
+    boffsets = box.neighbor_offsets
+    Cb, Kb = boff.shape
+    spmv.compare(
+        BENCH_SPMV_LABEL,
+        lambda: shift_spmv(bdiag, boff, boffsets, bx),
+        lambda: shift_spmv_plain(bdiag, boff, boffsets, bx),
+        torch.float32, bench.spmv_bytes(Cb, Kb), timed=False,
+        nops=2 * Cb * (1 + Kb),
+    )
+    bench_shapes = dict(spmv=(Cb, Kb), fused=(C, K))
+    del box, bdiag, boff, bx
     couette_offsets = (-128, -1, 1, 128)
     for B in (1, 3):
         diag, off, x = structured_system(128 * 64, couette_offsets, B, torch.float64, dev)
@@ -717,6 +731,7 @@ def phase_kernels(dev, kernels, mom_t, march):
         timed=False, outputs=("x",),
     )
     del diag, off, x, b48, args48
+    return bench_shapes
 
 
 def check_bitwise(label, got, per_sweep):
@@ -2005,7 +2020,9 @@ def _bench_df32_system(dev, C=200_704, K=4, band=450):
     rng = np.random.default_rng(0)
     nbrs = np.clip(np.arange(C)[:, None] + rng.integers(-band, band, (C, K)), 0, C - 1)
     valid = nbrs != np.arange(C)[:, None]
-    plan = build_best_slice_plan(nbrs, valid, device=dev)
+    # With the gather table, as a mesh's plan: the kernels line counts
+    # launches on a plan without it as kernel 7 on a coarse level.
+    plan = build_best_slice_plan(nbrs, valid, build_col_tile=True, device=dev)
     off = rng.standard_normal((C, K)) * valid * 0.2
     diag = np.abs(off).sum(1) + rng.uniform(1.0, 2.0, C)
     x_true = rng.standard_normal(C)
@@ -3926,17 +3943,18 @@ def _inprocess_chunks(mesh, table, case, state, iterations, chunk):
     return chunk_ms(buf.getvalue())
 
 
-def phase_cli_1m(dev, kernels, examples_dir, twin_ms, n=1024, chunk=10):
+def phase_cli_1m(dev, kernels, examples_dir, twin_ms, n=1024, chunk=10, iterations=50):
     """23d: cavity.toml's numerics at n^2 = 1024^2 (float64: case files have no
-    dtype key) through `run`: 10 iterations to warm up, then 50 timed in
-    chunks of `chunk`, each run with --history and a checkpoint only (the
-    timed run resumes from the warm-up's). The median of the solver's own
-    ms/iter over the CLI's chunks against the same solve_steady called in
-    this process from the same warm state for three chunks, once before
-    and once after the CLI's run (the host's speed wanders within
-    seconds): at most
-    CLI_OVERHEAD_TOL above the slower of the two. The seconds of the CLI's
-    own save_checkpoint; a profile window."""
+    dtype key) through `run`: 10 iterations to warm up, then `iterations`
+    timed in chunks of `chunk`, each run with --history and a checkpoint
+    only (every timed run resumes from the warm-up's). The solve is bound
+    by the host, whose speed wanders by a third within seconds, so the CLI
+    and the same solve_steady called in this process from the same warm
+    state take turns, each as many iterations: in process, CLI, in
+    process, CLI, in process. The median of the solver's own ms/iter over
+    the CLI's chunks against the median over the in-process chunks: at
+    most CLI_OVERHEAD_TOL above it. The seconds of the CLI's own
+    save_checkpoint; the launches of the first CLI run; a profile window."""
     from orc_tpu_torch.io.checkpoint import load_checkpoint
     from orc_tpu_torch.utils.config import build_problem, load_case
 
@@ -3944,7 +3962,7 @@ def phase_cli_1m(dev, kernels, examples_dir, twin_ms, n=1024, chunk=10):
     text = (examples_dir / "cavity.toml").read_text()
     warm, timed = out / "warm.toml", out / "timed.toml"
     warm.write_text(case_copy(text, out, iterations=10, dims=(n, n, 1), data=False))
-    timed.write_text(case_copy(text, out, iterations=50, dims=(n, n, 1), data=False,
+    timed.write_text(case_copy(text, out, iterations=iterations, dims=(n, n, 1), data=False,
                                reporting=chunk))
     _, warm_s = run_cli(["run", warm, "--history", out / "warm.npz", "--device", dev])
     warm_ckpt = out / "warm_checkpoint.npz"
@@ -3954,56 +3972,147 @@ def phase_cli_1m(dev, kernels, examples_dir, twin_ms, n=1024, chunk=10):
 
     def in_process():
         state, _ = load_checkpoint(str(warm_ckpt), mesh)
-        return _inprocess_chunks(mesh, table, case, state, 3 * chunk, chunk)
+        return _inprocess_chunks(mesh, table, case, state, iterations, chunk)
 
-    before_ms = in_process()
-    before = launch_counts(kernels)
-    with SaveCheckpointTimer() as saves:
-        output, secs = run_cli(["run", timed, "--history", out / "timed.npz", "--device", dev])
-    launched = launched_since(kernels, before)
-    after_ms = in_process()
-    cli_chunks = chunk_ms(output)
+    def cli():
+        # The timed case resumes from checkpoint.npz, which each run rewrites.
+        shutil.copy(warm_ckpt, out / "checkpoint.npz")
+        before = launch_counts(kernels)
+        with SaveCheckpointTimer() as saves:
+            output, secs = run_cli(["run", timed, "--history", out / "timed.npz", "--device", dev])
+        return chunk_ms(output), secs, launched_since(kernels, before), sum(saves.seconds)
+
+    inproc_runs, cli_runs = [in_process()], []
+    for _ in range(2):
+        cli_runs.append(cli())
+        inproc_runs.append(in_process())
+    cli_chunks = [ms for run in cli_runs for ms in run[0]]
+    inproc_chunks = [ms for run in inproc_runs for ms in run]
     cli_ms = float(np.median(cli_chunks))
-    inproc = [float(np.median(before_ms)), float(np.median(after_ms))]
-    save_s = sum(saves.seconds)
+    inproc_ms = float(np.median(inproc_chunks))
+    secs = [run[1] for run in cli_runs]
+    launched = cli_runs[0][2]
+    save_s = cli_runs[0][3]
     with np.load(out / "timed.npz") as z:
         pc_it = float(z["pc_iters"].mean())
     log(
-        f"  cli-1M ({n}^2): warm-up run {warm_s:.2f} s; timed run {secs:.2f} s wall; solver "
-        f"ms/iter by chunk of {chunk}: CLI {cli_chunks} (median {cli_ms:.3f}), in process "
-        f"before {before_ms}, after {after_ms} (medians {inproc[0]:.3f}, {inproc[1]:.3f}); "
-        f"phase 5's f32 Re 1000 cavity {twin_ms:.3f}; mean pressure iterations {pc_it:.2f}; "
-        f"the CLI's save_checkpoint {save_s:.3f} s ({(out / 'checkpoint.npz').stat().st_size / 1e6:.1f} MB); "
-        f"launched {launched} ({sum(launched.values()) / 50:.1f} per iteration)"
+        f"  cli-1M ({n}^2): warm-up run {warm_s:.2f} s; timed runs {secs} s wall; solver "
+        f"ms/iter by chunk of {chunk}, in turns: in process {inproc_runs[0]}, CLI "
+        f"{cli_runs[0][0]}, in process {inproc_runs[1]}, CLI {cli_runs[1][0]}, in process "
+        f"{inproc_runs[2]} (medians: CLI {cli_ms:.3f}, in process {inproc_ms:.3f}, ratio "
+        f"{cli_ms / inproc_ms:.3f}); phase 5's f32 Re 1000 cavity {twin_ms:.3f}; mean "
+        f"pressure iterations {pc_it:.2f}; the CLI's save_checkpoint {save_s:.3f} s "
+        f"({(out / 'checkpoint.npz').stat().st_size / 1e6:.1f} MB); launched {launched} "
+        f"({sum(launched.values()) / iterations:.1f} per iteration)"
     )
     state, _ = load_checkpoint(str(out / "checkpoint.npz"), mesh)
     prof = profile(mesh, table, case.settings, case.rho, case.mu, state, iterations=1)
-    if not cli_ms <= (1 + CLI_OVERHEAD_TOL) * max(inproc):
+    if not cli_ms <= (1 + CLI_OVERHEAD_TOL) * inproc_ms:
         raise AssertionError(
-            f"cli-1M: the CLI's median {cli_ms:.3f} ms/iter exceeds the slower in-process "
-            f"median {max(inproc):.3f} by more than {CLI_OVERHEAD_TOL:.0%}"
+            f"cli-1M: the CLI's median {cli_ms:.3f} ms/iter exceeds the in-process "
+            f"median {inproc_ms:.3f} by more than {CLI_OVERHEAD_TOL:.0%}"
         )
-    return dict(ms_per_iter=cli_ms, inproc_ms_per_iter=inproc, run_s=secs,
+    return dict(ms_per_iter=cli_ms, inproc_ms_per_iter=inproc_ms, run_s=secs,
                 save_checkpoint_s=save_s, launches=launched, **prof)
 
 
-def phase_cli_bench(dev, iters=50):
+#: Phase 3's labels of the instances phase 23e holds `bench`'s extended
+#: lines 1, 3 and 4 to (their (C, K) are what phase_kernels returns).
+BENCH_SPMV_LABEL = "box 1024^2 f32 B=1 [C,K] (bench line 1)"
+BENCH_PAIRS = {
+    3: ("cavity 1024^2 f32", "cavity 1024^2 f32"),
+    4: ("cavity 1024^2 f32 cd1+so+rc gg", "cavity 1024^2 f32 rc gg"),
+}
+#: Line 1's time per step against phase 3's card time of its instance.
+BENCH_SPMV_TOL = 0.2
+
+
+def bench_ext_names(n):
+    """orc_tpu's extended bench line names at n^2 cells, in its order,
+    where the fused-kernel gate gives a spec with the in-kernel gradient
+    (the card)."""
+    return [
+        f"shift SpMV bandwidth, {n}^2 f32",
+        f"flux+momentum+p-corr assembly bandwidth, {n}^2 f32",
+        f"FUSED momentum+p-corr assembly bandwidth, {n}^2 f32 (shipped default)",
+        f"FUSED assembly bandwidth, CD1+SecondOrder+RhieChow "
+        f"(reference-default schemes), {n}^2 f32",
+        f"FUSED assembly CD1+SecondOrder+RhieChow, in-kernel-GG traffic "
+        f"accounting, {n}^2 f32",
+        f"cavity {n}^2 f32 UD BiCGSTAB(50), one chip",
+        f"cavity {n}^2 f32 CD1+SecondOrder+RhieChow (reference-default schemes), one chip",
+    ]
+
+
+def phase_cli_bench(dev, kernels, shapes, iters=50, n_ext=1024):
     """23e: the `bench` subcommand (orc_tpu_torch/bench.py) at BENCH_ITERS
-    = `iters`; returns its JSON line."""
+    = `iters` with the extended lines at BENCH_EXT_N = `n_ext` (1024,
+    phase 3's shapes): the seven lines in orc_tpu's order, finite and
+    positive, then the headline; nothing failed on stderr; line 1's time
+    per step (its bytes over its GB/s) within BENCH_SPMV_TOL of phase
+    3's card time of the same instance, lines 3 and 4's no lower than
+    the sum of phase 3's card times of their momentum and p' instances
+    (`shapes`: phase_kernels' (C, K) of those instances). Returns {"lines", "line_ms", "phase3_ms", "seconds"}."""
+    import contextlib
+    import io
+    import math
     import os
 
-    old = os.environ.get("BENCH_ITERS")
-    os.environ["BENCH_ITERS"] = str(iters)
+    from orc_tpu_torch import bench
+
+    env = {"BENCH_ITERS": str(iters), "BENCH_EXTENDED": "1", "BENCH_EXT_N": str(n_ext)}
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    err = io.StringIO()
     try:
-        output, secs = run_cli(["bench", "--device", dev])
+        with contextlib.redirect_stderr(err):
+            output, secs = run_cli(["bench", "--device", dev])
     finally:
-        if old is None:
-            del os.environ["BENCH_ITERS"]
-        else:
-            os.environ["BENCH_ITERS"] = old
-    line = json.loads(output.strip().splitlines()[-1])
-    log(f"  bench ({secs:.2f} s): {json.dumps(line)}")
-    return line
+        for k, v in old.items():
+            if v is None:
+                del os.environ[k]
+            else:
+                os.environ[k] = v
+        log("  bench stderr:\n    " + "\n    ".join(err.getvalue().strip().splitlines()))
+    lines = [json.loads(x) for x in output.strip().splitlines()]
+    log(f"  bench ({secs:.2f} s):")
+    for line in lines:
+        log(f"    {json.dumps(line)}")
+    if "extended metrics failed" in err.getvalue():
+        raise AssertionError("bench: the extended metrics failed")
+    names = [line["metric"] for line in lines[:-1]]
+    if names != bench_ext_names(n_ext):
+        raise AssertionError(f"bench: extended lines {names}")
+    if not lines[-1]["metric"].startswith("SIMPLE iters/sec, couette_128x64x1"):
+        raise AssertionError(f"bench: the last line is not the headline: {lines[-1]}")
+    for line in lines:
+        if not (math.isfinite(line["value"]) and line["value"] > 0):
+            raise AssertionError(f"bench: {line}")
+    by_name = {k.name: k for k in kernels}
+    spmv, mom, pc = (by_name[n] for n in ("shift_spmv", "momentum_assembly", "pc_assembly"))
+    (C, K), (Cf, Kf) = shapes["spmv"], shapes["fused"]
+    nbytes = {1: bench.spmv_bytes(C, K), 3: bench.fused_bytes(Cf, Kf),
+              4: bench.fused_rc_bytes(Cf, Kf)}
+    line_ms = {i: 1e3 * nbytes[i] / (lines[i - 1]["value"] * 1e9) for i in nbytes}
+    ref_ms = {1: spmv.card[BENCH_SPMV_LABEL]}
+    for i, (m_label, p_label) in BENCH_PAIRS.items():
+        ref_ms[i] = mom.card[m_label] + pc.card[p_label]
+    for i in sorted(line_ms):
+        log(f"  line {i}: {line_ms[i]:.4f} ms per step; phase 3 "
+            f"{'kernel' if i == 1 else 'momentum + p-corr kernels'} {ref_ms[i]:.4f} ms "
+            f"(ratio {line_ms[i] / ref_ms[i]:.3f})")
+    if abs(line_ms[1] / ref_ms[1] - 1) > BENCH_SPMV_TOL:
+        raise AssertionError(
+            f"bench line 1: {line_ms[1]:.4f} ms per step, phase 3's card time "
+            f"{ref_ms[1]:.4f} ms (tol {BENCH_SPMV_TOL:.0%})"
+        )
+    for i in BENCH_PAIRS:
+        if line_ms[i] < ref_ms[i]:
+            raise AssertionError(
+                f"bench line {i}: the pair's {line_ms[i]:.4f} ms per step is below "
+                f"its two kernels' {ref_ms[i]:.4f} ms"
+            )
+    return dict(lines=lines, line_ms=line_ms, phase3_ms=ref_ms, seconds=secs)
 
 
 def phase_cli_card_cpu(dev, examples_dir, n=16, iterations=20):
@@ -4036,7 +4145,7 @@ def phase_cli_card_cpu(dev, examples_dir, n=16, iterations=20):
     return worst
 
 
-def phase_cli(dev, kernels, twin_ms, tgrid_n=256, n_1m=1024):
+def phase_cli(dev, kernels, twin_ms, bench_shapes, tgrid_n=256, n_1m=1024):
     """23: the CLI on the card (orc_tpu_torch.cli.main in this process):
     (a) the examples, (b) resume, (c) the relabelled TGRID case (256^2:
     at 448^2 its host work alone, the Python parse inside the VTK writer,
@@ -4062,7 +4171,7 @@ def phase_cli(dev, kernels, twin_ms, tgrid_n=256, n_1m=1024):
     one_m = phase_cli_1m(dev, kernels, examples_dir, twin_ms, n_1m)
     secs["d"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    bench = phase_cli_bench(dev)
+    bench = phase_cli_bench(dev, kernels, bench_shapes)
     secs["e"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     card_cpu = phase_cli_card_cpu(dev, examples_dir)
@@ -4454,7 +4563,9 @@ def profile_window(run, iterations):
     )
 
 
-def main():
+def all_kernels():
+    """A Kernel per kernel (and per instance counted apart), in the order
+    of the summary line."""
     from orc_tpu_torch.ops import fused_assembly as asm
     from orc_tpu_torch.ops.fused_smooth import fused_jacobi_sweeps
     from orc_tpu_torch.ops.shift_spmv import shift_spmv
@@ -4464,12 +4575,10 @@ def main():
         slice_spmv_exact,
     )
 
-    dev = phase_device()
-    phase_build()
     parity_src = "orc_tpu_torch/csrc/parity_assembly.cuh"
     asm_src = "orc_tpu_torch/csrc/assembly.cu"
     slice_src = "orc_tpu_torch/csrc/slice_spmv.cu"
-    kernels = (
+    return (
         Kernel("shift_spmv", shift_spmv, "orc_tpu_torch/csrc/shift_spmv.cu",
                "orc_tpu/ops/pallas_spmv.py:39"),
         Kernel("fused_jacobi_sweeps", fused_jacobi_sweeps,
@@ -4504,9 +4613,17 @@ def main():
         Kernel("slice_spmv[amg coarse]", slice_spmv, slice_src,
                "orc_tpu/ops/pallas_slice.py:47", counter="spmv_only_launches"),
     )
+
+
+def main():
+    from orc_tpu_torch.ops.fused_smooth import fused_jacobi_sweeps
+
+    dev = phase_device()
+    phase_build()
+    kernels = all_kernels()
     (spmv, sweeps, mom, pc, fc_mom, fc_pc, mom_t, fc_mom_t, sspmv, snbr, sexact,
      spmv_pr, sweeps_pr, march, amg_coarse) = kernels
-    phase_kernels(dev, (spmv, sweeps, mom, pc), mom_t, march)
+    bench_shapes = phase_kernels(dev, (spmv, sweeps, mom, pc), mom_t, march)
     phase_per_row_kernels(dev, spmv_pr, sweeps_pr)
     phase_parity_branches(dev, mom, pc, mom_t)
     phase_fc_kernels(dev, fc_mom, fc_pc, fc_mom_t)
@@ -4599,7 +4716,8 @@ def main():
         ("channel-128x64", lambda: phase_channel_128(dev), (spmv,), extra + irregular, ()),
         # Phase 23: the CLI, in this process: the examples, resume, the
         # relabelled TGRID case, cli-1M, bench and the card against the CPU.
-        ("cli", lambda: phase_cli(dev, kernels, results["parity cavity"]["ms_per_iter"]),
+        ("cli", lambda: phase_cli(
+            dev, kernels, results["parity cavity"]["ms_per_iter"], bench_shapes),
          parity + (sspmv, snbr), (sexact,), ()),
         # Phase 24: the sharded runtime, 4 slab partitions on the one card;
         # "once per iteration" reads once per partition per iteration (the
@@ -4692,8 +4810,10 @@ def main():
         f"solve_channel_flow 128x64 f64 {results['channel-128x64']['ms_per_iter']:.2f} ms/iter; "
         f"phase 22 {sum(results[k]['seconds'] for k in ('amg-448', 'gs-cavity-1M', 'init-channel', 'channel-128x64')):.1f} s; "
         f"CLI: cli-1M {results['cli']['cli_1m']['ms_per_iter']:.2f} ms/iter (in-process "
-        f"{max(results['cli']['cli_1m']['inproc_ms_per_iter']):.2f}), bench "
-        f"{results['cli']['bench']['value']:.2f} iters/s, phase 23 {results['cli']['seconds']:.1f} s; "
+        f"{results['cli']['cli_1m']['inproc_ms_per_iter']:.2f}), bench "
+        f"{results['cli']['bench']['lines'][-1]['value']:.2f} iters/s (23e "
+        f"{results['cli']['sub_seconds']['e']:.1f} s with the extended lines), phase 23 "
+        f"{results['cli']['seconds']:.1f} s; "
         f"sharded, 4 slabs on the one card: refdef-1M "
         f"{results['refdef-1M x4']['ms_per_iter']:.2f} ms/iter, fc-cavity-1M "
         f"{results['fc-cavity-1M x4']['ms_per_iter']:.2f}, cavity3d-128 MULTIGRID "

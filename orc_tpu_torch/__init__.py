@@ -57,6 +57,10 @@ from orc_tpu_torch.utils.settings import (
     VelocityInterpolation,
 )
 
+from orc_tpu_torch.utils.device import warm_cpu_vector_math
+
+warm_cpu_vector_math()
+
 __version__ = "0.1.0"
 
 __all__ = [

@@ -325,7 +325,8 @@ def compile_from_arrays(
             )
             entry_interior = interior[cell_faces] & cell_face_mask
             slice_plan = build_best_slice_plan(
-                cell_neighbors, entry_interior, device=device
+                cell_neighbors, entry_interior, build_col_tile=True,
+                device=device,
             )
             cell_order = rcm
 

@@ -141,7 +141,7 @@ def rcm_permutation(
     return order[::-1].copy()
 
 
-def _host_plan(cell_neighbors, entry_interior, tile, build_col_tile=True):
+def _host_plan(cell_neighbors, entry_interior, tile, build_col_tile=False):
     """The plan with CPU tensors (no copy of the numpy tables), or None
     when it would be degenerate (n_max > tile)."""
     C, K = cell_neighbors.shape
@@ -232,14 +232,14 @@ def build_slice_plan(
     cell_neighbors: np.ndarray,
     entry_interior: np.ndarray,
     tile: int = 128,
-    build_col_tile: bool = True,
+    build_col_tile: bool = False,
     device: torch.device | str = "cuda",
 ) -> SlicePlan | None:
     """The per-tile slice schedule on `device`, or None when the plan
     would be degenerate (more distinct deltas in a tile than its rows).
-    `build_col_tile` builds the neighbour gather's table (orc_tpu builds
-    it only on request; the port's mesh plans feed the gather kernel, so
-    here it is on unless the caller runs the SpMV alone)."""
+    `build_col_tile` builds the neighbour gather's table
+    (`SlicePlan.col_tile`, [ntiles, K, tile]); only the mesh compile
+    asks for it, SpMV-only callers (AMG coarse levels) do not."""
     device = resolve_device(device)
     plan = _host_plan(cell_neighbors, entry_interior, tile, build_col_tile)
     return None if plan is None else plan.to(device)
@@ -265,18 +265,20 @@ def build_best_slice_plan(
     cell_neighbors: np.ndarray,
     entry_interior: np.ndarray,
     tiles=(128, 1024),
+    build_col_tile: bool = False,
     device: torch.device | str = "cuda",
 ) -> SlicePlan | None:
     """Plans at the candidate tile widths; keeps the one of lowest
     modelled cost (orc_tpu's choice, so both packages run one plan).
-    Wide tiles are tried only when C >= 4 * tile."""
+    Wide tiles are tried only when C >= 4 * tile. `build_col_tile` as
+    in `build_slice_plan`."""
     device = resolve_device(device)
     C = cell_neighbors.shape[0]
     best, best_cost = None, None
     for tile in tiles:
         if tile != 128 and C < 4 * tile:
             continue
-        plan = _host_plan(cell_neighbors, entry_interior, tile)
+        plan = _host_plan(cell_neighbors, entry_interior, tile, build_col_tile)
         if plan is None:
             continue
         cost = _tile_cost(plan)

@@ -749,6 +749,81 @@ def _solver_extras(mesh, diff, settings):
     return {}
 
 
+def _make_chunk_runner(
+    mesh, table, settings, rho, mu, use_ck_step, use_fc, maybe_singular=None
+):
+    """solve_steady's set-up for one mesh, table and numerics: the
+    (c,k) step when `use_ck_step`, the face-major one otherwise; the
+    SIMPLE_FC step when `use_fc`, the parity one otherwise. Returns (run,
+    prepare): run(state, n) advances n iterations (one `_run_chunk`) and
+    returns (state, StepMetrics); prepare(state) is the state the loop
+    starts from (the stored flux seeded under SIMPLE_FC when it has
+    none). `maybe_singular=None` takes the table's own answer."""
+    from orc_tpu_torch.solver.fc import (
+        ck_initial_flux,
+        ck_simple_step_fc,
+        simple_step_fc,
+    )
+
+    zc, zs, zv = device_bc(table, dtype=mesh.dtype, device=mesh.device)
+    mu_t = torch.tensor(mu, dtype=mesh.dtype, device=mesh.device)
+    ck = ck_diff = diff = None
+    if use_ck_step:
+        ck = build_ck_geometry(mesh, len(table.zone_ids))
+        bc0 = ck_bc(ck, zc, zs, zv)
+        ck_diff = ck_diffusion(mesh, ck, bc0, mu_t)
+    if ck is None or settings.matrix_solver.solver_type == SolutionMethod.MULTIGRID:
+        # The face-major diffusion system: the face-major step's, or the
+        # coupling values the algebraic hierarchy aggregates on.
+        diff = diffusion_system(mesh, face_bc(mesh, zc, zs, zv), mu_t)
+    extras = _solver_extras(mesh, diff, settings)
+    if ck is not None:
+        diff = None  # the (c,k) step does not read it
+    full_mesh = mesh
+
+    def prepare(state):
+        if not use_fc or state.flux is not None:
+            return state
+        # The stored flux exists before the loop: [C,K] on the (c,k)
+        # step, [F] on the face-major one.
+        if ck is not None:
+            flux0 = ck_initial_flux(full_mesh, ck, bc0, settings, state)
+        else:
+            flux0 = initial_flux(full_mesh, zc, zs, zv, settings, state)
+        return dataclasses.replace(state, flux=flux0)
+
+    kernel_asm = _kernel_asm_spec(mesh, table, settings, ck, fc=use_fc)
+    if maybe_singular is None:
+        # Under SIMPLE_FC walls anchor nothing: only pressure zones do.
+        maybe_singular = (
+            not table_has_pressure_bc(table) if use_fc else table_maybe_singular(table)
+        )
+    if ck is not None and mesh.neighbor_offsets is not None:
+        # The irregular step still reads cell_neighbors and the plan.
+        mesh = trim_for_ck(mesh)
+    if ck is None:
+        fm_step = simple_step_fc if use_fc else simple_step
+
+        def step(s):
+            return fm_step(
+                mesh, zc, zs, zv, settings, rho, mu, diff, s, extras,
+                maybe_singular=maybe_singular,
+            )
+    else:
+        ck_step = ck_simple_step_fc if use_fc else ck_simple_step
+
+        def step(s):
+            return ck_step(
+                mesh, ck, zc, zs, zv, settings, rho, mu, ck_diff, s, extras,
+                kernel_asm=kernel_asm, maybe_singular=maybe_singular,
+            )
+
+    def run(state, n):
+        return _run_chunk(step, state, settings, n)
+
+    return run, prepare
+
+
 def solve_steady(
     mesh: CompiledMesh,
     table: BoundaryTable,
@@ -770,72 +845,23 @@ def solve_steady(
     the face-major step otherwise; True forces the (c,k) step, False the
     face-major one. Returns (FlowState, list of per-chunk StepMetrics
     with [n]-leading tensors)."""
-    from orc_tpu_torch.solver.fc import (
-        ck_initial_flux,
-        ck_simple_step_fc,
-        simple_step_fc,
-    )
-
     table.validate_supported()
     use_ck_step = _takes_ck_step(mesh, settings, use_ck)
     reporting_interval = max(1, min(reporting_interval, iterations))
-    zc, zs, zv = device_bc(table, dtype=mesh.dtype, device=mesh.device)
     if state is None:
         state = initial_state(mesh)
-
     use_fc = settings.resolved_coupling() == PressureVelocityCoupling.SIMPLE_FC
-    mu_t = torch.tensor(mu, dtype=mesh.dtype, device=mesh.device)
-    ck = ck_diff = diff = None
-    if use_ck_step:
-        ck = build_ck_geometry(mesh, len(table.zone_ids))
-        bc0 = ck_bc(ck, zc, zs, zv)
-        ck_diff = ck_diffusion(mesh, ck, bc0, mu_t)
-    if ck is None or settings.matrix_solver.solver_type == SolutionMethod.MULTIGRID:
-        # The face-major diffusion system: the face-major step's, or the
-        # coupling values the algebraic hierarchy aggregates on.
-        diff = diffusion_system(mesh, face_bc(mesh, zc, zs, zv), mu_t)
-    extras = _solver_extras(mesh, diff, settings)
-    if ck is not None:
-        diff = None  # the (c,k) step does not read it
-    if use_fc and state.flux is None:
-        # The stored flux exists before the loop: [C,K] on the (c,k)
-        # step, [F] on the face-major one.
-        if ck is not None:
-            flux0 = ck_initial_flux(mesh, ck, bc0, settings, state)
-        else:
-            flux0 = initial_flux(mesh, zc, zs, zv, settings, state)
-        state = dataclasses.replace(state, flux=flux0)
-    kernel_asm = _kernel_asm_spec(mesh, table, settings, ck, fc=use_fc)
-    # Under SIMPLE_FC walls anchor nothing: only pressure zones do.
-    maybe_singular = (
-        not table_has_pressure_bc(table) if use_fc else table_maybe_singular(table)
+    run, prepare = _make_chunk_runner(
+        mesh, table, settings, rho, mu, use_ck_step, use_fc
     )
-    if ck is not None and mesh.neighbor_offsets is not None:
-        # The irregular step still reads cell_neighbors and the plan.
-        mesh = trim_for_ck(mesh)
-    if ck is None:
-        fm_step = simple_step_fc if use_fc else simple_step
-
-        def step(s):
-            return fm_step(
-                mesh, zc, zs, zv, settings, rho, mu, diff, s, extras,
-                maybe_singular=maybe_singular,
-            )
-    else:
-        ck_step = ck_simple_step_fc if use_fc else ck_simple_step
-
-        def step(s):
-            return ck_step(
-                mesh, ck, zc, zs, zv, settings, rho, mu, ck_diff, s, extras,
-                kernel_asm=kernel_asm, maybe_singular=maybe_singular,
-            )
+    state = prepare(state)
 
     history = []
     done = 0
     t0 = time.perf_counter()
     while done < iterations:
         n = min(reporting_interval, iterations - done)
-        state, metrics = _run_chunk(step, state, settings, n)
+        state, metrics = run(state, n)
         done += n
         history.append(metrics)
         if verbose:

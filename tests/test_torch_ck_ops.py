@@ -12,6 +12,11 @@ at rtol 1e-10 (closed-form solves against orc_tpu's LU), the CD2 and
 in-matrix TVD systems (one matrix per component: diag [3,C], off
 [3,C,K]) at rtol 1e-12."""
 
+import os
+import pathlib
+import subprocess
+import sys
+
 import numpy as np
 import pytest
 import torch
@@ -380,3 +385,37 @@ def test_nbr_values_routes_irregular_meshes_through_the_plan(monkeypatch):
     got = tck.nbr_values(mesh, x, interior)
     assert calls == [mesh.slice_plan]
     assert torch.equal(got, x[mesh.cell_neighbors.long()])
+
+
+#: A fresh process (no JAX): torch.sqrt recorded while orc_tpu_torch is
+#: imported.
+_WARM_SCRIPT = """
+import torch
+calls = []
+real = torch.sqrt
+def sqrt(x, *a, **k):
+    calls.append((str(x.dtype), x.numel(), str(x.device)))
+    return real(x, *a, **k)
+torch.sqrt = sqrt
+import orc_tpu_torch
+print(calls)
+"""
+
+
+def test_import_makes_the_first_threaded_cpu_sqrt_a_discarded_one():
+    """Importing the package makes a threaded torch.sqrt of float64 and
+    of float32 values on the CPU (utils.device.warm_cpu_vector_math).
+    This checks only that the call is made; it does not show the fault
+    the call guards against (MKL's first threaded sqrt of a process off
+    in the second thread's half, behind the flake of
+    tests/test_torch_kernels.py's pc_assembly test), which is too rare
+    to reproduce in a test. The evidence is in ROADMAP Queue 3."""
+    out = subprocess.run(
+        [sys.executable, "-c", _WARM_SCRIPT], capture_output=True, text=True,
+        timeout=300, cwd=pathlib.Path(__file__).resolve().parents[1],
+        env=dict(os.environ, PYTHONPATH=str(pathlib.Path(__file__).resolve().parents[1])),
+    )
+    assert out.returncode == 0, out.stderr[-2000:]
+    calls = eval(out.stdout.strip().splitlines()[-1])
+    big = {dtype for dtype, n, device in calls if n >= 2048 and device == "cpu"}
+    assert big == {"torch.float64", "torch.float32"}, calls

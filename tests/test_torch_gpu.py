@@ -1082,7 +1082,7 @@ def test_slice_nbr_kernel_edges(dev, case):
     if tile is not None:
         plan = build_slice_plan(
             mesh.cell_neighbors.cpu().numpy(), interior.cpu().numpy(), tile=tile,
-            device=dev,
+            build_col_tile=True, device=dev,
         )
         assert plan.tile == tile
     if case == "ragged_c":

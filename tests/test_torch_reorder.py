@@ -99,7 +99,7 @@ def test_slice_plan_equals_orc_tpu(adj, tile):
     nbrs, interior = ADJACENCIES[adj]()
     _assert_plans_equal(
         tr.build_slice_plan(
-            nbrs, interior, tile=tile, device="cpu"
+            nbrs, interior, tile=tile, build_col_tile=True, device="cpu"
         ),
         jr.build_slice_plan(nbrs, interior, tile=tile, build_col_tile=True),
     )
@@ -108,7 +108,7 @@ def test_slice_plan_equals_orc_tpu(adj, tile):
 @pytest.mark.parametrize("adj", sorted(ADJACENCIES))
 def test_best_slice_plan_picks_orc_tpus_tile(adj):
     nbrs, interior = ADJACENCIES[adj]()
-    pt = tr.build_best_slice_plan(nbrs, interior, device="cpu")
+    pt = tr.build_best_slice_plan(nbrs, interior, build_col_tile=True, device="cpu")
     pj = jr.build_best_slice_plan(nbrs, interior, build_col_tile=True)
     assert pt.tile == pj.tile
     _assert_plans_equal(pt, pj)
@@ -153,3 +153,51 @@ def test_slice_plan_covers_every_entry(name):
     # Used columns come first in every tile.
     nj = np_(plan.tile_nj)
     assert (col_of[rows, cols] < nj[rows // plan.tile]).all()
+
+
+@pytest.mark.parametrize("name", ["build_slice_plan", "build_best_slice_plan"])
+def test_slice_plan_builders_take_orc_tpus_parameters(name):
+    """orc_tpu's parameter names, in its order, are a subsequence of the
+    port's (the port adds `device` at the end), with equal defaults."""
+    import inspect
+
+    pj = inspect.signature(getattr(jr, name)).parameters
+    pt = inspect.signature(getattr(tr, name)).parameters
+    it = iter(pt)
+    assert all(p in it for p in pj), (list(pj), list(pt))
+    for p in pj:
+        assert pt[p].default == pj[p].default, p
+    assert list(pt)[-1] == "device"
+
+
+@pytest.mark.parametrize("build_col_tile", [False, True])
+@pytest.mark.parametrize("tile", [128, 1024, "best"])
+@pytest.mark.parametrize("adj", sorted(ADJACENCIES))
+def test_slice_plan_flag_equals_orc_tpu(adj, tile, build_col_tile):
+    """Both builders under both values of `build_col_tile`: every integer
+    table equal to orc_tpu's, the gather table absent exactly where
+    orc_tpu's is."""
+    nbrs, interior = ADJACENCIES[adj]()
+    if tile == "best":
+        pt = tr.build_best_slice_plan(
+            nbrs, interior, build_col_tile=build_col_tile, device="cpu"
+        )
+        pj = jr.build_best_slice_plan(nbrs, interior, build_col_tile=build_col_tile)
+    else:
+        pt = tr.build_slice_plan(
+            nbrs, interior, tile=tile, build_col_tile=build_col_tile, device="cpu"
+        )
+        pj = jr.build_slice_plan(
+            nbrs, interior, tile=tile, build_col_tile=build_col_tile
+        )
+    _assert_plans_equal(pt, pj)
+    if pj is not None:
+        assert (pt.col_tile is None) == (pj.col_tile is None) == (not build_col_tile)
+
+
+def test_slice_plan_builders_default_to_no_gather_table():
+    nbrs, interior = _banded()
+    assert tr.build_slice_plan(nbrs, interior, device="cpu").col_tile is None
+    assert tr.build_best_slice_plan(nbrs, interior, device="cpu").col_tile is None
+    plan = tr.build_best_slice_plan(nbrs, interior, build_col_tile=True, device="cpu")
+    assert plan.col_tile is not None

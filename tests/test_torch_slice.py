@@ -43,7 +43,7 @@ def _random_banded(C, K=4, bw=10, seed=0, empty_tiles=(), tile=128):
         valid[t == et] = False
     nbrs = np.where(valid, nbrs, base)
     pj = jplan(nbrs, valid, tile=tile, build_col_tile=True)
-    pt = tplan(nbrs, valid, tile=tile, device="cpu")
+    pt = tplan(nbrs, valid, tile=tile, build_col_tile=True, device="cpu")
     return nbrs, valid, pj, pt
 
 
@@ -60,7 +60,7 @@ def _skewed(C=6400, K=6, band=400, seed=3):
     valid = (nbrs >= 0) & (nbrs < C) & (rng.random((C, K)) < 0.9)
     nbrs = np.where(valid, np.clip(nbrs, 0, C - 1), np.arange(C)[:, None])
     pj = jplan(nbrs, valid, tile=128, build_col_tile=True)
-    pt = tplan(nbrs, valid, tile=128, device="cpu")
+    pt = tplan(nbrs, valid, tile=128, build_col_tile=True, device="cpu")
     return nbrs, valid, pj, pt
 
 
