@@ -177,8 +177,8 @@ Phases (any failure raises and the script exits non-zero):
    cli-1M, cavity.toml's numerics at 1024^2 (float64: case files carry
    no dtype), 10 then 50 iterations with --history and a checkpoint,
    the solver's median ms/iter over the CLI's chunks of 10 at most 10%
-   above the same solve_steady in this process (run before and after
-   it, the slower median), the seconds of the CLI's
+   above the median over the same solve_steady's chunks in this process
+   (CLI_TURNS runs of each in turns), the seconds of the CLI's
    save_checkpoint, a profile window; (e) the `bench` subcommand at
    BENCH_ITERS=50 with the extended lines at BENCH_EXT_N=1024: the seven
    lines in orc_tpu's order, finite and positive, the headline last, no
@@ -3565,6 +3565,11 @@ CLI_U_MEAN_FACTOR = 10.0
 #: in this process by this share at most: the CLI adds no per-iteration
 #: cost, and host noise moves either by a few percent.
 CLI_OVERHEAD_TOL = 0.10
+#: CLI runs of cli-1M, each between two in-process runs: the host's speed
+#: wanders between about 42 and 75 ms/iter over seconds in either path
+#: (a run lasts 3-8 s), and with two CLI runs both of them landed in its
+#: slow spells while the three in-process runs did not (ratio 1.363).
+CLI_TURNS = 4
 #: Card against CPU through the CLI (float64 checkpoints), share of
 #: each field's scale.
 CLI_CARD_CPU_TOL = 1e-9
@@ -3950,8 +3955,8 @@ def phase_cli_1m(dev, kernels, examples_dir, twin_ms, n=1024, chunk=10, iteratio
     only (every timed run resumes from the warm-up's). The solve is bound
     by the host, whose speed wanders by a third within seconds, so the CLI
     and the same solve_steady called in this process from the same warm
-    state take turns, each as many iterations: in process, CLI, in
-    process, CLI, in process. The median of the solver's own ms/iter over
+    state take turns, each as many iterations: in process, then CLI_TURNS
+    times CLI and in process. The median of the solver's own ms/iter over
     the CLI's chunks against the median over the in-process chunks: at
     most CLI_OVERHEAD_TOL above it. The seconds of the CLI's own
     save_checkpoint; the launches of the first CLI run; a profile window."""
@@ -3983,7 +3988,7 @@ def phase_cli_1m(dev, kernels, examples_dir, twin_ms, n=1024, chunk=10, iteratio
         return chunk_ms(output), secs, launched_since(kernels, before), sum(saves.seconds)
 
     inproc_runs, cli_runs = [in_process()], []
-    for _ in range(2):
+    for _ in range(CLI_TURNS):
         cli_runs.append(cli())
         inproc_runs.append(in_process())
     cli_chunks = [ms for run in cli_runs for ms in run[0]]
@@ -3995,11 +4000,14 @@ def phase_cli_1m(dev, kernels, examples_dir, twin_ms, n=1024, chunk=10, iteratio
     save_s = cli_runs[0][3]
     with np.load(out / "timed.npz") as z:
         pc_it = float(z["pc_iters"].mean())
+    turns = "; ".join(
+        [f"in process {inproc_runs[0]}"]
+        + [f"CLI {c[0]}, in process {i}" for c, i in zip(cli_runs, inproc_runs[1:])]
+    )
     log(
         f"  cli-1M ({n}^2): warm-up run {warm_s:.2f} s; timed runs {secs} s wall; solver "
-        f"ms/iter by chunk of {chunk}, in turns: in process {inproc_runs[0]}, CLI "
-        f"{cli_runs[0][0]}, in process {inproc_runs[1]}, CLI {cli_runs[1][0]}, in process "
-        f"{inproc_runs[2]} (medians: CLI {cli_ms:.3f}, in process {inproc_ms:.3f}, ratio "
+        f"ms/iter by chunk of {chunk}, in turns: {turns} (medians: CLI {cli_ms:.3f}, "
+        f"in process {inproc_ms:.3f}, ratio "
         f"{cli_ms / inproc_ms:.3f}); phase 5's f32 Re 1000 cavity {twin_ms:.3f}; mean "
         f"pressure iterations {pc_it:.2f}; the CLI's save_checkpoint {save_s:.3f} s "
         f"({(out / 'checkpoint.npz').stat().st_size / 1e6:.1f} MB); launched {launched} "

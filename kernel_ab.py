@@ -27,6 +27,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import functools
 import importlib.util
 import json
 import re
@@ -55,8 +56,8 @@ REPORTED = ("slice_spmv_kernel", "slice_spmv_exact_kernel", "momentum_kernel",
 #: kernel's box tiles) is called without them, one that takes the box
 #: but no row0 (before the sharded runtime's windows) without row0.
 BOXED = {"orc_momentum_assembly": (11, 4), "orc_pc_assembly": (8, 4),
-         "orc_fc_momentum_assembly": (9, 4), "orc_jacobi_sweeps": (14, 7),
-         "orc_jacobi_sweeps_rows": (16, 7)}
+         "orc_fc_momentum_assembly": (9, 4), "orc_fc_pc_assembly": (7, 4),
+         "orc_jacobi_sweeps": (14, 7), "orc_jacobi_sweeps_rows": (16, 7)}
 
 
 def build(csrc: Path, out: Path):
@@ -229,20 +230,26 @@ def cold(fn, calls=10):
     return float(np.median([s.elapsed_time(e) for s, e in pairs]))
 
 
-def ab(label, base, new, library, nbytes, reps, results):
+def ab(label, base, new, library, nbytes, reps, results, plain=None):
     """Time base/new/new/base `reps` times, back to back (card_ms: the
-    inputs stay in L2 where they fit) and with L2 emptied first (cold);
+    inputs stay in L2 where they fit) and with L2 emptied first (cold),
+    and after them the library call and the `plain` version where given;
     medians of each."""
-    t = {k: [] for k in ("base", "new", "library", "base_cold", "new_cold", "library_cold")}
+    t = {k: [] for k in ("base", "new", "library", "plain", "base_cold", "new_cold",
+                         "library_cold", "plain_cold")}
     turns = (("base", base), ("new", new), ("new", new), ("base", base))
     if library is not None:
         turns += (("library", library),)
+    if plain is not None:
+        turns += (("plain", plain),)
     for _ in range(reps):
         for v, fn in turns:
             t[v].append(card(fn))
             t[f"{v}_cold"].append(cold(fn))
     med = {k: float(np.median(v)) if v else None for k, v in t.items()}
     lib = "none" if library is None else f"{med['library']:.4f} | {med['library_cold']:.4f}"
+    if plain is not None:
+        lib += f"; plain {med['plain']:.4f} | {med['plain_cold']:.4f}"
     bound = 1e3 * nbytes / cs.HBM_BYTES_PER_S
     share = {k: bound / v for k, v in med.items() if v}
     cs.log(
@@ -624,11 +631,13 @@ def momentum_shapes(dev, libs, reps, results):
 
 
 def fc_shapes(dev, libs, reps, results):
-    """Row 4 on chip_smoke's two SIMPLE_FC cases (phase 3), the 1024^2
-    f32 cavity with the flagship numerics (TVD_DC + UMIST) and the
-    128x64 f64 couette (CD1 + SecondOrder), and in its UD instance on the
-    1024^2 cavity, steady and transient, from seeded fields and a seeded
-    stored flux; row 6 checked bitwise there."""
+    """Rows 4 and 6 on chip_smoke's two SIMPLE_FC cases (phase 3), the
+    1024^2 f32 cavity with the flagship numerics (TVD_DC + UMIST + RC)
+    and the 128x64 f64 couette (CD1 + SecondOrder + RC), and in their UD,
+    Linear instances on the 1024^2 cavity, row 4 steady and transient,
+    from seeded fields and a seeded stored flux; row 6 (the predictor
+    under each case's face flux, its plain version timed beside it) also
+    on the 128^3 f32 K = 6 cavity with Rhie-Chow."""
     from orc_tpu_torch.models.cavity import cavity_case
     from orc_tpu_torch.ops import fused_assembly as asm
     from orc_tpu_torch.ops.ck_ops import (
@@ -648,6 +657,9 @@ def fc_shapes(dev, libs, reps, results):
          asm.AsmSpec(), 1.0, 1e-3, 1.0 / 1024),
         ("couette 128x64 f64 cd1+so+rc", lambda: cs.couette_mesh(dev),
          asm.AsmSpec(scheme="cd1", rc=True, p_so=True), 1000.0, 1e-3, 0.005),
+        ("128^3 f32 K=6 rc",
+         lambda: cavity_case(n=128, nz=128, dtype=torch.float32, device=dev),
+         asm.AsmSpec(rc=True), 1.0, 1e-3, None),
     )
     for label, make, sp, rho, mu, dt_step in cases:
         mesh, table = make()
@@ -668,7 +680,8 @@ def fc_shapes(dev, libs, reps, results):
         sp = sp._replace(vol=float(mesh.cell_volume[0]))
         margs = (vel, p, flux, bcv, flags, cols, rho, mu, 0.7)
         tvd = sp.scheme == "tvd_dc"
-        for tr in (False, True):
+        # Row 4 on the 2-D cases only.
+        for tr in (False, True) if dt_step is not None else ():
             kw = dict(grad_p=grad_p if sp.p_so else None, grad_vel=grad_v if tvd else None,
                       inertia=cs.step_inertia(mesh, vel, rho, dt_step) if tr else None,
                       spec=sp)
@@ -682,13 +695,16 @@ def fc_shapes(dev, libs, reps, results):
             reads = 4 + K + 9 * tvd + 3 * sp.p_so + cs.INERTIA_READS * tr
             ab(tag, base, new, None, C * (4 + (reads + 1 + K + 3) * sz), reps, results)
             results[-1]["bitwise"] = same
-        # fc_pc_kernel shares the source and stays as it was: checked, not timed.
         pargs = (vel, md, bcv, flags, cols, rho, grad_p, sp)
         base, new = (routed(v, asm._launch_fc_pc, *pargs) for v in libs)
-        same = _check(f"fc pc {label}", base, new,
-                      lambda: asm.fc_pc_assembly_plain(*pargs[:-1], spec=sp), dt,
-                      cs.ASM_OUT + ("flux_h",))
-        results.append(dict(label=f"fc pc {label}", bitwise=same))
+        tag = f"fc pc {label}"
+        plain = functools.partial(asm.fc_pc_assembly_plain, *pargs)
+        same = _check(tag, base, new, plain, dt, cs.ASM_OUT + ("flux_h",))
+        # vel, md (+ grad p); diag, K off, b, K flux_h; the flag word
+        # (chip_smoke phase 3).
+        ab(tag, base, new, None, C * (4 + (4 + 3 * sp.rc + 2 + 2 * K) * sz), reps,
+           results, plain=plain)
+        results[-1]["bitwise"] = same
         del mesh, ck, vel, p, md, flux, grad_p, grad_v
 
 

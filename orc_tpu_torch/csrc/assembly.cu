@@ -43,8 +43,22 @@ namespace orc {
 // face-pressure choice is its own template instance, so the branches a
 // configuration does not take cost neither registers nor loads.
 //
-// fc_pc_kernel: one thread per cell (grid-stride), neighbour values read
-// from L1/L2.
+// fc_pc_kernel. Its first design was a grid-stride loop of 256-thread
+// CTAs (32 CTAs on a 128 x 64 box), each thread reading its K
+// neighbours' velocity, md and grad p from L2 (a cell's about three
+// times), dividing V/md twice in each face and forming every per-column
+// constant itself (1024^2 f32 Rhie-Chow: 0.0510 ms against a 0.0275 ms
+// bound on an NVIDIA H100 80GB HBM3 at 700 W). Now it takes
+// fc_momentum_kernel's tiles: it stages the velocity (three planes), V/md
+// (one IEEE division a slot, the same value the first design formed in
+// each face) and, under Rhie-Chow, the grad p component on each axis a
+// column uses (a halo slot's on its face's axis only); it reads its own
+// flag word while the stage fills, takes 0.5 rho A / d_on, rho A / d_fo
+// and A rho from the host (FcPcConsts), and writes the K off and K
+// flux_h planes coalesced. It is bound by device memory, two thirds of
+// its bytes the 2K + 2 output planes; it moves them at about 62% of
+// 3.35 TB/s (0.0444 ms), within 2.5% whatever the tile (128, 256 or 512
+// cells) and within 1.3% with streaming stores (__stcs).
 //
 // fc_momentum_kernel. Its first design was fc_pc_kernel's, with each
 // face's two velocity gradients read at a 36-byte stride by up to K + 1
@@ -76,10 +90,12 @@ namespace orc {
 // Each per-face expression is the first design's, so nvcc contracts it
 // the same way and the results are unchanged bit for bit.
 
-// The CTA size of fc_momentum_kernel on a 2-D box: 128-cell tiles ran
-// its TVD_DC instance 4% faster than 256-cell ones (finer CTAs overlap
-// one tile's loads with another's arithmetic better) and its UD instance
-// as fast. A 3-D box keeps 256-cell tiles, whose halo is smaller.
+// The CTA size of both SIMPLE_FC kernels on a 2-D box: 128-cell tiles
+// ran fc_momentum_kernel's TVD_DC instance 4% faster than 256-cell ones
+// (finer CTAs overlap one tile's loads with another's arithmetic better)
+// and its UD instance as fast; fc_pc_kernel ran 1% and 2.5% faster than
+// on 256- and 512-cell tiles. A 3-D box keeps 256-cell tiles, whose halo
+// is smaller.
 constexpr int kFcThreads2D = 128;
 
 // Shared memory of an FC momentum tile (halo 1): p, u, v, w and, under
@@ -288,71 +304,161 @@ __global__ void fc_momentum_kernel(
   b_out[2 * C + i] = active ? bw : T(0);
 }
 
+// The per-column products of Python numbers fc_pc_kernel's first design
+// formed in every thread, formed once by the launcher in its operation
+// order: 0.5 rho A / dist_on and rho A / dist_fo (d_int and d_bnd over
+// V/md) and A rho.
+template <typename T>
+struct FcPcConsts {
+  T d_int[kAsmK];
+  T d_bnd[kAsmK];
+  T arho[kAsmK];
+};
+
+template <typename T>
+FcPcConsts<T> make_fc_pc_consts(const AsmCols<T>& c, T rho) {
+  FcPcConsts<T> m{};
+  for (int k = 0; k < c.K; ++k) {
+    m.d_int[k] = T(0.5) * rho * c.area[k] / c.dist_on[k];
+    m.d_bnd[k] = rho * c.area[k] / c.dist_fo[k];
+    m.arho[k] = c.area[k] * rho;
+  }
+  return m;
+}
+
+// Shared memory of a SIMPLE_FC pressure tile (halo 1): u, v, w and V/md
+// over the stage and, under Rhie-Chow, the grad p component on each axis
+// a column uses.
+template <typename T>
+inline long long fc_pc_smem_bytes(const BoxTile& t, int axes, bool rc) {
+  const long long S = static_cast<long long>(t.sx) * t.sy * t.sz;
+  const int used = (axes & 1) + ((axes >> 1) & 1) + ((axes >> 2) & 1);
+  return static_cast<long long>(sizeof(T)) * S * (4 + (rc ? used : 0));
+}
+
 template <typename T, bool kRC>
-__global__ void fc_pc_kernel(AsmCols<T> cols, const T* __restrict__ vel,
+__global__ void fc_pc_kernel(AsmCols<T> cols, BoxTile box, FcPcConsts<T> pc,
+                             const T* __restrict__ vel,
                              const T* __restrict__ md,
                              const T* __restrict__ grad_p,
                              const T* __restrict__ bc,
-                             const int* __restrict__ flags, T rho, T vol,
+                             const int* __restrict__ flags, T vol,
                              T* __restrict__ diag_out,
                              T* __restrict__ off_out, T* __restrict__ b_out,
                              T* __restrict__ fh_out, long long C) {
-  const long long step = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
-                     threadIdx.x;
-       i < C; i += step) {
-    const int fl = flags[i];
-    const bool active = (fl >> ACTIVE_BIT) & 1;
-    const T u_c = vel[3 * i], v_c = vel[3 * i + 1], w_c = vel[3 * i + 2];
-    const T md_c = md[i];
-    T diag = T(0), b = T(0);
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int S = box.sx * box.sy * box.sz;
+  T* us = reinterpret_cast<T*>(smem);
+  T* vs = us + S;
+  T* ws = vs + S;
+  // vos[s] = V/md of slot s: the one IEEE division a cell, where the
+  // first design divided twice in each of its faces.
+  T* vos = ws + S;
+  // kRC: gs[u * S + s] holds the grad p component on the u-th axis a a
+  // column uses: every such component of a tile slot, the one on its
+  // face's axis of a halo slot (the only one a face reads there).
+  T* gs = vos + S;
+  // Rows in 32 bits: the launcher checks that every staged row fits.
+  const int nx = box.nx, nxy = box.nx * box.ny, rows = static_cast<int>(C);
+  const int x0 = static_cast<int>(blockIdx.x) * box.bx - box.hx;
+  const int y0 = static_cast<int>(blockIdx.y) * box.by - box.hy;
+  const int z0 = static_cast<int>(blockIdx.z) * box.bz - box.hz;
+  // Stages slot s from row r (zeros where r lies outside [0, C)).
+  auto stage = [&](int s, int r) {
+    const bool in = r >= 0 && r < rows;
+    const T* v = vel + 3 * static_cast<long long>(r);
+    us[s] = in ? v[0] : T(0);
+    vs[s] = in ? v[1] : T(0);
+    ws[s] = in ? v[2] : T(0);
+    vos[s] = in ? vol / md[r] : T(0);
+  };
+  // 1. Each thread stages its own cell, then the halo's slots in turn.
+  const int t = threadIdx.x;
+  const int tx = t & (box.bx - 1);
+  const int ty = (t >> box.lg_bx) & (box.by - 1);
+  const int tz = t >> (box.lg_bx + box.lg_by);
+  const int s =
+      (tx + box.hx) + box.sx * ((ty + box.hy) + box.sy * (tz + box.hz));
+  const int i32 = (x0 + box.hx + tx) + nx * (y0 + box.hy + ty) +
+                  nxy * (z0 + box.hz + tz) - box.r0;
+  stage(s, i32);
+  if (kRC) {
+    const bool in = i32 >= 0 && i32 < rows;
+    const T* g = grad_p + 3 * static_cast<long long>(i32);
 #pragma unroll
-    for (int k = 0; k < kAsmK; ++k) {
-      if (k >= cols.K) continue;
-      const bool interior = (fl >> k) & 1;
-      const long long j = interior ? i + cols.offset[k] : i;
-      T u_n = u_c, v_n = v_c, w_n = w_c, md_n = md_c;
-      if (interior) {
-        u_n = vel[3 * j];
-        v_n = vel[3 * j + 1];
-        w_n = vel[3 * j + 2];
-        md_n = md[j];
-      }
-      const T area = cols.area[k];
-      const int ax = cols.axis[k];
-      // Flux predictor: no compact pressure term (the equation re-adds
-      // it with the new p); term3 only under Rhie-Chow.
-      const T term1 = dot_n(u_c + u_n, v_c + v_n, w_c + w_n, cols.n[k]);
-      T vn_int = T(0.5) * term1;
-      if (kRC && ax >= 0) {
-        const T gp_c = grad_p[3 * i + ax];
-        const T gp_n = interior ? grad_p[3 * j + ax] : gp_c;
-        const T voa_c = vol / md_c;
-        const T voa_n = vol / md_n;
-        const T term3 = (voa_c * gp_c + voa_n * gp_n) * cols.na[k];
-        vn_int = T(0.5) * (term1 + term3);
-      }
-      const T vn_bnd = boundary_flux(cols, k, bc, u_c, v_c, w_c);
-      const T fh = interior ? vn_int : vn_bnd;
-      fh_out[k * C + i] = active ? fh : T(0);
-      b = b - fh * (area * rho);
-      // d coefficients: |md n| == md for unit normals, V/a == vol/md.
-      const T d_int =
-          (T(0.5) * rho * area / cols.dist_on[k]) * (vol / md_c + vol / md_n);
-      off_out[k * C + i] = (active && interior) ? -d_int : T(0);
-      if (cols.kind[k] == kPressure) {
-        const T d_bnd = (rho * area / cols.dist_fo[k]) * (vol / md_c);
-        diag = diag + (interior ? d_int : d_bnd);
-        const T p_bc = bc[4 * cols.zone[k] + 3];
-        b = b + (interior ? T(0) : d_bnd * p_bc);
-      } else {
-        // Prescribed-flux boundaries: no matrix contribution.
-        diag = diag + (interior ? d_int : T(0));
+    for (int a = 0; a < 3; ++a) {
+      if ((cols.axes >> a) & 1) {
+        gs[__popc(cols.axes & ((1 << a) - 1)) * S + s] = in ? g[a] : T(0);
       }
     }
-    diag_out[i] = active ? diag : T(1);
-    b_out[i] = active ? b : T(0);
   }
+  const int nh = box.nh_x + box.nh_y + box.nh_z;
+  for (int h = t; h < nh; h += blockDim.x) {
+    int x, y, z, d, a;
+    halo_slot(box, h, x, y, z, d, a);
+    const int r = (x0 + x) + nx * (y0 + y) + nxy * (z0 + z) - box.r0;
+    const int sh = x + box.sx * (y + box.sy * z);
+    stage(sh, r);
+    if (kRC && ((cols.axes >> a) & 1)) {
+      const bool in = r >= 0 && r < rows;
+      gs[__popc(cols.axes & ((1 << a) - 1)) * S + sh] =
+          in ? grad_p[3 * static_cast<long long>(r) + a] : T(0);
+    }
+  }
+  // 2. Its own flag word, read while the stage fills (row 0 by the
+  // threads past the box).
+  const bool mine = x0 + box.hx + tx < box.nx && y0 + box.hy + ty < box.ny &&
+                    z0 + box.hz + tz < box.nz && i32 >= 0 && i32 < rows;
+  const long long i = mine ? i32 : 0;
+  const int fl = flags[i];
+  __syncthreads();
+  if (!mine) return;
+  // 3. Each thread assembles its cell, writing the K off and K flux_h
+  // planes coalesced.
+  const bool active = (fl >> ACTIVE_BIT) & 1;
+  const T u_c = us[s], v_c = vs[s], w_c = ws[s];
+  const T voa_c = vos[s];
+  T diag = T(0), b = T(0);
+#pragma unroll
+  for (int k = 0; k < kAsmK; ++k) {
+    if (k >= cols.K) continue;
+    const bool interior = (fl >> k) & 1;
+    // The neighbour's slot: the own one on a boundary face, so every
+    // neighbour value read from it is the own cell's there.
+    const int sj = interior ? s + box.ds[k] : s;
+    const T u_n = us[sj], v_n = vs[sj], w_n = ws[sj];
+    const T voa_n = vos[sj];
+    const int ax = cols.axis[k];
+    // Flux predictor: no compact pressure term (the equation re-adds
+    // it with the new p); term3 only under Rhie-Chow.
+    const T term1 = dot_n(u_c + u_n, v_c + v_n, w_c + w_n, cols.n[k]);
+    T vn_int = T(0.5) * term1;
+    if (kRC && ax >= 0) {
+      const T* g = gs + __popc(cols.axes & ((1 << ax) - 1)) * S;
+      const T gp_c = g[s];
+      const T gp_n = g[sj];
+      const T term3 = (voa_c * gp_c + voa_n * gp_n) * cols.na[k];
+      vn_int = T(0.5) * (term1 + term3);
+    }
+    const T vn_bnd = boundary_flux(cols, k, bc, u_c, v_c, w_c);
+    const T fh = interior ? vn_int : vn_bnd;
+    fh_out[k * C + i] = active ? fh : T(0);
+    b = b - fh * pc.arho[k];
+    // d coefficients: |md n| == md for unit normals, V/a == vol/md.
+    const T d_int = pc.d_int[k] * (voa_c + voa_n);
+    off_out[k * C + i] = (active && interior) ? -d_int : T(0);
+    if (cols.kind[k] == kPressure) {
+      const T d_bnd = pc.d_bnd[k] * voa_c;
+      diag = diag + (interior ? d_int : d_bnd);
+      const T p_bc = bc[4 * cols.zone[k] + 3];
+      b = b + (interior ? T(0) : d_bnd * p_bc);
+    } else {
+      // Prescribed-flux boundaries: no matrix contribution.
+      diag = diag + (interior ? d_int : T(0));
+    }
+  }
+  diag_out[i] = active ? diag : T(1);
+  b_out[i] = active ? b : T(0);
 }
 
 template <typename T>
@@ -413,19 +519,31 @@ int launch_fc_momentum(int scheme, int psi, bool p_so, const AsmCols<T>& c,
 }
 
 template <typename T>
-int launch_fc_pc(bool rc, const AsmCols<T>& c, const void* vel,
-                 const void* md, const void* grad_p, const void* bc,
-                 const int* flags, double rho, double vol, void* diag,
-                 void* off, void* b, void* flux_h, long long C,
-                 cudaStream_t stream) {
-  void (*kernel)(AsmCols<T>, const T*, const T*, const T*, const T*,
-                 const int*, T, T, T*, T*, T*, T*, long long) =
+int launch_fc_pc(bool rc, const AsmCols<T>& c, int nx, int ny, int nz,
+                 int row0, const void* vel, const void* md,
+                 const void* grad_p, const void* bc, const int* flags,
+                 double rho, double vol, void* diag, void* off, void* b,
+                 void* flux_h, long long C, cudaStream_t stream) {
+  void (*kernel)(AsmCols<T>, BoxTile, FcPcConsts<T>, const T*, const T*,
+                 const T*, const T*, const int*, T, T*, T*, T*, T*,
+                 long long) =
       rc ? fc_pc_kernel<T, true> : fc_pc_kernel<T, false>;
-  kernel<<<grid_blocks(C), kThreads, 0, stream>>>(
-      c, static_cast<const T*>(vel), static_cast<const T*>(md),
+  BoxTile t;
+  dim3 grid;
+  const int threads = nz > 1 ? kThreads : kFcThreads2D;
+  if (!make_box_tile(c, nx, ny, nz, 1, &t, threads) || !box_grid(t, &grid)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  t.r0 = row0;
+  const long long smem = fc_pc_smem_bytes<T>(t, c.axes, rc);
+  if (const int e = fit_smem(kernel, smem)) return e;
+  kernel<<<grid, static_cast<unsigned>(t.bx * t.by * t.bz),
+           static_cast<size_t>(smem), stream>>>(
+      c, t, make_fc_pc_consts<T>(c, static_cast<T>(rho)),
+      static_cast<const T*>(vel), static_cast<const T*>(md),
       static_cast<const T*>(grad_p), static_cast<const T*>(bc), flags,
-      static_cast<T>(rho), static_cast<T>(vol), static_cast<T*>(diag),
-      static_cast<T*>(off), static_cast<T*>(b), static_cast<T*>(flux_h), C);
+      static_cast<T>(vol), static_cast<T*>(diag), static_cast<T*>(off),
+      static_cast<T*>(b), static_cast<T*>(flux_h), C);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -468,32 +586,34 @@ extern "C" int orc_fc_momentum_assembly(
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-extern "C" int orc_fc_pc_assembly(int dtype, int rc,
-                                  const long long* col_offsets,
-                                  const double* col_geom, const int* col_kind,
-                                  const int* col_zone, int K, const void* vel,
-                                  const void* md, const void* grad_p,
-                                  const void* bc, const void* flags,
-                                  double rho, double vol, void* diag,
-                                  void* off, void* b, void* flux_h,
-                                  long long C, void* stream) {
-  if (!orc::valid_cols(col_kind, K) || C < 0 || (rc && grad_p == nullptr)) {
+extern "C" int orc_fc_pc_assembly(
+    int dtype, int rc, const long long* col_offsets, const double* col_geom,
+    const int* col_kind, const int* col_zone, int K, long long nx,
+    long long ny, long long nz, long long row0, const void* vel,
+    const void* md, const void* grad_p, const void* bc, const void* flags,
+    double rho, double vol, void* diag, void* off, void* b, void* flux_h,
+    long long C, void* stream) {
+  if (!orc::valid_box(nx, ny, nz, row0, C) ||
+      !orc::valid_cols(col_kind, K) || (rc && grad_p == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (C == 0) return 0;
   auto s = static_cast<cudaStream_t>(stream);
   const int* fl = static_cast<const int*>(flags);
+  const int bx = static_cast<int>(nx), by = static_cast<int>(ny),
+            bz = static_cast<int>(nz), r0 = static_cast<int>(row0);
   if (dtype == orc::kF32) {
     const auto c =
         orc::make_asm_cols<float>(col_offsets, col_geom, col_kind, col_zone, K);
-    return orc::launch_fc_pc<float>(rc != 0, c, vel, md, grad_p, bc, fl, rho,
-                                    vol, diag, off, b, flux_h, C, s);
+    return orc::launch_fc_pc<float>(rc != 0, c, bx, by, bz, r0, vel, md,
+                                    grad_p, bc, fl, rho, vol, diag, off, b,
+                                    flux_h, C, s);
   }
   if (dtype == orc::kF64) {
     const auto c = orc::make_asm_cols<double>(col_offsets, col_geom,
                                               col_kind, col_zone, K);
-    return orc::launch_fc_pc<double>(rc != 0, c, vel, md, grad_p, bc, fl, rho,
-                                     vol, diag, off, b, flux_h, C, s);
+    return orc::launch_fc_pc<double>(rc != 0, c, bx, by, bz, r0, vel, md,
+                                     grad_p, bc, fl, rho, vol, diag, off, b,
+                                     flux_h, C, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

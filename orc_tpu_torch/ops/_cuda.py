@@ -101,12 +101,12 @@ SIGNATURES = {
         _i, _i, _i, _i, _pll, _pd, _pi, _pi, _i, _ll, _ll, _ll, _ll, _p, _p, _p,
         _p, _p, _p, _p, _p, _p, _d, _d, _d, _p, _p, _p, _ll, _p,
     ),
-    # dtype, rc, col_offsets, col_geom[K*6], col_kind, col_zone, K, vel,
-    # mom_diag, grad_p, bc, flags, rho, vol, diag, off, b, flux_h, C,
-    # stream
+    # dtype, rc, col_offsets, col_geom[K*6], col_kind, col_zone, K, nx,
+    # ny, nz, row0, vel, mom_diag, grad_p, bc, flags, rho, vol, diag, off,
+    # b, flux_h, C, stream
     "orc_fc_pc_assembly": (
-        _i, _i, _pll, _pd, _pi, _pi, _i, _p, _p, _p, _p, _p, _d, _d, _p, _p,
-        _p, _p, _ll, _p,
+        _i, _i, _pll, _pd, _pi, _pi, _i, _ll, _ll, _ll, _ll, _p, _p, _p, _p,
+        _p, _d, _d, _p, _p, _p, _p, _ll, _p,
     ),
     # dtype, diag, diag batch stride, coef, coef batch stride, starts,
     # tile_nj, x, y, C, tile, ntiles, n_max, pad_lo, B, stream

@@ -628,7 +628,7 @@ def _launch_fc_momentum(
 
 def fc_pc_assembly(
     vel, mom_diag, bc_values, flags, cols: tuple, rho, grad_p=None,
-    spec: AsmSpec = AsmSpec(),
+    spec: AsmSpec = AsmSpec(), box=None,
 ):
     """SIMPLE_FC fused full-p continuity assembly on a uniform box.
 
@@ -636,16 +636,22 @@ def fc_pc_assembly(
     -> (diag [C], off [C,K], b [C], flux_h [C,K]); with spec.rc,
     `grad_p` [C,3] is the iteration-start pressure gradient (the
     predictor's Rhie-Chow term3); the cell volume is spec.vol. `off`
-    and `flux_h` are [C,K] views of K contiguous [C] planes. CPU tensors
-    take the plain version; CUDA tensors launch the kernel or raise."""
+    and `flux_h` are [C,K] views of K contiguous [C] planes; `box` as in
+    momentum_assembly. CPU tensors take the plain version; CUDA tensors
+    launch the kernel or raise."""
     if not vel.is_cuda:
         return fc_pc_assembly_plain(
             vel, mom_diag, bc_values, flags, cols, rho, grad_p, spec
         )
-    return _launch_fc_pc(vel, mom_diag, bc_values, flags, cols, rho, grad_p, spec)
+    return _launch_fc_pc(
+        vel, mom_diag, bc_values, flags, cols, rho, grad_p, spec, box
+    )
 
 
-def _launch_fc_pc(vel, mom_diag, bc_values, flags, cols, rho, grad_p, spec):
+def _launch_fc_pc(
+    vel, mom_diag, bc_values, flags, cols, rho, grad_p, spec, box=None
+):
+    """The kernel launch of `fc_pc_assembly` (checks included)."""
     _check_spec(spec)
     C, K = vel.shape[0], len(cols)
     extra = dict(mom_diag=mom_diag)
@@ -662,7 +668,8 @@ def _launch_fc_pc(vel, mom_diag, bc_values, flags, cols, rho, grad_p, spec):
     flux_h = torch.empty((K, C), dtype=vel.dtype, device=vel.device)
     _cuda.call(
         "orc_fc_pc_assembly", vel.device, _cuda.dtype_code(vel), int(spec.rc),
-        *_col_args(cols), K, vel.data_ptr(), mom_diag.data_ptr(),
+        *_col_args(cols), K, *kernel_box(cols, C, box), vel.data_ptr(),
+        mom_diag.data_ptr(),
         _ptr(grad_p), bc_values.data_ptr(), flags.data_ptr(), float(rho),
         float(spec.vol), diag.data_ptr(), off.data_ptr(), b.data_ptr(),
         flux_h.data_ptr(), C,

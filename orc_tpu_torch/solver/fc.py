@@ -459,7 +459,7 @@ def ck_simple_step_fc(
     if kernel_asm is not None:
         pdiag, poff, b_p, flux_h = fc_pc_assembly(
             new_vel, new_mom_diag[0], bcv, flags, cols, rho, grad_p=grad_p,
-            spec=aspec,
+            spec=aspec, box=box,
         )
         Pmat = mesh_matrix(mesh, pdiag, poff)
         # d for the conservative correction, recomputed from the shared

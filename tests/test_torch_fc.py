@@ -330,18 +330,37 @@ def test_fc_fixture_settings_reach_orc_tpu_state():
         _scale_close(np_(getattr(st, f)), np.asarray(getattr(sj, f)), 1e-6, f)
 
 
+#: Iterations (from 1) through which the flagship cavity's pressure
+#: solves take as many BiCGSTAB iterations in both packages, and the
+#: spread allowed after them (test_fc_flagship_bicgstab_tracks_orc_tpu).
+FLAGSHIP_EXACT_PC_ITERS = 15
+FLAGSHIP_PC_ITERS_SPREAD = 3
+
+
 def test_fc_flagship_bicgstab_tracks_orc_tpu():
     """The 16^2 cavity with the flagship numerics and its own
     BiCGSTAB(50) pressure solve, 20 iterations. Measured gaps: every
     StepMetrics field within 5.7e-6 of its scale through iteration 10
-    (pc_residual; the others 9.3e-7); at iteration 16 (pc_iters 36) the
-    roundoff amplification of the module docstring lifts the gaps from
-    ~1e-8 to ~3e-4. Held: equal mom_iters / pc_iters in all 20
-    iterations, every field within 1e-4 of its scale through iteration
-    10, final vel / p / flux within 1e-3 of scale (measured 2.8e-5)."""
+    (pc_residual; the others 9.3e-7); at iteration 16 the roundoff
+    amplification of the module docstring lifts the gaps from ~1e-8 to
+    ~3e-4. From there on orc_tpu's own count is not fixed by its code:
+    at iteration 16 its pressure solve takes 36 iterations under XLA's
+    default and AVX2 instruction selection on an AVX-512 host and 38
+    under `--xla_cpu_max_isa=SSE4_2` (no FMA), where this package takes
+    35 (under ATen's default and AVX2 kernels alike); the other 19
+    counts agree under all three. Held: equal mom_iters and diverged in
+    all 20 iterations, equal pc_iters through iteration 15, each later
+    pc_iters within 3 of orc_tpu's (its own spread plus this package's
+    35), every field within 1e-4 of its scale through iteration 10,
+    final vel / p / flux within 1e-3 of scale (measured 2.8e-5)."""
     (sj, hj), (st, ht) = _run("cavity")
-    for f in ("mom_iters", "pc_iters", "diverged"):
+    for f in ("mom_iters", "diverged"):
         np.testing.assert_array_equal(getattr(ht, f), np.asarray(getattr(hj, f)), f)
+    n = FLAGSHIP_EXACT_PC_ITERS
+    pj, pt = np.asarray(hj.pc_iters), np.asarray(ht.pc_iters)
+    np.testing.assert_array_equal(pt[:n], pj[:n], "pc_iters")
+    spread = np.abs(pt[n:].astype(np.int64) - pj[n:])
+    assert spread.max() <= FLAGSHIP_PC_ITERS_SPREAD, (pt[n:], pj[n:])
     for f in hj._fields:
         if f in ("mom_iters", "pc_iters", "diverged"):
             continue

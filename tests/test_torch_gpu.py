@@ -595,6 +595,26 @@ def test_fc_momentum_kernel_tile_edges(dev, dtype, box, family):
                 _close(a, r, TOL[dtype], f"fc momentum {spec} inertia={inertia is not None} {name}")
 
 
+@pytest.mark.parametrize("rc", [False, True], ids=["linear", "rc"])
+@pytest.mark.parametrize("box", sorted(TILE_BOXES))
+@pytest.mark.parametrize("dtype", sorted(DTYPES))
+def test_fc_pc_kernel_tile_edges(dev, dtype, box, rc):
+    """Guards orc_tpu/ops/pallas_assembly.py `_fc_pc_kernel` at the edges
+    of the kernel's box tiles, with Linear and Rhie-Chow predictors,
+    against the plain version."""
+    dt = DTYPES[dtype]
+    mesh, _ck, _bc, bcv, flags, cols, f = _tile_case(box, dt, dev)
+    spec = asm.AsmSpec(rc=rc, vol=float(mesh.cell_volume[0]))
+    pargs = (f["vel"], f["md"], bcv, flags, cols, 1.0)
+    before = asm.fc_pc_assembly.launches
+    got = asm.fc_pc_assembly(*pargs, grad_p=f["grad_p"], spec=spec)
+    ref = asm.fc_pc_assembly_plain(*pargs, grad_p=f["grad_p"], spec=spec)
+    torch.cuda.synchronize()
+    assert asm.fc_pc_assembly.launches == before + 1
+    for name, a, r in zip(("diag", "off", "b", "flux_h"), got, ref):
+        _close(a, r, TOL[dtype], f"fc pc {spec} {name}")
+
+
 @pytest.mark.parametrize("instance", ["linear", "rc-gg", "rc-streamed"])
 @pytest.mark.parametrize("box", sorted(TILE_BOXES))
 @pytest.mark.parametrize("dtype", sorted(DTYPES))

@@ -1,10 +1,11 @@
-"""CPU rehearsal of seven Hopper kernels of orc_tpu_torch: the slice-plan
+"""CPU rehearsal of eight Hopper kernels of orc_tpu_torch: the slice-plan
 SpMV and its exact product (csrc/slice_spmv.cu, kernel rows 7-9 and
 12), the shift SpMV's and the Jacobi sweeps' per-row instances
 (csrc/shift_spmv.cu, row 1; csrc/jacobi_sweeps.cu, row 2, also tiled), the parity
 momentum assembly (csrc/parity_assembly.cuh, row 3), the SIMPLE_FC
-momentum assembly (csrc/assembly.cu, row 4) and the pressure-correction
-assembly (csrc/parity_assembly.cuh, row 5), compiled as C++ with g++
+momentum assembly (csrc/assembly.cu, row 4), the pressure-correction
+assembly (csrc/parity_assembly.cuh, row 5) and the SIMPLE_FC pressure
+assembly (csrc/assembly.cu, row 6), compiled as C++ with g++
 against a mock cuda_runtime.h and run through the wrappers' launch
 helpers on CPU tensors.
 
@@ -58,6 +59,9 @@ source does not spell out. What that checks:
   instances (Linear, Rhie-Chow with the in-kernel or a streamed
   gradient), on the same boxes, against the plain versions (1e-5 /
   1e-12 of each output's largest value);
+- the SIMPLE_FC pressure assembly with Linear and Rhie-Chow predictors
+  on the same boxes and on every window of a ragged slab partition
+  (row0 > 0), each of its four outputs against the plain version;
 - the three tiled assembly kernels on every window of a slab partition
   (parallel/partition.py: the global box cut to the planes that hold
   the window's rows, from its first row's place in its plane; ghost,
@@ -304,7 +308,8 @@ def mock_lib(tmp_path_factory):
                    check=True)
     lib = ctypes.CDLL(str(lib_path))
     for name in ("orc_slice_spmv", "orc_slice_spmv_exact", "orc_momentum_assembly",
-                 "orc_pc_assembly", "orc_fc_momentum_assembly", "orc_jacobi_sweeps",
+                 "orc_pc_assembly", "orc_fc_momentum_assembly", "orc_fc_pc_assembly",
+                 "orc_jacobi_sweeps",
                  "orc_jacobi_sweeps_rows", "orc_jacobi_march", "orc_shift_spmv",
                  "orc_shift_spmv_rows"):
         fn = getattr(lib, name)
@@ -802,6 +807,7 @@ def _box_case(box, dtype):
     )
     f["grad_p"] = ck_pressure_gradient(mesh, ck, bc, f["p"])
     f["grad_v"] = ck_velocity_gradient(mesh, ck, bc, f["vel"])
+    f["vol"] = float(mesh.cell_volume[0])
     bcv = asm.bc_value_table(zs, zv)
     return mesh, cols, bcv, asm.pack_flags(ck.interior, ck.mask), f
 
@@ -830,6 +836,33 @@ def test_rehearsed_fc_momentum_matches_plain(mock, dtype, box, family):
             got = asm._launch_fc_momentum(*margs, *kw.values())
             ref = asm.fc_momentum_assembly_plain(*margs, **kw)
             _assert_close(got, ref, dtype, f"{spec} inertia={inertia is not None}")
+
+
+@pytest.mark.parametrize("rc", [False, True], ids=["linear", "rc"])
+@pytest.mark.parametrize("case", sorted(BOXES) + ["37x9_pressure-3slabs", "17x5x3_pressure-2slabs"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_rehearsed_fc_pc_matches_plain(mock, dtype, case, rc):
+    """Guards orc_tpu/ops/pallas_assembly.py `_fc_pc_kernel` (via
+    fc_pc_assembly's kernel launch on the mock), with Linear and
+    Rhie-Chow predictors: on the boxes of BOXES (2-D and 3-D, one tile or
+    several, ragged on every side) and on every window of a ragged slab
+    partition (row0 > 0), each output against the plain version."""
+    outputs = ("diag", "off", "b", "flux_h")
+    if "slabs" in case:
+        box, n = case.split("-")
+        windows = list(_slab_windows(box, dtype, int(n[0]), ragged=True))
+        assert any(w[1][3] for w in windows)
+    else:
+        mesh, cols, bcv, flags, f = _box_case(case, dtype)
+        windows = [(mesh, None, cols, bcv, flags, f)]
+    for _mesh, window, cols, bcv, flags, f in windows:
+        spec = asm.AsmSpec(rc=rc, vol=f["vol"])
+        pargs = (f["vel"], f["md"], bcv, flags, cols, 1.0, f["grad_p"] if rc else None, spec)
+        got = asm._launch_fc_pc(*pargs, window)
+        ref = asm.fc_pc_assembly_plain(*pargs)
+        for name, a, r in zip(outputs, got, ref):
+            err = float((a - r).abs().max())
+            assert err <= TOL[dtype] * float(r.abs().max()), f"{case} {window} {name}: {err:.3e}"
 
 
 #: pc_kernel's instances: (Rhie-Chow, in-kernel gradient).
@@ -871,17 +904,13 @@ def test_box_dims_tiles_axes_of_extent_one_last(shape):
         asm.box_dims(bad, mesh.n_cells + 1)
 
 
-@pytest.mark.parametrize("ragged", [False, True], ids=["planes", "ragged"])
-@pytest.mark.parametrize("n_parts", [2, 3])
-@pytest.mark.parametrize("box", ["37x9_pressure", "17x5x3_pressure"])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
-def test_rehearsed_slab_windows_match_plain(mock, dtype, box, n_parts, ragged):
-    """The window of each slab partition: rows 3, 4 and 5 given the box
-    parallel/sharded.slab_kernel_box computes against their plain
-    versions on every row of the window (the trash row included), halo
-    values refreshed (here: any values) and the ghost and padding rows
-    inactive. With `ragged`, the mesh has one plane more, so the owned
-    ranges start and end inside planes (row0 > 0)."""
+def _slab_windows(box, dtype, n_parts, ragged):
+    """The windows of a slab partition of a channel box of BOXES, one
+    more plane along its slowest axis with `ragged` (owned ranges that
+    start and end inside planes, row0 > 0): for each partition (local
+    mesh, its box from parallel/sharded.slab_kernel_box, cols, BC value
+    table, flags, seeded fields, its ck geometry as f["ck"] and the
+    real cells' volume as f["vol"])."""
     from orc_tpu_torch.parallel.partition import partition_mesh
     from orc_tpu_torch.parallel.sharded import slab_kernel_box
 
@@ -895,24 +924,44 @@ def test_rehearsed_slab_windows_match_plain(mock, dtype, box, n_parts, ragged):
     )
     cols = asm.column_specs(mesh, table)
     part = partition_mesh(mesh, n_parts, method="slab")
-    windows = slab_kernel_box(mesh, part, cols)
-    assert len(windows) == n_parts
-    assert any(w[3] for w in windows) == ragged
     zc, zs, zv = device_bc(table, dtype=dtype, device="cpu")
     bcv = asm.bc_value_table(zs, zv)
     rng = np.random.default_rng(5)
-    vol = float(mesh.cell_volume[0])
-    for lmesh, window in zip(part.local_meshes, windows):
+    for lmesh, window in zip(part.local_meshes, slab_kernel_box(mesh, part, cols)):
         L = lmesh.n_cells
         ck = build_ck_geometry(lmesh, len(table.zone_ids))
         bc = ck_bc(ck, zc, zs, zv)
-        flags = asm.pack_flags(ck.interior, ck.mask)
-        vel = torch.tensor(rng.standard_normal((L, 3)) * 0.1, dtype=dtype)
-        p = torch.tensor(rng.standard_normal(L) * 0.05, dtype=dtype)
-        md = torch.tensor(rng.uniform(0.5, 2.0, L), dtype=dtype)
-        flux = torch.tensor(rng.standard_normal((len(cols), L)) * 0.1, dtype=dtype).T
-        grad_p = ck_pressure_gradient(lmesh, ck, bc, p)
-        grad_v = ck_velocity_gradient(lmesh, ck, bc, vel)
+        f = dict(
+            vel=torch.tensor(rng.standard_normal((L, 3)) * 0.1, dtype=dtype),
+            p=torch.tensor(rng.standard_normal(L) * 0.05, dtype=dtype),
+            md=torch.tensor(rng.uniform(0.5, 2.0, L), dtype=dtype),
+            flux=torch.tensor(rng.standard_normal((len(cols), L)) * 0.1, dtype=dtype).T,
+            ck=ck,
+            vol=float(mesh.cell_volume[0]),
+        )
+        f["grad_p"] = ck_pressure_gradient(lmesh, ck, bc, f["p"])
+        f["grad_v"] = ck_velocity_gradient(lmesh, ck, bc, f["vel"])
+        yield lmesh, window, cols, bcv, asm.pack_flags(ck.interior, ck.mask), f
+
+
+@pytest.mark.parametrize("ragged", [False, True], ids=["planes", "ragged"])
+@pytest.mark.parametrize("n_parts", [2, 3])
+@pytest.mark.parametrize("box", ["37x9_pressure", "17x5x3_pressure"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_rehearsed_slab_windows_match_plain(mock, dtype, box, n_parts, ragged):
+    """The window of each slab partition: rows 3, 4 and 5 given the box
+    parallel/sharded.slab_kernel_box computes against their plain
+    versions on every row of the window (the trash row included), halo
+    values refreshed (here: any values) and the ghost and padding rows
+    inactive. With `ragged`, the mesh has one plane more, so the owned
+    ranges start and end inside planes (row0 > 0)."""
+    windows = list(_slab_windows(box, dtype, n_parts, ragged))
+    assert len(windows) == n_parts
+    assert any(w[1][3] for w in windows) == ragged
+    for lmesh, window, cols, bcv, flags, f in windows:
+        L, vol, ck = lmesh.n_cells, f["vol"], f["ck"]
+        vel, p, md, flux = f["vel"], f["p"], f["md"], f["flux"]
+        grad_p, grad_v = f["grad_p"], f["grad_v"]
         # A row with an interior face onto a ghost row reads that row's
         # gradient, which the in-kernel instances form from the ghost's
         # own (inactive) flags where the plain version has zero: orc_tpu's

@@ -574,6 +574,27 @@ def test_fc_cpu_tensors_take_the_plain_version():
     assert (tasm.fc_momentum_assembly.launches, tasm.fc_pc_assembly.launches) == before
 
 
+@pytest.mark.parametrize("kernel", ["fc_momentum", "fc_pc"])
+def test_fc_launches_refuse_a_box_that_does_not_hold_the_rows(kernel):
+    """Both SIMPLE_FC launches hold `box` to kernel_box before they reach
+    the kernel: too few or too many planes, or a row0 past the first
+    plane, raise ValueError."""
+    _, T = _fc_inputs("couette", "default", "f64")
+    nx, ny, nz, row0 = tasm.kernel_box(T["cols"], T["vel"].shape[0])
+    assert (nz, row0) == (1, 0)
+    for bad in ((nx, ny, nz - 1, 0), (nx, ny, nz + 1, 0), (nx, ny, nz, nx * ny)):
+        with pytest.raises(ValueError, match="box"):
+            if kernel == "fc_pc":
+                tasm._launch_fc_pc(
+                    T["vel"], T["md"], T["bcv"], T["flags"], T["cols"], 1.0,
+                    T["grad_p"], T["spec"], bad,
+                )
+            else:
+                tasm._launch_fc_momentum(
+                    *_fc_mom_args(T), T["grad_p"], T["grad_vel"], None, T["spec"], bad
+                )
+
+
 def test_fc_transient_assembly_raises():
     """The transient branch takes (rv_dt [C], vel_n [C,3]) and raises on
     any other inertia; tests/test_torch_transient.py holds its values."""
