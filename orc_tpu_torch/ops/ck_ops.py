@@ -193,14 +193,20 @@ def build_ck_geometry(mesh, n_zones: int):
     dt, dev = mesh.dtype, mesh.device
     m = mesh.cell_face_mask
     interior = mesh.face_interior[mesh.cell_faces.long()] & m
+
+    def column(j, dtype=dt):
+        # Uploaded without waiting for the card (a blocking copy would
+        # first drain its queue).
+        return torch.tensor([c[j] for c in cols], dtype=dtype).to(dev, non_blocking=True)
+
     return UniformCKGeometry(
         interior=interior,
         mask=m,
-        c_area=torch.tensor([c[0] for c in cols], dtype=dt, device=dev),
-        c_n_out=torch.tensor([c[1] for c in cols], dtype=dt, device=dev),
-        c_dist_fo=torch.tensor([c[2] for c in cols], dtype=dt, device=dev),
-        c_dist_on=torch.tensor([c[3] for c in cols], dtype=dt, device=dev),
-        c_zone=torch.tensor([c[4] for c in cols], dtype=torch.int32, device=dev),
+        c_area=column(0),
+        c_n_out=column(1),
+        c_dist_fo=column(2),
+        c_dist_on=column(3),
+        c_zone=column(4, torch.int32),
         int_slot=int_slot,
         n_zones=n_zones,
     )

@@ -63,11 +63,12 @@ def device_bc(
     device: torch.device | str,
 ):
     """Zone-level tensors on `device`: (codes [Z] i32, scalar [Z],
-    vector [Z,3])."""
+    vector [Z,3]). Uploaded without waiting for the card: a blocking copy
+    to a CUDA device would first drain its queue."""
     return (
-        torch.tensor(table.codes, dtype=torch.int32, device=device),
-        torch.tensor(table.scalar, dtype=dtype, device=device),
-        torch.tensor(table.vector, dtype=dtype, device=device),
+        torch.tensor(table.codes, dtype=torch.int32).to(device, non_blocking=True),
+        torch.tensor(table.scalar, dtype=dtype).to(device, non_blocking=True),
+        torch.tensor(table.vector, dtype=dtype).to(device, non_blocking=True),
     )
 
 

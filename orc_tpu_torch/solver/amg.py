@@ -53,6 +53,7 @@ from orc_tpu_torch.solver.krylov import (
     constant_deflation,
 )
 from orc_tpu_torch.utils.device import resolve_device
+from orc_tpu_torch.utils.profiling import span
 from orc_tpu_torch.utils.settings import MatrixSolverSettings, RestrictionMethod
 
 
@@ -479,21 +480,25 @@ def multigrid_solve_sharded(
 
 def _mg_correction(A_f, r, level_idx, settings, hierarchy,
                    axis_sum=_identity_sum, project=None):
+    """Coarse level level_idx + 1's correction (the span
+    `orc.mg.level<level_idx+1>`, the levels below nested in it)."""
     level = hierarchy[level_idx]
-    r_c = restrict(r, level)
-    A_c = galerkin_values(A_f, level)
-    # Coarsest level: solve accurately (it is tiny); intermediate levels
-    # take smoother sweeps only.
-    coarsest = level_idx + 1 == len(hierarchy)
-    e_c, _ = _smooth(
-        A_c, r_c, torch.zeros_like(r_c), settings, axis_sum,
-        iterations=settings.iterations if coarsest else None,
-        project=project,
-    )
-    if not coarsest:
-        e_c = e_c + _mg_correction(
-            A_c, r_c, level_idx + 1, settings, hierarchy, axis_sum,
+    with span(f"orc.mg.level{level_idx + 1}"):
+        r_c = restrict(r, level)
+        with span("orc.mg.galerkin"):
+            A_c = galerkin_values(A_f, level)
+        # Coarsest level: solve accurately (it is tiny); intermediate
+        # levels take smoother sweeps only.
+        coarsest = level_idx + 1 == len(hierarchy)
+        e_c, _ = _smooth(
+            A_c, r_c, torch.zeros_like(r_c), settings, axis_sum,
+            iterations=settings.iterations if coarsest else None,
             project=project,
         )
-        e_c, _ = _smooth(A_c, r_c, e_c, settings, axis_sum, project=project)
-    return e_c[..., level.agg.long()]
+        if not coarsest:
+            e_c = e_c + _mg_correction(
+                A_c, r_c, level_idx + 1, settings, hierarchy, axis_sum,
+                project=project,
+            )
+            e_c, _ = _smooth(A_c, r_c, e_c, settings, axis_sum, project=project)
+        return e_c[..., level.agg.long()]

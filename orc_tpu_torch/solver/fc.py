@@ -64,6 +64,7 @@ from orc_tpu_torch.ops.fields import (
 from orc_tpu_torch.ops.gradients import pressure_gradient, velocity_gradient
 from orc_tpu_torch.ops.interpolation import _dot, face_flux, face_pressure
 from orc_tpu_torch.solver import simple
+from orc_tpu_torch.utils.profiling import span
 from orc_tpu_torch.utils.settings import (
     PressureCorrectionForm,
     VelocityInterpolation,
@@ -188,68 +189,76 @@ def simple_step_fc(
     orc_tpu's: the colouring of GAUSS_SEIDEL runs, the hierarchy of
     MULTIGRID ones; `comm` the communication context."""
     comm = comm or simple.NullComm()
-    fbc = face_bc(mesh, zone_codes, zone_scalar, zone_vector)
-    active = mesh.cell_face_mask.any(dim=1)
-    vel = comm.refresh(state.vel)
-    p = comm.refresh(state.p)
-    flux = state.flux
+    with span("orc.gradients"):
+        fbc = face_bc(mesh, zone_codes, zone_scalar, zone_vector)
+        active = mesh.cell_face_mask.any(dim=1)
+        vel = comm.refresh(state.vel)
+        p = comm.refresh(state.p)
+        flux = state.flux
 
-    grad_p = (
-        comm.refresh(
-            pressure_gradient(mesh, fbc, p, settings.gradient_reconstruction)
+        grad_p = (
+            comm.refresh(
+                pressure_gradient(mesh, fbc, p, settings.gradient_reconstruction)
+            )
+            if simple._needs_grad_p(settings)
+            else None
         )
-        if simple._needs_grad_p(settings)
-        else None
-    )
-    grad_v = (
-        comm.refresh(
-            velocity_gradient(mesh, fbc, vel, settings.gradient_reconstruction)
+        grad_v = (
+            comm.refresh(
+                velocity_gradient(mesh, fbc, vel, settings.gradient_reconstruction)
+            )
+            if simple._needs_grad_vel(settings)
+            else None
         )
-        if simple._needs_grad_vel(settings)
-        else None
-    )
-    p_f = face_pressure(mesh, fbc, p, settings.pressure_interpolation, grad_p=grad_p)
-    A3, b3, pe = momentum_system(
-        mesh, fbc, settings, rho, vel, flux, p_f, diff, grad_vel=grad_v,
-        inertia=inertia,
-    )
-    new_vel, new_mom_diag, info = simple._solve_momentum(
-        A3, b3, vel, active, settings, solver_extras, comm
-    )
+    with span("orc.momentum_assembly"):
+        p_f = face_pressure(mesh, fbc, p, settings.pressure_interpolation, grad_p=grad_p)
+        A3, b3, pe = momentum_system(
+            mesh, fbc, settings, rho, vel, flux, p_f, diff, grad_vel=grad_v,
+            inertia=inertia,
+        )
+    with span("orc.momentum_solve"):
+        new_vel, new_mom_diag, info = simple._solve_momentum(
+            A3, b3, vel, active, settings, solver_extras, comm
+        )
     new_md_c = new_mom_diag.T
 
     # The pressure equation from the flux predictor (the full p).
-    flux_h = face_flux_h(
-        mesh, fbc, new_vel, settings.velocity_interpolation,
-        p=p, grad_p=grad_p, mom_diag=new_md_c,
-    )
-    d_face = _face_d_coeffs(mesh, fbc, rho, new_md_c)
-    Pmat, b_p = fc_pressure_system(mesh, fbc, rho, flux_h, d_face)
-    p_new, p_info = simple._solve_p_prime(
-        Pmat, b_p, p, settings, active, comm, solver_extras, maybe_singular,
-        x0=p,
-    )
+    with span("orc.pressure_assembly"):
+        flux_h = face_flux_h(
+            mesh, fbc, new_vel, settings.velocity_interpolation,
+            p=p, grad_p=grad_p, mom_diag=new_md_c,
+        )
+        d_face = _face_d_coeffs(mesh, fbc, rho, new_md_c)
+        Pmat, b_p = fc_pressure_system(mesh, fbc, rho, flux_h, d_face)
+    with span("orc.pressure_solve"):
+        p_new, p_info = simple._solve_p_prime(
+            Pmat, b_p, p, settings, active, comm, solver_extras, maybe_singular,
+            x0=p,
+        )
 
-    # Conservative stored flux from the unrelaxed p_new, blended with the
-    # previous one under explicit relaxation (both are divergence-free).
-    new_flux = correct_flux(mesh, fbc, flux_h, d_face, rho, p_new)
-    beta_f = settings.resolved_fc_flux_relaxation()
-    if beta_f != 1.0:
-        new_flux = flux + beta_f * (new_flux - flux)
+    with span("orc.correction"):
+        # Conservative stored flux from the unrelaxed p_new, blended with
+        # the previous one under explicit relaxation (both are
+        # divergence-free).
+        new_flux = correct_flux(mesh, fbc, flux_h, d_face, rho, p_new)
+        beta_f = settings.resolved_fc_flux_relaxation()
+        if beta_f != 1.0:
+            new_flux = flux + beta_f * (new_flux - flux)
 
-    # Relaxed pressure and the face-value velocity correction of the
-    # relaxed increment (what the next momentum solve sees).
-    dp = (p_new - p) * settings.pressure_relaxation
-    s_corr = settings.replace(
-        pressure_relaxation=1.0,
-        pressure_correction_form=PressureCorrectionForm.FACE_VALUE,
-    )
-    vel3, p_out, (p_corr_sq, vel_corr_sq) = apply_pressure_correction(
-        mesh, fbc, s_corr, comm.refresh(dp), new_md_c, new_vel, p
-    )
-    metrics = simple._step_metrics(
-        active, vel3, pe, p_corr_sq, vel_corr_sq, info, p_info, comm
-    )
+        # Relaxed pressure and the face-value velocity correction of the
+        # relaxed increment (what the next momentum solve sees).
+        dp = (p_new - p) * settings.pressure_relaxation
+        s_corr = settings.replace(
+            pressure_relaxation=1.0,
+            pressure_correction_form=PressureCorrectionForm.FACE_VALUE,
+        )
+        vel3, p_out, (p_corr_sq, vel_corr_sq) = apply_pressure_correction(
+            mesh, fbc, s_corr, comm.refresh(dp), new_md_c, new_vel, p
+        )
+    with span("orc.step_metrics"):
+        metrics = simple._step_metrics(
+            active, vel3, pe, p_corr_sq, vel_corr_sq, info, p_info, comm
+        )
     new_state = simple.FlowState(
         vel=vel3, p=p_out, mom_diag=new_mom_diag, flux=new_flux
     )
@@ -397,110 +406,117 @@ def ck_simple_step_fc(
     the host fact "no pressure zones" (simple.table_has_pressure_bc);
     `comm` and the box in `kernel_asm` as in simple.ck_simple_step."""
     comm = comm or simple.NullComm()
-    bc = ck_bc(ck, zone_codes, zone_scalar, zone_vector)
     diff_diag, diff_off, diff_b = ck_diff
-    vel = comm.refresh(state.vel)
-    p = comm.refresh(state.p)
-    flux = state.flux
-    active = ck.mask.any(dim=1)
+    with span("orc.gradients"):
+        bc = ck_bc(ck, zone_codes, zone_scalar, zone_vector)
+        vel = comm.refresh(state.vel)
+        p = comm.refresh(state.p)
+        flux = state.flux
+        active = ck.mask.any(dim=1)
 
-    # The kernels read neighbour values themselves: the [C,K(,3)]
-    # neighbour tables are built only for the plain ops.
-    vel_nbr = None if kernel_asm is not None else nbr_values(mesh, vel, ck.interior)
-    grad_p = grad_p_nbr = None
-    gp_fn, gv_fn = simple.gradient_fns(settings)
-    if simple._needs_grad_p(settings):
-        grad_p = comm.refresh(gp_fn(mesh, ck, bc, p))
-        if kernel_asm is None:
-            grad_p_nbr = nbr_values(mesh, grad_p, ck.interior)
-    grad_v = (
-        comm.refresh(gv_fn(mesh, ck, bc, vel, vel_nbr=vel_nbr))
-        if simple._needs_grad_vel(settings)
-        else None
-    )
-
-    if kernel_asm is not None:
-        from orc_tpu_torch.ops.fused_assembly import (
-            bc_value_table,
-            fc_momentum_assembly,
-            fc_pc_assembly,
-            pack_flags,
+        # The kernels read neighbour values themselves: the [C,K(,3)]
+        # neighbour tables are built only for the plain ops.
+        vel_nbr = None if kernel_asm is not None else nbr_values(mesh, vel, ck.interior)
+        grad_p = grad_p_nbr = None
+        gp_fn, gv_fn = simple.gradient_fns(settings)
+        if simple._needs_grad_p(settings):
+            grad_p = comm.refresh(gp_fn(mesh, ck, bc, p))
+            if kernel_asm is None:
+                grad_p_nbr = nbr_values(mesh, grad_p, ck.interior)
+        grad_v = (
+            comm.refresh(gv_fn(mesh, ck, bc, vel, vel_nbr=vel_nbr))
+            if simple._needs_grad_vel(settings)
+            else None
         )
 
-        cols, aspec, box = simple._unpack_kernel_asm(kernel_asm)
-        flags = pack_flags(ck.interior, ck.mask)
-        bcv = bc_value_table(zone_scalar, zone_vector)
-        mdiag, moff, b3 = fc_momentum_assembly(
-            vel, p, flux, bcv, flags, cols, rho, mu,
-            settings.momentum_relaxation,
-            grad_p=grad_p, grad_vel=grad_v, inertia=inertia, spec=aspec,
-            box=box,
-        )
-        b3 = simple._add_momentum_source(mesh, settings, b3, active)
-        A3 = mesh_matrix(mesh, mdiag, moff)
-        pe = simple._kernel_peclet(settings, mdiag, diff_diag, active, inertia)
-    else:
-        F = flux * ck.area * rho
-        p_f = ck_face_pressure(
-            mesh, ck, bc, p, settings.pressure_interpolation,
-            grad_p=grad_p, grad_p_nbr=grad_p_nbr,
-        )
-        A3, b3, pe = ck_momentum(
-            mesh, ck, bc, settings, rho, vel, F, p_f,
-            diff_diag, diff_off, diff_b, grad_vel=grad_v, vel_nbr=vel_nbr,
-            inertia=inertia,
-        )
+    with span("orc.momentum_assembly"):
+        if kernel_asm is not None:
+            from orc_tpu_torch.ops.fused_assembly import (
+                bc_value_table,
+                fc_momentum_assembly,
+                fc_pc_assembly,
+                pack_flags,
+            )
 
-    new_vel, new_mom_diag, info = simple._solve_momentum(
-        A3, b3, vel, active, settings, solver_extras, comm
-    )
-    new_md_c = new_mom_diag.T  # cell-major [C,3] view
-    new_md_nbr = nbr_values(mesh, new_md_c, ck.interior)
-    if kernel_asm is not None:
-        pdiag, poff, b_p, flux_h = fc_pc_assembly(
-            new_vel, new_mom_diag[0], bcv, flags, cols, rho, grad_p=grad_p,
-            spec=aspec, box=box,
-        )
-        Pmat = mesh_matrix(mesh, pdiag, poff)
-        # d for the conservative correction, recomputed from the shared
-        # momentum diagonal as orc_tpu does: it may differ from the
-        # kernel's matrix coefficients by an ulp, which perturbs
-        # div(flux) at rounding scale only.
-        d_ck = ck_d_coeffs(mesh, ck, bc, rho, new_md_c, new_md_nbr)
-    else:
-        new_vel_nbr = nbr_values(mesh, new_vel, ck.interior)
-        flux_h = ck_flux_h(
-            mesh, ck, bc, new_vel, settings.velocity_interpolation,
-            p=p, grad_p=grad_p, grad_p_nbr=grad_p_nbr,
-            mom_diag=new_md_c, mom_diag_nbr=new_md_nbr, vel_nbr=new_vel_nbr,
-        )
-        d_ck = ck_d_coeffs(mesh, ck, bc, rho, new_md_c, new_md_nbr)
-        Pmat, b_p = ck_fc_pressure_system(mesh, ck, bc, rho, flux_h, d_ck)
-    p_new, p_info = simple._solve_p_prime(
-        Pmat, b_p, p, settings, active, comm, solver_extras, maybe_singular,
-        x0=p,
-    )
-    p_new_nbr = nbr_values(mesh, p_new, ck.interior)
-    new_flux = ck_correct_flux(mesh, ck, bc, flux_h, d_ck, rho, p_new, p_new_nbr)
-    # Stored-flux under-relaxation: a blend of two conservative fluxes,
-    # alpha-consistent with the explicit velocity correction.
-    beta_f = settings.resolved_fc_flux_relaxation()
-    if beta_f != 1.0:
-        new_flux = planes(flux + beta_f * (new_flux - flux))
+            cols, aspec, box = simple._unpack_kernel_asm(kernel_asm)
+            flags = pack_flags(ck.interior, ck.mask)
+            bcv = bc_value_table(zone_scalar, zone_vector)
+            mdiag, moff, b3 = fc_momentum_assembly(
+                vel, p, flux, bcv, flags, cols, rho, mu,
+                settings.momentum_relaxation,
+                grad_p=grad_p, grad_vel=grad_v, inertia=inertia, spec=aspec,
+                box=box,
+            )
+            b3 = simple._add_momentum_source(mesh, settings, b3, active)
+            A3 = mesh_matrix(mesh, mdiag, moff)
+            pe = simple._kernel_peclet(settings, mdiag, diff_diag, active, inertia)
+        else:
+            F = flux * ck.area * rho
+            p_f = ck_face_pressure(
+                mesh, ck, bc, p, settings.pressure_interpolation,
+                grad_p=grad_p, grad_p_nbr=grad_p_nbr,
+            )
+            A3, b3, pe = ck_momentum(
+                mesh, ck, bc, settings, rho, vel, F, p_f,
+                diff_diag, diff_off, diff_b, grad_vel=grad_v, vel_nbr=vel_nbr,
+                inertia=inertia,
+            )
 
-    # Relaxed pressure and the face-value velocity correction of the
-    # relaxed increment (what the next momentum solve sees).
-    dp = (p_new - p) * settings.pressure_relaxation
-    s_corr = settings.replace(
-        pressure_relaxation=1.0,
-        pressure_correction_form=PressureCorrectionForm.FACE_VALUE,
-    )
-    vel3, p_out, (p_corr_sq, vel_corr_sq) = ck_apply_correction(
-        mesh, ck, bc, s_corr, comm.refresh(dp), new_md_c, new_vel, p
-    )
-    metrics = simple._step_metrics(
-        active, vel3, pe, p_corr_sq, vel_corr_sq, info, p_info, comm
-    )
+    with span("orc.momentum_solve"):
+        new_vel, new_mom_diag, info = simple._solve_momentum(
+            A3, b3, vel, active, settings, solver_extras, comm
+        )
+    with span("orc.pressure_assembly"):
+        new_md_c = new_mom_diag.T  # cell-major [C,3] view
+        new_md_nbr = nbr_values(mesh, new_md_c, ck.interior)
+        if kernel_asm is not None:
+            pdiag, poff, b_p, flux_h = fc_pc_assembly(
+                new_vel, new_mom_diag[0], bcv, flags, cols, rho, grad_p=grad_p,
+                spec=aspec, box=box,
+            )
+            Pmat = mesh_matrix(mesh, pdiag, poff)
+            # d for the conservative correction, recomputed from the
+            # shared momentum diagonal as orc_tpu does: it may differ from
+            # the kernel's matrix coefficients by an ulp, which perturbs
+            # div(flux) at rounding scale only.
+            d_ck = ck_d_coeffs(mesh, ck, bc, rho, new_md_c, new_md_nbr)
+        else:
+            new_vel_nbr = nbr_values(mesh, new_vel, ck.interior)
+            flux_h = ck_flux_h(
+                mesh, ck, bc, new_vel, settings.velocity_interpolation,
+                p=p, grad_p=grad_p, grad_p_nbr=grad_p_nbr,
+                mom_diag=new_md_c, mom_diag_nbr=new_md_nbr, vel_nbr=new_vel_nbr,
+            )
+            d_ck = ck_d_coeffs(mesh, ck, bc, rho, new_md_c, new_md_nbr)
+            Pmat, b_p = ck_fc_pressure_system(mesh, ck, bc, rho, flux_h, d_ck)
+    with span("orc.pressure_solve"):
+        p_new, p_info = simple._solve_p_prime(
+            Pmat, b_p, p, settings, active, comm, solver_extras, maybe_singular,
+            x0=p,
+        )
+    with span("orc.correction"):
+        p_new_nbr = nbr_values(mesh, p_new, ck.interior)
+        new_flux = ck_correct_flux(mesh, ck, bc, flux_h, d_ck, rho, p_new, p_new_nbr)
+        # Stored-flux under-relaxation: a blend of two conservative
+        # fluxes, alpha-consistent with the explicit velocity correction.
+        beta_f = settings.resolved_fc_flux_relaxation()
+        if beta_f != 1.0:
+            new_flux = planes(flux + beta_f * (new_flux - flux))
+
+        # Relaxed pressure and the face-value velocity correction of the
+        # relaxed increment (what the next momentum solve sees).
+        dp = (p_new - p) * settings.pressure_relaxation
+        s_corr = settings.replace(
+            pressure_relaxation=1.0,
+            pressure_correction_form=PressureCorrectionForm.FACE_VALUE,
+        )
+        vel3, p_out, (p_corr_sq, vel_corr_sq) = ck_apply_correction(
+            mesh, ck, bc, s_corr, comm.refresh(dp), new_md_c, new_vel, p
+        )
+    with span("orc.step_metrics"):
+        metrics = simple._step_metrics(
+            active, vel3, pe, p_corr_sq, vel_corr_sq, info, p_info, comm
+        )
     new_state = simple.FlowState(
         vel=vel3, p=p_out, mom_diag=new_mom_diag, flux=new_flux
     )

@@ -51,6 +51,7 @@ from orc_tpu_torch.solver.krylov import (
     _mv,
     _norm,
 )
+from orc_tpu_torch.utils.profiling import span
 from orc_tpu_torch.utils.settings import MatrixSolverSettings
 
 
@@ -370,26 +371,30 @@ def gmg_solve(
 
 def _gmg_correction(A_f, r, idx, settings, hierarchy, axis_sum=_identity_sum,
                     project=None):
+    """Coarse level idx + 1's correction (the span `orc.mg.level<idx+1>`,
+    the levels below nested in it)."""
     level = hierarchy[idx]
-    r_c = restrict(r, level)
-    A_c = galerkin(A_f, level)
-    coarsest = idx + 1 == len(hierarchy)
-    e_c, _ = _smooth(
-        A_c,
-        r_c,
-        torch.zeros_like(r_c),
-        settings,
-        axis_sum,
-        iterations=settings.iterations if coarsest else None,
-        project=project,
-    )
-    if not coarsest:
-        rr = r_c - A_c.matvec(e_c)
-        e_c = e_c + _gmg_correction(
-            A_c, rr, idx + 1, settings, hierarchy, axis_sum, project=project
+    with span(f"orc.mg.level{idx + 1}"):
+        r_c = restrict(r, level)
+        with span("orc.mg.galerkin"):
+            A_c = galerkin(A_f, level)
+        coarsest = idx + 1 == len(hierarchy)
+        e_c, _ = _smooth(
+            A_c,
+            r_c,
+            torch.zeros_like(r_c),
+            settings,
+            axis_sum,
+            iterations=settings.iterations if coarsest else None,
+            project=project,
         )
-        e_c, _ = _smooth(A_c, r_c, e_c, settings, axis_sum, project=project)
-    return prolong(e_c, level)
+        if not coarsest:
+            rr = r_c - A_c.matvec(e_c)
+            e_c = e_c + _gmg_correction(
+                A_c, rr, idx + 1, settings, hierarchy, axis_sum, project=project
+            )
+            e_c, _ = _smooth(A_c, r_c, e_c, settings, axis_sum, project=project)
+        return prolong(e_c, level)
 
 
 # --- distributed V-cycle ----------------------------------------------

@@ -38,6 +38,7 @@ import torch
 
 from orc_tpu_torch.ops.fused_smooth import fused_jacobi_sweeps
 from orc_tpu_torch.ops.spmv import EllMatrix
+from orc_tpu_torch.utils.profiling import to_host
 from orc_tpu_torch.utils.settings import (
     MatrixSolverSettings,
     PreconditionMethod,
@@ -132,8 +133,8 @@ def _all_done(done, axis_sum) -> bool:
     sharded `axis_sum`, so that every partition leaves a loop at the same
     iteration and reaches the same collectives."""
     if axis_sum is _identity_sum:
-        return bool(done.all())
-    return bool(axis_sum(torch.sum((~done).to(torch.int64))) == 0)
+        return to_host(done.all(), "all_done")
+    return to_host(axis_sum(torch.sum((~done).to(torch.int64))) == 0, "all_done")
 
 
 def _exit_check(i: int, done, axis_sum) -> bool:
@@ -246,7 +247,7 @@ def bicgstab_solve(
     bnorm = norm(b, axis_sum)
     r0norm = norm(r0, axis_sum)
     finfo = torch.finfo(b.dtype)
-    tiny = torch.tensor(finfo.tiny, dtype=b.dtype, device=b.device)
+    tiny = torch.full((), finfo.tiny, dtype=b.dtype, device=b.device)
     floor = torch.maximum(64.0 * finfo.eps * bnorm, tiny)
     done = r0norm <= floor
     r_cap = 1e6 * (bnorm + r0norm) + tiny

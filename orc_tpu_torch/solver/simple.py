@@ -95,6 +95,7 @@ from orc_tpu_torch.solver.krylov import (
     constant_deflation,
     iterative_solve,
 )
+from orc_tpu_torch.utils.profiling import span, to_host
 from orc_tpu_torch.utils.settings import (
     GradientReconstruction,
     MomentumScheme,
@@ -420,56 +421,63 @@ def simple_step(
     communication context (NullComm on one device); `inertia` =
     (rv_dt [C], vel_n [C,3]) of a transient step."""
     comm = comm or NullComm()
-    fbc = face_bc(mesh, zone_codes, zone_scalar, zone_vector)
-    active = mesh.cell_face_mask.any(dim=1)  # owned, non-padded cells
-    vel = comm.refresh(state.vel)
-    p = comm.refresh(state.p)
-    mom_diag = _refresh_rows(comm, state.mom_diag).T  # cell-major [C,3]
+    with span("orc.gradients"):
+        fbc = face_bc(mesh, zone_codes, zone_scalar, zone_vector)
+        active = mesh.cell_face_mask.any(dim=1)  # owned, non-padded cells
+        vel = comm.refresh(state.vel)
+        p = comm.refresh(state.p)
+        mom_diag = _refresh_rows(comm, state.mom_diag).T  # cell-major [C,3]
 
-    grad_p = (
-        comm.refresh(
-            pressure_gradient(mesh, fbc, p, settings.gradient_reconstruction)
+        grad_p = (
+            comm.refresh(
+                pressure_gradient(mesh, fbc, p, settings.gradient_reconstruction)
+            )
+            if _needs_grad_p(settings)
+            else None
         )
-        if _needs_grad_p(settings)
-        else None
-    )
-    grad_v = (
-        comm.refresh(
-            velocity_gradient(mesh, fbc, vel, settings.gradient_reconstruction)
+        grad_v = (
+            comm.refresh(
+                velocity_gradient(mesh, fbc, vel, settings.gradient_reconstruction)
+            )
+            if _needs_grad_vel(settings)
+            else None
         )
-        if _needs_grad_vel(settings)
-        else None
-    )
-    flux = face_flux(
-        mesh, fbc, vel, settings.velocity_interpolation,
-        p=p, grad_p=grad_p, mom_diag=mom_diag,
-    )
-    p_f = face_pressure(mesh, fbc, p, settings.pressure_interpolation, grad_p=grad_p)
-    A3, b3, pe = momentum_system(
-        mesh, fbc, settings, rho, vel, flux, p_f, diff, grad_vel=grad_v,
-        inertia=inertia,
-    )
-    new_vel, new_mom_diag, info = _solve_momentum(
-        A3, b3, vel, active, settings, solver_extras, comm
-    )
+    with span("orc.momentum_assembly"):
+        flux = face_flux(
+            mesh, fbc, vel, settings.velocity_interpolation,
+            p=p, grad_p=grad_p, mom_diag=mom_diag,
+        )
+        p_f = face_pressure(mesh, fbc, p, settings.pressure_interpolation, grad_p=grad_p)
+        A3, b3, pe = momentum_system(
+            mesh, fbc, settings, rho, vel, flux, p_f, diff, grad_vel=grad_v,
+            inertia=inertia,
+        )
+    with span("orc.momentum_solve"):
+        new_vel, new_mom_diag, info = _solve_momentum(
+            A3, b3, vel, active, settings, solver_extras, comm
+        )
     new_md_c = new_mom_diag.T
 
     # Pressure correction with the post-solve velocities and the new
     # momentum diagonals (reference: solver.rs:137-148).
-    flux2 = face_flux(
-        mesh, fbc, new_vel, settings.velocity_interpolation,
-        p=p, grad_p=grad_p, mom_diag=new_md_c,
-    )
-    Pmat, b_p = pressure_correction_system(mesh, fbc, rho, flux2, new_md_c)
-    p_prime, p_info = _solve_p_prime(
-        Pmat, b_p, p, settings, active, comm, solver_extras, maybe_singular
-    )
-    vel3, p_new, (p_corr_sq, vel_corr_sq) = apply_pressure_correction(
-        mesh, fbc, settings, p_prime, new_md_c, new_vel, p
-    )
-    metrics = _step_metrics(
-        active, vel3, pe, p_corr_sq, vel_corr_sq, info, p_info, comm
-    )
+    with span("orc.pressure_assembly"):
+        flux2 = face_flux(
+            mesh, fbc, new_vel, settings.velocity_interpolation,
+            p=p, grad_p=grad_p, mom_diag=new_md_c,
+        )
+        Pmat, b_p = pressure_correction_system(mesh, fbc, rho, flux2, new_md_c)
+    with span("orc.pressure_solve"):
+        p_prime, p_info = _solve_p_prime(
+            Pmat, b_p, p, settings, active, comm, solver_extras, maybe_singular
+        )
+    with span("orc.correction"):
+        vel3, p_new, (p_corr_sq, vel_corr_sq) = apply_pressure_correction(
+            mesh, fbc, settings, p_prime, new_md_c, new_vel, p
+        )
+    with span("orc.step_metrics"):
+        metrics = _step_metrics(
+            active, vel3, pe, p_corr_sq, vel_corr_sq, info, p_info, comm
+        )
     return FlowState(vel=vel3, p=p_new, mom_diag=new_mom_diag), metrics
 
 
@@ -497,102 +505,113 @@ def ck_simple_step(
     box of a slab partition's window (`parallel.sharded`), which the
     kernels tile instead of the one the columns' offsets give."""
     comm = comm or NullComm()
-    bc = ck_bc(ck, zone_codes, zone_scalar, zone_vector)
     diff_diag, diff_off, diff_b = ck_diff
-    vel = comm.refresh(state.vel)
-    p = comm.refresh(state.p)
-    mom_diag = _refresh_rows(comm, state.mom_diag)  # [3,C]
-    active = ck.mask.any(dim=1)
+    with span("orc.gradients"):
+        bc = ck_bc(ck, zone_codes, zone_scalar, zone_vector)
+        vel = comm.refresh(state.vel)
+        p = comm.refresh(state.p)
+        mom_diag = _refresh_rows(comm, state.mom_diag)  # [3,C]
+        active = ck.mask.any(dim=1)
 
-    grad_p = grad_p_nbr = None
-    gp_fn, gv_fn = gradient_fns(settings)
-    need_gv = _needs_grad_vel(settings)
-    if kernel_asm is not None:
-        # Fused assembly kernels (ops/fused_assembly.py): one pass over
-        # the cell fields yields the shared momentum matrix and RHS. With
-        # AsmSpec.gg they compute grad p themselves: no gradient pass.
-        from orc_tpu_torch.ops.fused_assembly import (
-            bc_value_table,
-            momentum_assembly,
-            pack_flags,
+        grad_p = grad_p_nbr = None
+        gp_fn, gv_fn = gradient_fns(settings)
+        need_gv = _needs_grad_vel(settings)
+        if kernel_asm is not None:
+            # With AsmSpec.gg the kernels compute grad p themselves: no
+            # gradient pass.
+            cols, aspec, box = _unpack_kernel_asm(kernel_asm)
+            if _needs_grad_p(settings) and not aspec.gg:
+                grad_p = comm.refresh(gp_fn(mesh, ck, bc, p))
+            grad_v = comm.refresh(gv_fn(mesh, ck, bc, vel)) if need_gv else None
+        else:
+            vel_nbr = nbr_values(mesh, vel, ck.interior)
+            if _needs_grad_p(settings):
+                grad_p = comm.refresh(gp_fn(mesh, ck, bc, p))
+                grad_p_nbr = nbr_values(mesh, grad_p, ck.interior)
+            grad_v = (
+                comm.refresh(gv_fn(mesh, ck, bc, vel, vel_nbr=vel_nbr))
+                if need_gv
+                else None
+            )
+    with span("orc.momentum_assembly"):
+        if kernel_asm is not None:
+            # Fused assembly kernels (ops/fused_assembly.py): one pass
+            # over the cell fields yields the shared momentum matrix and
+            # RHS.
+            from orc_tpu_torch.ops.fused_assembly import (
+                bc_value_table,
+                momentum_assembly,
+                pack_flags,
+            )
+
+            flags = pack_flags(ck.interior, ck.mask)
+            bcv = bc_value_table(zone_scalar, zone_vector)
+            mdiag, moff, b3 = momentum_assembly(
+                vel, p, bcv, flags, cols, rho, mu, settings.momentum_relaxation,
+                grad_p=grad_p, mom_diag=mom_diag[0], grad_vel=grad_v,
+                inertia=inertia, spec=aspec, box=box,
+            )
+            b3 = _add_momentum_source(mesh, settings, b3, active)
+            A3 = mesh_matrix(mesh, mdiag, moff)
+            pe = _kernel_peclet(settings, mdiag, diff_diag, active, inertia)
+        else:
+            md_c = mom_diag.T  # cell-major [C,3] view
+            mom_diag_nbr = nbr_values(mesh, md_c, ck.interior)
+            flux = ck_flux(
+                mesh, ck, bc, vel, settings.velocity_interpolation,
+                p=p, grad_p=grad_p, grad_p_nbr=grad_p_nbr,
+                mom_diag=md_c, mom_diag_nbr=mom_diag_nbr, vel_nbr=vel_nbr,
+            )
+            F = flux * ck.area * rho
+            p_f = ck_face_pressure(
+                mesh, ck, bc, p, settings.pressure_interpolation,
+                grad_p=grad_p, grad_p_nbr=grad_p_nbr,
+            )
+            A3, b3, pe = ck_momentum(
+                mesh, ck, bc, settings, rho, vel, F, p_f,
+                diff_diag, diff_off, diff_b, grad_vel=grad_v, vel_nbr=vel_nbr,
+                inertia=inertia,
+            )
+
+    with span("orc.momentum_solve"):
+        new_vel, new_mom_diag, info = _solve_momentum(
+            A3, b3, vel, active, settings, solver_extras, comm
         )
 
-        cols, aspec, box = _unpack_kernel_asm(kernel_asm)
-        flags = pack_flags(ck.interior, ck.mask)
-        bcv = bc_value_table(zone_scalar, zone_vector)
-        if _needs_grad_p(settings) and not aspec.gg:
-            grad_p = comm.refresh(gp_fn(mesh, ck, bc, p))
-        grad_v = comm.refresh(gv_fn(mesh, ck, bc, vel)) if need_gv else None
-        mdiag, moff, b3 = momentum_assembly(
-            vel, p, bcv, flags, cols, rho, mu, settings.momentum_relaxation,
-            grad_p=grad_p, mom_diag=mom_diag[0], grad_vel=grad_v,
-            inertia=inertia, spec=aspec, box=box,
-        )
-        b3 = _add_momentum_source(mesh, settings, b3, active)
-        A3 = mesh_matrix(mesh, mdiag, moff)
-        pe = _kernel_peclet(settings, mdiag, diff_diag, active, inertia)
-    else:
-        md_c = mom_diag.T  # cell-major [C,3] view
-        vel_nbr = nbr_values(mesh, vel, ck.interior)
-        if _needs_grad_p(settings):
-            grad_p = comm.refresh(gp_fn(mesh, ck, bc, p))
-            grad_p_nbr = nbr_values(mesh, grad_p, ck.interior)
-        grad_v = (
-            comm.refresh(gv_fn(mesh, ck, bc, vel, vel_nbr=vel_nbr))
-            if need_gv
-            else None
-        )
-        mom_diag_nbr = nbr_values(mesh, md_c, ck.interior)
-        flux = ck_flux(
-            mesh, ck, bc, vel, settings.velocity_interpolation,
-            p=p, grad_p=grad_p, grad_p_nbr=grad_p_nbr,
-            mom_diag=md_c, mom_diag_nbr=mom_diag_nbr, vel_nbr=vel_nbr,
-        )
-        F = flux * ck.area * rho
-        p_f = ck_face_pressure(
-            mesh, ck, bc, p, settings.pressure_interpolation,
-            grad_p=grad_p, grad_p_nbr=grad_p_nbr,
-        )
-        A3, b3, pe = ck_momentum(
-            mesh, ck, bc, settings, rho, vel, F, p_f,
-            diff_diag, diff_off, diff_b, grad_vel=grad_v, vel_nbr=vel_nbr,
-            inertia=inertia,
-        )
+    with span("orc.pressure_assembly"):
+        if kernel_asm is not None:
+            from orc_tpu_torch.ops.fused_assembly import pc_assembly
 
-    new_vel, new_mom_diag, info = _solve_momentum(
-        A3, b3, vel, active, settings, solver_extras, comm
-    )
-
-    if kernel_asm is not None:
-        from orc_tpu_torch.ops.fused_assembly import pc_assembly
-
-        pdiag, poff, b_p = pc_assembly(
-            new_vel, new_mom_diag[0], bcv, flags, cols, rho, p=p,
-            grad_p=grad_p, spec=aspec, box=box,
+            pdiag, poff, b_p = pc_assembly(
+                new_vel, new_mom_diag[0], bcv, flags, cols, rho, p=p,
+                grad_p=grad_p, spec=aspec, box=box,
+            )
+            Pmat = mesh_matrix(mesh, pdiag, poff)
+        else:
+            new_md_c = new_mom_diag.T
+            new_md_nbr = nbr_values(mesh, new_md_c, ck.interior)
+            new_vel_nbr = nbr_values(mesh, new_vel, ck.interior)
+            flux2 = ck_flux(
+                mesh, ck, bc, new_vel, settings.velocity_interpolation,
+                p=p, grad_p=grad_p, grad_p_nbr=grad_p_nbr,
+                mom_diag=new_md_c, mom_diag_nbr=new_md_nbr, vel_nbr=new_vel_nbr,
+            )
+            F2 = flux2 * ck.area * rho
+            Pmat, b_p = ck_pressure_correction(
+                mesh, ck, bc, rho, F2, new_md_c, mom_diag_nbr=new_md_nbr
+            )
+    with span("orc.pressure_solve"):
+        p_prime, p_info = _solve_p_prime(
+            Pmat, b_p, p, settings, active, comm, solver_extras, maybe_singular
         )
-        Pmat = mesh_matrix(mesh, pdiag, poff)
-    else:
-        new_md_c = new_mom_diag.T
-        new_md_nbr = nbr_values(mesh, new_md_c, ck.interior)
-        new_vel_nbr = nbr_values(mesh, new_vel, ck.interior)
-        flux2 = ck_flux(
-            mesh, ck, bc, new_vel, settings.velocity_interpolation,
-            p=p, grad_p=grad_p, grad_p_nbr=grad_p_nbr,
-            mom_diag=new_md_c, mom_diag_nbr=new_md_nbr, vel_nbr=new_vel_nbr,
+    with span("orc.correction"):
+        vel3, p_new, (p_corr_sq, vel_corr_sq) = ck_apply_correction(
+            mesh, ck, bc, settings, p_prime, new_mom_diag.T, new_vel, p
         )
-        F2 = flux2 * ck.area * rho
-        Pmat, b_p = ck_pressure_correction(
-            mesh, ck, bc, rho, F2, new_md_c, mom_diag_nbr=new_md_nbr
+    with span("orc.step_metrics"):
+        metrics = _step_metrics(
+            active, vel3, pe, p_corr_sq, vel_corr_sq, info, p_info, comm
         )
-    p_prime, p_info = _solve_p_prime(
-        Pmat, b_p, p, settings, active, comm, solver_extras, maybe_singular
-    )
-    vel3, p_new, (p_corr_sq, vel_corr_sq) = ck_apply_correction(
-        mesh, ck, bc, settings, p_prime, new_mom_diag.T, new_vel, p
-    )
-    metrics = _step_metrics(
-        active, vel3, pe, p_corr_sq, vel_corr_sq, info, p_info, comm
-    )
     return FlowState(vel=vel3, p=p_new, mom_diag=new_mom_diag), metrics
 
 
@@ -615,15 +634,16 @@ def _run_chunk(step, state, settings, n_steps):
     cp = torch.zeros_like(state.p) if use_comp else None
     history = []
     for _ in range(n_steps):
-        s2, metrics = step(state)
-        if use_comp:
-            dv = (s2.vel - state.vel) + cv
-            vel = state.vel + dv
-            cv = dv - (vel - state.vel)
-            dp = (s2.p - state.p) + cp
-            p = state.p + dp
-            cp = dp - (p - state.p)
-            s2 = dataclasses.replace(s2, vel=vel, p=p)
+        with span("orc.step"):
+            s2, metrics = step(state)
+            if use_comp:
+                dv = (s2.vel - state.vel) + cv
+                vel = state.vel + dv
+                cv = dv - (vel - state.vel)
+                dp = (s2.p - state.p) + cp
+                p = state.p + dp
+                cp = dp - (p - state.p)
+                s2 = dataclasses.replace(s2, vel=vel, p=p)
         state = s2
         history.append(metrics)
     stacked = StepMetrics(
@@ -705,7 +725,7 @@ def _kernel_asm_spec(
         rc=rc,
         p_so=p_so,
         psi=settings.tvd_psi if scheme == "tvd_dc" else None,
-        vol=float(mesh.cell_volume[0]),
+        vol=to_host(mesh.cell_volume[0], "cell_volume"),
         gg=gg,
     )
 
@@ -766,7 +786,7 @@ def _make_chunk_runner(
     )
 
     zc, zs, zv = device_bc(table, dtype=mesh.dtype, device=mesh.device)
-    mu_t = torch.tensor(mu, dtype=mesh.dtype, device=mesh.device)
+    mu_t = torch.full((), mu, dtype=mesh.dtype, device=mesh.device)
     ck = ck_diff = diff = None
     if use_ck_step:
         ck = build_ck_geometry(mesh, len(table.zone_ids))
@@ -851,33 +871,46 @@ def solve_steady(
     if state is None:
         state = initial_state(mesh)
     use_fc = settings.resolved_coupling() == PressureVelocityCoupling.SIMPLE_FC
-    run, prepare = _make_chunk_runner(
-        mesh, table, settings, rho, mu, use_ck_step, use_fc
-    )
-    state = prepare(state)
-
-    history = []
-    done = 0
-    t0 = time.perf_counter()
-    while done < iterations:
-        n = min(reporting_interval, iterations - done)
-        state, metrics = run(state, n)
-        done += n
-        history.append(metrics)
-        if verbose:
-            if state.vel.is_cuda:
-                torch.cuda.synchronize(state.vel.device)
-            dt_ms = (time.perf_counter() - t0) * 1e3 / n
-            t0 = time.perf_counter()
-            va = _np(metrics.vel_avg[-1])
-            print(
-                f"Iteration {done}: avg velocity = "
-                f"({va[0]:.2e}, {va[1]:.2e}, {va[2]:.2e})\t"
-                f"avg peclet = {float(metrics.peclet_avg[-1]):.1e}\t"
-                f"vel corr = {float(metrics.vel_corr_norm[-1]):.2e}\t"
-                f"p corr = {float(metrics.p_corr_norm[-1]):.2e}\t"
-                f"ms/iter = {dt_ms:.3g}"
+    with span("orc.solve_steady"):
+        with span("orc.prepare"):
+            run, prepare = _make_chunk_runner(
+                mesh, table, settings, rho, mu, use_ck_step, use_fc
             )
-        if check_divergence and bool(torch.any(metrics.diverged)):
-            raise SolverDivergedError(done)
+            state = prepare(state)
+
+        history = []
+        done = 0
+        t0 = time.perf_counter()
+        while done < iterations:
+            n = min(reporting_interval, iterations - done)
+            with span("orc.chunk"):
+                state, metrics = run(state, n)
+            done += n
+            history.append(metrics)
+            if verbose:
+                # One read of the printed values, which waits for the
+                # chunk: the clock then times the card's work too.
+                va0, va1, va2, pe, vc, pc = to_host(
+                    torch.cat([
+                        metrics.vel_avg[-1],
+                        torch.stack([
+                            metrics.peclet_avg[-1],
+                            metrics.vel_corr_norm[-1],
+                            metrics.p_corr_norm[-1],
+                        ]),
+                    ]),
+                    "verbose",
+                )
+                dt_ms = (time.perf_counter() - t0) * 1e3 / n
+                t0 = time.perf_counter()
+                print(
+                    f"Iteration {done}: avg velocity = "
+                    f"({va0:.2e}, {va1:.2e}, {va2:.2e})\t"
+                    f"avg peclet = {pe:.1e}\t"
+                    f"vel corr = {vc:.2e}\t"
+                    f"p corr = {pc:.2e}\t"
+                    f"ms/iter = {dt_ms:.3g}"
+                )
+            if check_divergence and to_host(torch.any(metrics.diverged), "divergence"):
+                raise SolverDivergedError(done)
     return state, history

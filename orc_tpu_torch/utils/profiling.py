@@ -2,8 +2,18 @@
 
 - `trace(log_dir)`: context manager around `torch.profiler.profile`
   (CPU and, when there is one, CUDA activity) that exports a Chrome
-  trace into `log_dir` (Perfetto / chrome://tracing open it).
-- `Timer`: lightweight host timing of named phases.
+  trace into `log_dir` (Perfetto / chrome://tracing open it). The
+  solver's spans (below) appear in it as host ranges on the same clock
+  as the card's kernels.
+- `span(name)`: a named range of the solver's layers (`orc.` names: the
+  solve, its preparation and chunks, each SIMPLE iteration and its
+  phases, the V-cycle's levels, each counted host read). It records
+  only while a torch profiler runs; otherwise it is one shared no-op
+  context, so no setting turns spans on or off.
+- `to_host(t, site)`: the solve path's reads of a device value on the
+  host, each a sync that drains the card's launch queue; counted in
+  `to_host.syncs` (reset by assigning 0), as the kernels count their
+  launches.
 - `measure(fn, *args)` and `measure_bandwidth(fn, bytes_accessed, *args)`:
   median wall time of a call, synchronising the CUDA device of the
   tensors it returns before the clock stops.
@@ -20,7 +30,7 @@ import dataclasses
 import os
 import sys
 import time
-from typing import Callable, Dict
+from typing import Callable
 
 import torch
 
@@ -39,25 +49,31 @@ def trace(log_dir: str = "orc_tpu_torch_trace"):
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
 
 
-class Timer:
-    def __init__(self):
-        self.phases: Dict[str, float] = {}
+_NO_SPAN = contextlib.nullcontext()
 
-    @contextlib.contextmanager
-    def phase(self, name: str):
-        t0 = time.perf_counter()
-        yield
-        self.phases[name] = self.phases.get(name, 0.0) + (
-            time.perf_counter() - t0
-        )
 
-    def report(self) -> str:
-        total = sum(self.phases.values())
-        lines = [
-            f"{k:>24}: {v*1e3:9.2f} ms ({100*v/total:5.1f}%)"
-            for k, v in sorted(self.phases.items(), key=lambda kv: -kv[1])
-        ]
-        return "\n".join(lines)
+def span(name: str):
+    """A profiler range named `name` while a torch profiler runs, else
+    the shared no-op context. The range is a plain host op (not a user
+    annotation), so the profiler adds no device-side event for it: the
+    card's timeline holds only the kernels, copies and sets, each
+    launched inside the innermost open span."""
+    if torch.autograd._profiler_enabled():
+        return torch._C._profiler._RecordFunctionFast(name)
+    return _NO_SPAN
+
+
+def to_host(t: torch.Tensor, site: str):
+    """`t.tolist()` (a Python scalar for a 0-d tensor), counted in
+    `to_host.syncs` and, while a profiler runs, inside the span
+    `orc.sync.<site>`. Reading a CUDA tensor waits for the card to run
+    everything queued before it."""
+    to_host.syncs += 1
+    with span(f"orc.sync.{site}"):
+        return t.tolist()
+
+
+to_host.syncs = 0
 
 
 def _tensors(out):
