@@ -8,7 +8,7 @@ Phases (any failure raises and the script exits non-zero):
 1. device: the card's name and power limit, TF32 off;
 2. build: compile csrc/*.cu into build/orc_tpu_torch/ (one nvcc per
    source, in parallel) and print each kernel's registers and spills;
-3. each of the nine CUDA kernels against its plain torch version at the
+3. each of the CUDA kernels against its plain torch version at the
    shapes of the main paths (the two momentum kernels also in their
    transient instances, with the inertia term), with times per call (CUDA events, host
    dispatch included; and the card's own time, the calls queued behind
@@ -44,9 +44,14 @@ Phases (any failure raises and the script exits non-zero):
    SpMV on the coarse plans of the algebraic multigrid hierarchy of the
    permuted 448^2 f32 cavity (levels whose 128-row plan would be
    degenerate gather instead, as in orc_tpu; each level's form printed);
-   and the shift SpMV on `bench`'s extended line-1 system (the 1024^2
+   the shift SpMV on `bench`'s extended line-1 system (the 1024^2
    box's [C,K] form, six offsets, two of them 0), whose card time phase
-   23e holds the line to;
+   23e holds the line to; and row 13, the face-major momentum assembly,
+   on the operands of the face-major step at the shapes of phase 21's
+   paths that launch it (the 1024^2 f32 cavity under the flagship
+   numerics, steady and transient, and under solve_cavity's; the 216^3
+   f32 cube; a 128x64 f64 couette under CD1 and linear face
+   pressures), two launches bitwise equal;
 3b. the SIMPLE and SIMPLE_FC slices on the card against the same slices
    on the CPU on a 16^2 float64 cavity (the parity one with
    solve_cavity's and with the reference's default numerics), and the FC
@@ -130,8 +135,11 @@ Phases (any failure raises and the script exits non-zero):
    in-matrix TVD at Re = 100 (row 2's per-row instance; at Re = 1000
    in-matrix TVD diverges, in orc_tpu too) and bench.py's couette with
    CD2 (row 1's), the latter's u_mean within 25% of the analytical value;
-21. the face-major step, which assembles in plain ops (as orc_tpu's does)
-   and solves through rows 1, 2 and 7: (a) fm-couette, phase 4's couette
+21. the face-major step, which assembles its momentum systems in row 13
+   where it takes the settings (b-e), in plain ops (as orc_tpu's does)
+   otherwise and for the rest, and solves through rows 1, 2 and 7, with
+   row 13 once an iteration: (a) fm-couette (CD1 under SECOND_ORDER face
+   pressures, so no row 13), phase 4's couette
    with use_ck=False, 100 + 200 iterations, u_mean within 25% of the
    analytical value and within 1e-4 of phase 4's; (b) fm-cavity-1M,
    phase 5's cavity with use_ck=False, 10 + 50 iterations, finite
@@ -216,13 +224,14 @@ bound, the card's name and power limit, and as the last line
 
 Kernel launch counters are set to 0 just before each of phases 4-24d and
 read just after it, and no plain version of rows 1 and 2 may run on the
-card meanwhile: each phase must launch every kernel of its path,
+card meanwhile, nor row 13's under settings the kernel takes: each phase
+must launch every kernel of its path,
 the SIMPLE_FC phases none of the parity assembly kernels, the
 structured phases no slice-plan kernel, the irregular phases none of
 the structured kernels, only the DF32_IR phase the exact slice product,
 only phases 13-14 the transient instances of the momentum kernels, only
 phase 20 the per-row branches, only phase 15 the z-march of the Jacobi
-sweeps, only phase 22a the slice SpMV on plans built without the gather
+sweeps, only phases 21b-e row 13 (once per iteration), only phase 22a the slice SpMV on plans built without the gather
 table (the multigrid's coarse levels), and phases 17-18 no assembly
 kernel, and phase 23 must launch rows 1, 2, 3, 5, 7 and 10 and not the
 exact slice product; phases 24b-d launch their assembly kernels once per
@@ -1035,6 +1044,126 @@ def phase_fc_kernels(dev, fc_mom, fc_pc, fc_mom_t):
             outputs=ASM_OUT + ("flux_h",),
         )
         del state, x
+
+
+def fm_bytes(mesh, settings):
+    """Bytes of the face-major momentum kernel, each input read once and
+    each output written once: the [C,K] slot tables (cell_faces,
+    cell_neighbors, sign, mask, the diffusion's off-diagonals), the cell
+    arrays (vel, p, grad vel under TVD_DC, the diffusion's diagonal and
+    b), the face arrays (flux, area, interior, zone slot, normal, r_on
+    under TVD_DC, lw under LINEAR_WEIGHTED) and the outputs (diag, K off
+    planes, b, pe)."""
+    from orc_tpu_torch.utils.settings import MomentumScheme, PressureInterpolation
+
+    C, K = mesh.cell_faces.shape
+    F, s = mesh.n_faces, mesh.dtype.itemsize
+    tvd = settings.momentum == MomentumScheme.TVD_DC
+    lw = settings.pressure_interpolation == PressureInterpolation.LINEAR_WEIGHTED
+    slots = K * (4 + 4 + s + 1 + s)
+    cells = (3 + 1 + 9 * tvd + 1 + 3) * s
+    faces = (1 + 1 + 3 + 3 * tvd + lw) * s + 1 + 4
+    outputs = (1 + K + 3 + 3) * s
+    return C * (slots + cells + outputs) + F * faces
+
+
+class LastFaceMomentum:
+    """Keeps the operands of the last face-major momentum assembly
+    (`simple.face_momentum`, which both face-major steps call) while
+    installed: `args` and `kw` of the call."""
+
+    def __enter__(self):
+        from orc_tpu_torch.solver import simple
+
+        self.real, self.args, self.kw = simple.face_momentum, None, None
+
+        def kept(*a, **k):
+            self.args, self.kw = a, k
+            return self.real(*a, **k)
+
+        simple.face_momentum = kept
+        return self
+
+    def __exit__(self, *exc):
+        from orc_tpu_torch.solver import simple
+
+        simple.face_momentum = self.real
+
+
+def phase_fm_kernels(dev, fm):
+    """Phase 3: row 13, the face-major momentum kernel, against
+    `fm_momentum_plain` (face_pressure + momentum_system) at the shapes
+    of the main paths that launch it, on their own step's operands, kept
+    from the second of two face-major iterations: the 1024^2 f32 cavity
+    under the flagship numerics (fm-fc-cavity-1M, ghia-3200-fm's; TVD_DC
+    + UMIST, LINEAR_WEIGHTED, implicit; the timed comparison), steady and
+    with phase 14's inertia; the 1024^2 f32 cavity under solve_cavity's
+    (fm-cavity-1M; UD, LINEAR_WEIGHTED); the 216^3 f32 cube under the
+    same (fm-auto-216, cube-256-fm's; K = 6); the 128x64 f64 couette
+    under CD1 with LINEAR face pressures and explicit relaxation. Each
+    output within TOL of its largest value, and two launches give the
+    same bits."""
+    log("== phase 3: the face-major momentum kernel (row 13) against its plain version")
+    from orc_tpu_torch.models.cavity import cavity_case, default_settings, flagship_settings
+    from orc_tpu_torch.ops import fm_assembly
+    from orc_tpu_torch.solver.simple import solve_steady
+    from orc_tpu_torch.utils.settings import NumericalSettings, PressureInterpolation
+
+    f32 = torch.float32
+    cases = [
+        ("cavity 1024^2 f32 tvd_dc+umist", True,
+         lambda: cavity_case(n=1024, dtype=f32, device=dev), flagship_settings(), 1.0, 1e-3),
+        ("cavity 1024^2 f32 ud", False,
+         lambda: cavity_case(n=1024, dtype=f32, device=dev), default_settings(), 1.0, 1e-3),
+        ("cube 216^3 f32 ud", False,
+         lambda: cavity_case(n=216, nz=216, dtype=f32, device=dev), default_settings(),
+         1.0, 1e-2),
+        ("couette 128x64 f64 cd1 linear", False, lambda: couette_mesh(dev),
+         NumericalSettings(pressure_interpolation=PressureInterpolation.LINEAR,
+                           matrix_solver=_bicgstab_50()), 1000.0, 0.001),
+    ]
+    for label, timed, make, settings, rho, mu in cases:
+        mesh, table = make()
+        with LastFaceMomentum() as last:
+            solve_steady(
+                mesh, table, settings, rho, mu, iterations=2, reporting_interval=2,
+                verbose=False, use_ck=False,
+            )
+        args, dtype = last.args[:8], mesh.dtype  # mesh, fbc, settings, rho, vel, flux, p, diff
+        if not fm_assembly.takes(settings, dtype) or settings.momentum_source is not None:
+            raise AssertionError(f"row 13 {label}: the kernel does not take these settings")
+        grad_vel, grad_p = last.kw["grad_vel"], last.kw["grad_p"]
+        inertias = [("", None, 0)]
+        if timed:  # the transient flagship cavity (phase 14's dt)
+            inertias.append(
+                (" transient", step_inertia(mesh, args[4], rho, 1.0 / 1024), INERTIA_READS)
+            )
+        for suffix, inertia, extra_reads in inertias:
+            def kernel(inertia=inertia):
+                A, b, pe = fm_assembly.fm_momentum_assembly(
+                    *args, grad_vel=grad_vel, inertia=inertia
+                )
+                return A.diag, A.off, b, pe
+
+            def plain(inertia=inertia):
+                A, b, pe = fm_assembly.fm_momentum_plain(
+                    *args, grad_vel=grad_vel, inertia=inertia, grad_p=grad_p
+                )
+                return A.diag, A.off, b, pe
+
+            fm.compare(
+                label + suffix, kernel, plain, dtype,
+                fm_bytes(mesh, settings) + mesh.n_cells * extra_reads * dtype.itemsize,
+                timed=timed and not suffix, outputs=("diag", "off", "b", "pe"),
+            )
+            first, second = kernel(), kernel()
+            torch.cuda.synchronize()
+            same = all(torch.equal(x, y) for x, y in zip(first, second))
+            log(f"  fm_momentum_assembly {label + suffix}: two launches bitwise equal: {same}")
+            if not same:
+                raise AssertionError(f"row 13 {label + suffix}: two launches gave other bits")
+            del first, second
+        del mesh, table, last, args, grad_vel, grad_p, inertias
 
 
 def couette_mesh(dev):
@@ -3048,7 +3177,7 @@ def phase_fm_cavity(dev, twin):
         if structure[key] != twin["structure"][key]:
             raise AssertionError(f"fm-cavity {key} differs from its (c,k) twin's")
     prof = profile(mesh, table, settings, 1.0, 1e-3, state, iterations=3, use_ck=False)
-    return dict(ms_per_iter=1e3 * dt / 50, gap=gap, **prof)
+    return dict(ms_per_iter=1e3 * dt / 50, gap=gap, iterations=10 + 50 + 3, **prof)
 
 
 #: The stored flux's divergence must equal minus the last pressure
@@ -3102,7 +3231,7 @@ def phase_fm_fc_cavity(dev, twin):
     if not pc_res <= 2.0 * twin["pc_residual_median"]:
         raise AssertionError("fm-fc-cavity pressure solves left more residual than its (c,k) twin's")
     prof = profile(mesh, table, settings, 1.0, 1e-3, state, iterations=3, use_ck=False)
-    return dict(ms_per_iter=1e3 * dt / 50, **prof)
+    return dict(ms_per_iter=1e3 * dt / 50, iterations=10 + 50 + 3, **prof)
 
 
 def phase_ggnode(dev, n=448):
@@ -3150,7 +3279,10 @@ def phase_ggnode(dev, n=448):
         f"iterations {hist[-1].pc_iters.float().mean().item():.2f}"
     )
     prof = profile(mesh, table, settings, 1.0, 1e-3, state, iterations=3)
-    return dict(ms_per_iter=1e3 * dt / 25, read_s=read_s, nodes_s=nodes_s, **prof)
+    return dict(
+        ms_per_iter=1e3 * dt / 25, read_s=read_s, nodes_s=nodes_s, iterations=5 + 25 + 3,
+        **prof,
+    )
 
 
 def phase_fm_auto_216(dev, n=216):
@@ -3189,7 +3321,10 @@ def phase_fm_auto_216(dev, n=216):
         f"iterations {hist[-1].pc_iters.float().mean().item():.2f}"
     )
     prof = profile(mesh, table, settings, 1.0, 1e-2, state, iterations=1)
-    return dict(ms_per_iter=1e3 * dt / 5, build_s=build_s, peak_gib=peak / 2**30, **prof)
+    return dict(
+        ms_per_iter=1e3 * dt / 5, build_s=build_s, peak_gib=peak / 2**30,
+        iterations=3 + 5 + 1, **prof,
+    )
 
 
 # --- slice 13: algebraic multigrid, Gauss-Seidel, initialisation --------
@@ -4505,28 +4640,40 @@ def phase_sharded_3d(dev, twin, n=128):
 
 
 class PlainOnCard:
-    """Counts calls of rows 1 and 2's plain versions with a CUDA tensor
-    (none may happen on a main path: a CUDA tensor launches the kernel or
-    raises) while installed."""
+    """Counts calls of the plain versions of rows 1 and 2 with a CUDA
+    tensor, and of row 13's (`fm_momentum_plain`) with a CUDA tensor
+    under a configuration the kernel takes (`fm_assembly.takes`), while
+    installed. None may happen on a main path: there a CUDA tensor
+    launches the kernel or raises."""
 
     def __init__(self):
-        from orc_tpu_torch.ops import fused_smooth, shift_spmv
+        from orc_tpu_torch.ops import fm_assembly, fused_smooth, shift_spmv
 
-        self.mods = ((shift_spmv, "shift_spmv_plain"), (fused_smooth, "sweeps_plain"))
-        self.real = [getattr(m, n) for m, n in self.mods]
-        self.calls = {n: 0 for _, n in self.mods}
+        def cuda(a, k):
+            return any(isinstance(t, torch.Tensor) and t.is_cuda for t in a)
+
+        def fm_taken(a, k):  # (mesh, fbc, settings, rho, vel, ...)
+            return a[4].is_cuda and fm_assembly.takes(a[2], a[4].dtype)
+
+        self.mods = (
+            (shift_spmv, "shift_spmv_plain", cuda),
+            (fused_smooth, "sweeps_plain", cuda),
+            (fm_assembly, "fm_momentum_plain", fm_taken),
+        )
+        self.real = [getattr(m, n) for m, n, _ in self.mods]
+        self.calls = {n: 0 for _, n, _ in self.mods}
 
     def __enter__(self):
-        for (mod, name), fn in zip(self.mods, self.real):
-            def counted(*a, _fn=fn, _name=name, **k):
-                if any(isinstance(t, torch.Tensor) and t.is_cuda for t in a):
+        for (mod, name, on_card), fn in zip(self.mods, self.real):
+            def counted(*a, _fn=fn, _name=name, _on_card=on_card, **k):
+                if _on_card(a, k):
                     self.calls[_name] += 1
                 return _fn(*a, **k)
             setattr(mod, name, counted)
         return self
 
     def __exit__(self, *exc):
-        for (mod, name), fn in zip(self.mods, self.real):
+        for (mod, name, _), fn in zip(self.mods, self.real):
             setattr(mod, name, fn)
 
 
@@ -4575,6 +4722,7 @@ def all_kernels():
     """A Kernel per kernel (and per instance counted apart), in the order
     of the summary line."""
     from orc_tpu_torch.ops import fused_assembly as asm
+    from orc_tpu_torch.ops.fm_assembly import fm_momentum_assembly
     from orc_tpu_torch.ops.fused_smooth import fused_jacobi_sweeps
     from orc_tpu_torch.ops.shift_spmv import shift_spmv
     from orc_tpu_torch.ops.slice_spmv import (
@@ -4620,6 +4768,9 @@ def all_kernels():
                counter="march_launches"),
         Kernel("slice_spmv[amg coarse]", slice_spmv, slice_src,
                "orc_tpu/ops/pallas_slice.py:47", counter="spmv_only_launches"),
+        Kernel("fm_momentum_assembly", fm_momentum_assembly,
+               "orc_tpu_torch/csrc/fm_assembly.cu",
+               "orc_tpu/ops/assembly.py:74 (plain jnp, no kernel)"),
     )
 
 
@@ -4630,11 +4781,12 @@ def main():
     phase_build()
     kernels = all_kernels()
     (spmv, sweeps, mom, pc, fc_mom, fc_pc, mom_t, fc_mom_t, sspmv, snbr, sexact,
-     spmv_pr, sweeps_pr, march, amg_coarse) = kernels
+     spmv_pr, sweeps_pr, march, amg_coarse, fm) = kernels
     bench_shapes = phase_kernels(dev, (spmv, sweeps, mom, pc), mom_t, march)
     phase_per_row_kernels(dev, spmv_pr, sweeps_pr)
     phase_parity_branches(dev, mom, pc, mom_t)
     phase_fc_kernels(dev, fc_mom, fc_pc, fc_mom_t)
+    phase_fm_kernels(dev, fm)
     phase_slice_kernels(dev, sspmv, snbr)
     phase_amg_coarse_kernels(dev, amg_coarse)
     exact = phase_exact_kernel(dev, sexact, sspmv)
@@ -4656,72 +4808,80 @@ def main():
     assembly = (mom, pc, fc_mom, fc_pc, mom_t, fc_mom_t)
     structured = (spmv, sweeps, mom, pc, fc_mom, fc_pc) + extra
     irregular = (sspmv, snbr, sexact)
+    # Row 13 runs only where the face-major step meets settings it takes;
+    # the (c,k) paths launch none of it (the CLI's mix is not checked).
+    no_fm = (fm,)
     results = {}
     paths = (  # label, run, kernels it must launch, kernels it must not,
         # kernels it must launch exactly once per (inner) iteration
-        ("parity couette", lambda: phase_couette(dev), (spmv,), irregular + extra, ()),
+        ("parity couette", lambda: phase_couette(dev), (spmv,), irregular + extra + no_fm, ()),
         ("parity cavity", lambda: phase_cavity(dev), parity,
-         (fc_mom, fc_pc) + extra + irregular, ()),
+         (fc_mom, fc_pc) + extra + irregular + no_fm, ()),
         ("fc couette", lambda: phase_couette(dev, fc=True), fc,
-         (mom, pc) + extra + irregular, ()),
+         (mom, pc) + extra + irregular + no_fm, ()),
         ("fc cavity", lambda: phase_cavity(dev, fc=True), fc,
-         (mom, pc) + extra + irregular, ()),
+         (mom, pc) + extra + irregular + no_fm, ()),
         ("fc sequenced", lambda: phase_sequenced(dev), fc,
-         (mom, pc) + extra + irregular, ()),
+         (mom, pc) + extra + irregular + no_fm, ()),
         ("irregular cavity", lambda: phase_irregular_cavity(dev), (sspmv, snbr),
-         structured + (sexact,), ()),
+         structured + (sexact,) + no_fm, ()),
         ("structured twin", lambda: phase_irregular_twin(dev, results["irregular cavity"]),
-         parity, extra + irregular, ()),
+         parity, extra + irregular + no_fm, ()),
         ("irregular couette",
          lambda: phase_irregular_couette(dev, results["parity couette"]["u_mean"]),
-         (sspmv, snbr), structured + (sexact,), ()),
+         (sspmv, snbr), structured + (sexact,) + no_fm, ()),
         ("reference-default cavity", lambda: phase_ref_default_cavity(dev), parity,
-         (fc_mom, fc_pc) + extra + irregular, (mom, pc)),
-        ("df32_ir", lambda: phase_df32(dev), irregular, structured, ()),
+         (fc_mom, fc_pc) + extra + irregular + no_fm, (mom, pc)),
+        ("df32_ir", lambda: phase_df32(dev), irregular, structured + no_fm, ()),
         ("transient cavity", lambda: phase_transient_cavity(dev), parity + (mom_t,),
-         (fc_mom, fc_pc, fc_mom_t) + irregular, (mom, pc, mom_t)),
+         (fc_mom, fc_pc, fc_mom_t) + irregular + no_fm, (mom, pc, mom_t)),
         ("transient fc cavity", lambda: phase_transient_cavity(dev, fc=True),
-         fc + (fc_mom_t,), (mom, pc, mom_t) + irregular, (fc_mom, fc_pc, fc_mom_t)),
+         fc + (fc_mom_t,), (mom, pc, mom_t) + irregular + no_fm,
+         (fc_mom, fc_pc, fc_mom_t)),
         ("3-D cavity multigrid", lambda: phase_cavity_3d(dev), parity + (march,),
-         (fc_mom, fc_pc, mom_t, fc_mom_t) + per_row + irregular, ()),
+         (fc_mom, fc_pc, mom_t, fc_mom_t) + per_row + irregular + no_fm, ()),
         ("taylor-green", lambda: phase_taylor_green(dev), (spmv, sweeps),
-         (mom, pc, fc_mom, fc_pc) + extra + irregular, ()),
+         (mom, pc, fc_mom, fc_pc) + extra + irregular + no_fm, ()),
         ("rans channel", lambda: phase_rans_channel(dev), (spmv, sweeps),
-         assembly + per_row + irregular, ()),
+         assembly + per_row + irregular + no_fm, ()),
         ("re_tau parity", lambda: phase_re_tau(dev), (spmv,),
-         assembly + per_row + irregular + (sweeps,), ()),
+         assembly + per_row + irregular + (sweeps,) + no_fm, ()),
         ("re_tau fc", lambda: phase_re_tau(dev, fc=True), (spmv, sweeps),
-         assembly + per_row + irregular, ()),
+         assembly + per_row + irregular + no_fm, ()),
         ("lsq cavity", lambda: phase_lsq(dev), parity,
-         (fc_mom, fc_pc) + extra + irregular, (mom, pc)),
+         (fc_mom, fc_pc) + extra + irregular + no_fm, (mom, pc)),
         ("lsq fc cavity", lambda: phase_lsq(dev, fc=True), fc,
-         (mom, pc) + extra + irregular, (fc_mom, fc_pc)),
+         (mom, pc) + extra + irregular + no_fm, (fc_mom, fc_pc)),
         ("tvd cavity", lambda: phase_tvd_cavity(dev), (spmv, sweeps) + per_row,
-         assembly + irregular, ()),
+         assembly + irregular + no_fm, ()),
         ("cd2 couette", lambda: phase_cd2_couette(dev), (spmv, spmv_pr),
-         assembly + irregular + (sweeps, sweeps_pr), ()),
-        # Phase 21: the face-major step assembles in plain ops, as in
-        # orc_tpu, and solves through rows 1, 2 and 7.
+         assembly + irregular + (sweeps, sweeps_pr) + no_fm, ()),
+        # Phase 21: the face-major step assembles its momentum systems in
+        # row 13, once an iteration, where it takes the settings (UD, CD1,
+        # TVD_DC under linear face pressures), in plain ops as in orc_tpu
+        # otherwise (fm-couette: CD1 under SECOND_ORDER face pressures),
+        # the rest in plain ops, and solves through rows 1, 2 and 7.
         ("fm-couette", lambda: phase_fm_couette(dev, results["parity couette"]["u_mean"]),
-         (spmv,), assembly + extra + irregular, ()),
+         (spmv,), assembly + extra + irregular + no_fm, ()),
         ("fm-cavity-1M", lambda: phase_fm_cavity(dev, results["parity cavity"]),
-         (spmv, sweeps), assembly + extra + irregular, ()),
+         (spmv, sweeps, fm), assembly + extra + irregular, (fm,)),
         ("fm-fc-cavity-1M", lambda: phase_fm_fc_cavity(dev, results["fc cavity"]),
-         (spmv, sweeps),
-         assembly + extra + irregular, ()),
-        ("ggnode-448", lambda: phase_ggnode(dev), (sspmv,),
-         structured + (snbr, sexact), ()),
-        ("fm-auto-216", lambda: phase_fm_auto_216(dev), (spmv, sweeps, march),
-         assembly + (mom_t, fc_mom_t) + per_row + irregular + (amg_coarse,), ()),
+         (spmv, sweeps, fm),
+         assembly + extra + irregular, (fm,)),
+        ("ggnode-448", lambda: phase_ggnode(dev), (sspmv, fm),
+         structured + (snbr, sexact), (fm,)),
+        ("fm-auto-216", lambda: phase_fm_auto_216(dev), (spmv, sweeps, march, fm),
+         assembly + (mom_t, fc_mom_t) + per_row + irregular + (amg_coarse,), (fm,)),
         # Phase 22: the algebraic multigrid (kernel 7 on its coarse plans),
         # Gauss-Seidel, initialize_flow and solve_channel_flow.
         ("amg-448", lambda: phase_amg_448(dev), (sspmv, snbr, amg_coarse),
-         tuple(k for k in structured if k is not amg_coarse) + (sexact,), ()),
+         tuple(k for k in structured if k is not amg_coarse) + (sexact,) + no_fm, ()),
         ("gs-cavity-1M", lambda: phase_gs_cavity(dev, results["parity cavity"]), parity,
-         (fc_mom, fc_pc) + extra + irregular, ()),
+         (fc_mom, fc_pc) + extra + irregular + no_fm, ()),
         ("init-channel", lambda: phase_init_channel(dev), (spmv,),
-         assembly + extra + irregular + (sweeps,), ()),
-        ("channel-128x64", lambda: phase_channel_128(dev), (spmv,), extra + irregular, ()),
+         assembly + extra + irregular + (sweeps,) + no_fm, ()),
+        ("channel-128x64", lambda: phase_channel_128(dev), (spmv,),
+         extra + irregular + no_fm, ()),
         # Phase 23: the CLI, in this process: the examples, resume, the
         # relabelled TGRID case, cli-1M, bench and the card against the CPU.
         ("cli", lambda: phase_cli(
@@ -4733,15 +4893,18 @@ def main():
         # run: the momentum smoother refreshes its halo every sweep.
         ("refdef-1M x4",
          lambda: phase_sharded_refdef(dev, results["reference-default cavity"]),
-         (spmv, mom, pc), (fc_mom, fc_pc, sweeps) + extra + irregular, (mom, pc)),
+         (spmv, mom, pc), (fc_mom, fc_pc, sweeps) + extra + irregular + no_fm,
+         (mom, pc)),
         ("fc-cavity-1M x4", lambda: phase_sharded_fc(dev, results["fc cavity"]),
-         (spmv, fc_mom, fc_pc), (mom, pc, sweeps) + extra + irregular, (fc_mom, fc_pc)),
+         (spmv, fc_mom, fc_pc), (mom, pc, sweeps) + extra + irregular + no_fm,
+         (fc_mom, fc_pc)),
         ("cavity3d-128 x4",
          lambda: phase_sharded_3d(dev, {
              **results["3-D cavity multigrid"]["MULTIGRID"],
              **results["3-D cavity multigrid"]["profile"],
          }),
-         (spmv, mom, pc), (fc_mom, fc_pc, sweeps) + extra + irregular, (mom, pc)),
+         (spmv, mom, pc), (fc_mom, fc_pc, sweeps) + extra + irregular + no_fm,
+         (mom, pc)),
     )
     launches = {k.name: 0 for k in kernels}
     for label, run, must, must_not, per_iteration in paths:

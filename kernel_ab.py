@@ -21,6 +21,11 @@ chip_smoke.card_ms) in the order base, new, new, base, `--reps` times,
 with the one PyTorch call computing the same function beside them where
 there is one, warm and with L2 emptied first. Prints one line per shape
 and writes every time to chiprun_out/kernel_ab.json.
+
+Group `fm` times the face-major momentum kernel (fm_assembly.cu) of the
+tree's version in turns against the plain face_pressure +
+momentum_system it replaces; a base version without the source builds
+without it.
 """
 
 from __future__ import annotations
@@ -42,7 +47,8 @@ import chip_smoke as cs
 
 ROOT = Path(__file__).resolve().parent
 SOURCES = ("shift_spmv.cu", "jacobi_sweeps.cu", "slice_spmv.cu",
-           "parity_assembly.cu", "parity_assembly_f64.cu", "assembly.cu")
+           "parity_assembly.cu", "parity_assembly_f64.cu", "assembly.cu",
+           "fm_assembly.cu")
 #: The kernels whose ptxas registers and spills the log lists
 #: ("momentum_kernel" names fc_momentum_kernel too).
 REPORTED = ("slice_spmv_kernel", "slice_spmv_exact_kernel", "momentum_kernel",
@@ -66,9 +72,10 @@ def build(csrc: Path, out: Path):
     from orc_tpu_torch.ops import _cuda
 
     nvcc = "/usr/local/cuda/bin/nvcc"
-    objs = [out.with_name(f"{out.stem}.{Path(s).stem}.o") for s in SOURCES]
+    sources = [s for s in SOURCES if (csrc / s).exists()]  # older csrc lacks some
+    objs = [out.with_name(f"{out.stem}.{Path(s).stem}.o") for s in sources]
     compiles = [[nvcc, *_cuda.NVCC_FLAGS, "-Xptxas=-v", f"-I{csrc}", "-c",
-                 "-o", str(o), str(csrc / s)] for s, o in zip(SOURCES, objs)]
+                 "-o", str(o), str(csrc / s)] for s, o in zip(sources, objs)]
     link = [nvcc, *_cuda.NVCC_FLAGS, "-shared", "-o", str(out), *map(str, objs)]
     return compiles, link
 
@@ -88,13 +95,15 @@ class Version:
         }
         self.boxed = {name for name in BOXED if "long long nx" in params[name]}
         self.row0 = {name for name in BOXED if "long long row0" in params[name]}
-        # Older versions have no z-march.
+        # Older versions have no z-march and no face-major assembly.
         self.march = hasattr(self.lib, "orc_jacobi_march")
+        self.fm = hasattr(self.lib, "orc_fm_momentum_assembly")
         for name in ("orc_shift_spmv", "orc_slice_nbr", "orc_slice_spmv",
                      "orc_slice_spmv_exact", "orc_jacobi_sweeps",
                      "orc_jacobi_sweeps_rows", "orc_momentum_assembly",
                      "orc_pc_assembly", "orc_fc_momentum_assembly",
-                     "orc_fc_pc_assembly") + ("orc_jacobi_march",) * self.march:
+                     "orc_fc_pc_assembly") + ("orc_jacobi_march",) * self.march + (
+                         "orc_fm_momentum_assembly",) * self.fm:
             fn = getattr(self.lib, name)
             fn.argtypes = self.unboxed(name, _cuda.SIGNATURES[name])
             fn.restype = ctypes.c_int
@@ -708,11 +717,95 @@ def fc_shapes(dev, libs, reps, results):
         del mesh, ck, vel, p, md, flux, grad_p, grad_v
 
 
+def fm_shapes(dev, libs, reps, results):
+    """The face-major momentum kernel (csrc/fm_assembly.cu) of the new
+    version against the plain face_pressure + momentum_system it
+    replaces, in turns (kernel, plain, plain, kernel), at the 1024^2 f32
+    cavity with the flagship numerics (TVD_DC + UMIST, LINEAR_WEIGHTED
+    face pressures, implicit relaxation) and the 128^3 f32 K = 6 cavity
+    with the cube's (UD, LINEAR_WEIGHTED), from seeded fields, a seeded
+    [F] flux and the Green-Gauss velocity gradient; two launches give
+    the same bits. The base version has no such kernel."""
+    from orc_tpu_torch.models.cavity import cavity_case, flagship_settings
+    from orc_tpu_torch.ops import fm_assembly as fm
+    from orc_tpu_torch.ops.assembly import diffusion_system
+    from orc_tpu_torch.ops.fields import device_bc, face_bc
+    from orc_tpu_torch.ops.gradients import velocity_gradient
+    from orc_tpu_torch.utils.settings import (
+        MomentumScheme,
+        NumericalSettings,
+        PressureInterpolation,
+        RelaxationMode,
+    )
+
+    new = libs[1]
+    cube = NumericalSettings(
+        momentum=MomentumScheme.UD,
+        pressure_interpolation=PressureInterpolation.LINEAR_WEIGHTED,
+        relaxation_mode=RelaxationMode.IMPLICIT, momentum_relaxation=0.7,
+    )
+    cases = (
+        ("1024^2 f32 tvd_dc+umist", lambda: cavity_case(n=1024, dtype=torch.float32, device=dev),
+         flagship_settings()),
+        ("128^3 f32 K=6 ud", lambda: cavity_case(n=128, nz=128, dtype=torch.float32, device=dev),
+         cube),
+    )
+    for label, make, settings in cases:
+        mesh, table = make()
+        dt, C = mesh.dtype, mesh.n_cells
+        zc, zs, zv = device_bc(table, dtype=dt, device=dev)
+        fbc = face_bc(mesh, zc, zs, zv)
+        diff = diffusion_system(mesh, fbc, torch.tensor(1e-3, dtype=dt, device=dev))
+        rng = np.random.default_rng(5)
+        vel = torch.tensor(rng.standard_normal((C, 3)) * 0.1, dtype=dt, device=dev)
+        p = torch.tensor(rng.standard_normal(C) * 0.05, dtype=dt, device=dev)
+        flux = torch.tensor(rng.standard_normal(mesh.n_faces) * 0.1, dtype=dt, device=dev)
+        grad_v = velocity_gradient(mesh, fbc, vel, settings.gradient_reconstruction)
+        args = (mesh, fbc, settings, 1.0, vel, flux, p, diff)
+        kernel = routed(new, fm.fm_momentum_assembly, *args, grad_v)
+        plain = functools.partial(fm.fm_momentum_plain, *args, grad_vel=grad_v)
+
+        def outs(r):
+            A, b, pe = r
+            return (A.diag, A.off, b, pe)
+
+        first, second, ref = outs(kernel()), outs(kernel()), outs(plain())
+        torch.cuda.synchronize()
+        _, rels = cs.max_err(first, ref)
+        per = " ".join(f"{o}={r:.2e}" for o, r in zip(("diag", "off", "b", "pe"), rels))
+        if not all(r <= cs.TOL[dt] for r in rels):
+            raise AssertionError(f"fm momentum {label}: kernel off its plain version ({per})")
+        same = _bitwise(first, second)
+        cs.log(f"  fm momentum {label}: kernel vs plain {per} of scale; two launches "
+               f"bitwise equal: {same}")
+        nbytes = cs.fm_bytes(mesh, settings)
+        t = {k: [] for k in ("kernel", "plain", "kernel_cold", "plain_cold")}
+        for _ in range(reps):
+            for v, fn in (("kernel", kernel), ("plain", plain), ("plain", plain),
+                          ("kernel", kernel)):
+                t[v].append(card(fn))
+                t[f"{v}_cold"].append(cold(fn))
+        med = {k: float(np.median(v)) for k, v in t.items()}
+        bound = 1e3 * nbytes / cs.HBM_BYTES_PER_S
+        cs.log(
+            f"  fm momentum {label:26s} bound {bound:.4f} ms ({nbytes / 1e6:.1f} MB); ms "
+            f"(share of 3.35 TB/s) warm | cold: kernel {med['kernel']:.4f} "
+            f"({100 * bound / med['kernel']:.1f}%) | {med['kernel_cold']:.4f} "
+            f"({100 * bound / med['kernel_cold']:.1f}%); plain {med['plain']:.4f} | "
+            f"{med['plain_cold']:.4f}"
+        )
+        results.append(dict(label=f"fm momentum {label}",
+                            **{f"{k}_ms": v for k, v in med.items()}, runs=t,
+                            bound_ms=bound, mbytes=nbytes / 1e6, bitwise_repeat=same))
+        del mesh, fbc, diff, vel, p, flux, grad_v
+
+
 #: Only the sweeps shapes whose label holds this text (--match).
 MATCH = ""
 
 GROUPS = dict(sweeps=sweeps_shapes, exact=exact_shapes, momentum=momentum_shapes,
-              fc=fc_shapes, slice=slice_shapes, spmv=spmv_shapes, gather=gather_shapes)
+              fc=fc_shapes, slice=slice_shapes, spmv=spmv_shapes, gather=gather_shapes,
+              fm=fm_shapes)
 
 
 def sass_counts(lib: Path):

@@ -108,6 +108,12 @@ SIGNATURES = {
         _i, _i, _pll, _pd, _pi, _pi, _i, _ll, _ll, _ll, _ll, _p, _p, _p, _p,
         _p, _d, _d, _p, _p, _p, _p, _ll, _p,
     ),
+    # dtype, scheme, limiter, K, weighted, implicit, the 26 pointers of
+    # csrc/fm_assembly.cu (inputs, then diag, off, b, pe), rho,
+    # (1 - alpha) / alpha, alpha, C, stream
+    "orc_fm_momentum_assembly": (
+        _i, _i, _i, _i, _i, _i, _pp, _d, _d, _d, _ll, _p,
+    ),
     # dtype, diag, diag batch stride, coef, coef batch stride, starts,
     # tile_nj, x, y, C, tile, ntiles, n_max, pad_lo, B, stream
     "orc_slice_spmv": (

@@ -29,7 +29,9 @@ Layout: on the (c,k) step the stored flux and the predictor are kept as
 [C,K] views of K contiguous [C] planes (`planes`), the layout the
 kernels read and write, so no [C,K] transpose runs between iterations
 on the card. The face-major step assembles in plain ops, as orc_tpu's
-does, and solves through the same kernels.
+does, but for the momentum assembly of the shared-matrix schemes, which
+runs in one hand-written kernel on the card (`simple.face_momentum`),
+and solves through the same kernels.
 """
 
 from __future__ import annotations
@@ -40,7 +42,6 @@ from orc_tpu_torch.ops.assembly import (
     _gathered,
     _normal_momentum_coeff,
     apply_pressure_correction,
-    momentum_system,
 )
 from orc_tpu_torch.ops.ck_ops import (
     ck_apply_correction,
@@ -62,7 +63,7 @@ from orc_tpu_torch.ops.fields import (
     face_bc,
 )
 from orc_tpu_torch.ops.gradients import pressure_gradient, velocity_gradient
-from orc_tpu_torch.ops.interpolation import _dot, face_flux, face_pressure
+from orc_tpu_torch.ops.interpolation import _dot, face_flux
 from orc_tpu_torch.solver import simple
 from orc_tpu_torch.utils.profiling import span
 from orc_tpu_torch.utils.settings import (
@@ -211,10 +212,9 @@ def simple_step_fc(
             else None
         )
     with span("orc.momentum_assembly"):
-        p_f = face_pressure(mesh, fbc, p, settings.pressure_interpolation, grad_p=grad_p)
-        A3, b3, pe = momentum_system(
-            mesh, fbc, settings, rho, vel, flux, p_f, diff, grad_vel=grad_v,
-            inertia=inertia,
+        A3, b3, pe = simple.face_momentum(
+            mesh, fbc, settings, rho, vel, flux, p, diff, active, grad_p=grad_p,
+            grad_vel=grad_v, inertia=inertia,
         )
     with span("orc.momentum_solve"):
         new_vel, new_mom_diag, info = simple._solve_momentum(

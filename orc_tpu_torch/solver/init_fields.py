@@ -39,7 +39,7 @@ from orc_tpu_torch.ops.fields import (
     face_bc,
 )
 from orc_tpu_torch.solver.krylov import iterative_solve
-from orc_tpu_torch.solver.simple import FlowState
+from orc_tpu_torch.solver.simple import FlowState, face_momentum
 from orc_tpu_torch.utils.settings import (
     MatrixSolverSettings,
     PreconditionMethod,
@@ -283,8 +283,8 @@ def initialize_flow_ramp(
     pressure, assemble a UD advection system at zero velocity, then solve
     momentum with the matrix blended from pure diffusion to advection +
     diffusion in steps of 0.2 (the u/v/w solves as one [3,C] batch)."""
-    from orc_tpu_torch.ops.assembly import diffusion_system, momentum_system
-    from orc_tpu_torch.ops.interpolation import face_flux, face_pressure
+    from orc_tpu_torch.ops.assembly import diffusion_system
+    from orc_tpu_torch.ops.interpolation import face_flux
     from orc_tpu_torch.utils.settings import (
         MomentumScheme,
         NumericalSettings,
@@ -304,8 +304,8 @@ def initialize_flow_ramp(
         pressure_interpolation=PressureInterpolation.LINEAR_WEIGHTED,
     )
     flux = face_flux(mesh, fbc, vel, VelocityInterpolation.LINEAR_WEIGHTED)
-    p_f = face_pressure(mesh, fbc, p, PressureInterpolation.LINEAR_WEIGHTED)
-    A3, b3, _ = momentum_system(mesh, fbc, settings, rho, vel, flux, p_f, diff)
+    active = mesh.cell_face_mask.any(dim=1)
+    A3, b3, _ = face_momentum(mesh, fbc, settings, rho, vel, flux, p, diff, active)
     solver = MatrixSolverSettings(
         solver_type=SolutionMethod.BICGSTAB,
         iterations=iterations,

@@ -37,8 +37,10 @@ multigrid level, on structured meshes; the slice SpMV on irregular
 meshes (RCM-reordered, with a slice plan) and the slice neighbour gather
 in their (c,k) assembly; the exact slice product in the residuals of
 DF32_IR solves. The face-major step assembles in plain ops, as in
-orc_tpu, and solves through the same kernels. On CPU they take the plain
-versions.
+orc_tpu, but for its momentum assembly under the shared-matrix schemes
+(UD, CD1, TVD_DC with linear face pressures), which one hand-written
+kernel computes (ops/fm_assembly.py; `face_momentum` chooses), and solves
+through the same kernels. On CPU they take the plain versions.
 
 Both steps take every momentum scheme: UD, CD1 and TVD_DC solve the
 u/v/w systems over one shared matrix, CD2 and in-matrix TVD over one
@@ -79,16 +81,16 @@ from orc_tpu_torch.ops.ck_ops import (
     mesh_matrix,
     nbr_values,
 )
+from orc_tpu_torch.ops import fm_assembly
 from orc_tpu_torch.ops.assembly import (
     DiffusionSystem,
     apply_pressure_correction,
     diffusion_system,
-    momentum_system,
     pressure_correction_system,
 )
 from orc_tpu_torch.ops.fields import device_bc, face_bc, momentum_source_term
 from orc_tpu_torch.ops.gradients import pressure_gradient, velocity_gradient
-from orc_tpu_torch.ops.interpolation import face_flux, face_pressure
+from orc_tpu_torch.ops.interpolation import face_flux
 from orc_tpu_torch.solver.krylov import (
     _no_project,
     _no_refresh,
@@ -365,6 +367,28 @@ def _add_momentum_source(mesh, settings, b3, active):
     return b3 + torch.where(active[None, :], src.T, zero)
 
 
+def face_momentum(
+    mesh, fbc, settings, rho, vel, flux, p, diff, active, grad_p=None,
+    grad_vel=None, inertia=None,
+):
+    """The face-major momentum assembly, face pressure then the momentum
+    systems: (EllMatrix, b [3,C], pe [C,3]). On a CUDA mesh, where the
+    hand-written kernel takes the configuration (ops/fm_assembly.py
+    `takes`: UD / CD1 / TVD_DC, LINEAR[_WEIGHTED] face pressures), one
+    launch of it with the momentum source added after it, as on the
+    (c,k) kernel path; else the plain `fm_assembly.fm_momentum_plain`."""
+    if _on_cuda(mesh) and fm_assembly.takes(settings, vel.dtype):
+        A3, b3, pe = fm_assembly.fm_momentum_assembly(
+            mesh, fbc, settings, rho, vel, flux, p, diff, grad_vel=grad_vel,
+            inertia=inertia,
+        )
+        return A3, _add_momentum_source(mesh, settings, b3, active), pe
+    return fm_assembly.fm_momentum_plain(
+        mesh, fbc, settings, rho, vel, flux, p, diff, grad_vel=grad_vel,
+        inertia=inertia, grad_p=grad_p,
+    )
+
+
 def _step_metrics(
     active, vel3, pe, p_corr_sq, vel_corr_sq, info, p_info, comm=None
 ):
@@ -447,10 +471,9 @@ def simple_step(
             mesh, fbc, vel, settings.velocity_interpolation,
             p=p, grad_p=grad_p, mom_diag=mom_diag,
         )
-        p_f = face_pressure(mesh, fbc, p, settings.pressure_interpolation, grad_p=grad_p)
-        A3, b3, pe = momentum_system(
-            mesh, fbc, settings, rho, vel, flux, p_f, diff, grad_vel=grad_v,
-            inertia=inertia,
+        A3, b3, pe = face_momentum(
+            mesh, fbc, settings, rho, vel, flux, p, diff, active, grad_p=grad_p,
+            grad_vel=grad_v, inertia=inertia,
         )
     with span("orc.momentum_solve"):
         new_vel, new_mom_diag, info = _solve_momentum(

@@ -1,11 +1,12 @@
-"""CPU rehearsal of eight Hopper kernels of orc_tpu_torch: the slice-plan
+"""CPU rehearsal of nine Hopper kernels of orc_tpu_torch: the slice-plan
 SpMV and its exact product (csrc/slice_spmv.cu, kernel rows 7-9 and
 12), the shift SpMV's and the Jacobi sweeps' per-row instances
 (csrc/shift_spmv.cu, row 1; csrc/jacobi_sweeps.cu, row 2, also tiled), the parity
 momentum assembly (csrc/parity_assembly.cuh, row 3), the SIMPLE_FC
 momentum assembly (csrc/assembly.cu, row 4), the pressure-correction
-assembly (csrc/parity_assembly.cuh, row 5) and the SIMPLE_FC pressure
-assembly (csrc/assembly.cu, row 6), compiled as C++ with g++
+assembly (csrc/parity_assembly.cuh, row 5), the SIMPLE_FC pressure
+assembly (csrc/assembly.cu, row 6) and the face-major momentum assembly
+(csrc/fm_assembly.cu, row 13), compiled as C++ with g++
 against a mock cuda_runtime.h and run through the wrappers' launch
 helpers on CPU tensors.
 
@@ -67,13 +68,22 @@ source does not spell out. What that checks:
   the window's rows, from its first row's place in its plane; ghost,
   padding and trash rows inactive), whole planes or not, in the sharded
   instances (streamed gradient) and the in-kernel gradient ones,
-  against the plain versions on every row of the window.
+  against the plain versions on every row of the window;
+- the face-major momentum assembly against face_pressure +
+  momentum_system (1e-5 / 1e-12 of each output's largest value) in every
+  scheme and limiter family it takes, LINEAR and LINEAR_WEIGHTED face
+  pressures, steady and transient, IMPLICIT and EXPLICIT relaxation, on
+  the channel boxes, a relabelled write_tgrid box (RCM order), the
+  windows of a 2-slab partition and slot tables off 16-byte boundaries;
+  simple_step and simple_step_fc with it against the plain steps; and
+  the launches the face-major steps make of it for each scheme.
 
 Skips where g++ is missing. The card's own checks are in
 tests/test_torch_gpu.py and chip_smoke.py.
 """
 
 import ctypes
+import dataclasses
 import re
 import shutil
 import subprocess
@@ -95,7 +105,7 @@ from orc_tpu.ops import spmv as jspmv
 
 from orc_tpu_torch.mesh.compile import compile_from_arrays
 from orc_tpu_torch.mesh.reorder import build_slice_plan
-from orc_tpu_torch.models.cavity import cavity_case
+from orc_tpu_torch.models.cavity import cavity_case, flagship_settings
 from orc_tpu_torch.models.channel_flow import ChannelFlowParameters, couette_case
 from orc_tpu_torch.ops import _cuda
 from orc_tpu_torch.ops import fused_assembly as asm
@@ -243,7 +253,7 @@ void mock_launch(dim3 grid, dim3 block, size_t smem, K kernel, A... args) {
 
 #: The sources rehearsed, each compiled on its own in parallel.
 SOURCES = ("slice_spmv.cu", "parity_assembly.cu", "parity_assembly_f64.cu",
-           "assembly.cu", "jacobi_sweeps.cu", "shift_spmv.cu")
+           "assembly.cu", "jacobi_sweeps.cu", "shift_spmv.cu", "fm_assembly.cu")
 
 
 def _split_top(text):
@@ -311,7 +321,7 @@ def mock_lib(tmp_path_factory):
                  "orc_pc_assembly", "orc_fc_momentum_assembly", "orc_fc_pc_assembly",
                  "orc_jacobi_sweeps",
                  "orc_jacobi_sweeps_rows", "orc_jacobi_march", "orc_shift_spmv",
-                 "orc_shift_spmv_rows"):
+                 "orc_shift_spmv_rows", "orc_fm_momentum_assembly"):
         fn = getattr(lib, name)
         fn.argtypes = _cuda.SIGNATURES[name]
         fn.restype = ctypes.c_int
@@ -998,3 +1008,256 @@ def test_rehearsed_slab_windows_match_plain(mock, dtype, box, n_parts, ragged):
             ref = asm.pc_assembly_plain(*pargs[:-1], spec=spec)
             _assert_close(rows(got, gg), rows(ref, gg), dtype, "pc")
         assert float(got[0][-1]) == 1.0 and not got[1][-1].any() and float(got[2][-1]) == 0.0
+
+
+# --- the face-major momentum assembly -------------------------------------
+
+#: The meshes of the face-major kernel's cases: the channel boxes, a
+#: relabelled write_tgrid box (RCM order, a slice plan, K = 6), the two
+#: windows of a 2-slab partition of the 37 x 9 channel, and the 10 x 6
+#: channel with its slot tables off 16-byte boundaries (one load a slot).
+FM_CASES = sorted(BOXES) + ["irregular", "37x9_pressure-2slabs", "10x6_vinlet-unaligned"]
+FM_SCHEMES = {
+    "ud": tset.MomentumScheme.UD,
+    "cd1": tset.MomentumScheme.CD1,
+    "tvd_dc": tset.MomentumScheme.TVD_DC,
+}
+
+
+def _off_boundary(t):
+    """A copy of `t` whose storage starts one element past a 16-byte
+    boundary."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype)
+    out = flat[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.fixture(scope="module")
+def fm_meshes(tmp_path_factory):
+    """case, dtype -> the [(mesh, table)] of FM_CASES, built once."""
+    from torch_parity import relabelled_tgrid
+
+    from orc_tpu_torch.mesh.tgrid import read_mesh
+    from orc_tpu_torch.mesh.zones import FaceCondition
+    from orc_tpu_torch.parallel.partition import partition_mesh
+
+    cache = {}
+
+    def get(case, dtype):
+        if (case, dtype) in cache:
+            return cache[case, dtype]
+        if case == "irregular":
+            path = relabelled_tgrid(tmp_path_factory.mktemp("fm"), 9, seed=3)
+            mesh, table = read_mesh(str(path), dtype=dtype, device="cpu")
+            assert mesh.neighbor_offsets is None and mesh.cell_order is not None
+            table.set("INLET", FaceCondition.VELOCITY_INLET, vector_value=(1e-3, 0, 0))
+            table.set("OUTLET", FaceCondition.PRESSURE_OUTLET, scalar_value=0.01)
+            table.set("TOP_WALL", FaceCondition.WALL, vector_value=(5e-4, 0, 0))
+            out = [(mesh, table)]
+        else:
+            box, _, variant = case.partition("-")
+            nx, ny, nz, vinlet = BOXES[box]
+            mesh, table = couette_case(
+                nx, ny, nz,
+                params=ChannelFlowParameters(top_wall_velocity=5e-4, dp_dx=5.0),
+                velocity_inlet=vinlet, dtype=dtype, device="cpu",
+            )
+            out = [(mesh, table)]
+            if variant.endswith("slabs"):
+                part = partition_mesh(mesh, int(variant[0]), method="slab")
+                out = [(lmesh, table) for lmesh in part.local_meshes]
+            elif variant == "unaligned":
+                out = [(dataclasses.replace(mesh, **{
+                    k: _off_boundary(getattr(mesh, k))
+                    for k in ("cell_faces", "cell_neighbors", "cell_face_sign",
+                              "cell_face_mask")
+                }), table)]
+        cache[case, dtype] = out
+        return out
+
+    return get
+
+
+@pytest.mark.parametrize("family", sorted(FAMILIES))
+@pytest.mark.parametrize("case", FM_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_rehearsed_fm_momentum_matches_plain(mock, fm_meshes, dtype, case, family):
+    """The face-major momentum kernel (csrc/fm_assembly.cu, through
+    fm_momentum_assembly on the mock) against face_pressure +
+    momentum_system, each output to 1e-5 / 1e-12 of its largest value:
+    LINEAR and LINEAR_WEIGHTED face pressures, steady and with the
+    inertia term, IMPLICIT and EXPLICIT relaxation, on every mesh of
+    FM_CASES (padded ghost and trash rows of the slab windows
+    included)."""
+    from orc_tpu_torch.ops import fm_assembly as fm
+    from orc_tpu_torch.ops.assembly import diffusion_system
+    from orc_tpu_torch.ops.fields import face_bc
+
+    scheme, psi = FAMILIES[family]
+    for mesh, table in fm_meshes(case, dtype):
+        C = mesh.n_cells
+        zc, zs, zv = device_bc(table, dtype=dtype, device="cpu")
+        fbc = face_bc(mesh, zc, zs, zv)
+        diff = diffusion_system(mesh, fbc, torch.tensor(1e-3, dtype=dtype))
+        if case.endswith("unaligned"):
+            diff = diff._replace(off=_off_boundary(diff.off))
+        rng = np.random.default_rng(7)
+        t = lambda a: torch.tensor(a, dtype=dtype)  # noqa: E731
+        vel, vel_n = t(rng.standard_normal((C, 3)) * 0.1), t(rng.standard_normal((C, 3)) * 0.1)
+        p, flux = t(rng.standard_normal(C) * 0.05), t(rng.standard_normal(mesh.n_faces) * 0.1)
+        grad_v = t(rng.standard_normal((C, 3, 3)))
+        for pi in (tset.PressureInterpolation.LINEAR, tset.PressureInterpolation.LINEAR_WEIGHTED):
+            for mode in tset.RelaxationMode:
+                s = tset.NumericalSettings(
+                    momentum=FM_SCHEMES[scheme], tvd_psi=psi, pressure_interpolation=pi,
+                    relaxation_mode=mode, momentum_relaxation=0.7,
+                )
+                assert fm.takes(s, dtype)
+                for inertia in (None, (1000.0 * mesh.cell_volume / 0.01, vel_n)):
+                    args = (mesh, fbc, s, 1.0, vel, flux, p, diff)
+                    kw = dict(grad_vel=grad_v, inertia=inertia)
+                    A, b, pe = fm.fm_momentum_assembly(*args, **kw)
+                    R, rb, rpe = fm.fm_momentum_plain(*args, **kw)
+                    assert A.off.shape == R.off.shape and A.off.T.is_contiguous()
+                    for name, a, r in (("diag", A.diag, R.diag), ("off", A.off, R.off),
+                                       ("b", b, rb), ("pe", pe, rpe)):
+                        err = float((a - r).abs().max())
+                        assert err <= TOL[dtype] * float(r.abs().max()), (
+                            f"{family} {pi.value} {mode.value} "
+                            f"inertia={inertia is not None} {name}: {err:.3e}"
+                        )
+
+
+def _fm_run(case, settings, iterations, kernel, monkeypatch):
+    """`iterations` face-major steps of a 16 x 8 f64 case from its seeded
+    start, with the face-major momentum kernel on the mock (`kernel`) or
+    the plain ops: the final state and the launches made."""
+    from orc_tpu_torch.ops import fm_assembly as fm
+    from orc_tpu_torch.solver import simple as ts
+
+    with monkeypatch.context() as m:
+        if kernel:
+            m.setattr(ts, "_on_cuda", lambda mesh: True)
+        if case == "cavity":
+            mesh, table = cavity_case(n=16, dtype=torch.float64, device="cpu")
+        else:
+            mesh, table = couette_case(
+                16, 8, 1, params=ChannelFlowParameters(top_wall_velocity=5e-4, dp_dx=5.0),
+                velocity_inlet=1e-3, dtype=torch.float64, device="cpu",
+            )
+        state = ts.initial_state(mesh)
+        g = torch.Generator().manual_seed(11)
+        state = dataclasses.replace(
+            state,
+            vel=state.vel + 1e-4 * torch.rand(state.vel.shape, generator=g, dtype=torch.float64),
+        )
+        fm.fm_momentum_assembly.launches = 0
+        out, _ = ts.solve_steady(
+            mesh, table, settings, 1.0, 1e-3 if case == "couette" else 1e-2, state=state,
+            iterations=iterations, verbose=False, check_divergence=False, use_ck=False,
+        )
+        return out, fm.fm_momentum_assembly.launches
+
+
+_JACOBI_P = tset.MatrixSolverSettings(
+    solver_type=tset.SolutionMethod.JACOBI, iterations=50,
+    preconditioner=tset.PreconditionMethod.JACOBI,
+)
+#: Face-major runs the kernel takes: the flagship SIMPLE_FC numerics
+#: (TVD_DC + UMIST, Rhie-Chow, LINEAR_WEIGHTED p) and SIMPLE with UD and
+#: linear faces under explicit relaxation; Jacobi pressure solves, which
+#: do not amplify roundoff as BiCGSTAB does.
+FM_STEPS = {
+    "simple_fc-cavity": ("cavity", lambda: flagship_settings().replace(matrix_solver=_JACOBI_P)),
+    "simple-couette": ("couette", lambda: tset.NumericalSettings(
+        momentum=tset.MomentumScheme.UD,
+        pressure_interpolation=tset.PressureInterpolation.LINEAR_WEIGHTED,
+        matrix_solver=_JACOBI_P)),
+}
+
+
+@pytest.mark.parametrize("name", sorted(FM_STEPS))
+def test_rehearsed_fm_kernel_steps_track_plain(mock, name, monkeypatch):
+    """simple_step_fc and simple_step with the face-major momentum kernel
+    (on the mock) against the plain steps over 6 iterations, float64: one
+    launch an iteration, the final fields within 1e-9 of their scale."""
+    case, make = FM_STEPS[name]
+    settings = make()
+    plain, n0 = _fm_run(case, settings, 6, False, monkeypatch)
+    got, n = _fm_run(case, settings, 6, True, monkeypatch)
+    assert (n0, n) == (0, 6)
+    for f in ("vel", "p", "mom_diag") + (("flux",) if plain.flux is not None else ()):
+        a, r = getattr(got, f), getattr(plain, f)
+        err = float((a - r).abs().max())
+        assert err <= 1e-9 * float(r.abs().max()), f"{f}: {err:.3e}"
+
+
+#: settings -> launches an iteration of the face-major momentum kernel.
+FM_DISPATCH = {
+    "ud": (dict(momentum=tset.MomentumScheme.UD), 1),
+    "cd1-linear": (dict(momentum=tset.MomentumScheme.CD1,
+                        pressure_interpolation=tset.PressureInterpolation.LINEAR), 1),
+    "tvd_dc-quick": (dict(momentum=tset.MomentumScheme.TVD_DC, tvd_psi=tset.tvd_quick), 1),
+    "tvd_dc-implicit": (dict(momentum=tset.MomentumScheme.TVD_DC, tvd_psi=tset.tvd_umist,
+                             relaxation_mode=tset.RelaxationMode.IMPLICIT), 1),
+    "tvd_dc-own-limiter": (dict(momentum=tset.MomentumScheme.TVD_DC,
+                                tvd_psi=lambda r: torch.clamp(r, 0.0, 1.0)), 0),
+    "cd2": (dict(momentum=tset.MomentumScheme.CD2), 0),
+    "tvd": (dict(momentum=tset.MomentumScheme.TVD, tvd_psi=tset.tvd_umist), 0),
+    "second_order": (dict(momentum=tset.MomentumScheme.UD,
+                          pressure_interpolation=tset.PressureInterpolation.SECOND_ORDER), 0),
+}
+
+
+@pytest.mark.parametrize("name", sorted(FM_DISPATCH))
+def test_fm_kernel_dispatch_counts_launches(mock, name, monkeypatch):
+    """`fm_momentum_assembly.launches` counts one launch an iteration of
+    the face-major step on a CUDA mesh (the gate patched to the CPU mesh,
+    the kernel on the mock) for the shared-matrix schemes with linear
+    face pressures, and none for CD2, in-matrix TVD, SECOND_ORDER face
+    pressures or a limiter without a kernel code; none on a CPU mesh."""
+    kw, per_iter = FM_DISPATCH[name]
+    settings = tset.NumericalSettings(**{
+        "pressure_interpolation": tset.PressureInterpolation.LINEAR_WEIGHTED,
+        "matrix_solver": _JACOBI_P, **kw,
+    })
+    _, n = _fm_run("couette", settings, 2, True, monkeypatch)
+    assert n == 2 * per_iter
+    _, n = _fm_run("couette", settings, 2, False, monkeypatch)
+    assert n == 0
+
+
+def test_chip_smoke_fm_phase_rehearsed(mock, monkeypatch):
+    """chip_smoke's row-13 phase (phase_fm_kernels) on the CPU, with the
+    kernel on the mock, its cavities cut to 16^2 and 16^2 x 6 and the
+    card timings left out: it keeps the face-major step's operands, finds
+    the kernel within TOL of fm_momentum_plain in each of its five
+    comparisons (the flagship cavity timed) and two launches bitwise
+    equal."""
+    from torch_parity import chip_smoke
+
+    from orc_tpu_torch.models import cavity
+
+    cs = chip_smoke()
+
+    real = cavity.cavity_case
+    monkeypatch.setattr(
+        cavity, "cavity_case", lambda n=16, nz=1, **kw: real(n=16, nz=min(nz, 6), **kw)
+    )
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a, **k: None)
+    seen = []
+
+    def compare(self, label, kernel_call, plain_call, dtype, nbytes, timed,
+                outputs=("y",), **kw):
+        _, rels = cs.max_err(kernel_call(), plain_call())
+        assert len(rels) == len(outputs) == 4 and nbytes > 0
+        assert all(r <= cs.TOL[dtype] for r in rels), (label, rels)
+        seen.append((label, timed))
+
+    monkeypatch.setattr(cs.Kernel, "compare", compare)
+    fm = cs.all_kernels()[-1]
+    assert fm.name == "fm_momentum_assembly"
+    cs.phase_fm_kernels(torch.device("cpu"), fm)
+    assert [t for _, t in seen] == [True, False, False, False, False]
+    assert seen[1][0].endswith("transient")
