@@ -10,6 +10,8 @@ KERNELS = ("orc::fc_momentum_kernel", "orc::fc_pc_kernel")
 
 
 def read(ctx):
+    if ctx.dims is None:
+        return None
     K, C, s = hbm_bytes.ell_columns(ctx.dims), ctx.cells, ctx.value_bytes
     per_kernel = {
         KERNELS[0]: hbm_bytes.fc_momentum_bytes(C, K, s),

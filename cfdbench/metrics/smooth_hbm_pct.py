@@ -11,7 +11,7 @@ KERNELS = ("orc::jacobi_",)
 
 def read(ctx):
     n, t = ctx.kernel_sum(KERNELS)
-    if n <= 0 or t <= 0:
+    if ctx.dims is None or n <= 0 or t <= 0:
         return None
     b = ctx.k * hbm_bytes.sweep_bytes(ctx.cells, hbm_bytes.neighbour_columns(ctx.dims), 3, ctx.value_bytes)
     return 100.0 * b / t / ctx.hbm_bytes_per_s

@@ -12,7 +12,7 @@ KERNELS = ("orc::shift_spmv_kernel",)
 
 def read(ctx):
     n, t = ctx.kernel_sum(KERNELS)
-    if n <= 0 or t <= 0:
+    if ctx.dims is None or n <= 0 or t <= 0:
         return None
     b = n * hbm_bytes.spmv_bytes(ctx.cells, hbm_bytes.neighbour_columns(ctx.dims), 1, ctx.value_bytes)
     return 100.0 * b / t / ctx.hbm_bytes_per_s

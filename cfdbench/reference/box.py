@@ -54,6 +54,10 @@ class Box:
     def area(self, a: int) -> float:
         return self.volume / self.h[a]
 
+    def to_dtype(self, dtype) -> "Box":
+        """The same box computing in `dtype`."""
+        return dataclasses.replace(self, dtype=dtype)
+
     def zeros(self, *lead):
         nx, ny, nz = self.dims
         return torch.zeros((*lead, nz, ny, nx), dtype=self.dtype, device=self.device)

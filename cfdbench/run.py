@@ -9,19 +9,25 @@ the mesh size, the seeded start, the limits of the check). One run:
 
 1. set-up: the port's kernel library (built into build/orc_tpu_torch/ in
    the checkout on the first run, its seconds reported apart), the mesh
-   on the card (models/cavity.cavity_case), the configuration's
-   boundaries and numerics, the fluid at rest plus a normal perturbation
-   drawn from --seed on the card, then warm-up calls of solve_steady at
-   the cell's own shapes;
+   on the card, the configuration's boundaries and numerics, the fluid
+   at rest plus a normal perturbation drawn from --seed on the card, then
+   warm-up calls of solve_steady at the cell's own shapes. The mesh is a
+   generated box (models/cavity.cavity_case, Cell) or, for a
+   configuration with a `case`, the TGRID file its generator writes once
+   into build/cfdbench/meshes/ (cfdbench/meshes; its seconds reported
+   apart), read through the CLI's case path (MeshCell);
 2. the window: one solve_steady call, as users make it, of as many
    iterations as fill about --seconds at the warm-up's rate; the rate
    is its iterations over its wall time, ending in a synchronize;
 3. with --trace 1, two profiled calls of 1 and 1 + k iterations, whose
    difference gives the per-layer metrics of k whole iterations
    (metrics/<name>.py);
-4. the check: the program's first iteration from the seeded start and
-   one more iteration after the window, each recomputed by the plain
-   reference (reference/) once the program's mesh and state are freed.
+4. the check: the program's first judge.BLOCK iterations from the
+   seeded start (the warm-up's first call, then single iterations from
+   it after the window) and as many single iterations after the window,
+   each recomputed by the plain reference (reference/: box.py on a box,
+   mesh.py on a mesh case, whose cells and faces layout_mesh.py matches
+   to the file's first) once the program's mesh and state are freed.
 
 The last line of standard output is one JSON object; the numbers of the
 check, each beside its limit, close standard error and that line.
@@ -64,16 +70,17 @@ GIB = float(1 << 30)
 # --- the cell's files ----------------------------------------------------------
 
 
-def load_spec(cell: str, bench_path: Path | None = None):
+def load_spec(cell: str, bench_path: Path | None = None, files: Path | None = None):
     """(BENCHMARK.json, its cell entry, the configuration, the workload
-    file) of a cell, each found by name."""
+    file) of a cell, each found by name: configs/ and workloads/ under
+    `files` (the benchmark's own, or tests/fixtures/ for the tests)."""
     bench = json.loads((bench_path or CHECKOUT / "BENCHMARK.json").read_text())
     entries = [w for w in bench["workloads"] if w["name"] == cell]
     if not entries:
         raise SystemExit(f"no cell named {cell!r} in BENCHMARK.json")
-    entry = entries[0]
-    config = json.loads((HERE / "configs" / f"{entry['config']}.json").read_text())
-    workload = json.loads((HERE / "workloads" / f"{cell}.json").read_text())
+    entry, files = entries[0], files or HERE
+    config = json.loads((files / "configs" / f"{entry['config']}.json").read_text())
+    workload = json.loads((files / "workloads" / f"{cell}.json").read_text())
     if workload["config"] != entry["config"]:
         raise SystemExit(f"workloads/{cell}.json names {workload['config']}, BENCHMARK.json {entry['config']}")
     return types.SimpleNamespace(bench=bench, entry=entry, config=config, workload=workload, name=cell)
@@ -87,17 +94,32 @@ def _toml_value(v):
     return repr(v)
 
 
+def _numerics_lines(config: dict):
+    num = dict(config["numerics"])
+    solver = num.pop("solver", {})
+    lines = ["[numerics]"] + [f"{k} = {_toml_value(v)}" for k, v in num.items()]
+    return lines + ["[numerics.solver]"] + [f"{k} = {_toml_value(v)}" for k, v in solver.items()]
+
+
 def settings_of(config: dict, dims):
     """The port's NumericalSettings of a configuration, through the case
     file parser the CLI uses (utils/config.parse_case)."""
     from orc_tpu_torch.utils.config import parse_case
 
-    num = dict(config["numerics"])
-    solver = num.pop("solver", {})
-    lines = ["[case.generate]", f"nx = {dims[0]}", f"ny = {dims[1]}", f"nz = {dims[2]}", "[numerics]"]
-    lines += [f"{k} = {_toml_value(v)}" for k, v in num.items()]
-    lines += ["[numerics.solver]"] + [f"{k} = {_toml_value(v)}" for k, v in solver.items()]
-    return parse_case("\n".join(lines) + "\n").settings
+    lines = ["[case.generate]", f"nx = {dims[0]}", f"ny = {dims[1]}", f"nz = {dims[2]}"]
+    return parse_case("\n".join(lines + _numerics_lines(config)) + "\n").settings
+
+
+def case_text(config: dict, mesh_path) -> str:
+    """The case file of a mesh case, as a user writes it: the mesh file,
+    the fluid, the numerics and the configuration's boundaries."""
+    lines = ["[case]", f"mesh = {json.dumps(str(mesh_path))}", "[fluid]"]
+    lines += [f"{k} = {_toml_value(v)}" for k, v in config["fluid"].items()]
+    lines += _numerics_lines(config)
+    for zone, bc in config["boundaries"].items():
+        lines.append(f"[boundaries.{json.dumps(zone)}]")
+        lines += [f"{k} = {_toml_value(v)}" for k, v in bc.items()]
+    return "\n".join(lines) + "\n"
 
 
 def log(msg):
@@ -202,11 +224,104 @@ class Cell:
         return Layout(self.mesh, self.dims, tuple(L / d for L, d in zip(self.lengths, self.dims)))
 
     def box(self):
+        """The reference's geometry: a uniform Box."""
         import torch
 
         from cfdbench.reference import box as fv
 
         return fv.make_box(self.dims, self.lengths, self.spec.config["boundaries"], torch.float64, self.device)
+
+
+class MeshCell(Cell):
+    """The program set up for a mesh case (a configuration with `case`):
+    the case's TGRID file, generated once into build/cfdbench/meshes/ in
+    the checkout (cfdbench/meshes), read as users read one, through the
+    case file parser and `build_problem` (utils/config.py: the TGRID
+    parser, reverse Cuthill-McKee, the slice plan, the boundaries by
+    zone). `size` overrides the case's generator parameters."""
+
+    def __init__(self, spec, device="cuda", size=None):
+        import torch
+
+        from cfdbench.meshes.tgrid import mesh_file
+        from orc_tpu_torch.solver import simple
+        from orc_tpu_torch.utils.config import build_problem, parse_case
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        self.spec, self.device = spec, device
+        self.on_card = torch.device(device).type == "cuda"
+        cfg = spec.config
+        self.case = dict(cfg["case"], **(size or {}))
+        self.dims = None
+        self.dtype = getattr(torch, cfg["dtype"])
+        self.compile_s = build_kernels() if self.on_card else None
+        path, self.mesh_file_s, self._grid = mesh_file(self.case, CHECKOUT / "build" / "cfdbench" / "meshes")
+        self.mesh_file_bytes = path.stat().st_size
+        t = time.perf_counter()
+        case = parse_case(case_text(cfg, path))
+        mesh, self.table = build_problem(case, device=device)
+        self.mesh = as_dtype(mesh, self.dtype)
+        _sync(device)
+        self.mesh_build_s = time.perf_counter() - t
+        self.settings, self.rho, self.mu = case.settings, case.rho, case.mu
+        self._simple = simple
+        self._ref = None
+
+    def box(self):
+        """The reference's geometry: the generator's face list, in
+        float64 (reference/mesh.py)."""
+        import torch
+
+        from cfdbench.meshes import generator
+        from cfdbench.reference import mesh as fm
+
+        if self._ref is None:
+            params = {k: v for k, v in self.case.items() if k != "generator"}
+            grid = self._grid or generator(self.case["generator"]).generate(**params)
+            self._ref = fm.make_mesh(grid, self.spec.config["boundaries"], torch.float64, self.device)
+            self._grid = None
+        return self._ref
+
+    def layout(self):
+        from cfdbench.layout_mesh import MeshLayout
+
+        return MeshLayout(self.mesh, self.box())
+
+
+def as_dtype(mesh, dtype):
+    """A compiled mesh with its floating-point fields in `dtype`. The
+    compiler derives every field in float64 and rounds it once, so this
+    equals reading the file in `dtype` (build_problem reads in float64)."""
+    import dataclasses
+
+    import torch
+
+    if mesh.dtype == dtype:
+        return mesh
+    cast = {}
+    for f in dataclasses.fields(mesh):
+        v = getattr(mesh, f.name)
+        if isinstance(v, torch.Tensor) and v.is_floating_point():
+            cast[f.name] = v.to(dtype)
+    return dataclasses.replace(mesh, **cast)
+
+
+def make_cell(spec, device="cuda", size=None):
+    """The program set up for a cell: a generated box (Cell), or a mesh
+    case (MeshCell) where the configuration has `case`."""
+    return (MeshCell if "case" in spec.config else Cell)(spec, device, size)
+
+
+def chain(solve, state, n):
+    """`state` and the states that n single iterations lead to from it,
+    with the iterations' histories."""
+    states, histories = [state], []
+    for _ in range(n):
+        s, h = solve(states[-1], 1)
+        states.append(s)
+        histories.append(h)
+    return states, histories
 
 
 def run_cell(spec, seed: int, seconds: float, trace: bool, device="cuda", size=None):
@@ -216,11 +331,16 @@ def run_cell(spec, seed: int, seconds: float, trace: bool, device="cuda", size=N
 
     from cfdbench.reference import judge
 
-    cell = Cell(spec, device, size)
+    cell = make_cell(spec, device, size)
     cfg, wl, dims, on_card = spec.config, spec.workload, cell.dims, cell.on_card
     parts = {"compile_s": cell.compile_s}
     mesh_build_s = cell.mesh_build_s
-    log(f"kernels {parts['compile_s']} s; mesh {dims} built in {mesh_build_s:.2f} s")
+    if dims is None:
+        parts.update(mesh_file_s=cell.mesh_file_s, mesh_file_bytes=cell.mesh_file_bytes)
+        log(f"kernels {parts['compile_s']} s; mesh file in {cell.mesh_file_s:.2f} s; "
+            f"{cell.mesh.n_cells} cells read and compiled in {mesh_build_s:.2f} s")
+    else:
+        log(f"kernels {parts['compile_s']} s; mesh {dims} built in {mesh_build_s:.2f} s")
     C, value_bytes = cell.mesh.n_cells, cell.dtype.itemsize
     s0 = cell.start(seed)
     solve = cell.solve
@@ -260,23 +380,30 @@ def run_cell(spec, seed: int, seconds: float, trace: bool, device="cuda", size=N
         more = traced(lambda: solve(sn, 1 + k), on_card)
         traces = (more.minus(one), more, k)
 
-    sn1, _ = solve(sn, 1)
-    _sync(device)
-
-    # The check, after the program's mesh and state are freed.
+    # The check's two blocks of single iterations, in the reference's
+    # layout; then the reference, after the program's mesh and state are
+    # freed.
     layout = cell.layout()
-    pairs = [(layout.state(a), layout.state(b)) for a, b in ((s0, s1), (sn, sn1))]
+    layout_gap, layout_limit = getattr(layout, "gap", None), getattr(layout, "limit", None)
+    blocks = [
+        [layout.state(x) for x in [s0] + chain(solve, s1, judge.BLOCK - 1)[0]],
+        [layout.state(x) for x in chain(solve, sn, judge.BLOCK)[0]],
+    ]
+    _sync(device)
     box = cell.box()
-    del cell, solve, s0, s1, sw, sn, sn1, history, layout
+    del cell, solve, s0, s1, sw, sn, history, layout
     gc.collect()
     if on_card:
         torch.cuda.empty_cache()
     log("program freed; reference")
     prm = judge.params(cfg)
     mod = judge.coupling(cfg["reference"]["module"])
-    readings = judge.worst(*(judge.judge(box, prm, mod, a, b) for a, b in pairs))
+    readings = judge.worst(*([judge.judge(box, prm, mod, a, b) for a, b in zip(s, s[1:])] for s in blocks))
     log("reference done")
-    limits = wl["limits"]
+    limits = dict(wl["limits"])
+    if dims is None:
+        # The correspondence of cells and faces, checked, never assumed.
+        readings["layout"], limits["layout"] = layout_gap, layout_limit
     correct = all(readings[k] <= limits[k] for k in readings) and failed == 0
     check = {k: {"value": readings[k], "limit": limits[k]} for k in readings}
 
@@ -309,7 +436,8 @@ def run_cell(spec, seed: int, seconds: float, trace: bool, device="cuda", size=N
 
 class MetricContext:
     """What a per-layer metric reads: the trace of k whole iterations,
-    the cell's shapes, the window's pressure solve residuals, the mesh build
+    the cell's shapes (the box's dims, None on a mesh case; the cell
+    count), the window's pressure solve residuals, the mesh build
     seconds and the card's peak HBM rate (peaks.json)."""
 
     def __init__(self, trace, k, dims, cells, value_bytes, pc_residuals, mesh_build_s):

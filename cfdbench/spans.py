@@ -8,7 +8,7 @@ while a torch profiler runs (utils/profiling.span: the solve, its
 preparation and chunks, each iteration and its seven phases, the
 V-cycle's levels and re-Galerkin products, each counted host read) and
 counts its host reads in `profiling.to_host.syncs`. This tool sets a
-cell up as a run does (cfdbench.run.Cell, seeded start, warm-up), traces
+cell up as a run does (cfdbench.run.make_cell, seeded start, warm-up), traces
 two solve_steady calls of 1 and 1 + k iterations with host and CUDA
 activity, and reduces each call's events (`reduce_spans`):
 
@@ -148,7 +148,7 @@ def profiled(fn, on_card: bool = True):
 
 def measure(cell, seed: int) -> dict:
     """From the seeded start of a cell set up as a run sets it up
-    (cfdbench.run.Cell), warm up, trace calls of 1 and 1 + k iterations
+    (cfdbench.run.make_cell), warm up, trace calls of 1 and 1 + k iterations
     and reduce them; the JSON-ready result."""
     import torch
 
@@ -166,7 +166,7 @@ def measure(cell, seed: int) -> dict:
         before = to_host.syncs
         dev, host, window_s = profiled(lambda: cell.solve(s, n), on_card)
         calls.append((to_host.syncs - before, dev, host, window_s))
-    log(f"traced 1 and {1 + k} iterations of {cell.dims}")
+    log(f"traced 1 and {1 + k} iterations of {cell.mesh.n_cells} cells")
     (sync1, dev1, host1, w1), (syncm, devm, hostm, wm) = calls
     one, more = reduce_spans(dev1, host1), reduce_spans(devm, hostm)
     sub = more.minus(one)
@@ -177,7 +177,7 @@ def measure(cell, seed: int) -> dict:
     return {
         "workload": spec.name,
         "seed": seed,
-        "dims": list(cell.dims),
+        "dims": None if cell.dims is None else list(cell.dims),
         "k": k,
         "device": torch.cuda.get_device_name(device) if on_card else "cpu",
         "host_syncs_per_iter": (syncm - sync1) / k,
@@ -197,7 +197,7 @@ def measure(cell, seed: int) -> dict:
 
 
 def main(argv=None) -> int:
-    from cfdbench.run import Cell, load_spec
+    from cfdbench.run import load_spec, make_cell
 
     ap = argparse.ArgumentParser(prog="python3 -m cfdbench.spans", description=__doc__.split("\n")[0])
     ap.add_argument("--workload", required=True)
@@ -205,7 +205,7 @@ def main(argv=None) -> int:
     ap.add_argument("--size", type=int, nargs=2, metavar=("N", "NZ"), help="override the cell's mesh size")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    cell = Cell(load_spec(args.workload), args.device, tuple(args.size) if args.size else None)
+    cell = make_cell(load_spec(args.workload), args.device, tuple(args.size) if args.size else None)
     for seed in (int(s) for s in args.seeds.split(",")):
         print(json.dumps(measure(cell, seed)), flush=True)
     return 0

@@ -13,6 +13,8 @@ import sys
 import cfdbench.run, cfdbench.control, cfdbench.layout, cfdbench.trace
 import cfdbench.reference.box, cfdbench.reference.judge
 import cfdbench.reference.simple, cfdbench.reference.simple_fc
+import cfdbench.layout_mesh, cfdbench.meshes.tgrid, cfdbench.meshes.graded_box
+import cfdbench.reference.mesh, cfdbench.reference.mesh_simple, cfdbench.reference.mesh_fc
 import cfdbench.metrics.hbm_bytes
 import json, pathlib
 bench = json.loads(pathlib.Path("BENCHMARK.json").read_text())
@@ -22,6 +24,7 @@ for m in bench["per_layer"]:
 import orc_tpu_torch.models.cavity, orc_tpu_torch.solver.simple, orc_tpu_torch.solver.fc
 import orc_tpu_torch.solver.gmg, orc_tpu_torch.utils.config, orc_tpu_torch.ops._cuda
 import orc_tpu_torch.ops.fused_assembly, orc_tpu_torch.ops.fused_smooth
+import orc_tpu_torch.mesh.tgrid, orc_tpu_torch.mesh.native, orc_tpu_torch.mesh.reorder
 print(sorted({m.split(".")[0] for m in sys.modules}))
 """
 
@@ -33,6 +36,27 @@ def test_no_jax_and_no_orc_tpu():
     top = set(eval(out.strip().splitlines()[-1]))
     assert not top & {"jax", "jaxlib", "flax", "orc_tpu"}, top
     assert "orc_tpu_torch" in top and "cfdbench" in top
+
+
+REFERENCE_CODE = """
+import sys, pkgutil, importlib
+import cfdbench.meshes, cfdbench.reference
+for pkg in (cfdbench.meshes, cfdbench.reference):
+    for m in pkgutil.iter_modules(pkg.__path__):
+        importlib.import_module(pkg.__name__ + "." + m.name)
+print(sorted({m.split(".")[0] for m in sys.modules}))
+"""
+
+
+def test_meshes_and_reference_import_nothing_of_the_program():
+    """The generators and the plain reference import neither the program
+    nor JAX, nor the JAX package."""
+    out = subprocess.run(
+        [sys.executable, "-c", REFERENCE_CODE], cwd=ROOT, capture_output=True, text=True, check=True
+    ).stdout
+    top = set(eval(out.strip().splitlines()[-1]))
+    assert not top & {"jax", "jaxlib", "flax", "orc_tpu", "orc_tpu_torch"}, top
+    assert "cfdbench" in top
 
 
 def test_the_check_in_run_compares_whole_names(monkeypatch):

@@ -47,7 +47,7 @@ def test_layers_agree_in_float64(cell_name, size):
 def test_layers_within_limits_in_float32(cell_name, size):
     spec, rows = readings(cell_name, size, torch.float32)
     limits = spec.workload["limits"]
-    nums = judge.worst(*rows)
+    nums = judge.worst([rows[0]], [rows[1]])
     assert list(nums) == list(limits)
     for k, v in nums.items():
         assert v < limits[k] / 10, (k, v)
